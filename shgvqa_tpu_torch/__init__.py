@@ -7,6 +7,12 @@ its own copy of what it needs from them.
 
 Ported so far: flagship HGQA inference from uint8 frames to the answer
 (``models/shgvqa.py``), with the fused FFN block as a hand-written CUDA
-kernel (``csrc/ffn.cu``, wrapper ``kernels/ffn.py``).  Options the flagship
-does not use raise ``NotImplementedError`` (``configs/config.check_ported``).
+kernel (``csrc/ffn.cu``, wrapper ``kernels/ffn.py``); and the flagship
+train step (``train/step.py``: dropout-bearing forward, per-frame Hungarian
+matching on the device in ``ops/matcher.py``, the losses in ``losses/``,
+backward, global-norm clip and BertAdam in ``train/optimizer.py``), with
+the fused attention forward and backward as hand-written CUDA kernels
+(``csrc/attention.cu``, wrapper ``kernels/attention.py``).  Options the
+flagship does not use raise ``NotImplementedError``
+(``configs/config.check_ported``).
 """

@@ -1,12 +1,16 @@
-"""Where the time goes in one flagship forward (uint8 frames -> answer) on
-the card.
+"""Where the time goes in one flagship forward (uint8 frames -> answer), or
+with ``--train`` one flagship train step, on the card.
 
-    python -m shgvqa_tpu_torch.breakdown [--plain-ffn]
+    python -m shgvqa_tpu_torch.breakdown [--plain-ffn | --train]
 
 runs the flagship at B=32; ``--plain-ffn`` runs its FFN blocks unfused
-instead of through the kernel, for the A/B in PERF.md.
+instead of through the kernel, for the A/B in PERF.md.  ``--train`` prints
+the train step's time (host clock, after two warm-up steps), its split
+(``bench.train_split_ms``), the device kernels with the most time in one
+profiled step and the device busy share.
 
-Prints one JSON line with:
+Without ``--train``, the line has:
+
 - ``stages_ms``: device time of each stage of the model, from CUDA events
   recorded by forward hooks around the stage's modules (mean over five
   forwards); ``ffn sites`` sums the FFN blocks inside the other stages;
@@ -29,9 +33,19 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from shgvqa_tpu_torch.bench import BATCH_SIZE, card_name_and_power_limit
-from shgvqa_tpu_torch.entry import build_model, device_batch, flagship_cfg
+from shgvqa_tpu_torch.bench import (
+    BATCH_SIZE,
+    card_name_and_power_limit,
+    train_split_ms,
+)
+from shgvqa_tpu_torch.entry import (
+    build_model,
+    device_batch,
+    flagship_cfg,
+    train_entry,
+)
 from shgvqa_tpu_torch.models.layers import FFN
+from shgvqa_tpu_torch.train.step import make_train_step
 
 
 def _stages(model):
@@ -84,12 +98,13 @@ def stage_times(model, batch, iters: int = 5):
             for name, pairs in events.items()}
 
 
-def top_kernels(model, batch, top: int = 15):
-    with torch.inference_mode():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(batch)
-            torch.cuda.synchronize()
+def top_kernels(run, top: int = 15):
+    """The device kernels with the most time in one ``run()``, and the
+    summed device time of all of them."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
@@ -99,11 +114,34 @@ def top_kernels(model, batch, top: int = 15):
             for k, ms, n in rows[:top]], busy
 
 
+def train_breakdown() -> dict:
+    model, optimizer, generator, batch = train_entry(batch_size=BATCH_SIZE)
+    step = make_train_step(model.cfg, model, optimizer)
+    for _ in range(2):
+        step(batch, generator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batch, generator)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    kernels, busy_ms = top_kernels(lambda: step(batch, generator))
+    return {"batch_size": BATCH_SIZE, "mode": "train", "step_ms": step_ms,
+            "split_ms": train_split_ms(model, optimizer, batch, generator),
+            "device_busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
+            "top_kernels": kernels, "card": card_name_and_power_limit()}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--plain-ffn", action="store_true",
-                    help="run the FFN blocks unfused instead of the kernel")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--plain-ffn", action="store_true",
+                      help="run the FFN blocks unfused instead of the kernel")
+    mode.add_argument("--train", action="store_true",
+                      help="break down one train step instead")
     args = ap.parse_args(argv)
+    if args.train:
+        print(json.dumps(train_breakdown()))
+        return
     cfg = flagship_cfg().replace(use_pallas_ffn=not args.plain_ffn)
     model = build_model(cfg)
     batch = device_batch(cfg, BATCH_SIZE)
@@ -114,7 +152,8 @@ def main(argv=None) -> None:
         model(batch)
         torch.cuda.synchronize()
         forward_ms = (time.perf_counter() - t0) * 1e3
-    kernels, busy_ms = top_kernels(model, batch)
+    with torch.inference_mode():
+        kernels, busy_ms = top_kernels(lambda: model(batch))
     print(json.dumps({
         "batch_size": BATCH_SIZE, "ffn": "plain" if args.plain_ffn
         else "kernel", "forward_ms": forward_ms, "stages_ms": stages,

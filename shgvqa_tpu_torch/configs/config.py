@@ -284,8 +284,20 @@ _UNPORTED = (
     ("after_cross_attn_feats", False, "15 (--afterCrossAttnFeats)"),
     ("output_attention", False, "15 (--outputAttn)"),
     ("remat", False, "19 (remat policies)"),
-    ("use_pallas_attention", False, "queue B item 2 (fused attention kernel)"),
+    ("use_pallas_attention", False,
+     "15 (the attention kernels at inference sites)"),
     ("use_pallas_ffn_train", False, "queue B item 3 (FFN train kernels)"),
+)
+
+# options only training reads
+_TRAIN_UNPORTED = (
+    ("data.augment_type", "no_aug", "12 (augmentation)"),
+    ("loss_hg_per_frame", True, "8 (the global matcher mode)"),
+    ("optim.optim", "bert", "10 (the rms/adam/adamax/sgd optimizers)"),
+    ("steps_per_loop", 1, "10 (--stepsPerLoop)"),
+    ("freeze_backbone", True, "11 (training the trunk)"),
+    ("freeze_weights", False, "15 (--freezeWeights)"),
+    ("mce_loss", False, "15 (--mceLoss)"),
 )
 
 _VIDEO_UNPORTED = (
@@ -295,15 +307,19 @@ _VIDEO_UNPORTED = (
 )
 
 
-def check_ported(cfg: Config, video: bool = False) -> None:
+def check_ported(cfg: Config, video: bool = False, train: bool = False
+                 ) -> None:
     """Raise NotImplementedError for any option this slice does not port.
 
-    ``video=True`` also checks the frames path (backbone options)."""
+    ``video=True`` also checks the frames path (backbone options);
+    ``train=True`` the options only training reads."""
     if cfg.task not in ("hgqa", "vqa"):
         raise NotImplementedError(
             f"task '{cfg.task}' is not ported yet (ROADMAP queue A item 15); "
             "the port runs 'hgqa' and 'vqa'")
-    for path, want, item in _UNPORTED + (_VIDEO_UNPORTED if video else ()):
+    checks = (_UNPORTED + (_VIDEO_UNPORTED if video else ())
+              + (_TRAIN_UNPORTED if train else ()))
+    for path, want, item in checks:
         got = cfg
         for part in path.split("."):
             got = getattr(got, part)

@@ -1,12 +1,16 @@
-"""Entry points of the port: the flagship config, an example batch, and the
-frames -> ``hg_logit`` forward on the card.
+"""Entry points of the port: the flagship config, an example batch, the
+frames -> ``hg_logit`` forward on the card, and the flagship train step.
 
 ``flagship_cfg`` and ``example_batch`` copy ``__graft_entry__._flagship_cfg``
 and ``_example_batch`` (published AGQA HGQA dims: bert-base, 5/2/5 encoder
 layers, 5 decoder layers, a 16 x (8 rel + 3 act) hypergraph, slow_r50, bf16
 compute).  ``entry`` returns ``(fn, args)`` like ``__graft_entry__.entry``;
 it runs the frames path of ``bench.py``: uint8 frames through on-device
-normalization, the trunk and the head.
+normalization, the trunk and the head.  ``train_entry`` returns what the
+flagship train step needs: the model in training mode, its optimizer
+(global-norm clip + BertAdam over the trainable parameters), a generator
+for the dropout masks and a labelled batch (the labels of
+``__graft_entry__._example_batch(with_labels=True)``).
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a CUDA device it raises.
@@ -14,14 +18,17 @@ Every entry point runs on the card unless the caller passes
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from shgvqa_tpu_torch.configs.config import Config
+from shgvqa_tpu_torch.models.backbone import calibrate_frozen_bn
 from shgvqa_tpu_torch.models.layers import init_weights
 from shgvqa_tpu_torch.models.shgvqa import VideoShgVqaModel
+from shgvqa_tpu_torch.train.optimizer import BertAdam, make_optimizer
+from shgvqa_tpu_torch.train.step import trainable_mask
 
 
 def flagship_cfg() -> Config:
@@ -30,12 +37,15 @@ def flagship_cfg() -> Config:
     return cfg
 
 
-def example_batch(cfg: Config, batch_size: int = 2, seed: int = 0
-                  ) -> Dict[str, np.ndarray]:
-    """Random inputs at the config's shapes; float frames in [0, 1)."""
+def example_batch(cfg: Config, batch_size: int = 2, seed: int = 0,
+                  with_labels: bool = False) -> Dict[str, np.ndarray]:
+    """Random inputs at the config's shapes; float frames in [0, 1); with
+    ``with_labels`` also a one-hot answer ``target`` and per-frame relation
+    and action label grids with their lengths (the same draws as
+    ``__graft_entry__._example_batch``)."""
     rng = np.random.RandomState(seed)
     d, e = cfg.data, cfg.encoder
-    return {
+    batch = {
         "input_ids": rng.randint(
             1, e.vocab_size, (batch_size, d.max_seq_length)).astype(np.int32),
         "input_mask": np.ones((batch_size, d.max_seq_length), np.int32),
@@ -47,6 +57,25 @@ def example_batch(cfg: Config, batch_size: int = 2, seed: int = 0
         "hg_mask": np.ones(
             (batch_size, d.num_situations, d.num_act + d.num_rel), np.int32),
     }
+    if with_labels:
+        tgt = np.zeros((batch_size, cfg.num_answers), np.float32)
+        tgt[np.arange(batch_size),
+            rng.randint(cfg.num_answers, size=batch_size)] = 1.0
+        s = d.num_situations
+        batch.update({
+            "rel_labels": rng.randint(
+                1, cfg.num_rel_classes + 1,
+                (batch_size, s, d.num_rel)).astype(np.int32),
+            "rel_lengths": rng.randint(
+                1, d.num_rel + 1, (batch_size, s)).astype(np.int32),
+            "act_labels": rng.randint(
+                1, cfg.num_act_classes + 1,
+                (batch_size, s, d.num_act)).astype(np.int32),
+            "act_lengths": rng.randint(
+                1, d.num_act + 1, (batch_size, s)).astype(np.int32),
+            "target": tgt,
+        })
+    return batch
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -69,11 +98,12 @@ def build_model(cfg: Config, device="cuda", seed: int = 0) -> VideoShgVqaModel:
 
 
 def device_batch(cfg: Config, batch_size: int = 2, seed: int = 0,
-                 device="cuda") -> Dict[str, torch.Tensor]:
+                 device="cuda", with_labels: bool = False
+                 ) -> Dict[str, torch.Tensor]:
     """``example_batch`` with uint8 frames (the input pipeline's dtype),
     staged on ``device``."""
     dev = resolve_device(device)
-    batch = example_batch(cfg, batch_size, seed)
+    batch = example_batch(cfg, batch_size, seed, with_labels)
     batch["frames"] = (batch["frames"] * 255.0).astype(np.uint8)
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
@@ -92,3 +122,39 @@ def entry(device="cuda", batch_size: int = 2, seed: int = 0
     model = build_model(cfg, device, seed)
     return hg_logit_forward, (model, device_batch(cfg, batch_size, seed,
                                                   device))
+
+
+# schedule length of ``train_entry``'s optimizer: short enough that the
+# warmup's lr (0 on the first step) moves the weights within a few steps
+TRAIN_T_TOTAL = 100
+
+
+class TrainEntry(NamedTuple):
+    model: VideoShgVqaModel
+    optimizer: BertAdam
+    generator: torch.Generator
+    batch: Dict[str, torch.Tensor]
+
+
+def train_entry(device="cuda", batch_size: int = 32, seed: int = 0
+                ) -> TrainEntry:
+    """The flagship train step's pieces at the published batch (32): the
+    model with random weights from ``seed`` in training mode (the frozen
+    trunk's BatchNorm statistics calibrated on the batch, as a pretrained
+    trunk's normalize its activations: ``calibrate_frozen_bn``), its optimizer
+    (the config's BertAdam over ``TRAIN_T_TOTAL`` steps, so the first
+    update has lr 0), a generator seeded with ``seed`` on ``device``
+    for the dropout masks, and a labelled batch with uint8 frames.  Run a
+    step with ``train.step.make_train_step(model.cfg, model, optimizer)``."""
+    cfg = flagship_cfg()
+    model = build_model(cfg, device, seed).train()
+    dev = resolve_device(device)
+    batch = device_batch(cfg, batch_size, seed, dev, with_labels=True)
+    calibrate_frozen_bn(model.backbone,
+                        model.normalize_frames(batch["frames"]))
+    o = cfg.optim
+    optimizer = make_optimizer(
+        model, o.lr, TRAIN_T_TOTAL, o.warmup, o.schedule, o.b1, o.b2, o.eps,
+        o.weight_decay, o.grad_clip, trainable_mask(model, cfg), o.optim)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    return TrainEntry(model, optimizer, generator, batch)

@@ -142,6 +142,30 @@ class SlowR50(nn.Module):
         return h.permute(0, 2, 3, 4, 1)
 
 
+@torch.no_grad()
+def calibrate_frozen_bn(trunk: nn.Module, x: torch.Tensor) -> None:
+    """Set the statistics of every ``FrozenBatchNorm`` of ``trunk`` to the
+    per-channel mean and variance of its input on ``x`` (normalized frames),
+    layer after layer in one forward, so that each normalizes its
+    activations as a pretrained trunk's do.  With random weights the init's
+    identity statistics (0, 1) let the activations grow about 1e4-fold
+    through the 16 blocks, and every softmax downstream saturates."""
+
+    def set_stats(bn, args):
+        h = args[0].float()
+        dims = [d for d in range(h.dim()) if d != 1]
+        bn.running_mean.copy_(h.mean(dims))
+        bn.running_var.copy_(h.var(dims, unbiased=False))
+
+    handles = [m.register_forward_pre_hook(set_stats)
+               for m in trunk.modules() if isinstance(m, FrozenBatchNorm)]
+    try:
+        trunk(x)
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def make_backbone(name: str, dtype: torch.dtype = torch.float32) -> SlowR50:
     """Backbone registry; only slow_r50 (every published recipe) is ported."""
     if name != "slow_r50":

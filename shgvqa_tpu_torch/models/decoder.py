@@ -6,6 +6,11 @@ additive mask, cross-attention into the visual memory, ReLU FFN; residual +
 LayerNorm(eps 1e-5) after each.  The learned queries are added to q/k at
 every layer and the first target is zeros.  ``in_proj`` is torch's packed
 [q; k; v] weight (xavier-uniform), applied slice by slice.
+
+In training every site of the JAX layer drops at the decoder's rate: the
+attention probabilities (through the fused kernels with ``kernel_train``,
+as the JAX ``TorchMHA`` does), both attention outputs, the FFN after its
+ReLU and its output.
 """
 
 from __future__ import annotations
@@ -14,20 +19,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from shgvqa_tpu_torch.models.layers import Dense, LayerNorm, attend
+from shgvqa_tpu_torch.models.layers import (
+    Dense,
+    Dropout,
+    LayerNorm,
+    attention_core,
+)
 
 
 class TorchMHA(nn.Module):
     """torch.nn.MultiheadAttention math: packed in_proj, f32 scores, additive
-    f32 mask, plain matmuls and softmax."""
+    f32 mask, dropout on the probabilities in training."""
 
     def __init__(self, d_model: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 kernel_train: bool = False):
         super().__init__()
         self.in_proj = Dense(d_model, 3 * d_model, dtype, init="xavier")
         self.out_proj = Dense(d_model, d_model, dtype)
+        self.probs_dropout = Dropout(dropout)
         self.num_heads = num_heads
         self.dtype = dtype
+        self.kernel_train = kernel_train
 
     def _project(self, x, part: int):
         d = x.shape[-1]
@@ -36,7 +49,7 @@ class TorchMHA(nn.Module):
         b = self.in_proj.bias[part * d:(part + 1) * d].to(dt)
         return F.linear(x.to(dt), w, b)
 
-    def forward(self, query, key, value, attn_mask=None):
+    def forward(self, query, key, value, attn_mask=None, g=None):
         b, lq, d = query.shape
         lk = key.shape[1]
         h = self.num_heads
@@ -44,7 +57,8 @@ class TorchMHA(nn.Module):
         q = self._project(query, 0).view(b, lq, h, hd).transpose(1, 2)
         k = self._project(key, 1).view(b, lk, h, hd).transpose(1, 2)
         v = self._project(value, 2).view(b, lk, h, hd).transpose(1, 2)
-        out = attend(q, k, v, attn_mask, self.dtype)
+        out = attention_core(q, k, v, attn_mask, self.dtype,
+                             self.probs_dropout, self.kernel_train, g)
         return self.out_proj(out.transpose(1, 2).reshape(b, lq, d))
 
 
@@ -59,40 +73,50 @@ class DecoderLayer(nn.Module):
     """Post-norm DETR decoder layer."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.15,
+                 kernel_train: bool = False):
         super().__init__()
-        self.self_attn = TorchMHA(d_model, num_heads, dtype)
+        self.self_attn = TorchMHA(d_model, num_heads, dtype, dropout,
+                                  kernel_train)
         self.norm1 = LayerNormT(d_model, dtype)
-        self.multihead_attn = TorchMHA(d_model, num_heads, dtype)
+        self.multihead_attn = TorchMHA(d_model, num_heads, dtype, dropout,
+                                       kernel_train)
         self.norm2 = LayerNormT(d_model, dtype)
         self.linear1 = Dense(d_model, ffn_dim, dtype)
         self.linear2 = Dense(ffn_dim, d_model, dtype)
         self.norm3 = LayerNormT(d_model, dtype)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, tgt, memory, query_pos, tgt_mask=None, memory_mask=None):
+    def forward(self, tgt, memory, query_pos, tgt_mask=None, memory_mask=None,
+                g=None):
+        drop = self.dropout
         q = tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(q, q, tgt, tgt_mask))
-        ca = self.multihead_attn(tgt + query_pos, memory, memory, memory_mask)
-        tgt = self.norm2(tgt + ca)
-        h = self.linear2(torch.relu(self.linear1(tgt)))
-        return self.norm3(tgt + h)
+        sa = self.self_attn(q, q, tgt, tgt_mask, g)
+        tgt = self.norm1(tgt + drop(sa, g))
+        ca = self.multihead_attn(tgt + query_pos, memory, memory, memory_mask,
+                                 g)
+        tgt = self.norm2(tgt + drop(ca, g))
+        h = self.linear2(drop(torch.relu(self.linear1(tgt)), g))
+        return self.norm3(tgt + drop(h, g))
 
 
 class HGDecoder(nn.Module):
     """Untied stack ``layer_{i}`` run from a zero target."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
-                 ffn_dim: int, dtype: torch.dtype = torch.float32):
+                 ffn_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.15, kernel_train: bool = False):
         super().__init__()
         self.names = [f"layer_{i}" for i in range(num_layers)]
         for name in self.names:
             setattr(self, name, DecoderLayer(d_model, num_heads, ffn_dim,
-                                             dtype))
+                                             dtype, dropout, kernel_train))
 
-    def forward(self, query_pos, memory, tgt_mask=None, memory_mask=None):
+    def forward(self, query_pos, memory, tgt_mask=None, memory_mask=None,
+                g=None):
         """query_pos (B, Q, D) learned queries; memory (B, L, D)."""
         tgt = torch.zeros_like(query_pos)
         for name in self.names:
             tgt = getattr(self, name)(tgt, memory, query_pos, tgt_mask,
-                                      memory_mask)
+                                      memory_mask, g)
         return tgt

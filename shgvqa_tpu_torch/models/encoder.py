@@ -28,14 +28,17 @@ class TriStreamEncoder(nn.Module):
     """l_layers on text, r_layers on visual tokens, x_layers cross-modal."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, kernel_train: bool = False):
         super().__init__()
         c = cfg
         kw = dict(hidden_size=c.hidden_size, num_heads=c.num_heads,
                   head_dim=c.head_dim, intermediate_size=c.intermediate_size,
-                  dtype=dtype, use_kernel=use_kernel)
+                  dtype=dtype, use_kernel=use_kernel,
+                  attn_dropout=c.attention_dropout,
+                  hidden_dropout=c.hidden_dropout, kernel_train=kernel_train)
         self.visual_tokenizer = VisualTokenizer(
-            c.visual_feat_dim, c.hidden_size, c.visual_seq_length, dtype)
+            c.visual_feat_dim, c.hidden_size, c.visual_seq_length, dtype,
+            c.hidden_dropout)
         self.l_names = [f"l_{i}" for i in range(c.l_layers)]
         self.r_names = [f"r_{i}" for i in range(c.r_layers)]
         for name in self.l_names + self.r_names:
@@ -43,19 +46,20 @@ class TriStreamEncoder(nn.Module):
         self.x_tied = CrossLayer(**kw)
         self.x_layers = c.x_layers
 
-    def forward(self, lang_emb, lang_mask, visual_feats, visn_mask=None):
+    def forward(self, lang_emb, lang_mask, visual_feats, visn_mask=None,
+                g=None):
         """lang_emb (B, Lt, D); lang_mask additive (B,1,1,Lt) or None;
         visual_feats (B, T, H, W, C).  Returns (lang, visn, lang_snapshot,
         visn_snapshot)."""
-        visn = self.visual_tokenizer(visual_feats)
+        visn = self.visual_tokenizer(visual_feats, g)
         lang = lang_emb
         for name in self.l_names:
-            lang = getattr(self, name)(lang, lang_mask)
+            lang = getattr(self, name)(lang, lang_mask, g)
         for name in self.r_names:
-            visn = getattr(self, name)(visn, visn_mask)
+            visn = getattr(self, name)(visn, visn_mask, g)
         lang_snapshot, visn_snapshot = lang, visn
         for _ in range(self.x_layers):
-            lang, visn = self.x_tied(lang, lang_mask, visn, visn_mask)
+            lang, visn = self.x_tied(lang, lang_mask, visn, visn_mask, g)
         return lang, visn, lang_snapshot, visn_snapshot
 
 
@@ -63,25 +67,25 @@ class LXRTModel(nn.Module):
     """Text + video encoder: embeddings -> tri-stream -> Pooler2(visn, lang)."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, kernel_train: bool = False):
         super().__init__()
         self.embeddings = BertEmbeddings(
             cfg.vocab_size, cfg.hidden_size, cfg.max_position_embeddings,
-            cfg.type_vocab_size, dtype)
-        self.encoder = TriStreamEncoder(cfg, dtype, use_kernel)
+            cfg.type_vocab_size, dtype, cfg.hidden_dropout)
+        self.encoder = TriStreamEncoder(cfg, dtype, use_kernel, kernel_train)
         self.pooler = Pooler2(cfg.hidden_size, dtype)
         self.dtype = dtype
 
     def forward(self, input_ids, input_mask, segment_ids, visual_feats,
-                visual_mask=None):
+                visual_mask=None, g=None):
         """visual_mask: {0,1} (B, Lv) over the visual tokens, or None.
         Returns (pooled, lang, visn, lang_snapshot, visn_snapshot,
         lang_ext_mask)."""
         lang_ext = extend_mask(input_mask, self.dtype)
         visn_ext = (extend_mask(visual_mask, self.dtype)
                     if visual_mask is not None else None)
-        emb = self.embeddings(input_ids, segment_ids)
+        emb = self.embeddings(input_ids, segment_ids, g)
         lang, visn, lang_snap, visn_snap = self.encoder(
-            emb, lang_ext, visual_feats, visn_ext)
+            emb, lang_ext, visual_feats, visn_ext, g)
         pooled = self.pooler(visn, lang)
         return pooled, lang, visn, lang_snap, visn_snap, lang_ext

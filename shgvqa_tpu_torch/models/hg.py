@@ -3,8 +3,9 @@ of ``shgvqa_tpu/models/hg.py`` (GT-HG mode and ``--useHGMask`` are not
 ported yet).
 
 - ``HGEmbeddings``: the WHOLE (num_queries, D) table is the batch's learned
-  queries, plus situation type embeddings, then LayerNorm(1e-12).  Both
-  tables zero row 0 at init (torch ``padding_idx=0``).
+  queries, plus situation type embeddings, then LayerNorm(1e-12) and, in
+  training, dropout.  Both tables zero row 0 at init (torch
+  ``padding_idx=0``).
 - ``HGQCrossEncoder``: act/rel type tokens added per situation slot (act
   slots first), a CLS token prepended, the tied cross layer ``x_tied`` run
   ``x_layers`` times against the question, then ``Pooler2(hg, lang)``.
@@ -17,23 +18,32 @@ from torch import nn
 
 from shgvqa_tpu_torch.configs.config import EncoderConfig
 from shgvqa_tpu_torch.models.cross import CrossLayer
-from shgvqa_tpu_torch.models.layers import Embed, LayerNorm, Pooler2, empty_param
+from shgvqa_tpu_torch.models.layers import (
+    Dropout,
+    Embed,
+    LayerNorm,
+    Pooler2,
+    empty_param,
+)
 
 
 class HGEmbeddings(nn.Module):
     def __init__(self, num_queries: int, hidden_size: int,
-                 type_vocab_size: int = 16, dtype: torch.dtype = torch.float32):
+                 type_vocab_size: int = 16, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         self.word_embeddings = Embed(num_queries, hidden_size, dtype,
                                      zero_init_pad=True)
         self.token_type_embeddings = Embed(type_vocab_size, hidden_size, dtype,
                                            zero_init_pad=True)
         self.ln = LayerNorm(hidden_size, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, token_type_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, token_type_ids: torch.Tensor, g=None) -> torch.Tensor:
         """token_type_ids (B, Q) situation indices -> (B, Q, D)."""
         words = self.word_embeddings()[None]
-        return self.ln(words + self.token_type_embeddings(token_type_ids))
+        x = self.ln(words + self.token_type_embeddings(token_type_ids))
+        return self.dropout(x, g)
 
 
 class HGQCrossEncoder(nn.Module):
@@ -41,14 +51,16 @@ class HGQCrossEncoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig, num_max_act: int = 3,
                  num_max_rel: int = 8, dtype: torch.dtype = torch.float32,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, kernel_train: bool = False):
         super().__init__()
         d = cfg.hidden_size
         self.act_token = empty_param(1, 1, d)
         self.rel_token = empty_param(1, 1, d)
         self.cls_token = empty_param(1, 1, d)
         self.x_tied = CrossLayer(d, cfg.num_heads, cfg.head_dim,
-                                 cfg.intermediate_size, dtype, use_kernel)
+                                 cfg.intermediate_size, dtype, use_kernel,
+                                 cfg.attention_dropout, cfg.hidden_dropout,
+                                 kernel_train)
         self.pooler = Pooler2(d, dtype)
         self.num_max_act = num_max_act
         self.num_max_rel = num_max_rel
@@ -60,7 +72,7 @@ class HGQCrossEncoder(nn.Module):
         self.rel_token.zero_()
         self.cls_token.zero_()
 
-    def forward(self, lang_feats, lang_ext_mask, hg_feats):
+    def forward(self, lang_feats, lang_ext_mask, hg_feats, g=None):
         """lang_feats (B, Lt, D); lang_ext_mask additive (B,1,1,Lt);
         hg_feats (B, S*(A+R), D).  Returns the pooled (B, D)."""
         b, total, d = hg_feats.shape
@@ -75,5 +87,5 @@ class HGQCrossEncoder(nn.Module):
         hg = torch.cat([cls, hg], dim=1)
         lang = lang_feats
         for _ in range(self.x_layers):
-            lang, hg = self.x_tied(lang, lang_ext_mask, hg, None)
+            lang, hg = self.x_tied(lang, lang_ext_mask, hg, None, g)
         return self.pooler(hg, lang)

@@ -1,7 +1,9 @@
 """Core transformer building blocks: the port of ``shgvqa_tpu/models/layers.py``.
 
-Inference only (no dropout): the models that hold these blocks raise in
-training mode until the training slice lands.
+Training mode (``module.train()``) adds every dropout site of the JAX
+blocks, each a ``Dropout`` module drawing its mask from the
+``torch.Generator`` the caller passes down the forward (``g``); in eval
+mode nothing is dropped.
 
 Semantics kept from the JAX package:
 - parameters are f32 and every block computes in its ``dtype`` (the
@@ -12,7 +14,14 @@ Semantics kept from the JAX package:
 - attention scores and softmax are f32 with an ADDITIVE mask (-10000 on
   masked slots, built by ``extend_mask`` in the compute dtype);
 - ``FFN`` runs the fused kernel (``kernels/ffn.py``) when enabled and not
-  training, else the unfused block.
+  training, else the unfused block;
+- ``Attention`` runs the fused attention kernels (``kernels/attention.py``,
+  with the probabilities' dropout inside) when training with
+  ``kernel_train`` (the config's ``use_pallas_attention_train``), as the
+  JAX ``Attention`` does; otherwise the plain path (PR 1's ``attend``),
+  which drops the probabilities after their cast to the compute dtype;
+- embedding lookups have torch ``padding_idx=0`` semantics: row 0 gets no
+  gradient (the JAX ``Embed`` stop_gradient).
 
 Parameter names follow the flax names with ``kernel``/``scale``/
 ``embedding`` renamed to ``weight`` (``convert.py`` maps one onto the other).
@@ -29,10 +38,45 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from shgvqa_tpu_torch.kernels.attention import fused_attention
 from shgvqa_tpu_torch.kernels.ffn import fused_ffn
 
 NEG_MASK = -10000.0
 BERT_STD = 0.02
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` in training mode: keep each element with
+    probability 1 - rate, scale kept ones by 1 / (1 - rate); the mask comes
+    from the generator ``g`` (the device's default one when None)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                g: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=g, device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_rate(model: nn.Module, rate: float) -> None:
+    """Set the rate of every dropout site of ``model``, the attention
+    probabilities' included."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = rate
+
+
+def set_attention_kernel(model: nn.Module, on: bool) -> None:
+    """Route every training attention site of ``model`` through the fused
+    kernels (on) or the plain path (off)."""
+    for m in model.modules():
+        if hasattr(m, "kernel_train"):
+            m.kernel_train = on
 
 
 def empty_param(*shape: int) -> nn.Parameter:
@@ -73,15 +117,28 @@ def extend_mask(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return ((1.0 - m) * NEG_MASK)[:, None, None, :]
 
 
-def attend(q, k, v, mask, dtype):
+def attend(q, k, v, mask, dtype, drop: Optional[Dropout] = None, g=None):
     """Heads-first attention core, (B, H, Lq, hd) over (B, H, Lk, hd): f32
     scores scaled by 1/sqrt(hd), the additive mask added in f32, f32
-    softmax, probabilities cast to ``dtype`` for the product with v."""
+    softmax, probabilities cast to ``dtype`` (then dropped by ``drop``) for
+    the product with v."""
     scores = torch.matmul(q, k.transpose(-1, -2)).float()
     scores = scores / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = scores + mask.float()
-    return torch.matmul(torch.softmax(scores, dim=-1).to(dtype), v)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    if drop is not None:
+        probs = drop(probs, g)
+    return torch.matmul(probs, v)
+
+
+def attention_core(q, k, v, mask, dtype, drop: Dropout, kernel_train: bool,
+                   g=None):
+    """The attention core of a site: the fused kernels in training with
+    ``kernel_train``, else ``attend``.  Returns (B, H, Lq, hd)."""
+    if drop.training and kernel_train:
+        return fused_attention(q, k, v, mask, drop.rate, g)
+    return attend(q, k, v, mask, dtype, drop, g)
 
 
 class Dense(nn.Module):
@@ -151,8 +208,11 @@ class Embed(nn.Module):
             self.weight[0].zero_()
 
     def forward(self, ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``ids`` -> rows (row 0 gets no gradient); None -> the whole table
+        (every row trains, as a direct read of a torch table does)."""
         table = self.weight.to(self.dtype)
-        return table if ids is None else F.embedding(ids, table)
+        return table if ids is None else F.embedding(ids, table,
+                                                     padding_idx=0)
 
 
 class Conv3d(nn.Module):
@@ -192,91 +252,105 @@ class Conv3d(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention of ``hidden`` over ``context`` (BertAttention):
-    separate q/k/v dense layers, f32 scores and softmax, additive mask."""
+    separate q/k/v dense layers, f32 scores and softmax, additive mask,
+    dropout on the probabilities in training."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 kernel_train: bool = False):
         super().__init__()
         all_head = num_heads * head_dim
         self.query = Dense(hidden_size, all_head, dtype)
         self.key = Dense(hidden_size, all_head, dtype)
         self.value = Dense(hidden_size, all_head, dtype)
+        self.probs_dropout = Dropout(dropout)
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.dtype = dtype
+        self.kernel_train = kernel_train
 
-    def forward(self, hidden, context, mask=None):
+    def forward(self, hidden, context, mask=None, g=None):
         b, lq, _ = hidden.shape
         lk = context.shape[1]
         h, hd = self.num_heads, self.head_dim
         q = self.query(hidden).view(b, lq, h, hd).transpose(1, 2)
         k = self.key(context).view(b, lk, h, hd).transpose(1, 2)
         v = self.value(context).view(b, lk, h, hd).transpose(1, 2)
-        out = attend(q, k, v, mask, self.dtype)             # (B, H, Lq, hd)
+        out = attention_core(q, k, v, mask, self.dtype, self.probs_dropout,
+                             self.kernel_train, g)          # (B, H, Lq, hd)
         return out.transpose(1, 2).reshape(b, lq, h * hd)
 
 
 class AttOutput(nn.Module):
-    """dense -> LN(+ residual) (BertAttOutput)."""
+    """dense -> dropout -> LN(+ residual) (BertAttOutput)."""
 
-    def __init__(self, hidden_size: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, hidden_size: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         self.dense = Dense(hidden_size, hidden_size, dtype)
+        self.dropout = Dropout(dropout)
         self.ln = LayerNorm(hidden_size, dtype=dtype)
 
-    def forward(self, hidden, residual):
-        return self.ln(self.dense(hidden) + residual)
+    def forward(self, hidden, residual, g=None):
+        return self.ln(self.dropout(self.dense(hidden), g) + residual)
 
 
 class SelfAttLayer(nn.Module):
     """Self-attention + residual output (BertSelfattLayer)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_dropout: float = 0.1,
+                 hidden_dropout: float = 0.1, kernel_train: bool = False):
         super().__init__()
-        self.self = Attention(hidden_size, num_heads, head_dim, dtype)
-        self.output = AttOutput(hidden_size, dtype)
+        self.self = Attention(hidden_size, num_heads, head_dim, dtype,
+                              attn_dropout, kernel_train)
+        self.output = AttOutput(hidden_size, dtype, hidden_dropout)
 
-    def forward(self, x, mask=None):
-        return self.output(self.self(x, x, mask), x)
+    def forward(self, x, mask=None, g=None):
+        return self.output(self.self(x, x, mask, g), x, g)
 
 
 class CrossAttLayer(nn.Module):
     """Cross-attention + residual output (BertCrossattLayer)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_dropout: float = 0.1,
+                 hidden_dropout: float = 0.1, kernel_train: bool = False):
         super().__init__()
-        self.att = Attention(hidden_size, num_heads, head_dim, dtype)
-        self.output = AttOutput(hidden_size, dtype)
+        self.att = Attention(hidden_size, num_heads, head_dim, dtype,
+                             attn_dropout, kernel_train)
+        self.output = AttOutput(hidden_size, dtype, hidden_dropout)
 
-    def forward(self, x, context, ctx_mask=None):
-        return self.output(self.att(x, context, ctx_mask), x)
+    def forward(self, x, context, ctx_mask=None, g=None):
+        return self.output(self.att(x, context, ctx_mask, g), x, g)
 
 
 class FFN(nn.Module):
-    """intermediate (GeLU) -> output dense -> LN(+ residual).
+    """intermediate (GeLU) -> output dense -> dropout -> LN(+ residual).
 
     With ``use_kernel`` (the config's ``use_pallas_ffn``) and not training,
     the whole block is one call of ``kernels.ffn.fused_ffn``, which gets
-    the ``nn.Linear`` weights as they are."""
+    the ``nn.Linear`` weights as they are; training runs the unfused block
+    (the JAX default ``use_pallas_ffn_train=False``)."""
 
     def __init__(self, hidden_size: int, intermediate_size: int,
-                 dtype: torch.dtype = torch.float32, use_kernel: bool = False):
+                 dtype: torch.dtype = torch.float32, use_kernel: bool = False,
+                 dropout: float = 0.1):
         super().__init__()
         self.intermediate = Dense(hidden_size, intermediate_size, dtype)
         self.output = Dense(intermediate_size, hidden_size, dtype)
+        self.dropout = Dropout(dropout)
         self.ln = LayerNorm(hidden_size, dtype=dtype)
         self.use_kernel = use_kernel
 
-    def forward(self, x):
+    def forward(self, x, g=None):
         if self.use_kernel and not self.training:
             return fused_ffn(x, self.intermediate.weight,
                              self.intermediate.bias, self.output.weight,
                              self.output.bias, self.ln.weight, self.ln.bias,
                              self.ln.eps)
         h = self.output(gelu(self.intermediate(x)))
-        return self.ln(h + x)
+        return self.ln(self.dropout(h, g) + x)
 
 
 class BertLayer(nn.Module):
@@ -284,22 +358,26 @@ class BertLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  intermediate_size: int, dtype: torch.dtype = torch.float32,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, attn_dropout: float = 0.1,
+                 hidden_dropout: float = 0.1, kernel_train: bool = False):
         super().__init__()
-        self.attention = SelfAttLayer(hidden_size, num_heads, head_dim, dtype)
-        self.ffn = FFN(hidden_size, intermediate_size, dtype, use_kernel)
+        self.attention = SelfAttLayer(hidden_size, num_heads, head_dim, dtype,
+                                      attn_dropout, hidden_dropout,
+                                      kernel_train)
+        self.ffn = FFN(hidden_size, intermediate_size, dtype, use_kernel,
+                       hidden_dropout)
 
-    def forward(self, x, mask=None):
-        return self.ffn(self.attention(x, mask))
+    def forward(self, x, mask=None, g=None):
+        return self.ffn(self.attention(x, mask, g), g)
 
 
 class BertEmbeddings(nn.Module):
-    """word + position + token-type embeddings -> LN."""
+    """word + position + token-type embeddings -> LN -> dropout."""
 
     def __init__(self, vocab_size: int, hidden_size: int,
                  max_position_embeddings: int = 512,
                  type_vocab_size: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1):
         super().__init__()
         self.word_embeddings = Embed(vocab_size, hidden_size, dtype)
         self.position_embeddings = Embed(max_position_embeddings,
@@ -307,8 +385,9 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = Embed(type_vocab_size, hidden_size,
                                            dtype)
         self.ln = LayerNorm(hidden_size, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, input_ids, token_type_ids=None):
+    def forward(self, input_ids, token_type_ids=None, g=None):
         b, l = input_ids.shape
         pos_ids = torch.arange(l, device=input_ids.device).expand(b, l)
         if token_type_ids is None:
@@ -316,7 +395,7 @@ class BertEmbeddings(nn.Module):
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(pos_ids)
              + self.token_type_embeddings(token_type_ids))
-        return self.ln(x)
+        return self.dropout(self.ln(x), g)
 
 
 class Pooler(nn.Module):

@@ -18,6 +18,7 @@ from shgvqa_tpu.models.shgvqa import VideoShgVqaModel as JaxVideoModel
 from shgvqa_tpu_torch.configs.config import tiny_test_config
 from shgvqa_tpu_torch.convert import from_jax_variables
 from shgvqa_tpu_torch.models.backbone import SlowR50
+from shgvqa_tpu_torch.models.layers import init_weights
 from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel, VideoShgVqaModel
 from test_torch_common import TOY, close, jax_variables, load_port, t
 
@@ -166,8 +167,13 @@ def test_unported_options_raise(override):
 
 
 def test_training_mode_raises():
-    cfg = tiny_test_config(task="hgqa")
-    model = ShgVqaModel(cfg).train()
+    """Training runs now; an option only training reads and the port does
+    not take raises in training mode, and is ignored in eval mode."""
+    cfg = tiny_test_config(task="hgqa", data=dataclasses.replace(
+        tiny_test_config().data, augment_type="rand_aug"))
+    model = init_weights(ShgVqaModel(cfg), 0).train()
     batch = _torch_batch(_batch(jax_tiny()))
-    with pytest.raises(NotImplementedError, match="inference only"):
+    with pytest.raises(NotImplementedError, match="augment_type.*not ported"):
         model(batch)
+    with torch.inference_mode():
+        assert set(model.eval()(batch)) == set(OUTPUTS)
