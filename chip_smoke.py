@@ -19,6 +19,13 @@ it exits non-zero before printing any result.
      dropout rate with the kernels' own keep mask given to the plain
      version; the realised keep rate; SDPA with the same
      additive mask as the library yardstick (timed only);
+   - both FFN train kernels (forward and backward, ``csrc/ffn_train.cu``)
+     at every FFN site's shape of the train step (M = B * L, L in 40, 177,
+     393) at B=2 and B=32: y and every gradient against autograd of the
+     plain version at rate 0, and at rate 0.1 with the kernels' own keep
+     mask given to the plain version; the realised keep rate; the times of
+     the kernels, of the weight-gradient products after the backward
+     kernel, of the plain version and of the unfused yardstick;
 4. main path: ``entry.entry()`` -- the flagship uint8 frames -> hg_logit
    forward at B=2 -- with every launch count set to 0 just before and read
    just after, then the same weights with the FFN kernel switched off;
@@ -29,28 +36,45 @@ it exits non-zero before printing any result.
    the trainable parameters move, the trunk and the disconnected LXRT
    x-layers and pooler stay bit-identical; the eval step at B=2 (18 FFN
    launches, no attention launch); then, with every dropout rate at 0,
-   the kernel path against the plain path (loss and gradient norm);
-7. train throughput: clips/s at B=32 with the kernel and with the plain
-   attention, and the step's split;
-8. the plain path, then two plain train steps, on the card against the
+   the attention kernels against the plain attention and the FFN train
+   kernels against the unfused FFN (loss and gradient norm);
+7. train throughput: clips/s at B=32 with the attention kernels and with
+   the plain attention, then with the FFN train kernels and with the
+   unfused FFN (in turns), and the steps' splits;
+8. the driver: ``cli.agqa_hgqa.main`` at the flagship flags with
+   ``--pallasFFNTrain`` at B=32 on synthetic data under a temporary
+   directory: two epochs with the launch counts set to 0 before each train
+   step and eval forward and read after it (38 attention forwards, 34
+   backwards, 18 FFN train forwards, 14 backwards, 0 FFN per train step;
+   18 FFN and nothing else per eval forward), finite losses, CURRENT and
+   LAST written and LAST reloaded bit-equal; then ``--test`` from
+   ``--load LAST`` (oracle score 1.0, the predict files);
+9. the plain path, then two plain train steps, on the card against the
    CPU at tiny size in f32;
-9. the card line, one ``{"kernels": [...]}`` line, and last
-   ``{"ok": true, "device": {...}}``.
+10. the card line, one ``{"kernels": [...]}`` line, and last
+    ``{"ok": true, "device": {...}}``.
 
-TF32 is switched off for f32 matmuls and convolutions (phase 8 compares
+TF32 is switched off for f32 matmuls and convolutions (phase 9 compares
 f32 results).  ``bound_ms`` is max(operations / 989 TFLOP/s bf16, bytes /
 3.35 TB/s): the H100 SXM's published dense peaks, each input read once and
-each output written once.  ``--only attention`` runs phases 1-2 and the
-attention checks of phase 3, and prints no result lines.
+each output written once.  ``--only attention`` (``--only ffn_train``)
+runs phases 1-2 and the attention (FFN train) checks of phase 3, and
+prints no result lines.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import gc
+import io
 import json
 import math
+import os
+import re
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +82,7 @@ import torch
 import torch.nn.functional as F
 
 from shgvqa_tpu_torch import entry
+from shgvqa_tpu_torch.cli import agqa_hgqa
 from shgvqa_tpu_torch.bench import (
     BATCH_SIZE,
     card_name_and_power_limit,
@@ -76,14 +101,24 @@ from shgvqa_tpu_torch.kernels.attention import (
     fused_attention,
     keep_mask,
 )
-from shgvqa_tpu_torch.kernels.ffn import ffn_reference, fused_ffn
+from shgvqa_tpu_torch.kernels import ffn as ffn_kernels
+from shgvqa_tpu_torch.kernels.ffn import (
+    ffn_reference,
+    ffn_train_reference,
+    fused_ffn,
+    fused_ffn_train,
+    keep_mask as ffn_keep_mask,
+)
 from shgvqa_tpu_torch.models.layers import (
     FFN,
     Dropout,
     extend_mask,
     set_attention_kernel,
     set_dropout_rate,
+    set_ffn_train_kernel,
 )
+from shgvqa_tpu_torch.train import loop
+from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.optimizer import make_optimizer
 from shgvqa_tpu_torch.train.step import (
     compute_losses,
@@ -121,6 +156,23 @@ ATTN_TOL, ATTN_GRAD_TOL = 2e-2, 3e-2
 # train step, kernel vs plain attention at dropout 0: relative difference of
 # the loss and of the gradients' global norm (bf16 through ~40 layers)
 TRAIN_TOL = 5e-2
+# FFN sites of one flagship train step: (rows per clip, forward launches,
+# backward launches).  The LXRT x-layers' FFNs (2 language, 2 visual) feed
+# only the unsupervised `logit`, so their backward never runs.
+FFN_TRAIN_SITES = ((40, 9, 7), (393, 7, 5), (177, 2, 2))
+FFN_TRAIN_RATE = 0.1                   # the FFN's hidden_dropout
+FFN_OPERANDS = ("x", "W1", "b1", "W2", "b2", "gamma", "beta")
+# max |kernel grad - autograd of the plain version on f32 copies| <= tol *
+# max |ref| (the kernels round do and du to bf16 before their products and
+# the weight gradients to bf16)
+FFN_GRAD_TOL = 3e-2
+# the flagship's published flags (README.md, agqa_hgqa) with the FFN train
+# kernels; the port raises without --LossHGPerFrame (the global matcher,
+# ROADMAP item 8) and --freezeBackbone (training the trunk, item 11)
+DRIVER_FLAGS = ["--taskHGQA", "--noCaps", "--crossAttnType", "cross",
+                "--llayers", "5", "--xlayers", "2", "--rlayers", "5",
+                "--dlayers", "5", "--backbone", "slow_r50", "--fromScratch",
+                "--LossHGPerFrame", "--freezeBackbone", "--pallasFFNTrain"]
 
 
 def log(msg: str) -> None:
@@ -195,6 +247,130 @@ def phase_ffn_kernel(batch_sizes=(2, BATCH_SIZE)):
 
 def per_forward(rows, bsz, key):
     return sum(n * rows[per_clip * bsz][key] for per_clip, n in FFN_SITES)
+
+
+def ffn_train_bound(m: int, backward: bool, d: int = D, f: int = FF):
+    """(ms, bound_by) of one train-kernel call: 4 (forward) or 8 (backward)
+    M*D*F products (the JAX cost estimates, ffn.py:290 and :337) over the
+    bf16 peak, against its bytes over the memory rate: forward x, y, W1, W2
+    and the f32 vectors; backward x, dy, dx, do (M, D), du, h (M, F), W1,
+    W2 (bf16) and the f32 vectors, dgamma, dbeta."""
+    if backward:
+        flops = 8 * m * d * f
+        nbytes = (4 * m * d + 2 * m * f + 2 * d * f) * 2 + (f + 4 * d) * 4
+    else:
+        flops = 4 * m * d * f
+        nbytes = (2 * m * d + 2 * d * f) * 2 + (f + 3 * d) * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ffn_train_grads_vs_plain(tag, ops, y, dy, rate, keep):
+    """Gradients of ``y`` (the kernels' output) at ``dy`` against autograd of
+    ffn_train_reference on f32 copies with the same keep mask: the worst
+    (max |err|, that over max |ref|) over dx, dW1, db1, dW2, db2, dgamma,
+    dbeta."""
+    grads = torch.autograd.grad(y, ops, dy, retain_graph=True)
+    ref_ops = [o.detach().float().requires_grad_(True) for o in ops]
+    ref = ffn_train_reference(*ref_ops, rate, keep)
+    refs = torch.autograd.grad(ref, ref_ops, dy.float())
+    errs = [rel_max_err(f"{tag} d{name}", gr, rr, FFN_GRAD_TOL)
+            for name, gr, rr in zip(FFN_OPERANDS, grads, refs)]
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
+    """Both FFN train kernels against the plain version at every main-path
+    shape (M = B * L for L in 40, 177, 393): y and every gradient at rate 0,
+    and at rate 0.1 with the kernels' own keep mask given to the plain
+    version; the realised keep rate; the times of the kernels, of the
+    weight-gradient products after the backward kernel, of the plain
+    version and of the unfused yardstick (F.linear, GeLU, dropout,
+    layer_norm, and its autograd backward)."""
+    rows = {}
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    rate = FFN_TRAIN_RATE
+    for bsz in batch_sizes:
+        for per_clip, _, _ in FFN_TRAIN_SITES:
+            m = per_clip * bsz
+            tag = f"fused_ffn_train M={m}"
+            ops = [a.detach().requires_grad_(True)
+                   for a in ffn_operands(m, seed=1000 + m)]
+            dy = torch.randn(m, D, device="cuda").to(torch.bfloat16)
+            # rate 0
+            y0 = fused_ffn_train(*ops, 0.0)
+            e0 = check_close(f"{tag} rate 0", y0,
+                             ffn_train_reference(*ops, 0.0, None))
+            g0, r0 = ffn_train_grads_vs_plain(f"{tag} rate 0", ops, y0, dy,
+                                              0.0, None)
+            # rate > 0: the seed the call draws is read back from a copy of
+            # the generator's state, and the kernels' keep mask from it
+            gen = torch.Generator(device="cuda").manual_seed(m)
+            state = gen.get_state()
+            y1 = fused_ffn_train(*ops, rate, gen)
+            gen.set_state(state)
+            keep = ffn_keep_mask(draw_seed(gen, ops[0].device), m, D, rate)
+            kept = keep.float().mean().item()
+            sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+            if abs(kept - (1 - rate)) > 6 * sigma:
+                raise AssertionError(f"{tag}: keep rate {kept} vs {1 - rate}"
+                                     f" (6 sigma {6 * sigma})")
+            e1 = check_close(f"{tag} rate {rate}", y1,
+                             ffn_train_reference(*ops, rate, keep))
+            g1, r1 = ffn_train_grads_vs_plain(f"{tag} rate {rate}", ops, y1,
+                                              dy, rate, keep)
+            max_err["fwd"] = max(max_err["fwd"], e0, e1)
+            max_err["bwd"] = max(max_err["bwd"], g0, g1)
+
+            # times
+            x2, w1t, b1, w2t, b2, gamma, beta = (o.detach() for o in ops)
+            seed = draw_seed(gen, x2.device)
+            spills = ffn_kernels._launch_train_bwd(
+                x2, w1t, b1, w2t, b2, gamma, seed, rate, 1e-12, dy)
+            plain_out = ffn_train_reference(*ops, rate, keep)
+            hidden = F.linear(ops[0], ops[1], ops[2].to(torch.bfloat16))
+            yard_out = F.layer_norm(
+                ops[0] + F.dropout(F.linear(F.gelu(hidden), ops[3],
+                                            ops[4].to(torch.bfloat16)), rate),
+                (D,), ops[5].to(torch.bfloat16), ops[6].to(torch.bfloat16),
+                1e-12)
+            with torch.no_grad():
+                timed = dict(
+                    kernel_ms=time_ms(lambda: fused_ffn_train(*ops, rate,
+                                                              gen)),
+                    plain_ms=time_ms(lambda: ffn_train_reference(
+                        *ops, rate, keep)),
+                    yardstick_ms=time_ms(lambda: F.layer_norm(
+                        x2 + F.dropout(F.linear(F.gelu(F.linear(
+                            x2, w1t, b1.to(x2.dtype))), w2t,
+                            b2.to(x2.dtype)), rate),
+                        (D,), gamma.to(x2.dtype), beta.to(x2.dtype), 1e-12)),
+                    bwd_kernel_ms=time_ms(lambda: ffn_kernels._launch_train_bwd(
+                        x2, w1t, b1, w2t, b2, gamma, seed, rate, 1e-12, dy)),
+                    wgrad_ms=time_ms(lambda: ffn_kernels._weight_grads(
+                        x2, spills[1], spills[2], spills[3])))
+            timed.update(
+                bwd_plain_ms=time_ms(lambda: torch.autograd.grad(
+                    plain_out, ops, dy, retain_graph=True)),
+                bwd_yardstick_ms=time_ms(lambda: torch.autograd.grad(
+                    yard_out, ops, dy, retain_graph=True)))
+            del spills, plain_out, yard_out, hidden
+            bound, bound_by = ffn_train_bound(m, False)
+            bwd_bound, bwd_bound_by = ffn_train_bound(m, True)
+            rows[m] = dict(M=m, keep_rate=kept, err_fwd=max(e0, e1),
+                           err_grads=max(g0, g1), rel_err_grads=max(r0, r1),
+                           bound_ms=bound, bound_by=bound_by,
+                           bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_bound_by,
+                           **timed)
+            log(f"fused_ffn_train {json.dumps(rows[m])}")
+    return rows, max_err
+
+
+def per_train_step(rows, bsz, key, backward=False):
+    """Sum over the FFN sites of one train step of ``key``."""
+    return sum((nb if backward else nf) * rows[per_clip * bsz][key]
+               for per_clip, nf, nb in FFN_TRAIN_SITES)
 
 
 def attention_bound(b, lq, lk, key, pane, backward: bool):
@@ -415,11 +591,16 @@ def reset_counts():
     fused_ffn.launches = 0
     fused_attention.launches = 0
     fused_attention.bwd_launches = 0
+    fused_ffn_train.launches = 0
+    fused_ffn_train.bwd_launches = 0
 
 
 def counts():
+    """(attention forward, attention backward, FFN, FFN train forward, FFN
+    train backward) launches since ``reset_counts``."""
     return (fused_attention.launches, fused_attention.bwd_launches,
-            fused_ffn.launches)
+            fused_ffn.launches, fused_ffn_train.launches,
+            fused_ffn_train.bwd_launches)
 
 
 def grad_norm(params):
@@ -451,9 +632,10 @@ def phase_train_main_path():
         values = {k: v.item() for k, v in metrics.items()}
         if not all(math.isfinite(v) for v in values.values()):
             raise AssertionError(f"train step {i}: non-finite {values}")
-        log(f"train step {i}: launches (attention fwd, bwd, ffn) "
+        log(f"train step {i}: launches (attention fwd, bwd, ffn, ffn train "
+            "fwd, bwd) "
             f"{step_counts[-1]}; {json.dumps(values)}")
-    if any(c != (38, 34, 0) for c in step_counts):
+    if any(c != (38, 34, 0, 0, 0) for c in step_counts):
         raise AssertionError(f"train step launches {step_counts}, expected "
                              "38 attention forward, 34 backward, 0 FFN")
     # A trainable tensor must move unless its last update is below f32
@@ -492,7 +674,7 @@ def phase_train_main_path():
     preds = make_eval_step(cfg, model, with_hg_metrics=True)(eval_batch)
     torch.cuda.synchronize()
     eval_counts = counts()
-    if eval_counts != (0, 0, 18):
+    if eval_counts != (0, 0, 18, 0, 0):
         raise AssertionError(f"eval step launches {eval_counts}, expected 0 "
                              "attention and 18 FFN")
     log(f"eval step b2: launches {eval_counts}; rel/act class acc "
@@ -504,31 +686,41 @@ def phase_train_main_path():
     set_dropout_rate(model, 0.0)
     results = {}
     model.train()
-    for on in (True, False):
-        set_attention_kernel(model, on)
+    # (attention kernels, FFN train kernels): the attention kernels against
+    # the plain attention, then the FFN train kernels against the unfused
+    # FFN with the attention kernels on
+    for name, attn, ffn in (("kernel", True, False), ("plain", False, False),
+                            ("ffn kernel", True, True)):
+        set_attention_kernel(model, attn)
+        set_ffn_train_kernel(model, ffn)
         optimizer.zero_grad()
         loss, _ = compute_losses(cfg, model(batch, generator), batch)
         loss.backward()
-        results["kernel" if on else "plain"] = (loss.item(),
-                                                grad_norm(optimizer.params))
+        results[name] = (loss.item(), grad_norm(optimizer.params))
     optimizer.zero_grad()
     set_attention_kernel(model, True)
+    set_ffn_train_kernel(model, False)
     for m, rate in rates.items():
         m.rate = rate
-    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
-    rel_loss, rel_grad = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
-    log(f"train kernel vs plain attention (dropout 0, b{BATCH_SIZE}): loss "
-        f"{lk:.6f} vs {lp:.6f} (rel {rel_loss:.2e}), grad norm {gk:.6f} vs "
-        f"{gp:.6f} (rel {rel_grad:.2e})")
-    if rel_loss > TRAIN_TOL or rel_grad > TRAIN_TOL:
-        raise AssertionError(f"kernel and plain train paths differ: loss rel "
-                             f"{rel_loss}, grad norm rel {rel_grad}")
+    for what, (name, ref) in (("attention", ("kernel", "plain")),
+                              ("FFN", ("ffn kernel", "kernel"))):
+        (lk, gk), (lp, gp) = results[name], results[ref]
+        rel_loss, rel_grad = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+        log(f"train kernel vs plain {what} (dropout 0, b{BATCH_SIZE}): loss "
+            f"{lk:.6f} vs {lp:.6f} (rel {rel_loss:.2e}), grad norm {gk:.6f} "
+            f"vs {gp:.6f} (rel {rel_grad:.2e})")
+        if rel_loss > TRAIN_TOL or rel_grad > TRAIN_TOL:
+            raise AssertionError(f"kernel and plain {what} train paths "
+                                 f"differ: loss rel {rel_loss}, grad norm "
+                                 f"rel {rel_grad}")
     return model, optimizer, generator, batch, step_counts[-1]
 
 
 def phase_train_throughput(model, optimizer, generator, batch):
-    """Train clips/s at B=32, kernel and plain attention in turns, and the
-    kernel path's step split."""
+    """Train clips/s at B=32: kernel and plain attention in turns (unfused
+    FFN), then the FFN train kernels and the unfused FFN in turns
+    (attention kernels on); the step split of the attention-kernel step
+    with each FFN."""
     step = make_train_step(model.cfg, model, optimizer)
     runs = {"kernel": [], "plain": []}
     for name in ("kernel", "plain", "plain", "kernel"):
@@ -536,9 +728,137 @@ def phase_train_throughput(model, optimizer, generator, batch):
         runs[name].append(train_clips_per_second(step, batch, generator))
     set_attention_kernel(model, True)
     split = train_split_ms(model, optimizer, batch, generator)
+    ffn_runs = {"ffn_kernel": [], "ffn_plain": []}
+    for name in ("ffn_kernel", "ffn_plain", "ffn_plain", "ffn_kernel"):
+        set_ffn_train_kernel(model, name == "ffn_kernel")
+        ffn_runs[name].append(train_clips_per_second(step, batch, generator))
+    set_ffn_train_kernel(model, True)
+    ffn_split = train_split_ms(model, optimizer, batch, generator)
+    set_ffn_train_kernel(model, False)
     log(f"train throughput b{BATCH_SIZE} clips/s: {json.dumps(runs)}; "
         f"kernel step split ms {json.dumps(split)}")
+    log(f"train throughput b{BATCH_SIZE} clips/s, FFN train kernels vs "
+        f"unfused FFN (attention kernels on): {json.dumps(ffn_runs)}; step "
+        f"split ms with the FFN train kernels {json.dumps(ffn_split)}")
+    runs.update(ffn_runs)
     return {k: sum(v) / len(v) for k, v in runs.items()}
+
+
+class _Counted:
+    """Wraps the train and eval steps the driver's Trainer builds so that
+    every launch count is set to 0 just before each step and read just
+    after it; keeps the trained model."""
+
+    def __init__(self):
+        self.train, self.eval, self.losses, self.model = [], [], [], None
+
+    def __enter__(self):
+        self._saved = (loop.make_train_step, loop.make_eval_step)
+        make_train, make_eval = self._saved
+
+        def counted(make, sink, keep_loss):
+            def build(cfg, model, *args, **kw):
+                fn = make(cfg, model, *args, **kw)
+                if keep_loss:
+                    self.model = model
+
+                def run(*a):
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    out = fn(*a)
+                    torch.cuda.synchronize()
+                    sink.append(counts())
+                    if keep_loss:
+                        self.losses.append(out["total_loss"].item())
+                    return out
+                return run
+            return build
+
+        loop.make_train_step = counted(make_train, self.train, True)
+        loop.make_eval_step = counted(make_eval, self.eval, False)
+        return self
+
+    def __exit__(self, *exc):
+        loop.make_train_step, loop.make_eval_step = self._saved
+
+
+def run_main(argv):
+    """``agqa_hgqa.main(argv)`` on the card; its stdout is captured, then
+    printed.  Returns (result, stdout, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = agqa_hgqa.main(argv)
+    finally:
+        for line in out.getvalue().splitlines():
+            log(f"  | {line}")
+    return result, out.getvalue(), time.perf_counter() - t0
+
+
+def phase_driver(tmp: str):
+    """The agqa_hgqa driver at the flagship flags with --pallasFFNTrain at
+    B=32 on synthetic data: two epochs (launch counts per train step and
+    per eval forward, finite losses, checkpoints, LAST reloaded bit-equal),
+    then the test protocol from --load LAST (oracle 1.0, predict files)."""
+    out = os.path.join(tmp, "train")
+    argv = DRIVER_FLAGS + ["--syntheticData", "64", "--syntheticValid", "32",
+                           "--batchSize", str(BATCH_SIZE), "--epochs", "2",
+                           "--logFreq", "1", "--output", out, "--dataDir",
+                           tmp]
+    with _Counted() as counted:
+        result, stdout, seconds = run_main(argv)
+    want_train, want_eval = (38, 34, 0, 18, 14), (0, 0, 18, 0, 0)
+    if len(counted.train) != 4 or any(c != want_train for c in counted.train):
+        raise AssertionError(f"driver train steps launched {counted.train}, "
+                             f"expected 4 x {want_train}")
+    if len(counted.eval) != 8 or any(c != want_eval for c in counted.eval):
+        raise AssertionError(f"driver eval forwards launched {counted.eval}, "
+                             f"expected 8 x {want_eval}")
+    if not all(math.isfinite(v) for v in counted.losses):
+        raise AssertionError(f"driver losses {counted.losses}")
+    names = set(os.listdir(out))
+    if not {"CURRENT", "LAST", "log.log", "metrics.jsonl"} <= names:
+        raise AssertionError(f"driver output {sorted(names)}")
+    epochs = [float(s) for s in re.findall(r"Epoch \d+: \d+ steps in "
+                                           r"([\d.]+)s", stdout)]
+    log(f"driver: {result['steps']} steps, launches per train step "
+        f"(attention fwd, bwd, ffn, ffn train fwd, bwd) {counted.train[0]}, "
+        f"per eval forward {counted.eval[0]}; losses {counted.losses}; "
+        f"epochs {epochs} s; history {result['history']}; files "
+        f"{sorted(names)}; {seconds:.1f} s")
+
+    train_counts = counted.train
+    # LAST reloads bit-equal into a fresh model
+    model, cfg = counted.model, counted.model.cfg
+    fresh = entry.build_model(cfg, "cuda", seed=cfg.seed + 1)
+    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
+        os.path.join(out, "LAST"))
+    trained = model.state_dict()
+    for name, value in fresh.state_dict().items():
+        if not torch.equal(value, trained[name]):
+            raise AssertionError(f"LAST reloads {name} differently")
+    del fresh, trained, model, counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("driver: LAST reloads bit-equal")
+
+    test_out = os.path.join(tmp, "test")
+    argv_test = [a if a != out else test_out for a in argv] + [
+        "--test", "test", "--load", os.path.join(out, "LAST")]
+    with _Counted() as counted:
+        result, stdout, seconds = run_main(argv_test)
+    if "Oracle score: 1.0000" not in stdout:
+        raise AssertionError("the test protocol's oracle score is not 1.0")
+    if len(counted.eval) != 4 or any(c != want_eval for c in counted.eval):
+        raise AssertionError(f"test forwards launched {counted.eval}")
+    for name in ("predict.json", "predict_hg.json"):
+        with open(os.path.join(test_out, name)) as f:
+            if len(json.load(f)) != 32:
+                raise AssertionError(f"{name} does not hold 32 answers")
+    log(f"driver --test: oracle 1.0, predict files of 32 answers, "
+        f"{seconds:.1f} s")
+    return train_counts, epochs
 
 
 def phase_plain_train_step_card_vs_cpu(device="cuda"):
@@ -618,7 +938,7 @@ def phase_plain_path_card_vs_cpu():
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("attention",),
+    parser.add_argument("--only", choices=("attention", "ffn_train"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -642,9 +962,14 @@ def main(argv=None) -> int:
         attn_rows, attn_err = phase_attention_kernels()
         log(f"attention kernels ok; max errors {json.dumps(attn_err)}")
         return 0
+    if args.only == "ffn_train":
+        _, train_err = phase_ffn_train_kernels()
+        log(f"FFN train kernels ok; max errors {json.dumps(train_err)}")
+        return 0
 
     rows, max_err = phase_ffn_kernel()
     attn_rows, attn_err = phase_attention_kernels()
+    train_rows, train_err = phase_ffn_train_kernels()
     model, launches = phase_main_path()
     cps = phase_throughput(model)
     del model
@@ -653,6 +978,9 @@ def main(argv=None) -> int:
     train_cps = phase_train_throughput(train_model, optimizer, generator,
                                        batch)
     del train_model, optimizer, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        driver_counts, epoch_s = phase_driver(tmp)
     phase_plain_path_card_vs_cpu()
     phase_plain_train_step_card_vs_cpu()
 
@@ -699,7 +1027,38 @@ def main(argv=None) -> int:
                 f"{k} {per_step(attn_rows, b, pre + k, backward):.3f} ms at "
                 f"b{b}" for k in ("kernel_ms", "plain_ms", "library_ms",
                                   "bound_ms") for b in (bsz, 2)))
-    log(f"train clips/s b{bsz}: {json.dumps(train_cps)}")
+    for backward, (name, line) in enumerate(
+            (("fused_ffn_train_fwd", 200), ("fused_ffn_train_bwd", 214))):
+        pre = "bwd_" if backward else ""
+        widest = max(FFN_TRAIN_SITES, key=lambda s: s[1 + backward]
+                     * train_rows[s[0] * bsz][pre + "bound_ms"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "shgvqa_tpu_torch/csrc/ffn_train.cu",
+            "replaces": f"shgvqa_tpu/kernels/ffn.py:{line}",
+            "launches": driver_counts[-1][3 + backward],
+            "max_abs_err": train_err["bwd" if backward else "fwd"],
+            "ms": per_train_step(train_rows, bsz, pre + "kernel_ms",
+                                 backward),
+            "plain_ms": per_train_step(train_rows, bsz, pre + "plain_ms",
+                                       backward),
+            "bound_ms": per_train_step(train_rows, bsz, pre + "bound_ms",
+                                       backward),
+            "bound_by": train_rows[widest[0] * bsz][pre + "bound_by"],
+            "library_ms": None,
+        })
+        keys = ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms") + (
+            ("wgrad_ms",) if backward else ())
+        log(f"{name} per train step ({driver_counts[-1][3 + backward]} "
+            f"sites; yardstick: the unfused F.linear/GeLU/dropout/layer_norm"
+            + (" autograd backward" if backward else "") + "; "
+            + ("wgrad: the weight-gradient products after the kernel; "
+               if backward else "") + "no single library call computes "
+            "this block): " + ", ".join(
+                f"{k} {per_train_step(train_rows, b, (pre if k != 'wgrad_ms' else '') + k, backward):.3f} ms at b{b}"
+                for k in keys for b in (bsz, 2)))
+    log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; driver epochs "
+        f"{epoch_s} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -12,7 +12,12 @@ train step (``train/step.py``: dropout-bearing forward, per-frame Hungarian
 matching on the device in ``ops/matcher.py``, the losses in ``losses/``,
 backward, global-norm clip and BertAdam in ``train/optimizer.py``), with
 the fused attention forward and backward as hand-written CUDA kernels
-(``csrc/attention.cu``, wrapper ``kernels/attention.py``).  Options the
-flagship does not use raise ``NotImplementedError``
+(``csrc/attention.cu``, wrapper ``kernels/attention.py``); and the
+``agqa_hgqa`` driver (``cli/``: the reference's flags, synthetic or file
+AGQA data, the ``Trainer`` of ``train/loop.py`` with validation,
+checkpoints and the test protocol), whose ``--pallasFFNTrain`` runs the
+fused FFN train pair, forward and backward, as hand-written CUDA kernels
+(``csrc/ffn_train.cu``, wrapper ``kernels/ffn.py``).  Options the port
+does not run yet raise ``NotImplementedError``
 (``configs/config.check_ported``).
 """

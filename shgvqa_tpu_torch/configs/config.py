@@ -286,7 +286,6 @@ _UNPORTED = (
     ("remat", False, "19 (remat policies)"),
     ("use_pallas_attention", False,
      "15 (the attention kernels at inference sites)"),
-    ("use_pallas_ffn_train", False, "queue B item 3 (FFN train kernels)"),
 )
 
 # options only training reads

@@ -13,8 +13,11 @@ Semantics kept from the JAX package:
   1e-12) and returns ``dtype``;
 - attention scores and softmax are f32 with an ADDITIVE mask (-10000 on
   masked slots, built by ``extend_mask`` in the compute dtype);
-- ``FFN`` runs the fused kernel (``kernels/ffn.py``) when enabled and not
-  training, else the unfused block;
+- ``FFN`` runs the fused inference kernel (``kernels/ffn.py``
+  ``fused_ffn``) when enabled and not training, the fused train kernels
+  (``fused_ffn_train``, dropout inside) when training with
+  ``train_kernel`` (the config's ``use_pallas_ffn_train``), else the
+  unfused block;
 - ``Attention`` runs the fused attention kernels (``kernels/attention.py``,
   with the probabilities' dropout inside) when training with
   ``kernel_train`` (the config's ``use_pallas_attention_train``), as the
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shgvqa_tpu_torch.kernels.attention import fused_attention
-from shgvqa_tpu_torch.kernels.ffn import fused_ffn
+from shgvqa_tpu_torch.kernels.ffn import fused_ffn, fused_ffn_train
 
 NEG_MASK = -10000.0
 BERT_STD = 0.02
@@ -77,6 +80,14 @@ def set_attention_kernel(model: nn.Module, on: bool) -> None:
     for m in model.modules():
         if hasattr(m, "kernel_train"):
             m.kernel_train = on
+
+
+def set_ffn_train_kernel(model: nn.Module, on: bool) -> None:
+    """Route every FFN block of ``model`` in training through the fused
+    train kernels (on) or the unfused block (off)."""
+    for m in model.modules():
+        if isinstance(m, FFN):
+            m.train_kernel = on
 
 
 def empty_param(*shape: int) -> nn.Parameter:
@@ -329,9 +340,11 @@ class FFN(nn.Module):
     """intermediate (GeLU) -> output dense -> dropout -> LN(+ residual).
 
     With ``use_kernel`` (the config's ``use_pallas_ffn``) and not training,
-    the whole block is one call of ``kernels.ffn.fused_ffn``, which gets
-    the ``nn.Linear`` weights as they are; training runs the unfused block
-    (the JAX default ``use_pallas_ffn_train=False``)."""
+    the whole block is one call of ``kernels.ffn.fused_ffn``; in training
+    with ``train_kernel`` (``use_pallas_ffn_train``, off by default as in
+    JAX) it is one call of ``fused_ffn_train`` at the block's dropout rate.
+    Both get the ``nn.Linear`` weights as they are.  Otherwise the block
+    runs unfused."""
 
     def __init__(self, hidden_size: int, intermediate_size: int,
                  dtype: torch.dtype = torch.float32, use_kernel: bool = False,
@@ -342,13 +355,17 @@ class FFN(nn.Module):
         self.dropout = Dropout(dropout)
         self.ln = LayerNorm(hidden_size, dtype=dtype)
         self.use_kernel = use_kernel
+        self.train_kernel = False
 
     def forward(self, x, g=None):
+        weights = (self.intermediate.weight, self.intermediate.bias,
+                   self.output.weight, self.output.bias, self.ln.weight,
+                   self.ln.bias)
         if self.use_kernel and not self.training:
-            return fused_ffn(x, self.intermediate.weight,
-                             self.intermediate.bias, self.output.weight,
-                             self.output.bias, self.ln.weight, self.ln.bias,
-                             self.ln.eps)
+            return fused_ffn(x, *weights, self.ln.eps)
+        if self.train_kernel and self.training:
+            return fused_ffn_train(x, *weights, self.dropout.rate, g,
+                                   self.ln.eps)
         h = self.output(gelu(self.intermediate(x)))
         return self.ln(self.dropout(h, g) + x)
 

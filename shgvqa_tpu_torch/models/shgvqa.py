@@ -14,8 +14,9 @@ in ``shgvqa_tpu/models/shgvqa.py`` (tasks 'hgqa' and 'vqa', inference).
 
 In training mode (``model.train()``) every dropout site drops, with masks
 drawn from the ``generator`` passed to ``forward`` (the device's default
-generator when None), and the training attention sites run the fused
-kernels (``use_pallas_attention_train``).  The frozen trunk runs under
+generator when None), the training attention sites run the fused kernels
+(``use_pallas_attention_train``) and, with ``use_pallas_ffn_train``, every
+FFN block runs the fused train kernels.  The frozen trunk runs under
 ``torch.no_grad()``, as the JAX package's ``stop_gradient`` and its
 two-launch trunk do; its BatchNorm always uses the stored statistics.
 Every option the flagship does not use raises
@@ -38,7 +39,7 @@ from shgvqa_tpu_torch.models.backbone import make_backbone
 from shgvqa_tpu_torch.models.decoder import HGDecoder
 from shgvqa_tpu_torch.models.encoder import LXRTModel
 from shgvqa_tpu_torch.models.hg import HGEmbeddings, HGQCrossEncoder
-from shgvqa_tpu_torch.models.layers import MLPHead
+from shgvqa_tpu_torch.models.layers import MLPHead, set_ffn_train_kernel
 
 
 class ShgVqaModel(nn.Module):
@@ -82,6 +83,7 @@ class ShgVqaModel(nn.Module):
                 self.register_buffer(f"{kind}_mask", torch.as_tensor(
                     situation_causal_mask(s, slots)), persistent=False)
         self.logit_fc = MLPHead(d, cfg.num_answers, dtype=dt)
+        set_ffn_train_kernel(self, cfg.use_pallas_ffn_train)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None

@@ -1,0 +1,224 @@
+"""The port's ``agqa_hgqa`` driver on the CPU: ``cli.agqa_hgqa.main(argv,
+device="cpu")`` with the flagship flags and ``--pallasFFNTrain`` trains two
+epochs on synthetic data with per-epoch validation and writes its logs and
+CURRENT/BEST/LAST; ``--load`` restores LAST bit-equal; ``--test`` runs the
+test protocol from it.  The flags keep the flagship topology; the test
+shrinks the widths (hidden 32, 4 heads) and the slow_r50 trunk (toy widths)
+so that a run takes seconds on one CPU core.  Also the ``Trainer``'s early
+stopping, ``predict``'s pad rows, and the options the driver refuses."""
+
+import contextlib
+import dataclasses
+import io
+import json
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from shgvqa_tpu_torch.cli import agqa_hgqa, common
+from shgvqa_tpu_torch.configs.config import tiny_test_config
+from shgvqa_tpu_torch.entry import build_model, example_batch
+from shgvqa_tpu_torch.models import shgvqa
+from shgvqa_tpu_torch.models.backbone import SlowR50
+from shgvqa_tpu_torch.train.loop import Trainer
+from shgvqa_tpu_torch.train.step import trainable_mask
+from test_torch_common import TOY
+
+FLAGS = ["--taskHGQA", "--noCaps", "--crossAttnType", "cross",
+         "--llayers", "5", "--xlayers", "2", "--rlayers", "5",
+         "--dlayers", "5", "--backbone", "slow_r50", "--pallasFFNTrain",
+         "--LossHGPerFrame", "--freezeBackbone", "--numSituations", "4",
+         "--numRel", "4", "--numAct", "2", "--imageSize", "32",
+         "--computeDtype", "float32", "--lr", "1e-3", "--logFreq", "4"]
+# the JAX package's metric record of an hgqa train step (train/step.py)
+RECORD_KEYS = {"step", "time", "epoch", "hgqa_loss", "hg_train_acc",
+               "rel_loss", "act_loss", "rel_class_error", "act_class_error",
+               "total_loss"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's default pool (one thread per core) in each oversubscribes
+    the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _shrink(monkeypatch):
+    """Narrow widths and a toy-width trunk under the real flags."""
+    parse = common.parse_reference_flags_with_extras
+
+    def narrow(argv, dataset=None):
+        cfg, extras = parse(argv, dataset)
+        return cfg.replace(
+            encoder=dataclasses.replace(cfg.encoder, hidden_size=32,
+                                        num_heads=4, intermediate_size=64),
+            decoder=dataclasses.replace(cfg.decoder, num_heads=4,
+                                        ffn_dim=64)), extras
+
+    monkeypatch.setattr(common, "parse_reference_flags_with_extras", narrow)
+    monkeypatch.setattr(shgvqa, "make_backbone",
+                        lambda name, dtype: SlowR50(dtype, **TOY))
+
+
+def _main(argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = agqa_hgqa.main(argv, device="cpu")
+    return result, out.getvalue()
+
+
+def _argv(out, *extra):
+    return FLAGS + ["--tiny", "--syntheticData", "24", "--batchSize", "2",
+                    "--epochs", "2", "--output", str(out), "--dataDir",
+                    str(out), *extra]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("train")
+    with pytest.MonkeyPatch.context() as mp:
+        _shrink(mp)
+        result, stdout = _main(_argv(out))
+        yield out, result, stdout
+
+
+def test_train_writes_logs_metrics_and_checkpoints(run):
+    out, result, stdout = run
+    assert result["steps"] == 24 and len(result["history"]) == 2
+    assert "agqa driver: task=hgqa device=cpu" in stdout
+    assert "no BERT weights at" in stdout          # not --fromScratch
+    assert "no pretrained backbone at" in stdout
+    logged = (out / "log.log").read_text()
+    for line in ("Epoch 0 step 0:", "Epoch 0: 12 steps in",
+                 "valid rel class acc", "Epoch 1: valid"):
+        assert line in logged
+    records = [json.loads(x) for x in
+               (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in records] == [0, 4, 8, 12, 16, 20]
+    assert all(set(r) == RECORD_KEYS for r in records)
+    assert all(np.isfinite(r["total_loss"]) for r in records)
+    names = {p.name for p in out.iterdir()}
+    assert {"CURRENT", "LAST", "log.log", "metrics.jsonl"} <= names
+    hg = [float(s) for s in re.findall(r" hg (\d+\.\d+)", logged)]
+    assert ("BEST" in names) == any(s > 0 for s in hg)
+    assert result["best"] == max(h["hg"] for h in result["history"])
+
+
+def test_load_restores_last_bit_equal(run, tmp_path, monkeypatch):
+    out, result, _ = run
+    _shrink(monkeypatch)
+    _main(_argv(tmp_path, "--epochs", "0", "--load", str(out / "LAST")))
+    saved = torch.load(out / "LAST", weights_only=True)
+    again = torch.load(tmp_path / "LAST", weights_only=True)
+    assert again["step"] == saved["step"] == result["steps"]
+    assert saved["params"].keys() == again["params"].keys()
+    for k, v in saved["params"].items():
+        assert torch.equal(v, again["params"][k]), k
+    for k in ("m", "v"):
+        assert all(torch.equal(a, b) for a, b in
+                   zip(saved["opt_state"][k], again["opt_state"][k]))
+    assert saved["opt_state"]["step_count"] == result["steps"]
+    assert again["opt_state"]["step_count"] == result["steps"]
+
+
+def test_test_protocol_from_load(run, tmp_path, monkeypatch):
+    out, _, _ = run
+    _shrink(monkeypatch)
+    result, stdout = _main(_argv(tmp_path, "--test", "test", "--load",
+                                 str(out / "LAST")))
+    assert "Oracle score: 1.0000" in stdout
+    assert len(result["all_qtypes"]) == len(result["hg_all_qtypes"]) == 31
+    for name in ("predict.json", "predict_hg.json"):
+        preds = json.loads((tmp_path / name).read_text())
+        assert len(preds) == 24
+        assert {"id", "question", "prediction", "answer"} <= set(preds[0])
+
+
+def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
+                                                          tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        agqa_hgqa.main(_argv(tmp_path))
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--multiGPU"], "item 14"),
+    (["--loadLXMERT", "snap/x"], "item 18"),
+    (["--outputAttn"], "item 15"),
+    (["--augmentType", "rand_aug"], "item 12"),
+    (["--stepsPerLoop", "4"], "item 10"),
+], ids=["multiGPU", "loadLXMERT", "outputAttn", "augment", "stepsPerLoop"])
+def test_driver_refuses_unported_options(tmp_path, extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        agqa_hgqa.main(_argv(tmp_path, *extra), device="cpu")
+
+
+def test_driver_refuses_star_and_the_global_matcher(tmp_path):
+    with pytest.raises(NotImplementedError, match="STAR"):
+        common.run_driver("star", _argv(tmp_path), device="cpu")
+    argv = [a for a in _argv(tmp_path) if a != "--LossHGPerFrame"]
+    with pytest.raises(NotImplementedError, match="item 8"):
+        agqa_hgqa.main(argv, device="cpu")
+
+
+def test_driver_refuses_a_present_pretrained_weight_file(tmp_path,
+                                                         monkeypatch):
+    _shrink(monkeypatch)
+    (tmp_path / "slow_r50_flax.msgpack").write_bytes(b"weights")
+    with pytest.raises(NotImplementedError, match="item 1"):
+        _main(_argv(tmp_path))
+
+
+def _tiny_trainer(tmp_path, monkeypatch, **optim):
+    monkeypatch.setattr(shgvqa, "make_backbone",
+                        lambda name, dtype: SlowR50(dtype, **TOY))
+    cfg = tiny_test_config(task="hgqa", use_pallas_ffn_train=True,
+                           output=str(tmp_path), log_freq=1)
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, image_size=32),
+        optim=dataclasses.replace(cfg.optim, **optim))
+    model = build_model(cfg, "cpu", seed=0)
+    batch = example_batch(cfg, 2, 0, with_labels=True)
+    batch.pop("visual_mask")
+    batch["frames"] = np.random.RandomState(1).randint(
+        0, 255, (2, cfg.encoder.visual_t + 8, 32, 32, 3)).astype(np.uint8)
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    batch.update(ques_id=["q0", "q1"], n_valid=2)
+    return Trainer(cfg, 2, model, trainable_mask(model, cfg)), batch
+
+
+def test_early_stopping_and_checkpoints(tmp_path, monkeypatch):
+    trainer, batch = _tiny_trainer(tmp_path, monkeypatch, epochs=6,
+                                   early_stop_patience=2)
+    calls = []
+
+    def evaluate(tr):
+        calls.append(tr.step)
+        return 0.0, 0.0
+
+    summary = trainer.train(lambda ep: [batch, batch], evaluate)
+    assert summary == {"best": 0.0, "steps": 4, "history": [
+        {"epoch": 0, "valid": 0.0, "hg": 0.0},
+        {"epoch": 1, "valid": 0.0, "hg": 0.0}]}
+    assert calls == [2, 4]
+    assert "Early stopping at epoch 2" in (tmp_path / "log.log").read_text()
+    assert trainer.ckpt.exists("LAST") and trainer.ckpt.exists("CURRENT")
+    assert not trainer.ckpt.exists("BEST")
+    assert trainer.optimizer.step_count == 4
+
+
+def test_predict_skips_pad_rows(tmp_path, monkeypatch):
+    trainer, batch = _tiny_trainer(tmp_path, monkeypatch)
+    padded = dict(batch, ques_id=["a", "a"], n_valid=1)
+    q2a, hg_q2a, acc = trainer.predict([batch, padded],
+                                       return_hg_metrics=True)
+    assert list(q2a) == list(hg_q2a) == ["q0", "q1", "a"]
+    assert set(acc) == {"rel_class_acc", "act_class_acc"}
+    q2a_only = trainer.predict([padded])
+    assert len(q2a_only) == 2 and list(q2a_only[0]) == ["a"]
