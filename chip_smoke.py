@@ -26,18 +26,30 @@ it exits non-zero before printing any result.
      mask given to the plain version; the realised keep rate; the times of
      the kernels, of the weight-gradient products after the backward
      kernel, of the plain version and of the unfused yardstick;
+   - the tokenizer conv kernel (``csrc/tok_conv.cu``) at both convs'
+     shapes and the bottleneck kernel (``csrc/bottleneck.cu``) at ragged
+     frames and at its three trunk geometries (res_2 block_0 with its
+     projection, res_2, res_3), at B=2 and B=32: kernel against plain
+     within 2e-2 of max |plain|, the times of the kernel, the plain version
+     and a yardstick (F.conv3d in bf16 + gelu; the unfused bf16
+     Bottleneck3D) and the bound;
 4. main path: ``entry.entry()`` -- the flagship uint8 frames -> hg_logit
    forward at B=2 -- with every launch count set to 0 just before and read
-   just after, then the same weights with the FFN kernel switched off;
-5. throughput: clips/s at B=32 with the kernel and with the plain FFN;
+   just after: with the FFN kernel (18 launches), with no kernel, and with
+   the FFN, tokenizer and bottleneck kernels (18 + 2 + 6); each kernel
+   path's hg_logit against the plain one;
+5. throughput: clips/s at B=32 with the FFN kernel, with no kernel and
+   with the FFN, tokenizer and bottleneck kernels, in turns;
 6. train main path: ``entry.train_entry()`` -- three flagship train steps
-   at B=32 -- with the launch counts set to 0 before each step and read
-   after it (38 attention forwards, 34 backwards, 0 FFN); finite losses;
-   the trainable parameters move, the trunk and the disconnected LXRT
-   x-layers and pooler stay bit-identical; the eval step at B=2 (18 FFN
-   launches, no attention launch); then, with every dropout rate at 0,
-   the attention kernels against the plain attention and the FFN train
-   kernels against the unfused FFN (loss and gradient norm);
+   at B=32 with the tokenizer and bottleneck switches on -- with the
+   launch counts set to 0 before each step and read after it (38
+   attention forwards, 34 backwards, 0 FFN, 0 tokenizer, 6 bottleneck);
+   finite losses; the trainable parameters move, the trunk and the
+   disconnected LXRT x-layers and pooler stay bit-identical; the eval step
+   at B=2 (18 FFN, 2 tokenizer and 6 bottleneck launches, no attention
+   launch); then, with every dropout rate at 0, the attention kernels
+   against the plain attention and the FFN train kernels against the
+   unfused FFN (loss and gradient norm); the switches off again;
 7. train throughput: clips/s at B=32 with the attention kernels and with
    the plain attention, then with the FFN train kernels and with the
    unfused FFN (in turns), and the steps' splits;
@@ -57,9 +69,10 @@ it exits non-zero before printing any result.
 TF32 is switched off for f32 matmuls and convolutions (phase 9 compares
 f32 results).  ``bound_ms`` is max(operations / 989 TFLOP/s bf16, bytes /
 3.35 TB/s): the H100 SXM's published dense peaks, each input read once and
-each output written once.  ``--only attention`` (``--only ffn_train``)
-runs phases 1-2 and the attention (FFN train) checks of phase 3, and
-prints no result lines.
+each output written once.  ``--only attention`` (``--only ffn_train``,
+``--only tok_block``) runs phases 1-2 and the attention (FFN train;
+tokenizer conv and bottleneck) checks of phase 3, and prints no result
+lines.
 """
 
 from __future__ import annotations
@@ -94,6 +107,10 @@ from shgvqa_tpu_torch.bench import (
 from shgvqa_tpu_torch.configs.config import tiny_test_config
 from shgvqa_tpu_torch.data.featurize import situation_causal_mask
 from shgvqa_tpu_torch.kernels import _build
+from shgvqa_tpu_torch.kernels.bottleneck import (
+    bottleneck_reference,
+    fused_bottleneck,
+)
 from shgvqa_tpu_torch.kernels.attention import (
     attention_reference,
     decompose_mask,
@@ -109,14 +126,19 @@ from shgvqa_tpu_torch.kernels.ffn import (
     fused_ffn_train,
     keep_mask as ffn_keep_mask,
 )
+from shgvqa_tpu_torch.kernels.tok_conv import fused_tok_conv, tok_conv_reference
+from shgvqa_tpu_torch.models.backbone import Bottleneck3D, set_block_kernel
 from shgvqa_tpu_torch.models.layers import (
     FFN,
     Dropout,
     extend_mask,
+    gelu,
+    init_weights,
     set_attention_kernel,
     set_dropout_rate,
     set_ffn_train_kernel,
 )
+from shgvqa_tpu_torch.models.visual import set_tok_kernel
 from shgvqa_tpu_torch.train import loop
 from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.optimizer import make_optimizer
@@ -166,6 +188,17 @@ FFN_OPERANDS = ("x", "W1", "b1", "W2", "b2", "gamma", "beta")
 # max |ref| (the kernels round do and du to bf16 before their products and
 # the weight gradients to bf16)
 FFN_GRAD_TOL = 3e-2
+# tokenizer convs of one flagship forward: (site, T in, Ci); Co = 768, 7 x 7
+# features, kernel (5, 3, 3)
+TOK_SITES = (("conv1", 16, 2048), ("conv2", 12, D))
+TOK_HW, TOK_KT = 7, 5
+# trunk blocks the fused bottleneck covers in one flagship forward: (site,
+# H = W, Ci, Cm, Co, projection, blocks); frames N = 16 * B
+BLOCK_SITES = (("res_2 block_0", 56, 64, 64, 256, True, 1),
+               ("res_2 blocks 1-2", 56, 256, 64, 256, False, 2),
+               ("res_3 blocks 1-3", 28, 512, 128, 512, False, 3))
+# max |kernel - plain| <= tol * max |plain| (bf16; the prototypes' own check)
+TOK_BLOCK_TOL = 2e-2
 # the flagship's published flags (README.md, agqa_hgqa) with the FFN train
 # kernels; the port raises without --LossHGPerFrame (the global matcher,
 # ROADMAP item 8) and --freezeBackbone (training the trunk, item 11)
@@ -179,12 +212,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def ffn_bound(m: int, d: int = D, f: int = FF):
-    flops = 4 * m * d * f
-    nbytes = 2 * m * d * 2 + 2 * d * f * 2 + (f + 3 * d) * 4
+def bound_ms(flops, nbytes):
+    """(ms, bound_by): the larger of operations over the bf16 peak and bytes
+    over the memory rate."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def ffn_bound(m: int, d: int = D, f: int = FF):
+    flops = 4 * m * d * f
+    nbytes = 2 * m * d * 2 + 2 * d * f * 2 + (f + 3 * d) * 4
+    return bound_ms(flops, nbytes)
 
 
 def ffn_operands(m: int, d: int = D, f: int = FF, seed: int = 0):
@@ -261,9 +300,7 @@ def ffn_train_bound(m: int, backward: bool, d: int = D, f: int = FF):
     else:
         flops = 4 * m * d * f
         nbytes = (2 * m * d + 2 * d * f) * 2 + (f + 3 * d) * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound_ms(flops, nbytes)
 
 
 def ffn_train_grads_vs_plain(tag, ops, y, dy, rate, keep):
@@ -386,9 +423,7 @@ def attention_bound(b, lq, lk, key, pane, backward: bool):
     nbytes = operands + masks + g * lq * 4                  # + lse
     if backward:
         nbytes += (2 * g * lq * d + 2 * g * lk * d) * 2     # do, dq, dk, dv
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound_ms(flops, nbytes)
 
 
 def attention_operands(b, lq, lk, kind, seed):
@@ -535,54 +570,197 @@ def per_step(rows, bsz, key, backward=False):
                for name, _, _, _, _, nf, nb in ATTN_SITES)
 
 
+def phase_tok_kernel(batch_sizes=(2, BATCH_SIZE)):
+    """The tokenizer conv kernel against tok_conv_reference at both convs'
+    shapes (bf16); the times of the kernel on a bf16 weight, of the
+    weight's cast from the f32 parameter (each call of the model makes it),
+    of the plain version and of the yardstick (F.conv3d in bf16, then the
+    port's gelu, on the same channels-last operands)."""
+    rows, max_err = {}, 0.0
+    with torch.inference_mode():
+        for bsz in batch_sizes:
+            for site, t_len, ci in TOK_SITES:
+                g = torch.Generator(device="cuda").manual_seed(bsz * 10 + ci)
+
+                def randn(*shape):
+                    return torch.randn(*shape, generator=g, device="cuda")
+
+                x = randn(bsz, t_len, TOK_HW, TOK_HW, ci).to(torch.bfloat16)
+                w32 = (0.02 * randn(D, ci, TOK_KT, 3, 3)).contiguous(
+                    memory_format=torch.channels_last_3d)
+                b = 0.02 * randn(D)
+                w = w32.to(torch.bfloat16)
+                tag = f"fused_tok_conv {site} b{bsz}"
+                err, rel = rel_max_err(tag, fused_tok_conv(x, w, b),
+                                       tok_conv_reference(x, w, b),
+                                       TOK_BLOCK_TOL)
+                max_err = max(max_err, err)
+                xv = x.permute(0, 4, 1, 2, 3)
+                m = bsz * (t_len - TOK_KT + 1) * TOK_HW * TOK_HW
+                k = TOK_KT * 9 * ci
+                bound, bound_by = bound_ms(
+                    2 * m * D * k, (x.numel() + w.numel() + m * D) * 2 + 4 * D)
+                rows[(site, bsz)] = dict(
+                    site=site, B=bsz, M=m, N=D, K=k, max_abs_err=err,
+                    rel_err=rel, bound_ms=bound, bound_by=bound_by,
+                    kernel_ms=time_ms(lambda: fused_tok_conv(x, w, b)),
+                    cast_ms=time_ms(lambda: w32.to(torch.bfloat16)),
+                    plain_ms=time_ms(lambda: tok_conv_reference(x, w, b),
+                                     iters=5, warmup=1),
+                    yardstick_ms=time_ms(lambda: gelu(F.conv3d(
+                        xv, w, b.to(torch.bfloat16), padding=(0, 1, 1))),
+                        iters=5, warmup=1))
+                log(f"fused_tok_conv {json.dumps(rows[(site, bsz)])}")
+    return rows, max_err
+
+
+def random_block(ci, cm, co, seed):
+    """A bf16 ``Bottleneck3D`` on the card (channels-last, as the model's)
+    with seeded random weights and BN statistics."""
+    block = init_weights(Bottleneck3D(ci, cm, co, dtype=torch.bfloat16), seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, buf in block.named_buffers():
+            noise = torch.randn(buf.shape, generator=g)
+            buf.copy_(1.0 + 0.2 * noise.abs() if name.endswith("var")
+                      else 0.1 * noise)
+        for name, prm in block.named_parameters():
+            if name.startswith("bn"):
+                noise = torch.randn(prm.shape, generator=g)
+                prm.copy_(1.0 + 0.1 * noise if name.endswith("weight")
+                          else 0.1 * noise)
+    return block.to(device="cuda", memory_format=torch.channels_last_3d).eval()
+
+
+def phase_block_kernel(batch_sizes=(2, BATCH_SIZE)):
+    """The fused bottleneck kernel against bottleneck_reference at the three
+    block geometries it covers in the trunk (bf16, frames N = 16 B); the
+    times of the kernel, of the plain version and of the yardstick (the
+    port's unfused bf16 Bottleneck3D on the same weights and frames)."""
+    rows, max_err = {}, 0.0
+    with torch.inference_mode():
+        # ragged frames first: the last band of rows is short
+        for hw, ci, cm, co in ((30, 64, 64, 256), (13, 512, 128, 512)):
+            block = random_block(ci, cm, co, seed=hw)
+            x = torch.relu(torch.randn(3, hw, hw, ci, device="cuda")).to(
+                torch.bfloat16)
+            ops = block.kernel_operands()
+            err, _ = rel_max_err(f"fused_bottleneck {hw}x{hw} Ci={ci}",
+                                 fused_bottleneck(x, *ops),
+                                 bottleneck_reference(x, *ops), TOK_BLOCK_TOL)
+            log(f"fused_bottleneck ragged {hw}x{hw} Ci={ci} Cm={cm} Co={co}: "
+                f"max |err| {err}")
+        for bsz in batch_sizes:
+            for site, hw, ci, cm, co, proj, _ in BLOCK_SITES:
+                block = random_block(ci, cm, co, seed=ci + cm)
+                ops = block.kernel_operands()
+                g = torch.Generator(device="cuda").manual_seed(bsz + ci)
+                n = 16 * bsz
+                x = torch.relu(torch.randn(n, hw, hw, ci, generator=g,
+                                           device="cuda")).to(torch.bfloat16)
+                xv = x.view(bsz, 16, hw, hw, ci).permute(0, 4, 1, 2, 3)
+                tag = f"fused_bottleneck {site} b{bsz}"
+                err, rel = rel_max_err(tag, fused_bottleneck(x, *ops),
+                                       bottleneck_reference(x, *ops),
+                                       TOK_BLOCK_TOL)
+                max_err = max(max_err, err)
+                macs = ci * cm + 9 * cm * cm + cm * co + (ci * co if proj
+                                                          else 0)
+                positions = n * hw * hw
+                bound, bound_by = bound_ms(
+                    2 * positions * macs,
+                    positions * (ci + co) * 2 + macs * 2 + (4 * cm + 4 * co) * 2)
+                rows[(site, bsz)] = dict(
+                    site=site, B=bsz, frames=n, H=hw, Ci=ci, Cm=cm, Co=co,
+                    proj=proj, max_abs_err=err, rel_err=rel, bound_ms=bound,
+                    bound_by=bound_by,
+                    kernel_ms=time_ms(lambda: fused_bottleneck(x, *ops)),
+                    plain_ms=time_ms(lambda: bottleneck_reference(x, *ops),
+                                     iters=5, warmup=1),
+                    yardstick_ms=time_ms(lambda: block(xv), iters=5,
+                                         warmup=1))
+                log(f"fused_bottleneck {json.dumps(rows[(site, bsz)])}")
+                del block, x, xv
+    return rows, max_err
+
+
+def per_forward_tok(rows, bsz, key):
+    return sum(rows[(site, bsz)][key] for site, _, _ in TOK_SITES)
+
+
+def per_forward_block(rows, bsz, key):
+    return sum(n * rows[(site, bsz)][key]
+               for site, *_, n in BLOCK_SITES)
+
+
 def set_ffn_kernel(model, on: bool) -> None:
     for m in model.modules():
         if isinstance(m, FFN):
             m.use_kernel = on
 
 
+def set_inference_kernels(model, ffn: bool, tok_block: bool) -> None:
+    """The FFN kernel, and the tokenizer and bottleneck kernels, on or off."""
+    set_ffn_kernel(model, ffn)
+    set_tok_kernel(model, tok_block)
+    set_block_kernel(model, tok_block)
+
+
 def phase_main_path():
-    """entry.entry() at B=2 with launch counts from 0, then the same
-    weights with the FFN kernel off."""
+    """entry.entry() at B=2 with launch counts from 0: with the FFN kernel
+    (the default), then the same weights with every kernel off, then with
+    the FFN, tokenizer and bottleneck kernels; each kernel path's hg_logit
+    against the plain one."""
     t0 = time.perf_counter()
     fn, args = entry.entry()
     log(f"main path: flagship model built in {time.perf_counter() - t0:.1f} s")
     model, batch = args
-    fused_ffn.launches = 0
-    out = fn(*args)
-    torch.cuda.synchronize()
-    launches = fused_ffn.launches
-    if launches != 18:
-        raise AssertionError(f"fused_ffn launched {launches} times in one "
-                             "forward, expected 18")
-    set_ffn_kernel(model, False)
-    plain = fn(*args)
-    set_ffn_kernel(model, True)
     cfg = model.cfg
     want_shape = (batch["frames"].shape[0], cfg.num_answers)
-    for name, y in (("kernel", out), ("plain", plain)):
+    runs = {}
+    for name, ffn, tok_block, want in (
+            ("FFN kernel", True, False, (0, 0, 18, 0, 0, 0, 0)),
+            ("plain", False, False, (0,) * 7),
+            ("FFN + tok + block kernels", True, True, (0, 0, 18, 0, 0, 2, 6))):
+        set_inference_kernels(model, ffn, tok_block)
+        reset_counts()
+        y = fn(*args)
+        torch.cuda.synchronize()
+        runs[name] = (y, counts())
+        if runs[name][1] != want:
+            raise AssertionError(f"{name} forward launched {runs[name][1]}, "
+                                 f"expected {want}")
         if tuple(y.shape) != want_shape or not torch.isfinite(y).all():
             raise AssertionError(f"hg_logit ({name}) shape {tuple(y.shape)} "
                                  f"or non-finite values")
-    rel = ((out.float() - plain.float()).norm() / plain.float().norm()).item()
-    agree = (out.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    log(f"main path: hg_logit {want_shape}, rel Frobenius vs plain FFN "
-        f"{rel:.3e}, argmax agreement {agree:.3f}, fused_ffn launches "
-        f"{launches}")
-    if rel > 5e-2:
-        raise AssertionError(f"hg_logit differs from the plain path by {rel}")
-    return model, launches
+    set_inference_kernels(model, True, False)
+    plain = runs["plain"][0].float()
+    for name in ("FFN kernel", "FFN + tok + block kernels"):
+        out, launched = runs[name]
+        rel = ((out.float() - plain).norm() / plain.norm()).item()
+        agree = (out.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        log(f"main path ({name}): hg_logit {want_shape}, rel Frobenius vs "
+            f"the plain path {rel:.3e}, argmax agreement {agree:.3f}, "
+            f"launches (attention fwd, bwd, ffn, ffn train fwd, bwd, tok, "
+            f"block) {launched}")
+        if rel > 5e-2:
+            raise AssertionError(f"hg_logit ({name}) differs from the plain "
+                                 f"path by {rel}")
+    return model, runs["FFN + tok + block kernels"][1]
 
 
 def phase_throughput(model):
-    """clips/s at B=32, kernel and plain FFN in turns on the same weights."""
+    """clips/s at B=32 on the same weights, in turns: the FFN kernel
+    ("kernel"), no kernel ("plain"), and the FFN, tokenizer and bottleneck
+    kernels ("tok_block")."""
     batches = [entry.device_batch(model.cfg, BATCH_SIZE, seed)
                for seed in (0, 1)]
-    runs = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        set_ffn_kernel(model, name == "kernel")
+    runs = {"kernel": [], "plain": [], "tok_block": []}
+    for name in ("kernel", "plain", "tok_block", "tok_block", "plain",
+                 "kernel"):
+        set_inference_kernels(model, name != "plain", name == "tok_block")
         runs[name].append(clips_per_second(model, batches))
-    set_ffn_kernel(model, True)
+    set_inference_kernels(model, True, False)
     log(f"throughput b{BATCH_SIZE} clips/s: {json.dumps(runs)}")
     return {k: sum(v) / len(v) for k, v in runs.items()}
 
@@ -593,14 +771,18 @@ def reset_counts():
     fused_attention.bwd_launches = 0
     fused_ffn_train.launches = 0
     fused_ffn_train.bwd_launches = 0
+    fused_tok_conv.launches = 0
+    fused_bottleneck.launches = 0
 
 
 def counts():
     """(attention forward, attention backward, FFN, FFN train forward, FFN
-    train backward) launches since ``reset_counts``."""
+    train backward, tokenizer conv, bottleneck) launches since
+    ``reset_counts``."""
     return (fused_attention.launches, fused_attention.bwd_launches,
             fused_ffn.launches, fused_ffn_train.launches,
-            fused_ffn_train.bwd_launches)
+            fused_ffn_train.bwd_launches, fused_tok_conv.launches,
+            fused_bottleneck.launches)
 
 
 def grad_norm(params):
@@ -610,16 +792,21 @@ def grad_norm(params):
 
 
 def phase_train_main_path():
-    """entry.train_entry() at B=32: three train steps with every launch
-    count set to 0 just before each and read just after; the frozen and
+    """entry.train_entry() at B=32 with the tokenizer and bottleneck
+    switches on: three train steps with every launch count set to 0 just
+    before each and read just after (the tokenizer trains, so its kernel
+    stays off; the frozen trunk's 6 blocks take theirs); the frozen and
     disconnected parameters stay bit-identical, the trainable ones move;
     the eval step at B=2; then the kernel path against the plain path on
-    the same weights and batch with every dropout rate at 0."""
+    the same weights and batch with every dropout rate at 0.  Returns with
+    the two switches off again."""
     t0 = time.perf_counter()
     model, optimizer, generator, batch = entry.train_entry()
     cfg = model.cfg
     log(f"train main path: flagship model and optimizer built in "
         f"{time.perf_counter() - t0:.1f} s")
+    set_tok_kernel(model, True)
+    set_block_kernel(model, True)
     step = make_train_step(cfg, model, optimizer)
     trainable = {id(p) for p in optimizer.params}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -633,11 +820,12 @@ def phase_train_main_path():
         if not all(math.isfinite(v) for v in values.values()):
             raise AssertionError(f"train step {i}: non-finite {values}")
         log(f"train step {i}: launches (attention fwd, bwd, ffn, ffn train "
-            "fwd, bwd) "
+            "fwd, bwd, tok, block) "
             f"{step_counts[-1]}; {json.dumps(values)}")
-    if any(c != (38, 34, 0, 0, 0) for c in step_counts):
+    if any(c != (38, 34, 0, 0, 0, 0, 6) for c in step_counts):
         raise AssertionError(f"train step launches {step_counts}, expected "
-                             "38 attention forward, 34 backward, 0 FFN")
+                             "38 attention forward, 34 backward, 0 FFN, 0 "
+                             "tokenizer, 6 bottleneck")
     # A trainable tensor must move unless its last update is below f32
     # resolution everywhere: with random weights the gradients' global norm
     # is ~5e6, so the clip scales them by ~1e-6 and, with Adam's eps, the
@@ -674,9 +862,9 @@ def phase_train_main_path():
     preds = make_eval_step(cfg, model, with_hg_metrics=True)(eval_batch)
     torch.cuda.synchronize()
     eval_counts = counts()
-    if eval_counts != (0, 0, 18, 0, 0):
+    if eval_counts != (0, 0, 18, 0, 0, 2, 6):
         raise AssertionError(f"eval step launches {eval_counts}, expected 0 "
-                             "attention and 18 FFN")
+                             "attention, 18 FFN, 2 tokenizer, 6 bottleneck")
     log(f"eval step b2: launches {eval_counts}; rel/act class acc "
         f"{preds['rel_class_acc'].item():.2f} / "
         f"{preds['act_class_acc'].item():.2f}")
@@ -700,6 +888,8 @@ def phase_train_main_path():
     optimizer.zero_grad()
     set_attention_kernel(model, True)
     set_ffn_train_kernel(model, False)
+    set_tok_kernel(model, False)
+    set_block_kernel(model, False)
     for m, rate in rates.items():
         m.rate = rate
     for what, (name, ref) in (("attention", ("kernel", "plain")),
@@ -808,7 +998,8 @@ def phase_driver(tmp: str):
                            tmp]
     with _Counted() as counted:
         result, stdout, seconds = run_main(argv)
-    want_train, want_eval = (38, 34, 0, 18, 14), (0, 0, 18, 0, 0)
+    want_train = (38, 34, 0, 18, 14, 0, 0)
+    want_eval = (0, 0, 18, 0, 0, 0, 0)
     if len(counted.train) != 4 or any(c != want_train for c in counted.train):
         raise AssertionError(f"driver train steps launched {counted.train}, "
                              f"expected 4 x {want_train}")
@@ -823,7 +1014,8 @@ def phase_driver(tmp: str):
     epochs = [float(s) for s in re.findall(r"Epoch \d+: \d+ steps in "
                                            r"([\d.]+)s", stdout)]
     log(f"driver: {result['steps']} steps, launches per train step "
-        f"(attention fwd, bwd, ffn, ffn train fwd, bwd) {counted.train[0]}, "
+        f"(attention fwd, bwd, ffn, ffn train fwd, bwd, tok, block) "
+        f"{counted.train[0]}, "
         f"per eval forward {counted.eval[0]}; losses {counted.losses}; "
         f"epochs {epochs} s; history {result['history']}; files "
         f"{sorted(names)}; {seconds:.1f} s")
@@ -938,7 +1130,8 @@ def phase_plain_path_card_vs_cpu():
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("attention", "ffn_train"),
+    parser.add_argument("--only", choices=("attention", "ffn_train",
+                                           "tok_block"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -966,10 +1159,18 @@ def main(argv=None) -> int:
         _, train_err = phase_ffn_train_kernels()
         log(f"FFN train kernels ok; max errors {json.dumps(train_err)}")
         return 0
+    if args.only == "tok_block":
+        _, tok_err = phase_tok_kernel()
+        _, block_err = phase_block_kernel()
+        log(f"tokenizer conv and bottleneck kernels ok; max errors {tok_err}, "
+            f"{block_err}")
+        return 0
 
     rows, max_err = phase_ffn_kernel()
     attn_rows, attn_err = phase_attention_kernels()
     train_rows, train_err = phase_ffn_train_kernels()
+    tok_rows, tok_err = phase_tok_kernel()
+    block_rows, block_err = phase_block_kernel()
     model, launches = phase_main_path()
     cps = phase_throughput(model)
     del model
@@ -990,7 +1191,7 @@ def main(argv=None) -> int:
         "name": "fused_ffn", "route": "cuda",
         "source": "shgvqa_tpu_torch/csrc/ffn.cu",
         "replaces": "shgvqa_tpu/kernels/ffn.py:98",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches[2], "max_abs_err": max_err,
         "ms": per_forward(rows, bsz, "kernel_ms"),
         "plain_ms": per_forward(rows, bsz, "plain_ms"),
         "bound_ms": per_forward(rows, bsz, "bound_ms"),
@@ -1057,6 +1258,37 @@ def main(argv=None) -> int:
             "this block): " + ", ".join(
                 f"{k} {per_train_step(train_rows, b, (pre if k != 'wgrad_ms' else '') + k, backward):.3f} ms at b{b}"
                 for k in keys for b in (bsz, 2)))
+    kernels.append({
+        "name": "fused_tok_conv", "route": "cuda",
+        "source": "shgvqa_tpu_torch/csrc/tok_conv.cu",
+        "replaces": "tools/proto_tok_kernel.py:43",
+        "launches": launches[5], "max_abs_err": tok_err,
+        "ms": per_forward_tok(tok_rows, bsz, "kernel_ms"),
+        "plain_ms": per_forward_tok(tok_rows, bsz, "plain_ms"),
+        "bound_ms": per_forward_tok(tok_rows, bsz, "bound_ms"),
+        "bound_by": tok_rows[("conv1", bsz)]["bound_by"], "library_ms": None,
+    })
+    kernels.append({
+        "name": "fused_bottleneck", "route": "cuda",
+        "source": "shgvqa_tpu_torch/csrc/bottleneck.cu",
+        "replaces": "tools/proto_block_kernel.py:41",
+        "launches": launches[6], "max_abs_err": block_err,
+        "ms": per_forward_block(block_rows, bsz, "kernel_ms"),
+        "plain_ms": per_forward_block(block_rows, bsz, "plain_ms"),
+        "bound_ms": per_forward_block(block_rows, bsz, "bound_ms"),
+        "bound_by": block_rows[("res_2 blocks 1-2", bsz)]["bound_by"],
+        "library_ms": None,
+    })
+    for name, per, site_rows, n, yard in (
+            ("fused_tok_conv", per_forward_tok, tok_rows, launches[5],
+             "F.conv3d in bf16 + the port's gelu"),
+            ("fused_bottleneck", per_forward_block, block_rows, launches[6],
+             "the port's unfused bf16 Bottleneck3D")):
+        log(f"{name} per forward ({n} sites; yardstick: {yard}; no single "
+            "library call computes this function): " + ", ".join(
+                f"{k} {per(site_rows, b, k):.3f} ms at b{b}"
+                for k in ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms")
+                for b in (bsz, 2)))
     log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; driver epochs "
         f"{epoch_s} s")
     log(card)

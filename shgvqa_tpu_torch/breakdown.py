@@ -1,10 +1,12 @@
 """Where the time goes in one flagship forward (uint8 frames -> answer), or
 with ``--train`` one flagship train step, on the card.
 
-    python -m shgvqa_tpu_torch.breakdown [--plain-ffn | --train]
+    python -m shgvqa_tpu_torch.breakdown [--plain-ffn | --tok-block | --train]
 
 runs the flagship at B=32; ``--plain-ffn`` runs its FFN blocks unfused
-instead of through the kernel, for the A/B in PERF.md.  ``--train`` prints
+instead of through the kernel, for the A/B in PERF.md; ``--tok-block``
+also runs the tokenizer's convs and the trunk's 6 stride-1 blocks through
+their kernels (``set_tok_kernel``, ``set_block_kernel``).  ``--train`` prints
 the train step's time (host clock, after two warm-up steps), its split
 (``bench.train_split_ms``), the device kernels with the most time in one
 profiled step and the device busy share.
@@ -44,7 +46,9 @@ from shgvqa_tpu_torch.entry import (
     flagship_cfg,
     train_entry,
 )
+from shgvqa_tpu_torch.models.backbone import set_block_kernel
 from shgvqa_tpu_torch.models.layers import FFN
+from shgvqa_tpu_torch.models.visual import set_tok_kernel
 from shgvqa_tpu_torch.train.step import make_train_step
 
 
@@ -136,6 +140,8 @@ def main(argv=None) -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--plain-ffn", action="store_true",
                       help="run the FFN blocks unfused instead of the kernel")
+    mode.add_argument("--tok-block", action="store_true",
+                      help="also run the tokenizer and bottleneck kernels")
     mode.add_argument("--train", action="store_true",
                       help="break down one train step instead")
     args = ap.parse_args(argv)
@@ -144,6 +150,8 @@ def main(argv=None) -> None:
         return
     cfg = flagship_cfg().replace(use_pallas_ffn=not args.plain_ffn)
     model = build_model(cfg)
+    set_tok_kernel(model, args.tok_block)
+    set_block_kernel(model, args.tok_block)
     batch = device_batch(cfg, BATCH_SIZE)
     stages = stage_times(model, batch)
     with torch.inference_mode():
@@ -156,7 +164,8 @@ def main(argv=None) -> None:
         kernels, busy_ms = top_kernels(lambda: model(batch))
     print(json.dumps({
         "batch_size": BATCH_SIZE, "ffn": "plain" if args.plain_ffn
-        else "kernel", "forward_ms": forward_ms, "stages_ms": stages,
+        else "kernel", "tok_block": "kernel" if args.tok_block else "plain",
+        "forward_ms": forward_ms, "stages_ms": stages,
         "device_busy_ms": busy_ms, "busy_share": busy_ms / forward_ms,
         "top_kernels": kernels,
         "card": card_name_and_power_limit()}))

@@ -12,6 +12,13 @@ The public layout is the JAX one, (B, T, H, W, C) in and out.  Inside, the
 trunk runs on the NCDHW view of that tensor, which is ``channels_last_3d``
 in memory; move the module with ``.to(memory_format=torch.channels_last_3d)``
 on the card so cuDNN sees channels-last weights as well.
+
+A block of stride 1 and temporal kernel 1 (res_2 blocks 0-2 and res_3
+blocks 1-3: 6 of the 16) runs as one call of ``kernels.bottleneck``'s
+``fused_bottleneck`` on its frames when its ``use_kernel`` is set
+(``set_block_kernel``; off by default, as the JAX package has no such
+path); the other blocks always run on the convs.  The trunk is frozen and
+runs under ``torch.no_grad()`` in the model, which the kernel needs.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from shgvqa_tpu_torch.kernels.bottleneck import fused_bottleneck
 from shgvqa_tpu_torch.models.layers import Conv3d, empty_param
 
 
@@ -66,6 +74,8 @@ class Bottleneck3D(nn.Module):
                  spatial_stride: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         ss = spatial_stride
+        self.temporal_kernel, self.spatial_stride = temporal_kernel, ss
+        self.use_kernel = False
         self.conv_a = _conv(cin, mid, (temporal_kernel, 1, 1), (1, 1, 1), dtype)
         self.bn_a = FrozenBatchNorm(mid, dtype=dtype)
         self.conv_b = _conv(mid, mid, (1, 3, 3), (1, ss, ss), dtype)
@@ -78,11 +88,54 @@ class Bottleneck3D(nn.Module):
             self.bn_proj = FrozenBatchNorm(out, dtype=dtype)
 
     def forward(self, x):
+        if (self.use_kernel and self.temporal_kernel == 1
+                and self.spatial_stride == 1):
+            return self._fused(x)
         h = torch.relu(self.bn_a(self.conv_a(x)))
         h = torch.relu(self.bn_b(self.conv_b(h)))
         h = self.bn_c(self.conv_c(h))
         residual = self.bn_proj(self.conv_proj(x)) if self.has_proj else x
         return torch.relu(h + residual)
+
+    def kernel_operands(self):
+        """What ``fused_bottleneck`` takes after the frames: the conv
+        weights in the compute dtype without their unit dimensions and the
+        folded BN (scale, shift) pairs cast to it, as ``FrozenBatchNorm``
+        applies them; the projection as (weight, scale, shift) or None."""
+        dt = self.conv_a.dtype
+        mid, cin = self.conv_a.weight.shape[:2]
+        out = self.conv_c.weight.shape[0]
+
+        def folded(bn):
+            inv, shift = bn.fold()
+            return inv.to(dt), shift.to(dt)
+
+        proj = None
+        if self.has_proj:
+            proj = (self.conv_proj.weight.to(dt).reshape(out, cin),
+                    *folded(self.bn_proj))
+        return (self.conv_a.weight.to(dt).reshape(mid, cin),
+                *folded(self.bn_a), self.conv_b.weight.to(dt)[:, :, 0],
+                *folded(self.bn_b), self.conv_c.weight.to(dt).reshape(out, mid),
+                *folded(self.bn_c), proj)
+
+    def _fused(self, x):
+        """x (B, C, T, H, W) -> ``fused_bottleneck`` on its (B*T, H, W, C)
+        frames (a view when x is channels-last in memory) -> back."""
+        b, c, t, h, w = x.shape
+        frames = x.to(self.conv_a.dtype).permute(0, 2, 3, 4, 1)
+        y = fused_bottleneck(frames.reshape(b * t, h, w, c),
+                             *self.kernel_operands())
+        return y.reshape(b, t, h, w, -1).permute(0, 4, 1, 2, 3)
+
+
+def set_block_kernel(model: nn.Module, on: bool) -> None:
+    """Route every bottleneck block of ``model``'s trunk that the fused
+    kernel covers (stride 1, temporal kernel 1) through
+    ``fused_bottleneck`` (on) or the convs (off)."""
+    for m in model.modules():
+        if isinstance(m, Bottleneck3D):
+            m.use_kernel = on
 
 
 class ResStage(nn.Module):
