@@ -33,13 +33,31 @@ it exits non-zero before printing any result.
      within 2e-2 of max |plain|, the times of the kernel, the plain version
      and a yardstick (F.conv3d in bf16 + gelu; the unfused bf16
      Bottleneck3D) and the bound;
+   - the attention-output kernel (``csrc/out_ln.cu``) at every AttOutput
+     site's shape (M = B * L, L in 40, 177, 393) at B=2 and B=32 within
+     3e-2 * max(1, |ref|) of ``out_ln_reference`` (and its autograd
+     backward at a small shape), with the times of the kernel, the plain
+     version and the unfused yardstick (F.linear, add, F.layer_norm) and
+     the bound;
+   - the head-sliced attention kernel (``csrc/headsliced_attn.cu``) at
+     every attention site's shape at B=2 and B=32 within 2e-2 of max |ref|
+     of ``headsliced_reference`` and of the transpose path (the fused
+     attention forward on (B, H, L, 64) views of the same projections), with
+     the times of the kernel, the plain version, the transpose path and
+     SDPA with the same additive mask (timed only) and the bound; then the
+     prototype's own A/B (``tools/proto_headsliced_attn.py``): B=64, (40,
+     40), (393, 393), (128, 393), a 10% key mask, the max error between the
+     two paths and both times, one line per shape;
 4. main path: ``entry.entry()`` -- the flagship uint8 frames -> hg_logit
    forward at B=2 -- with every launch count set to 0 just before and read
-   just after: with the FFN kernel (18 launches), with no kernel, and with
-   the FFN, tokenizer and bottleneck kernels (18 + 2 + 6); each kernel
-   path's hg_logit against the plain one;
-5. throughput: clips/s at B=32 with the FFN kernel, with no kernel and
-   with the FFN, tokenizer and bottleneck kernels, in turns;
+   just after: with the FFN kernel (18 launches), with no kernel, with
+   the FFN, tokenizer and bottleneck kernels (18 + 2 + 6), with the FFN
+   and the attention forward at every site (``--pallasAttention``: 18 +
+   38), and with the FFN, out_ln and head-sliced kernels (18 + 18 + 38);
+   each kernel path's hg_logit against the plain one;
+5. throughput: clips/s at B=32 with the FFN kernel, with no kernel, with
+   the FFN, tokenizer and bottleneck kernels, with the FFN and attention
+   kernels, and with the FFN, out_ln and head-sliced kernels, in turns;
 6. train main path: ``entry.train_entry()`` -- three flagship train steps
    at B=32 with the tokenizer and bottleneck switches on -- with the
    launch counts set to 0 before each step and read after it (38
@@ -60,19 +78,25 @@ it exits non-zero before printing any result.
    backwards, 18 FFN train forwards, 14 backwards, 0 FFN per train step;
    18 FFN and nothing else per eval forward), finite losses, CURRENT and
    LAST written and LAST reloaded bit-equal; then ``--test`` from
-   ``--load LAST`` (oracle score 1.0, the predict files);
+   ``--load LAST`` (oracle score 1.0, the predict files), and again with
+   ``--pallasAttention`` (38 attention forwards and 18 FFN per eval
+   forward);
 9. the plain path, then two plain train steps, on the card against the
    CPU at tiny size in f32;
-10. the card line, one ``{"kernels": [...]}`` line, and last
-    ``{"ok": true, "device": {...}}``.
+10. the card line, one ``{"kernels": [...]}`` line (nine kernels), and
+    last ``{"ok": true, "device": {...}}``.
+
+Launch counts are read as a tuple of nine: (attention forward, attention
+backward, FFN, FFN train forward, FFN train backward, tokenizer conv,
+bottleneck, out_ln, head-sliced attention).
 
 TF32 is switched off for f32 matmuls and convolutions (phase 9 compares
 f32 results).  ``bound_ms`` is max(operations / 989 TFLOP/s bf16, bytes /
 3.35 TB/s): the H100 SXM's published dense peaks, each input read once and
 each output written once.  ``--only attention`` (``--only ffn_train``,
-``--only tok_block``) runs phases 1-2 and the attention (FFN train;
-tokenizer conv and bottleneck) checks of phase 3, and prints no result
-lines.
+``--only tok_block``, ``--only out_ln_headsliced``) runs phases 1-2 and the
+attention (FFN train; tokenizer conv and bottleneck; out_ln and head-sliced
+attention) checks of phase 3, and prints no result lines.
 """
 
 from __future__ import annotations
@@ -124,7 +148,13 @@ from shgvqa_tpu_torch.kernels.ffn import (
     ffn_train_reference,
     fused_ffn,
     fused_ffn_train,
+    fused_out_ln,
     keep_mask as ffn_keep_mask,
+    out_ln_reference,
+)
+from shgvqa_tpu_torch.kernels.headsliced import (
+    headsliced_attention,
+    headsliced_reference,
 )
 from shgvqa_tpu_torch.kernels.tok_conv import fused_tok_conv, tok_conv_reference
 from shgvqa_tpu_torch.models.backbone import Bottleneck3D, set_block_kernel
@@ -135,8 +165,11 @@ from shgvqa_tpu_torch.models.layers import (
     gelu,
     init_weights,
     set_attention_kernel,
+    set_attention_kernel_eval,
     set_dropout_rate,
     set_ffn_train_kernel,
+    set_headsliced_kernel,
+    set_out_ln_kernel,
 )
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
 from shgvqa_tpu_torch.train import loop
@@ -410,17 +443,18 @@ def per_train_step(rows, bsz, key, backward=False):
                for per_clip, nf, nb in FFN_TRAIN_SITES)
 
 
-def attention_bound(b, lq, lk, key, pane, backward: bool):
+def attention_bound(b, lq, lk, key, pane, backward: bool, lse: bool = True):
     """(ms, bound_by) of one call: 4 (forward) or 10 (backward) products of
     g*Lq*Lk*64 (the JAX cost estimates, attention.py:247 and :277) over the
     bf16 peak, against its bytes (bf16 operands and results, f32 masks and
-    logsumexp, each read or written once) over the memory rate."""
+    logsumexp -- none for the head-sliced kernel, ``lse=False`` -- each read
+    or written once) over the memory rate."""
     g, d = b * H, HEAD_DIM
     flops = (10 if backward else 4) * g * lq * lk * d
     operands = (2 * g * lq * d + 2 * g * lk * d) * 2        # q, o, k, v
     masks = (0 if key is None else b * lk * 4) + (0 if pane is None
                                                   else lq * lk * 4)
-    nbytes = operands + masks + g * lq * 4                  # + lse
+    nbytes = operands + masks + (g * lq * 4 if lse else 0)
     if backward:
         nbytes += (2 * g * lq * d + 2 * g * lk * d) * 2     # do, dq, dk, dv
     return bound_ms(flops, nbytes)
@@ -525,15 +559,7 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
 
             # times: kernel, plain version, SDPA with the same additive mask
             plain_out = attention_reference(qg, kg, vg, mask, rate, keep)
-            sdpa_mask = None
-            if mask is not None:
-                sdpa_mask = torch.zeros(bsz if key is not None else 1, 1, lq,
-                                        lk, device="cuda")
-                if key is not None:
-                    sdpa_mask = sdpa_mask + key[:, None, None, :]
-                if pane is not None:
-                    sdpa_mask = sdpa_mask + pane
-                sdpa_mask = sdpa_mask.to(torch.bfloat16)
+            sdpa_mask = sdpa_additive_mask(bsz, lq, lk, key, pane)
             sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, sdpa_mask)
             timed = dict(
                 kernel_ms=time_ms(lambda: fused_attention(q, k, v, mask,
@@ -562,6 +588,19 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
                 bwd_bound_by=bwd_bound_by, **timed)
             log(f"fused_attention {json.dumps(rows[(name, bsz)])}")
     return rows, max_err
+
+
+def sdpa_additive_mask(bsz, lq, lk, key, pane):
+    """The decomposed masks as one bf16 additive mask for SDPA, or None."""
+    if key is None and pane is None:
+        return None
+    mask = torch.zeros(bsz if key is not None else 1, 1, lq, lk,
+                       device="cuda")
+    if key is not None:
+        mask = mask + key[:, None, None, :]
+    if pane is not None:
+        mask = mask + pane
+    return mask.to(torch.bfloat16)
 
 
 def per_step(rows, bsz, key, backward=False):
@@ -693,24 +732,199 @@ def per_forward_block(rows, bsz, key):
                for site, *_, n in BLOCK_SITES)
 
 
+def out_ln_operands(m: int, d: int = D, seed: int = 0):
+    """bf16 x (M, D), W (D, D) in nn.Linear layout, f32 b, bf16 residual
+    (M, D), f32 gamma, beta."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    return (randn(m, d).to(torch.bfloat16),
+            (0.02 * randn(d, d)).to(torch.bfloat16), 0.02 * randn(d),
+            randn(m, d).to(torch.bfloat16), 1.0 + 0.1 * randn(d),
+            0.1 * randn(d))
+
+
+def out_ln_bound(m: int, d: int = D):
+    """(ms, bound_by) of one call: 2*M*D*D operations over the bf16 peak
+    against x, residual, y (M, D) and W (D, D) in bf16 and b, gamma, beta in
+    f32 over the memory rate (the JAX cost estimate, ffn.py:519-523, plus
+    the vectors)."""
+    return bound_ms(2 * m * d * d, (3 * m * d + d * d) * 2 + 3 * d * 4)
+
+
+def phase_out_ln_kernel(batch_sizes=(2, BATCH_SIZE)):
+    """The attention-output kernel against out_ln_reference at every
+    AttOutput site's shape (the FFN sites' rows, bf16), its autograd
+    backward at a small shape, and the times of the kernel, the plain
+    version and the unfused yardstick (F.linear, add, F.layer_norm in
+    bf16)."""
+    rows, max_err = {}, 0.0
+    with torch.inference_mode():
+        for bsz in batch_sizes:
+            for per_clip, _ in FFN_SITES:
+                m = per_clip * bsz
+                args = out_ln_operands(m, seed=2000 + m)
+                err = check_close(f"fused_out_ln M={m}", fused_out_ln(*args),
+                                  out_ln_reference(*args))
+                max_err = max(max_err, err)
+                x, w, b, res, gamma, beta = args
+                bound, bound_by = out_ln_bound(m)
+                rows[m] = dict(
+                    M=m, kernel_ms=time_ms(lambda: fused_out_ln(*args)),
+                    plain_ms=time_ms(lambda: out_ln_reference(*args)),
+                    yardstick_ms=time_ms(lambda: F.layer_norm(
+                        F.linear(x, w, b.to(x.dtype)) + res, (D,),
+                        gamma.to(x.dtype), beta.to(x.dtype), 1e-12)),
+                    bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+                log(f"fused_out_ln {json.dumps(rows[m])}")
+    ops = [a.detach().requires_grad_(True)
+           for a in out_ln_operands(64, 128, seed=9)]
+    grads = torch.autograd.grad((fused_out_ln(*ops).float() ** 2).sum(), ops)
+    refs = torch.autograd.grad((out_ln_reference(*ops).float() ** 2).sum(),
+                               ops)
+    for i, (g, r) in enumerate(zip(grads, refs)):
+        check_close(f"fused_out_ln backward grad {i}", g, r)
+    log("fused_out_ln backward ok (M=64, D=128)")
+    return rows, max_err
+
+
+def split_heads(x2):
+    """(B, L, H*64) -> its (B, H, L, 64) view."""
+    b, length, _ = x2.shape
+    return x2.view(b, length, H, HEAD_DIM).transpose(1, 2)
+
+
+def transpose_path(q2, k2, v2, mask):
+    """The model's attention core before the head-sliced kernel: the fused
+    attention forward at rate 0 on (B, H, L, 64) views of the projections,
+    its output back to (B, Lq, H*64)."""
+    b, lq, _ = q2.shape
+    out = fused_attention(split_heads(q2), split_heads(k2), split_heads(v2),
+                          mask)
+    return out.transpose(1, 2).reshape(b, lq, D)
+
+
+def phase_headsliced_kernel(batch_sizes=(2, BATCH_SIZE)):
+    """The head-sliced attention kernel against headsliced_reference and
+    the transpose path at every attention site's shape (bf16 (B, L, 768)
+    projections, the site's mask), and the times of the kernel, the plain
+    version, the transpose path and SDPA with the same additive mask."""
+    rows, max_err = {}, 0.0
+    with torch.inference_mode():
+        for bsz in batch_sizes:
+            for i, (name, lq, lk, kind, *_) in enumerate(ATTN_SITES):
+                q, k, v, mask = attention_operands(bsz, lq, lk, kind, 300 + i)
+                q2, k2, v2 = (x.transpose(1, 2).reshape(bsz, -1, D)
+                              for x in (q, k, v))
+                key, pane = decompose_mask(mask, bsz, H, lq, lk)
+                tag = f"{name} b{bsz} ({lq}, {lk})"
+                out = headsliced_attention(q2, k2, v2, mask, H)
+                err, rel = rel_max_err(
+                    f"headsliced {tag}", out, headsliced_reference(
+                        q2, k2, v2, key, pane, heads=H), ATTN_TOL)
+                err_t, rel_t = rel_max_err(
+                    f"headsliced vs transpose path {tag}", out,
+                    transpose_path(q2, k2, v2, mask), ATTN_TOL)
+                max_err = max(max_err, err)
+                sdpa_mask = sdpa_additive_mask(bsz, lq, lk, key, pane)
+                bound, bound_by = attention_bound(bsz, lq, lk, key, pane,
+                                                  False, lse=False)
+                rows[(name, bsz)] = dict(
+                    site=name, B=bsz, Lq=lq, Lk=lk, mask=kind,
+                    max_abs_err=err, rel_err=rel,
+                    max_abs_err_vs_transpose=err_t, rel_err_vs_transpose=rel_t,
+                    bound_ms=bound, bound_by=bound_by,
+                    kernel_ms=time_ms(lambda: headsliced_attention(
+                        q2, k2, v2, mask, H)),
+                    plain_ms=time_ms(lambda: headsliced_reference(
+                        q2, k2, v2, key, pane, heads=H)),
+                    transpose_ms=time_ms(lambda: transpose_path(
+                        q2, k2, v2, mask)),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, sdpa_mask)))
+                log(f"headsliced_attention {json.dumps(rows[(name, bsz)])}")
+    return rows, max_err
+
+
+def phase_headsliced_ab(b=64, shapes=((40, 40), (393, 393), (128, 393))):
+    """tools/proto_headsliced_attn.py's A/B on the card: the head-sliced
+    kernel against the transpose path at B=64 with a 10% key mask of
+    -10000, one line per shape."""
+    with torch.inference_mode():
+        for lq, lk in shapes:
+            g = torch.Generator(device="cuda").manual_seed(lq * 1000 + lk)
+            q2, k2, v2 = (torch.randn(b, n, D, generator=g, device="cuda").to(
+                torch.bfloat16) for n in (lq, lk, lk))
+            mask = torch.where(
+                torch.rand(b, 1, 1, lk, generator=g, device="cuda") < 0.1,
+                -10000.0, 0.0)
+            tag = f"b{b} h{H} {lq}x{lk} d{HEAD_DIM}"
+            err, _ = rel_max_err(f"headsliced A/B {tag}",
+                                 headsliced_attention(q2, k2, v2, mask, H),
+                                 transpose_path(q2, k2, v2, mask), ATTN_TOL)
+            hs_ms = time_ms(lambda: headsliced_attention(q2, k2, v2, mask, H))
+            tr_ms = time_ms(lambda: transpose_path(q2, k2, v2, mask))
+            log("headsliced A/B " + json.dumps(dict(
+                shape=tag, max_err_vs_transpose_path=err, headsliced_ms=hs_ms,
+                transpose_path_ms=tr_ms, speedup=tr_ms / hs_ms)))
+
+
+def per_forward_attn(rows, bsz, key):
+    """Sum over the attention sites of one inference forward of ``key``."""
+    return sum(nf * rows[(name, bsz)][key]
+               for name, _, _, _, _, nf, _ in ATTN_SITES)
+
+
 def set_ffn_kernel(model, on: bool) -> None:
     for m in model.modules():
         if isinstance(m, FFN):
             m.use_kernel = on
 
 
-def set_inference_kernels(model, ffn: bool, tok_block: bool) -> None:
-    """The FFN kernel, and the tokenizer and bottleneck kernels, on or off."""
+def set_inference_kernels(model, ffn: bool, tok_block: bool = False,
+                          attention: bool = False,
+                          out_ln_headsliced: bool = False) -> None:
+    """The FFN kernel; the tokenizer and bottleneck kernels; the attention
+    forward at every site (``--pallasAttention``); the out_ln and
+    head-sliced kernels: each on or off."""
     set_ffn_kernel(model, ffn)
     set_tok_kernel(model, tok_block)
     set_block_kernel(model, tok_block)
+    set_attention_kernel_eval(model, attention)
+    set_out_ln_kernel(model, out_ln_headsliced)
+    set_headsliced_kernel(model, out_ln_headsliced)
+
+
+# inference modes of phases 4 and 5: name -> set_inference_kernels keywords
+MODES = {
+    "kernel": dict(ffn=True),
+    "plain": dict(ffn=False),
+    "tok_block": dict(ffn=True, tok_block=True),
+    "attention": dict(ffn=True, attention=True),
+    "out_ln_headsliced": dict(ffn=True, out_ln_headsliced=True),
+}
+
+
+# phase 4's forwards: (name, mode, launches per B=2 forward)
+MAIN_RUNS = (
+    ("FFN kernel", "kernel", (0, 0, 18, 0, 0, 0, 0, 0, 0)),
+    ("plain", "plain", (0,) * 9),
+    ("FFN + tok + block kernels", "tok_block", (0, 0, 18, 0, 0, 2, 6, 0, 0)),
+    ("FFN + attention kernels", "attention", (38, 0, 18, 0, 0, 0, 0, 0, 0)),
+    ("FFN + out_ln + headsliced", "out_ln_headsliced",
+     (0, 0, 18, 0, 0, 0, 0, 18, 38)),
+)
 
 
 def phase_main_path():
-    """entry.entry() at B=2 with launch counts from 0: with the FFN kernel
-    (the default), then the same weights with every kernel off, then with
-    the FFN, tokenizer and bottleneck kernels; each kernel path's hg_logit
-    against the plain one."""
+    """entry.entry() at B=2 with launch counts from 0, on the same weights:
+    with the FFN kernel (the default), with every kernel off, with the FFN,
+    tokenizer and bottleneck kernels, with the FFN kernel and the attention
+    forward at every site (``--pallasAttention``), and with the FFN, out_ln
+    and head-sliced kernels; each kernel path's hg_logit against the plain
+    one.  Returns the model and each run's launch counts."""
     t0 = time.perf_counter()
     fn, args = entry.entry()
     log(f"main path: flagship model built in {time.perf_counter() - t0:.1f} s")
@@ -718,11 +932,8 @@ def phase_main_path():
     cfg = model.cfg
     want_shape = (batch["frames"].shape[0], cfg.num_answers)
     runs = {}
-    for name, ffn, tok_block, want in (
-            ("FFN kernel", True, False, (0, 0, 18, 0, 0, 0, 0)),
-            ("plain", False, False, (0,) * 7),
-            ("FFN + tok + block kernels", True, True, (0, 0, 18, 0, 0, 2, 6))):
-        set_inference_kernels(model, ffn, tok_block)
+    for name, mode, want in MAIN_RUNS:
+        set_inference_kernels(model, **MODES[mode])
         reset_counts()
         y = fn(*args)
         torch.cuda.synchronize()
@@ -733,36 +944,42 @@ def phase_main_path():
         if tuple(y.shape) != want_shape or not torch.isfinite(y).all():
             raise AssertionError(f"hg_logit ({name}) shape {tuple(y.shape)} "
                                  f"or non-finite values")
-    set_inference_kernels(model, True, False)
+    set_inference_kernels(model, **MODES["kernel"])
     plain = runs["plain"][0].float()
-    for name in ("FFN kernel", "FFN + tok + block kernels"):
+    for name, _, _ in MAIN_RUNS:
+        if name == "plain":
+            continue
         out, launched = runs[name]
         rel = ((out.float() - plain).norm() / plain.norm()).item()
         agree = (out.argmax(-1) == plain.argmax(-1)).float().mean().item()
         log(f"main path ({name}): hg_logit {want_shape}, rel Frobenius vs "
             f"the plain path {rel:.3e}, argmax agreement {agree:.3f}, "
-            f"launches (attention fwd, bwd, ffn, ffn train fwd, bwd, tok, "
-            f"block) {launched}")
+            f"launches ({COUNT_NAMES}) {launched}")
         if rel > 5e-2:
             raise AssertionError(f"hg_logit ({name}) differs from the plain "
                                  f"path by {rel}")
-    return model, runs["FFN + tok + block kernels"][1]
+    return model, {name: launched for name, (_, launched) in runs.items()}
 
 
 def phase_throughput(model):
     """clips/s at B=32 on the same weights, in turns: the FFN kernel
-    ("kernel"), no kernel ("plain"), and the FFN, tokenizer and bottleneck
-    kernels ("tok_block")."""
+    ("kernel"), no kernel ("plain"), the FFN, tokenizer and bottleneck
+    kernels ("tok_block"), the FFN and attention kernels ("attention") and
+    the FFN, out_ln and head-sliced kernels ("out_ln_headsliced")."""
     batches = [entry.device_batch(model.cfg, BATCH_SIZE, seed)
                for seed in (0, 1)]
-    runs = {"kernel": [], "plain": [], "tok_block": []}
-    for name in ("kernel", "plain", "tok_block", "tok_block", "plain",
-                 "kernel"):
-        set_inference_kernels(model, name != "plain", name == "tok_block")
+    order = ("kernel", "plain", "tok_block", "attention", "out_ln_headsliced")
+    runs = {name: [] for name in order}
+    for name in order + order[::-1]:
+        set_inference_kernels(model, **MODES[name])
         runs[name].append(clips_per_second(model, batches))
-    set_inference_kernels(model, True, False)
+    set_inference_kernels(model, **MODES["kernel"])
     log(f"throughput b{BATCH_SIZE} clips/s: {json.dumps(runs)}")
     return {k: sum(v) / len(v) for k, v in runs.items()}
+
+
+COUNT_NAMES = ("attention fwd, bwd, ffn, ffn train fwd, bwd, tok, block, "
+               "out_ln, headsliced")
 
 
 def reset_counts():
@@ -773,16 +990,19 @@ def reset_counts():
     fused_ffn_train.bwd_launches = 0
     fused_tok_conv.launches = 0
     fused_bottleneck.launches = 0
+    fused_out_ln.launches = 0
+    headsliced_attention.launches = 0
 
 
 def counts():
     """(attention forward, attention backward, FFN, FFN train forward, FFN
-    train backward, tokenizer conv, bottleneck) launches since
-    ``reset_counts``."""
+    train backward, tokenizer conv, bottleneck, out_ln, head-sliced
+    attention) launches since ``reset_counts``."""
     return (fused_attention.launches, fused_attention.bwd_launches,
             fused_ffn.launches, fused_ffn_train.launches,
             fused_ffn_train.bwd_launches, fused_tok_conv.launches,
-            fused_bottleneck.launches)
+            fused_bottleneck.launches, fused_out_ln.launches,
+            headsliced_attention.launches)
 
 
 def grad_norm(params):
@@ -819,10 +1039,9 @@ def phase_train_main_path():
         values = {k: v.item() for k, v in metrics.items()}
         if not all(math.isfinite(v) for v in values.values()):
             raise AssertionError(f"train step {i}: non-finite {values}")
-        log(f"train step {i}: launches (attention fwd, bwd, ffn, ffn train "
-            "fwd, bwd, tok, block) "
+        log(f"train step {i}: launches ({COUNT_NAMES}) "
             f"{step_counts[-1]}; {json.dumps(values)}")
-    if any(c != (38, 34, 0, 0, 0, 0, 6) for c in step_counts):
+    if any(c != (38, 34, 0, 0, 0, 0, 6, 0, 0) for c in step_counts):
         raise AssertionError(f"train step launches {step_counts}, expected "
                              "38 attention forward, 34 backward, 0 FFN, 0 "
                              "tokenizer, 6 bottleneck")
@@ -862,7 +1081,7 @@ def phase_train_main_path():
     preds = make_eval_step(cfg, model, with_hg_metrics=True)(eval_batch)
     torch.cuda.synchronize()
     eval_counts = counts()
-    if eval_counts != (0, 0, 18, 0, 0, 2, 6):
+    if eval_counts != (0, 0, 18, 0, 0, 2, 6, 0, 0):
         raise AssertionError(f"eval step launches {eval_counts}, expected 0 "
                              "attention, 18 FFN, 2 tokenizer, 6 bottleneck")
     log(f"eval step b2: launches {eval_counts}; rel/act class acc "
@@ -998,8 +1217,8 @@ def phase_driver(tmp: str):
                            tmp]
     with _Counted() as counted:
         result, stdout, seconds = run_main(argv)
-    want_train = (38, 34, 0, 18, 14, 0, 0)
-    want_eval = (0, 0, 18, 0, 0, 0, 0)
+    want_train = (38, 34, 0, 18, 14, 0, 0, 0, 0)
+    want_eval = (0, 0, 18, 0, 0, 0, 0, 0, 0)
     if len(counted.train) != 4 or any(c != want_train for c in counted.train):
         raise AssertionError(f"driver train steps launched {counted.train}, "
                              f"expected 4 x {want_train}")
@@ -1014,8 +1233,7 @@ def phase_driver(tmp: str):
     epochs = [float(s) for s in re.findall(r"Epoch \d+: \d+ steps in "
                                            r"([\d.]+)s", stdout)]
     log(f"driver: {result['steps']} steps, launches per train step "
-        f"(attention fwd, bwd, ffn, ffn train fwd, bwd, tok, block) "
-        f"{counted.train[0]}, "
+        f"({COUNT_NAMES}) {counted.train[0]}, "
         f"per eval forward {counted.eval[0]}; losses {counted.losses}; "
         f"epochs {epochs} s; history {result['history']}; files "
         f"{sorted(names)}; {seconds:.1f} s")
@@ -1035,21 +1253,29 @@ def phase_driver(tmp: str):
     torch.cuda.empty_cache()
     log("driver: LAST reloads bit-equal")
 
-    test_out = os.path.join(tmp, "test")
-    argv_test = [a if a != out else test_out for a in argv] + [
-        "--test", "test", "--load", os.path.join(out, "LAST")]
-    with _Counted() as counted:
-        result, stdout, seconds = run_main(argv_test)
-    if "Oracle score: 1.0000" not in stdout:
-        raise AssertionError("the test protocol's oracle score is not 1.0")
-    if len(counted.eval) != 4 or any(c != want_eval for c in counted.eval):
-        raise AssertionError(f"test forwards launched {counted.eval}")
-    for name in ("predict.json", "predict_hg.json"):
-        with open(os.path.join(test_out, name)) as f:
-            if len(json.load(f)) != 32:
-                raise AssertionError(f"{name} does not hold 32 answers")
-    log(f"driver --test: oracle 1.0, predict files of 32 answers, "
-        f"{seconds:.1f} s")
+    # the test protocol from LAST, then again with --pallasAttention (the
+    # attention forward kernel at every site of each eval forward)
+    for extra, want in (([], want_eval),
+                        (["--pallasAttention"],
+                         (38, 0, 18, 0, 0, 0, 0, 0, 0))):
+        test_out = os.path.join(tmp, "test" + "".join(extra))
+        argv_test = [a if a != out else test_out for a in argv] + [
+            "--test", "test", "--load", os.path.join(out, "LAST")] + extra
+        with _Counted() as counted:
+            result, stdout, seconds = run_main(argv_test)
+        if "Oracle score: 1.0000" not in stdout:
+            raise AssertionError(f"the test protocol's oracle score {extra} "
+                                 "is not 1.0")
+        if len(counted.eval) != 4 or any(c != want for c in counted.eval):
+            raise AssertionError(f"test forwards {extra} launched "
+                                 f"{counted.eval}, expected 4 x {want}")
+        for name in ("predict.json", "predict_hg.json"):
+            with open(os.path.join(test_out, name)) as f:
+                if len(json.load(f)) != 32:
+                    raise AssertionError(f"{name} does not hold 32 answers")
+        log(f"driver --test {' '.join(extra)}: oracle 1.0, predict files of "
+            f"32 answers, launches per eval forward {counted.eval[0]}, "
+            f"{seconds:.1f} s")
     return train_counts, epochs
 
 
@@ -1131,7 +1357,7 @@ def phase_plain_path_card_vs_cpu():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn_train",
-                                           "tok_block"),
+                                           "tok_block", "out_ln_headsliced"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -1165,13 +1391,25 @@ def main(argv=None) -> int:
         log(f"tokenizer conv and bottleneck kernels ok; max errors {tok_err}, "
             f"{block_err}")
         return 0
+    if args.only == "out_ln_headsliced":
+        _, out_ln_err = phase_out_ln_kernel()
+        _, hs_err = phase_headsliced_kernel()
+        phase_headsliced_ab()
+        log(f"out_ln and head-sliced attention kernels ok; max errors "
+            f"{out_ln_err}, {hs_err}")
+        return 0
 
     rows, max_err = phase_ffn_kernel()
     attn_rows, attn_err = phase_attention_kernels()
     train_rows, train_err = phase_ffn_train_kernels()
     tok_rows, tok_err = phase_tok_kernel()
     block_rows, block_err = phase_block_kernel()
-    model, launches = phase_main_path()
+    out_ln_rows, out_ln_err = phase_out_ln_kernel()
+    hs_rows, hs_err = phase_headsliced_kernel()
+    phase_headsliced_ab()
+    model, main_launches = phase_main_path()
+    launches = main_launches["FFN + tok + block kernels"]
+    olhs_launches = main_launches["FFN + out_ln + headsliced"]
     cps = phase_throughput(model)
     del model
     train_model, optimizer, generator, batch, train_launches = (
@@ -1289,6 +1527,45 @@ def main(argv=None) -> int:
                 f"{k} {per(site_rows, b, k):.3f} ms at b{b}"
                 for k in ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms")
                 for b in (bsz, 2)))
+    widest = max(FFN_SITES,
+                 key=lambda s: s[1] * out_ln_rows[s[0] * bsz]["bound_ms"])
+    kernels.append({
+        "name": "fused_out_ln", "route": "cuda",
+        "source": "shgvqa_tpu_torch/csrc/out_ln.cu",
+        "replaces": "shgvqa_tpu/kernels/ffn.py:479",
+        "launches": olhs_launches[7], "max_abs_err": out_ln_err,
+        "ms": per_forward(out_ln_rows, bsz, "kernel_ms"),
+        "plain_ms": per_forward(out_ln_rows, bsz, "plain_ms"),
+        "bound_ms": per_forward(out_ln_rows, bsz, "bound_ms"),
+        "bound_by": out_ln_rows[widest[0] * bsz]["bound_by"],
+        "library_ms": None,
+    })
+    log(f"fused_out_ln per forward ({olhs_launches[7]} sites; yardstick: "
+        "F.linear + add + F.layer_norm in bf16; no single library call "
+        "computes this function): " + ", ".join(
+            f"{k} {per_forward(out_ln_rows, b, k):.3f} ms at b{b}"
+            for k in ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms")
+            for b in (bsz, 2)))
+    widest = max(ATTN_SITES,
+                 key=lambda s: s[5] * hs_rows[(s[0], bsz)]["bound_ms"])
+    kernels.append({
+        "name": "headsliced_attention", "route": "cuda",
+        "source": "shgvqa_tpu_torch/csrc/headsliced_attn.cu",
+        "replaces": "tools/proto_headsliced_attn.py:41",
+        "launches": olhs_launches[8], "max_abs_err": hs_err,
+        "ms": per_forward_attn(hs_rows, bsz, "kernel_ms"),
+        "plain_ms": per_forward_attn(hs_rows, bsz, "plain_ms"),
+        "bound_ms": per_forward_attn(hs_rows, bsz, "bound_ms"),
+        "bound_by": hs_rows[(widest[0], bsz)]["bound_by"],
+        "library_ms": per_forward_attn(hs_rows, bsz, "library_ms"),
+    })
+    log(f"headsliced_attention per forward ({olhs_launches[8]} sites; "
+        "library: SDPA with the same additive mask; transpose: the fused "
+        "attention forward on (B, H, L, 64) views): " + ", ".join(
+            f"{k} {per_forward_attn(hs_rows, b, k):.3f} ms at b{b}"
+            for k in ("kernel_ms", "plain_ms", "transpose_ms", "library_ms",
+                      "bound_ms")
+            for b in (bsz, 2)))
     log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; driver epochs "
         f"{epoch_s} s")
     log(card)

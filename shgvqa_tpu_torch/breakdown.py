@@ -1,12 +1,18 @@
 """Where the time goes in one flagship forward (uint8 frames -> answer), or
 with ``--train`` one flagship train step, on the card.
 
-    python -m shgvqa_tpu_torch.breakdown [--plain-ffn | --tok-block | --train]
+    python -m shgvqa_tpu_torch.breakdown [--plain-ffn | --tok-block |
+        --attention | --out-ln-headsliced | --train]
 
 runs the flagship at B=32; ``--plain-ffn`` runs its FFN blocks unfused
 instead of through the kernel, for the A/B in PERF.md; ``--tok-block``
 also runs the tokenizer's convs and the trunk's 6 stride-1 blocks through
-their kernels (``set_tok_kernel``, ``set_block_kernel``).  ``--train`` prints
+their kernels (``set_tok_kernel``, ``set_block_kernel``); ``--attention``
+runs every attention site through the fused attention forward
+(``use_pallas_attention``, ``--pallasAttention``); ``--out-ln-headsliced``
+runs every AttOutput through ``fused_out_ln`` and every attention site
+through the head-sliced kernel (``set_out_ln_kernel``,
+``set_headsliced_kernel``).  ``--train`` prints
 the train step's time (host clock, after two warm-up steps), its split
 (``bench.train_split_ms``), the device kernels with the most time in one
 profiled step and the device busy share.
@@ -15,7 +21,9 @@ Without ``--train``, the line has:
 
 - ``stages_ms``: device time of each stage of the model, from CUDA events
   recorded by forward hooks around the stage's modules (mean over five
-  forwards); ``ffn sites`` sums the FFN blocks inside the other stages;
+  forwards); ``ffn sites``, ``attention sites`` (the attention cores with
+  their q/k/v projections) and ``att output sites`` sum those blocks inside
+  the other stages;
 - ``forward_ms``: host-clock time of one forward up to synchronize;
 - ``top_kernels``: the device kernels with the most time in one profiled
   forward (torch.profiler), and ``busy_share``: the summed device time of
@@ -47,7 +55,14 @@ from shgvqa_tpu_torch.entry import (
     train_entry,
 )
 from shgvqa_tpu_torch.models.backbone import set_block_kernel
-from shgvqa_tpu_torch.models.layers import FFN
+from shgvqa_tpu_torch.models.decoder import TorchMHA
+from shgvqa_tpu_torch.models.layers import (
+    FFN,
+    Attention,
+    AttOutput,
+    set_headsliced_kernel,
+    set_out_ln_kernel,
+)
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
 from shgvqa_tpu_torch.train.step import make_train_step
 
@@ -64,7 +79,10 @@ def _stages(model):
               ("hg cross encoder", model.head.hgq_encoder)]
     stages += [("language layers", getattr(enc, n)) for n in enc.l_names]
     stages += [("visual layers", getattr(enc, n)) for n in enc.r_names]
-    stages += [("ffn sites", m) for m in model.modules() if isinstance(m, FFN)]
+    for name, kinds in (("ffn sites", FFN),
+                        ("attention sites", (Attention, TorchMHA)),
+                        ("att output sites", AttOutput)):
+        stages += [(name, m) for m in model.modules() if isinstance(m, kinds)]
     return stages
 
 
@@ -142,16 +160,25 @@ def main(argv=None) -> None:
                       help="run the FFN blocks unfused instead of the kernel")
     mode.add_argument("--tok-block", action="store_true",
                       help="also run the tokenizer and bottleneck kernels")
+    mode.add_argument("--attention", action="store_true",
+                      help="also run the attention forward kernel at every "
+                           "site (--pallasAttention)")
+    mode.add_argument("--out-ln-headsliced", action="store_true",
+                      help="also run the out_ln and head-sliced attention "
+                           "kernels")
     mode.add_argument("--train", action="store_true",
                       help="break down one train step instead")
     args = ap.parse_args(argv)
     if args.train:
         print(json.dumps(train_breakdown()))
         return
-    cfg = flagship_cfg().replace(use_pallas_ffn=not args.plain_ffn)
+    cfg = flagship_cfg().replace(use_pallas_ffn=not args.plain_ffn,
+                                 use_pallas_attention=args.attention)
     model = build_model(cfg)
     set_tok_kernel(model, args.tok_block)
     set_block_kernel(model, args.tok_block)
+    set_out_ln_kernel(model, args.out_ln_headsliced)
+    set_headsliced_kernel(model, args.out_ln_headsliced)
     batch = device_batch(cfg, BATCH_SIZE)
     stages = stage_times(model, batch)
     with torch.inference_mode():
@@ -165,6 +192,9 @@ def main(argv=None) -> None:
     print(json.dumps({
         "batch_size": BATCH_SIZE, "ffn": "plain" if args.plain_ffn
         else "kernel", "tok_block": "kernel" if args.tok_block else "plain",
+        "attention": "kernel" if args.attention else "plain",
+        "out_ln_headsliced": ("kernel" if args.out_ln_headsliced
+                              else "plain"),
         "forward_ms": forward_ms, "stages_ms": stages,
         "device_busy_ms": busy_ms, "busy_share": busy_ms / forward_ms,
         "top_kernels": kernels,

@@ -284,8 +284,6 @@ _UNPORTED = (
     ("after_cross_attn_feats", False, "15 (--afterCrossAttnFeats)"),
     ("output_attention", False, "15 (--outputAttn)"),
     ("remat", False, "19 (remat policies)"),
-    ("use_pallas_attention", False,
-     "15 (the attention kernels at inference sites)"),
 )
 
 # options only training reads

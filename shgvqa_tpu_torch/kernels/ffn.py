@@ -40,6 +40,19 @@ LayerNorm around the products.  The ``.cu`` files describe their design.
   tile heights, because it is keyed on (seed, row, column).
 
 Weights come in ``nn.Linear`` layout: ``w1t`` is (F, D), ``w2t`` is (D, F).
+
+The attention-output block ``y = LN(x W^T + b + residual) * gamma + beta``
+replaces ``_make_out_ln`` there (behind the JAX ``fused_out_ln``) with the
+kernel of ``csrc/out_ln.cu``:
+
+- ``out_ln_reference`` is its plain version, with the semantics of the JAX
+  ``_out_ln_reference``: the product of the given operands accumulated in
+  f32 and not rounded, the f32 bias and the residual added in f32,
+  two-pass LayerNorm in f32, cast to x's dtype.
+- ``fused_out_ln`` runs the plain version for a tensor on the CPU and the
+  kernel for a CUDA tensor (launch or raise); ``fused_out_ln.launches``
+  counts the launches.  Its backward recomputes through autograd of the
+  plain version, as the JAX custom VJP does.
 """
 
 from __future__ import annotations
@@ -414,3 +427,111 @@ def keep_mask(seed: torch.Tensor, m: int, d: int, rate: float) -> torch.Tensor:
             _stream(seed.device))
     _raise_on(err, "fused_ffn_train keep_mask")
     return out.bool()
+
+
+# ---------------------------------------------------------------------------
+# Attention output: csrc/out_ln.cu
+
+
+def out_ln_reference(x2, w, b, res2, gamma, beta, eps: float = 1e-12):
+    """Plain version: x2, res2 (M, D); w (D, D) in nn.Linear layout; b,
+    gamma, beta f32.  Returns LN(x2 w^T + b + res2) (M, D) in x2's dtype."""
+    o = torch.matmul(x2.float(), w.float().t()) + b.float()
+    xhat, _ = _normalize(o + res2.float(), eps)
+    return (xhat * gamma.float() + beta.float()).to(x2.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _out_ln_lib() -> ctypes.CDLL:
+    """The built ``csrc/out_ln.cu`` with its C signatures declared."""
+    lib = _build.load("out_ln")
+    lib.shgvqa_out_ln_bf16.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.shgvqa_out_ln_bf16.restype = ctypes.c_int
+    lib.shgvqa_out_ln_max_d.argtypes = []
+    lib.shgvqa_out_ln_max_d.restype = ctypes.c_int
+    lib.shgvqa_out_ln_error_string.argtypes = [ctypes.c_int]
+    lib.shgvqa_out_ln_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_out_ln(x2, w, b, res2, gamma, beta, eps):
+    """One launch of the CUDA kernel on the current stream."""
+    m, d = x2.shape
+    what = "fused_out_ln"
+    lib = _out_ln_lib()
+    if d > lib.shgvqa_out_ln_max_d():
+        raise ValueError(f"fused_out_ln: D={d} exceeds the kernel's maximum "
+                         f"{lib.shgvqa_out_ln_max_d()}")
+    dev = x2.device
+    _check("x", x2, (m, d), torch.bfloat16, dev, what)
+    _check("residual", res2, (m, d), torch.bfloat16, dev, what)
+    _check("w", w, (d, d), torch.bfloat16, dev, what)
+    for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
+        _check(name, t, (d,), torch.float32, dev, what)
+    y = torch.empty_like(x2)
+    with torch.cuda.device(dev):
+        err = lib.shgvqa_out_ln_bf16(
+            x2.data_ptr(), w.data_ptr(), b.data_ptr(), res2.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), m, d,
+            float(eps), _stream(dev))
+    if err:
+        raise RuntimeError(
+            f"fused_out_ln kernel launch failed: CUDA error {err} "
+            f"({lib.shgvqa_out_ln_error_string(err).decode()})")
+    fused_out_ln.launches += 1
+    return y
+
+
+class _FusedOutLN(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through autograd of
+    ``out_ln_reference``."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b, res2, gamma, beta, eps):
+        ctx.save_for_backward(x2, w, b, res2, gamma, beta)
+        ctx.eps = eps
+        return _launch_out_ln(x2, w, b, res2, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(need) for t, need
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = out_ln_reference(*inputs, ctx.eps)
+        grads = iter(torch.autograd.grad(y, wanted, dy))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,)
+
+
+def fused_out_ln(x, weight, bias, residual, gamma, beta, eps: float = 1e-12):
+    """x, residual (..., D); weight (D, D) in nn.Linear layout, cast to x's
+    dtype here; bias, gamma, beta are read in f32.  Returns LN(x weight^T +
+    bias + residual) * gamma + beta, (..., D) in x's dtype, differentiable.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    d = x.shape[-1]
+    if tuple(residual.shape) != tuple(x.shape):
+        raise ValueError(f"fused_out_ln: residual {tuple(residual.shape)} "
+                         f"and x {tuple(x.shape)} differ")
+    args = (x.reshape(-1, d), weight.to(x.dtype), bias.float(),
+            residual.to(x.dtype).reshape(-1, d), gamma.float(), beta.float())
+    if x.device.type == "cpu":
+        return out_ln_reference(*args, eps).reshape(x.shape)
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"fused_out_ln's kernel takes bfloat16 activations, got "
+            f"{x.dtype} (set compute_dtype='bfloat16' or leave the out_ln "
+            "kernel off)")
+    if d % 16:
+        raise ValueError(f"fused_out_ln: D={d} must be a multiple of 16")
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"fused_out_ln has no kernel for "
+                                  f"{x.device}")
+    y = _FusedOutLN.apply(*(a.contiguous() for a in args), float(eps))
+    return y.reshape(x.shape)
+
+
+fused_out_ln.launches = 0

@@ -10,7 +10,10 @@ every layer and the first target is zeros.  ``in_proj`` is torch's packed
 In training every site of the JAX layer drops at the decoder's rate: the
 attention probabilities (through the fused kernels with ``kernel_train``,
 as the JAX ``TorchMHA`` does), both attention outputs, the FFN after its
-ReLU and its output.
+ReLU and its output.  Outside training ``kernel_eval`` (the JAX
+``is_decoder_enabled()``, on with ``--pallasAttention``) runs the fused
+forward kernel at rate 0, and ``headsliced`` (``set_headsliced_kernel``)
+the head-sliced kernel on the projections as they are.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from shgvqa_tpu_torch.kernels.headsliced import headsliced_attention
 from shgvqa_tpu_torch.models.layers import (
     Dense,
     Dropout,
@@ -41,6 +45,8 @@ class TorchMHA(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.kernel_train = kernel_train
+        self.kernel_eval = False
+        self.headsliced = False
 
     def _project(self, x, part: int):
         d = x.shape[-1]
@@ -54,11 +60,15 @@ class TorchMHA(nn.Module):
         lk = key.shape[1]
         h = self.num_heads
         hd = d // h
-        q = self._project(query, 0).view(b, lq, h, hd).transpose(1, 2)
-        k = self._project(key, 1).view(b, lk, h, hd).transpose(1, 2)
-        v = self._project(value, 2).view(b, lk, h, hd).transpose(1, 2)
-        out = attention_core(q, k, v, attn_mask, self.dtype,
-                             self.probs_dropout, self.kernel_train, g)
+        q, k, v = (self._project(query, 0), self._project(key, 1),
+                   self._project(value, 2))
+        if self.headsliced and not self.training:
+            return self.out_proj(headsliced_attention(q, k, v, attn_mask, h))
+        out = attention_core(q.view(b, lq, h, hd).transpose(1, 2),
+                             k.view(b, lk, h, hd).transpose(1, 2),
+                             v.view(b, lk, h, hd).transpose(1, 2), attn_mask,
+                             self.dtype, self.probs_dropout,
+                             self.kernel_train, g, self.kernel_eval)
         return self.out_proj(out.transpose(1, 2).reshape(b, lq, d))
 
 

@@ -20,9 +20,18 @@ Semantics kept from the JAX package:
   unfused block;
 - ``Attention`` runs the fused attention kernels (``kernels/attention.py``,
   with the probabilities' dropout inside) when training with
-  ``kernel_train`` (the config's ``use_pallas_attention_train``), as the
-  JAX ``Attention`` does; otherwise the plain path (PR 1's ``attend``),
-  which drops the probabilities after their cast to the compute dtype;
+  ``kernel_train`` (the config's ``use_pallas_attention_train``) and, with
+  ``kernel_eval`` (``use_pallas_attention``, ``--pallasAttention``), the
+  forward kernel at rate 0 outside training too, as the JAX ``Attention``
+  does; otherwise the plain path (``attend``), which drops the
+  probabilities after their cast to the compute dtype;
+- two switches the JAX package wires into no model, off by default and
+  read outside training only: ``set_headsliced_kernel`` sends every
+  attention site's projections as they are, (B, L, H*D), to
+  ``kernels/headsliced.py``'s kernel (no transposes); ``set_out_ln_kernel``
+  runs every ``AttOutput`` as one call of ``kernels/ffn.py``'s
+  ``fused_out_ln`` (its f32 bias and unrounded product are a departure
+  from the plain block's compute-dtype ``dense``);
 - embedding lookups have torch ``padding_idx=0`` semantics: row 0 gets no
   gradient (the JAX ``Embed`` stop_gradient).
 
@@ -42,7 +51,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from shgvqa_tpu_torch.kernels.attention import fused_attention
-from shgvqa_tpu_torch.kernels.ffn import fused_ffn, fused_ffn_train
+from shgvqa_tpu_torch.kernels.ffn import (
+    fused_ffn,
+    fused_ffn_train,
+    fused_out_ln,
+)
+from shgvqa_tpu_torch.kernels.headsliced import headsliced_attention
 
 NEG_MASK = -10000.0
 BERT_STD = 0.02
@@ -80,6 +94,32 @@ def set_attention_kernel(model: nn.Module, on: bool) -> None:
     for m in model.modules():
         if hasattr(m, "kernel_train"):
             m.kernel_train = on
+
+
+def set_attention_kernel_eval(model: nn.Module, on: bool) -> None:
+    """Route every attention site of ``model`` outside training through the
+    fused forward kernel at rate 0 (on; ``--pallasAttention``) or the plain
+    path (off)."""
+    for m in model.modules():
+        if hasattr(m, "kernel_eval"):
+            m.kernel_eval = on
+
+
+def set_headsliced_kernel(model: nn.Module, on: bool) -> None:
+    """Route every attention site of ``model`` outside training through the
+    head-sliced kernel on the (B, L, H*D) projections (on) or the path the
+    other switches choose (off)."""
+    for m in model.modules():
+        if hasattr(m, "headsliced"):
+            m.headsliced = on
+
+
+def set_out_ln_kernel(model: nn.Module, on: bool) -> None:
+    """Route every ``AttOutput`` of ``model`` outside training through
+    ``fused_out_ln`` (on) or the unfused block (off)."""
+    for m in model.modules():
+        if isinstance(m, AttOutput):
+            m.use_kernel = on
 
 
 def set_ffn_train_kernel(model: nn.Module, on: bool) -> None:
@@ -144,11 +184,14 @@ def attend(q, k, v, mask, dtype, drop: Optional[Dropout] = None, g=None):
 
 
 def attention_core(q, k, v, mask, dtype, drop: Dropout, kernel_train: bool,
-                   g=None):
+                   g=None, kernel_eval: bool = False):
     """The attention core of a site: the fused kernels in training with
-    ``kernel_train``, else ``attend``.  Returns (B, H, Lq, hd)."""
+    ``kernel_train``, the fused forward at rate 0 outside training with
+    ``kernel_eval``, else ``attend``.  Returns (B, H, Lq, hd)."""
     if drop.training and kernel_train:
         return fused_attention(q, k, v, mask, drop.rate, g)
+    if not drop.training and kernel_eval:
+        return fused_attention(q, k, v, mask, 0.0)
     return attend(q, k, v, mask, dtype, drop, g)
 
 
@@ -264,7 +307,9 @@ class Conv3d(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention of ``hidden`` over ``context`` (BertAttention):
     separate q/k/v dense layers, f32 scores and softmax, additive mask,
-    dropout on the probabilities in training."""
+    dropout on the probabilities in training.  ``kernel_train``,
+    ``kernel_eval`` and ``headsliced`` choose the kernels (module
+    docstring)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.1,
@@ -279,21 +324,32 @@ class Attention(nn.Module):
         self.head_dim = head_dim
         self.dtype = dtype
         self.kernel_train = kernel_train
+        self.kernel_eval = False
+        self.headsliced = False
 
     def forward(self, hidden, context, mask=None, g=None):
         b, lq, _ = hidden.shape
         lk = context.shape[1]
         h, hd = self.num_heads, self.head_dim
-        q = self.query(hidden).view(b, lq, h, hd).transpose(1, 2)
-        k = self.key(context).view(b, lk, h, hd).transpose(1, 2)
-        v = self.value(context).view(b, lk, h, hd).transpose(1, 2)
-        out = attention_core(q, k, v, mask, self.dtype, self.probs_dropout,
-                             self.kernel_train, g)          # (B, H, Lq, hd)
+        q, k, v = (self.query(hidden), self.key(context),
+                   self.value(context))
+        if self.headsliced and not self.training:
+            return headsliced_attention(q, k, v, mask, h)
+        out = attention_core(q.view(b, lq, h, hd).transpose(1, 2),
+                             k.view(b, lk, h, hd).transpose(1, 2),
+                             v.view(b, lk, h, hd).transpose(1, 2), mask,
+                             self.dtype, self.probs_dropout,
+                             self.kernel_train, g, self.kernel_eval)
         return out.transpose(1, 2).reshape(b, lq, h * hd)
 
 
 class AttOutput(nn.Module):
-    """dense -> dropout -> LN(+ residual) (BertAttOutput)."""
+    """dense -> dropout -> LN(+ residual) (BertAttOutput).
+
+    With ``use_kernel`` (``set_out_ln_kernel``; off by default, as the JAX
+    package wires its kernel into no model) and not training, the block is
+    one call of ``kernels.ffn.fused_out_ln`` on the ``nn.Linear`` weights
+    as they are."""
 
     def __init__(self, hidden_size: int, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.1):
@@ -301,8 +357,13 @@ class AttOutput(nn.Module):
         self.dense = Dense(hidden_size, hidden_size, dtype)
         self.dropout = Dropout(dropout)
         self.ln = LayerNorm(hidden_size, dtype=dtype)
+        self.use_kernel = False
 
     def forward(self, hidden, residual, g=None):
+        if self.use_kernel and not self.training:
+            return fused_out_ln(hidden.to(self.dense.dtype), self.dense.weight,
+                                self.dense.bias, residual, self.ln.weight,
+                                self.ln.bias, self.ln.eps)
         return self.ln(self.dropout(self.dense(hidden), g) + residual)
 
 

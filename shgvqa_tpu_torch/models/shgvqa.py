@@ -15,8 +15,11 @@ in ``shgvqa_tpu/models/shgvqa.py`` (tasks 'hgqa' and 'vqa', inference).
 In training mode (``model.train()``) every dropout site drops, with masks
 drawn from the ``generator`` passed to ``forward`` (the device's default
 generator when None), the training attention sites run the fused kernels
-(``use_pallas_attention_train``) and, with ``use_pallas_ffn_train``, every
-FFN block runs the fused train kernels.  The frozen trunk runs under
+(``use_pallas_attention_train``, or ``use_pallas_attention``, which the JAX
+``Trainer`` turns on everywhere) and, with ``use_pallas_ffn_train``, every
+FFN block runs the fused train kernels.  With ``use_pallas_attention``
+(``--pallasAttention``) every attention site outside training runs the
+fused forward kernel at rate 0.  The frozen trunk runs under
 ``torch.no_grad()``, as the JAX package's ``stop_gradient`` and its
 two-launch trunk do; its BatchNorm always uses the stored statistics.
 Every option the flagship does not use raises
@@ -39,7 +42,11 @@ from shgvqa_tpu_torch.models.backbone import make_backbone
 from shgvqa_tpu_torch.models.decoder import HGDecoder
 from shgvqa_tpu_torch.models.encoder import LXRTModel
 from shgvqa_tpu_torch.models.hg import HGEmbeddings, HGQCrossEncoder
-from shgvqa_tpu_torch.models.layers import MLPHead, set_ffn_train_kernel
+from shgvqa_tpu_torch.models.layers import (
+    MLPHead,
+    set_attention_kernel_eval,
+    set_ffn_train_kernel,
+)
 
 
 class ShgVqaModel(nn.Module):
@@ -52,7 +59,8 @@ class ShgVqaModel(nn.Module):
         enc, data = cfg.encoder, cfg.data
         dt = torch_dtype(cfg.compute_dtype)
         kernel = cfg.use_pallas_ffn
-        kernel_train = cfg.use_pallas_attention_train
+        kernel_train = (cfg.use_pallas_attention_train
+                        or cfg.use_pallas_attention)
         d = enc.hidden_size
         self.lxrt = LXRTModel(enc, dt, kernel, kernel_train)
         if cfg.task == "hgqa":
@@ -84,6 +92,7 @@ class ShgVqaModel(nn.Module):
                     situation_causal_mask(s, slots)), persistent=False)
         self.logit_fc = MLPHead(d, cfg.num_answers, dtype=dt)
         set_ffn_train_kernel(self, cfg.use_pallas_ffn_train)
+        set_attention_kernel_eval(self, cfg.use_pallas_attention)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None

@@ -20,7 +20,7 @@ import torch
 from shgvqa_tpu_torch.cli import agqa_hgqa, common
 from shgvqa_tpu_torch.configs.config import tiny_test_config
 from shgvqa_tpu_torch.entry import build_model, example_batch
-from shgvqa_tpu_torch.models import shgvqa
+from shgvqa_tpu_torch.models import layers, shgvqa
 from shgvqa_tpu_torch.models.backbone import SlowR50
 from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.step import trainable_mask
@@ -138,6 +138,26 @@ def test_test_protocol_from_load(run, tmp_path, monkeypatch):
         preds = json.loads((tmp_path / name).read_text())
         assert len(preds) == 24
         assert {"id", "question", "prediction", "answer"} <= set(preds[0])
+
+
+def test_test_protocol_with_pallas_attention(run, tmp_path, monkeypatch):
+    """``--test --pallasAttention``: every eval forward runs its 38
+    attention sites (the flagship topology) through ``fused_attention`` at
+    rate 0, and the protocol's oracle and files are as without it."""
+    out, _, _ = run
+    _shrink(monkeypatch)
+    calls = []
+    fused = layers.fused_attention
+    monkeypatch.setattr(layers, "fused_attention",
+                        lambda *a: calls.append(a[4:]) or fused(*a))
+    result, stdout = _main(_argv(tmp_path, "--test", "test", "--load",
+                                 str(out / "LAST"), "--pallasAttention"))
+    assert "Oracle score: 1.0000" in stdout
+    assert len(calls) >= 38 and len(calls) % 38 == 0
+    assert all(rest == (0.0,) for rest in calls)
+    assert len(result["all_qtypes"]) == len(result["hg_all_qtypes"]) == 31
+    for name in ("predict.json", "predict_hg.json"):
+        assert len(json.loads((tmp_path / name).read_text())) == 24
 
 
 def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,

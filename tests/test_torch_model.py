@@ -11,13 +11,16 @@ import pytest
 import torch
 
 from shgvqa_tpu.configs.config import tiny_test_config as jax_tiny
+from shgvqa_tpu.kernels import attention as pallas_attn
 from shgvqa_tpu.kernels import ffn as pallas_ffn
+from shgvqa_tpu.models import backbone as jax_backbone
 from shgvqa_tpu.models.backbone import SlowR50 as JaxSlowR50
 from shgvqa_tpu.models.shgvqa import ShgVqaModel as JaxShgVqaModel
 from shgvqa_tpu.models.shgvqa import VideoShgVqaModel as JaxVideoModel
 from shgvqa_tpu_torch.configs.config import tiny_test_config
 from shgvqa_tpu_torch.convert import from_jax_variables
 from shgvqa_tpu_torch.models.backbone import SlowR50
+from shgvqa_tpu_torch.models import layers, shgvqa
 from shgvqa_tpu_torch.models.layers import init_weights
 from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel, VideoShgVqaModel
 from test_torch_common import TOY, close, jax_variables, load_port, t
@@ -108,6 +111,78 @@ def test_video_model_from_uint8_frames_matches_jax():
         close(got[key], want[key], TOL)
 
 
+def test_video_model_with_pallas_attention_matches_jax(monkeypatch):
+    """``--pallasAttention`` (``use_pallas_attention``): frames -> answer
+    with every attention site outside training on ``fused_attention`` at
+    rate 0 (its plain version on the CPU), against the JAX model with the
+    flag on as its Trainer sets it (``pallas_attn.enable``; off the TPU the
+    JAX sites take their jnp path).  Both trunks at the TOY widths."""
+    monkeypatch.setattr(jax_backbone, "make_backbone",
+                        lambda name, dtype, quant="": JaxSlowR50(dtype=dtype,
+                                                                 **TOY))
+    monkeypatch.setattr(shgvqa, "make_backbone",
+                        lambda name, dtype: SlowR50(dtype, **TOY))
+    jmodel = JaxVideoModel(jax_tiny(task="hgqa", freeze_backbone=True,
+                                    use_pallas_attention=True))
+    batch = _batch(jax_tiny(), frames=True)
+    v = jax_variables(jmodel, batch, deterministic=True)
+    pallas_attn.enable(True)
+    try:
+        want = jmodel.apply(v, batch, deterministic=True)
+    finally:
+        pallas_attn.enable(False)
+    port = load_port(VideoShgVqaModel(tiny_test_config(
+        task="hgqa", freeze_backbone=True, use_pallas_attention=True)), v)
+    calls = []
+    fused = layers.fused_attention
+    monkeypatch.setattr(layers, "fused_attention",
+                        lambda *a: calls.append(a[4:]) or fused(*a))
+    with torch.inference_mode():
+        got = port(_torch_batch(batch))
+    assert calls and all(rest == (0.0,) for rest in calls)
+    for key in OUTPUTS:
+        close(got[key], want[key], TOL)
+
+
+def test_attention_kernel_eval_routes_every_site(monkeypatch):
+    """With ``use_pallas_attention`` every attention site outside training
+    calls ``fused_attention`` (rate 0) in place of ``attend``, and
+    ``set_attention_kernel_eval`` turns it off again; the default config
+    leaves it off."""
+    calls = {"fused": 0, "attend": 0}
+    fused, attend = layers.fused_attention, layers.attend
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(layers, "fused_attention", counted("fused", fused))
+    monkeypatch.setattr(layers, "attend", counted("attend", attend))
+    batch = _torch_batch(_batch(jax_tiny()))
+    cfg = tiny_test_config(task="hgqa")
+    assert not cfg.use_pallas_attention
+    model = init_weights(ShgVqaModel(cfg), 0).eval()
+    with torch.inference_mode():
+        want = model(batch)
+        sites = calls["attend"]
+        assert sites > 0 and calls["fused"] == 0
+        layers.set_attention_kernel_eval(model, True)
+        got = model(batch)
+        assert calls == {"fused": sites, "attend": sites}
+        layers.set_attention_kernel_eval(model, False)
+        model(batch)
+        assert calls == {"fused": sites, "attend": 2 * sites}
+    for key in OUTPUTS:
+        close(got[key], np.asarray(want[key]), 1e-5)
+    flagged = ShgVqaModel(tiny_test_config(task="hgqa",
+                                           use_pallas_attention=True))
+    kernel_eval = [m.kernel_eval for m in flagged.modules()
+                   if hasattr(m, "kernel_eval")]
+    assert len(kernel_eval) > 0 and all(kernel_eval)
+
+
 def test_converter_round_trip_is_strict(hgqa):
     """JAX init -> device_get -> converter -> load_state_dict(strict), for
     the head (params) and the toy trunk (params and batch_stats): every leaf
@@ -148,7 +223,7 @@ def test_converter_round_trip_is_strict(hgqa):
 @pytest.mark.parametrize("override", [
     dict(task="q"), dict(task="vhga"), dict(task="hgvqa"),
     dict(gt_hg=True), dict(use_hg_mask=True), dict(output_attention=True),
-    dict(use_pallas_attention=True), dict(encoder="cross_self"),
+    dict(after_cross_attn_feats=True), dict(encoder="cross_self"),
     dict(encoder="scan_layers"), dict(quant_backbone="int8"),
     dict(backbone="resnext101"), dict(backbone_chunks=2),
 ])
