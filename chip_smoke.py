@@ -11,14 +11,20 @@ it exits non-zero before printing any result.
 2. build: every ``shgvqa_tpu_torch/csrc/*.cu``, one nvcc each, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with its time, the plain version's
-   time and the bound:
+   time and the bound.  Every kernel, library and yardstick time is the
+   median [min-max] of 5 turns of 20 calls (CUDA events); a plain version
+   is timed in one turn:
    - the FFN forward (and its autograd backward at a small shape), beside
      a composite-of-library-calls yardstick;
    - both attention kernels at every attention site of the train step at
      B=2 and B=32: the forward and dQ, dK, dV at rate 0, and at the site's
      dropout rate with the kernels' own keep mask given to the plain
-     version; the realised keep rate; SDPA with the same
-     additive mask as the library yardstick (timed only);
+     version; the realised keep rate, and at one site per batch size the
+     card's keep mask bit-equal to ``keep_mask_reference``; the largest
+     difference between two backward calls on the same inputs (dQ is
+     summed with atomics); the kernels and SDPA with the same additive
+     mask (timed only) each at rate 0 and at the site's rate, forward and
+     backward, and the kernels' device time per call from torch.profiler;
    - both FFN train kernels (forward and backward, ``csrc/ffn_train.cu``)
      at every FFN site's shape of the train step (M = B * L, L in 40, 177,
      393) at B=2 and B=32: y and every gradient against autograd of the
@@ -125,6 +131,7 @@ from shgvqa_tpu_torch.bench import (
     card_name_and_power_limit,
     clips_per_second,
     time_ms,
+    time_spread,
     train_clips_per_second,
     train_split_ms,
 )
@@ -141,6 +148,7 @@ from shgvqa_tpu_torch.kernels.attention import (
     draw_seed,
     fused_attention,
     keep_mask,
+    keep_mask_reference,
 )
 from shgvqa_tpu_torch.kernels import ffn as ffn_kernels
 from shgvqa_tpu_torch.kernels.ffn import (
@@ -245,6 +253,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def spread(name, fn, **kw):
+    """{name: median ms, name + "_range": [min, max]} of ``time_spread``."""
+    med, (lo, hi) = time_spread(fn, **kw)
+    return {name: med, name + "_range": [lo, hi]}
+
+
 def bound_ms(flops, nbytes):
     """(ms, bound_by): the larger of operations over the bf16 peak and bytes
     over the memory rate."""
@@ -301,9 +315,9 @@ def phase_ffn_kernel(batch_sizes=(2, BATCH_SIZE)):
                     (D,), gamma.to(x.dtype), beta.to(x.dtype), 1e-12))
                 bound, bound_by = ffn_bound(m)
                 rows[m] = dict(
-                    M=m, kernel_ms=time_ms(lambda: fused_ffn(*args)),
+                    M=m, **spread("kernel_ms", lambda: fused_ffn(*args)),
                     plain_ms=time_ms(lambda: ffn_reference(*args)),
-                    yardstick_ms=time_ms(yard), bound_ms=bound,
+                    **spread("yardstick_ms", yard), bound_ms=bound,
                     bound_by=bound_by, max_abs_err=err)
                 log(f"fused_ffn {json.dumps(rows[m])}")
     # autograd backward at a small shape: recompute through ffn_reference
@@ -407,23 +421,25 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
                 1e-12)
             with torch.no_grad():
                 timed = dict(
-                    kernel_ms=time_ms(lambda: fused_ffn_train(*ops, rate,
-                                                              gen)),
+                    **spread("kernel_ms", lambda: fused_ffn_train(
+                        *ops, rate, gen)),
                     plain_ms=time_ms(lambda: ffn_train_reference(
                         *ops, rate, keep)),
-                    yardstick_ms=time_ms(lambda: F.layer_norm(
+                    **spread("yardstick_ms", lambda: F.layer_norm(
                         x2 + F.dropout(F.linear(F.gelu(F.linear(
                             x2, w1t, b1.to(x2.dtype))), w2t,
                             b2.to(x2.dtype)), rate),
                         (D,), gamma.to(x2.dtype), beta.to(x2.dtype), 1e-12)),
-                    bwd_kernel_ms=time_ms(lambda: ffn_kernels._launch_train_bwd(
-                        x2, w1t, b1, w2t, b2, gamma, seed, rate, 1e-12, dy)),
-                    wgrad_ms=time_ms(lambda: ffn_kernels._weight_grads(
+                    **spread("bwd_kernel_ms",
+                             lambda: ffn_kernels._launch_train_bwd(
+                                 x2, w1t, b1, w2t, b2, gamma, seed, rate,
+                                 1e-12, dy)),
+                    **spread("wgrad_ms", lambda: ffn_kernels._weight_grads(
                         x2, spills[1], spills[2], spills[3])))
             timed.update(
                 bwd_plain_ms=time_ms(lambda: torch.autograd.grad(
                     plain_out, ops, dy, retain_graph=True)),
-                bwd_yardstick_ms=time_ms(lambda: torch.autograd.grad(
+                **spread("bwd_yardstick_ms", lambda: torch.autograd.grad(
                     yard_out, ops, dy, retain_graph=True)))
             del spills, plain_out, yard_out, hidden
             bound, bound_by = ffn_train_bound(m, False)
@@ -508,24 +524,71 @@ def grad_errors(name, q, k, v, mask, rate, keep, out, do):
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
-def rate0_errors(q, k, v, mask, tag):
-    """The forward and dQ, dK, dV without dropout against the plain
-    version."""
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = fused_attention(qg, kg, vg, mask)
-    e0, r0 = rel_max_err(f"attention fwd rate 0 {tag}", out,
-                         attention_reference(q, k, v, mask), ATTN_TOL)
+def fwd_and_grads(q, k, v, mask, rate, generator, keep, tag):
+    """The forward (at ``rate`` with ``generator``) and dQ, dK, dV against
+    the plain version given ``keep``: (out, do, leaves, fwd (max |err|,
+    rel), grads (max |err|, rel))."""
+    leaves = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fused_attention(*leaves, mask, rate, generator)
+    fwd = rel_max_err(f"attention fwd rate {rate} {tag}", out,
+                      attention_reference(q, k, v, mask, rate, keep),
+                      ATTN_TOL)
     do = torch.randn(out.shape, device="cuda").to(torch.bfloat16)
-    e1, r1 = grad_errors(f"attention rate 0 {tag}", qg, kg, vg, mask, 0.0,
-                         None, out, do)
-    return e0, r0, e1, r1
+    grads = grad_errors(f"attention rate {rate} {tag}", *leaves, mask, rate,
+                        keep, out, do)
+    return out, do, leaves, fwd, grads
+
+
+def device_ms(fn, own=(), calls: int = 10, tries: int = 3):
+    """Device ms per call of ``fn`` from torch.profiler over ``calls`` + 1
+    calls: (the kernels whose names hold one of ``own``, every kernel's),
+    each kernel's mean time times its launches per call.  The profiler can
+    miss the first kernel of a session (so launches per call are rounded)
+    or a whole session (so it tries again); (None, None) when ``tries``
+    traces hold no device time or ``own`` kernels do not launch once a
+    call."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls + 1):
+                fn()
+            torch.cuda.synchronize()
+        mine = total = 0.0
+        per_call = {name: 0 for name in own}
+        for evt in prof.key_averages():
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or not evt.count):
+                continue
+            n = round(evt.count / (calls + 1))
+            ms = evt.device_time_total / evt.count * n / 1e3
+            total += ms
+            for name in own:
+                if name in evt.key:
+                    mine += ms
+                    per_call[name] += n
+        if total > 0.0 and all(n == 1 for n in per_call.values()):
+            return mine, total
+    log(f"profiler: launches per call {per_call}, {total} ms a call, after "
+        f"{tries} traces")
+    return None, None
+
+
+# the site whose card keep mask is held bit-equal to keep_mask_reference,
+# per batch size
+KEEP_CHECK_SITES = {2: "visual self", BATCH_SIZE: "rel decoder self"}
 
 
 def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
     """Both attention kernels against the plain version at every main-path
-    shape: forward and dQ, dK, dV at rate 0, and at the site's rate with the
-    kernels' own keep mask fed to the plain version, the realised keep rate,
-    and the times of kernel, plain version and SDPA."""
+    shape: the forward and dQ, dK, dV at rate 0 and at the site's rate with
+    the kernels' own keep mask fed to the plain version; the realised keep
+    rate, and the card's keep mask bit-equal to keep_mask_reference at one
+    site per batch size; the largest difference between two backward calls
+    on the same inputs; the times (median [min-max] over 5 turns) of the
+    kernels and of SDPA, each at rate 0 and at the site's rate, of SDPA's
+    forward and backward in one call, of the plain version (one turn), and
+    the kernels' device time per call from torch.profiler."""
     rows = {}
     max_err = {"fwd": 0.0, "bwd": 0.0}
     for bsz in batch_sizes:
@@ -533,50 +596,88 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
             q, k, v, mask = attention_operands(bsz, lq, lk, kind, 100 + i)
             key, pane = decompose_mask(mask, bsz, H, lq, lk)
             tag = f"{name} b{bsz} ({lq}, {lk})"
-            e0, r0, e3, r3 = rate0_errors(q, k, v, mask, tag)
+            out0, do0, leaves0, (e0, r0), (e3, r3) = fwd_and_grads(
+                q, k, v, mask, 0.0, None, None, tag)
             # rate > 0: the seed the call draws is read back from a copy of
             # the generator's state, and the kernels' keep mask from it
             g = torch.Generator(device="cuda").manual_seed(7 + i)
             state = g.get_state()
-            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-            out = fused_attention(qg, kg, vg, mask, rate, g)
+            seed = draw_seed(g, q.device)
             g.set_state(state)
-            keep = keep_mask(draw_seed(g, q.device), bsz * H, lq, lk,
-                             rate).view(bsz, H, lq, lk)
+            keep = keep_mask(seed, bsz * H, lq, lk, rate).view(bsz, H, lq, lk)
             kept = keep.float().mean().item()
             sigma = math.sqrt(rate * (1 - rate) / keep.numel())
             if abs(kept - (1 - rate)) > 6 * sigma + 1e-9:
                 raise AssertionError(f"{tag}: keep rate {kept} vs {1 - rate}"
                                      f" (6 sigma {6 * sigma})")
-            do = torch.randn(out.shape, device="cuda").to(torch.bfloat16)
-            e2, r2 = grad_errors(f"attention rate {rate} {tag}", qg, kg, vg,
-                                 mask, rate, keep, out, do)
-            e1, r1 = rel_max_err(f"attention fwd rate {rate} {tag}", out,
-                                 attention_reference(q, k, v, mask, rate,
-                                                     keep), ATTN_TOL)
+            if KEEP_CHECK_SITES[bsz] == name:
+                want = keep_mask_reference(seed, bsz * H, lq, lk, rate)
+                if not torch.equal(keep.view(bsz * H, lq, lk).cpu(), want):
+                    raise AssertionError(f"{tag}: keep_mask differs from "
+                                         "keep_mask_reference")
+                log(f"attention keep_mask {tag} rate {rate}: bit-equal to "
+                    f"keep_mask_reference ({keep.numel()} elements)")
+            out, do, leaves, (e1, r1), (e2, r2) = fwd_and_grads(
+                q, k, v, mask, rate, g, keep, tag)
+            # two backward calls on the same inputs: dQ sums with atomics
+            first = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            second = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            rerun = max((a.float() - b_.float()).abs().max().item()
+                        for a, b_ in zip(first, second))
             max_err["fwd"] = max(max_err["fwd"], e0, e1)
             max_err["bwd"] = max(max_err["bwd"], e2, e3)
 
-            # times: kernel, plain version, SDPA with the same additive mask
-            plain_out = attention_reference(qg, kg, vg, mask, rate, keep)
+            # times: kernels and SDPA at rate 0 and at the site's rate, the
+            # plain version at the site's rate
+            plain_out = attention_reference(*leaves, mask, rate, keep)
             sdpa_mask = sdpa_additive_mask(bsz, lq, lk, key, pane)
-            sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, sdpa_mask)
-            timed = dict(
-                kernel_ms=time_ms(lambda: fused_attention(q, k, v, mask,
-                                                          rate, g)),
-                plain_ms=time_ms(lambda: attention_reference(q, k, v, mask,
-                                                             rate, keep)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, sdpa_mask)),
-                bwd_kernel_ms=time_ms(lambda: torch.autograd.grad(
-                    out, (qg, kg, vg), do, retain_graph=True)),
-                bwd_plain_ms=time_ms(lambda: torch.autograd.grad(
-                    plain_out, (qg, kg, vg), do, retain_graph=True)),
-                bwd_library_ms=time_ms(lambda: torch.autograd.grad(
-                    sdpa_out, (qg, kg, vg), do, retain_graph=True)),
-                fwd_bwd_library_ms=time_ms(lambda: torch.autograd.grad(
-                    F.scaled_dot_product_attention(qg, kg, vg, sdpa_mask),
-                    (qg, kg, vg), do)))
+            sdpa0 = F.scaled_dot_product_attention(*leaves0, sdpa_mask)
+            sdpa1 = F.scaled_dot_product_attention(*leaves, sdpa_mask,
+                                                   dropout_p=rate)
+
+            def grad(y, xs, dy):
+                return lambda: torch.autograd.grad(y, xs, dy,
+                                                   retain_graph=True)
+
+            fns = {
+                "kernel0_ms": lambda: fused_attention(q, k, v, mask),
+                "kernel_ms": lambda: fused_attention(q, k, v, mask, rate, g),
+                "library0_ms": lambda: F.scaled_dot_product_attention(
+                    q, k, v, sdpa_mask),
+                "library_ms": lambda: F.scaled_dot_product_attention(
+                    q, k, v, sdpa_mask, dropout_p=rate),
+                "bwd_kernel0_ms": grad(out0, leaves0, do0),
+                "bwd_kernel_ms": grad(out, leaves, do),
+                "bwd_library0_ms": grad(sdpa0, leaves0, do0),
+                "bwd_library_ms": grad(sdpa1, leaves, do),
+                # SDPA forward and backward in one call, as a step runs them
+                "fwd_bwd_library_ms": lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(*leaves, sdpa_mask,
+                                                   dropout_p=rate),
+                    leaves, do),
+            }
+            timed = {}
+            for key_ms, fn in fns.items():
+                timed.update(spread(key_ms, fn))
+            timed.update(
+                plain_ms=time_ms(lambda: attention_reference(
+                    q, k, v, mask, rate, keep)),
+                bwd_plain_ms=time_ms(grad(plain_out, leaves, do)))
+            fwd_own = ("attn_fwd_kernel",)
+            bwd_own = ("attn_bwd_prep_kernel", "attn_bwd_kernel",
+                       "attn_bwd_dq_kernel")
+            for key_ms, own in (("kernel0_ms", fwd_own),
+                                ("kernel_ms", fwd_own),
+                                ("bwd_kernel0_ms", bwd_own),
+                                ("bwd_kernel_ms", bwd_own),
+                                ("library0_ms", ()), ("library_ms", ()),
+                                ("bwd_library0_ms", ()),
+                                ("bwd_library_ms", ())):
+                mine, total = device_ms(fns[key_ms], own)
+                if own:
+                    timed[key_ms.replace("_ms", "_device_ms")] = mine
+                timed[key_ms.replace("_ms", "_device_all_ms")] = total
+            del plain_out, sdpa0, sdpa1, first, second
             bound, bound_by = attention_bound(bsz, lq, lk, key, pane, False)
             bwd_bound, bwd_bound_by = attention_bound(bsz, lq, lk, key, pane,
                                                       True)
@@ -584,9 +685,13 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
                 site=name, B=bsz, Lq=lq, Lk=lk, mask=kind, rate=rate,
                 keep_rate=kept, err_fwd=max(e0, e1), err_grads=max(e2, e3),
                 rel_err_fwd=max(r0, r1), rel_err_grads=max(r2, r3),
-                bound_ms=bound, bound_by=bound_by, bwd_bound_ms=bwd_bound,
-                bwd_bound_by=bwd_bound_by, **timed)
+                bwd_rerun_max_diff=rerun, bound_ms=bound, bound_by=bound_by,
+                bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_bound_by, **timed)
             log(f"fused_attention {json.dumps(rows[(name, bsz)])}")
+        rerun = max(rows[(n, bsz)]["bwd_rerun_max_diff"]
+                    for n, *_ in ATTN_SITES)
+        log(f"attention b{bsz}: largest difference between two backward "
+            f"calls on the same inputs (dQ sums with f32 atomics) {rerun}")
     return rows, max_err
 
 
@@ -604,9 +709,74 @@ def sdpa_additive_mask(bsz, lq, lk, key, pane):
 
 
 def per_step(rows, bsz, key, backward=False):
-    """Sum over the attention sites of one train step of ``key``."""
-    return sum((nb if backward else nf) * rows[(name, bsz)][key]
-               for name, _, _, _, _, nf, nb in ATTN_SITES)
+    """Sum over the attention sites of one train step of ``key`` (None if a
+    site has none)."""
+    values = [(nb if backward else nf) * rows[(name, bsz)][key]
+              if rows[(name, bsz)][key] is not None else None
+              for name, _, _, _, _, nf, nb in ATTN_SITES]
+    return None if None in values else sum(values)
+
+
+def per_step_text(rows, bsz, key, backward=False):
+    """``key`` summed over one train step's sites, and for a timed key the
+    sums of the sites' fastest and slowest turns: "x [lo-hi]"."""
+    total = per_step(rows, bsz, key, backward)
+    if total is None:
+        return "not measured"
+    text = f"{total:.3f}"
+    if key + "_range" in rows[(ATTN_SITES[0][0], bsz)]:
+        lo, hi = (sum((nb if backward else nf)
+                      * rows[(name, bsz)][key + "_range"][i]
+                      for name, _, _, _, _, nf, nb in ATTN_SITES)
+                  for i in (0, 1))
+        text += f" [{lo:.3f}-{hi:.3f}]"
+    return text
+
+
+# per train step keys of the attention rows: kernel and SDPA at rate 0 and
+# at the site's rate (timed), the plain version, the bound, the kernels'
+# device time per call (profiler), and every kernel's in the kernels' call
+# and in SDPA's
+ATTN_STEP_KEYS = ("kernel0_ms", "kernel_ms", "library0_ms", "library_ms",
+                  "plain_ms", "bound_ms", "kernel0_device_ms",
+                  "kernel_device_ms", "kernel0_device_all_ms",
+                  "kernel_device_all_ms", "library0_device_all_ms",
+                  "library_device_all_ms")
+
+
+def attention_entries(rows, max_err, launches=None, bsz=BATCH_SIZE):
+    """The forward and backward kernels' entries of the kernels line (at
+    the sites' rates, SDPA at the same rate as the library call), with one
+    log line each of their per-step sums at every batch size."""
+    entries = []
+    sizes = sorted({b for _, b in rows}, reverse=True)
+    for backward, (name, line) in enumerate(
+            (("fused_attention_fwd", 143), ("fused_attention_bwd", 171))):
+        pre = "bwd_" if backward else ""
+        widest = max(ATTN_SITES, key=lambda s: (s[6] if backward else s[5])
+                     * rows[(s[0], bsz)][pre + "bound_ms"])
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "shgvqa_tpu_torch/csrc/attention.cu",
+            "replaces": f"shgvqa_tpu/kernels/attention.py:{line}",
+            "launches": None if launches is None else launches[backward],
+            "max_abs_err": max_err["bwd" if backward else "fwd"],
+            "ms": per_step(rows, bsz, pre + "kernel_ms", backward),
+            "plain_ms": per_step(rows, bsz, pre + "plain_ms", backward),
+            "bound_ms": per_step(rows, bsz, pre + "bound_ms", backward),
+            "bound_by": rows[(widest[0], bsz)][pre + "bound_by"],
+            "library_ms": per_step(rows, bsz, pre + "library_ms", backward),
+        })
+        keys = [(k, pre + k) for k in ATTN_STEP_KEYS] + (
+            [("fwd_bwd_library_ms",) * 2] if backward else [])
+        for b in sizes:
+            log(f"{name} per train step at b{b} ("
+                + ("34" if backward else "38") + " sites; library: SDPA "
+                "with the same additive mask; device: torch.profiler per "
+                "call, the attention kernels' own / every kernel's): "
+                + ", ".join(f"{k} {per_step_text(rows, b, rk, backward)}"
+                            for k, rk in keys if rk in rows[(widest[0], b)]))
+    return entries
 
 
 def phase_tok_kernel(batch_sizes=(2, BATCH_SIZE)):
@@ -642,11 +812,11 @@ def phase_tok_kernel(batch_sizes=(2, BATCH_SIZE)):
                 rows[(site, bsz)] = dict(
                     site=site, B=bsz, M=m, N=D, K=k, max_abs_err=err,
                     rel_err=rel, bound_ms=bound, bound_by=bound_by,
-                    kernel_ms=time_ms(lambda: fused_tok_conv(x, w, b)),
-                    cast_ms=time_ms(lambda: w32.to(torch.bfloat16)),
+                    **spread("kernel_ms", lambda: fused_tok_conv(x, w, b)),
+                    **spread("cast_ms", lambda: w32.to(torch.bfloat16)),
                     plain_ms=time_ms(lambda: tok_conv_reference(x, w, b),
                                      iters=5, warmup=1),
-                    yardstick_ms=time_ms(lambda: gelu(F.conv3d(
+                    **spread("yardstick_ms", lambda: gelu(F.conv3d(
                         xv, w, b.to(torch.bfloat16), padding=(0, 1, 1))),
                         iters=5, warmup=1))
                 log(f"fused_tok_conv {json.dumps(rows[(site, bsz)])}")
@@ -713,11 +883,11 @@ def phase_block_kernel(batch_sizes=(2, BATCH_SIZE)):
                     site=site, B=bsz, frames=n, H=hw, Ci=ci, Cm=cm, Co=co,
                     proj=proj, max_abs_err=err, rel_err=rel, bound_ms=bound,
                     bound_by=bound_by,
-                    kernel_ms=time_ms(lambda: fused_bottleneck(x, *ops)),
+                    **spread("kernel_ms", lambda: fused_bottleneck(x, *ops)),
                     plain_ms=time_ms(lambda: bottleneck_reference(x, *ops),
                                      iters=5, warmup=1),
-                    yardstick_ms=time_ms(lambda: block(xv), iters=5,
-                                         warmup=1))
+                    **spread("yardstick_ms", lambda: block(xv), iters=5,
+                             warmup=1))
                 log(f"fused_bottleneck {json.dumps(rows[(site, bsz)])}")
                 del block, x, xv
     return rows, max_err
@@ -772,9 +942,9 @@ def phase_out_ln_kernel(batch_sizes=(2, BATCH_SIZE)):
                 x, w, b, res, gamma, beta = args
                 bound, bound_by = out_ln_bound(m)
                 rows[m] = dict(
-                    M=m, kernel_ms=time_ms(lambda: fused_out_ln(*args)),
+                    M=m, **spread("kernel_ms", lambda: fused_out_ln(*args)),
                     plain_ms=time_ms(lambda: out_ln_reference(*args)),
-                    yardstick_ms=time_ms(lambda: F.layer_norm(
+                    **spread("yardstick_ms", lambda: F.layer_norm(
                         F.linear(x, w, b.to(x.dtype)) + res, (D,),
                         gamma.to(x.dtype), beta.to(x.dtype), 1e-12)),
                     bound_ms=bound, bound_by=bound_by, max_abs_err=err)
@@ -836,14 +1006,15 @@ def phase_headsliced_kernel(batch_sizes=(2, BATCH_SIZE)):
                     max_abs_err=err, rel_err=rel,
                     max_abs_err_vs_transpose=err_t, rel_err_vs_transpose=rel_t,
                     bound_ms=bound, bound_by=bound_by,
-                    kernel_ms=time_ms(lambda: headsliced_attention(
+                    **spread("kernel_ms", lambda: headsliced_attention(
                         q2, k2, v2, mask, H)),
                     plain_ms=time_ms(lambda: headsliced_reference(
                         q2, k2, v2, key, pane, heads=H)),
-                    transpose_ms=time_ms(lambda: transpose_path(
+                    **spread("transpose_ms", lambda: transpose_path(
                         q2, k2, v2, mask)),
-                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, sdpa_mask)))
+                    **spread("library_ms",
+                             lambda: F.scaled_dot_product_attention(
+                                 q, k, v, sdpa_mask)))
                 log(f"headsliced_attention {json.dumps(rows[(name, bsz)])}")
     return rows, max_err
 
@@ -864,11 +1035,14 @@ def phase_headsliced_ab(b=64, shapes=((40, 40), (393, 393), (128, 393))):
             err, _ = rel_max_err(f"headsliced A/B {tag}",
                                  headsliced_attention(q2, k2, v2, mask, H),
                                  transpose_path(q2, k2, v2, mask), ATTN_TOL)
-            hs_ms = time_ms(lambda: headsliced_attention(q2, k2, v2, mask, H))
-            tr_ms = time_ms(lambda: transpose_path(q2, k2, v2, mask))
+            hs_ms, hs_range = time_spread(
+                lambda: headsliced_attention(q2, k2, v2, mask, H))
+            tr_ms, tr_range = time_spread(
+                lambda: transpose_path(q2, k2, v2, mask))
             log("headsliced A/B " + json.dumps(dict(
                 shape=tag, max_err_vs_transpose_path=err, headsliced_ms=hs_ms,
-                transpose_path_ms=tr_ms, speedup=tr_ms / hs_ms)))
+                headsliced_ms_range=hs_range, transpose_path_ms=tr_ms,
+                transpose_path_ms_range=tr_range, speedup=tr_ms / hs_ms)))
 
 
 def per_forward_attn(rows, bsz, key):
@@ -1379,6 +1553,7 @@ def main(argv=None) -> int:
 
     if args.only == "attention":
         attn_rows, attn_err = phase_attention_kernels()
+        attention_entries(attn_rows, attn_err)
         log(f"attention kernels ok; max errors {json.dumps(attn_err)}")
         return 0
     if args.only == "ffn_train":
@@ -1443,29 +1618,7 @@ def main(argv=None) -> int:
         f"{per_forward(rows, 2, 'plain_ms'):.3f} ms, bound "
         f"{per_forward(rows, 2, 'bound_ms'):.3f} ms; clips/s b{bsz} "
         f"{json.dumps(cps)}")
-    for backward, (name, line) in enumerate(
-            (("fused_attention_fwd", 143), ("fused_attention_bwd", 171))):
-        pre = "bwd_" if backward else ""
-        widest = max(ATTN_SITES, key=lambda s: (s[6] if backward else s[5])
-                     * attn_rows[(s[0], bsz)][pre + "bound_ms"])
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "shgvqa_tpu_torch/csrc/attention.cu",
-            "replaces": f"shgvqa_tpu/kernels/attention.py:{line}",
-            "launches": train_launches[backward],
-            "max_abs_err": attn_err["bwd" if backward else "fwd"],
-            "ms": per_step(attn_rows, bsz, pre + "kernel_ms", backward),
-            "plain_ms": per_step(attn_rows, bsz, pre + "plain_ms", backward),
-            "bound_ms": per_step(attn_rows, bsz, pre + "bound_ms", backward),
-            "bound_by": attn_rows[(widest[0], bsz)][pre + "bound_by"],
-            "library_ms": per_step(attn_rows, bsz, pre + "library_ms",
-                                   backward),
-        })
-        log(f"{name} per train step at b{bsz} ({train_launches[backward]} "
-            f"sites): " + ", ".join(
-                f"{k} {per_step(attn_rows, b, pre + k, backward):.3f} ms at "
-                f"b{b}" for k in ("kernel_ms", "plain_ms", "library_ms",
-                                  "bound_ms") for b in (bsz, 2)))
+    kernels += attention_entries(attn_rows, attn_err, train_launches)
     for backward, (name, line) in enumerate(
             (("fused_ffn_train_fwd", 200), ("fused_ffn_train_bwd", 214))):
         pre = "bwd_" if backward else ""

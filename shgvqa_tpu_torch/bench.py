@@ -24,9 +24,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -63,6 +64,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_spread(fn, turns: int = 5, iters: int = 20, warmup: int = 3
+                ) -> Tuple[float, Tuple[float, float]]:
+    """Median and (min, max) over ``turns`` readings of ``time_ms(fn,
+    iters)``, the first after ``warmup`` calls."""
+    times = [time_ms(fn, iters, warmup if i == 0 else 0)
+             for i in range(turns)]
+    return statistics.median(times), (min(times), max(times))
 
 
 def clips_per_second(model, batches: List[Dict[str, torch.Tensor]],

@@ -120,7 +120,7 @@ def stage_times(model, batch, iters: int = 5):
             for name, pairs in events.items()}
 
 
-def top_kernels(run, top: int = 15):
+def top_kernels(run, top: int = 25):
     """The device kernels with the most time in one ``run()``, and the
     summed device time of all of them."""
     with profile(activities=[ProfilerActivity.CPU,

@@ -27,13 +27,19 @@ storing it.  ``attention.cu`` describes the design.
   tensors on the CPU, drawing its keep mask from the caller's generator,
   and the kernels for CUDA tensors; on the card it launches them or
   raises.  ``fused_attention.launches`` and ``.bwd_launches`` count the
-  forward and backward launches.
+  forward and backward calls that launch (one each, though a backward
+  makes three CUDA launches).
 - ``keep_mask`` (card only) writes the keep mask the kernels draw for a
-  seed, so that the plain version can be given exactly that mask.
+  seed, so that the plain version can be given exactly that mask;
+  ``keep_mask_reference`` is its plain version (Philox4x32-10 in int64).
 
 Dropout: keep where a Philox4x32-10 word >= round(rate * 2^32) (the TPU
 kernel's threshold).  The 64-bit seed is drawn from the caller's generator
 on the tensors' device and stays there, so a call costs the host no sync.
+One Philox call decides queries {q, q + 8} x keys {k, k + 8}
+(``keep_counter``), a 2 x 2 block that one lane of the kernels' m16n8k16
+tiles owns whether the rows of the tile are queries (forward) or keys
+(backward).
 """
 
 from __future__ import annotations
@@ -125,6 +131,62 @@ def _threshold(rate: float) -> int:
     return min(2 ** 32 - 1, int(round(rate * 2.0 ** 32)))
 
 
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def keep_counter(q, k):
+    """(first counter word, second counter word, index of the output word)
+    of the Philox call that decides (query q, key k): one call covers
+    queries {q, q + 8} x keys {k, k + 8} with q, k at an offset < 8 in their
+    16-block.  Works on ints and on integer tensors."""
+    return (((q >> 4) << 3) | (q & 7), ((k >> 4) << 3) | (k & 7),
+            2 * ((q >> 3) & 1) + ((k >> 3) & 1))
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(high, low) 32-bit halves of a * b, for a < 2^32 and b an int64
+    tensor of values < 2^32, without overflowing int64."""
+    t = a * (b & 0xFFFF)
+    u = a * (b >> 16) + (t >> 16)
+    return u >> 16, ((u & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 of four int64 tensors holding uint32 counter words
+    (broadcast together) under two uint32 key words: the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def keep_mask_reference(seed_words, groups: int, lq: int, lk: int,
+                        rate: float) -> torch.Tensor:
+    """Plain version of ``keep_mask``: the bool (groups, Lq, Lk) keep mask
+    of the seed's two words (a tensor or a sequence of ints), Philox4x32-10
+    under the kernels' counter layout, in int64 on the CPU."""
+    if isinstance(seed_words, torch.Tensor):
+        seed_words = seed_words.cpu().tolist()
+    key = [int(w) & _MASK32 for w in seed_words]
+    q, k = torch.arange(lq)[:, None], torch.arange(lk)[None, :]
+    cq, ck, word = keep_counter(q, k)
+    # every call of the (groups, Lq, Lk) block once, then each element's word
+    calls_q, calls_k = (lq + 15) // 16 * 8, (lk + 15) // 16 * 8
+    words = torch.stack(torch.broadcast_tensors(*philox4x32((
+        torch.arange(calls_q)[None, :, None],
+        torch.arange(calls_k)[None, None, :],
+        torch.arange(groups)[:, None, None],
+        torch.zeros(1, 1, 1, dtype=torch.int64)), key)), -1)
+    bits = words[:, cq, ck, word]
+    return bits >= _threshold(rate)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built ``csrc/attention.cu`` with its C signatures declared."""
@@ -135,7 +197,7 @@ def _lib() -> ctypes.CDLL:
         [ptr] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 4
         + [f32, u32, f32, i32, ptr])
     lib.shgvqa_attention_bwd_bf16.argtypes = (
-        [ptr] * 13 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 4
+        [ptr] * 14 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 4
         + [f32, u32, f32, i32, ptr])
     lib.shgvqa_attention_keep_mask.argtypes = [ptr, ptr, i32, i32, i32, u32,
                                                ptr]
@@ -217,11 +279,14 @@ def _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do):
     do = _operand("do", do, tuple(o.shape), q.device)
     dq, dk, dv = _blhd(b, h, lq, q), _blhd(b, h, lk, k), _blhd(b, h, lk, v)
     delta = torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(b * h, lq, HEAD_DIM, dtype=torch.float32,
+                         device=q.device)
     with torch.cuda.device(q.device):
         err = _lib().shgvqa_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key),
             _mask_ptr(pane), _mask_ptr(seed), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            do.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv), b, h, lq,
             lk, 1.0 / math.sqrt(HEAD_DIM), _threshold(rate),
             1.0 / (1.0 - rate), int(rate > 0.0), _stream(q.device))
