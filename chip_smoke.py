@@ -8,7 +8,8 @@ the script then exits non-zero; without a card, or outside the repository,
 it exits non-zero before printing any result.
 
 1. card: its name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: every ``shgvqa_tpu_torch/csrc/*.cu``, one nvcc each, in parallel;
+2. build: every ``shgvqa_tpu_torch/csrc/*.cu``, one nvcc each, in parallel,
+   with ptxas's registers and spills of every kernel;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with its time, the plain version's
    time and the bound.  Every kernel, library and yardstick time is the
@@ -29,9 +30,14 @@ it exits non-zero before printing any result.
      at every FFN site's shape of the train step (M = B * L, L in 40, 177,
      393) at B=2 and B=32: y and every gradient against autograd of the
      plain version at rate 0, and at rate 0.1 with the kernels' own keep
-     mask given to the plain version; the realised keep rate; the times of
+     mask given to the plain version; the realised keep rate; two backward
+     calls on the same inputs bit-equal in all six outputs; the times of
      the kernels, of the weight-gradient products after the backward
-     kernel, of the plain version and of the unfused yardstick;
+     kernels, of the plain version and of the unfused yardstick, and the
+     kernels' device time per call from torch.profiler, the backward's
+     also per stage of its chain; ``cuobjdump -sass`` of the built library
+     must list HGMMA (wgmma) instructions in each of the backward's four
+     product kernels;
    - the tokenizer conv kernel (``csrc/tok_conv.cu``) at both convs'
      shapes and the bottleneck kernel (``csrc/bottleneck.cu``) at ragged
      frames and at its three trunk geometries (res_2 block_0 with its
@@ -45,15 +51,17 @@ it exits non-zero before printing any result.
      backward at a small shape), with the times of the kernel, the plain
      version and the unfused yardstick (F.linear, add, F.layer_norm) and
      the bound;
-   - the head-sliced attention kernel (``csrc/headsliced_attn.cu``) at
+   - the head-sliced attention (the attention forward kernel of
+     ``csrc/attention.cu`` on the (B, L, 768) projections' strides) at
      every attention site's shape at B=2 and B=32 within 2e-2 of max |ref|
-     of ``headsliced_reference`` and of the transpose path (the fused
-     attention forward on (B, H, L, 64) views of the same projections), with
-     the times of the kernel, the plain version, the transpose path and
-     SDPA with the same additive mask (timed only) and the bound; then the
-     prototype's own A/B (``tools/proto_headsliced_attn.py``): B=64, (40,
-     40), (393, 393), (128, 393), a 10% key mask, the max error between the
-     two paths and both times, one line per shape;
+     of ``headsliced_reference`` and bit-equal to the transpose path (the
+     same kernel on (B, H, L, 64) views of the same projections), with the
+     times of the kernel, the plain version, the transpose path and SDPA
+     with the same additive mask (timed only), the kernel's device time per
+     call from torch.profiler, and the bound; then the prototype's own A/B
+     (``tools/proto_headsliced_attn.py``): B=64, (40, 40), (393, 393),
+     (128, 393), a 10% key mask, the max error between the two paths and
+     both times, one line per shape;
 4. main path: ``entry.entry()`` -- the flagship uint8 frames -> hg_logit
    forward at B=2 -- with every launch count set to 0 just before and read
    just after: with the FFN kernel (18 launches), with no kernel, with
@@ -116,9 +124,11 @@ import json
 import math
 import os
 import re
+import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -229,6 +239,11 @@ FFN_OPERANDS = ("x", "W1", "b1", "W2", "b2", "gamma", "beta")
 # max |ref| (the kernels round do and du to bf16 before their products and
 # the weight gradients to bf16)
 FFN_GRAD_TOL = 3e-2
+# the FFN train forward kernel, and the backward's chain in launch order
+FFN_FWD_KERNELS = ("ffn_train_fwd_kernel",)
+FFN_BWD_STAGES = ffn_kernels.BWD_STAGES
+FFN_BWD_PRODUCTS = ("ffn_bwd_u_kernel", "ffn_bwd_o_kernel",
+                    "ffn_bwd_dh_kernel", "ffn_bwd_dx_kernel")
 # tokenizer convs of one flagship forward: (site, T in, Ci); Co = 768, 7 x 7
 # features, kernel (5, 3, 3)
 TOK_SITES = (("conv1", 16, 2048), ("conv2", 12, D))
@@ -364,14 +379,69 @@ def ffn_train_grads_vs_plain(tag, ops, y, dy, rate, keep):
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in a mangled symbol: the first length-prefixed
+    name ending in ``_kernel`` (the mangled symbol when it holds none)."""
+    for i in range(len(mangled)):
+        digits = re.match(r"\d+", mangled[i:])
+        if digits:
+            start, n = i + digits.end(), int(digits.group())
+            ident = mangled[start:start + n]
+            if len(ident) == n and ident.endswith("_kernel"):
+                return ident
+    return mangled
+
+
+def ptxas_lines(name: str, text: str):
+    """ptxas's registers and spills of each kernel in ``text`` (the -v
+    output of building csrc/<name>.cu), one line each."""
+    func = "?"
+    for line in text.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)", line)
+        if found:
+            func = kernel_name(found.group(1))
+        elif "registers" in line or "spill" in line:
+            yield f"ptxas {name} {func}: {line.strip()}"
+
+
+def sass_hgmma(name: str, kernels):
+    """The HGMMA (wgmma) instructions of each of ``kernels`` in
+    ``cuobjdump -sass`` of the built csrc/<name>.cu: {kernel: (count, the
+    first such line)}; raises if one of them has none."""
+    lib = _build.build(name)[0][name]
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    found, current = {}, None
+    for line in sass.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            current = kernel_name(func.group(1))
+        elif current in kernels and "HGMMA" in line:
+            count, first = found.get(current, (0, " ".join(line.split())))
+            found[current] = (count + 1, first)
+    missing = [k for k in kernels if k not in found]
+    if missing:
+        raise AssertionError(f"cuobjdump -sass {lib.name}: no HGMMA "
+                             f"instruction in {missing}")
+    return found
+
+
 def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
     """Both FFN train kernels against the plain version at every main-path
     shape (M = B * L for L in 40, 177, 393): y and every gradient at rate 0,
     and at rate 0.1 with the kernels' own keep mask given to the plain
-    version; the realised keep rate; the times of the kernels, of the
-    weight-gradient products after the backward kernel, of the plain
-    version and of the unfused yardstick (F.linear, GeLU, dropout,
-    layer_norm, and its autograd backward)."""
+    version; the realised keep rate; two backward calls bit-equal; the
+    times of the kernels, of the weight-gradient products after the
+    backward kernels, of the plain version and of the unfused yardstick
+    (F.linear, GeLU, dropout, layer_norm, and its autograd backward); the
+    kernels' device time per call (the backward's per stage too); the
+    backward's products on wgmma (HGMMA in the SASS)."""
+    for kernel, (count, first) in sass_hgmma("ffn_train",
+                                             FFN_BWD_PRODUCTS).items():
+        log(f"sass ffn_train {kernel}: {count} HGMMA instructions, e.g. "
+            f"`{first}`")
     rows = {}
     max_err = {"fwd": 0.0, "bwd": 0.0}
     rate = FFN_TRAIN_RATE
@@ -412,6 +482,13 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
             seed = draw_seed(gen, x2.device)
             spills = ffn_kernels._launch_train_bwd(
                 x2, w1t, b1, w2t, b2, gamma, seed, rate, 1e-12, dy)
+            # nothing in the backward's chain sums with atomics
+            again = ffn_kernels._launch_train_bwd(
+                x2, w1t, b1, w2t, b2, gamma, seed, rate, 1e-12, dy)
+            if not all(torch.equal(a, b_) for a, b_ in zip(spills, again)):
+                raise AssertionError(f"{tag}: two backward calls on the same "
+                                     "inputs differ")
+            del again
             plain_out = ffn_train_reference(*ops, rate, keep)
             hidden = F.linear(ops[0], ops[1], ops[2].to(torch.bfloat16))
             yard_out = F.layer_norm(
@@ -436,6 +513,14 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
                                  1e-12, dy)),
                     **spread("wgrad_ms", lambda: ffn_kernels._weight_grads(
                         x2, spills[1], spills[2], spills[3])))
+                timed["kernel_device_ms"] = device_ms(
+                    lambda: fused_ffn_train(*ops, rate, gen),
+                    FFN_FWD_KERNELS)[0]
+                (timed["bwd_kernel_device_ms"], _,
+                 timed["bwd_stage_device_ms"]) = device_ms(
+                    lambda: ffn_kernels._launch_train_bwd(
+                        x2, w1t, b1, w2t, b2, gamma, seed, rate, 1e-12, dy),
+                    FFN_BWD_STAGES)
             timed.update(
                 bwd_plain_ms=time_ms(lambda: torch.autograd.grad(
                     plain_out, ops, dy, retain_graph=True)),
@@ -446,6 +531,7 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
             bwd_bound, bwd_bound_by = ffn_train_bound(m, True)
             rows[m] = dict(M=m, keep_rate=kept, err_fwd=max(e0, e1),
                            err_grads=max(g0, g1), rel_err_grads=max(r0, r1),
+                           bwd_rerun_bit_equal=True,
                            bound_ms=bound, bound_by=bound_by,
                            bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_bound_by,
                            **timed)
@@ -457,6 +543,40 @@ def per_train_step(rows, bsz, key, backward=False):
     """Sum over the FFN sites of one train step of ``key``."""
     return sum((nb if backward else nf) * rows[per_clip * bsz][key]
                for per_clip, nf, nb in FFN_TRAIN_SITES)
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def weighted_text(sites, key) -> str:
+    """``key`` summed over ``sites`` ((launches, row) pairs) as "x ms", and
+    for a timed key with the sums of the sites' fastest and slowest turns,
+    "x [lo-hi] ms"; "not measured" where a site has none."""
+    if any(row[key] is None for _, row in sites):
+        return "not measured"
+    text = f"{sum(n * row[key] for n, row in sites):.3f}"
+    if all(key + "_range" in row for _, row in sites):
+        lo, hi = (sum(n * row[key + "_range"][i] for n, row in sites)
+                  for i in (0, 1))
+        text += f" [{lo:.3f}-{hi:.3f}]"
+    return text + " ms"
+
+
+def log_bwd_stages(rows):
+    """One line per batch size: the FFN train backward's device time per
+    train step by stage of its chain (torch.profiler)."""
+    for bsz in (BATCH_SIZE, 2):
+        stages = [rows[per_clip * bsz]["bwd_stage_device_ms"]
+                  for per_clip, _, _ in FFN_TRAIN_SITES]
+        if None in stages:
+            log(f"fused_ffn_train_bwd stages at b{bsz}: not measured")
+            continue
+        log(f"fused_ffn_train_bwd device ms per train step by stage at b{bsz} "
+            "(torch.profiler): " + ", ".join(
+                f"{stage} " + ms_text(sum(nb * st[stage] for (_, _, nb), st
+                                          in zip(FFN_TRAIN_SITES, stages)))
+                for stage in FFN_BWD_STAGES))
 
 
 def attention_bound(b, lq, lk, key, pane, backward: bool, lse: bool = True):
@@ -541,12 +661,12 @@ def fwd_and_grads(q, k, v, mask, rate, generator, keep, tag):
 
 def device_ms(fn, own=(), calls: int = 10, tries: int = 3):
     """Device ms per call of ``fn`` from torch.profiler over ``calls`` + 1
-    calls: (the kernels whose names hold one of ``own``, every kernel's),
-    each kernel's mean time times its launches per call.  The profiler can
-    miss the first kernel of a session (so launches per call are rounded)
-    or a whole session (so it tries again); (None, None) when ``tries``
-    traces hold no device time or ``own`` kernels do not launch once a
-    call."""
+    calls: (the kernels whose names hold one of ``own``, every kernel's,
+    {name in ``own``: its kernels'}), each kernel's mean time times its
+    launches per call.  The profiler can miss the first kernel of a session
+    (so launches per call are rounded) or a whole session (so it tries
+    again); (None, None, None) when ``tries`` traces hold no device time or
+    ``own`` kernels do not launch once a call."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
@@ -556,6 +676,7 @@ def device_ms(fn, own=(), calls: int = 10, tries: int = 3):
             torch.cuda.synchronize()
         mine = total = 0.0
         per_call = {name: 0 for name in own}
+        each = {name: 0.0 for name in own}
         for evt in prof.key_averages():
             if (evt.device_type != torch.autograd.DeviceType.CUDA
                     or not evt.count):
@@ -567,11 +688,12 @@ def device_ms(fn, own=(), calls: int = 10, tries: int = 3):
                 if name in evt.key:
                     mine += ms
                     per_call[name] += n
+                    each[name] += ms
         if total > 0.0 and all(n == 1 for n in per_call.values()):
-            return mine, total
+            return mine, total, each
     log(f"profiler: launches per call {per_call}, {total} ms a call, after "
         f"{tries} traces")
-    return None, None
+    return None, None, None
 
 
 # the site whose card keep mask is held bit-equal to keep_mask_reference,
@@ -673,7 +795,7 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
                                 ("library0_ms", ()), ("library_ms", ()),
                                 ("bwd_library0_ms", ()),
                                 ("bwd_library_ms", ())):
-                mine, total = device_ms(fns[key_ms], own)
+                mine, total, _ = device_ms(fns[key_ms], own)
                 if own:
                     timed[key_ms.replace("_ms", "_device_ms")] = mine
                 timed[key_ms.replace("_ms", "_device_all_ms")] = total
@@ -719,18 +841,9 @@ def per_step(rows, bsz, key, backward=False):
 
 def per_step_text(rows, bsz, key, backward=False):
     """``key`` summed over one train step's sites, and for a timed key the
-    sums of the sites' fastest and slowest turns: "x [lo-hi]"."""
-    total = per_step(rows, bsz, key, backward)
-    if total is None:
-        return "not measured"
-    text = f"{total:.3f}"
-    if key + "_range" in rows[(ATTN_SITES[0][0], bsz)]:
-        lo, hi = (sum((nb if backward else nf)
-                      * rows[(name, bsz)][key + "_range"][i]
-                      for name, _, _, _, _, nf, nb in ATTN_SITES)
-                  for i in (0, 1))
-        text += f" [{lo:.3f}-{hi:.3f}]"
-    return text
+    sums of the sites' fastest and slowest turns: "x [lo-hi] ms"."""
+    return weighted_text([(nb if backward else nf, rows[(name, bsz)])
+                          for name, _, _, _, _, nf, nb in ATTN_SITES], key)
 
 
 # per train step keys of the attention rows: kernel and SDPA at rate 0 and
@@ -977,10 +1090,12 @@ def transpose_path(q2, k2, v2, mask):
 
 
 def phase_headsliced_kernel(batch_sizes=(2, BATCH_SIZE)):
-    """The head-sliced attention kernel against headsliced_reference and
-    the transpose path at every attention site's shape (bf16 (B, L, 768)
-    projections, the site's mask), and the times of the kernel, the plain
-    version, the transpose path and SDPA with the same additive mask."""
+    """The head-sliced attention against headsliced_reference (within
+    ATTN_TOL) and the transpose path (bit-equal: one kernel on the same
+    bytes) at every attention site's shape (bf16 (B, L, 768) projections,
+    the site's mask); the times of the kernel, the plain version, the
+    transpose path and SDPA with the same additive mask, and the kernel's
+    device time per call."""
     rows, max_err = {}, 0.0
     with torch.inference_mode():
         for bsz in batch_sizes:
@@ -994,17 +1109,16 @@ def phase_headsliced_kernel(batch_sizes=(2, BATCH_SIZE)):
                 err, rel = rel_max_err(
                     f"headsliced {tag}", out, headsliced_reference(
                         q2, k2, v2, key, pane, heads=H), ATTN_TOL)
-                err_t, rel_t = rel_max_err(
-                    f"headsliced vs transpose path {tag}", out,
-                    transpose_path(q2, k2, v2, mask), ATTN_TOL)
+                if not torch.equal(out, transpose_path(q2, k2, v2, mask)):
+                    raise AssertionError(f"headsliced {tag}: not bit-equal "
+                                         "to the transpose path")
                 max_err = max(max_err, err)
                 sdpa_mask = sdpa_additive_mask(bsz, lq, lk, key, pane)
                 bound, bound_by = attention_bound(bsz, lq, lk, key, pane,
                                                   False, lse=False)
                 rows[(name, bsz)] = dict(
                     site=name, B=bsz, Lq=lq, Lk=lk, mask=kind,
-                    max_abs_err=err, rel_err=rel,
-                    max_abs_err_vs_transpose=err_t, rel_err_vs_transpose=rel_t,
+                    max_abs_err=err, rel_err=rel, bit_equal_to_transpose=True,
                     bound_ms=bound, bound_by=bound_by,
                     **spread("kernel_ms", lambda: headsliced_attention(
                         q2, k2, v2, mask, H)),
@@ -1014,7 +1128,10 @@ def phase_headsliced_kernel(batch_sizes=(2, BATCH_SIZE)):
                         q2, k2, v2, mask)),
                     **spread("library_ms",
                              lambda: F.scaled_dot_product_attention(
-                                 q, k, v, sdpa_mask)))
+                                 q, k, v, sdpa_mask)),
+                    kernel_device_ms=device_ms(
+                        lambda: headsliced_attention(q2, k2, v2, mask, H),
+                        ("attn_fwd_kernel",))[0])
                 log(f"headsliced_attention {json.dumps(rows[(name, bsz)])}")
     return rows, max_err
 
@@ -1547,9 +1664,8 @@ def main(argv=None) -> int:
     libs, build_logs = _build.build()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(name, text):
+            log(f"  {line}")
 
     if args.only == "attention":
         attn_rows, attn_err = phase_attention_kernels()
@@ -1557,7 +1673,8 @@ def main(argv=None) -> int:
         log(f"attention kernels ok; max errors {json.dumps(attn_err)}")
         return 0
     if args.only == "ffn_train":
-        _, train_err = phase_ffn_train_kernels()
+        train_rows, train_err = phase_ffn_train_kernels()
+        log_bwd_stages(train_rows)
         log(f"FFN train kernels ok; max errors {json.dumps(train_err)}")
         return 0
     if args.only == "tok_block":
@@ -1639,16 +1756,20 @@ def main(argv=None) -> int:
             "bound_by": train_rows[widest[0] * bsz][pre + "bound_by"],
             "library_ms": None,
         })
-        keys = ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms") + (
-            ("wgrad_ms",) if backward else ())
+        keys = ("kernel_ms", "kernel_device_ms", "plain_ms", "yardstick_ms",
+                "bound_ms") + (("wgrad_ms",) if backward else ())
         log(f"{name} per train step ({driver_counts[-1][3 + backward]} "
             f"sites; yardstick: the unfused F.linear/GeLU/dropout/layer_norm"
             + (" autograd backward" if backward else "") + "; "
-            + ("wgrad: the weight-gradient products after the kernel; "
-               if backward else "") + "no single library call computes "
-            "this block): " + ", ".join(
-                f"{k} {per_train_step(train_rows, b, (pre if k != 'wgrad_ms' else '') + k, backward):.3f} ms at b{b}"
+            + ("wgrad: the weight-gradient products after the kernels; "
+               if backward else "") + "device: torch.profiler per call; no "
+            "single library call computes this block): " + ", ".join(
+                f"{k} " + weighted_text(
+                    [(nb if backward else nf, train_rows[per_clip * b])
+                     for per_clip, nf, nb in FFN_TRAIN_SITES],
+                    (pre if k != "wgrad_ms" else "") + k) + f" at b{b}"
                 for k in keys for b in (bsz, 2)))
+    log_bwd_stages(train_rows)
     kernels.append({
         "name": "fused_tok_conv", "route": "cuda",
         "source": "shgvqa_tpu_torch/csrc/tok_conv.cu",
@@ -1703,7 +1824,7 @@ def main(argv=None) -> int:
                  key=lambda s: s[5] * hs_rows[(s[0], bsz)]["bound_ms"])
     kernels.append({
         "name": "headsliced_attention", "route": "cuda",
-        "source": "shgvqa_tpu_torch/csrc/headsliced_attn.cu",
+        "source": "shgvqa_tpu_torch/csrc/attention.cu",
         "replaces": "tools/proto_headsliced_attn.py:41",
         "launches": olhs_launches[8], "max_abs_err": hs_err,
         "ms": per_forward_attn(hs_rows, bsz, "kernel_ms"),
@@ -1714,10 +1835,13 @@ def main(argv=None) -> int:
     })
     log(f"headsliced_attention per forward ({olhs_launches[8]} sites; "
         "library: SDPA with the same additive mask; transpose: the fused "
-        "attention forward on (B, H, L, 64) views): " + ", ".join(
-            f"{k} {per_forward_attn(hs_rows, b, k):.3f} ms at b{b}"
-            for k in ("kernel_ms", "plain_ms", "transpose_ms", "library_ms",
-                      "bound_ms")
+        "attention forward on (B, H, L, 64) views; device: torch.profiler per "
+        "call): " + ", ".join(
+            f"{k} " + weighted_text(
+                [(nf, hs_rows[(site, b)])
+                 for site, _, _, _, _, nf, _ in ATTN_SITES], k) + f" at b{b}"
+            for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                      "transpose_ms", "library_ms", "bound_ms")
             for b in (bsz, 2)))
     log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; driver epochs "
         f"{epoch_s} s")

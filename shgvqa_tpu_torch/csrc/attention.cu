@@ -9,6 +9,11 @@
 // kernels _fwd_kernel (forward) and _bwd_kernel (backward) behind the JAX
 // fused_attention; the plain versions are attention_reference and
 // attention_backward_reference in shgvqa_tpu_torch/kernels/attention.py.
+// The forward's rate-0 instance also replaces
+// tools/proto_headsliced_attn.py::make_headsliced: kernels/headsliced.py
+// launches it on the (B, L, H*64) projections' own strides (batch L*H*64,
+// head 64, row H*64), so the head panes are read in place
+// (headsliced_reference is that plain version).
 //
 // What bounds it on the card: per (batch, head) 4*Lq*Lk*64 operations
 // forward (10*Lq*Lk*64 backward) against ~(Lq + Lk)*64*2*2 bytes (twice

@@ -25,7 +25,8 @@
 // Philox4x32-10 keyed on the call's 64-bit seed (read from device memory)
 // with the counter (col / 4, row, 0, 0).  The counter depends on the
 // absolute row and column only, so the forward (32- or 48-row tiles), the
-// backward (32-row tiles) and shgvqa_ffn_train_keep_mask draw one mask.
+// backward's row pass (16-row tiles) and shgvqa_ffn_train_keep_mask draw
+// one mask.
 // (The TPU kernel seeds per program id, with 128-row programs forward and
 // 64-row programs backward, so its backward regenerates another mask.)
 //
@@ -34,35 +35,36 @@
 // (4*M*D + 2*M*F + 2*D*F) * 2 backward: at the model's shapes (D=768,
 // F=3072, M >= 80) the tensor cores, not device memory.
 //
-// Design (simple and right first):
+// Design:
 // - forward: the design of csrc/ffn.cu (TMA-fed weight ring, ldmatrix +
 //   mma.sync, 16 warps, 32- or 48-row tiles, the (rows, D) f32 output kept
 //   in registers), with the dropout in the LayerNorm epilogue;
-// - backward: one block of 16 warps per 32-row tile, weights streamed by
-//   cp.async through a ring of three padded shared-memory buffers (two
-//   tiles in flight while one is used, one barrier per tile).  Pass 1
-//   recomputes u, h and o chunk by chunk over F (256 columns a chunk) exactly as the
-//   forward does, writing h (bf16) and gelu'(u) (an f32 spill, M x F, read
-//   back in pass 2 instead of recomputing u).  Between the passes, one warp
-//   per row redoes the LayerNorm, the mask and dr, writes do, and the block
-//   sums dy * xhat and dy over its rows into a per-tile partial.  Pass 2
-//   walks F again: dh = do . W2^T[:, chunk], du = dh * gelu'(u), written
-//   out and staged in shared memory, then dx += du . W1^T[chunk, :] in a
-//   rows x D f32 register accumulator that starts at dr.  The transposed
-//   reads of W2^T and W1^T use ldmatrix.trans on the nn.Linear layouts as
-//   stored: no transposed copy of a weight exists;
-// - dgamma and dbeta: a second kernel sums the per-tile partials column by
-//   column in tile order: deterministic, no atomics.
-// Ragged M: rows past M are zero-filled on load, never stored and never
+// - backward: six launches on one stream, each shaped to fill the card at
+//   M = 1280 (10 row tiles).  The four products run the mainloop of
+//   wgmma_gemm.cuh (128-row tiles of two consumer warpgroups issuing
+//   wgmma.mma_async, a producer warp keeping a ring of TMA tiles with the
+//   128-byte swizzle in flight on mbarriers, 3 stages for the 128-wide
+//   tiles and 4 for the 64-wide ones, so that two blocks share an SM and
+//   one's epilogue overlaps the other's products), each with its own
+//   epilogue:
+//   1. u = x . W1 + b1 over (M, F) tiles 128 wide: h (bf16) and gelu'(u)
+//      (an f32 spill, M x F) out;
+//   2. o = h . W2 + b2 over (M, D) tiles 64 wide, out in f32;
+//   3. a row pass, one warp per row: the dropout, the LayerNorm recompute,
+//      dr (f32, over o) and do (bf16) out, and per 16-row tile the partial
+//      dgamma and dbeta;
+//   4. dh = do . W2^T over (M, F) tiles: du = bf16(dh * gelu'(u)) out;
+//   5. dx = dr + du . W1^T over (M, D) tiles, out in bf16;
+//   6. dgamma and dbeta: the partials summed column by column, in eighths
+//      of the tiles in tile order and then the eighths in order.
+//   W1 and W2 are read as the nn.Linear weights are stored: K-major where
+//   the product takes W^T (1, 2), MN-major, transposed by the wgmma, where
+//   it takes W (4, 5).  Nothing is summed with atomics: two calls on the
+//   same inputs give the same bits.
+// Ragged M: rows past M are zero-filled by the TMA, never stored and never
 // summed into dgamma or dbeta.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -80,10 +82,6 @@ constexpr size_t kStageBytes = 32768;             // >= 256 x 128 B (W1) and 768
 
 __host__ __device__ inline size_t align_up(size_t n, size_t a) { return (n + a - 1) / a * a; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem)
                : "memory");
@@ -96,54 +94,9 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of `bar` with this parity to complete; trap after a
-// second instead of hanging on a copy that never lands.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (start == 0) start = now;
-    if (now - start > 1000000000ull) __trap();
-  }
-}
-
-// TMA: the box of `map` at (column c0, row c1) into shared memory at dst.
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                       uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // Four 8x8 bf16 matrices; lane l gives the address of a row of matrix l/8.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
@@ -161,22 +114,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
 // A operand: the 16 x 16 block at p of a row-major matrix with row stride ld.
 __device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* p, int ld, int lane) {
   ldsm_x4(r, smem_addr(p + (lane % 16) * ld + (lane / 16) * 8));
-}
-
-// B operands of the n8 tiles n0 and n0+8 over k0..k0+15 from a padded tile
-// stored [n][k] (rows are n, row stride ld): r[0..1] for n0, r[2..3] for
-// n0 + 8.
-__device__ __forceinline__ void load_b_nk(uint32_t (&r)[4], const bf16* tile, int ld, int n0,
-                                          int k0, int lane) {
-  ldsm_x4(r, smem_addr(tile + (n0 + lane % 8 + (lane / 16) * 8) * ld + k0 + ((lane / 8) % 2) * 8));
-}
-
-// The same from a padded tile stored [k][n] (rows are k), transposed by
-// ldmatrix.
-__device__ __forceinline__ void load_b_kn(uint32_t (&r)[4], const bf16* tile, int ld, int k0,
-                                          int n0, int lane) {
-  ldsm_x4_trans(r,
-                smem_addr(tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * ld + n0 + (lane / 16) * 8));
 }
 
 // B operands of two n8 tiles from a TMA-swizzled [n][k] weight tile: rows
@@ -200,10 +137,12 @@ __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
 }
 
-// gelu'(u) = Phi(u) + u * phi(u)
-__device__ __forceinline__ float gelu_grad(float u) {
-  return 0.5f * (1.0f + erff(u * 0.70710678118654752f)) +
-         u * __expf(-0.5f * u * u) * 0.3989422804014327f;
+// gelu(u) = u * Phi(u) (bit-equal to gelu_erf: both round u (1 + erf) / 2
+// once), and gelu'(u) = Phi(u) + u * phi(u) into grad, from one erf
+__device__ __forceinline__ float gelu_and_grad(float u, float& grad) {
+  const float phi_cdf = 0.5f * (1.0f + erff(u * 0.70710678118654752f));
+  grad = phi_cdf + u * __expf(-0.5f * u * u) * 0.3989422804014327f;
+  return u * phi_cdf;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -524,32 +463,6 @@ ffn_train_fwd_kernel(const __grid_constant__ CUtensorMap w1map,
   }
 }
 
-// A TMA map of a row-major (rows, cols) bf16 matrix in boxes of
-// (box_rows, box_cols).  cuTensorMapEncodeTiled is a driver function: it is
-// found through the runtime, so the library needs no -lcuda.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-                       int box_cols, CUtensorMapSwizzle swizzle) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int kMTiles>
 cudaError_t launch_fwd(const void* x, const void* w1t, const void* b1, const void* w2t,
                        const void* b2, const void* gamma, const void* beta, void* y, int m, int d,
@@ -576,21 +489,22 @@ cudaError_t launch_fwd(const void* x, const void* w1t, const void* b1, const voi
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------------------
-// Backward
+// Backward: a chain of launches on one stream.  The four products run the
+// wgmma mainloop of wgmma_gemm.cuh, each with its own epilogue; the
+// LayerNorm backward is a row pass between them.
 
-constexpr int kBRows = 32;                        // rows of a backward tile
-constexpr int kBMT = kBRows / 16;                 // its m16 tiles
-constexpr int kKX = 16;                           // F rows of a W1^T tile (pass 2)
-constexpr int kRing = 3;                          // weight buffers of a backward block
-constexpr int kLdW1 = kKU + kPad;                 // pass 1 W1 tile: 256 F rows x 64 D
-constexpr int kLdW2 = kKO + kPad;                 // pass 1 W2 tile: D rows x 16 F
-constexpr int kLdW2T = kChunk + kPad;             // pass 2 W2^T tile: 64 D rows x 256 F
+constexpr int kWideN = 128;                       // tile width of the (M, F) products
+constexpr int kNarrowN = 64;                      // tile width of the (M, D) products
+// ring stages: 3 x 32 KB (wide) and 4 x 24 KB (narrow) let two blocks share
+// an SM, so that one block's epilogue overlaps the other's products
+constexpr int kWideStages = 3;
+constexpr int kNarrowStages = 4;
+constexpr int kRowTile = 16;                      // rows of a row-pass block: a warp each
+constexpr int kRowThreads = 32 * kRowTile;
 
 struct BwdParams {
   const bf16* x;
-  const bf16* w1t;                     // (F, D)
   const float* b1;
-  const bf16* w2t;                     // (D, F)
   const float* b2;
   const float* gamma;
   const bf16* dy;
@@ -599,252 +513,82 @@ struct BwdParams {
   bf16* dout;                          // do, (M, D)
   bf16* h;                             // (M, F)
   float* gd;                           // gelu'(u), (M, F) scratch
-  float* part;                         // (tiles, 2 D): sum dy * xhat | sum dy
+  float* dr;                           // o + b2, then dr, (M, D) scratch
+  float* part;                         // (row tiles, 2 D): sum dy * xhat | sum dy
   int m, d, f;
   float eps;
   Drop drop;
 };
 
-// Shared memory of a backward block: x tile | do tile | h (pass 1) or du
-// (pass 2) chunk | row statistics | kRing weight buffers.  The f32 (rows, D)
-// LayerNorm tile of the epilogue between the passes reuses the buffers.
-struct BwdLayout {
-  size_t xs, dos, hs, stats, buf0, buf, total;
-  __host__ __device__ explicit BwdLayout(int d) {
-    const size_t x_bytes = sizeof(bf16) * kBRows * (d + kPad);
-    size_t largest = sizeof(bf16) * kChunk * kLdW1;                 // W1, pass 1
-    const size_t w2 = sizeof(bf16) * d * kLdW2;                     // W2, pass 1
-    const size_t w2t = sizeof(bf16) * kKU * kLdW2T;                 // W2^T, pass 2
-    const size_t w1t = sizeof(bf16) * kKX * (d + kPad);             // W1^T, pass 2
-    largest = largest > w2 ? largest : w2;
-    largest = largest > w2t ? largest : w2t;
-    largest = largest > w1t ? largest : w1t;
-    buf = align_up(largest, 128);
-    xs = 0;
-    dos = align_up(xs + x_bytes, 128);
-    hs = align_up(dos + x_bytes, 128);
-    stats = align_up(hs + sizeof(bf16) * kBRows * kLdH, 128);
-    buf0 = align_up(stats + sizeof(float) * 3 * kBRows, 128);
-    total = buf0 + kRing * buf;
-  }
-};
-
-// rows x cols bf16 block at (r0, c0) of a row-major matrix with row stride
-// ld_g into shared memory with row stride lds, by cp.async (cols % 8 == 0).
-__device__ __forceinline__ void load_block(bf16* dst, int lds, const bf16* src, int ld_g, int r0,
-                                           int c0, int rows, int cols) {
-  const int vec = cols / 8;
-  for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
-    const int r = i / vec;
-    const int c = (i % vec) * 8;
-    cp_async16(dst + r * lds + c, src + static_cast<size_t>(r0 + r) * ld_g + c0 + c);
-  }
-}
-
-// Run use(t, tile) over the n tiles that load(t, buffer) brings in, through
-// a ring of kRing buffers of `stride` bytes: tiles t+1 and t+2 are in flight
-// while tile t is used.  Every thread calls it; it ends with every tile used
-// and the buffers free.  Each iteration commits one cp.async group (empty
-// past the end), so "all but the newest group" is always tile t and before.
-template <typename Load, typename Use>
-__device__ __forceinline__ void stream_tiles(int n, unsigned char* ring, size_t stride, Load load,
-                                             Use use) {
-  for (int t = 0; t < kRing - 1; ++t) {
-    if (t < n) load(t, ring + t * stride);
-    cp_commit();
-  }
-  for (int t = 0; t < n; ++t) {
-    cp_wait<kRing - 2>();
-    __syncthreads();   // tile t is in for every thread, and every thread is done with tile t-1
-    const int next = t + kRing - 1;   // ... whose buffer takes tile t+kRing-1
-    if (next < n) load(next, ring + (next % kRing) * stride);
-    cp_commit();
-    use(t, reinterpret_cast<const bf16*>(ring + (t % kRing) * stride));
-  }
-  cp_wait<0>();
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads, 1) ffn_train_bwd_kernel(const BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem_b[];
-  const int d = p.d, f = p.f, m = p.m;
-  const BwdLayout lay(d);
-  bf16* xs = reinterpret_cast<bf16*>(smem_b + lay.xs);
-  bf16* dos = reinterpret_cast<bf16*>(smem_b + lay.dos);
-  bf16* hs = reinterpret_cast<bf16*>(smem_b + lay.hs);
-  float* rstd_s = reinterpret_cast<float*>(smem_b + lay.stats);
-  float* m1_s = rstd_s + kBRows;
-  float* m2_s = m1_s + kBRows;
-  unsigned char* ring = smem_b + lay.buf0;
-  float* os = reinterpret_cast<float*>(ring);
-  const int ldx = d + kPad;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int q = (lane % 4) * 2;
-  const int row0 = blockIdx.x * kBRows;
-  const int valid = min(kBRows, m - row0);
-  const int ucol = warp * 16;             // this warp's 16 columns of each F chunk
-  const int wcol = warp * kWarpCols;      // this warp's 48 columns of D
-  const int nk = d / kKU;                 // 64-deep D steps
-  const int chunks = f / kChunk;
-
-  // x tile (rows past m zero); do rows past m stay zero
-  const int vec_per_row = d / 8;
-  for (int i = threadIdx.x; i < kBRows * vec_per_row; i += kThreads) {
-    const int r = i / vec_per_row;
-    const int c = (i % vec_per_row) * 8;
-    if (r < valid) {
-      cp_async16(xs + r * ldx + c, p.x + static_cast<size_t>(row0 + r) * d + c);
-    } else {
-      *reinterpret_cast<uint4*>(xs + r * ldx + c) = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(dos + r * ldx + c) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  cp_commit();
-
-  float acc[kBMT][kWarpCols / 8][4];      // o (pass 1), then dx (pass 2)
-  float wacc[kBMT][2][4];                 // u (pass 1), then dh (pass 2), chunk columns ucol..
-#pragma unroll
-  for (int i = 0; i < kBMT; ++i) {
-#pragma unroll
-    for (int n = 0; n < kWarpCols / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
-    }
-  }
-
-  // ---- pass 1: u, h = gelu(u) (written out, gelu'(u) spilled), o += h . W2
-  const int t1 = nk + kChunk / kKO;
-  stream_tiles(
-      chunks * t1, ring, lay.buf,
-      [&](int t, unsigned char* buf) {
-        const int f0 = (t / t1) * kChunk, j = t % t1;
-        bf16* dst = reinterpret_cast<bf16*>(buf);
-        if (j < nk) {
-          load_block(dst, kLdW1, p.w1t, d, f0, j * kKU, kChunk, kKU);
-        } else {
-          load_block(dst, kLdW2, p.w2t, f, 0, f0 + (j - nk) * kKO, d, kKO);
-        }
-      },
-      [&](int t, const bf16* tile) {
-        const int f0 = (t / t1) * kChunk, j = t % t1;
-        if (j < nk) {
-          if (j == 0) {
-#pragma unroll
-            for (int i = 0; i < kBMT; ++i) {
-#pragma unroll
-              for (int n = 0; n < 2; ++n) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) wacc[i][n][e] = 0.0f;
-              }
-            }
-          }
-#pragma unroll
-          for (int kk = 0; kk < kKU; kk += 16) {
-            uint32_t b[4];
-            load_b_nk(b, tile, kLdW1, ucol, kk, lane);
-#pragma unroll
-            for (int i = 0; i < kBMT; ++i) {
-              uint32_t a[4];
-              load_a(a, xs + i * 16 * ldx + j * kKU + kk, ldx, lane);
-              mma16816(wacc[i][0], a, b[0], b[1]);
-              mma16816(wacc[i][1], a, b[2], b[3]);
-            }
-          }
-          if (j == nk - 1) {   // u is complete: h to shared memory and out, gelu'(u) out
-#pragma unroll
-            for (int n = 0; n < 2; ++n) {
-              const int c = ucol + n * 8 + q;
-              const float bias0 = p.b1[f0 + c], bias1 = p.b1[f0 + c + 1];
-#pragma unroll
-              for (int i = 0; i < kBMT; ++i) {
-#pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                  const int r = i * 16 + g + half * 8;
-                  const float u0 = wacc[i][n][2 * half] + bias0;
-                  const float u1 = wacc[i][n][2 * half + 1] + bias1;
-                  const uint32_t hv = pack_bf16(gelu_erf(u0), gelu_erf(u1));
-                  *reinterpret_cast<uint32_t*>(hs + r * kLdH + c) = hv;
-                  if (r < valid) {
-                    const size_t off = static_cast<size_t>(row0 + r) * f + f0 + c;
-                    *reinterpret_cast<uint32_t*>(p.h + off) = hv;
-                    *reinterpret_cast<float2*>(p.gd + off) =
-                        make_float2(gelu_grad(u0), gelu_grad(u1));
-                  }
-                }
-              }
-            }
-          }
-        } else {
-          // acc[:, wcol..] += h[:, k..k+16] . W2[f0+k.., wcol..]
-          const int k = (j - nk) * kKO;
-          uint32_t a[kBMT][4];
-#pragma unroll
-          for (int i = 0; i < kBMT; ++i) load_a(a[i], hs + i * 16 * kLdH + k, kLdH, lane);
-#pragma unroll
-          for (int pp = 0; pp < kWarpCols / 16; ++pp) {
-            const int n0 = wcol + pp * 16;
-            if (n0 < d) {
-              uint32_t b[4];
-              load_b_nk(b, tile, kLdW2, n0, 0, lane);
-#pragma unroll
-              for (int i = 0; i < kBMT; ++i) {
-                mma16816(acc[i][2 * pp], a[i], b[0], b[1]);
-                mma16816(acc[i][2 * pp + 1], a[i], b[2], b[3]);
-              }
-            }
-          }
-        }
+// 1. u = x . W1 + b1 over (M, F) tiles: h = bf16(gelu(u)), gelu'(u) in f32.
+__global__ void __launch_bounds__(kGemmThreads, 2)
+ffn_bwd_u_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap w1map,
+                 const BwdParams p) {
+  float acc[kWideN / 2];
+  if (!gemm_mainloop<kWideN, false, kWideStages>(&xmap, &w1map, p.d, acc)) return;
+  gemm_epilogue<kWideN>(
+      acc, p.m, [&](int, int col) { return __ldg(reinterpret_cast<const float2*>(p.b1 + col)); },
+      [&](int row, int col, float a0, float a1, float2 bias) {
+        float2 gd;
+        const float h0 = gelu_and_grad(a0 + bias.x, gd.x), h1 = gelu_and_grad(a1 + bias.y, gd.y);
+        const size_t off = static_cast<size_t>(row) * p.f + col;
+        *reinterpret_cast<uint32_t*>(p.h + off) = pack_bf16(h0, h1);
+        *reinterpret_cast<float2*>(p.gd + off) = gd;
       });
+}
 
-  // ---- between the passes: LayerNorm backward on the (rows, D) tile in os
-  // (the ring, free once stream_tiles returned)
-#pragma unroll
-  for (int n = 0; n < kWarpCols / 8; ++n) {
-    const int c = wcol + n * 8 + q;
-    if (c < d) {
-#pragma unroll
-      for (int i = 0; i < kBMT; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = i * 16 + g + half * 8;
-          *reinterpret_cast<float2*>(os + r * d + c) =
-              make_float2(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
-        }
-      }
-    }
-  }
-  __syncthreads();
+// 2. o = h . W2 + b2 over (M, D) tiles, in f32.
+__global__ void __launch_bounds__(kGemmThreads, 2)
+ffn_bwd_o_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap w2map,
+                 const BwdParams p) {
+  float acc[kNarrowN / 2];
+  if (!gemm_mainloop<kNarrowN, false, kNarrowStages>(&hmap, &w2map, p.f, acc)) return;
+  gemm_epilogue<kNarrowN>(
+      acc, p.m, [&](int, int col) { return __ldg(reinterpret_cast<const float2*>(p.b2 + col)); },
+      [&](int row, int col, float a0, float a1, float2 bias) {
+        *reinterpret_cast<float2*>(p.dr + static_cast<size_t>(row) * p.d + col) =
+            make_float2(a0 + bias.x, a1 + bias.y);
+      });
+}
 
+// 3. The row pass, one warp per row: r = dropout(o + b2) + x, its two-pass
+// LayerNorm statistics, xhat, a = dy * gamma, dr = (a - mean(a) - xhat *
+// mean(a * xhat)) * rstd (over o + b2 in place) and do = bf16(dropout(dr));
+// then the block's partial dgamma = sum dy * xhat and dbeta = sum dy, column
+// by column over its rows in order.  Rows past M are skipped.
+__global__ void __launch_bounds__(kRowThreads) ffn_bwd_rows_kernel(const BwdParams p) {
+  extern __shared__ float xhat_s[];    // kRowTile x d
+  const int d = p.d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * kRowTile;
+  const int valid = min(kRowTile, p.m - row0);
   const float inv_d = 1.0f / static_cast<float>(d);
   const uint2 key = drop_key(p.drop);
-  // phase A, one warp per row: r = dropout(o + b2) + x, its statistics,
-  // xhat (into os), mean(a) and mean(a * xhat) with a = dy * gamma
-  for (int r = warp; r < valid; r += kWarps) {
-    const int row = row0 + r;
-    float* orow = os + r * d;
-    const bf16* xrow = xs + r * ldx;
+  if (warp < valid) {
+    const int row = row0 + warp;
+    float* xr = xhat_s + warp * d;
+    float* orow = p.dr + static_cast<size_t>(row) * d;
+    const bf16* xrow = p.x + static_cast<size_t>(row) * d;
     const bf16* dyrow = p.dy + static_cast<size_t>(row) * d;
     float sum = 0.0f;
     for (int c = lane * 4; c < d; c += 128) {
       const float4 o4 = *reinterpret_cast<const float4*>(orow + c);
-      float v[4] = {o4.x + p.b2[c], o4.y + p.b2[c + 1], o4.z + p.b2[c + 2], o4.w + p.b2[c + 3]};
+      float v[4] = {o4.x, o4.y, o4.z, o4.w};
       const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, row, c) : 0xFu;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (p.drop.on) v[jj] = (keep >> jj) & 1u ? v[jj] * p.drop.inv_keep : 0.0f;
-        v[jj] += __bfloat162float(xrow[c + jj]);
-        sum += v[jj];
+      for (int j = 0; j < 4; ++j) {
+        if (p.drop.on) v[j] = (keep >> j) & 1u ? v[j] * p.drop.inv_keep : 0.0f;
+        v[j] += __bfloat162float(xrow[c + j]);
+        sum += v[j];
       }
-      *reinterpret_cast<float4*>(orow + c) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(xr + c) = make_float4(v[0], v[1], v[2], v[3]);
     }
     const float mean = warp_sum(sum) * inv_d;
     float sq = 0.0f;
     for (int c = lane * 4; c < d; c += 128) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float dev = orow[c + jj] - mean;
+      for (int j = 0; j < 4; ++j) {
+        const float dev = xr[c + j] - mean;
         sq += dev * dev;
       }
     }
@@ -852,193 +596,138 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_train_bwd_kernel(const BwdPar
     float s1 = 0.0f, s2 = 0.0f;
     for (int c = lane * 4; c < d; c += 128) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float xhat = (orow[c + jj] - mean) * rstd;
-        const float a = __bfloat162float(dyrow[c + jj]) * p.gamma[c + jj];
-        orow[c + jj] = xhat;
+      for (int j = 0; j < 4; ++j) {
+        const float xhat = (xr[c + j] - mean) * rstd;
+        const float a = __bfloat162float(dyrow[c + j]) * p.gamma[c + j];
+        xr[c + j] = xhat;
         s1 += a;
         s2 += a * xhat;
       }
     }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      rstd_s[r] = rstd;
-      m1_s[r] = s1 * inv_d;
-      m2_s[r] = s2 * inv_d;
+    const float m1 = warp_sum(s1) * inv_d, m2 = warp_sum(s2) * inv_d;
+    bf16* dorow = p.dout + static_cast<size_t>(row) * d;
+    for (int c = lane * 4; c < d; c += 128) {
+      const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, row, c) : 0xFu;
+      float dr[4], dv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float a = __bfloat162float(dyrow[c + j]) * p.gamma[c + j];
+        dr[j] = (a - m1 - xr[c + j] * m2) * rstd;
+        dv[j] = p.drop.on ? ((keep >> j) & 1u ? dr[j] * p.drop.inv_keep : 0.0f) : dr[j];
+      }
+      *reinterpret_cast<float4*>(orow + c) = make_float4(dr[0], dr[1], dr[2], dr[3]);
+      *reinterpret_cast<uint2*>(dorow + c) =
+          make_uint2(pack_bf16(dv[0], dv[1]), pack_bf16(dv[2], dv[3]));
     }
   }
   __syncthreads();
-  // this tile's partial dgamma = sum dy * xhat and dbeta = sum dy, column by
-  // column over its valid rows
-  for (int c = threadIdx.x; c < d; c += kThreads) {
+  for (int c = threadIdx.x; c < d; c += kRowThreads) {
     float sg = 0.0f, sb = 0.0f;
     for (int r = 0; r < valid; ++r) {
       const float dyv = __bfloat162float(p.dy[static_cast<size_t>(row0 + r) * d + c]);
-      sg += dyv * os[r * d + c];
+      sg += dyv * xhat_s[r * d + c];
       sb += dyv;
     }
     p.part[static_cast<size_t>(blockIdx.x) * 2 * d + c] = sg;
     p.part[static_cast<size_t>(blockIdx.x) * 2 * d + d + c] = sb;
   }
-  __syncthreads();
-  // phase B, one warp per row: dr (into os), do = dropout(dr) in bf16 to
-  // shared memory and out
-  for (int r = warp; r < valid; r += kWarps) {
-    const int row = row0 + r;
-    float* orow = os + r * d;
-    const bf16* dyrow = p.dy + static_cast<size_t>(row) * d;
-    bf16* dorow = p.dout + static_cast<size_t>(row) * d;
-    const float rstd = rstd_s[r], m1 = m1_s[r], m2 = m2_s[r];
-    for (int c = lane * 4; c < d; c += 128) {
-      const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, row, c) : 0xFu;
-      float dr[4], dv[4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float a = __bfloat162float(dyrow[c + jj]) * p.gamma[c + jj];
-        dr[jj] = (a - m1 - orow[c + jj] * m2) * rstd;
-        dv[jj] = p.drop.on ? ((keep >> jj) & 1u ? dr[jj] * p.drop.inv_keep : 0.0f) : dr[jj];
-      }
-      *reinterpret_cast<float4*>(orow + c) = make_float4(dr[0], dr[1], dr[2], dr[3]);
-      const uint2 packed = make_uint2(pack_bf16(dv[0], dv[1]), pack_bf16(dv[2], dv[3]));
-      *reinterpret_cast<uint2*>(dos + r * ldx + c) = packed;
-      *reinterpret_cast<uint2*>(dorow + c) = packed;
-    }
-  }
-  __syncthreads();
-  // dx starts at dr
-#pragma unroll
-  for (int n = 0; n < kWarpCols / 8; ++n) {
-    const int c = wcol + n * 8 + q;
-    if (c < d) {
-#pragma unroll
-      for (int i = 0; i < kBMT; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = i * 16 + g + half * 8;
-          const float2 v = *reinterpret_cast<const float2*>(os + r * d + c);
-          acc[i][n][2 * half] = v.x;
-          acc[i][n][2 * half + 1] = v.y;
-        }
-      }
-    }
-  }
-  __syncthreads();   // os (the ring) is free for pass 2
-
-  // ---- pass 2: dh = do . W2^T[:, chunk], du = dh * gelu'(u) (out, and to
-  // shared memory), dx += du . W1^T[chunk, :]
-  const int t2 = nk + kChunk / kKX;
-  stream_tiles(
-      chunks * t2, ring, lay.buf,
-      [&](int t, unsigned char* buf) {
-        const int f0 = (t / t2) * kChunk, j = t % t2;
-        bf16* dst = reinterpret_cast<bf16*>(buf);
-        if (j < nk) {
-          load_block(dst, kLdW2T, p.w2t, f, j * kKU, f0, kKU, kChunk);
-        } else {
-          load_block(dst, d + kPad, p.w1t, d, f0 + (j - nk) * kKX, 0, kKX, d);
-        }
-      },
-      [&](int t, const bf16* tile) {
-        const int f0 = (t / t2) * kChunk, j = t % t2;
-        if (j < nk) {
-          if (j == 0) {
-#pragma unroll
-            for (int i = 0; i < kBMT; ++i) {
-#pragma unroll
-              for (int n = 0; n < 2; ++n) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) wacc[i][n][e] = 0.0f;
-              }
-            }
-          }
-          // dh[:, ucol..] += do[:, 64 j + k..] . W2^T[64 j + k.., f0 + ucol..]
-#pragma unroll
-          for (int kk = 0; kk < kKU; kk += 16) {
-            uint32_t b[4];
-            load_b_kn(b, tile, kLdW2T, kk, ucol, lane);
-#pragma unroll
-            for (int i = 0; i < kBMT; ++i) {
-              uint32_t a[4];
-              load_a(a, dos + i * 16 * ldx + j * kKU + kk, ldx, lane);
-              mma16816(wacc[i][0], a, b[0], b[1]);
-              mma16816(wacc[i][1], a, b[2], b[3]);
-            }
-          }
-          if (j == nk - 1) {   // dh is complete: du = dh * gelu'(u) in bf16
-#pragma unroll
-            for (int n = 0; n < 2; ++n) {
-              const int c = ucol + n * 8 + q;
-#pragma unroll
-              for (int i = 0; i < kBMT; ++i) {
-#pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                  const int r = i * 16 + g + half * 8;
-                  uint32_t dv = 0u;
-                  if (r < valid) {
-                    const size_t off = static_cast<size_t>(row0 + r) * f + f0 + c;
-                    const float2 gd = *reinterpret_cast<const float2*>(p.gd + off);
-                    dv = pack_bf16(wacc[i][n][2 * half] * gd.x, wacc[i][n][2 * half + 1] * gd.y);
-                    *reinterpret_cast<uint32_t*>(p.du + off) = dv;
-                  }
-                  *reinterpret_cast<uint32_t*>(hs + r * kLdH + c) = dv;
-                }
-              }
-            }
-          }
-        } else {
-          // dx[:, wcol..] += du[:, k..k+32] . W1^T[f0+k.., wcol..]
-          const int k = (j - nk) * kKX;
-#pragma unroll
-          for (int kk = 0; kk < kKX; kk += 16) {
-            uint32_t a[kBMT][4];
-#pragma unroll
-            for (int i = 0; i < kBMT; ++i) load_a(a[i], hs + i * 16 * kLdH + k + kk, kLdH, lane);
-#pragma unroll
-            for (int pp = 0; pp < kWarpCols / 16; ++pp) {
-              const int n0 = wcol + pp * 16;
-              if (n0 < d) {
-                uint32_t b[4];
-                load_b_kn(b, tile, d + kPad, kk, n0, lane);
-#pragma unroll
-                for (int i = 0; i < kBMT; ++i) {
-                  mma16816(acc[i][2 * pp], a[i], b[0], b[1]);
-                  mma16816(acc[i][2 * pp + 1], a[i], b[2], b[3]);
-                }
-              }
-            }
-          }
-        }
-      });
-
-  // dx out (bf16), valid rows only
-#pragma unroll
-  for (int n = 0; n < kWarpCols / 8; ++n) {
-    const int c = wcol + n * 8 + q;
-    if (c < d) {
-#pragma unroll
-      for (int i = 0; i < kBMT; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = i * 16 + g + half * 8;
-          if (r < valid) {
-            *reinterpret_cast<uint32_t*>(p.dx + static_cast<size_t>(row0 + r) * d + c) =
-                pack_bf16(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
-          }
-        }
-      }
-    }
-  }
 }
 
-// out[c] = sum over tiles t, in order, of part[t][c] (c < cols).
-__global__ void sum_partials_kernel(const float* __restrict__ part, int tiles, int cols,
-                                    float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
+// 4. dh = do . W2^T over (M, F) tiles (W2^T read MN-major from w2t as
+// stored): du = bf16(dh * gelu'(u)).
+__global__ void __launch_bounds__(kGemmThreads, 2)
+ffn_bwd_dh_kernel(const __grid_constant__ CUtensorMap domap,
+                  const __grid_constant__ CUtensorMap w2map, const BwdParams p) {
+  float acc[kWideN / 2];
+  if (!gemm_mainloop<kWideN, true, kWideStages>(&domap, &w2map, p.d, acc)) return;
+  gemm_epilogue<kWideN>(
+      acc, p.m,
+      [&](int row, int col) {
+        return __ldg(reinterpret_cast<const float2*>(p.gd + static_cast<size_t>(row) * p.f + col));
+      },
+      [&](int row, int col, float a0, float a1, float2 gd) {
+        *reinterpret_cast<uint32_t*>(p.du + static_cast<size_t>(row) * p.f + col) =
+            pack_bf16(a0 * gd.x, a1 * gd.y);
+      });
+}
+
+// 5. dx = dr + du . W1^T over (M, D) tiles (W1^T read MN-major from w1t as
+// stored), summed in f32 and stored in bf16.
+__global__ void __launch_bounds__(kGemmThreads, 2)
+ffn_bwd_dx_kernel(const __grid_constant__ CUtensorMap dumap,
+                  const __grid_constant__ CUtensorMap w1map, const BwdParams p) {
+  float acc[kNarrowN / 2];
+  if (!gemm_mainloop<kNarrowN, true, kNarrowStages>(&dumap, &w1map, p.f, acc)) return;
+  gemm_epilogue<kNarrowN>(
+      acc, p.m,
+      [&](int row, int col) {
+        return __ldg(reinterpret_cast<const float2*>(p.dr + static_cast<size_t>(row) * p.d + col));
+      },
+      [&](int row, int col, float a0, float a1, float2 dr) {
+        *reinterpret_cast<uint32_t*>(p.dx + static_cast<size_t>(row) * p.d + col) =
+            pack_bf16(a0 + dr.x, a1 + dr.y);
+      });
+}
+
+cudaError_t launch_bwd(const BwdParams& p, const bf16* w1t, const bf16* w2t, cudaStream_t s) {
+  CUtensorMap xmap, hmap, domap, dumap, w1map, w2map;
+  cudaError_t err = gemm_a_map(&xmap, p.x, p.m, p.d);
+  if (err == cudaSuccess) err = gemm_a_map(&hmap, p.h, p.m, p.f);
+  if (err == cudaSuccess) err = gemm_a_map(&domap, p.dout, p.m, p.d);
+  if (err == cudaSuccess) err = gemm_a_map(&dumap, p.du, p.m, p.f);
+  if (err == cudaSuccess) err = gemm_b_map(&w1map, w1t, p.f, p.d);
+  if (err == cudaSuccess) err = gemm_b_map(&w2map, w2t, p.d, p.f);
+  if (err == cudaSuccess) {
+    err = gemm_launch<kWideN, kWideStages>(ffn_bwd_u_kernel, p.m, p.f, s, xmap, w1map, p);
+  }
+  if (err == cudaSuccess) {
+    err = gemm_launch<kNarrowN, kNarrowStages>(ffn_bwd_o_kernel, p.m, p.d, s, hmap, w2map, p);
+  }
+  if (err == cudaSuccess) {
+    const int smem = static_cast<int>(sizeof(float)) * kRowTile * p.d;
+    err = cudaFuncSetAttribute(ffn_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess) {
+      ffn_bwd_rows_kernel<<<ceil_div(p.m, kRowTile), kRowThreads, smem, s>>>(p);
+      err = cudaGetLastError();
+    }
+  }
+  if (err == cudaSuccess) {
+    err = gemm_launch<kWideN, kWideStages>(ffn_bwd_dh_kernel, p.m, p.f, s, domap, w2map, p);
+  }
+  if (err == cudaSuccess) {
+    err = gemm_launch<kNarrowN, kNarrowStages>(ffn_bwd_dx_kernel, p.m, p.d, s, dumap, w1map, p);
+  }
+  return err;
+}
+
+// out[c] = sum over tiles t of part[t][c] (c < cols), in a fixed order: a
+// block takes 32 columns, each of its 8 warps sums a contiguous eighth of
+// the tiles in tile order, and the eight sums are added in slice order.
+// Deterministic, no atomics.
+constexpr int kSumCols = 32;
+constexpr int kSumSlices = 8;
+
+__global__ void __launch_bounds__(kSumCols * kSumSlices)
+sum_partials_kernel(const float* __restrict__ part, int tiles, int cols, float* __restrict__ out) {
+  __shared__ float slice_sum[kSumSlices][kSumCols];
+  const int lane = threadIdx.x % kSumCols, slice = threadIdx.x / kSumCols;
+  const int c = blockIdx.x * kSumCols + lane;
+  const int per = (tiles + kSumSlices - 1) / kSumSlices;
+  const int t0 = slice * per, t1 = min(tiles, t0 + per);
   float s = 0.0f;
-  for (int t = 0; t < tiles; ++t) s += part[static_cast<size_t>(t) * cols + c];
-  out[c] = s;
+  if (c < cols) {
+#pragma unroll 8
+    for (int t = t0; t < t1; ++t) s += part[static_cast<size_t>(t) * cols + c];
+  }
+  slice_sum[slice][lane] = s;
+  __syncthreads();
+  if (slice == 0 && c < cols) {
+    float total = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSumSlices; ++i) total += slice_sum[i][lane];
+    out[c] = total;
+  }
 }
 
 __global__ void keep_mask_kernel(const long long* __restrict__ seed, uint8_t* __restrict__ out,
@@ -1065,9 +754,9 @@ extern "C" {
 // Largest hidden width the kernels take (D <= warps * columns per warp).
 int shgvqa_ffn_train_max_d() { return kMaxD; }
 
-// Rows of a backward tile: the wrapper sizes the (tiles, 2 D) f32 scratch
+// Rows of a row-pass block: the wrapper sizes the (tiles, 2 D) f32 scratch
 // of the dgamma / dbeta partials with it.
-int shgvqa_ffn_train_bwd_rows() { return kBRows; }
+int shgvqa_ffn_train_bwd_rows() { return kRowTile; }
 
 // Forward on `stream`; returns cudaGetLastError() (0 = launched).  As
 // csrc/ffn.cu's shgvqa_fused_ffn_bf16 (x, y (m, d) bf16; w1t (f, d), w2t
@@ -1099,28 +788,27 @@ int shgvqa_ffn_train_fwd_bf16(const void* x, const void* w1t, const void* b1, co
   return static_cast<int>(err);
 }
 
-// Backward on `stream` (two kernels); returns cudaGetLastError().  Inputs
+// Backward on `stream` (six launches); returns cudaGetLastError().  Inputs
 // as the forward (beta is not read) plus dy (m, d) bf16; outputs dx, do
 // (m, d) and du, h (m, f) bf16, dgb (2 d) f32 = [dgamma | dbeta]; scratch
-// gd (m, f) f32 and part (ceil(m / 32), 2 d) f32.  d is a multiple of 64
-// (<= 768), f a multiple of 256; every pointer 16-byte aligned.
+// gd (m, f) f32, dr (m, d) f32 and part (ceil(m / 16), 2 d) f32.  d is a
+// multiple of 64 (<= 768), f a multiple of 128; every pointer 16-byte
+// aligned.
 int shgvqa_ffn_train_bwd_bf16(const void* x, const void* w1t, const void* b1, const void* w2t,
                               const void* b2, const void* gamma, const void* seed,
                               const void* dy, void* dx, void* du, void* dout, void* h, void* gd,
-                              void* part, void* dgb, int m, int d, int f, float eps,
+                              void* dr, void* part, void* dgb, int m, int d, int f, float eps,
                               unsigned threshold, float inv_keep, int dropout, void* stream) {
-  if (m < 0 || d <= 0 || f <= 0 || d % kKU != 0 || f % kChunk != 0 || d > kMaxD ||
+  if (m < 0 || d <= 0 || f <= 0 || d % kNarrowN != 0 || f % kWideN != 0 || d > kMaxD ||
       (dropout && seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = ceil_div(m, kBRows);
+  const int tiles = ceil_div(m, kRowTile);
   if (m > 0) {
     BwdParams p;
     p.x = static_cast<const bf16*>(x);
-    p.w1t = static_cast<const bf16*>(w1t);
     p.b1 = static_cast<const float*>(b1);
-    p.w2t = static_cast<const bf16*>(w2t);
     p.b2 = static_cast<const float*>(b2);
     p.gamma = static_cast<const float*>(gamma);
     p.dy = static_cast<const bf16*>(dy);
@@ -1129,22 +817,19 @@ int shgvqa_ffn_train_bwd_bf16(const void* x, const void* w1t, const void* b1, co
     p.dout = static_cast<bf16*>(dout);
     p.h = static_cast<bf16*>(h);
     p.gd = static_cast<float*>(gd);
+    p.dr = static_cast<float*>(dr);
     p.part = static_cast<float*>(part);
     p.m = m;
     p.d = d;
     p.f = f;
     p.eps = eps;
     p.drop = make_drop(seed, threshold, inv_keep, dropout);
-    const size_t smem = BwdLayout(d).total;
-    cudaError_t err = cudaFuncSetAttribute(
-        ffn_train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ffn_train_bwd_kernel<<<tiles, kThreads, smem, s>>>(p);
-    err = cudaGetLastError();
+    const cudaError_t err =
+        launch_bwd(p, static_cast<const bf16*>(w1t), static_cast<const bf16*>(w2t), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sum_partials_kernel<<<ceil_div(2 * d, 256), 256, 0, s>>>(static_cast<const float*>(part), tiles,
-                                                          2 * d, static_cast<float*>(dgb));
+  sum_partials_kernel<<<ceil_div(2 * d, kSumCols), kSumCols * kSumSlices, 0, s>>>(
+      static_cast<const float*>(part), tiles, 2 * d, static_cast<float*>(dgb));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,10 @@ ignores)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
-The hash is of the source, so an edited kernel is rebuilt.  ``build`` starts
-one ``nvcc`` per source, all at once.  There is no fallback: a missing
-``nvcc`` or a failed build raises with the compiler's output.
+The hash is of the source, every ``csrc/*.cuh`` header and the flags, so
+an edited kernel or header is rebuilt.  ``build`` starts one ``nvcc`` per
+source, all at once.  There is no fallback: a missing ``nvcc`` or a failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -51,6 +52,9 @@ def find_nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -30,11 +30,12 @@ LayerNorm around the products.  The ``.cu`` files describe their design.
 - ``fused_ffn_train`` is differentiable: for a CPU tensor it runs
   ``ffn_train_reference`` with a keep mask drawn from the caller's
   generator (autograd through it); for a CUDA tensor it launches the
-  forward kernel, and its backward launches the backward kernel (dx, du,
-  do, h, dgamma, dbeta) and then the weight gradients ``du^T x``, ``do^T
-  h`` and the bias sums as ``torch.matmul`` and ``sum`` (the JAX package
-  left those to XLA too).  ``fused_ffn_train.launches`` and
-  ``.bwd_launches`` count the kernel launches.
+  forward kernel, and its backward runs the backward's chain of kernels
+  (dx, du, do, h, dgamma, dbeta; four wgmma products, a LayerNorm row pass
+  and the dgamma/dbeta sum) and then the weight gradients ``du^T x``,
+  ``do^T h`` and the bias sums as ``torch.matmul`` and ``sum`` (the JAX
+  package left those to XLA too).  ``fused_ffn_train.launches`` and
+  ``.bwd_launches`` count the wrapper calls that launch (one each).
 - ``keep_mask`` (card only) writes the keep mask the train kernels draw
   for a seed: one mask for the forward and the backward, whatever their
   tile heights, because it is keyed on (seed, row, column).
@@ -262,16 +263,26 @@ fused_ffn.launches = 0
 # Training: csrc/ffn_train.cu
 
 
+# the backward's kernels (csrc/ffn_train.cu), in launch order
+BWD_STAGES = ("ffn_bwd_u_kernel", "ffn_bwd_o_kernel", "ffn_bwd_rows_kernel",
+              "ffn_bwd_dh_kernel", "ffn_bwd_dx_kernel", "sum_partials_kernel")
+
+
 @functools.lru_cache(maxsize=None)
 def _train_lib() -> ctypes.CDLL:
     """The built ``csrc/ffn_train.cu`` with its C signatures declared."""
-    lib = _build.load("ffn_train")
+    return declare_train(_build.load("ffn_train"))
+
+
+def declare_train(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/ffn_train.cu``) with its C signatures
+    declared."""
     ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
     lib.shgvqa_ffn_train_fwd_bf16.argtypes = (
         [ptr] * 9 + [i32] * 3 + [f32, u32, f32, i32, ptr])
     lib.shgvqa_ffn_train_bwd_bf16.argtypes = (
-        [ptr] * 15 + [i32] * 3 + [f32, u32, f32, i32, ptr])
+        [ptr] * 16 + [i32] * 3 + [f32, u32, f32, i32, ptr])
     lib.shgvqa_ffn_train_keep_mask.argtypes = [ptr, ptr, i32, i32, u32, ptr]
     for fn in (lib.shgvqa_ffn_train_fwd_bf16, lib.shgvqa_ffn_train_bwd_bf16,
                lib.shgvqa_ffn_train_keep_mask, lib.shgvqa_ffn_train_max_d,
@@ -330,33 +341,38 @@ def _launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps):
     return y
 
 
+def _bwd_buffers(m, d, f, rows, device):
+    """The backward's outputs and scratch, in the C entry's order: dx, du,
+    do, h (bf16), gelu'(u) (M, F) and o + b2, then dr (M, D) in f32, the
+    dgamma/dbeta partials of each ``rows``-row tile and [dgamma | dbeta]
+    (f32)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = (("dx", (m, d), bf16), ("du", (m, f), bf16), ("do", (m, d), bf16),
+              ("h", (m, f), bf16), ("gd", (m, f), f32), ("dr", (m, d), f32),
+              ("part", (-(-m // rows), 2 * d), f32), ("dgb", (2 * d,), f32))
+    return {name: torch.empty(shape, dtype=dtype, device=device)
+            for name, shape, dtype in shapes}
+
+
 def _launch_train_bwd(x2, w1t, b1, w2t, b2, gamma, seed, rate, eps, dy):
-    """One launch of the backward kernel (and its dgamma/dbeta sum):
-    (dx, du, do, h, dgamma, dbeta)."""
+    """One call of the backward's chain of kernels (one ctypes call, six
+    launches): (dx, du, do, h, dgamma, dbeta)."""
     m, d, f = _check_train(x2, w1t, b1, w2t, b2, gamma)
     dy = dy.to(torch.bfloat16).contiguous()
     _check("dy", dy, (m, d), torch.bfloat16, x2.device, "fused_ffn_train")
     lib = _train_lib()
-    tiles = -(-m // lib.shgvqa_ffn_train_bwd_rows())
-
-    def empty(*shape, dtype=torch.bfloat16):
-        return torch.empty(*shape, dtype=dtype, device=x2.device)
-
-    dx, do, du, h = empty(m, d), empty(m, d), empty(m, f), empty(m, f)
-    gd = empty(m, f, dtype=torch.float32)
-    part = empty(tiles, 2 * d, dtype=torch.float32)
-    dgb = empty(2 * d, dtype=torch.float32)
+    buf = _bwd_buffers(m, d, f, lib.shgvqa_ffn_train_bwd_rows(), x2.device)
     with torch.cuda.device(x2.device):
         err = lib.shgvqa_ffn_train_bwd_bf16(
             x2.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
             b2.data_ptr(), gamma.data_ptr(), _mask_ptr(seed), dy.data_ptr(),
-            dx.data_ptr(), du.data_ptr(), do.data_ptr(), h.data_ptr(),
-            gd.data_ptr(), part.data_ptr(), dgb.data_ptr(), m, d, f,
-            float(eps), _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            *(t.data_ptr() for t in buf.values()), m, d, f, float(eps),
+            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
             _stream(x2.device))
     _raise_on(err, "fused_ffn_train backward")
     fused_ffn_train.bwd_launches += 1
-    return dx, du, do, h, dgb[:d], dgb[d:]
+    dgb = buf["dgb"]
+    return buf["dx"], buf["du"], buf["do"], buf["h"], dgb[:d], dgb[d:]
 
 
 class _FusedFFNTrain(torch.autograd.Function):

@@ -3,13 +3,17 @@ forward only, no dropout.
 
 Replaces ``tools/proto_headsliced_attn.py::make_headsliced``, the Pallas TPU
 prototype that slices each head's D-column pane inside the kernel instead
-of transposing q, k, v to (B, H, L, D) and the output back, with the
-hand-written CUDA C++ kernel in ``csrc/headsliced_attn.cu`` (sm_90a, built
-by ``kernels/_build.py`` and bound with ``ctypes``).  On the card it is
-bound by device memory at every main-path shape, as the fused attention
-forward is; each block reads its head's pane of each row straight from the
-rows and writes its output the same way.  The ``.cu`` file describes the
-design.
+of transposing q, k, v to (B, H, L, D) and the output back.  On the card it
+runs the fused attention forward kernel of ``csrc/attention.cu``
+(``attn_fwd_kernel``, its rate-0 instance, sm_90a, built by
+``kernels/_build.py`` and bound with ``ctypes``): that kernel reads its
+operands through (batch, head, row) strides with the head dim contiguous,
+and the (B, L, H*64) projections are one set of such strides (batch
+L*H*64, head 64, row H*64), so the head panes are read in place and the
+output is written into (B, Lq, H*64) with no copy or transpose.  It is
+bound by device memory at every main-path shape; ``attention.cu`` describes
+the design (one online-softmax pass, K, V and the key row streamed through
+shared memory).
 
 - ``headsliced_reference`` is the plain version with the prototype's
   numerics: per head, f32 scores of the given operands scaled by 1/sqrt(D),
@@ -19,19 +23,18 @@ design.
   and the kernel for a CUDA tensor (launch or raise).  The mask contract is
   ``decompose_mask``'s: a (B, 1, 1, Lk) key row, an (Lq, Lk) pane, or None;
   any other shape raises ``ValueError``.  It records no gradient (forward
-  only, as the prototype).  ``headsliced_attention.launches`` counts the
-  launches.
+  only, as the prototype).  ``headsliced_attention.launches`` counts its
+  launches (``fused_attention.launches`` does not move).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
-from shgvqa_tpu_torch.kernels import _build
+from shgvqa_tpu_torch.kernels import attention
 from shgvqa_tpu_torch.kernels.attention import (
     HEAD_DIM,
     _mask_ptr,
@@ -61,20 +64,6 @@ def headsliced_reference(q2, k2, v2, key=None, pane=None, *, heads: int):
     return o.transpose(1, 2).reshape(q2.shape)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built ``csrc/headsliced_attn.cu`` with its C signatures
-    declared."""
-    lib = _build.load("headsliced_attn")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.shgvqa_headsliced_attn_bf16.argtypes = (
-        [ptr] * 6 + [i32] * 4 + [ctypes.c_float, ptr])
-    lib.shgvqa_headsliced_attn_bf16.restype = i32
-    lib.shgvqa_headsliced_attn_error_string.argtypes = [i32]
-    lib.shgvqa_headsliced_attn_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _operand(name, t, shape, device):
     if t.device != device:
         raise ValueError(f"headsliced_attention: {name} is on {t.device}, q "
@@ -94,6 +83,8 @@ def _operand(name, t, shape, device):
 
 
 def _launch(q2, k2, v2, key, pane, heads):
+    """One launch of the attention forward kernel at rate 0 on the
+    projections' strides (batch L*H*64, head 64, row H*64)."""
     b, lq, hd = q2.shape
     lk = k2.shape[1]
     dev = q2.device
@@ -102,16 +93,18 @@ def _launch(q2, k2, v2, key, pane, heads):
     v2 = _operand("v", v2, (b, lk, hd), dev)
     key, pane = (None if m is None else m.to(dev) for m in (key, pane))
     o = torch.empty_like(q2)
-    lib = _lib()
+    # the C entry's logsumexp output, scratch here (< 1% of the bytes)
+    lse = torch.empty(b * heads, lq, dtype=torch.float32, device=dev)
+    # (batch, head, row) strides of q, k, v and o, the head dim contiguous
+    q_strides, k_strides = (lq * hd, HEAD_DIM, hd), (lk * hd, HEAD_DIM, hd)
+    strides = (ctypes.c_longlong * 12)(*q_strides, *k_strides, *k_strides,
+                                       *q_strides)
     with torch.cuda.device(dev):
-        err = lib.shgvqa_headsliced_attn_bf16(
+        err = attention._lib().shgvqa_attention_fwd_bf16(
             q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), _mask_ptr(key),
-            _mask_ptr(pane), o.data_ptr(), b, heads, lq, lk,
-            1.0 / math.sqrt(HEAD_DIM), _stream(dev))
-    if err:
-        raise RuntimeError(
-            f"headsliced_attention kernel launch failed: CUDA error {err} "
-            f"({lib.shgvqa_headsliced_attn_error_string(err).decode()})")
+            _mask_ptr(pane), None, o.data_ptr(), lse.data_ptr(), strides, b,
+            heads, lq, lk, 1.0 / math.sqrt(HEAD_DIM), 0, 1.0, 0, _stream(dev))
+    attention._raise_on(err, "headsliced_attention")
     headsliced_attention.launches += 1
     return o
 

@@ -8,6 +8,7 @@ biases, CLS tokens and BN statistics are exercised too), and the same tree
 is loaded into the port through ``shgvqa_tpu_torch.convert``.
 """
 
+import ctypes
 import dataclasses
 
 import jax
@@ -61,6 +62,15 @@ def t(x, dtype=None):
     """numpy -> torch (ints stay ints)."""
     out = torch.as_tensor(np.array(x))
     return out if dtype is None else out.to(dtype)
+
+
+def tensor_at(ptr, shape, dtype):
+    """The CPU tensor of ``shape`` and ``dtype`` at address ``ptr`` (a
+    data_ptr() handed to a stand-in for a kernel's C entry), sharing its
+    memory."""
+    nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = (ctypes.c_char * nbytes).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype).view(shape)
 
 
 def close(got, want, tol):

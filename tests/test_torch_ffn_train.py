@@ -9,9 +9,16 @@ CUDA path with its launches replaced by the plain version; and the FFN
 sites of a training forward routed through ``fused_ffn_train``.
 
 JAX's rate > 0 train kernels have no CPU lowering (``pltpu.prng_seed``);
-the CUDA kernels run only on the card (``chip_smoke.py``)."""
+the CUDA kernels run only on the card (``chip_smoke.py``).  What the
+backward's host side decides is held here through Python mirrors of the
+formulas of ``csrc/ffn_train.cu`` and ``csrc/wgmma_gemm.cuh``: the tile and
+grid plan of each stage of its chain, the swizzled shared-memory layout the
+TMA writes against the addresses the wgmma descriptors read, and the
+wrapper's buffers and their order in the C call."""
 
+import contextlib
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +40,7 @@ from shgvqa_tpu_torch.models import layers
 from shgvqa_tpu_torch.models.backbone import SlowR50
 from shgvqa_tpu_torch.models.layers import FFN
 from shgvqa_tpu_torch.train.step import compute_losses
-from test_torch_common import TOY, close, t
+from test_torch_common import TOY, close, t, tensor_at
 
 NAMES = ("x", "w1t", "b1", "w2t", "b2", "gamma", "beta")
 
@@ -290,3 +297,194 @@ def test_train_step_ffn_sites_and_their_backward(monkeypatch):
     hg = x                               # the HG-cross encoder's layers
     assert len(fwd) == (e.l_layers + x + hg) + (e.r_layers + x) + hg
     assert len(bwd) == len(fwd) - 2 * x
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of csrc/wgmma_gemm.cuh and the backward chain of csrc/ffn_train.cu
+
+GEMM_BM, GEMM_BK, GEMM_BOX = 128, 64, 64     # kGemmBM, kGemmBK, kGemmBox
+WIDE_N, NARROW_N, ROW_TILE = 128, 64, 16     # kWideN, kNarrowN, kRowTile
+D, F = 768, 3072
+# (stage, N, tile width, K) of the four products, in launch order
+PRODUCTS = (("u", F, WIDE_N, D), ("o", D, NARROW_N, F),
+            ("dh", F, WIDE_N, D), ("dx", D, NARROW_N, F))
+SITE_ROWS = (80, 354, 786, 1280, 5664, 12576, 1000)
+
+
+def _grid(m, n, bn):
+    """gemm_launch: (column tiles, row tiles) of an (m, n) product."""
+    return n // bn, -(-m // GEMM_BM)
+
+
+def _tile_pairs(bn):
+    """gemm_epilogue for every consumer thread (0..255) of a block: rows
+    and first columns, in the tile, of the pairs it stores."""
+    tid = np.arange(256)[:, None, None]
+    j = np.arange(bn // 8)[None, :, None]
+    h = np.arange(2)[None, None, :]
+    lane = tid % 32
+    rows = (tid // 32) * 16 + lane // 4 + 8 * h + 0 * j
+    cols = 2 * (lane % 4) + 8 * j + 0 * h
+    return rows.ravel(), cols.ravel()
+
+
+@pytest.mark.parametrize("bn", [WIDE_N, NARROW_N])
+def test_gemm_threads_cover_their_tile_once(bn):
+    rows, cols = _tile_pairs(bn)
+    count = np.zeros((GEMM_BM, bn), np.int64)
+    np.add.at(count, (rows, cols), 1)
+    np.add.at(count, (rows, cols + 1), 1)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("m", SITE_ROWS)
+def test_backward_stages_cover_every_element_once(m):
+    """Each product's grid and thread map store every (row, column) of its
+    (M, N) output exactly once and no row past M; the row pass visits every
+    row once, in tiles that are the wrapper's partials."""
+    for _, n, bn, k in PRODUCTS:
+        assert n % bn == 0 and k % GEMM_BK == 0
+        gx, gy = _grid(m, n, bn)
+        rows, cols = _tile_pairs(bn)
+        tile = np.zeros((GEMM_BM, bn), np.uint8)
+        np.add.at(tile, (rows, cols), 1)
+        np.add.at(tile, (rows, cols + 1), 1)
+        count = np.zeros((gy * GEMM_BM, n), np.uint8)
+        for by in range(gy):
+            for bx in range(gx):
+                count[by * GEMM_BM:(by + 1) * GEMM_BM,
+                      bx * bn:(bx + 1) * bn] += tile
+        stored = count[:m]            # the epilogues store rows < M only
+        assert (stored == 1).all()
+        assert gy * GEMM_BM - m < GEMM_BM
+    tiles = -(-m // ROW_TILE)
+    visited = np.zeros(m, np.int64)
+    for block in range(tiles):
+        valid = min(ROW_TILE, m - block * ROW_TILE)
+        visited[block * ROW_TILE + np.arange(valid)] += 1
+    assert (visited == 1).all()
+    assert tuple(ffn._bwd_buffers(m, D, F, ROW_TILE, "meta")["part"].shape) \
+        == (tiles, 2 * D)
+
+
+def _swizzle(addr):
+    """The 128-byte swizzle: 16-byte chunk bits 4-6 XOR address bits 7-9."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _tma_offset(row, col):
+    """Byte offset of bf16 element (row, col) of a TMA box with 128-byte
+    rows (64 columns) landed with CU_TENSOR_MAP_SWIZZLE_128B."""
+    return _swizzle(row * 128 + 2 * col)
+
+
+def _desc(addr, lbo, sbo):
+    """sw128_desc: the 64-bit wgmma descriptor."""
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32) \
+        | (1 << 62)
+
+
+def _desc_address(desc, mn, k, mn_major):
+    """The shared-memory byte the wgmma reads for operand element (mn, k)
+    of a k16 slice, from the descriptor's fields and the canonical
+    128-byte-swizzle layouts (K-major ((8, m), (8, 2)) : ((128 B, SBO),
+    (16 B, 2 B)); MN-major ((64, m), (8, 2)) : ((2 B, LBO), (128 B, SBO)))."""
+    start = (desc & 0x3FFF) << 4
+    lbo = ((desc >> 16) & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    assert desc >> 62 == 1                      # 128-byte swizzle
+    if mn_major:
+        offset = (mn % 64) * 2 + (mn // 64) * lbo + (k % 8) * 128 \
+            + (k // 8) * sbo
+    else:
+        offset = (mn % 8) * 128 + (mn // 8) * sbo + 2 * k
+    return _swizzle(start + offset)
+
+
+@pytest.mark.parametrize("bn,mn_major", [(WIDE_N, False), (NARROW_N, False),
+                                         (WIDE_N, True), (NARROW_N, True)])
+def test_wgmma_descriptors_read_what_the_tma_wrote(bn, mn_major):
+    """For every k16 step of a stage, the descriptors gemm_mainloop builds
+    address, element by element, the bytes where the TMA boxes put the A
+    rows of each consumer warpgroup and the B operand (K-major: N rows of K;
+    MN-major: K rows of N, transposed by the wgmma).  The stage's base is
+    1 KB aligned (offset 0 here); the B tile starts after the 16 KB A
+    tile."""
+    a_bytes = GEMM_BM * GEMM_BK * 2
+    box_bytes = GEMM_BOX * GEMM_BK * 2
+    mn = np.arange(64)[:, None]
+    k = np.arange(16)[None, :]
+    for kk in range(GEMM_BK // 16):
+        for wg in range(2):                     # A: K-major, 64 rows each
+            desc = _desc(wg * 64 * 128 + 32 * kk, 16, 1024)
+            got = _desc_address(desc, mn, k, False)
+            assert (got == _tma_offset(wg * 64 + mn, 16 * kk + k)).all()
+        n = np.arange(bn)[:, None]
+        if mn_major:
+            desc = _desc(a_bytes + 2048 * kk, box_bytes, 1024)
+            want = a_bytes + (n // GEMM_BOX) * box_bytes + _tma_offset(
+                16 * kk + k, n % GEMM_BOX)
+        else:
+            desc = _desc(a_bytes + 32 * kk, 16, 1024)
+            want = a_bytes + (n // GEMM_BOX) * box_bytes + _tma_offset(
+                n % GEMM_BOX, 16 * kk + k)
+        assert (_desc_address(desc, n, k, mn_major) == want).all()
+
+
+def test_wgmma_descriptor_fields():
+    desc = _desc(0x1F400 + 2048, 8192, 1024)
+    assert desc & 0x3FFF == (0x1F400 + 2048) >> 4
+    assert (desc >> 16) & 0x3FFF == 512 and (desc >> 32) & 0x3FFF == 64
+    assert (desc >> 49) & 7 == 0 and desc >> 62 == 1
+
+
+def test_backward_buffers_and_their_order_in_the_c_call(monkeypatch):
+    """_launch_train_bwd on CPU tensors with the library replaced by a
+    stand-in: the 16 pointers reach the C entry in its order (inputs, then
+    dx, du, do, h, gelu'(u), dr, the partials, [dgamma | dbeta]) with the
+    shapes and dtypes the kernels write; the stand-in fills them from the
+    plain version, and the wrapper returns (dx, du, do, h, dgamma, dbeta)
+    from them."""
+    m, d, f = 40, 64, 256
+    rng = np.random.RandomState(8)
+    a = _data(m, d, f, seed=9)
+    args = [x.contiguous() for x in _torch_args(a, torch.bfloat16)]
+    dy = t(rng.randn(m, d).astype(np.float32), torch.bfloat16)
+    want = ffn._backward_spills(*args[:6], 0.0, None, dy, 1e-12)
+    shapes = [("dx", (m, d), torch.bfloat16), ("du", (m, f), torch.bfloat16),
+              ("do", (m, d), torch.bfloat16), ("h", (m, f), torch.bfloat16),
+              ("gd", (m, f), torch.float32), ("dr", (m, d), torch.float32),
+              ("part", (-(-m // ROW_TILE), 2 * d), torch.float32),
+              ("dgb", (2 * d,), torch.float32)]
+    calls = []
+
+    def backward_entry(*c_args):
+        calls.append(c_args)
+        ptrs, (cm, cd, cf) = c_args[:16], c_args[16:19]
+        assert (cm, cd, cf) == (m, d, f) and c_args[22] == 0   # dropout off
+        assert ptrs[:8] == (args[0].data_ptr(), args[1].data_ptr(),
+                            args[2].data_ptr(), args[3].data_ptr(),
+                            args[4].data_ptr(), args[5].data_ptr(), None,
+                            dy.data_ptr())
+        out = {name: tensor_at(ptr, shape, dtype)
+               for (name, shape, dtype), ptr in zip(shapes, ptrs[8:])}
+        for name, value in zip(("dx", "du", "do", "h"), want[:4]):
+            out[name].copy_(value)
+        out["dgb"].copy_(torch.cat([want[4], want[5]]))
+        return 0
+
+    lib = SimpleNamespace(shgvqa_ffn_train_bwd_bf16=backward_entry,
+                          shgvqa_ffn_train_bwd_rows=lambda: ROW_TILE,
+                          shgvqa_ffn_train_max_d=lambda: 768)
+    monkeypatch.setattr(ffn, "_train_lib", lambda: lib)
+    monkeypatch.setattr(ffn, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    buffers = ffn._bwd_buffers(m, d, f, ROW_TILE, "cpu")
+    assert [(k, tuple(v.shape), v.dtype) for k, v in buffers.items()] == \
+        shapes
+    launches = fused_ffn_train.bwd_launches
+    got = ffn._launch_train_bwd(*args[:6], None, 0.0, 1e-12, dy)
+    assert len(calls) == 1 and fused_ffn_train.bwd_launches == launches + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.to(g.dtype))

@@ -3,18 +3,23 @@ JAX Pallas prototype it replaces (``tools/proto_headsliced_attn.py``
 ``make_headsliced``, interpret mode on the CPU) and against the JAX fused
 attention (interpret mode) through transposes; the switched ``Attention``
 and ``TorchMHA`` (``set_headsliced_kernel``) against their plain paths; the
-mask contract.  The CUDA kernel itself runs only on the card
-(``chip_smoke.py`` holds it against ``headsliced_reference`` and the
-transpose path there); on the CPU the wrapper takes the plain version,
-which is what these tests hold.
+mask contract; and the card-side launch helper, driven on CPU tensors with
+the attention forward's C entry replaced by a stand-in, passing the
+projections' own strides.  The CUDA kernel itself (the attention forward of
+``csrc/attention.cu``) runs only on the card (``chip_smoke.py`` holds it
+against ``headsliced_reference`` and bit-equal to the transpose path
+there); on the CPU the wrapper takes the plain version, which is what the
+other tests hold.
 
 Tolerances: against the prototype 1e-5 f32 and 2e-2 bf16 (its probabilities
 are rounded to bf16 before the PV product, as the plain version's); against
 the JAX fused attention 2e-4 (tests/test_pallas_attention.py's own); the
 switched modules 1e-5 (f32, the same products)."""
 
+import contextlib
 import importlib.util
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,12 +28,14 @@ import torch
 
 from shgvqa_tpu.kernels import attention as jax_attention
 from shgvqa_tpu_torch.data.featurize import situation_causal_mask
+from shgvqa_tpu_torch.kernels import attention, headsliced
+from shgvqa_tpu_torch.kernels.attention import fused_attention
 from shgvqa_tpu_torch.kernels.headsliced import (
     headsliced_attention,
     headsliced_reference,
 )
 from shgvqa_tpu_torch.models import decoder, layers
-from test_torch_common import close, t
+from test_torch_common import close, t, tensor_at
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -187,3 +194,58 @@ def test_card_side_checks_on_meta():
     q, k = torch.randn(2, 5, 128), torch.randn(2, 7, 128)
     with pytest.raises(NotImplementedError, match="no kernel for meta"):
         headsliced_attention(*meta(q, k, k), None, 2)
+
+
+@pytest.mark.parametrize("kind", ["key", "pane"])
+def test_launch_runs_the_attention_forward_on_the_projection_strides(
+        kind, monkeypatch):
+    """The card-side launch helper on CPU tensors, with the attention
+    library's forward C entry replaced by a stand-in that records its
+    arguments and fills the output from headsliced_reference: one call of
+    the rate-0 instance on the (B, L, H*64) strides of q, k, v and o (batch
+    L*H*64, head 64, row H*64), the operands and masks passed without a
+    copy, one head-sliced launch counted and no fused_attention launch."""
+    b, lq, lk, heads = 2, 5, 7, 3
+    hd = heads * 64
+    rng = np.random.RandomState(11)
+    q2, k2, v2 = (t(rng.randn(b, n, hd).astype(np.float32), torch.bfloat16)
+                  for n in (lq, lk, lk))
+    key = pane = None
+    if kind == "key":
+        key = t(np.where(rng.rand(b, lk) < 0.3, -10000.0, 0.0)
+                .astype(np.float32))
+    else:
+        pane = t(np.triu(np.full((lq, lk), -np.inf, np.float32), k=1))
+    want = headsliced_reference(q2, k2, v2, key, pane, heads=heads)
+    calls = []
+
+    def forward_entry(q, k, v, key_ptr, pane_ptr, seed, o, lse, strides,
+                      batch, h, nq, nk, scale, threshold, inv_keep, dropout,
+                      stream):
+        calls.append(dict(ptrs=(q, k, v, key_ptr, pane_ptr, seed),
+                          strides=list(strides), shape=(batch, h, nq, nk),
+                          rate=(scale, threshold, inv_keep, dropout)))
+        tensor_at(o, (batch, nq, h * 64), torch.bfloat16).copy_(want)
+        tensor_at(lse, (batch * h, nq), torch.float32).zero_()
+        return 0
+
+    monkeypatch.setattr(attention, "_lib", lambda: SimpleNamespace(
+        shgvqa_attention_fwd_bf16=forward_entry))
+    monkeypatch.setattr(headsliced, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    launches = headsliced_attention.launches, fused_attention.launches
+    out = headsliced._launch(q2, k2, v2, key, pane, heads)
+    assert len(calls) == 1
+    call = calls[0]
+    mask_ptr = (lambda m: None if m is None else m.data_ptr())
+    assert call["ptrs"] == (q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+                            mask_ptr(key), mask_ptr(pane), None)
+    q_strides, k_strides = [lq * hd, 64, hd], [lk * hd, 64, hd]
+    assert call["strides"] == q_strides + k_strides + k_strides + q_strides
+    assert call["shape"] == (b, heads, lq, lk)
+    assert call["rate"] == (0.125, 0, 1.0, 0)
+    assert out.shape == (b, lq, hd) and out.dtype == torch.bfloat16
+    assert torch.equal(out, want)
+    assert (headsliced_attention.launches, fused_attention.launches) == (
+        launches[0] + 1, launches[1])

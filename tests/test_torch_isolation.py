@@ -61,6 +61,25 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_library_path_follows_the_headers(monkeypatch, tmp_path):
+    """A library's name hashes its source, every csrc/*.cuh header and the
+    flags: an edit to a header the sources include gives a new library, so
+    a stale build is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build._library_path("k")
+    assert _build._library_path("k") == first
+    header.write_text("// v2\n")
+    second = _build._library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build._library_path("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edit\n')
+    assert _build._library_path("k") not in (first, second)
+
+
 def _run_smoke(cwd):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           capture_output=True, text=True, timeout=300,
