@@ -9,7 +9,8 @@ it exits non-zero before printing any result.
 
 1. card: its name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every ``shgvqa_tpu_torch/csrc/*.cu``, one nvcc each, in parallel,
-   with ptxas's registers and spills of every kernel;
+   with ptxas's registers and spills of every kernel; a spill in a
+   bottleneck or FFN-train kernel fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with its time, the plain version's
    time and the bound.  Every kernel, library and yardstick time is the
@@ -30,21 +31,23 @@ it exits non-zero before printing any result.
      at every FFN site's shape of the train step (M = B * L, L in 40, 177,
      393) at B=2 and B=32: y and every gradient against autograd of the
      plain version at rate 0, and at rate 0.1 with the kernels' own keep
-     mask given to the plain version; the realised keep rate; two backward
-     calls on the same inputs bit-equal in all six outputs; the times of
-     the kernels, of the weight-gradient products after the backward
-     kernels, of the plain version and of the unfused yardstick, and the
-     kernels' device time per call from torch.profiler, the backward's
-     also per stage of its chain; ``cuobjdump -sass`` of the built library
-     must list HGMMA (wgmma) instructions in each of the backward's four
-     product kernels;
+     mask given to the plain version; the realised keep rate; two forward
+     calls on the same inputs bit-equal at each rate, the forward's h
+     bit-equal to the backward's recompute, and two backward calls
+     bit-equal in all six outputs; the times of the kernels, of the
+     weight-gradient products after the backward kernels, of the plain
+     version and of the unfused yardstick, and the kernels' device time
+     per call and per stage of each chain from torch.profiler;
+     ``cuobjdump -sass`` of the built library must list HGMMA (wgmma)
+     instructions in each of the two chains' five product kernels;
    - the tokenizer conv kernel (``csrc/tok_conv.cu``) at both convs'
      shapes and the bottleneck kernel (``csrc/bottleneck.cu``) at ragged
      frames and at its three trunk geometries (res_2 block_0 with its
      projection, res_2, res_3), at B=2 and B=32: kernel against plain
-     within 2e-2 of max |plain|, the times of the kernel, the plain version
-     and a yardstick (F.conv3d in bf16 + gelu; the unfused bf16
-     Bottleneck3D) and the bound;
+     within 2e-2 of max |plain|, the times of the kernel (and the
+     bottleneck's device time per call), the plain version and a
+     yardstick (F.conv3d in bf16 + gelu; the unfused bf16 Bottleneck3D)
+     and the bound; HGMMA instructions in the bottleneck kernel;
    - the attention-output kernel (``csrc/out_ln.cu``) at every AttOutput
      site's shape (M = B * L, L in 40, 177, 393) at B=2 and B=32 within
      3e-2 * max(1, |ref|) of ``out_ln_reference`` (and its autograd
@@ -239,11 +242,12 @@ FFN_OPERANDS = ("x", "W1", "b1", "W2", "b2", "gamma", "beta")
 # max |ref| (the kernels round do and du to bf16 before their products and
 # the weight gradients to bf16)
 FFN_GRAD_TOL = 3e-2
-# the FFN train forward kernel, and the backward's chain in launch order
-FFN_FWD_KERNELS = ("ffn_train_fwd_kernel",)
+# the FFN train forward's and backward's chains in launch order, and their
+# product kernels (wgmma)
+FFN_FWD_STAGES = ffn_kernels.FWD_STAGES
 FFN_BWD_STAGES = ffn_kernels.BWD_STAGES
-FFN_BWD_PRODUCTS = ("ffn_bwd_u_kernel", "ffn_bwd_o_kernel",
-                    "ffn_bwd_dh_kernel", "ffn_bwd_dx_kernel")
+FFN_PRODUCTS = ("ffn_fwd_u_kernel", "ffn_bwd_u_kernel", "ffn_o_kernel",
+                "ffn_bwd_dh_kernel", "ffn_bwd_dx_kernel")
 # tokenizer convs of one flagship forward: (site, T in, Ci); Co = 768, 7 x 7
 # features, kernel (5, 3, 3)
 TOK_SITES = (("conv1", 16, 2048), ("conv2", 12, D))
@@ -432,14 +436,15 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
     """Both FFN train kernels against the plain version at every main-path
     shape (M = B * L for L in 40, 177, 393): y and every gradient at rate 0,
     and at rate 0.1 with the kernels' own keep mask given to the plain
-    version; the realised keep rate; two backward calls bit-equal; the
-    times of the kernels, of the weight-gradient products after the
-    backward kernels, of the plain version and of the unfused yardstick
-    (F.linear, GeLU, dropout, layer_norm, and its autograd backward); the
-    kernels' device time per call (the backward's per stage too); the
-    backward's products on wgmma (HGMMA in the SASS)."""
+    version; the realised keep rate; two forward calls bit-equal at each
+    rate, the forward's h bit-equal to the backward's, and two backward
+    calls bit-equal; the times of the kernels, of the weight-gradient
+    products after the backward kernels, of the plain version and of the
+    unfused yardstick (F.linear, GeLU, dropout, layer_norm, and its
+    autograd backward); the kernels' device time per call and per stage
+    of each chain; both chains' products on wgmma (HGMMA in the SASS)."""
     for kernel, (count, first) in sass_hgmma("ffn_train",
-                                             FFN_BWD_PRODUCTS).items():
+                                             FFN_PRODUCTS).items():
         log(f"sass ffn_train {kernel}: {count} HGMMA instructions, e.g. "
             f"`{first}`")
     rows = {}
@@ -456,6 +461,9 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
             y0 = fused_ffn_train(*ops, 0.0)
             e0 = check_close(f"{tag} rate 0", y0,
                              ffn_train_reference(*ops, 0.0, None))
+            if not torch.equal(y0, fused_ffn_train(*ops, 0.0)):
+                raise AssertionError(f"{tag}: two forward calls at rate 0 "
+                                     "differ")
             g0, r0 = ffn_train_grads_vs_plain(f"{tag} rate 0", ops, y0, dy,
                                               0.0, None)
             # rate > 0: the seed the call draws is read back from a copy of
@@ -463,6 +471,10 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
             gen = torch.Generator(device="cuda").manual_seed(m)
             state = gen.get_state()
             y1 = fused_ffn_train(*ops, rate, gen)
+            gen.set_state(state)
+            if not torch.equal(y1, fused_ffn_train(*ops, rate, gen)):
+                raise AssertionError(f"{tag}: two forward calls at rate "
+                                     f"{rate} differ")
             gen.set_state(state)
             keep = ffn_keep_mask(draw_seed(gen, ops[0].device), m, D, rate)
             kept = keep.float().mean().item()
@@ -480,8 +492,16 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
             # times
             x2, w1t, b1, w2t, b2, gamma, beta = (o.detach() for o in ops)
             seed = draw_seed(gen, x2.device)
+            fwd = ffn_kernels._fwd_buffers(m, D, FF, x2.device)
+            ffn_kernels._launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta,
+                                          seed, rate, 1e-12, fwd)
             spills = ffn_kernels._launch_train_bwd(
                 x2, w1t, b1, w2t, b2, gamma, seed, rate, 1e-12, dy)
+            # the forward's h is the backward's recompute, bit for bit
+            if not torch.equal(fwd["h"], spills[3]):
+                raise AssertionError(f"{tag}: the forward's h and the "
+                                     "backward's differ")
+            del fwd
             # nothing in the backward's chain sums with atomics
             again = ffn_kernels._launch_train_bwd(
                 x2, w1t, b1, w2t, b2, gamma, seed, rate, 1e-12, dy)
@@ -513,9 +533,10 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
                                  1e-12, dy)),
                     **spread("wgrad_ms", lambda: ffn_kernels._weight_grads(
                         x2, spills[1], spills[2], spills[3])))
-                timed["kernel_device_ms"] = device_ms(
+                (timed["kernel_device_ms"], _,
+                 timed["fwd_stage_device_ms"]) = device_ms(
                     lambda: fused_ffn_train(*ops, rate, gen),
-                    FFN_FWD_KERNELS)[0]
+                    FFN_FWD_STAGES)
                 (timed["bwd_kernel_device_ms"], _,
                  timed["bwd_stage_device_ms"]) = device_ms(
                     lambda: ffn_kernels._launch_train_bwd(
@@ -531,6 +552,7 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
             bwd_bound, bwd_bound_by = ffn_train_bound(m, True)
             rows[m] = dict(M=m, keep_rate=kept, err_fwd=max(e0, e1),
                            err_grads=max(g0, g1), rel_err_grads=max(r0, r1),
+                           fwd_rerun_bit_equal=True, fwd_h_is_bwd_h=True,
                            bwd_rerun_bit_equal=True,
                            bound_ms=bound, bound_by=bound_by,
                            bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_bound_by,
@@ -563,20 +585,26 @@ def weighted_text(sites, key) -> str:
     return text + " ms"
 
 
-def log_bwd_stages(rows):
-    """One line per batch size: the FFN train backward's device time per
-    train step by stage of its chain (torch.profiler)."""
-    for bsz in (BATCH_SIZE, 2):
-        stages = [rows[per_clip * bsz]["bwd_stage_device_ms"]
-                  for per_clip, _, _ in FFN_TRAIN_SITES]
-        if None in stages:
-            log(f"fused_ffn_train_bwd stages at b{bsz}: not measured")
-            continue
-        log(f"fused_ffn_train_bwd device ms per train step by stage at b{bsz} "
-            "(torch.profiler): " + ", ".join(
-                f"{stage} " + ms_text(sum(nb * st[stage] for (_, _, nb), st
-                                          in zip(FFN_TRAIN_SITES, stages)))
-                for stage in FFN_BWD_STAGES))
+def log_stages(rows):
+    """One line per chain and batch size: the FFN train forward's and
+    backward's device time per train step by stage of the chain
+    (torch.profiler)."""
+    for name, key, stage_names in (
+            ("fused_ffn_train_fwd", "fwd_stage_device_ms", FFN_FWD_STAGES),
+            ("fused_ffn_train_bwd", "bwd_stage_device_ms", FFN_BWD_STAGES)):
+        backward = key.startswith("bwd")
+        for bsz in (BATCH_SIZE, 2):
+            stages = [rows[per_clip * bsz][key]
+                      for per_clip, _, _ in FFN_TRAIN_SITES]
+            if None in stages:
+                log(f"{name} stages at b{bsz}: not measured")
+                continue
+            log(f"{name} device ms per train step by stage at b{bsz} "
+                "(torch.profiler): " + ", ".join(
+                    f"{stage} " + ms_text(sum(
+                        (nb if backward else nf) * st[stage]
+                        for (_, nf, nb), st in zip(FFN_TRAIN_SITES, stages)))
+                    for stage in stage_names))
 
 
 def attention_bound(b, lq, lk, key, pane, backward: bool, lse: bool = True):
@@ -955,10 +983,16 @@ def random_block(ci, cm, co, seed):
 
 
 def phase_block_kernel(batch_sizes=(2, BATCH_SIZE)):
-    """The fused bottleneck kernel against bottleneck_reference at the three
-    block geometries it covers in the trunk (bf16, frames N = 16 B); the
-    times of the kernel, of the plain version and of the yardstick (the
-    port's unfused bf16 Bottleneck3D on the same weights and frames)."""
+    """The fused bottleneck kernel against bottleneck_reference at ragged
+    frames and at the three block geometries it covers in the trunk (bf16,
+    frames N = 16 B); the times of the kernel (events, and its device time
+    per call), of the plain version and of the yardstick (the port's
+    unfused bf16 Bottleneck3D on the same weights and frames); the kernel
+    on wgmma (HGMMA in the SASS)."""
+    for kernel, (count, first) in sass_hgmma(
+            "bottleneck", ("bottleneck_kernel",)).items():
+        log(f"sass bottleneck {kernel}: {count} HGMMA instructions (its four "
+            f"instances), e.g. `{first}`")
     rows, max_err = {}, 0.0
     with torch.inference_mode():
         # ragged frames first: the last band of rows is short
@@ -997,6 +1031,9 @@ def phase_block_kernel(batch_sizes=(2, BATCH_SIZE)):
                     proj=proj, max_abs_err=err, rel_err=rel, bound_ms=bound,
                     bound_by=bound_by,
                     **spread("kernel_ms", lambda: fused_bottleneck(x, *ops)),
+                    kernel_device_ms=device_ms(
+                        lambda: fused_bottleneck(x, *ops),
+                        ("bottleneck_kernel",))[0],
                     plain_ms=time_ms(lambda: bottleneck_reference(x, *ops),
                                      iters=5, warmup=1),
                     **spread("yardstick_ms", lambda: block(xv), iters=5,
@@ -1013,6 +1050,21 @@ def per_forward_tok(rows, bsz, key):
 def per_forward_block(rows, bsz, key):
     return sum(n * rows[(site, bsz)][key]
                for site, *_, n in BLOCK_SITES)
+
+
+def log_block_per_forward(rows, launches=6):
+    """The bottleneck's times per forward at B=32 and B=2: each site's
+    median times its blocks, with the sums of the fastest and slowest
+    turns for the event times."""
+    log(f"fused_bottleneck per forward ({launches} sites; yardstick: the "
+        "port's unfused bf16 Bottleneck3D; device: torch.profiler per call; "
+        "no single library call computes this function): " + ", ".join(
+            f"{k} " + weighted_text(
+                [(n, rows[(site, b)]) for site, *_, n in BLOCK_SITES], k)
+            + f" at b{b}"
+            for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                      "yardstick_ms", "bound_ms")
+            for b in (BATCH_SIZE, 2)))
 
 
 def out_ln_operands(m: int, d: int = D, seed: int = 0):
@@ -1666,6 +1718,12 @@ def main(argv=None) -> int:
     for name, text in build_logs.items():
         for line in ptxas_lines(name, text):
             log(f"  {line}")
+    # the wgmma kernels hold their accumulators in registers: no spill
+    spills = [line for name in ("bottleneck", "ffn_train")
+              for line in ptxas_lines(name, build_logs.get(name, ""))
+              if re.search(r"[1-9]\d* bytes spill", line)]
+    if spills:
+        raise AssertionError("register spills: " + "; ".join(spills))
 
     if args.only == "attention":
         attn_rows, attn_err = phase_attention_kernels()
@@ -1674,12 +1732,13 @@ def main(argv=None) -> int:
         return 0
     if args.only == "ffn_train":
         train_rows, train_err = phase_ffn_train_kernels()
-        log_bwd_stages(train_rows)
+        log_stages(train_rows)
         log(f"FFN train kernels ok; max errors {json.dumps(train_err)}")
         return 0
     if args.only == "tok_block":
         _, tok_err = phase_tok_kernel()
-        _, block_err = phase_block_kernel()
+        block_rows, block_err = phase_block_kernel()
+        log_block_per_forward(block_rows)
         log(f"tokenizer conv and bottleneck kernels ok; max errors {tok_err}, "
             f"{block_err}")
         return 0
@@ -1769,7 +1828,7 @@ def main(argv=None) -> int:
                      for per_clip, nf, nb in FFN_TRAIN_SITES],
                     (pre if k != "wgrad_ms" else "") + k) + f" at b{b}"
                 for k in keys for b in (bsz, 2)))
-    log_bwd_stages(train_rows)
+    log_stages(train_rows)
     kernels.append({
         "name": "fused_tok_conv", "route": "cuda",
         "source": "shgvqa_tpu_torch/csrc/tok_conv.cu",
@@ -1791,16 +1850,13 @@ def main(argv=None) -> int:
         "bound_by": block_rows[("res_2 blocks 1-2", bsz)]["bound_by"],
         "library_ms": None,
     })
-    for name, per, site_rows, n, yard in (
-            ("fused_tok_conv", per_forward_tok, tok_rows, launches[5],
-             "F.conv3d in bf16 + the port's gelu"),
-            ("fused_bottleneck", per_forward_block, block_rows, launches[6],
-             "the port's unfused bf16 Bottleneck3D")):
-        log(f"{name} per forward ({n} sites; yardstick: {yard}; no single "
-            "library call computes this function): " + ", ".join(
-                f"{k} {per(site_rows, b, k):.3f} ms at b{b}"
-                for k in ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms")
-                for b in (bsz, 2)))
+    log(f"fused_tok_conv per forward ({launches[5]} sites; yardstick: "
+        "F.conv3d in bf16 + the port's gelu; no single library call "
+        "computes this function): " + ", ".join(
+            f"{k} {per_forward_tok(tok_rows, b, k):.3f} ms at b{b}"
+            for k in ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms")
+            for b in (bsz, 2)))
+    log_block_per_forward(block_rows, launches[6])
     widest = max(FFN_SITES,
                  key=lambda s: s[1] * out_ln_rows[s[0] * bsz]["bound_ms"])
     kernels.append({

@@ -13,7 +13,12 @@
 // Numerics (as the TPU kernel and the JAX Bottleneck3D): x and the weights
 // bf16; each product accumulates in f32 and is rounded to bf16; BN is the
 // folded bf16 (scale, shift), applied in bf16 (the product rounded, then the
-// sum); ReLU; the residual sum is rounded to bf16 before the last ReLU.
+// sum); ReLU; the residual sum is rounded to bf16 before the last ReLU.  The
+// epilogues apply BN and the residual sum as paired bf16 instructions with
+// round-to-nearest (mul.rn / add.rn .bf16x2, which are never contracted into
+// an fma): each is the f32 operation rounded once to bf16, as in the plain
+// version, since an f32 product or sum of two bf16 values rounded to bf16
+// equals the correctly rounded bf16 result.
 //
 // What bounds it on the card: per position 2 * (Ci*Cm + 9*Cm^2 + Cm*Co
 // [+ Ci*Co]) operations against 2 * (Ci + Co) bytes, ~50-150 a byte at the
@@ -21,77 +26,95 @@
 // leave the chip.  That is the fusion: unfused, the block writes and reads
 // back a, b, c and the residual sum, and each BN and ReLU is a pass of its own.
 //
-// Design: row bands with a halo.  The TPU kernel kept a whole frame in VMEM;
-// a res_2 frame (56 x 56 x 256 bf16, 1.6 MB) does not fit in 227 KB.
-// - One block of 8 warps takes R output rows of one frame (R <= 8, as many
-//   as fit in shared memory, balanced over the frame's height).
-// - conv_a runs on the R + 2 rows the 3x3 needs, recomputing the one-row
-//   halo of each neighbour, and its BN + ReLU output goes into a shared tile
-//   of (R + 2) x (W + 2) positions.  The padding is applied to a, not to x:
-//   the tile's border columns and the halo rows outside the frame are zero.
-// - conv_b is an implicit product over the 9 taps: each lane hands ldmatrix
-//   the address of its own position shifted by the tap, so no tap is copied.
-//   Its BN + ReLU output b stays in shared memory.
-// - conv_c (and the projection) then run per 128-column chunk of Co; the
-//   epilogue applies BN, adds the residual (x read from device memory, or
-//   the projection kept in registers as bf16) and the ReLU, and stores y.
-// - Every product is ldmatrix + mma.sync m16n8k16 (bf16 in, f32 sums) on
-//   passes of 128 positions, warps 4 (M) x 2 (N).  Its B operand, the
-//   weights ([n][k] rows, K contiguous), and for conv_a and the projection
-//   its A operand, x, stream through a 3-stage cp.async ring of 16 KB tiles:
-//   all blocks read the same weights, which stay in L2.  conv_b's weights,
-//   [Cm][3][3][Cm] (295 KB at Cm = 128), stream tap by tap.
-// - Shared tiles store 16-byte chunk c of row r at c ^ (r % 8) (ldmatrix
-//   without bank conflicts).
+// Design: spans of positions with a halo, warp-specialized wgmma.
+// - The frames are one sequence of N*H*W positions; a work item is a span
+//   of S consecutive output positions (S a multiple of 64, as large as
+//   shared memory allows and chosen so that the items spread evenly over
+//   the SMs).  One persistent block an SM walks over items.
+// - A block is a producer warp and two consumer warpgroups.  The producer's
+//   lane 0 keeps a ring of 5 stages of 32 KB in flight, each landed by TMA
+//   with the 128-byte swizzle on a "full" mbarrier and freed by an arrival
+//   of every consumer thread on an "empty" one: a 128-position box of x
+//   and/or a weight tile (64 channels of depth, up to 128 rows).  All blocks
+//   read the same weights, which stay in L2.  No block-wide barrier stands
+//   in the products' way: the consumers meet on a named barrier twice an
+//   item.
+// - conv_a runs on the span's window, the S + 2W + 2 positions its 3x3
+//   taps reach (the one-row halo above and below, recomputed by each item:
+//   keeping it would tie an item to its neighbour's block), in passes of 128
+//   positions, 64 a warpgroup: wgmma with A (x) and B (wa) from the stage.
+//   Its BN + ReLU output goes into the shared a tile, one row of Cm a
+//   position, 16-byte chunk c of row r at c ^ (r % 8).  Window rows outside
+//   the tensor read zeros from the TMA; their values are never used.
+// - conv_b is an implicit product over the 9 taps, 64 output positions a
+//   warpgroup: A is loaded from the a tile into registers by ldmatrix, each
+//   lane giving the row of its own position shifted by the tap, or a zero
+//   row where the tap falls outside the frame (the 3x3's padding: the
+//   frame's edges, the first and last rows, and positions past the end);
+//   B, the tap's Cm x 64 slice of wb, comes from the stage.  wgmma with A in
+//   registers (RS): the shifted rows are not the 8-row groups a shared-
+//   memory descriptor can address.
+// - conv_b's BN + ReLU output never leaves the registers: the f32
+//   accumulator's pairs, rounded to bf16, are the A fragments of conv_c.
+// - conv_c (and the projection, wgmma with A = the positions' x from the
+//   stage) run in chunks of 64 output channels.  Without a projection the
+//   producer lands the residual, the chunk's 128 x 64 box of x, in the x
+//   place of the chunk's first stage; the epilogue applies BN_c, adds the
+//   residual (that box, or the projection's accumulator through BN_p,
+//   rounded) and the ReLU, writes y over the box in shared memory, and one
+//   thread of each warpgroup stores its 64 x 64 by TMA before the stage is
+//   freed: no residual load waits in the epilogue and y leaves in whole
+//   boxes.
+// - Each stage's wgmma group is waited for before the stage is freed; the
+//   two warpgroups' groups interleave on the tensor cores, and one
+//   warpgroup's epilogue runs beside the other's products.  At Cm = 64 a y
+//   box's stage is freed a chunk late, once its store has read it, so that
+//   no thread waits on the store; at Cm = 128 a chunk holds two stages and
+//   the store is waited for.
+// - What the card showed (bottleneck_floor): no one part dominates: the
+//   products, the x loads and the y stores each take 10-20% of the time,
+//   the weights' loads from L2 ~2%.  Keeping one stage's products in
+//   flight (freeing each stage a stage later), or a second conv_c chunk's
+//   products in flight during the first one's epilogue, measured slower:
+//   a deeper ring of stages counts for more here.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;                            // positions per product pass
-constexpr int kBK = 64;                             // channels per K step
-constexpr int kStages = 3;
-constexpr int kTileBytes = kBM * kBK * 2;           // 16 KB; a B tile is at most as large
-constexpr int kStageBytes = 2 * kTileBytes;
-constexpr int kRingBytes = kStages * kStageBytes;   // 96 KB
-constexpr int kMaxRows = 8;
+constexpr int kConsumers = 256;                     // two warpgroups
+constexpr int kThreads = kConsumers + 32;           // + the producer warp
+constexpr int kPass = 128;                          // positions of a pass, 64 a warpgroup
+constexpr int kBK = 64;                             // depth of a stage: 128-byte rows of bf16
+constexpr int kNC = 64;                             // output channels of a conv_c chunk
+constexpr int kStages = 5;
+constexpr int kXBytes = kPass * kBK * 2;            // a 128 x 64 box of x: 16 KB
+constexpr int kBoxBytes = 64 * kBK * 2;             // a 64 x 64 weight box: 8 KB
+constexpr int kStageBytes = kXBytes + 128 * kBK * 2;   // + a weight tile of <= 128 rows
 constexpr int kSmemLimit = 232448;                  // what a block can have on sm_90
 
 struct Params {
-  const bf16 *x, *wa, *sa, *ba, *wb, *sb, *bb, *wc, *sc, *bc, *wp, *sp, *bp;
+  const bf16* x;
+  const bf16* bn[8];       // sa, ba, sb, bb (Cm); sc, bc, sp, bp (Co; sp, bp may be null)
   bf16* y;
-  int h, w, ci, co, rows, bands;
+  int h, w, ci, co;
+  int total;               // positions, N * H * W
+  int span;                // output positions of a work item
+  int items;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from gmem, or zeros when src_bytes is 0 (gmem is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* gmem, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Byte offset of 16-byte chunk c of row r in a tile of row_bytes-long rows.
-__device__ __forceinline__ uint32_t swz(int r, int c, int row_bytes) {
-  return static_cast<uint32_t>(r * row_bytes + ((c ^ (r & 7)) << 4));
-}
+// Byte offsets of the shared-memory regions from the 1 KB aligned base:
+// the ring, the a tile (window rows and a zero row), the BN vectors (bf16),
+// the mbarriers.
+struct Layout {
+  size_t a, bn, bars, total;
+  __host__ __device__ Layout(int span, int w, int cm, int co) {
+    a = static_cast<size_t>(kStages) * kStageBytes;
+    bn = a + static_cast<size_t>(span + 2 * w + 3) * cm * 2;
+    bars = (bn + static_cast<size_t>(4 * cm + 4 * co) * 2 + 7) / 8 * 8;
+    total = bars + 16 * kStages;
+  }
+};
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -99,363 +122,450 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// c += a . b on one m16n8k16 tile (a row-major, b col-major, f32 sums).
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The consumers' named barrier (the producer warp takes no part), and a
+// warpgroup's own.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
 }
 
-// BN of a product's f32 sum in bf16: the sum rounded, times the scale
-// (rounded), plus the shift (rounded).
-__device__ __forceinline__ float bn(float acc, float scale, float shift) {
-  return round_bf16(round_bf16(round_bf16(acc) * scale) + shift);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Two adjacent bf16 values of a read-only array, as floats.
-__device__ __forceinline__ float2 load_pair(const bf16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
-// BN scale and shift pairs of the NT n8 column tiles of a warp, columns
-// n0 + 8 j and n0 + 8 j + 1 (loaded before an epilogue's stores).
-template <int NT>
-__device__ __forceinline__ void load_bn(float2 (&s)[NT], float2 (&t)[NT], const bf16* scale,
-                                        const bf16* shift, int n0) {
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t relu_bf16x2(uint32_t a) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(0u));
+  return d;
+}
+
+// BN of the f32 sums of columns col and col + 1 (col even): the sums
+// rounded to bf16, times the scale, plus the shift, each rounded; scale and
+// shift hold the vectors as bf16 pairs.
+__device__ __forceinline__ uint32_t bn2(float a0, float a1, const uint32_t* scale,
+                                        const uint32_t* shift, int col) {
+  return add_bf16x2(mul_bf16x2(pack_bf16(a0, a1), scale[col / 2]), shift[col / 2]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N]) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j] = load_pair(scale + n0 + 8 * j);
-    t[j] = load_pair(shift + n0 + 8 * j);
+  for (int i = 0; i < N; ++i) acc[i] = 0.0f;
+}
+
+// One stage's products of a warpgroup, waited for: acc += A . B over 64 of
+// depth, A K-major at a (64 rows of 128 bytes, swizzled) and B K-major at b
+// (N rows of 128 bytes, swizzled), both in shared memory.
+template <int N>
+__device__ __forceinline__ void ss_group(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    wgmma_k16<N, false>(acc, sw128_desc(a + 32 * kk, 16, 1024), sw128_desc(b + 32 * kk, 16, 1024));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// The same stage's products with A from registers, issued after a fence
+// and neither committed nor waited for: frag[s0 + kk] is the k16 slice kk
+// (s0 known at compile time once inlined in an unrolled loop).
+template <int N, int S>
+__device__ __forceinline__ void rs_issue(float (&acc)[N / 2], const uint32_t (&frag)[S][4], int s0,
+                                         uint32_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    wgmma_k16_rs<N>(acc, frag[s0 + kk], sw128_desc(b + 32 * kk, 16, 1024));
   }
 }
 
-// The weight rows [0, rows) of w (row length ld), K columns k0..k0+63, into
-// the B tile of stage st.
-__device__ __forceinline__ void copy_b(uint32_t st, const bf16* w, int ld, int k0, int rows) {
-  const int chunk = threadIdx.x & 7, lrow = threadIdx.x >> 3;
-  for (int r = lrow; r < rows; r += kThreads / 8) {
-    cp_async16(st + kTileBytes + swz(r, chunk, 128), w + static_cast<long long>(r) * ld + k0 +
-                                                         chunk * 8, 16);
+// One conv_b stage of a warpgroup, waited for: the 64 channels kc of this
+// lane's tap row (row_addr, at a-tile row `row`) by ldmatrix, then their
+// products.
+template <int CM>
+__device__ __forceinline__ void conv_b_stage(float (&acc)[CM / 2], uint32_t row_addr, int row,
+                                             int kc, uint32_t b) {
+  const int lane = threadIdx.x % 32;
+  uint32_t frag[4][4];
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const int chunk = kc * 8 + kk * 2 + (lane >> 4);
+    ldsm_x4(frag[kk], row_addr + ((chunk ^ (row & 7)) << 4));
   }
+  rs_issue<CM>(acc, frag, 0, b);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
 }
 
-// Rows of x a thread copies into the A tile of a pass: rows lrow + 32 j of
-// the tile, chunk tid % 8; a row outside the frame (or the pass) reads zeros.
-struct XRows {
-  const bf16* ptr[4];
-  bool ok[4];
+// The ring as one thread of the producer or of the consumers walks it:
+// stage t % kStages in round t / kStages.
+struct Ring {
+  uint32_t base, full, empty;
+  int t = 0;
 
-  // Positions p0 + row of a band whose position 0 is image row r_first,
-  // column 0; `count` positions are in the pass's range.
-  __device__ XRows(const Params& p, long long frame, int r_first, int p0, int count) {
-    const int chunk = threadIdx.x & 7, lrow = threadIdx.x >> 3;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int pos = p0 + lrow + 32 * j;
-      const int ir = r_first + pos / p.w;
-      ok[j] = pos < count && ir >= 0 && ir < p.h;
-      ptr[j] = ok[j] ? p.x + (frame + static_cast<long long>(ir) * p.w + pos % p.w) * p.ci +
-                           chunk * 8
-                     : p.x;
-    }
+  __device__ uint32_t stage() const { return base + (t % kStages) * kStageBytes; }
+  __device__ uint32_t full_bar() const { return full + 8 * (t % kStages); }
+
+  // producer: wait until the stage is free, then expect `bytes` on it
+  __device__ uint32_t acquire(uint32_t bytes) {
+    mbar_wait(empty + 8 * (t % kStages), ((t / kStages) & 1) ^ 1);   // round 0 passes at once
+    mbar_expect_tx(full_bar(), bytes);
+    return stage();
   }
 
-  __device__ void copy(uint32_t st, int k0) const {
-    const int chunk = threadIdx.x & 7, lrow = threadIdx.x >> 3;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      cp_async16(st + swz(lrow + 32 * j, chunk, 128), ok[j] ? ptr[j] + k0 : ptr[j],
-                 ok[j] ? 16 : 0);
-    }
+  // consumer: wait until the stage has landed
+  __device__ uint32_t wait() {
+    mbar_wait(full_bar(), (t / kStages) & 1);
+    __syncwarp();   // the warp is converged for the .aligned instructions
+    return stage();
+  }
+
+  __device__ void release() { release_at(t); }
+  __device__ void release_at(int at) { mbar_arrive(empty + 8 * (at % kStages)); }
+  __device__ void next() { ++t; }
+};
+
+struct Item {
+  int q0, len, win, w0;   // first output position, output positions, window rows, position of row 0
+  __device__ Item(const Params& p, int item) {
+    q0 = item * p.span;
+    len = min(p.span, p.total - q0);
+    win = len + 2 * p.w + 2;
+    w0 = q0 - p.w - 1;
   }
 };
 
-// This lane's ldmatrix row of A in the ring's A tile.
-__device__ __forceinline__ uint32_t ring_a(uint32_t st, int i, int kk) {
-  const int lane = threadIdx.x % 32, wm = threadIdx.x / 64;
-  return st + swz(wm * 32 + i * 16 + (lane & 15), kk * 2 + (lane >> 4), 128);
-}
-
-// acc += A . B^T over `steps` K steps of 64 on a tile of 128 rows x 16 NT
-// columns (warps 4 x 2, each on 32 x 8 NT).  issue(s, st) starts the copies
-// of step s into stage st of the ring (every thread takes part);
-// a_addr(st, s, i, kk) is this lane's ldmatrix row of A for m16 tile i and
-// k16 slice kk of step s; B is the stage's second tile, [n][k] in 128-byte
-// rows.  Returns with the ring drained and every thread past its last read.
-template <int NT, class Issue, class AAddr>
-__device__ __forceinline__ void cta_gemm(float (&acc)[2][NT][4], int steps, uint32_t ring,
-                                         const Issue& issue, const AAddr& a_addr) {
-  const int lane = threadIdx.x % 32, wn = (threadIdx.x / 32) % 2;
+// The producer's lane 0: every stage the consumers take, in their order.
+template <int CM, bool kProj>
+__device__ __forceinline__ void produce(const Params& p, const CUtensorMap* xmap, const CUtensorMap* wamap,
+                        const CUtensorMap* wbmap, const CUtensorMap* wcmap,
+                        const CUtensorMap* wpmap, Ring& r) {
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const Item it(p, item);
+    for (int r0 = 0; r0 < it.win; r0 += kPass) {           // conv_a: x, wa
+      for (int k = 0; k < p.ci; k += kBK) {
+        const uint32_t st = r.acquire(kXBytes + CM * kBK * 2);
+        tma_2d(st, xmap, k, it.w0 + r0, r.full_bar());
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) issue(s, ring + s * kStageBytes);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kStages - 2>();   // step s landed (this thread's copies)
-    __syncthreads();                // ... everyone's; and step s-1's stage is free
-    const int next = s + kStages - 1;
-    if (next < steps) issue(next, ring + (next % kStages) * kStageBytes);
-    cp_async_commit();
-    const uint32_t st = ring + (s % kStages) * kStageBytes;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ldsm_x4(a[i], a_addr(st, s, i, kk));
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t b[4];
-        ldsm_x4(b, st + kTileBytes + swz(wn * 8 * NT + p * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                         kk * 2 + ((lane >> 3) & 1), 128));
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma16816(acc[i][2 * p], a[i], b[0], b[1]);
-          mma16816(acc[i][2 * p + 1], a[i], b[2], b[3]);
+        for (int j = 0; j < CM / 64; ++j) {
+          tma_2d(st + kXBytes + j * kBoxBytes, wamap, k, 64 * j, r.full_bar());
         }
+        r.next();
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
+    for (int o0 = 0; o0 < it.len; o0 += kPass) {
+      for (int tap = 0; tap < 9; ++tap) {                  // conv_b: wb
+        for (int k = 0; k < CM; k += kBK) {
+          const uint32_t st = r.acquire(CM * kBK * 2);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-    }
-  }
-}
-
-size_t smem_bytes(int rows, int w, int cm) {
-  return kRingBytes + static_cast<size_t>(rows + 2) * (w + 2) * cm * 2 +
-         static_cast<size_t>(rows) * w * cm * 2;
-}
-
-template <int CM>
-__global__ void __launch_bounds__(kThreads, 1) bottleneck_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kRowBytes = CM * 2;   // a row of the a and b tiles
-  constexpr int NTM = CM / 16;        // n8 tiles a warp in the Cm-wide products
-  constexpr int kStepsCM = CM / kBK;  // K steps over Cm
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int gr = lane / 4, q = (lane % 4) * 2;
-  const int f = blockIdx.x / p.bands;
-  const int r0 = (blockIdx.x % p.bands) * p.rows;
-  const int rv = min(p.rows, p.h - r0);                 // output rows of this block
-  const int wp2 = p.w + 2;
-  const long long frame = static_cast<long long>(f) * p.h * p.w;
-  const uint32_t ring = smem_addr(smem);
-  unsigned char* a_tile = smem + kRingBytes;            // (R + 2) x (W + 2) x Cm
-  unsigned char* b_tile = a_tile + (p.rows + 2) * wp2 * kRowBytes;   // R x W x Cm
-  const uint32_t as = smem_addr(a_tile), bs = smem_addr(b_tile);
-
-  // border columns of the a tile: the 3x3's zero padding
-  for (int i = tid; i < (p.rows + 2) * 2 * (CM / 8); i += kThreads) {
-    const int side = i / (CM / 8);
-    const int row = (side / 2) * wp2 + (side % 2) * (p.w + 1);
-    *reinterpret_cast<uint4*>(a_tile + swz(row, i % (CM / 8), kRowBytes)) =
-        make_uint4(0u, 0u, 0u, 0u);
-  }
-
-  // conv_a + BN_a + ReLU on rows r0-1 .. r0+R of the frame -> the a tile
-  const int pa = (p.rows + 2) * p.w;
-  for (int p0 = 0; p0 < pa; p0 += kBM) {
-    const XRows xr(p, frame, r0 - 1, p0, pa);
-    float acc[2][NTM][4];
-    zero(acc);
-    cta_gemm<NTM>(
-        acc, p.ci / kBK, ring,
-        [&](int s, uint32_t st) {
-          xr.copy(st, s * kBK);
-          copy_b(st, p.wa, p.ci, s * kBK, CM);
-        },
-        [&](uint32_t st, int, int i, int kk) { return ring_a(st, i, kk); });
-    float2 s[NTM], t[NTM];
-    load_bn<NTM>(s, t, p.sa, p.ba, wn * 8 * NTM + q);
-#pragma unroll
-    for (int j = 0; j < NTM; ++j) {
-      const int n = wn * 8 * NTM + j * 8 + q;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int pos = p0 + wm * 32 + i * 16 + gr + half * 8;
-          if (pos >= pa) continue;
-          const int br = pos / p.w, ir = r0 - 1 + br;
-          float v0 = 0.0f, v1 = 0.0f;
-          if (ir >= 0 && ir < p.h) {
-            v0 = fmaxf(bn(acc[i][j][2 * half], s[j].x, t[j].x), 0.0f);
-            v1 = fmaxf(bn(acc[i][j][2 * half + 1], s[j].y, t[j].y), 0.0f);
+          for (int j = 0; j < CM / 64; ++j) {
+            tma_2d(st + kXBytes + j * kBoxBytes, wbmap, tap * CM + k, 64 * j, r.full_bar());
           }
-          const int idx = br * wp2 + pos % p.w + 1;
-          *reinterpret_cast<__nv_bfloat162*>(a_tile + swz(idx, n / 8, kRowBytes) + (n % 8) * 2) =
-              __floats2bfloat162_rn(v0, v1);
+          r.next();
         }
       }
-    }
-  }
-
-  // conv_b (9 taps read in place from the a tile) + BN_b + ReLU -> the b tile
-  const int pb = rv * p.w;
-  for (int p0 = 0; p0 < pb; p0 += kBM) {
-    int idx0[2];   // this lane's A rows: a-tile position of tap (0, 0)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int pos = min(p0 + wm * 32 + i * 16 + (lane & 15), pb - 1);
-      idx0[i] = (pos / p.w) * wp2 + pos % p.w;
-    }
-    float acc[2][NTM][4];
-    zero(acc);
-    cta_gemm<NTM>(
-        acc, 9 * kStepsCM, ring,
-        [&](int s, uint32_t st) { copy_b(st, p.wb, 9 * CM, s * kBK, CM); },
-        [&](uint32_t, int s, int i, int kk) {
-          const int tap = s / kStepsCM, kc = s % kStepsCM;
-          const int idx = idx0[i] + (tap / 3) * wp2 + tap % 3;
-          return as + swz(idx, kc * 8 + kk * 2 + (lane >> 4), kRowBytes);
-        });
-    float2 s[NTM], t[NTM];
-    load_bn<NTM>(s, t, p.sb, p.bb, wn * 8 * NTM + q);
-#pragma unroll
-    for (int j = 0; j < NTM; ++j) {
-      const int n = wn * 8 * NTM + j * 8 + q;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int pos = p0 + wm * 32 + i * 16 + gr + half * 8;
-          if (pos >= pb) continue;
-          *reinterpret_cast<__nv_bfloat162*>(b_tile + swz(pos, n / 8, kRowBytes) + (n % 8) * 2) =
-              __floats2bfloat162_rn(fmaxf(bn(acc[i][j][2 * half], s[j].x, t[j].x), 0.0f),
-                                    fmaxf(bn(acc[i][j][2 * half + 1], s[j].y, t[j].y), 0.0f));
-        }
-      }
-    }
-  }
-
-  // conv_c + BN_c, + the residual, ReLU -> y; per pass and 128 columns of Co
-  for (int p0 = 0; p0 < pb; p0 += kBM) {
-    const XRows xr(p, frame, r0, p0, pb);
-    int brow[2];   // this lane's A rows in the b tile
-#pragma unroll
-    for (int i = 0; i < 2; ++i) brow[i] = min(p0 + wm * 32 + i * 16 + (lane & 15), pb - 1);
-    for (int n0 = 0; n0 < p.co; n0 += 128) {
-      float acc[2][8][4];
-      uint32_t res[2][8][2];   // BN_p(conv_proj(x)) as bf16 pairs
-      if (p.wp != nullptr) {
-        zero(acc);
-        const bf16* wp = p.wp + static_cast<long long>(n0) * p.ci;
-        cta_gemm<8>(
-            acc, p.ci / kBK, ring,
-            [&](int s, uint32_t st) {
-              xr.copy(st, s * kBK);
-              copy_b(st, wp, p.ci, s * kBK, 128);
-            },
-            [&](uint32_t st, int, int i, int kk) { return ring_a(st, i, kk); });
-        float2 s[8], t[8];
-        load_bn<8>(s, t, p.sp, p.bp, n0 + wn * 64 + q);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const __nv_bfloat162 v =
-                  __floats2bfloat162_rn(bn(acc[i][j][2 * half], s[j].x, t[j].x),
-                                        bn(acc[i][j][2 * half + 1], s[j].y, t[j].y));
-              res[i][j][half] = *reinterpret_cast<const uint32_t*>(&v);
-            }
+      for (int n0 = 0; n0 < p.co; n0 += kNC) {
+        if (kProj) {                                       // projection: x, wp
+          for (int k = 0; k < p.ci; k += kBK) {
+            const uint32_t st = r.acquire(kXBytes + kBoxBytes);
+            tma_2d(st, xmap, k, it.q0 + o0, r.full_bar());
+            tma_2d(st + kXBytes, wpmap, k, n0, r.full_bar());
+            r.next();
           }
         }
+        for (int k = 0; k < CM; k += kBK) {                // conv_c: wc, and with the
+          const bool res = !kProj && k == 0;               // first, the residual x
+          const uint32_t st = r.acquire(kBoxBytes + (res ? kXBytes : 0));
+          if (res) tma_2d(st, xmap, n0, it.q0 + o0, r.full_bar());
+          tma_2d(st + kXBytes, wcmap, k, n0, r.full_bar());
+          r.next();
+        }
       }
+    }
+  }
+}
+
+// A consumer thread.  smem is the block's 1 KB aligned shared memory at
+// shared address smem_base; bn the BN vectors there as bf16 pairs.
+template <int CM, bool kProj>
+__device__ __forceinline__ void consume(const Params& p, const CUtensorMap* ymap, Ring& r,
+                                        unsigned char* smem, uint32_t smem_base, const Layout& lay,
+                                        const uint32_t* bn) {
+  const uint32_t a_tile = smem_base + static_cast<uint32_t>(lay.a);
+  unsigned char* a_ptr = smem + lay.a;
+  constexpr int kRow = CM * 2;                     // bytes of an a-tile row
+  // free a y box's stage a chunk late (Cm = 64: one stage a chunk; at
+  // Cm = 128 a chunk holds two and the ring has no room to spare)
+  constexpr bool kDeferFree = CM == 64;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = 2 * (lane % 4);
+  const int zero_row = p.span + 2 * p.w + 2;
+  const int frame = p.h * p.w;
+  const uint32_t* sa = bn;
+  const uint32_t* ba = sa + CM / 2;
+  const uint32_t* sb = ba + CM / 2;
+  const uint32_t* bb = sb + CM / 2;
+  const uint32_t* sc = bb + CM / 2;
+  const uint32_t* bc = sc + p.co / 2;
+  const uint32_t* sp = bc + p.co / 2;
+  const uint32_t* bp = sp + p.co / 2;
+  int held = -1;   // the stage of the elected thread's last y store
+
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const Item it(p, item);
+    consumer_sync();   // the last item's conv_b has read the a tile
+
+    // conv_a + BN_a + ReLU on the window -> the a tile
+    for (int r0 = 0; r0 < it.win; r0 += kPass) {
+      const int rows0 = r0 + 64 * wg;              // this warpgroup's first window row
+      const bool on = rows0 < it.win;
+      float acc[CM / 2];
       zero(acc);
-      const bf16* wc = p.wc + static_cast<long long>(n0) * CM;
-      cta_gemm<8>(
-          acc, kStepsCM, ring,
-          [&](int s, uint32_t st) { copy_b(st, wc, CM, s * kBK, 128); },
-          [&](uint32_t, int s, int i, int kk) {
-            return bs + swz(brow[i], s * 8 + kk * 2 + (lane >> 4), kRowBytes);
-          });
-      // every load of the epilogue before its first store: y may alias x
-      // for all the compiler knows, and would keep each load behind the
-      // store before it
-      float2 s[8], t[8];
-      load_bn<8>(s, t, p.sc, p.bc, n0 + wn * 64 + q);
-      long long out[2][2];   // the output position of rows (i, half)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int pos = min(p0 + wm * 32 + i * 16 + gr + half * 8, pb - 1);
-          out[i][half] = frame + static_cast<long long>(r0 + pos / p.w) * p.w + pos % p.w;
-        }
+      for (int k = 0; k < p.ci; k += kBK) {
+        const uint32_t st = r.wait();
+        if (on) ss_group<CM>(acc, st + wg * 64 * 128, st + kXBytes);
+        r.release();
+        r.next();
       }
-      if (p.wp == nullptr) {
+      if (on) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < CM / 8; ++j) {
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              res[i][j][half] = __ldg(reinterpret_cast<const unsigned int*>(
-                  p.x + out[i][half] * p.ci + n0 + wn * 64 + j * 8 + q));
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = rows0 + 16 * warp + g + 8 * hh;
+            if (row < it.win) {
+              *reinterpret_cast<uint32_t*>(a_ptr + row * kRow + ((j ^ (row & 7)) << 4) + 2 * qd) =
+                  relu_bf16x2(bn2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1], sa, ba, 8 * j + qd));
             }
           }
         }
       }
+    }
+    consumer_sync();   // the a tile is complete
+
+    for (int o0 = 0; o0 < it.len; o0 += kPass) {
+      const int m0 = o0 + 64 * wg;                 // this warpgroup's first output (of the item)
+      const bool on = m0 < it.len;
+      // conv_b + BN_b + ReLU -> the A fragments of conv_c.  This lane's
+      // ldmatrix row is output m of the item, at (fh, fw) of its frame.
+      const int m = m0 + 16 * warp + (lane & 15);
+      int fh = -2, fw = 0;                         // past the item: every tap reads zeros
+      if (m < it.len) {
+        const int f = (it.q0 + m) % frame;
+        fh = f / p.w;
+        fw = f % p.w;
+      }
+      float acc[CM / 2];
+      zero(acc);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + wn * 64 + j * 8 + q;
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dr = tap / 3 - 1, dc = tap % 3 - 1;
+        const bool inside = fh + dr >= 0 && fh + dr < p.h && fw + dc >= 0 && fw + dc < p.w;
+        const int row = inside ? m + (dr + 1) * p.w + dc + 1 : zero_row;
+        const uint32_t row_addr = a_tile + row * kRow;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
+        for (int kc = 0; kc < CM / kBK; ++kc) {
+          const uint32_t st = r.wait();
+          if (on) conv_b_stage<CM>(acc, row_addr, row, kc, st + kXBytes);
+          r.release();
+          r.next();
+        }
+      }
+      uint32_t bfrag[CM / 16][4];                  // k16 slice s: columns 16 s..
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            if (p0 + wm * 32 + i * 16 + gr + half * 8 >= pb) continue;
-            const float2 r =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res[i][j][half]));
-            const float c0 = bn(acc[i][j][2 * half], s[j].x, t[j].x);
-            const float c1 = bn(acc[i][j][2 * half + 1], s[j].y, t[j].y);
-            *reinterpret_cast<__nv_bfloat162*>(p.y + out[i][half] * p.co + n) =
-                __floats2bfloat162_rn(fmaxf(c0 + r.x, 0.0f), fmaxf(c1 + r.y, 0.0f));
+      for (int s = 0; s < CM / 16; ++s) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 2 * s + i / 2, hh = i % 2;
+          bfrag[s][i] = relu_bf16x2(bn2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1], sb, bb,
+                                        8 * j + qd));
+        }
+      }
+
+      for (int n0 = 0; n0 < p.co; n0 += kNC) {
+        uint32_t res[kNC / 8][2];                  // the projection's BN_p, bf16 pairs
+        if constexpr (kProj) {
+          float accp[kNC / 2];
+          zero(accp);
+          for (int k = 0; k < p.ci; k += kBK) {
+            const uint32_t st = r.wait();
+            if (on) ss_group<kNC>(accp, st + wg * 64 * 128, st + kXBytes);
+            r.release();
+            r.next();
+          }
+#pragma unroll
+          for (int j = 0; j < kNC / 8; ++j) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              res[j][hh] = bn2(accp[4 * j + 2 * hh], accp[4 * j + 2 * hh + 1], sp, bp,
+                               n0 + 8 * j + qd);
+            }
           }
         }
+        // conv_c; the chunk's first stage holds the residual x (without a
+        // projection) and takes y on its way out, so it is freed last
+        float accc[kNC / 2];
+        zero(accc);
+        const int t0 = r.t;
+        const uint32_t slot = r.wait();            // the first stage's x box
+#pragma unroll
+        for (int kc = 0; kc < CM / kBK; ++kc) {
+          const uint32_t st = kc == 0 ? slot : r.wait();
+          if (on) {
+            rs_issue<kNC>(accc, bfrag, 4 * kc, st + kXBytes);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_acc(accc);
+          }
+          if (kc > 0) r.release();
+          r.next();
+        }
+        if (on) {
+          // y = relu(BN_c(c) + r) over the residual's place in the box (row
+          // 64 wg + i, 16-byte chunk c at c ^ (row % 8)), then one TMA store
+          // of the warpgroup's 64 x 64
+          unsigned char* box = smem + (slot - smem_base);
+#pragma unroll
+          for (int j = 0; j < kNC / 8; ++j) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = 64 * wg + 16 * warp + g + 8 * hh;
+              uint32_t* at = reinterpret_cast<uint32_t*>(box + row * 128 + ((j ^ (row & 7)) << 4) + 2 * qd);
+              const uint32_t c = bn2(accc[4 * j + 2 * hh], accc[4 * j + 2 * hh + 1], sc, bc,
+                                     n0 + 8 * j + qd);
+              uint32_t resid;
+              if constexpr (kProj) {
+                resid = res[j][hh];
+              } else {
+                resid = *at;
+              }
+              *at = relu_bf16x2(add_bf16x2(c, resid));
+            }
+          }
+          fence_proxy_async();
+          warpgroup_sync(wg);
+        }
+        if (on && threadIdx.x % 128 == 0) {
+          // the warpgroup's elected thread stores y and frees the stage
+          // once the store has read it: at Cm = 64 the last chunk's now and
+          // this one's at the next chunk or at the end of the pass, at
+          // Cm = 128 (two stages a chunk) this one's now
+          tma_store_2d(ymap, slot + wg * 64 * 128, n0, it.q0 + m0);
+          if (kDeferFree) {
+            if (held >= 0) {
+              tma_store_wait<1, true>();
+              r.release_at(held);
+            }
+            held = t0;
+          } else {
+            tma_store_wait<0, true>();
+            r.release_at(t0);
+          }
+        } else {
+          r.release_at(t0);
+        }
+      }
+      if (held >= 0) {   // before conv_b's stages come round to it
+        tma_store_wait<0, true>();
+        r.release_at(held);
+        held = -1;
       }
     }
   }
+  if (threadIdx.x % 128 == 0) tma_store_wait<0, false>();   // y is written
 }
 
-// Rows a block takes: the most (up to kMaxRows) whose tiles fit, balanced
-// over the height; 0 when not even one row fits.
-int band_rows(int h, int w, int cm) {
-  int rows = kMaxRows < h ? kMaxRows : h;
-  while (rows > 0 && smem_bytes(rows, w, cm) > static_cast<size_t>(kSmemLimit)) --rows;
-  if (rows == 0) return 0;
-  const int bands = (h + rows - 1) / rows;
-  return (h + bands - 1) / bands;
+template <int CM, bool kProj>
+__global__ void __launch_bounds__(kThreads, 1)
+bottleneck_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wamap,
+                  const __grid_constant__ CUtensorMap wbmap, const __grid_constant__ CUtensorMap wcmap,
+                  const __grid_constant__ CUtensorMap wpmap, const __grid_constant__ CUtensorMap ymap,
+                  const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const Layout lay(p.span, p.w, CM, p.co);
+  const uint32_t base = smem_addr(smem);
+  Ring ring{base, static_cast<uint32_t>(base + lay.bars),
+            static_cast<uint32_t>(base + lay.bars + 8 * kStages)};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  bf16* bn = reinterpret_cast<bf16*>(smem + lay.bn);
+  if (threadIdx.x < kConsumers) {
+    // the zero row of the a tile, and the BN vectors
+    uint4* zrow = reinterpret_cast<uint4*>(smem + lay.a + static_cast<size_t>(p.span + 2 * p.w + 2) * CM * 2);
+    for (int i = threadIdx.x; i < CM / 8; i += kConsumers) zrow[i] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      for (int i = threadIdx.x; i < CM; i += kConsumers) bn[v * CM + i] = p.bn[v][i];
+    }
+#pragma unroll
+    for (int v = 4; v < 8; ++v) {
+      if (p.bn[v] == nullptr) continue;
+      for (int i = threadIdx.x; i < p.co; i += kConsumers) bn[4 * CM + (v - 4) * p.co + i] = p.bn[v][i];
+    }
+  }
+  __syncthreads();   // the mbarriers, the zero row and the BN vectors are ready
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) produce<CM, kProj>(p, &xmap, &wamap, &wbmap, &wcmap, &wpmap, ring);
+    return;
+  }
+  consume<CM, kProj>(p, &ymap, ring, smem, base, lay, reinterpret_cast<const uint32_t*>(bn));
 }
 
-template <int CM>
-cudaError_t launch(const Params& p, int n, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.rows, p.w, CM);
-  cudaError_t err = cudaFuncSetAttribute(bottleneck_kernel<CM>,
+// The span of an item: a multiple of 64 whose shared memory fits, chosen
+// to spread the items evenly over the SMs (fewest rounds of items a block
+// times the span, its window's halo weighed at a quarter); 0 when not even
+// 64 positions fit.
+int choose_span(int total, int w, int cm, int co, int sms) {
+  int best = 0;
+  double best_cost = 0.0;
+  for (int span = 64; span <= total + 63; span += 64) {
+    if (Layout(span, w, cm, co).total + 1024 > static_cast<size_t>(kSmemLimit)) break;
+    const int items = (total + span - 1) / span;
+    const int rounds = (items + sms - 1) / sms;
+    const double cost = rounds * (span + 0.25 * (2 * w + 2));
+    if (best == 0 || cost < best_cost) {
+      best = span;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int CM, bool kProj>
+cudaError_t launch(const Params& p, const CUtensorMap (&maps)[6], int grid, cudaStream_t stream) {
+  const size_t smem = Layout(p.span, p.w, CM, p.co).total + 1024;   // slack to align the base
+  cudaError_t err = cudaFuncSetAttribute(bottleneck_kernel<CM, kProj>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  bottleneck_kernel<CM><<<n * p.bands, kThreads, smem, stream>>>(p);
+  bottleneck_kernel<CM, kProj><<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                                 maps[4], maps[5], p);
   return cudaGetLastError();
 }
 
@@ -468,8 +578,8 @@ extern "C" {
 // (cm, ci); wb (cm, 3, 3, cm) [out][kh][kw][in]; wc (co, cm); wp (co, ci) or
 // null (then ci == co); the folded BN scale and shift sa, ba, sb, bb (cm),
 // sc, bc, sp, bp (co); y (n, h, w, co).  cm is 64 or 128, ci % 64 == 0,
-// co % 128 == 0; frames too wide for one row band in shared memory are
-// refused.
+// co % 128 == 0; frames too wide for a span of 64 positions and its halo
+// in shared memory are refused.
 int shgvqa_bottleneck_bf16(const void* x, const void* wa, const void* sa, const void* ba,
                            const void* wb, const void* sb, const void* bb, const void* wc,
                            const void* sc, const void* bc, const void* wp, const void* sp,
@@ -477,34 +587,43 @@ int shgvqa_bottleneck_bf16(const void* x, const void* wa, const void* sa, const 
                            void* stream) {
   if (n < 0 || h <= 0 || w <= 0 || ci <= 0 || ci % kBK != 0 || co <= 0 || co % 128 != 0 ||
       (cm != 64 && cm != 128) || (wp == nullptr && ci != co) ||
-      (wp != nullptr && (sp == nullptr || bp == nullptr))) {
+      (wp != nullptr && (sp == nullptr || bp == nullptr)) ||
+      static_cast<long long>(n) * h * w > 0x7fffffffLL - 2 * kPass) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
-  Params p;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params p{};
   p.x = static_cast<const bf16*>(x);
-  p.wa = static_cast<const bf16*>(wa);
-  p.sa = static_cast<const bf16*>(sa);
-  p.ba = static_cast<const bf16*>(ba);
-  p.wb = static_cast<const bf16*>(wb);
-  p.sb = static_cast<const bf16*>(sb);
-  p.bb = static_cast<const bf16*>(bb);
-  p.wc = static_cast<const bf16*>(wc);
-  p.sc = static_cast<const bf16*>(sc);
-  p.bc = static_cast<const bf16*>(bc);
-  p.wp = static_cast<const bf16*>(wp);
-  p.sp = static_cast<const bf16*>(sp);
-  p.bp = static_cast<const bf16*>(bp);
+  const void* vectors[8] = {sa, ba, sb, bb, sc, bc, sp, bp};
+  for (int v = 0; v < 8; ++v) p.bn[v] = static_cast<const bf16*>(vectors[v]);
   p.y = static_cast<bf16*>(y);
   p.h = h;
   p.w = w;
   p.ci = ci;
   p.co = co;
-  p.rows = band_rows(h, w, cm);
-  if (p.rows == 0) return static_cast<int>(cudaErrorInvalidValue);
-  p.bands = (h + p.rows - 1) / p.rows;
+  p.total = n * h * w;
+  p.span = choose_span(p.total, w, cm, co, sms);
+  if (p.span == 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.items = (p.total + p.span - 1) / p.span;
+  CUtensorMap maps[6];   // x, wa, wb, wc, wp (wc again without a projection), y
+  err = gemm_a_map(&maps[0], x, p.total, ci);
+  if (err == cudaSuccess) err = gemm_b_map(&maps[1], wa, cm, ci);
+  if (err == cudaSuccess) err = gemm_b_map(&maps[2], wb, cm, 9 * cm);
+  if (err == cudaSuccess) err = gemm_b_map(&maps[3], wc, co, cm);
+  if (err == cudaSuccess) err = wp ? gemm_b_map(&maps[4], wp, co, ci) : gemm_b_map(&maps[4], wc, co, cm);
+  if (err == cudaSuccess) err = tensor_map(&maps[5], y, p.total, co, 64, kNC, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = p.items < sms ? p.items : sms;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = cm == 64 ? launch<64>(p, n, s) : launch<128>(p, n, s);
+  if (cm == 64) {
+    err = wp ? launch<64, true>(p, maps, grid, s) : launch<64, false>(p, maps, grid, s);
+  } else {
+    err = wp ? launch<128, true>(p, maps, grid, s) : launch<128, false>(p, maps, grid, s);
+  }
   return static_cast<int>(err);
 }
 

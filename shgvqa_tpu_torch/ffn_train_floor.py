@@ -45,7 +45,7 @@ from shgvqa_tpu_torch.kernels import _build, ffn
 D, FF = 768, 3072
 SITES = ((1280, 7), (12576, 5), (5664, 2))       # (M, launches a B=32 step)
 U_STORES = """        *reinterpret_cast<uint32_t*>(p.h + off) = pack_bf16(h0, h1);
-        *reinterpret_cast<float2*>(p.gd + off) = gd;
+        if (kGrad) *reinterpret_cast<float2*>(p.gd + off) = gd;
 """
 DH_LOAD = ("return __ldg(reinterpret_cast<const float2*>(p.gd + "
            "static_cast<size_t>(row) * p.f + col));")

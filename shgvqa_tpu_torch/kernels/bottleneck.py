@@ -63,7 +63,12 @@ def bottleneck_reference(x, wa, sa, ba, wb, sb, bb, wc, sc, bc, proj=None):
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built ``csrc/bottleneck.cu`` with its C signatures declared."""
-    lib = _build.load("bottleneck")
+    return declare(_build.load("bottleneck"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/bottleneck.cu``) with its C signatures
+    declared."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.shgvqa_bottleneck_bf16.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
     lib.shgvqa_bottleneck_bf16.restype = i32
@@ -121,22 +126,38 @@ def fused_bottleneck(x, wa, sa, ba, wb, sb, bb, wc, sc, bc, proj=None):
     if dt != torch.bfloat16:
         raise NotImplementedError(f"fused_bottleneck's kernel takes bfloat16 "
                                   f"frames, got {dt}")
-    n, h, w, ci = x.shape
+    ci = x.shape[-1]
     if cm not in (64, 128) or ci % 64 or co % 128:
         raise ValueError(f"fused_bottleneck: Cm={cm} must be 64 or 128, "
                          f"Ci={ci} a multiple of 64, Co={co} of 128")
     if x.device.type != "cuda":
         raise NotImplementedError(f"fused_bottleneck has no kernel for "
                                   f"{x.device}")
-    lib = _lib()
+    y = launch(_lib(), args, pr)
+    fused_bottleneck.launches += 1
+    return y
+
+
+fused_bottleneck.launches = 0
+
+
+def launch(lib, args, proj):
+    """One call of ``lib``'s ``shgvqa_bottleneck_bf16`` (a build of
+    ``csrc/bottleneck.cu``) on the current stream: ``args`` (x, wa, sa, ba,
+    wb, sb, bb, wc, sc, bc) and ``proj`` (wp, sp, bp) or None, bf16 on one
+    card; returns y (N, H, W, Co)."""
+    x = args[0]
+    n, h, w, ci = x.shape
+    cm, co = args[1].shape[0], args[7].shape[0]
+    args = list(args)
     args[4] = args[4].permute(0, 2, 3, 1)            # wb -> (Cm, 3, 3, Cm)
     ops = [t.contiguous() for t in args] + (
-        [None] * 3 if pr is None else [t.contiguous() for t in pr])
+        [None] * 3 if proj is None else [t.contiguous() for t in proj])
     for t in ops:
         if t is not None and (t.device != x.device or t.data_ptr() % 16):
             raise ValueError(f"fused_bottleneck: every operand must be on "
                              f"{x.device} and 16-byte aligned")
-    y = torch.empty(n, h, w, co, dtype=dt, device=x.device)
+    y = torch.empty(n, h, w, co, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.shgvqa_bottleneck_bf16(
             *(None if t is None else t.data_ptr() for t in ops), y.data_ptr(),
@@ -144,8 +165,4 @@ def fused_bottleneck(x, wa, sa, ba, wb, sb, bb, wc, sc, bc, proj=None):
     if err:
         raise RuntimeError(f"fused_bottleneck kernel launch failed: CUDA error "
                            f"{err} ({lib.shgvqa_bottleneck_error_string(err).decode()})")
-    fused_bottleneck.launches += 1
     return y
-
-
-fused_bottleneck.launches = 0

@@ -8,8 +8,8 @@ kernel behind the JAX ``fused_ffn``, with the hand-written CUDA C++ kernel in
 with the kernels of ``csrc/ffn_train.cu``.  Both are sm_90a, built by
 ``kernels/_build.py`` and bound with ``ctypes``.  On the card the block is
 bound by the tensor cores (4*M*D*F operations forward, 8*M*D*F backward,
-against ~4*M*D + 4*D*F bytes); the kernels keep the (M, F) intermediate on
-the chip in the forward and fuse bias, GeLU, dropout, residual and
+against ~4*M*D + 4*D*F bytes); the inference kernel keeps the (M, F)
+intermediate on the chip, and both fuse bias, GeLU, dropout, residual and
 LayerNorm around the products.  The ``.cu`` files describe their design.
 
 - ``ffn_reference`` is the plain inference version, with the semantics of
@@ -30,7 +30,10 @@ LayerNorm around the products.  The ``.cu`` files describe their design.
 - ``fused_ffn_train`` is differentiable: for a CPU tensor it runs
   ``ffn_train_reference`` with a keep mask drawn from the caller's
   generator (autograd through it); for a CUDA tensor it launches the
-  forward kernel, and its backward runs the backward's chain of kernels
+  forward's chain of kernels (u with h out, o, and a row pass for the
+  dropout, the residual and the LayerNorm; two wgmma products into the
+  scratch h and o + b2 the wrapper allocates), and its backward runs the
+  backward's chain of kernels
   (dx, du, do, h, dgamma, dbeta; four wgmma products, a LayerNorm row pass
   and the dgamma/dbeta sum) and then the weight gradients ``du^T x``,
   ``do^T h`` and the bias sums as ``torch.matmul`` and ``sum`` (the JAX
@@ -263,8 +266,10 @@ fused_ffn.launches = 0
 # Training: csrc/ffn_train.cu
 
 
-# the backward's kernels (csrc/ffn_train.cu), in launch order
-BWD_STAGES = ("ffn_bwd_u_kernel", "ffn_bwd_o_kernel", "ffn_bwd_rows_kernel",
+# the forward's and the backward's kernels (csrc/ffn_train.cu), in launch
+# order
+FWD_STAGES = ("ffn_fwd_u_kernel", "ffn_o_kernel", "ffn_fwd_rows_kernel")
+BWD_STAGES = ("ffn_bwd_u_kernel", "ffn_o_kernel", "ffn_bwd_rows_kernel",
               "ffn_bwd_dh_kernel", "ffn_bwd_dx_kernel", "sum_partials_kernel")
 
 
@@ -280,7 +285,7 @@ def declare_train(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
     lib.shgvqa_ffn_train_fwd_bf16.argtypes = (
-        [ptr] * 9 + [i32] * 3 + [f32, u32, f32, i32, ptr])
+        [ptr] * 11 + [i32] * 3 + [f32, u32, f32, i32, ptr])
     lib.shgvqa_ffn_train_bwd_bf16.argtypes = (
         [ptr] * 16 + [i32] * 3 + [f32, u32, f32, i32, ptr])
     lib.shgvqa_ffn_train_keep_mask.argtypes = [ptr, ptr, i32, i32, u32, ptr]
@@ -311,10 +316,10 @@ def _check_train(x2, w1t, b1, w2t, b2, gamma, beta=None):
             f"{x2.dtype} (set compute_dtype='bfloat16' or "
             "use_pallas_ffn_train=False)")
     lib = _train_lib()
-    if d % 64 or f % 256 or d > lib.shgvqa_ffn_train_max_d():
+    if d % 64 or f % 128 or d > lib.shgvqa_ffn_train_max_d():
         raise ValueError(f"fused_ffn_train: D={d} must be a multiple of 64 "
                          f"and at most {lib.shgvqa_ffn_train_max_d()}, "
-                         f"F={f} a multiple of 256")
+                         f"F={f} a multiple of 128")
     dev = x2.device
     _check("x", x2, (m, d), torch.bfloat16, dev, "fused_ffn_train")
     _check("w1t", w1t, (f, d), torch.bfloat16, dev, "fused_ffn_train")
@@ -326,19 +331,31 @@ def _check_train(x2, w1t, b1, w2t, b2, gamma, beta=None):
     return m, d, f
 
 
-def _launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps):
-    """One launch of the forward kernel on the current stream."""
+def _fwd_buffers(m, d, f, device):
+    """The forward's output and scratch, in the C entry's order: y (bf16),
+    h (M, F) bf16 and o + b2 (M, D) f32."""
+    return {"y": torch.empty(m, d, dtype=torch.bfloat16, device=device),
+            "h": torch.empty(m, f, dtype=torch.bfloat16, device=device),
+            "o": torch.empty(m, d, dtype=torch.float32, device=device)}
+
+
+def _launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
+                      buffers=None):
+    """One call of the forward's chain of kernels (one ctypes call, three
+    launches) on the current stream: y.  ``buffers`` (``_fwd_buffers``,
+    made here when None) receives y, h and o + b2."""
     m, d, f = _check_train(x2, w1t, b1, w2t, b2, gamma, beta)
-    y = torch.empty_like(x2)
+    buf = _fwd_buffers(m, d, f, x2.device) if buffers is None else buffers
     with torch.cuda.device(x2.device):
         err = _train_lib().shgvqa_ffn_train_fwd_bf16(
             x2.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
             b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _mask_ptr(seed),
-            y.data_ptr(), m, d, f, float(eps), _threshold(rate),
-            1.0 / (1.0 - rate), int(rate > 0.0), _stream(x2.device))
+            *(t.data_ptr() for t in buf.values()), m, d, f, float(eps),
+            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            _stream(x2.device))
     _raise_on(err, "fused_ffn_train forward")
     fused_ffn_train.launches += 1
-    return y
+    return buf["y"]
 
 
 def _bwd_buffers(m, d, f, rows, device):
@@ -376,8 +393,9 @@ def _launch_train_bwd(x2, w1t, b1, w2t, b2, gamma, seed, rate, eps, dy):
 
 
 class _FusedFFNTrain(torch.autograd.Function):
-    """The forward kernel; the backward kernel regenerates its dropout mask
-    from the saved seed, then the weight gradients run as plain products."""
+    """The forward's chain of kernels; the backward's chain regenerates the
+    dropout mask from the saved seed, then the weight gradients run as plain
+    products."""
 
     @staticmethod
     def forward(ctx, x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps):

@@ -106,3 +106,41 @@ def test_normalize_clip_matches_jax():
     mean, std = transforms.NORM_STATS["slow_r50"]
     want = jax_transforms.normalize_clip(x, mean, std)
     close(transforms.normalize_clip(t(x), mean, std), want, 1e-6)
+
+
+# Mirrors of the 128-byte swizzle and the wgmma descriptors of
+# shgvqa_tpu_torch/csrc/wgmma_gemm.cuh
+
+
+def swizzle128(addr):
+    """The 128-byte swizzle: 16-byte chunk bits 4-6 XOR address bits 7-9."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def tma_offset(row, col):
+    """Byte offset of bf16 element (row, col) of a TMA box with 128-byte
+    rows (64 columns) landed with CU_TENSOR_MAP_SWIZZLE_128B."""
+    return swizzle128(row * 128 + 2 * col)
+
+
+def wgmma_desc(addr, lbo, sbo):
+    """sw128_desc: the 64-bit wgmma descriptor."""
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32) \
+        | (1 << 62)
+
+
+def desc_address(desc, mn, k, mn_major):
+    """The shared-memory byte the wgmma reads for operand element (mn, k)
+    of a k16 slice, from the descriptor's fields and the canonical
+    128-byte-swizzle layouts (K-major ((8, m), (8, 2)) : ((128 B, SBO),
+    (16 B, 2 B)); MN-major ((64, m), (8, 2)) : ((2 B, LBO), (128 B, SBO)))."""
+    start = (desc & 0x3FFF) << 4
+    lbo = ((desc >> 16) & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    assert desc >> 62 == 1                      # 128-byte swizzle
+    if mn_major:
+        offset = (mn % 64) * 2 + (mn // 64) * lbo + (k % 8) * 128 \
+            + (k // 8) * sbo
+    else:
+        offset = (mn % 8) * 128 + (mn // 8) * sbo + 2 * k
+    return swizzle128(start + offset)

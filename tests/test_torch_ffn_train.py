@@ -10,11 +10,12 @@ sites of a training forward routed through ``fused_ffn_train``.
 
 JAX's rate > 0 train kernels have no CPU lowering (``pltpu.prng_seed``);
 the CUDA kernels run only on the card (``chip_smoke.py``).  What the
-backward's host side decides is held here through Python mirrors of the
+chains' host side decides is held here through Python mirrors of the
 formulas of ``csrc/ffn_train.cu`` and ``csrc/wgmma_gemm.cuh``: the tile and
-grid plan of each stage of its chain, the swizzled shared-memory layout the
-TMA writes against the addresses the wgmma descriptors read, and the
-wrapper's buffers and their order in the C call."""
+grid plan of each stage of the forward's and the backward's chains, the
+swizzled shared-memory layout the TMA writes against the addresses the
+wgmma descriptors read, the wrapper's buffers and their order in the C
+calls, and the widths both chains take."""
 
 import contextlib
 import dataclasses
@@ -40,7 +41,15 @@ from shgvqa_tpu_torch.models import layers
 from shgvqa_tpu_torch.models.backbone import SlowR50
 from shgvqa_tpu_torch.models.layers import FFN
 from shgvqa_tpu_torch.train.step import compute_losses
-from test_torch_common import TOY, close, t, tensor_at
+from test_torch_common import (
+    TOY,
+    close,
+    desc_address,
+    t,
+    tensor_at,
+    tma_offset,
+    wgmma_desc,
+)
 
 NAMES = ("x", "w1t", "b1", "w2t", "b2", "gamma", "beta")
 
@@ -367,40 +376,6 @@ def test_backward_stages_cover_every_element_once(m):
         == (tiles, 2 * D)
 
 
-def _swizzle(addr):
-    """The 128-byte swizzle: 16-byte chunk bits 4-6 XOR address bits 7-9."""
-    return addr ^ (((addr >> 7) & 7) << 4)
-
-
-def _tma_offset(row, col):
-    """Byte offset of bf16 element (row, col) of a TMA box with 128-byte
-    rows (64 columns) landed with CU_TENSOR_MAP_SWIZZLE_128B."""
-    return _swizzle(row * 128 + 2 * col)
-
-
-def _desc(addr, lbo, sbo):
-    """sw128_desc: the 64-bit wgmma descriptor."""
-    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32) \
-        | (1 << 62)
-
-
-def _desc_address(desc, mn, k, mn_major):
-    """The shared-memory byte the wgmma reads for operand element (mn, k)
-    of a k16 slice, from the descriptor's fields and the canonical
-    128-byte-swizzle layouts (K-major ((8, m), (8, 2)) : ((128 B, SBO),
-    (16 B, 2 B)); MN-major ((64, m), (8, 2)) : ((2 B, LBO), (128 B, SBO)))."""
-    start = (desc & 0x3FFF) << 4
-    lbo = ((desc >> 16) & 0x3FFF) << 4
-    sbo = ((desc >> 32) & 0x3FFF) << 4
-    assert desc >> 62 == 1                      # 128-byte swizzle
-    if mn_major:
-        offset = (mn % 64) * 2 + (mn // 64) * lbo + (k % 8) * 128 \
-            + (k // 8) * sbo
-    else:
-        offset = (mn % 8) * 128 + (mn // 8) * sbo + 2 * k
-    return _swizzle(start + offset)
-
-
 @pytest.mark.parametrize("bn,mn_major", [(WIDE_N, False), (NARROW_N, False),
                                          (WIDE_N, True), (NARROW_N, True)])
 def test_wgmma_descriptors_read_what_the_tma_wrote(bn, mn_major):
@@ -416,23 +391,23 @@ def test_wgmma_descriptors_read_what_the_tma_wrote(bn, mn_major):
     k = np.arange(16)[None, :]
     for kk in range(GEMM_BK // 16):
         for wg in range(2):                     # A: K-major, 64 rows each
-            desc = _desc(wg * 64 * 128 + 32 * kk, 16, 1024)
-            got = _desc_address(desc, mn, k, False)
-            assert (got == _tma_offset(wg * 64 + mn, 16 * kk + k)).all()
+            desc = wgmma_desc(wg * 64 * 128 + 32 * kk, 16, 1024)
+            got = desc_address(desc, mn, k, False)
+            assert (got == tma_offset(wg * 64 + mn, 16 * kk + k)).all()
         n = np.arange(bn)[:, None]
         if mn_major:
-            desc = _desc(a_bytes + 2048 * kk, box_bytes, 1024)
-            want = a_bytes + (n // GEMM_BOX) * box_bytes + _tma_offset(
+            desc = wgmma_desc(a_bytes + 2048 * kk, box_bytes, 1024)
+            want = a_bytes + (n // GEMM_BOX) * box_bytes + tma_offset(
                 16 * kk + k, n % GEMM_BOX)
         else:
-            desc = _desc(a_bytes + 32 * kk, 16, 1024)
-            want = a_bytes + (n // GEMM_BOX) * box_bytes + _tma_offset(
+            desc = wgmma_desc(a_bytes + 32 * kk, 16, 1024)
+            want = a_bytes + (n // GEMM_BOX) * box_bytes + tma_offset(
                 n % GEMM_BOX, 16 * kk + k)
-        assert (_desc_address(desc, n, k, mn_major) == want).all()
+        assert (desc_address(desc, n, k, mn_major) == want).all()
 
 
 def test_wgmma_descriptor_fields():
-    desc = _desc(0x1F400 + 2048, 8192, 1024)
+    desc = wgmma_desc(0x1F400 + 2048, 8192, 1024)
     assert desc & 0x3FFF == (0x1F400 + 2048) >> 4
     assert (desc >> 16) & 0x3FFF == 512 and (desc >> 32) & 0x3FFF == 64
     assert (desc >> 49) & 7 == 0 and desc >> 62 == 1
@@ -488,3 +463,106 @@ def test_backward_buffers_and_their_order_in_the_c_call(monkeypatch):
     assert len(calls) == 1 and fused_ffn_train.bwd_launches == launches + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w.to(g.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of the forward chain of csrc/ffn_train.cu
+
+# (stage, N, tile width, K) of the forward's two products, in launch order
+FWD_PRODUCTS = (("u", F, WIDE_N, D), ("o", D, NARROW_N, F))
+
+
+@pytest.mark.parametrize("m", SITE_ROWS)
+def test_forward_stages_cover_every_element_once(m):
+    """The forward's u and o grids and thread maps store every (row, column)
+    of their (M, F) and (M, D) outputs exactly once and no row past M; the
+    row pass (a warp a row, 16 rows a block) visits every row below M
+    once."""
+    assert ffn.FWD_STAGES == ("ffn_fwd_u_kernel", "ffn_o_kernel",
+                              "ffn_fwd_rows_kernel")
+    for _, n, bn, k in FWD_PRODUCTS:
+        assert n % bn == 0 and k % GEMM_BK == 0
+        gx, gy = _grid(m, n, bn)
+        rows, cols = _tile_pairs(bn)
+        count = np.zeros((gy * GEMM_BM, n), np.uint8)
+        for by in range(gy):
+            for bx in range(gx):
+                np.add.at(count, (by * GEMM_BM + rows, bx * bn + cols), 1)
+                np.add.at(count, (by * GEMM_BM + rows, bx * bn + cols + 1), 1)
+        assert (count[:m] == 1).all()
+        assert gy * GEMM_BM - m < GEMM_BM
+    blocks = -(-m // ROW_TILE)
+    rows = (np.arange(blocks)[:, None] * ROW_TILE
+            + np.arange(ROW_TILE)[None, :]).ravel()
+    visited = np.bincount(rows[rows < m], minlength=m)
+    assert (visited == 1).all()
+    # a lane holds columns lane * 4 + 128 i, i < 6: every column of D = 768
+    cols = (np.arange(32)[:, None, None] * 4 + 128 * np.arange(6)[None, :, None]
+            + np.arange(4)[None, None, :]).ravel()
+    assert np.array_equal(np.sort(cols), np.arange(D))
+
+
+def test_forward_buffers_and_their_order_in_the_c_call(monkeypatch):
+    """_launch_train_fwd on CPU tensors with the library replaced by a
+    stand-in: the 11 pointers reach the C entry in its order (inputs, the
+    seed, then y, h and o + b2) with the shapes and dtypes the chain
+    writes; the stand-in fills them from the plain version, the wrapper
+    returns y, and buffers the caller gives receive h and o + b2."""
+    m, d, f = 40, 64, 256
+    a = _data(m, d, f, seed=10)
+    args = [x.contiguous() for x in _torch_args(a, torch.bfloat16)]
+    u, h, _ = ffn._residual(*args[:5], 0.0, None)
+    o = torch.matmul(h.float(), args[3].float().t()) + args[4]
+    y = ffn_train_reference(*args, 0.0, None)
+    shapes = [("y", (m, d), torch.bfloat16), ("h", (m, f), torch.bfloat16),
+              ("o", (m, d), torch.float32)]
+    calls = []
+
+    def forward_entry(*c_args):
+        calls.append(c_args)
+        ptrs, (cm, cd, cf) = c_args[:11], c_args[11:14]
+        assert (cm, cd, cf) == (m, d, f) and c_args[17] == 0   # dropout off
+        assert ptrs[:8] == tuple(x.data_ptr() for x in args) + (None,)
+        out = {name: tensor_at(ptr, shape, dtype)
+               for (name, shape, dtype), ptr in zip(shapes, ptrs[8:])}
+        for name, value in (("y", y), ("h", h), ("o", o)):
+            out[name].copy_(value)
+        return 0
+
+    lib = SimpleNamespace(shgvqa_ffn_train_fwd_bf16=forward_entry,
+                          shgvqa_ffn_train_max_d=lambda: 768)
+    monkeypatch.setattr(ffn, "_train_lib", lambda: lib)
+    monkeypatch.setattr(ffn, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    buffers = ffn._fwd_buffers(m, d, f, "cpu")
+    assert [(k, tuple(v.shape), v.dtype) for k, v in buffers.items()] == \
+        shapes
+    launches = fused_ffn_train.launches
+    got = ffn._launch_train_fwd(*args, None, 0.0, 1e-12, buffers)
+    assert got is buffers["y"] and torch.equal(got, y)
+    assert torch.equal(buffers["h"], h) and torch.equal(buffers["o"], o)
+    got = ffn._launch_train_fwd(*args, None, 0.0, 1e-12)
+    assert len(calls) == 2 and fused_ffn_train.launches == launches + 2
+    assert torch.equal(got, y)
+
+
+@pytest.mark.parametrize("d,f,ok", [(768, 3072, True), (64, 128, True),
+                                    (64, 192, False), (96, 256, False),
+                                    (832, 3072, False)])
+def test_train_wrapper_takes_what_both_chains_take(monkeypatch, d, f, ok):
+    """The wrapper's checks, shared by the forward and the backward: D a
+    multiple of 64 up to the library's maximum (768: the forward's row pass
+    holds a row in registers), F a multiple of 128 (the (M, F) products'
+    tiles)."""
+    lib = SimpleNamespace(shgvqa_ffn_train_max_d=lambda: 768)
+    monkeypatch.setattr(ffn, "_train_lib", lambda: lib)
+    bf16 = torch.bfloat16
+    ops = (torch.empty(4, d, dtype=bf16), torch.empty(f, d, dtype=bf16),
+           torch.empty(f), torch.empty(d, f, dtype=bf16), torch.empty(d),
+           torch.empty(d), torch.empty(d))
+    if ok:
+        assert ffn._check_train(*ops) == (4, d, f)
+    else:
+        with pytest.raises(ValueError, match="multiple of 64"):
+            ffn._check_train(*ops)
