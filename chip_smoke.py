@@ -10,14 +10,17 @@ it exits non-zero before printing any result.
 1. card: its name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every ``shgvqa_tpu_torch/csrc/*.cu``, one nvcc each, in parallel,
    with ptxas's registers and spills of every kernel; a spill in a
-   bottleneck or FFN-train kernel fails the run;
+   bottleneck, FFN-train or tokenizer conv kernel fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with its time, the plain version's
    time and the bound.  Every kernel, library and yardstick time is the
    median [min-max] of 5 turns of 20 calls (CUDA events); a plain version
    is timed in one turn:
-   - the FFN forward (and its autograd backward at a small shape), beside
-     a composite-of-library-calls yardstick;
+   - the FFN forward (the FFN-train forward's chain of
+     ``csrc/ffn_train.cu`` at rate 0; and its autograd backward at a small
+     shape), beside a composite-of-library-calls yardstick: two calls on
+     the same inputs bit-equal, its device time per call and per stage of
+     the chain from torch.profiler;
    - both attention kernels at every attention site of the train step at
      B=2 and B=32: the forward and dQ, dK, dV at rate 0, and at the site's
      dropout rate with the kernels' own keep mask given to the plain
@@ -44,10 +47,11 @@ it exits non-zero before printing any result.
      shapes and the bottleneck kernel (``csrc/bottleneck.cu``) at ragged
      frames and at its three trunk geometries (res_2 block_0 with its
      projection, res_2, res_3), at B=2 and B=32: kernel against plain
-     within 2e-2 of max |plain|, the times of the kernel (and the
-     bottleneck's device time per call), the plain version and a
-     yardstick (F.conv3d in bf16 + gelu; the unfused bf16 Bottleneck3D)
-     and the bound; HGMMA instructions in the bottleneck kernel;
+     within 2e-2 of max |plain|, the times of the kernel and its device
+     time per call, the plain version and a yardstick (F.conv3d in bf16 +
+     gelu; the unfused bf16 Bottleneck3D) and the bound; the tokenizer
+     conv also at two ragged shapes, two of its calls on the same inputs
+     bit-equal; HGMMA instructions in both kernels;
    - the attention-output kernel (``csrc/out_ln.cu``) at every AttOutput
      site's shape (M = B * L, L in 40, 177, 393) at B=2 and B=32 within
      3e-2 * max(1, |ref|) of ``out_ln_reference`` (and its autograd
@@ -113,7 +117,8 @@ f32 results).  ``bound_ms`` is max(operations / 989 TFLOP/s bf16, bytes /
 each output written once.  ``--only attention`` (``--only ffn_train``,
 ``--only tok_block``, ``--only out_ln_headsliced``) runs phases 1-2 and the
 attention (FFN train; tokenizer conv and bottleneck; out_ln and head-sliced
-attention) checks of phase 3, and prints no result lines.
+attention) checks of phase 3, ``--only ffn`` those of the FFN, and prints no
+result lines.
 """
 
 from __future__ import annotations
@@ -177,7 +182,11 @@ from shgvqa_tpu_torch.kernels.headsliced import (
     headsliced_attention,
     headsliced_reference,
 )
-from shgvqa_tpu_torch.kernels.tok_conv import fused_tok_conv, tok_conv_reference
+from shgvqa_tpu_torch.kernels.tok_conv import (
+    fused_tok_conv,
+    tile_plan as tok_conv_plan,
+    tok_conv_reference,
+)
 from shgvqa_tpu_torch.models.backbone import Bottleneck3D, set_block_kernel
 from shgvqa_tpu_torch.models.layers import (
     FFN,
@@ -315,8 +324,10 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_ffn_kernel(batch_sizes=(2, BATCH_SIZE)):
-    """The fused FFN kernel against ffn_reference at the main path's shapes
-    (bf16), its backward at a small shape, and its times."""
+    """The fused FFN (the FFN-train forward's chain at rate 0) against
+    ffn_reference at the main path's shapes (bf16), two calls bit-equal,
+    its backward at a small shape, and its times: events, and the device
+    time per call and per stage of the chain."""
     rows = {}
     max_err = 0.0
     with torch.inference_mode():
@@ -324,8 +335,11 @@ def phase_ffn_kernel(batch_sizes=(2, BATCH_SIZE)):
             for per_clip, _ in FFN_SITES:
                 m = per_clip * bsz
                 args = ffn_operands(m, seed=m)
-                err = check_close(f"fused_ffn M={m}", fused_ffn(*args),
-                                  ffn_reference(*args))
+                y = fused_ffn(*args)
+                err = check_close(f"fused_ffn M={m}", y, ffn_reference(*args))
+                if not torch.equal(y, fused_ffn(*args)):
+                    raise AssertionError(f"fused_ffn M={m}: two calls on the "
+                                         "same inputs differ")
                 max_err = max(max_err, err)
                 x, w1t, b1, w2t, b2, gamma, beta = args
                 yard = (lambda: F.layer_norm(
@@ -333,8 +347,12 @@ def phase_ffn_kernel(batch_sizes=(2, BATCH_SIZE)):
                                  w2t, b2.to(x.dtype)),
                     (D,), gamma.to(x.dtype), beta.to(x.dtype), 1e-12))
                 bound, bound_by = ffn_bound(m)
+                device, _, stages = device_ms(lambda: fused_ffn(*args),
+                                              FFN_FWD_STAGES)
                 rows[m] = dict(
                     M=m, **spread("kernel_ms", lambda: fused_ffn(*args)),
+                    kernel_device_ms=device, stage_device_ms=stages,
+                    rerun_bit_equal=True,
                     plain_ms=time_ms(lambda: ffn_reference(*args)),
                     **spread("yardstick_ms", yard), bound_ms=bound,
                     bound_by=bound_by, max_abs_err=err)
@@ -348,6 +366,33 @@ def phase_ffn_kernel(batch_sizes=(2, BATCH_SIZE)):
         check_close(f"fused_ffn backward grad {i}", g, r)
     log("fused_ffn backward ok (M=64, D=128, F=256)")
     return rows, max_err
+
+
+def log_ffn_per_forward(rows, launches=18, cps=None):
+    """The fused FFN's times per forward at B=32 and B=2 (each site's
+    median times its launches, with the sums of the fastest and slowest
+    turns), and its device time by stage of the chain."""
+    sites = {b: [(n, rows[per_clip * b]) for per_clip, n in FFN_SITES]
+             for b in (BATCH_SIZE, 2)}
+    log(f"fused_ffn per forward ({launches} sites; the FFN-train forward's "
+        "chain at rate 0; yardstick: F.linear/gelu/layer_norm in bf16; "
+        "device: torch.profiler per call; no single library call computes "
+        "this block): " + ", ".join(
+            f"{k} {weighted_text(sites[b], k)} at b{b}"
+            for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                      "yardstick_ms", "bound_ms")
+            for b in (BATCH_SIZE, 2))
+        + ("" if cps is None else f"; clips/s b{BATCH_SIZE} "
+           f"{json.dumps(cps)}"))
+    for b in (BATCH_SIZE, 2):
+        if any(row["stage_device_ms"] is None for _, row in sites[b]):
+            log(f"fused_ffn stages at b{b}: not measured")
+            continue
+        log(f"fused_ffn device ms per forward by stage at b{b} "
+            "(torch.profiler): " + ", ".join(
+                f"{stage} " + ms_text(sum(n * row["stage_device_ms"][stage]
+                                          for n, row in sites[b]))
+                for stage in FFN_FWD_STAGES))
 
 
 def per_forward(rows, bsz, key):
@@ -921,13 +966,36 @@ def attention_entries(rows, max_err, launches=None, bsz=BATCH_SIZE):
 
 
 def phase_tok_kernel(batch_sizes=(2, BATCH_SIZE)):
-    """The tokenizer conv kernel against tok_conv_reference at both convs'
-    shapes (bf16); the times of the kernel on a bf16 weight, of the
-    weight's cast from the f32 parameter (each call of the model makes it),
-    of the plain version and of the yardstick (F.conv3d in bf16, then the
-    port's gelu, on the same channels-last operands)."""
+    """The tokenizer conv kernel against tok_conv_reference at ragged
+    shapes and at both convs' shapes (bf16), two calls bit-equal; the times
+    of the kernel on a bf16 weight (events, and its device time per call:
+    the conv and, where the plan splits the last wave, the sum of the
+    partials), of the weight's cast from the f32 parameter (each call of
+    the model makes it), of the plain version and of the yardstick (F.conv3d
+    in bf16, then the port's gelu, on the same channels-last operands); the
+    kernel on wgmma (HGMMA in the SASS)."""
+    for kernel, (count, first) in sass_hgmma(
+            "tok_conv", ("tok_conv_kernel",)).items():
+        log(f"sass tok_conv {kernel}: {count} HGMMA instructions, e.g. "
+            f"`{first}`")
     rows, max_err = {}, 0.0
     with torch.inference_mode():
+        # ragged: positions past the last clip in the last tile, frames of
+        # 5 x 5 and 4 x 4, an input under 128 KB
+        for bsz, t_len, hw, ci, kt in ((3, 7, 5, 128, 5), (1, 5, 4, 64, 3)):
+            g = torch.Generator(device="cuda").manual_seed(hw)
+            x = torch.randn(bsz, t_len, hw, hw, ci, generator=g,
+                            device="cuda").to(torch.bfloat16)
+            w = (0.05 * torch.randn(256, ci, kt, 3, 3, generator=g,
+                                    device="cuda")).to(torch.bfloat16)
+            b = 0.1 * torch.randn(256, generator=g, device="cuda")
+            tag = f"fused_tok_conv ragged {(bsz, t_len, hw, hw, ci)} kT={kt}"
+            y = fused_tok_conv(x, w, b)
+            err, _ = rel_max_err(tag, y, tok_conv_reference(x, w, b),
+                                 TOK_BLOCK_TOL)
+            if not torch.equal(y, fused_tok_conv(x, w, b)):
+                raise AssertionError(f"{tag}: two calls differ")
+            log(f"{tag}: max |err| {err}")
         for bsz in batch_sizes:
             for site, t_len, ci in TOK_SITES:
                 g = torch.Generator(device="cuda").manual_seed(bsz * 10 + ci)
@@ -941,19 +1009,29 @@ def phase_tok_kernel(batch_sizes=(2, BATCH_SIZE)):
                 b = 0.02 * randn(D)
                 w = w32.to(torch.bfloat16)
                 tag = f"fused_tok_conv {site} b{bsz}"
-                err, rel = rel_max_err(tag, fused_tok_conv(x, w, b),
-                                       tok_conv_reference(x, w, b),
+                y = fused_tok_conv(x, w, b)
+                err, rel = rel_max_err(tag, y, tok_conv_reference(x, w, b),
                                        TOK_BLOCK_TOL)
+                if not torch.equal(y, fused_tok_conv(x, w, b)):
+                    raise AssertionError(f"{tag}: two calls on the same "
+                                         "inputs differ")
+                del y
                 max_err = max(max_err, err)
                 xv = x.permute(0, 4, 1, 2, 3)
                 m = bsz * (t_len - TOK_KT + 1) * TOK_HW * TOK_HW
                 k = TOK_KT * 9 * ci
                 bound, bound_by = bound_ms(
                     2 * m * D * k, (x.numel() + w.numel() + m * D) * 2 + 4 * D)
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                conv, every, _ = device_ms(lambda: fused_tok_conv(x, w, b),
+                                           ("tok_conv_kernel",))
                 rows[(site, bsz)] = dict(
                     site=site, B=bsz, M=m, N=D, K=k, max_abs_err=err,
-                    rel_err=rel, bound_ms=bound, bound_by=bound_by,
+                    rel_err=rel, rerun_bit_equal=True,
+                    plan=tok_conv_plan(m, D, k, sms),
+                    bound_ms=bound, bound_by=bound_by,
                     **spread("kernel_ms", lambda: fused_tok_conv(x, w, b)),
+                    kernel_device_ms=every, conv_device_ms=conv,
                     **spread("cast_ms", lambda: w32.to(torch.bfloat16)),
                     plain_ms=time_ms(lambda: tok_conv_reference(x, w, b),
                                      iters=5, warmup=1),
@@ -962,6 +1040,20 @@ def phase_tok_kernel(batch_sizes=(2, BATCH_SIZE)):
                         iters=5, warmup=1))
                 log(f"fused_tok_conv {json.dumps(rows[(site, bsz)])}")
     return rows, max_err
+
+
+def log_tok_per_forward(rows, launches=2):
+    """The tokenizer conv's times per forward at B=32 and B=2."""
+    sites = {b: [(1, rows[(site, b)]) for site, _, _ in TOK_SITES]
+             for b in (BATCH_SIZE, 2)}
+    log(f"fused_tok_conv per forward ({launches} sites; yardstick: "
+        "F.conv3d in bf16 + the port's gelu; device: torch.profiler per "
+        "call, every kernel of the call / the conv kernel; no single library "
+        "call computes this function): " + ", ".join(
+            f"{k} {weighted_text(sites[b], k)} at b{b}"
+            for k in ("kernel_ms", "kernel_device_ms", "conv_device_ms",
+                      "plain_ms", "yardstick_ms", "bound_ms")
+            for b in (BATCH_SIZE, 2)))
 
 
 def random_block(ci, cm, co, seed):
@@ -1699,7 +1791,7 @@ def phase_plain_path_card_vs_cpu():
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("attention", "ffn_train",
+    parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
                                            "tok_block", "out_ln_headsliced"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
@@ -1719,7 +1811,7 @@ def main(argv=None) -> int:
         for line in ptxas_lines(name, text):
             log(f"  {line}")
     # the wgmma kernels hold their accumulators in registers: no spill
-    spills = [line for name in ("bottleneck", "ffn_train")
+    spills = [line for name in ("bottleneck", "ffn_train", "tok_conv")
               for line in ptxas_lines(name, build_logs.get(name, ""))
               if re.search(r"[1-9]\d* bytes spill", line)]
     if spills:
@@ -1730,13 +1822,19 @@ def main(argv=None) -> int:
         attention_entries(attn_rows, attn_err)
         log(f"attention kernels ok; max errors {json.dumps(attn_err)}")
         return 0
+    if args.only == "ffn":
+        rows, max_err = phase_ffn_kernel()
+        log_ffn_per_forward(rows)
+        log(f"FFN kernel ok; max error {max_err}")
+        return 0
     if args.only == "ffn_train":
         train_rows, train_err = phase_ffn_train_kernels()
         log_stages(train_rows)
         log(f"FFN train kernels ok; max errors {json.dumps(train_err)}")
         return 0
     if args.only == "tok_block":
-        _, tok_err = phase_tok_kernel()
+        tok_rows, tok_err = phase_tok_kernel()
+        log_tok_per_forward(tok_rows)
         block_rows, block_err = phase_block_kernel()
         log_block_per_forward(block_rows)
         log(f"tokenizer conv and bottleneck kernels ok; max errors {tok_err}, "
@@ -1778,7 +1876,7 @@ def main(argv=None) -> int:
     widest = max(FFN_SITES, key=lambda s: s[1] * rows[s[0] * bsz]["bound_ms"])
     kernels = [{
         "name": "fused_ffn", "route": "cuda",
-        "source": "shgvqa_tpu_torch/csrc/ffn.cu",
+        "source": "shgvqa_tpu_torch/csrc/ffn_train.cu",
         "replaces": "shgvqa_tpu/kernels/ffn.py:98",
         "launches": launches[2], "max_abs_err": max_err,
         "ms": per_forward(rows, bsz, "kernel_ms"),
@@ -1786,14 +1884,7 @@ def main(argv=None) -> int:
         "bound_ms": per_forward(rows, bsz, "bound_ms"),
         "bound_by": rows[widest[0] * bsz]["bound_by"], "library_ms": None,
     }]
-    log(f"per forward at b{bsz} (18 FFN sites): kernel "
-        f"{kernels[0]['ms']:.3f} ms, plain {kernels[0]['plain_ms']:.3f} ms, "
-        f"yardstick {per_forward(rows, bsz, 'yardstick_ms'):.3f} ms, bound "
-        f"{kernels[0]['bound_ms']:.3f} ms; b2: kernel "
-        f"{per_forward(rows, 2, 'kernel_ms'):.3f} ms, plain "
-        f"{per_forward(rows, 2, 'plain_ms'):.3f} ms, bound "
-        f"{per_forward(rows, 2, 'bound_ms'):.3f} ms; clips/s b{bsz} "
-        f"{json.dumps(cps)}")
+    log_ffn_per_forward(rows, launches[2], cps)
     kernels += attention_entries(attn_rows, attn_err, train_launches)
     for backward, (name, line) in enumerate(
             (("fused_ffn_train_fwd", 200), ("fused_ffn_train_bwd", 214))):
@@ -1850,12 +1941,7 @@ def main(argv=None) -> int:
         "bound_by": block_rows[("res_2 blocks 1-2", bsz)]["bound_by"],
         "library_ms": None,
     })
-    log(f"fused_tok_conv per forward ({launches[5]} sites; yardstick: "
-        "F.conv3d in bf16 + the port's gelu; no single library call "
-        "computes this function): " + ", ".join(
-            f"{k} {per_forward_tok(tok_rows, b, k):.3f} ms at b{b}"
-            for k in ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms")
-            for b in (bsz, 2)))
+    log_tok_per_forward(tok_rows, launches[5])
     log_block_per_forward(block_rows, launches[6])
     widest = max(FFN_SITES,
                  key=lambda s: s[1] * out_ln_rows[s[0] * bsz]["bound_ms"])

@@ -7,7 +7,8 @@ its own copy of what it needs from them.
 
 Ported so far: flagship HGQA inference from uint8 frames to the answer
 (``models/shgvqa.py``), with the fused FFN block as a hand-written CUDA
-kernel (``csrc/ffn.cu``, wrapper ``kernels/ffn.py``); and the flagship
+chain of kernels (the FFN-train forward of ``csrc/ffn_train.cu`` at rate 0,
+wrapper ``kernels/ffn.py``); and the flagship
 train step (``train/step.py``: dropout-bearing forward, per-frame Hungarian
 matching on the device in ``ops/matcher.py``, the losses in ``losses/``,
 backward, global-norm clip and BertAdam in ``train/optimizer.py``), with

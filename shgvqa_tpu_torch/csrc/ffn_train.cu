@@ -7,7 +7,9 @@
 // Replaces shgvqa_tpu/kernels/ffn.py::_make_train_pair, the Pallas TPU
 // kernels fwd_kernel (forward) and bwd_kernel (backward) behind the JAX
 // fused_ffn_train; the plain versions are ffn_train_reference and
-// ffn_train_backward_reference in shgvqa_tpu_torch/kernels/ffn.py.
+// ffn_train_backward_reference in shgvqa_tpu_torch/kernels/ffn.py.  The
+// forward's chain at rate 0 also replaces _make_call there, the inference
+// kernel behind the JAX fused_ffn (plain version ffn_reference).
 //
 // Numerics (as the TPU kernels): x, dy, W1, W2 bf16; b1, b2, gamma, beta f32;
 // every product accumulates in f32; h is rounded to bf16 before the second
@@ -43,7 +45,9 @@
 // epilogue overlaps the other's products), each with its own epilogue.
 // - forward, three launches:
 //   1. u = x . W1 + b1 over (M, F) tiles 128 wide: h = bf16(gelu(u)) out;
-//   2. o = h . W2 + b2 over (M, D) tiles 64 wide, out in f32;
+//   2. o = h . W2 + b2 over (M, D) tiles, out in f32: 192 wide (5 stages,
+//      one block an SM) where they fill the SMs' waves (M = 12576 at
+//      B=32), else 64 wide;
 //   3. a row pass, one warp per row holding the row in registers: the
 //      dropout, the residual, the two-pass LayerNorm, y (bf16) out.
 //   A single kernel would keep h on the chip, but a 128 x 768 f32 output
@@ -145,6 +149,11 @@ constexpr int kNarrowN = 64;                      // tile width of the (M, D) pr
 // an SM, so that one block's epilogue overlaps the other's products
 constexpr int kWideStages = 3;
 constexpr int kNarrowStages = 4;
+// the o stage's tiles where M fills the SMs: 192 wide (4 column tiles at D =
+// 768), 5 stages of 40 KB, one block an SM; each A tile of h feeds three
+// times the columns of a 64-wide tile
+constexpr int kOWideN = 192;
+constexpr int kOWideStages = 5;
 constexpr int kRowTile = 16;                      // rows of a row-pass block: a warp each
 constexpr int kRowThreads = 32 * kRowTile;
 
@@ -200,13 +209,15 @@ ffn_bwd_u_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
   u_stage<true>(&xmap, &w1map, p);
 }
 
-// 2. o = h . W2 + b2 over (M, D) tiles, in f32 (into p.dr).
-__global__ void __launch_bounds__(kGemmThreads, 2)
+// 2. o = h . W2 + b2 over (M, D) tiles BN wide, in f32 (into p.dr); kBlocks
+// blocks share an SM.
+template <int BN, int kStages, int kBlocks>
+__global__ void __launch_bounds__(kGemmThreads, kBlocks)
 ffn_o_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap w2map,
              const Params p) {
-  float acc[kNarrowN / 2];
-  if (!gemm_mainloop<kNarrowN, false, kNarrowStages>(&hmap, &w2map, p.f, acc)) return;
-  gemm_epilogue<kNarrowN>(
+  float acc[BN / 2];
+  if (!gemm_mainloop<BN, false, kStages>(&hmap, &w2map, p.f, acc)) return;
+  gemm_epilogue<BN>(
       acc, p.m, [&](int, int col) { return __ldg(reinterpret_cast<const float2*>(p.b2 + col)); },
       [&](int row, int col, float a0, float a1, float2 bias) {
         *reinterpret_cast<float2*>(p.dr + static_cast<size_t>(row) * p.d + col) =
@@ -395,15 +406,38 @@ ffn_bwd_dx_kernel(const __grid_constant__ CUtensorMap dumap,
       });
 }
 
+// Whether the o stage of an (m, d) output takes the 192-wide tiles: when
+// they fill at least 3/4 of the SMs' waves (at D = 768: M = 12576 gives
+// 396 tiles, 3 waves of 132); else the 64-wide tiles, two blocks an SM,
+// whose finer grain fills the card at the small and middle sites.  Both
+// chains decide alike.
+bool o_takes_wide_tiles(int m, int d, int sms) {
+  if (d % kOWideN != 0) return false;
+  const int tiles = ceil_div(m, kGemmBM) * (d / kOWideN);
+  const int waves = ceil_div(tiles, sms);
+  return tiles >= sms && 4 * tiles >= 3 * waves * sms;
+}
+
 // The first two launches of either chain: u (h out, and gelu'(u) in the
 // backward), then o + b2 into p.dr.
 template <bool kGrad>
 cudaError_t launch_u_o(const Params& p, const CUtensorMap& xmap, const CUtensorMap& hmap,
                        const CUtensorMap& w1map, const CUtensorMap& w2map, cudaStream_t s) {
-  cudaError_t err = gemm_launch<kWideN, kWideStages>(kGrad ? ffn_bwd_u_kernel : ffn_fwd_u_kernel,
-                                                     p.m, p.f, s, xmap, w1map, p);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
-    err = gemm_launch<kNarrowN, kNarrowStages>(ffn_o_kernel, p.m, p.d, s, hmap, w2map, p);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = gemm_launch<kWideN, kWideStages>(kGrad ? ffn_bwd_u_kernel : ffn_fwd_u_kernel, p.m, p.f,
+                                           s, xmap, w1map, p);
+  }
+  if (err == cudaSuccess) {
+    err = o_takes_wide_tiles(p.m, p.d, sms)
+              ? gemm_launch<kOWideN, kOWideStages>(ffn_o_kernel<kOWideN, kOWideStages, 1>, p.m,
+                                                   p.d, s, hmap, w2map, p)
+              : gemm_launch<kNarrowN, kNarrowStages>(ffn_o_kernel<kNarrowN, kNarrowStages, 2>,
+                                                     p.m, p.d, s, hmap, w2map, p);
   }
   return err;
 }

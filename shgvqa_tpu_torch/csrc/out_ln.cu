@@ -20,8 +20,7 @@
 // VMEM under 512-row tiles; here W does not fit in a block's 227 KB, so it
 // streams through shared memory from L2 for every row tile.
 //
-// Design (the second half of csrc/ffn.cu with K = D and the residual read
-// from its own tensor):
+// Design (one product over K = D, the residual read from its own tensor):
 // - one block of 16 warps per tile of 32 or 48 rows (kMTiles 16-row tiles;
 //   the launcher takes 48 when that needs fewer waves of blocks); the x tile
 //   is copied once with cp.async, the ragged last tile zero-filled on load

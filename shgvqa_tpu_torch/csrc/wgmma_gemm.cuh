@@ -215,12 +215,96 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
 }
 
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a, uint64_t b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95},"
+      " %96, %97, p, 1, 1, 0, %99;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
 template <int BN, bool kBMN>
 __device__ __forceinline__ void wgmma_k16(float (&d)[BN / 2], uint64_t a, uint64_t b) {
-  if constexpr (BN == 128) {
+  if constexpr (BN == 256) {
+    wgmma_m64n256k16<kBMN ? 1 : 0>(d, a, b, 1);
+  } else if constexpr (BN == 192) {
+    wgmma_m64n192k16<kBMN ? 1 : 0>(d, a, b, 1);
+  } else if constexpr (BN == 128) {
     wgmma_m64n128k16<kBMN ? 1 : 0>(d, a, b, 1);
   } else {
-    static_assert(BN == 64, "tiles are 64 or 128 columns wide");
+    static_assert(BN == 64, "tiles are 64, 128, 192 or 256 columns wide");
     wgmma_m64n64k16<kBMN ? 1 : 0>(d, a, b, 1);
   }
 }
@@ -288,14 +372,17 @@ __device__ __forceinline__ void wgmma_k16_rs(float (&d)[BN / 2], const uint32_t 
   }
 }
 
-// The block's 128 x BN tile of A . B over a depth of k (a multiple of 64):
-// row tile blockIdx.y, column tile blockIdx.x.  Every thread of the block
-// calls it.  It returns true in the consumer threads, with this thread's
-// part of the tile in acc (layout above), and false in the producer warp,
-// which has nothing more to do.
-template <int BN, bool kBMN, int kStages>
-__device__ __forceinline__ bool gemm_mainloop(const CUtensorMap* amap, const CUtensorMap* bmap,
-                                              int k, float (&acc)[BN / 2]) {
+// The ring of a block's 128 x BN tile over nk steps of depth 64: every
+// thread of the block calls it.  The producer warp's lane 0 waits for each
+// step's stage to be free, arms its "full" barrier with the stage's bytes
+// and calls issue(a, b, t, bar), which starts the TMA copies of step t: the
+// 128 x 64 A tile at shared address a, the BN x 64 B tile at b (BN / 64
+// boxes of 8 KB; MN-major when kBMN), completing on bar.  It returns true
+// in the consumer threads, with this thread's part of the tile in acc
+// (layout above), and false in the producer warp, which has nothing more
+// to do.
+template <int BN, bool kBMN, int kStages, typename Issue>
+__device__ __forceinline__ bool ring_mainloop(int nk, Issue issue, float (&acc)[BN / 2]) {
   constexpr uint32_t kABytes = kGemmBM * kGemmBK * 2;
   constexpr uint32_t kStageBytes = kABytes + BN * kGemmBK * 2;
   constexpr uint32_t kBoxBytes = kGemmBox * kGemmBK * 2;
@@ -303,8 +390,6 @@ __device__ __forceinline__ bool gemm_mainloop(const CUtensorMap* amap, const CUt
   const uint32_t base = (smem_addr(gemm_smem) + 1023u) & ~1023u;
   const uint32_t full = base + kStages * kStageBytes;
   const uint32_t empty = full + 8 * kStages;
-  const int nk = k / kGemmBK;
-  const int row0 = blockIdx.y * kGemmBM, col0 = blockIdx.x * BN;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -320,17 +405,9 @@ __device__ __forceinline__ bool gemm_mainloop(const CUtensorMap* amap, const CUt
       for (int t = 0; t < nk; ++t) {
         const int s = t % kStages;
         mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);   // round 0 passes at once
-        const uint32_t a = base + s * kStageBytes, b = a + kABytes, bar = full + 8 * s;
+        const uint32_t a = base + s * kStageBytes, bar = full + 8 * s;
         mbar_expect_tx(bar, kStageBytes);   // boxes past the edge count in full
-        tma_2d(a, amap, t * kGemmBK, row0, bar);
-#pragma unroll
-        for (int j = 0; j < BN / kGemmBox; ++j) {
-          if (kBMN) {
-            tma_2d(b + j * kBoxBytes, bmap, col0 + j * kGemmBox, t * kGemmBK, bar);
-          } else {
-            tma_2d(b + j * kBoxBytes, bmap, t * kGemmBK, col0 + j * kGemmBox, bar);
-          }
-        }
+        issue(a, a + kABytes, t, bar);
       }
     }
     return false;
@@ -362,19 +439,44 @@ __device__ __forceinline__ bool gemm_mainloop(const CUtensorMap* amap, const CUt
   return true;
 }
 
-// The epilogue of the block's tile in a consumer thread: for each pair of
-// neighbouring columns it holds in a row < m, x = load(row, col) (a float2)
-// and then store(row, col, v0, v1, x), with v0 at (row, col) and v1 at
-// (row, col + 1) of C.  The loads of 4 n8 column blocks are issued before
-// their stores, so that their latencies overlap (a load could otherwise
-// wait for every store before it, which the compiler cannot tell apart).
+// The block's 128 x BN tile of A . B over a depth of k (a multiple of 64):
+// row tile blockIdx.y, column tile blockIdx.x, A and B read through TMA
+// maps in 128 x 64 and 64 x 64 boxes.  As ring_mainloop.
+template <int BN, bool kBMN, int kStages>
+__device__ __forceinline__ bool gemm_mainloop(const CUtensorMap* amap, const CUtensorMap* bmap,
+                                              int k, float (&acc)[BN / 2]) {
+  constexpr uint32_t kBoxBytes = kGemmBox * kGemmBK * 2;
+  const int row0 = blockIdx.y * kGemmBM, col0 = blockIdx.x * BN;
+  return ring_mainloop<BN, kBMN, kStages>(
+      k / kGemmBK,
+      [&](uint32_t a, uint32_t b, int t, uint32_t bar) {
+        tma_2d(a, amap, t * kGemmBK, row0, bar);
+#pragma unroll
+        for (int j = 0; j < BN / kGemmBox; ++j) {
+          if (kBMN) {
+            tma_2d(b + j * kBoxBytes, bmap, col0 + j * kGemmBox, t * kGemmBK, bar);
+          } else {
+            tma_2d(b + j * kBoxBytes, bmap, t * kGemmBK, col0 + j * kGemmBox, bar);
+          }
+        }
+      },
+      acc);
+}
+
+// The epilogue of a consumer thread's part of the 128 x BN tile at (row0,
+// col0): for each pair of neighbouring columns it holds in a row < m,
+// x = load(row, col) (a float2) and then store(row, col, v0, v1, x), with
+// v0 at (row, col) and v1 at (row, col + 1) of C.  The loads of 4 n8
+// column blocks are issued before their stores, so that their latencies
+// overlap (a load could otherwise wait for every store before it, which
+// the compiler cannot tell apart).
 template <int BN, typename Load, typename Store>
-__device__ __forceinline__ void gemm_epilogue(const float (&acc)[BN / 2], int m, Load load,
-                                              Store store) {
+__device__ __forceinline__ void gemm_epilogue_at(const float (&acc)[BN / 2], int m, int row0,
+                                                 int col0, Load load, Store store) {
   constexpr int kGroup = 4;
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.y * kGemmBM + (threadIdx.x / 32) * 16 + lane / 4;
-  const int col = blockIdx.x * BN + 2 * (lane % 4);
+  const int row = row0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const int col = col0 + 2 * (lane % 4);
 #pragma unroll
   for (int j0 = 0; j0 < BN / 8; j0 += kGroup) {
     float2 x[kGroup][2];
@@ -394,6 +496,14 @@ __device__ __forceinline__ void gemm_epilogue(const float (&acc)[BN / 2], int m,
       }
     }
   }
+}
+
+// gemm_epilogue_at for the tile at row tile blockIdx.y, column tile
+// blockIdx.x.
+template <int BN, typename Load, typename Store>
+__device__ __forceinline__ void gemm_epilogue(const float (&acc)[BN / 2], int m, Load load,
+                                              Store store) {
+  gemm_epilogue_at<BN>(acc, m, blockIdx.y * kGemmBM, blockIdx.x * BN, load, store);
 }
 
 // A TMA map of a row-major (rows, cols) bf16 matrix in boxes of

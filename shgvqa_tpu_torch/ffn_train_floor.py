@@ -1,16 +1,22 @@
-"""Where the FFN-train backward spends its time on the card.
+"""Where the FFN chains spend their time on the card.
 
     python -m shgvqa_tpu_torch.ffn_train_floor
 
 Rebuilds ``csrc/ffn_train.cu`` (beside a copy of the ``csrc/*.cuh``
 headers) as variants, each one edit of a copy of the source, and times the
-backward's chain of each at the flagship D=768, F=3072 and the row counts
-of a B=32 train step (M = 1280, 12576 and 5664, launched 7, 5 and 2 times a
-step), in turns (the variants, then again in reverse order): CUDA events
-(median and range of 5 turns of 20 calls) and each stage's device time per
-call (torch.profiler over 10 calls).
+backward's and the forward's chain (at rate 0, as ``fused_ffn`` runs it)
+of each at the flagship D=768, F=3072 and the row counts of a B=32 step
+(M = 1280, 12576 and 5664, launched 7, 5 and 2 times a train step's
+backward; 9, 7 and 2 times a forward), in turns (the variants, then again
+in reverse order): CUDA events (median and range of 5 turns of 20 calls)
+and each stage's device time per call (torch.profiler over 10 calls).
 
 - ``as built``;
+- ``o: 64 wide``: the o stage on its 64-wide tiles at every M, where the
+  build takes 192-wide tiles where they fill the SMs' waves (M = 12576);
+- ``u: 256 wide``: the u stage (both chains) on 256-wide tiles, a ring of
+  4 stages and one block an SM, at every M, where the build has 128-wide
+  tiles, 3 stages and two blocks an SM;
 - ``4-stage ring``: the 128-wide products (u, dh) on a ring of 4 stages
   and one block an SM, where the build has 3 stages and two blocks share
   an SM;
@@ -23,8 +29,8 @@ call (torch.profiler over 10 calls).
 
 The last four give wrong results: they time what a part of an epilogue
 costs.  Prints one JSON line per variant, turn and size, one line per
-variant and turn of the per-step sums, then the card's name and power
-limit.  The builds go to the git-ignored ``shgvqa_tpu_torch/_build/``; it
+variant and turn of the per-step (backward) and per-forward sums, then the
+card's name and power limit.  The builds go to the git-ignored ``shgvqa_tpu_torch/_build/``; it
 needs a CUDA card and ``nvcc``.
 """
 
@@ -43,7 +49,8 @@ from shgvqa_tpu_torch.entry import resolve_device
 from shgvqa_tpu_torch.kernels import _build, ffn
 
 D, FF = 768, 3072
-SITES = ((1280, 7), (12576, 5), (5664, 2))       # (M, launches a B=32 step)
+# (M, backward launches a B=32 train step, forward launches a B=32 forward)
+SITES = ((1280, 7, 9), (12576, 5, 7), (5664, 2, 2))
 U_STORES = """        *reinterpret_cast<uint32_t*>(p.h + off) = pack_bf16(h0, h1);
         if (kGrad) *reinterpret_cast<float2*>(p.gd + off) = gd;
 """
@@ -57,6 +64,21 @@ NO_DH_STORE = """        if (a0 == 12345.0f) p.du[static_cast<size_t>(row) * p.f
 # (variant, its edits of csrc/ffn_train.cu as (text, replacement) pairs)
 VARIANTS = (
     ("as built", ()),
+    ("o: 64 wide", (("err = o_takes_wide_tiles(p.m, p.d, sms)",
+                     "err = false"),)),
+    ("u: 256 wide", (
+        ("  float acc[kWideN / 2];\n"
+         "  if (!gemm_mainloop<kWideN, false, kWideStages>(xmap, w1map, p.d, "
+         "acc)) return;\n  gemm_epilogue<kWideN>(",
+         "  float acc[128];\n"
+         "  if (!gemm_mainloop<256, false, 4>(xmap, w1map, p.d, acc)) "
+         "return;\n  gemm_epilogue<256>("),
+        ("__launch_bounds__(kGemmThreads, 2)\nffn_fwd_u_kernel",
+         "__launch_bounds__(kGemmThreads, 1)\nffn_fwd_u_kernel"),
+        ("__launch_bounds__(kGemmThreads, 2)\nffn_bwd_u_kernel",
+         "__launch_bounds__(kGemmThreads, 1)\nffn_bwd_u_kernel"),
+        ("gemm_launch<kWideN, kWideStages>(kGrad ? ffn_bwd_u_kernel",
+         "gemm_launch<256, 4>(kGrad ? ffn_bwd_u_kernel"))),
     ("4-stage ring", (
         ("constexpr int kWideStages = 3;", "constexpr int kWideStages = 4;"),
         ("__launch_bounds__(kGemmThreads, 2)\nffn_bwd_u_kernel",
@@ -118,6 +140,29 @@ def _backward(lib, x, w1t, b1, w2t, b2, gamma, dy, stream):
         raise RuntimeError(f"backward launch failed: CUDA error {err}")
 
 
+def _forward(lib, x, w1t, b1, w2t, b2, gamma, beta, stream):
+    """One call of the library's forward chain at rate 0."""
+    m, d = x.shape
+    f = w1t.shape[0]
+    buf = ffn._fwd_buffers(m, d, f, x.device)
+    err = lib.shgvqa_ffn_train_fwd_bf16(
+        x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+        b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), None,
+        *(t.data_ptr() for t in buf.values()), m, d, f, 1e-12, 0, 1.0, 0,
+        stream)
+    if err:
+        raise RuntimeError(f"forward launch failed: CUDA error {err}")
+
+
+def _time(run, stage_names):
+    """(events median, [min, max], device ms per call, {stage: ms})."""
+    events, (lo, hi) = time_spread(run)
+    kernels, _ = top_kernels(lambda: [run() for _ in range(10)])
+    stages = {stage: sum(k["ms"] for k in kernels if stage in k["kernel"]) / 10
+              for stage in stage_names}
+    return events, [lo, hi], sum(stages.values()), stages
+
+
 def main() -> None:
     resolve_device("cuda")
     libs = _build_variants()
@@ -131,33 +176,39 @@ def main() -> None:
                 randn(D, FF, scale=0.02).bfloat16())
     b1, b2 = randn(FF, scale=0.02), randn(D, scale=0.02)
     gamma = 1.0 + randn(D, scale=0.1)
+    beta = randn(D, scale=0.1)
     order = [name for name, _ in VARIANTS]
     order += order[::-1]
     steps = {}
-    for m, launches in SITES:
+    for m, launches, fwd_launches in SITES:
         x, dy = randn(m, D).bfloat16(), randn(m, D).bfloat16()
         for turn, name in enumerate(order):
-            def run():
-                _backward(libs[name], x, w1t, b1, w2t, b2, gamma, dy, stream)
-
-            events, (lo, hi) = time_spread(run)
-            kernels, _ = top_kernels(lambda: [run() for _ in range(10)])
-            stages = {stage: sum(k["ms"] for k in kernels
-                                 if stage in k["kernel"]) / 10
-                      for stage in ffn.BWD_STAGES}
-            device = sum(stages.values())
+            lib = libs[name]
+            events, spread, device, stages = _time(
+                lambda: _backward(lib, x, w1t, b1, w2t, b2, gamma, dy, stream),
+                ffn.BWD_STAGES)
+            f_events, f_spread, f_device, f_stages = _time(
+                lambda: _forward(lib, x, w1t, b1, w2t, b2, gamma, beta,
+                                 stream), ffn.FWD_STAGES)
             key = (name, turn >= len(VARIANTS))
-            total = steps.setdefault(key, [0.0, 0.0])
+            total = steps.setdefault(key, [0.0, 0.0, 0.0, 0.0])
             total[0] += launches * events
             total[1] += launches * device
+            total[2] += fwd_launches * f_events
+            total[3] += fwd_launches * f_device
             print(json.dumps({"variant": name, "turn": turn, "M": m,
-                              "events_ms": events, "events_range": [lo, hi],
-                              "device_ms": device, "stage_ms": stages}),
-                  flush=True)
-    for (name, second), (events, device) in steps.items():
+                              "events_ms": events, "events_range": spread,
+                              "device_ms": device, "stage_ms": stages,
+                              "fwd_events_ms": f_events,
+                              "fwd_events_range": f_spread,
+                              "fwd_device_ms": f_device,
+                              "fwd_stage_ms": f_stages}), flush=True)
+    for (name, second), (events, device, f_events, f_device) in steps.items():
         print(json.dumps({"variant": name, "turn": int(second),
                           "per_b32_step_events_ms": events,
-                          "per_b32_step_device_ms": device}), flush=True)
+                          "per_b32_step_device_ms": device,
+                          "per_b32_forward_events_ms": f_events,
+                          "per_b32_forward_device_ms": f_device}), flush=True)
     print(card_name_and_power_limit())
 
 

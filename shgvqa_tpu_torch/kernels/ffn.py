@@ -2,23 +2,24 @@
 + beta``, for inference and for training.
 
 Inference replaces ``shgvqa_tpu/kernels/ffn.py::_make_call``, the Pallas TPU
-kernel behind the JAX ``fused_ffn``, with the hand-written CUDA C++ kernel in
-``csrc/ffn.cu``; training replaces ``_make_train_pair`` there (forward
-``fwd_kernel``, backward ``bwd_kernel``, behind the JAX ``fused_ffn_train``)
-with the kernels of ``csrc/ffn_train.cu``.  Both are sm_90a, built by
-``kernels/_build.py`` and bound with ``ctypes``.  On the card the block is
-bound by the tensor cores (4*M*D*F operations forward, 8*M*D*F backward,
-against ~4*M*D + 4*D*F bytes); the inference kernel keeps the (M, F)
-intermediate on the chip, and both fuse bias, GeLU, dropout, residual and
-LayerNorm around the products.  The ``.cu`` files describe their design.
+kernel behind the JAX ``fused_ffn``, and training replaces
+``_make_train_pair`` there (forward ``fwd_kernel``, backward ``bwd_kernel``,
+behind the JAX ``fused_ffn_train``), with the hand-written CUDA C++ chains
+of ``csrc/ffn_train.cu`` (sm_90a, built by ``kernels/_build.py`` and bound
+with ``ctypes``): inference runs the training forward's chain at rate 0.
+On the card the block is bound by the tensor cores (4*M*D*F operations
+forward, 8*M*D*F backward, against ~4*M*D + 4*D*F bytes); the chains run
+their products on wgmma fed by TMA and fuse bias, GeLU, dropout, residual
+and LayerNorm around them.  ``ffn_train.cu`` describes the design.
 
 - ``ffn_reference`` is the plain inference version, with the semantics of
   the JAX ``_reference``: products of the given operands in f32, h rounded
   to the weight dtype between them, two-pass LayerNorm in f32.
 - ``fused_ffn`` runs the plain version for a tensor on the CPU and the
-  kernel for a CUDA tensor; on the card it launches the kernel or raises.
-  ``fused_ffn.launches`` counts the kernel's launches.  Its backward
-  recomputes through autograd of the plain version, as the JAX
+  forward's chain at rate 0 (no dropout, no seed) for a CUDA tensor; on
+  the card it launches the chain or raises.  ``fused_ffn.launches`` counts
+  its calls that launch (``fused_ffn_train``'s counts do not move).  Its
+  backward recomputes through autograd of the plain version, as the JAX
   ``_fused_bwd`` does; the TPU kernel has no backward kernel.
 - ``ffn_train_reference`` is the plain training forward: the inference
   math with dropout on the output dense (bias included) before the
@@ -156,21 +157,6 @@ def _backward_spills(x2, w1t, b1, w2t, b2, gamma, rate, keep, dy, eps):
     return dx, du, do, h, dgamma, dbeta
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built ``csrc/ffn.cu`` with its C signatures declared."""
-    lib = _build.load("ffn")
-    lib.shgvqa_fused_ffn_bf16.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.shgvqa_fused_ffn_bf16.restype = ctypes.c_int
-    lib.shgvqa_fused_ffn_max_d.argtypes = []
-    lib.shgvqa_fused_ffn_max_d.restype = ctypes.c_int
-    lib.shgvqa_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.shgvqa_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check(name, t, shape, dtype, device, what="fused_ffn"):
     if t.device != device:
         raise ValueError(f"{what}: {name} is on {t.device}, x on {device}")
@@ -185,37 +171,11 @@ def _check(name, t, shape, dtype, device, what="fused_ffn"):
 
 
 def _launch(x2, w1t, b1, w2t, b2, gamma, beta, eps):
-    """One launch of the CUDA kernel on the current stream."""
-    m, d = x2.shape
-    f = w1t.shape[0]
-    if x2.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"fused_ffn on CUDA takes bfloat16 activations, got {x2.dtype} "
-            "(set compute_dtype='bfloat16' or use_pallas_ffn=False)")
-    if d % 16 or f % 16:
-        raise ValueError(f"fused_ffn: D={d} and F={f} must be multiples of 16")
-    lib = _lib()
-    if d > lib.shgvqa_fused_ffn_max_d():
-        raise ValueError(f"fused_ffn: D={d} exceeds the kernel's maximum "
-                         f"{lib.shgvqa_fused_ffn_max_d()}")
-    dev = x2.device
-    _check("x", x2, (m, d), torch.bfloat16, dev)
-    _check("w1t", w1t, (f, d), torch.bfloat16, dev)
-    _check("w2t", w2t, (d, f), torch.bfloat16, dev)
-    _check("b1", b1, (f,), torch.float32, dev)
-    for name, t in (("b2", b2), ("gamma", gamma), ("beta", beta)):
-        _check(name, t, (d,), torch.float32, dev)
-    y = torch.empty_like(x2)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.shgvqa_fused_ffn_bf16(
-            x2.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-            b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            m, d, f, float(eps), stream)
-    if err:
-        raise RuntimeError(
-            f"fused_ffn kernel launch failed: CUDA error {err} "
-            f"({lib.shgvqa_cuda_error_string(err).decode()})")
+    """One call of the forward's chain of ``csrc/ffn_train.cu`` at rate 0
+    (no dropout, no seed; one ctypes call, three launches) on the current
+    stream: y."""
+    y = _run_fwd_chain("fused_ffn", x2, w1t, b1, w2t, b2, gamma, beta, None,
+                       0.0, eps)
     fused_ffn.launches += 1
     return y
 
@@ -246,7 +206,9 @@ def fused_ffn(x, w1t, b1, w2t, b2, gamma, beta, eps: float = 1e-12):
     """x (..., D); w1t (F, D) and w2t (D, F) in nn.Linear layout, cast to
     x's dtype here; b1, b2, gamma, beta are read in f32.  Returns (..., D)
     in x's dtype.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    launches the forward's chain of ``csrc/ffn_train.cu`` at rate 0 or
+    raises (it takes bfloat16 x, D a multiple of 64 up to 768 and F a
+    multiple of 128)."""
     d = x.shape[-1]
     args = (x.reshape(-1, d), w1t.to(x.dtype), b1.float(), w2t.to(x.dtype),
             b2.float(), gamma.float(), beta.float())
@@ -307,27 +269,33 @@ def _raise_on(err: int, what: str) -> None:
             f"({_train_lib().shgvqa_ffn_train_error_string(err).decode()})")
 
 
-def _check_train(x2, w1t, b1, w2t, b2, gamma, beta=None):
+# the switch that turns each wrapper's kernel off, for its error messages
+_SWITCH = {"fused_ffn": "use_pallas_ffn", "fused_ffn_train":
+           "use_pallas_ffn_train"}
+
+
+def _check_train(x2, w1t, b1, w2t, b2, gamma, beta=None,
+                 what="fused_ffn_train"):
+    """(M, D, F) of operands both chains take; raises on the others."""
     m, d = x2.shape
     f = w1t.shape[0]
     if x2.dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"fused_ffn_train on CUDA takes bfloat16 activations, got "
-            f"{x2.dtype} (set compute_dtype='bfloat16' or "
-            "use_pallas_ffn_train=False)")
+            f"{what} on CUDA takes bfloat16 activations, got {x2.dtype} "
+            f"(set compute_dtype='bfloat16' or {_SWITCH[what]}=False)")
     lib = _train_lib()
     if d % 64 or f % 128 or d > lib.shgvqa_ffn_train_max_d():
-        raise ValueError(f"fused_ffn_train: D={d} must be a multiple of 64 "
-                         f"and at most {lib.shgvqa_ffn_train_max_d()}, "
-                         f"F={f} a multiple of 128")
+        raise ValueError(f"{what}: D={d} must be a multiple of 64 and at "
+                         f"most {lib.shgvqa_ffn_train_max_d()}, F={f} a "
+                         "multiple of 128")
     dev = x2.device
-    _check("x", x2, (m, d), torch.bfloat16, dev, "fused_ffn_train")
-    _check("w1t", w1t, (f, d), torch.bfloat16, dev, "fused_ffn_train")
-    _check("w2t", w2t, (d, f), torch.bfloat16, dev, "fused_ffn_train")
-    _check("b1", b1, (f,), torch.float32, dev, "fused_ffn_train")
+    _check("x", x2, (m, d), torch.bfloat16, dev, what)
+    _check("w1t", w1t, (f, d), torch.bfloat16, dev, what)
+    _check("w2t", w2t, (d, f), torch.bfloat16, dev, what)
+    _check("b1", b1, (f,), torch.float32, dev, what)
     for name, t in (("b2", b2), ("gamma", gamma), ("beta", beta)):
         if t is not None:
-            _check(name, t, (d,), torch.float32, dev, "fused_ffn_train")
+            _check(name, t, (d,), torch.float32, dev, what)
     return m, d, f
 
 
@@ -339,12 +307,13 @@ def _fwd_buffers(m, d, f, device):
             "o": torch.empty(m, d, dtype=torch.float32, device=device)}
 
 
-def _launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
-                      buffers=None):
+def _run_fwd_chain(what, x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
+                   buffers=None):
     """One call of the forward's chain of kernels (one ctypes call, three
-    launches) on the current stream: y.  ``buffers`` (``_fwd_buffers``,
-    made here when None) receives y, h and o + b2."""
-    m, d, f = _check_train(x2, w1t, b1, w2t, b2, gamma, beta)
+    launches) on the current stream for the wrapper ``what``: y.
+    ``buffers`` (``_fwd_buffers``, made here when None) receives y, h and
+    o + b2."""
+    m, d, f = _check_train(x2, w1t, b1, w2t, b2, gamma, beta, what)
     buf = _fwd_buffers(m, d, f, x2.device) if buffers is None else buffers
     with torch.cuda.device(x2.device):
         err = _train_lib().shgvqa_ffn_train_fwd_bf16(
@@ -353,9 +322,17 @@ def _launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
             *(t.data_ptr() for t in buf.values()), m, d, f, float(eps),
             _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
             _stream(x2.device))
-    _raise_on(err, "fused_ffn_train forward")
-    fused_ffn_train.launches += 1
+    _raise_on(err, f"{what} forward")
     return buf["y"]
+
+
+def _launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
+                      buffers=None):
+    """``_run_fwd_chain`` for ``fused_ffn_train``: y."""
+    y = _run_fwd_chain("fused_ffn_train", x2, w1t, b1, w2t, b2, gamma, beta,
+                       seed, rate, eps, buffers)
+    fused_ffn_train.launches += 1
+    return y
 
 
 def _bwd_buffers(m, d, f, rows, device):

@@ -1,11 +1,18 @@
 """The port's fused FFN (shgvqa_tpu_torch/kernels/ffn.py) against the JAX
 package's Pallas kernel (shgvqa_tpu/kernels/ffn.py, interpret mode on the
-CPU) and FFN module.  The CUDA kernel itself runs only on the card
-(chip_smoke.py holds it against ``ffn_reference`` there); on the CPU the
-wrapper takes the plain version, which is what these tests hold to JAX.
+CPU) and FFN module.  On the card ``fused_ffn`` launches the forward chain
+of csrc/ffn_train.cu at rate 0, which runs only there (chip_smoke.py holds
+it against ``ffn_reference``); on the CPU the wrapper takes the plain
+version, which is what these tests hold to JAX.  The card path's host side
+(the C entry's arguments, the buffers, the launch counts, the widths it
+takes) is driven here on CPU tensors with the C entry replaced by a
+stand-in.
 
 Tolerances: bf16 3e-2 (as tests/test_pallas_ffn.py; the TPU kernel's erf
 is a polynomial, the port's is erf); f32 1e-5."""
+
+import contextlib
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +23,7 @@ from shgvqa_tpu.kernels import ffn as pallas_ffn
 from shgvqa_tpu.models.layers import FFN as JaxFFN
 from shgvqa_tpu_torch.kernels import ffn
 from shgvqa_tpu_torch.models.layers import FFN
-from test_torch_common import close, jax_variables, load_port, t
+from test_torch_common import close, jax_variables, load_port, t, tensor_at
 
 
 @pytest.fixture()
@@ -121,3 +128,85 @@ def test_wrapper_raises_where_it_has_no_kernel():
     with pytest.raises(NotImplementedError, match="no kernel"):
         ffn.fused_ffn(*args)
     assert ffn.fused_ffn.launches == before
+
+
+def _stand_in_chain(monkeypatch, calls, fill=None):
+    """Replace the chain's library by a stand-in whose forward entry records
+    its arguments and fills y, h and o + b2 from ``fill`` (a dict)."""
+    def forward_entry(*c_args):
+        calls.append(c_args)
+        m, d, f = c_args[11:14]
+        if fill is not None:
+            shapes = (((m, d), torch.bfloat16), ((m, f), torch.bfloat16),
+                      ((m, d), torch.float32))
+            for (shape, dtype), ptr, name in zip(shapes, c_args[8:11],
+                                                 ("y", "h", "o")):
+                tensor_at(ptr, shape, dtype).copy_(fill[name])
+        return 0
+
+    lib = SimpleNamespace(shgvqa_ffn_train_fwd_bf16=forward_entry,
+                          shgvqa_ffn_train_max_d=lambda: 768)
+    monkeypatch.setattr(ffn, "_train_lib", lambda: lib)
+    monkeypatch.setattr(ffn, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+
+
+def test_card_path_runs_the_train_forward_chain_at_rate_0(monkeypatch):
+    """The card path of fused_ffn on CPU tensors, the chain's C entry
+    replaced by a stand-in: one call of shgvqa_ffn_train_fwd_bf16 with the
+    operands in order, no seed, threshold 0, keep scale 1 and dropout off,
+    and the forward's buffers (y and h bf16, o + b2 f32); y comes back from
+    the buffer the entry wrote; fused_ffn.launches counts the call and
+    fused_ffn_train's counts stay; the backward recomputes through the plain
+    version."""
+    m, d, f = 24, 64, 256
+    args = [x.contiguous() for x in _torch_args(_data(m, d, f, seed=5),
+                                                torch.bfloat16)]
+    _, h, _ = ffn._residual(*args[:5], 0.0, None)
+    fill = {"y": ffn.ffn_reference(*args), "h": h,
+            "o": torch.matmul(h.float(), args[3].float().t()) + args[4]}
+    calls = []
+    _stand_in_chain(monkeypatch, calls, fill)
+    before = (ffn.fused_ffn.launches, ffn.fused_ffn_train.launches,
+              ffn.fused_ffn_train.bwd_launches)
+    leaves = [a.detach().requires_grad_(i == 0) for i, a in enumerate(args)]
+    y = ffn._FusedFFN.apply(*leaves, 1e-6)
+    assert len(calls) == 1
+    c_args = calls[0]
+    assert c_args[:8] == tuple(a.data_ptr() for a in args) + (None,)
+    assert c_args[11:] == (m, d, f, 1e-6, 0, 1.0, 0, 0)
+    assert torch.equal(y, fill["y"])
+    assert (ffn.fused_ffn.launches, ffn.fused_ffn_train.launches,
+            ffn.fused_ffn_train.bwd_launches) == (before[0] + 1, *before[1:])
+    (grad,) = torch.autograd.grad(y.float().sum(), leaves[0])
+    ref = args[0].detach().clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        ffn.ffn_reference(ref, *args[1:], 1e-6).float().sum(), ref)
+    close(grad, want.float(), 1e-6)
+
+
+@pytest.mark.parametrize("d,f,ok", [(768, 3072, True), (64, 128, True),
+                                    (64, 208, False), (96, 256, False),
+                                    (832, 3072, False)])
+def test_card_path_takes_the_widths_of_the_chain(monkeypatch, d, f, ok):
+    """The card path takes D a multiple of 64 up to 768 and F a multiple of
+    128 (the chain's tiles; the old kernel took multiples of 16) and raises
+    with the wrapper's name otherwise, before any launch; f32 raises with
+    the switch to turn off."""
+    calls = []
+    _stand_in_chain(monkeypatch, calls)
+    bf16 = torch.bfloat16
+    ops = (torch.zeros(4, d, dtype=bf16), torch.zeros(f, d, dtype=bf16),
+           torch.zeros(f), torch.zeros(d, f, dtype=bf16), torch.zeros(d),
+           torch.ones(d), torch.zeros(d))
+    before = ffn.fused_ffn.launches
+    if ok:
+        ffn._launch(*ops, 1e-12)
+        assert len(calls) == 1 and ffn.fused_ffn.launches == before + 1
+    else:
+        with pytest.raises(ValueError, match="fused_ffn: D=.*multiple of 64"):
+            ffn._launch(*ops, 1e-12)
+        assert not calls and ffn.fused_ffn.launches == before
+    with pytest.raises(NotImplementedError, match="use_pallas_ffn=False"):
+        ffn._launch(*(o.float() for o in ops), 1e-12)

@@ -19,6 +19,7 @@ calls, and the widths both chains take."""
 
 import contextlib
 import dataclasses
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -312,6 +313,7 @@ def test_train_step_ffn_sites_and_their_backward(monkeypatch):
 # Mirrors of csrc/wgmma_gemm.cuh and the backward chain of csrc/ffn_train.cu
 
 GEMM_BM, GEMM_BK, GEMM_BOX = 128, 64, 64     # kGemmBM, kGemmBK, kGemmBox
+REPO_CSRC = Path(__file__).resolve().parent.parent / "shgvqa_tpu_torch" / "csrc"
 WIDE_N, NARROW_N, ROW_TILE = 128, 64, 16     # kWideN, kNarrowN, kRowTile
 D, F = 768, 3072
 # (stage, N, tile width, K) of the four products, in launch order
@@ -566,3 +568,36 @@ def test_train_wrapper_takes_what_both_chains_take(monkeypatch, d, f, ok):
     else:
         with pytest.raises(ValueError, match="multiple of 64"):
             ffn._check_train(*ops)
+
+
+def _o_takes_wide_tiles(m, d, sms, wide=192):
+    """o_takes_wide_tiles of csrc/ffn_train.cu."""
+    if d % wide:
+        return False
+    tiles = -(-m // GEMM_BM) * (d // wide)
+    waves = -(-tiles // sms)
+    return tiles >= sms and 4 * tiles >= 3 * waves * sms
+
+
+@pytest.mark.parametrize("m", SITE_ROWS)
+def test_o_stage_takes_192_wide_tiles_where_they_fill_the_waves(m):
+    """On 132 SMs the o stage (shared by both chains) takes its 192-wide
+    tiles at M = 12576 only (396 tiles, 3 waves) and 64-wide ones at the
+    other sites (M = 5664 would leave 2 waves 68% full); either grid and
+    thread map stores every (row, column) of o once and no row past M."""
+    src = (REPO_CSRC / "ffn_train.cu").read_text()
+    assert "constexpr int kOWideN = 192;" in src
+    assert "return tiles >= sms && 4 * tiles >= 3 * waves * sms;" in src
+    assert "err = o_takes_wide_tiles(p.m, p.d, sms)" in src
+    wide = _o_takes_wide_tiles(m, D, 132)
+    assert wide == (m == 12576)
+    assert not _o_takes_wide_tiles(m, 64, 132)
+    bn = 192 if wide else NARROW_N
+    gx, gy = _grid(m, D, bn)
+    rows, cols = _tile_pairs(bn)
+    count = np.zeros((gy * GEMM_BM, D), np.uint8)
+    for by in range(gy):
+        for bx in range(gx):
+            np.add.at(count, (by * GEMM_BM + rows, bx * bn + cols), 1)
+            np.add.at(count, (by * GEMM_BM + rows, bx * bn + cols + 1), 1)
+    assert (count[:m] == 1).all()

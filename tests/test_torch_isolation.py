@@ -57,7 +57,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build("ffn")
+        _build.build("ffn_train")
     assert not (tmp_path / "build").exists()
 
 
