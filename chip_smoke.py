@@ -10,7 +10,7 @@ it exits non-zero before printing any result.
 1. card: its name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every ``shgvqa_tpu_torch/csrc/*.cu``, one nvcc each, in parallel,
    with ptxas's registers and spills of every kernel; a spill in a
-   bottleneck, FFN-train or tokenizer conv kernel fails the run;
+   bottleneck, FFN-train, out_ln or tokenizer conv kernel fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with its time, the plain version's
    time and the bound.  Every kernel, library and yardstick time is the
@@ -52,12 +52,15 @@ it exits non-zero before printing any result.
      gelu; the unfused bf16 Bottleneck3D) and the bound; the tokenizer
      conv also at two ragged shapes, two of its calls on the same inputs
      bit-equal; HGMMA instructions in both kernels;
-   - the attention-output kernel (``csrc/out_ln.cu``) at every AttOutput
-     site's shape (M = B * L, L in 40, 177, 393) at B=2 and B=32 within
-     3e-2 * max(1, |ref|) of ``out_ln_reference`` (and its autograd
-     backward at a small shape), with the times of the kernel, the plain
-     version and the unfused yardstick (F.linear, add, F.layer_norm) and
-     the bound;
+   - the attention-output kernel (``csrc/out_ln.cu``, a cluster per row
+     tile) at every AttOutput site's shape (M = B * L, L in 40, 177, 393)
+     at B=2 and B=32 and at two ragged M within 3e-2 * max(1, |ref|) of
+     ``out_ln_reference`` (and its autograd backward at a small shape),
+     two calls on the same inputs bit-equal, the wrapper's plan mirror
+     (``out_ln_plan``) equal to the kernel's own, with the times of the
+     kernel (events, and its device time per call from torch.profiler),
+     the plain version and the unfused yardstick (F.linear, add,
+     F.layer_norm) and the bound; HGMMA instructions in the kernel;
    - the head-sliced attention (the attention forward kernel of
      ``csrc/attention.cu`` on the (B, L, 768) projections' strides) at
      every attention site's shape at B=2 and B=32 within 2e-2 of max |ref|
@@ -1181,25 +1184,57 @@ def out_ln_bound(m: int, d: int = D):
     return bound_ms(2 * m * d * d, (3 * m * d + d * d) * 2 + 3 * d * 4)
 
 
+def check_out_ln(m: int, d: int, sms: int, seed: int):
+    """fused_out_ln against out_ln_reference at (M, D), two calls on the
+    same inputs bit-equal, the wrapper's plan mirror equal to the kernel's:
+    (operands, max |err|, plan)."""
+    args = out_ln_operands(m, d, seed=seed)
+    tag = f"fused_out_ln M={m} D={d}"
+    y = fused_out_ln(*args)
+    err = check_close(tag, y, out_ln_reference(*args))
+    if not torch.equal(y, fused_out_ln(*args)):
+        raise AssertionError(f"{tag}: two calls on the same inputs differ")
+    plan = ffn_kernels.out_ln_plan(m, d, sms)
+    if plan != ffn_kernels.out_ln_kernel_plan(m, d, sms):
+        raise AssertionError(f"{tag}: out_ln_plan {plan} is not the kernel's "
+                             f"{ffn_kernels.out_ln_kernel_plan(m, d, sms)}")
+    return args, err, plan
+
+
 def phase_out_ln_kernel(batch_sizes=(2, BATCH_SIZE)):
     """The attention-output kernel against out_ln_reference at every
-    AttOutput site's shape (the FFN sites' rows, bf16), its autograd
-    backward at a small shape, and the times of the kernel, the plain
-    version and the unfused yardstick (F.linear, add, F.layer_norm in
-    bf16)."""
+    AttOutput site's shape (the FFN sites' rows, bf16) and at two ragged M,
+    two calls bit-equal, the plan mirror equal to the kernel's, its autograd
+    backward at a small shape; the times of the kernel (events, and its
+    device time per call), the plain version and the unfused yardstick
+    (F.linear, add, F.layer_norm in bf16); the kernel on wgmma (HGMMA in
+    the SASS)."""
+    for kernel, (count, first) in sass_hgmma(
+            "out_ln", ("out_ln_kernel",)).items():
+        log(f"sass out_ln {kernel}: {count} HGMMA instructions, e.g. "
+            f"`{first}`")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, max_err = {}, 0.0
     with torch.inference_mode():
+        # ragged: one row past a 64-row tile; a 128-row plan's last tile
+        for m in (65, 12577):
+            _, err, plan = check_out_ln(m, D, sms, seed=m)
+            max_err = max(max_err, err)
+            log(f"fused_out_ln ragged M={m}: max |err| {err}, plan "
+                f"{plan}, two calls bit-equal")
         for bsz in batch_sizes:
             for per_clip, _ in FFN_SITES:
                 m = per_clip * bsz
-                args = out_ln_operands(m, seed=2000 + m)
-                err = check_close(f"fused_out_ln M={m}", fused_out_ln(*args),
-                                  out_ln_reference(*args))
+                args, err, plan = check_out_ln(m, D, sms, seed=2000 + m)
                 max_err = max(max_err, err)
                 x, w, b, res, gamma, beta = args
                 bound, bound_by = out_ln_bound(m)
+                _, every, _ = device_ms(lambda: fused_out_ln(*args),
+                                        ("out_ln",))
                 rows[m] = dict(
-                    M=m, **spread("kernel_ms", lambda: fused_out_ln(*args)),
+                    M=m, plan=plan, rerun_bit_equal=True,
+                    **spread("kernel_ms", lambda: fused_out_ln(*args)),
+                    kernel_device_ms=every,
                     plain_ms=time_ms(lambda: out_ln_reference(*args)),
                     **spread("yardstick_ms", lambda: F.layer_norm(
                         F.linear(x, w, b.to(x.dtype)) + res, (D,),
@@ -1215,6 +1250,21 @@ def phase_out_ln_kernel(batch_sizes=(2, BATCH_SIZE)):
         check_close(f"fused_out_ln backward grad {i}", g, r)
     log("fused_out_ln backward ok (M=64, D=128)")
     return rows, max_err
+
+
+def log_out_ln_per_forward(rows, launches=18):
+    """The attention-output kernel's times per forward at B=32 and B=2:
+    each site's median times its launches, with the sums of the fastest and
+    slowest turns for the event times."""
+    sites = {b: [(n, rows[per_clip * b]) for per_clip, n in FFN_SITES]
+             for b in (BATCH_SIZE, 2)}
+    log(f"fused_out_ln per forward ({launches} sites; yardstick: F.linear + "
+        "add + F.layer_norm in bf16; device: torch.profiler per call; no "
+        "single library call computes this function): " + ", ".join(
+            f"{k} {weighted_text(sites[b], k)} at b{b}"
+            for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                      "yardstick_ms", "bound_ms")
+            for b in (BATCH_SIZE, 2)))
 
 
 def split_heads(x2):
@@ -1811,7 +1861,8 @@ def main(argv=None) -> int:
         for line in ptxas_lines(name, text):
             log(f"  {line}")
     # the wgmma kernels hold their accumulators in registers: no spill
-    spills = [line for name in ("bottleneck", "ffn_train", "tok_conv")
+    spills = [line for name in ("bottleneck", "ffn_train", "out_ln",
+                                "tok_conv")
               for line in ptxas_lines(name, build_logs.get(name, ""))
               if re.search(r"[1-9]\d* bytes spill", line)]
     if spills:
@@ -1841,7 +1892,8 @@ def main(argv=None) -> int:
             f"{block_err}")
         return 0
     if args.only == "out_ln_headsliced":
-        _, out_ln_err = phase_out_ln_kernel()
+        out_ln_rows, out_ln_err = phase_out_ln_kernel()
+        log_out_ln_per_forward(out_ln_rows)
         _, hs_err = phase_headsliced_kernel()
         phase_headsliced_ab()
         log(f"out_ln and head-sliced attention kernels ok; max errors "
@@ -1956,12 +2008,7 @@ def main(argv=None) -> int:
         "bound_by": out_ln_rows[widest[0] * bsz]["bound_by"],
         "library_ms": None,
     })
-    log(f"fused_out_ln per forward ({olhs_launches[7]} sites; yardstick: "
-        "F.linear + add + F.layer_norm in bf16; no single library call "
-        "computes this function): " + ", ".join(
-            f"{k} {per_forward(out_ln_rows, b, k):.3f} ms at b{b}"
-            for k in ("kernel_ms", "plain_ms", "yardstick_ms", "bound_ms")
-            for b in (bsz, 2)))
+    log_out_ln_per_forward(out_ln_rows, olhs_launches[7])
     widest = max(ATTN_SITES,
                  key=lambda s: s[5] * hs_rows[(s[0], bsz)]["bound_ms"])
     kernels.append({

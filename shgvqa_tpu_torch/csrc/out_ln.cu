@@ -16,383 +16,376 @@
 // device memory bounds it at every row count of the model (M = B*L for L in
 // 40, 177, 393).  The fusion keeps the (M, D) product out of device memory:
 // the unfused block writes it and reads it back twice (bias + residual, then
-// the LayerNorm).  The TPU kernel kept W (1.18 MB at D = 768) resident in
-// VMEM under 512-row tiles; here W does not fit in a block's 227 KB, so it
-// streams through shared memory from L2 for every row tile.
+// the LayerNorm).  W (1.18 MB at D = 768) does not fit in a block's 227 KB,
+// so it streams from L2 for every row tile; the design cuts how often.
 //
-// Design (one product over K = D, the residual read from its own tensor):
-// - one block of 16 warps per tile of 32 or 48 rows (kMTiles 16-row tiles;
-//   the launcher takes 48 when that needs fewer waves of blocks); the x tile
-//   is copied once with cp.async, the ragged last tile zero-filled on load
-//   and masked on store.  The LayerNorm needs all D columns of a row, so a
-//   block owns whole rows;
-// - W (nn.Linear's (out, in) layout, i.e. the [n][k] layout the B operand
-//   wants) streams through a ring of kStages stages, kStages - 1 ahead of
-//   the stage in use.  A stage is kSub sub-tiles of D rows x 16 K columns
-//   (32-byte rows, 32-byte swizzle), each as TMA boxes of up to 256 rows
-//   that one thread issues and that complete on the stage's mbarrier;
-// - the product is ldmatrix + mma.sync m16n8k16 (bf16 in, f32 sums); each
-//   warp owns 48 output columns for all rows of the tile, in registers;
-// - the epilogue stages the accumulator in shared memory (reusing the ring)
-//   and one warp per row adds the bias and the residual and normalizes.
-// At B=2 the model's row counts (80, 354, 786) give 3-17 blocks for 132
-// SMs: the grid is far too small there; it is left so (a split of the
-// columns would need a cross-block LayerNorm).
+// Design: a thread-block cluster per row tile, each CTA owning a column slab.
+// - D is cut into cs <= kMaxCluster slabs of BN = 64, 128 or 192 columns
+//   (768 = 4 x 192, 512 = 4 x 128, 256 = 4 x 64, 128 = 2 x 64, 64 = 1 x 64;
+//   cluster_of), M into row tiles of kBM = 128 or 64 rows.  The grid is
+//   (cs, row tiles) in clusters of (cs, 1, 1); CTA rank r of a cluster
+//   computes columns r * BN .. of its row tile, so it reads only its slab of
+//   W: at M = 12576, 99 tiles x 1.18 MB from L2 in all, where a block that
+//   owned whole 48-row tiles read 262 x 1.18 MB.
+// - the product is the wgmma + TMA ring of wgmma_gemm.cuh (ring_mainloop):
+//   one producer warp, kBM / 64 consumer warpgroups, x through kBM x 64
+//   boxes, W K-major (nn.Linear's (out, in) layout, no transposed copy)
+//   through 64 x 64 boxes, kStages stages, 12 k steps at D = 768.  Once the
+//   ring is full the producer also lands the residual's kBM x BN tile by
+//   TMA, in space of its own, so that it arrives under the products.
+// - the epilogue runs on the accumulator in registers.  The bias and the
+//   residual are added in f32 (the slab's bias, gamma and beta are staged
+//   in shared memory, and the epilogue addresses shared memory by 32-bit
+//   address: 64-bit pointers cost the registers that kept the 128 x 192
+//   tile from spilling).  A row of a warpgroup's 64 x BN tile lives
+//   in the 4 threads of one quad (the accumulator layout in
+//   wgmma_gemm.cuh), so a slab's partial row sum is each thread's sum plus
+//   two shfl_xor.  Each CTA writes its partials to its shared memory; after
+//   a cluster barrier every CTA reads the cs partials of its rows from the
+//   CTAs of its cluster through distributed shared memory (mapa +
+//   ld.shared::cluster) and sums them in rank order: the mean.  The sums
+//   of (r - mean)^2 are exchanged the same way (the two-pass variance).
+//   y in bf16 is written over the residual's tile and stored by TMA (rows
+//   past M are not written); a last cluster barrier keeps every CTA's
+//   shared memory alive until its peers have read it.
+// - every sum is taken in a fixed order and nothing is summed atomically,
+//   so two calls give the same bits.
+// - the row tile (rows_of): 128 rows where the clusters fill at least 3/4
+//   of their waves over the SMs (D = 768, M = 12576: 396 CTAs, 3 waves of
+//   132), else 64 rows and one consumer warpgroup, whose finer grain fills
+//   more of the card at the small and middle sites (as the FFN chain's o
+//   stage picks its width).  Rows of a tile past M are zero-filled by the
+//   TMA loads.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kWarpCols = 48;                     // output columns per warp
-constexpr int kMaxD = kWarps * kWarpCols;         // 768
-constexpr int kK = 16;                            // K depth of a sub-tile: 32-byte rows
-constexpr int kSub = 2;                           // sub-tiles per stage
-constexpr int kBoxRows = 256;                     // most rows one TMA box takes
-constexpr int kPad = 8;                           // bf16 pad of x rows: 16 bytes
-constexpr size_t kSubBytes = static_cast<size_t>(kMaxD) * kK * sizeof(bf16);   // 24 KB
-constexpr size_t kStageBytes = kSub * kSubBytes;
-constexpr int kStages = 3;
+constexpr int kMaxCluster = 4;                    // CTAs of a cluster: slabs of a row
+constexpr int kMaxSlab = 192;                     // widest slab: one m64n192k16 wgmma
+constexpr int kMaxD = kMaxCluster * kMaxSlab;     // 768
+constexpr int kNarrowRows = 64;                   // the row tile when 128 rows fill the waves poorly
+constexpr int kStages = 4;                        // ring stages: 40 KB (128 rows) or 32 KB (64)
 
-__host__ __device__ inline size_t align_up(size_t n, size_t a) { return (n + a - 1) / a * a; }
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Shared memory: x tile | W ring (1 KB aligned) | mbarriers.  The f32 output
-// tile reuses the ring in the epilogue.
-template <int kMTiles>
-struct Layout {
-  size_t xs, ws, os, bars, total;
-  __host__ __device__ explicit Layout(int d) {
-    constexpr int rows = 16 * kMTiles;
-    xs = 0;
-    ws = align_up(sizeof(bf16) * rows * (d + kPad), 1024);
-    os = ws;
-    const size_t ring_end = ws + kStages * kStageBytes;
-    const size_t os_end = os + sizeof(float) * rows * d;
-    bars = align_up(ring_end > os_end ? ring_end : os_end, 8);
-    total = bars + sizeof(uint64_t) * kStages;
+// The cluster size of width d: the largest c <= kMaxCluster that cuts d
+// into slabs of a multiple of 64 columns and at most kMaxSlab; 0 when there
+// is none (d not a multiple of 64, above kMaxD, or 320, 448, 640, 704).
+int cluster_of(int d) {
+  if (d <= 0 || d % 64 != 0 || d > kMaxD) return 0;
+  for (int c = kMaxCluster; c >= 1; --c) {
+    if (d % (64 * c) == 0 && d / c <= kMaxSlab) return c;
   }
+  return 0;
+}
+
+// Rows of a tile for m rows in clusters of c CTAs on sms SMs (one CTA an
+// SM): 128 when the 128-row tiles' CTAs fill at least one wave and 3/4 of
+// their waves, else kNarrowRows.
+int rows_of(int m, int c, int sms) {
+  const int ctas = ceil_div(m, kGemmBM) * c;
+  const int waves = ceil_div(ctas, sms);
+  return ctas >= sms && 4 * ctas >= 3 * waves * sms ? kGemmBM : kNarrowRows;
+}
+
+// Shared memory of a CTA, in bytes from the 1 KB-aligned base: the ring's
+// stages and mbarriers (ring_mainloop), the residual's tile (1 KB aligned;
+// BN / 64 column boxes of kBM rows x 128 bytes, 128-byte swizzle, y is
+// written over it), the partial row sums (f32 [2][kBM]: sums, then sums of
+// squares), the slab's bias, gamma and beta (f32 [3][BN]) and the
+// residual's mbarrier.
+template <int kBM, int BN>
+struct Smem {
+  static constexpr uint32_t kRing = kStages * (kBM + BN) * kGemmBK * 2 + 16 * kStages;
+  static constexpr uint32_t kRes = (kRing + 1023u) & ~1023u;
+  static constexpr uint32_t kPart = kRes + kBM * BN * 2;
+  static constexpr uint32_t kVec = kPart + 2 * kBM * 4;
+  static constexpr uint32_t kBar = kVec + 3 * BN * 4;
+  static constexpr int kBytes = kBar + 8 + 1024;   // + slack to align the base
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ int cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem)
-               : "memory");
+// Every thread of every CTA of the cluster arrives; its writes to shared
+// memory before are seen by the cluster's reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of `bar` with this parity to complete; trap after a
-// second instead of hanging on a copy that never lands.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (start == 0) start = now;
-    if (now - start > 1000000000ull) __trap();
-  }
-}
-
-// TMA: the box of `map` at (column c0, row c1) into shared memory at dst.
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                       uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Four 8x8 bf16 matrices; lane l gives the address of a row of matrix l/8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a . b on one m16n8k16 tile (a row-major, b col-major, f32 sums).
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A operand: the 16 x 16 block at p of a row-major matrix with row stride ld.
-__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* p, int ld, int lane) {
-  ldsm_x4(r, smem_addr(p + (lane % 16) * ld + (lane / 16) * 8));
-}
-
-// B operands of two n8 tiles from a TMA-swizzled [n][k] sub-tile of 32-byte
-// rows: rows n0..n0+15; r[0..1] is n 0-7, r[2..3] is n 8-15.  The 32-byte
-// swizzle puts 16-byte chunk c of row r at c ^ ((r / 4) % 2).
-__device__ __forceinline__ void load_b2_sw32(uint32_t (&r)[4], uint32_t tile, int n0, int lane) {
-  const int row = n0 + (lane % 8) + (lane / 16) * 8;
-  const int chunk = (lane / 8) % 2;
-  ldsm_x4(r, tile + row * 32 + ((chunk ^ ((row / 4) % 2)) << 4));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+// The f32 at shared address addr of this CTA's layout, in the CTA of the
+// cluster with this rank (distributed shared memory).
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
   return v;
 }
 
-// One thread issues stage `s` of W (K columns kSub*16*s ..) into dst, to
-// complete on bar: per sub-tile, boxes of w_rows rows x 16 columns stacked
-// over the D rows.  Sub-tiles past K are not issued.
-__device__ __forceinline__ void issue_stage(int s, uint32_t dst, uint32_t bar,
-                                            const CUtensorMap* wmap, int d, int w_rows) {
-  const int k0 = s * kSub * kK;
-  if (k0 >= d) return;
-  const int subs = min(kSub, (d - k0) / kK);
-  const int boxes = (d + w_rows - 1) / w_rows;
-  const int box_bytes = w_rows * kK * sizeof(bf16);
-  mbar_expect_tx(bar, subs * boxes * box_bytes);
-  for (int j = 0; j < subs; ++j) {
-    for (int b = 0; b < boxes; ++b) {
-      tma_2d(dst + j * kSubBytes + b * box_bytes, wmap, k0 + j * kK, b * w_rows, bar);
-    }
+// Accesses to this CTA's shared memory by 32-bit address (a generic
+// pointer would hold 64 bits of the epilogue's registers).
+__device__ __forceinline__ uint32_t lds_b32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// The threads of one warpgroup meet (named barrier id, 128 threads).
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Sum of the 4 threads of a quad; every thread of it gets the same bits.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The slab sums of this thread's two rows (r0 and r0 + 8) exchanged over
+// the cluster: the quad's sums written to this CTA's partials at part, a
+// cluster barrier, then the cs CTAs' partials of each row summed in rank
+// order.
+__device__ __forceinline__ void cluster_row_sums(float (&s)[2], uint32_t part, int r0,
+                                                 bool writer, int cs) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] = quad_sum(s[h]);
+    if (writer) sts_f32(part + 4 * (r0 + 8 * h), s[h]);
+  }
+  cluster_sync();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float total = 0.0f;
+    for (int k = 0; k < cs; ++k) total += ld_cluster_f32(part + 4 * (r0 + 8 * h), k);
+    s[h] = total;
   }
 }
 
-template <int kMTiles>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_out_ln_bf16_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ x,
-                         const float* __restrict__ bias, const bf16* __restrict__ res,
-                         const float* __restrict__ gamma, const float* __restrict__ beta,
-                         bf16* __restrict__ y, int m, int d, int w_rows, float eps) {
-  constexpr int kRows = 16 * kMTiles;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const Layout<kMTiles> lay(d);
-  bf16* xs = reinterpret_cast<bf16*>(smem + lay.xs);
-  float* os = reinterpret_cast<float*>(smem + lay.os);
-  const uint32_t ws = smem_addr(smem + lay.ws);
-  const uint32_t bars = smem_addr(smem + lay.bars);
-  const int ldx = d + kPad;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;                 // accumulator rows g and g + 8
-  const int q = (lane % 4) * 2;           // accumulator columns q and q + 1
-  const int row0 = blockIdx.x * kRows;
-  const int steps = (d + kSub * kK - 1) / (kSub * kK);
+// One CTA: the (kBM x BN) tile at row tile blockIdx.y and column slab
+// cluster rank of y, as the header says.  Every thread of the cluster takes
+// part in its three cluster barriers.
+template <int kBM, int BN>
+__global__ void __launch_bounds__(2 * kBM + 32, 1)
+out_ln_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+              const __grid_constant__ CUtensorMap rmap, const __grid_constant__ CUtensorMap ymap,
+              const float* __restrict__ bias, const float* __restrict__ gamma,
+              const float* __restrict__ beta, int d, float eps) {
+  using L = Smem<kBM, BN>;
+  constexpr uint32_t kBoxBytes = kGemmBox * kGemmBK * 2;
+  extern __shared__ __align__(1024) unsigned char out_ln_smem[];
+  const uint32_t raw = smem_addr(out_ln_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t res = base + L::kRes, res_bar = base + L::kBar;
+  const int cs = d / BN;
+  const int rank = cluster_ctarank();
+  const int row0 = blockIdx.y * kBM, col0 = rank * BN;
+  const int nk = d / kGemmBK;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  // the slab's vectors, read by the epilogue after ring_mainloop's barrier
+  float* vec = reinterpret_cast<float*>(out_ln_smem + (base - raw) + L::kVec);
+  for (int i = threadIdx.x; i < BN; i += blockDim.x) {
+    vec[i] = bias[col0 + i];
+    vec[BN + i] = gamma[col0 + i];
+    vec[2 * BN + i] = beta[col0 + i];
   }
-  // x tile, rows past m zero
-  const int vec_per_row = d / 8;
-  for (int i = threadIdx.x; i < kRows * vec_per_row; i += kThreads) {
-    const int r = i / vec_per_row;
-    const int c = (i % vec_per_row) * 8;
-    bf16* dst = xs + r * ldx + c;
-    if (row0 + r < m) {
-      cp_async16(dst, x + static_cast<size_t>(row0 + r) * d + c);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  __syncthreads();   // the mbarriers are initialized
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages - 1; ++s) {
-      issue_stage(s, ws + s * kStageBytes, bars + 8 * s, &wmap, d, w_rows);
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();   // the x tile is in
-
-  float acc[kMTiles][kWarpCols / 8][4];   // rows 16 i.., columns 48 warp + 8 n..
+  if (threadIdx.x == 0) mbar_init(res_bar, 1);   // fenced and met in ring_mainloop
+  float acc[BN / 2];
+  const bool consumer = ring_mainloop<BN, false, kStages, kBM>(
+      nk,
+      [&](uint32_t a, uint32_t b, int t, uint32_t bar) {
+        tma_2d(a, &xmap, t * kGemmBK, row0, bar);
 #pragma unroll
-  for (int i = 0; i < kMTiles; ++i) {
-#pragma unroll
-    for (int n = 0; n < kWarpCols / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
-    }
-  }
-
-  for (int t = 0; t < steps; ++t) {
-    const int stage = t % kStages;
-    mbar_wait(bars + 8 * stage, (t / kStages) % 2);   // stage t landed
-    __syncthreads();                                  // everyone is done with stage t-1
-    if (threadIdx.x == 0) {                           // ... so its slot takes stage t+S-1
-      const int s = (t + kStages - 1) % kStages;
-      issue_stage(t + kStages - 1, ws + s * kStageBytes, bars + 8 * s, &wmap, d, w_rows);
-    }
-    const int k0 = t * kSub * kK;
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      if (k0 + j * kK < d) {
-        const uint32_t tile = ws + stage * kStageBytes + j * kSubBytes;
-        uint32_t a[kMTiles][4];
-#pragma unroll
-        for (int i = 0; i < kMTiles; ++i) load_a(a[i], xs + i * 16 * ldx + k0 + j * kK, ldx, lane);
-#pragma unroll
-        for (int p = 0; p < kWarpCols / 16; ++p) {
-          const int n0 = warp * kWarpCols + p * 16;
-          if (n0 < d) {
-            uint32_t b[4];
-            load_b2_sw32(b, tile, n0, lane);
-#pragma unroll
-            for (int i = 0; i < kMTiles; ++i) {
-              mma16816(acc[i][2 * p], a[i], b[0], b[1]);
-              mma16816(acc[i][2 * p + 1], a[i], b[2], b[3]);
+        for (int j = 0; j < BN / kGemmBox; ++j) {
+          tma_2d(b + j * kBoxBytes, &wmap, t * kGemmBK, col0 + j * kGemmBox, bar);
+        }
+        if (t == min(kStages, nk) - 1) {   // the ring is full: the residual's tile
+          mbar_expect_tx(res_bar, kBM * BN * 2);   // boxes past M count in full
+          for (int cb = 0; cb < BN / 64; ++cb) {
+            for (int rb = 0; rb < kBM / 64; ++rb) {
+              tma_2d(res + (cb * kBM + rb * 64) * 128, &rmap, col0 + 64 * cb, row0 + 64 * rb,
+                     res_bar);
             }
           }
         }
-      }
-    }
+      },
+      acc);
+  if (!consumer) {   // the producer warp: the cluster's barriers only
+    __syncwarp();
+    for (int i = 0; i < 3; ++i) cluster_sync();
+    return;
   }
-  __syncthreads();   // the ring is dead (every stage issued was waited for)
 
-#pragma unroll
-  for (int n = 0; n < kWarpCols / 8; ++n) {
-    const int c = warp * kWarpCols + n * 8 + q;
-    if (c < d) {
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = i * 16 + g + half * 8;
-          *reinterpret_cast<float2*>(os + r * d + c) =
-              make_float2(acc[i][n][2 * half], acc[i][n][2 * half + 1]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // epilogue: bias + residual + two-pass LayerNorm, one warp per row, two
-  // columns a lane at a time
+  const int lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const int r0 = wg * 64 + ((threadIdx.x % 128) / 32) * 16 + lane / 4;   // and r0 + 8
+  const int g = lane / 4;                                                // = r0 % 8
+  const int q2 = 2 * (lane % 4);
+  const bool writer = lane % 4 == 0;
+  const uint32_t part = base + L::kPart;
+  const uint32_t vecs = base + L::kVec + 4 * q2;   // + 4 (8 j) [+ 4 BN: gamma, 8 BN: beta]
   const float inv_d = 1.0f / static_cast<float>(d);
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= m) break;               // warp-uniform; later rows are past m too
-    float* orow = os + r * d;
-    const bf16* rrow = res + static_cast<size_t>(row) * d;
-    float sum = 0.0f;
-    for (int c = 2 * lane; c < d; c += 64) {
-      const float2 bc = *reinterpret_cast<const float2*>(bias + c);
-      const float2 rc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rrow + c));
-      const float v0 = orow[c] + bc.x + rc.x, v1 = orow[c + 1] + bc.y + rc.y;
-      orow[c] = v0;
-      orow[c + 1] = v1;
-      sum += v0 + v1;
-    }
-    const float mean = warp_sum(sum) * inv_d;
-    float sq = 0.0f;
-    for (int c = 2 * lane; c < d; c += 64) {
-      const float d0 = orow[c] - mean, d1 = orow[c + 1] - mean;
-      sq += d0 * d0 + d1 * d1;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
-    bf16* yrow = y + static_cast<size_t>(row) * d;
-    for (int c = 2 * lane; c < d; c += 64) {
-      const float2 gc = *reinterpret_cast<const float2*>(gamma + c);
-      const float2 be = *reinterpret_cast<const float2*>(beta + c);
-      *reinterpret_cast<__nv_bfloat162*>(yrow + c) =
-          __floats2bfloat162_rn((orow[c] - mean) * rstd * gc.x + be.x,
-                                (orow[c + 1] - mean) * rstd * gc.y + be.y);
+  // (row r0 + 8 h, column 8 j + q2) of the swizzled tile: chunk j % 8 of
+  // the row at (j % 8) ^ (r0 % 8), in column box j / 8
+  auto at = [&](int j, int h) -> uint32_t {
+    return res + (j / 8) * kBM * 128 + (r0 + 8 * h) * 128 + (((j % 8) ^ g) << 4) + 2 * q2;
+  };
+  mbar_wait(res_bar, 0);
+
+  // r = (acc + b) + residual, in place; the slab's sums of the two rows
+  float s[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 bc = lds_f32x2(vecs + 32 * j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t rc = lds_b32(at(j, h));   // two bf16: column c low, c + 1 high
+      float& v0 = acc[4 * j + 2 * h];
+      float& v1 = acc[4 * j + 2 * h + 1];
+      v0 = (v0 + bc.x) + __uint_as_float(rc << 16);
+      v1 = (v1 + bc.y) + __uint_as_float(rc & 0xffff0000u);
+      s[h] += v0;
+      s[h] += v1;
     }
   }
-}
+  cluster_row_sums(s, part, r0, writer, cs);
 
-// A TMA map of a row-major (rows, cols) bf16 matrix in boxes of
-// (box_rows, box_cols).  cuTensorMapEncodeTiled is a driver function: it is
-// found through the runtime, so the library needs no -lcuda.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-                       int box_cols, CUtensorMapSwizzle swizzle) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  // two-pass variance: r - mean in place, the slab's sums of its squares
+  const float mean[2] = {s[0] * inv_d, s[1] * inv_d};
+  s[0] = s[1] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = acc[4 * j + 2 * h + e];
+        v -= mean[h];
+        s[h] += v * v;
+      }
+    }
   }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  cluster_row_sums(s, part + 4 * kBM, r0, writer, cs);
+  const float rstd[2] = {rsqrtf(s[0] * inv_d + eps), rsqrtf(s[1] * inv_d + eps)};
+
+  // y = (r - mean) * rstd * gamma + beta in bf16, over the residual's tile
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 gc = lds_f32x2(vecs + 4 * BN + 32 * j);
+    const float2 be = lds_f32x2(vecs + 8 * BN + 32 * j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 y2 =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * rstd[h] * gc.x + be.x,
+                                acc[4 * j + 2 * h + 1] * rstd[h] * gc.y + be.y);
+      sts_b32(at(j, h), *reinterpret_cast<const uint32_t*>(&y2));
+    }
+  }
+  fence_proxy_async();
+  warpgroup_sync(1 + wg);
+  if (threadIdx.x % 128 == 0) {   // the warpgroup's 64 rows, one 64 x 64 box a column box
+    for (int cb = 0; cb < BN / 64; ++cb) {
+      tma_store_2d(&ymap, res + (cb * kBM + wg * 64) * 128, col0 + 64 * cb, row0 + wg * 64);
+    }
+    tma_store_wait<0, true>();
+  }
+  cluster_sync();   // no CTA leaves while a peer may still read its partials
 }
 
-template <int kMTiles>
+template <int kBM, int BN>
 cudaError_t launch(const void* x, const void* w, const void* bias, const void* res,
                    const void* gamma, const void* beta, void* y, int m, int d, float eps,
                    cudaStream_t stream) {
-  CUtensorMap wmap;
-  const int w_rows = min(kBoxRows, d);
-  cudaError_t err = tensor_map(&wmap, w, d, d, w_rows, kK, CU_TENSOR_MAP_SWIZZLE_32B);
+  CUtensorMap xmap, wmap, rmap, ymap;
+  cudaError_t err = kBM == kGemmBM ? gemm_a_map(&xmap, x, m, d) : gemm_b_map(&xmap, x, m, d);
+  if (err == cudaSuccess) err = gemm_b_map(&wmap, w, d, d);
+  if (err == cudaSuccess) err = gemm_b_map(&rmap, res, m, d);
+  if (err == cudaSuccess) err = gemm_b_map(&ymap, y, m, d);
   if (err != cudaSuccess) return err;
-  const size_t smem = Layout<kMTiles>(d).total + 1024;   // slack to align the base to 1 KB
-  err = cudaFuncSetAttribute(fused_out_ln_bf16_kernel<kMTiles>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  constexpr int smem = Smem<kBM, BN>::kBytes;
+  err = cudaFuncSetAttribute(out_ln_kernel<kBM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((m + 16 * kMTiles - 1) / (16 * kMTiles));
-  fused_out_ln_bf16_kernel<kMTiles><<<grid, kThreads, smem, stream>>>(
-      wmap, static_cast<const bf16*>(x), static_cast<const float*>(bias),
-      static_cast<const bf16*>(res), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<bf16*>(y), m, d, w_rows, eps);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = d / BN;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(d / BN, ceil_div(m, kBM));
+  cfg.blockDim = dim3(2 * kBM + 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, out_ln_kernel<kBM, BN>, xmap, wmap, rmap, ymap,
+                           static_cast<const float*>(bias), static_cast<const float*>(gamma),
+                           static_cast<const float*>(beta), d, eps);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
+template <int kBM>
+cudaError_t launch_rows(int slab, const void* x, const void* w, const void* bias, const void* res,
+                        const void* gamma, const void* beta, void* y, int m, int d, float eps,
+                        cudaStream_t stream) {
+  switch (slab) {
+    case 192: return launch<kBM, 192>(x, w, bias, res, gamma, beta, y, m, d, eps, stream);
+    case 128: return launch<kBM, 128>(x, w, bias, res, gamma, beta, y, m, d, eps, stream);
+    default: return launch<kBM, 64>(x, w, bias, res, gamma, beta, y, m, d, eps, stream);
+  }
+}
 
 }  // namespace
 
 extern "C" {
 
-// Largest width the kernel takes (D <= warps * columns per warp).
+// Largest width the kernel takes (kMaxCluster slabs of kMaxSlab columns).
 int shgvqa_out_ln_max_d() { return kMaxD; }
+
+// The launch plan of an (m, d) call on sms SMs into plan[0..3]: cluster
+// size, slab width, rows of a row tile, row tiles (the grid is plan[0] x
+// plan[3] CTAs).  Returns 0, or cudaErrorInvalidValue for a d the kernel
+// does not take.
+int shgvqa_out_ln_plan(int m, int d, int sms, int* plan) {
+  const int cs = cluster_of(d);
+  if (m <= 0 || sms <= 0 || cs == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = rows_of(m, cs, sms);
+  plan[0] = cs;
+  plan[1] = d / cs;
+  plan[2] = rows;
+  plan[3] = ceil_div(m, rows);
+  return static_cast<int>(cudaSuccess);
+}
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = launched).
 // Device pointers: x, res, y (m, d) bf16; w (d, d) bf16 in nn.Linear's
 // (out, in) layout; bias, gamma, beta (d) f32; all contiguous and 16-byte
-// aligned.  d is a multiple of 16 and d <= kMaxD.  The row tile is 48 rows
-// when that takes fewer waves of blocks over the SMs than 32 rows, else 32.
+// aligned.  d is one of the widths cluster_of takes (64, 128, 192, 256,
+// 384, 512, 576, 768).
 int shgvqa_out_ln_bf16(const void* x, const void* w, const void* bias, const void* res,
                        const void* gamma, const void* beta, void* y, int m, int d, float eps,
                        void* stream) {
-  if (m < 0 || d <= 0 || d % 16 != 0 || d > kMaxD) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (m < 0 || cluster_of(d) == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaSuccess);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -400,12 +393,13 @@ int shgvqa_out_ln_bf16(const void* x, const void* w, const void* bias, const voi
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
+  int plan[4];
+  shgvqa_out_ln_plan(m, d, sms, plan);
+  if (plan[3] > 65535) return static_cast<int>(cudaErrorInvalidValue);   // grid.y
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ceil_div(ceil_div(m, 48), sms) < ceil_div(ceil_div(m, 32), sms)) {
-    err = launch<3>(x, w, bias, res, gamma, beta, y, m, d, eps, s);
-  } else {
-    err = launch<2>(x, w, bias, res, gamma, beta, y, m, d, eps, s);
-  }
+  err = plan[2] == kGemmBM
+            ? launch_rows<kGemmBM>(plan[1], x, w, bias, res, gamma, beta, y, m, d, eps, s)
+            : launch_rows<kNarrowRows>(plan[1], x, w, bias, res, gamma, beta, y, m, d, eps, s);
   return static_cast<int>(err);
 }
 

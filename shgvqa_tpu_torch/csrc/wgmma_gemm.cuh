@@ -9,7 +9,8 @@
 //     MN-major (stored (K, N), N contiguous: the same weight used as W), so
 //     that no weight needs a transposed copy.
 // Threads: two consumer warpgroups (rows 0-63 and 64-127 of the tile) and
-// one producer warp.  The producer's lane 0 keeps a ring of kStages stages
+// one producer warp (ring_mainloop also takes 64-row tiles: one consumer
+// warpgroup, A in 64 x 64 boxes).  The producer's lane 0 keeps a ring of kStages stages
 // in flight: each stage is a 128 x 64 A tile and a BN x 64 B tile,
 // landed by TMA with the 128-byte swizzle and guarded by a "full" mbarrier
 // (the TMA's bytes) and an "empty" one (an arrival from every consumer
@@ -372,18 +373,21 @@ __device__ __forceinline__ void wgmma_k16_rs(float (&d)[BN / 2], const uint32_t 
   }
 }
 
-// The ring of a block's 128 x BN tile over nk steps of depth 64: every
+// The ring of a block's kBM x BN tile over nk steps of depth 64: every
 // thread of the block calls it.  The producer warp's lane 0 waits for each
 // step's stage to be free, arms its "full" barrier with the stage's bytes
 // and calls issue(a, b, t, bar), which starts the TMA copies of step t: the
-// 128 x 64 A tile at shared address a, the BN x 64 B tile at b (BN / 64
+// kBM x 64 A tile at shared address a, the BN x 64 B tile at b (BN / 64
 // boxes of 8 KB; MN-major when kBMN), completing on bar.  It returns true
 // in the consumer threads, with this thread's part of the tile in acc
 // (layout above), and false in the producer warp, which has nothing more
-// to do.
-template <int BN, bool kBMN, int kStages, typename Issue>
+// to do.  kBM is 128 (two consumer warpgroups, threads 0-255, producer
+// 256-287) or 64 (one, threads 0-127, producer 128-159).
+template <int BN, bool kBMN, int kStages, int kBM = kGemmBM, typename Issue>
 __device__ __forceinline__ bool ring_mainloop(int nk, Issue issue, float (&acc)[BN / 2]) {
-  constexpr uint32_t kABytes = kGemmBM * kGemmBK * 2;
+  static_assert(kBM == 64 || kBM == 128, "a tile is one or two warpgroups of 64 rows");
+  constexpr int kConsumers = 2 * kBM;   // 128 threads a warpgroup of 64 rows
+  constexpr uint32_t kABytes = kBM * kGemmBK * 2;
   constexpr uint32_t kStageBytes = kABytes + BN * kGemmBK * 2;
   constexpr uint32_t kBoxBytes = kGemmBox * kGemmBK * 2;
   extern __shared__ __align__(1024) unsigned char gemm_smem[];
@@ -394,14 +398,14 @@ __device__ __forceinline__ bool ring_mainloop(int nk, Issue issue, float (&acc)[
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kGemmConsumers);
+      mbar_init(empty + 8 * s, kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= kGemmConsumers) {   // the producer warp: lane 0 loads
-    if (threadIdx.x == kGemmConsumers) {
+  if (threadIdx.x >= kConsumers) {   // the producer warp: lane 0 loads
+    if (threadIdx.x == kConsumers) {
       for (int t = 0; t < nk; ++t) {
         const int s = t % kStages;
         mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);   // round 0 passes at once

@@ -48,7 +48,9 @@ Weights come in ``nn.Linear`` layout: ``w1t`` is (F, D), ``w2t`` is (D, F).
 
 The attention-output block ``y = LN(x W^T + b + residual) * gamma + beta``
 replaces ``_make_out_ln`` there (behind the JAX ``fused_out_ln``) with the
-kernel of ``csrc/out_ln.cu``:
+kernel of ``csrc/out_ln.cu``: a cluster of CTAs per row tile, each owning a
+column slab (wgmma + TMA), the LayerNorm's row sums exchanged through
+distributed shared memory.  ``out_ln_plan`` mirrors its launch plan.
 
 - ``out_ln_reference`` is its plain version, with the semantics of the JAX
   ``_out_ln_reference``: the product of the given operands accumulated in
@@ -452,29 +454,83 @@ def out_ln_reference(x2, w, b, res2, gamma, beta, eps: float = 1e-12):
     return (xhat * gamma.float() + beta.float()).to(x2.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _out_ln_lib() -> ctypes.CDLL:
-    """The built ``csrc/out_ln.cu`` with its C signatures declared."""
-    lib = _build.load("out_ln")
+# Mirror of csrc/out_ln.cu's plan (kMaxCluster, kMaxSlab, kMaxD, the row
+# tiles kGemmBM and kNarrowRows)
+OUT_LN_MAX_CLUSTER, OUT_LN_MAX_SLAB = 4, 192
+OUT_LN_MAX_D = OUT_LN_MAX_CLUSTER * OUT_LN_MAX_SLAB
+OUT_LN_ROWS = (128, 64)
+
+
+def out_ln_cluster(d: int) -> Optional[int]:
+    """CTAs of a cluster at width ``d``: the largest c <= 4 that cuts D
+    into slabs of a multiple of 64 columns and at most 192; None where
+    there is none (D not a multiple of 64, above 768, or 320, 448, 640,
+    704)."""
+    if d <= 0 or d % 64 or d > OUT_LN_MAX_D:
+        return None
+    for c in range(OUT_LN_MAX_CLUSTER, 0, -1):
+        if d % (64 * c) == 0 and d // c <= OUT_LN_MAX_SLAB:
+            return c
+    return None
+
+
+def out_ln_plan(m: int, d: int, sms: int):
+    """(cluster, slab, rows, row tiles) of an (M, D) call on ``sms`` SMs:
+    the grid is cluster x row tiles CTAs, one CTA an SM; rows are 128 where
+    the 128-row tiles' CTAs fill at least one wave and 3/4 of their waves,
+    else 64."""
+    c = out_ln_cluster(d)
+    if c is None or m <= 0:
+        raise ValueError(f"out_ln_plan: no plan for M={m}, D={d}")
+    ctas = -(-m // OUT_LN_ROWS[0]) * c
+    waves = -(-ctas // sms)
+    wide = ctas >= sms and 4 * ctas >= 3 * waves * sms
+    rows = OUT_LN_ROWS[0] if wide else OUT_LN_ROWS[1]
+    return c, d // c, rows, -(-m // rows)
+
+
+def declare_out_ln(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/out_ln.cu``, with its C signatures
+    declared and its largest width read once (``max_d``)."""
     lib.shgvqa_out_ln_bf16.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
         + [ctypes.c_float, ctypes.c_void_p])
     lib.shgvqa_out_ln_bf16.restype = ctypes.c_int
     lib.shgvqa_out_ln_max_d.argtypes = []
     lib.shgvqa_out_ln_max_d.restype = ctypes.c_int
+    lib.shgvqa_out_ln_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.shgvqa_out_ln_plan.restype = ctypes.c_int
     lib.shgvqa_out_ln_error_string.argtypes = [ctypes.c_int]
     lib.shgvqa_out_ln_error_string.restype = ctypes.c_char_p
+    lib.max_d = lib.shgvqa_out_ln_max_d()
     return lib
 
 
-def _launch_out_ln(x2, w, b, res2, gamma, beta, eps):
-    """One launch of the CUDA kernel on the current stream."""
+@functools.lru_cache(maxsize=None)
+def _out_ln_lib() -> ctypes.CDLL:
+    """The built ``csrc/out_ln.cu``, declared."""
+    return declare_out_ln(_build.load("out_ln"))
+
+
+def out_ln_kernel_plan(m: int, d: int, sms: int):
+    """The built kernel's own plan of an (M, D) call on ``sms`` SMs, as
+    ``out_ln_plan`` gives it (card builds only: it loads the library)."""
+    plan = (ctypes.c_int * 4)()
+    err = _out_ln_lib().shgvqa_out_ln_plan(m, d, sms, ctypes.addressof(plan))
+    if err:
+        raise ValueError(f"shgvqa_out_ln_plan: no plan for M={m}, D={d}")
+    return tuple(plan)
+
+
+def _launch_out_ln(x2, w, b, res2, gamma, beta, eps, lib=None):
+    """One launch of the CUDA kernel (of ``lib``, a declared build, or of
+    ``csrc/out_ln.cu``) on the current stream."""
     m, d = x2.shape
     what = "fused_out_ln"
-    lib = _out_ln_lib()
-    if d > lib.shgvqa_out_ln_max_d():
+    lib = lib or _out_ln_lib()
+    if d > lib.max_d:
         raise ValueError(f"fused_out_ln: D={d} exceeds the kernel's maximum "
-                         f"{lib.shgvqa_out_ln_max_d()}")
+                         f"{lib.max_d}")
     dev = x2.device
     _check("x", x2, (m, d), torch.bfloat16, dev, what)
     _check("residual", res2, (m, d), torch.bfloat16, dev, what)
@@ -536,8 +592,12 @@ def fused_out_ln(x, weight, bias, residual, gamma, beta, eps: float = 1e-12):
             f"fused_out_ln's kernel takes bfloat16 activations, got "
             f"{x.dtype} (set compute_dtype='bfloat16' or leave the out_ln "
             "kernel off)")
-    if d % 16:
-        raise ValueError(f"fused_out_ln: D={d} must be a multiple of 16")
+    if out_ln_cluster(d) is None:
+        raise ValueError(
+            f"fused_out_ln: D={d} must be a multiple of 64 that splits into "
+            f"at most {OUT_LN_MAX_CLUSTER} slabs of 64, 128 or 192 columns "
+            "(64, 128, 192, 256, 384, 512, 576 or 768); leave "
+            "set_out_ln_kernel off at this width")
     if x.device.type != "cuda":
         raise NotImplementedError(f"fused_out_ln has no kernel for "
                                   f"{x.device}")
