@@ -83,19 +83,37 @@ it exits non-zero before printing any result.
    the FFN, tokenizer and bottleneck kernels, with the FFN and attention
    kernels, and with the FFN, out_ln and head-sliced kernels, in turns;
 6. train main path: ``entry.train_entry()`` -- three flagship train steps
-   at B=32 with the tokenizer and bottleneck switches on -- with the
-   launch counts set to 0 before each step and read after it (38
-   attention forwards, 34 backwards, 0 FFN, 0 tokenizer, 6 bottleneck);
-   finite losses; the trainable parameters move, the trunk and the
-   disconnected LXRT x-layers and pooler stay bit-identical; the eval step
-   at B=2 (18 FFN, 2 tokenizer and 6 bottleneck launches, no attention
-   launch); then, with every dropout rate at 0, the attention kernels
-   against the plain attention and the FFN train kernels against the
-   unfused FFN (loss and gradient norm); the switches off again;
+   at B=32 with the trunk frozen and the tokenizer and bottleneck switches
+   on -- with the launch counts set to 0 before each step and read after
+   it (38 attention forwards, 34 backwards, 0 FFN, 0 tokenizer, 6
+   bottleneck); finite losses; the trainable parameters move, the trunk
+   and the disconnected LXRT x-layers and pooler stay bit-identical; the
+   eval step at B=2 (18 FFN, 2 tokenizer and 6 bottleneck launches, no
+   attention launch); then, with every dropout rate at 0, the attention
+   kernels against the plain attention and the FFN train kernels against
+   the unfused FFN (loss and gradient norm); the switches off again.
+   Then ``entry.train_entry(published=True)``, the published AGQA recipe
+   (the trunk trained, RandAugment on the card): three train steps at B=32
+   with the same switches on (38 attention forwards, 34 backwards, 0 FFN,
+   0 tokenizer, 0 bottleneck: a block whose gradient is required runs its
+   convs); finite losses; the trunk's conv weights and BatchNorm weights
+   and biases move, its BatchNorm statistics and the LXRT x-layers and
+   pooler stay bit-identical; two augmentations from one seed bit-equal;
+   then, at dropout 0 without augmentation, the attention kernels against
+   the plain attention with the trunk trained;
 7. train throughput: clips/s at B=32 with the attention kernels and with
    the plain attention, then with the FFN train kernels and with the
-   unfused FFN (in turns), and the steps' splits;
-8. the driver: ``cli.agqa_hgqa.main`` at the flagship flags with
+   unfused FFN (in turns), and the steps' splits; then the frozen step and
+   the published recipe's step in turns, the published step's split
+   (augment, trunk, rest of the forward, losses, backward with the
+   trunk's share, optimizer), each step's resident and peak device memory
+   (``torch.cuda.max_memory_allocated``) and host syncs, the top kernels
+   of a published step and of the trunk's backward alone, and the
+   tokenizer convs' forward, input gradient and weight gradient alone;
+8. the driver: ``cli.agqa_hgqa.main`` at the published flags (no
+   ``--freezeBackbone``, ``--augmentType rand_aug``; its random trunk's
+   BatchNorm statistics calibrated on a synthetic batch, in place of the
+   pretrained trunk the recipe loads) with
    ``--pallasFFNTrain`` at B=32 on synthetic data under a temporary
    directory: two epochs with the launch counts set to 0 before each train
    step and eval forward and read after it (38 attention forwards, 34
@@ -129,6 +147,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import gc
 import io
 import json
@@ -146,14 +165,17 @@ import torch
 import torch.nn.functional as F
 
 from shgvqa_tpu_torch import entry
-from shgvqa_tpu_torch.cli import agqa_hgqa
+from shgvqa_tpu_torch.cli import agqa_hgqa, common
+from shgvqa_tpu_torch import breakdown
 from shgvqa_tpu_torch.bench import (
     BATCH_SIZE,
     card_name_and_power_limit,
     clips_per_second,
+    count_host_syncs,
     time_ms,
     time_spread,
     train_clips_per_second,
+    train_memory_gib,
     train_split_ms,
 )
 from shgvqa_tpu_torch.configs.config import tiny_test_config
@@ -190,7 +212,12 @@ from shgvqa_tpu_torch.kernels.tok_conv import (
     tile_plan as tok_conv_plan,
     tok_conv_reference,
 )
-from shgvqa_tpu_torch.models.backbone import Bottleneck3D, set_block_kernel
+from shgvqa_tpu_torch.models.backbone import (
+    Bottleneck3D,
+    FrozenBatchNorm,
+    calibrate_frozen_bn,
+    set_block_kernel,
+)
 from shgvqa_tpu_torch.models.layers import (
     FFN,
     Dropout,
@@ -271,13 +298,13 @@ BLOCK_SITES = (("res_2 block_0", 56, 64, 64, 256, True, 1),
                ("res_3 blocks 1-3", 28, 512, 128, 512, False, 3))
 # max |kernel - plain| <= tol * max |plain| (bf16; the prototypes' own check)
 TOK_BLOCK_TOL = 2e-2
-# the flagship's published flags (README.md, agqa_hgqa) with the FFN train
-# kernels; the port raises without --LossHGPerFrame (the global matcher,
-# ROADMAP item 8) and --freezeBackbone (training the trunk, item 11)
+# the flagship's published flags (README.md, agqa_hgqa: the trunk trained,
+# RandAugment) with the FFN train kernels
 DRIVER_FLAGS = ["--taskHGQA", "--noCaps", "--crossAttnType", "cross",
                 "--llayers", "5", "--xlayers", "2", "--rlayers", "5",
                 "--dlayers", "5", "--backbone", "slow_r50", "--fromScratch",
-                "--LossHGPerFrame", "--freezeBackbone", "--pallasFFNTrain"]
+                "--LossHGPerFrame", "--augmentType", "rand_aug",
+                "--pallasFFNTrain"]
 
 
 def log(msg: str) -> None:
@@ -1513,7 +1540,6 @@ def phase_train_main_path():
     set_tok_kernel(model, True)
     set_block_kernel(model, True)
     step = make_train_step(cfg, model, optimizer)
-    trainable = {id(p) for p in optimizer.params}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     step_counts = []
     for i in range(3):
@@ -1530,34 +1556,10 @@ def phase_train_main_path():
         raise AssertionError(f"train step launches {step_counts}, expected "
                              "38 attention forward, 34 backward, 0 FFN, 0 "
                              "tokenizer, 6 bottleneck")
-    # A trainable tensor must move unless its last update is below f32
-    # resolution everywhere: with random weights the gradients' global norm
-    # is ~5e6, so the clip scales them by ~1e-6 and, with Adam's eps, the
-    # early updates of small-gradient tensors (lr_t ~1e-6) vanish in f32.
-    moved, frozen, tiny = 0, 0, []
-    lr_t = optimizer.lr_at(optimizer.step_count - 1)
-    state = {id(p): (m, v) for p, m, v in zip(
-        optimizer.params, optimizer.m, optimizer.v)}
-    for name, p in model.named_parameters():
-        same = torch.equal(p.detach(), before[name])
-        if id(p) not in trainable:
-            if not same:
-                raise AssertionError(f"frozen or disconnected parameter "
-                                     f"{name} changed")
-            frozen += 1
-            continue
-        if not same:
-            moved += 1
-            continue
-        m, v = state[id(p)]
-        update = lr_t * (m / (v.sqrt() + optimizer.eps)
-                         + optimizer.weight_decay * p.detach())
-        if (update.abs() > 0.5 * torch.finfo(torch.float32).eps
-                * p.detach().abs()).any():
-            raise AssertionError(f"trainable parameter {name} did not move")
-        tiny.append(name)
-    log(f"train main path: {moved} trainable tensors moved, {len(tiny)} "
-        f"with updates below f32 resolution {tiny}; {frozen} frozen (trunk) "
+    moved, tiny, frozen = moved_or_tiny(model, optimizer, before)
+    log(f"train main path: {len(moved)} trainable tensors moved, "
+        f"{len(tiny)} with updates below f32 resolution {tiny}; "
+        f"{len(frozen)} frozen (trunk) "
         "or disconnected (LXRT x-layers, pooler) tensors bit-identical")
     del before
 
@@ -1608,6 +1610,182 @@ def phase_train_main_path():
                                  f"differ: loss rel {rel_loss}, grad norm "
                                  f"rel {rel_grad}")
     return model, optimizer, generator, batch, step_counts[-1]
+
+
+def moved_or_tiny(model, optimizer, before):
+    """(moved, tiny, frozen) parameter names after training from
+    ``before``: a trainable tensor must move unless its last update is
+    below f32 resolution everywhere (with random weights the gradients'
+    global norm is ~5e6, so the clip scales them by ~1e-6 and, with Adam's
+    eps, the early updates of small-gradient tensors vanish in f32); a
+    tensor outside the optimizer must not change."""
+    trainable = {id(p) for p in optimizer.params}
+    lr_t = optimizer.lr_at(optimizer.step_count - 1)
+    state = {id(p): (m, v) for p, m, v in zip(
+        optimizer.params, optimizer.m, optimizer.v)}
+    moved, tiny, frozen = [], [], []
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        if id(p) not in trainable:
+            if not same:
+                raise AssertionError(f"frozen or disconnected parameter "
+                                     f"{name} changed")
+            frozen.append(name)
+            continue
+        if not same:
+            moved.append(name)
+            continue
+        m, v = state[id(p)]
+        update = lr_t * (m / (v.sqrt() + optimizer.eps)
+                         + optimizer.weight_decay * p.detach())
+        if (update.abs() > 0.5 * torch.finfo(torch.float32).eps
+                * p.detach().abs()).any():
+            raise AssertionError(f"trainable parameter {name} did not move")
+        tiny.append(name)
+    return moved, tiny, frozen
+
+
+def phase_train_published():
+    """entry.train_entry(published=True) at B=32, the published AGQA recipe
+    (the trunk trained in the graph, RandAugment on the card), with the
+    tokenizer and bottleneck switches on: three train steps with every
+    launch count set to 0 just before each and read just after (no
+    bottleneck launch: every block's gradient is required); the trunk's
+    conv weights and BatchNorm weights and biases move, its BatchNorm
+    statistics and the LXRT x-layers and pooler stay bit-identical; two
+    augmentations from one seed bit-equal; then, at dropout 0 without
+    augmentation, the attention kernels against the plain attention.
+    Returns with the switches off."""
+    t0 = time.perf_counter()
+    model, optimizer, generator, batch = entry.train_entry(published=True)
+    cfg = model.cfg
+    log(f"published recipe: model and optimizer built in "
+        f"{time.perf_counter() - t0:.1f} s (freeze_backbone "
+        f"{cfg.freeze_backbone}, augment_type {cfg.data.augment_type})")
+    set_tok_kernel(model, True)
+    set_block_kernel(model, True)
+    step = make_train_step(cfg, model, optimizer)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    step_counts = []
+    for i in range(3):
+        reset_counts()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        step_counts.append(counts())
+        values = {k: v.item() for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"published step {i}: non-finite {values}")
+        log(f"published step {i}: launches ({COUNT_NAMES}) "
+            f"{step_counts[-1]}; {json.dumps(values)}")
+    if any(c != (38, 34, 0, 0, 0, 0, 0, 0, 0) for c in step_counts):
+        raise AssertionError(f"published step launches {step_counts}, "
+                             "expected 38 attention forward, 34 backward, 0 "
+                             "FFN, 0 tokenizer, 0 bottleneck")
+    moved, tiny, frozen = moved_or_tiny(model, optimizer, before)
+    trunk = [n for n, _ in model.named_parameters()
+             if n.startswith("backbone.")]
+    bn = {f"backbone.{n}.{k}" for n, m in model.backbone.named_modules()
+          if isinstance(m, FrozenBatchNorm) for k in ("weight", "bias")}
+    trunk_moved = {"conv": sum(n in moved for n in trunk if n not in bn),
+                   "bn": sum(n in moved for n in bn)}
+    if any(n in frozen for n in trunk) or not all(trunk_moved.values()):
+        raise AssertionError(f"the trained trunk: {trunk_moved} tensors "
+                             f"moved of {len(trunk)}")
+    for name, value in model.named_buffers():
+        if name in stats and not torch.equal(value, stats[name]):
+            raise AssertionError(f"BatchNorm statistic {name} changed")
+    log(f"published recipe: {len(moved)} trainable tensors moved (trunk: "
+        f"{trunk_moved['conv']} conv weights, {trunk_moved['bn']} BatchNorm "
+        f"weights and biases of {len(trunk)}), {len(tiny)} with updates "
+        f"below f32 resolution {tiny}; {len(frozen)} disconnected (LXRT "
+        f"x-layers, pooler) tensors and {len(stats)} BatchNorm statistics "
+        "bit-identical")
+    del before
+
+    augmented = [model.normalize_frames(
+        batch["frames"], torch.Generator(device="cuda").manual_seed(7))
+        for _ in range(2)]
+    model.eval()
+    plain = model.normalize_frames(batch["frames"])
+    model.train()
+    if not torch.equal(augmented[0], augmented[1]):
+        raise AssertionError("two augmentations from one seed differ")
+    if torch.equal(augmented[0], plain):
+        raise AssertionError("the augmentation left the frames alone")
+    log(f"published recipe: two RandAugment calls from one seed bit-equal "
+        f"({tuple(plain.shape)} {plain.dtype}); "
+        f"{(augmented[0] != plain).float().mean().item():.3f} of the "
+        "values changed")
+    del augmented, plain
+
+    # kernel vs plain attention with every dropout rate 0, no augmentation
+    rates = {m: m.rate for m in model.modules() if isinstance(m, Dropout)}
+    set_dropout_rate(model, 0.0)
+    published_cfg = model.cfg
+    model.cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                     augment_type="no_aug"))
+    results = {}
+    for name, attn in (("kernel", True), ("plain", False)):
+        set_attention_kernel(model, attn)
+        optimizer.zero_grad()
+        loss, _ = compute_losses(cfg, model(batch, generator), batch)
+        loss.backward()
+        results[name] = (loss.item(), grad_norm(optimizer.params))
+    optimizer.zero_grad()
+    model.cfg = published_cfg
+    set_attention_kernel(model, True)
+    set_tok_kernel(model, False)
+    set_block_kernel(model, False)
+    for m, rate in rates.items():
+        m.rate = rate
+    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+    rel_loss, rel_grad = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    log(f"published recipe, kernel vs plain attention (dropout 0, no_aug, "
+        f"trunk trained, b{BATCH_SIZE}): loss {lk:.6f} vs {lp:.6f} (rel "
+        f"{rel_loss:.2e}), grad norm {gk:.6f} vs {gp:.6f} (rel "
+        f"{rel_grad:.2e})")
+    if rel_loss > TRAIN_TOL or rel_grad > TRAIN_TOL:
+        raise AssertionError(f"kernel and plain attention differ with the "
+                             f"trunk trained: loss rel {rel_loss}, grad norm "
+                             f"rel {rel_grad}")
+    return model, optimizer, generator, batch, step_counts[-1]
+
+
+def phase_train_published_throughput(frozen, published):
+    """The frozen step and the published recipe's step at B=32 in turns
+    (clips/s), the published step's split, each step's resident and peak
+    device memory and host syncs, the top kernels of a published step and
+    of the trunk's backward alone, and the tokenizer convs' forward, input
+    gradient and weight gradient alone.  ``frozen`` and ``published`` are
+    (model, optimizer, generator, batch)."""
+    steps = {name: (make_train_step(m.cfg, m, o), b, g)
+             for name, (m, o, g, b) in (("frozen", frozen),
+                                         ("published", published))}
+    runs = {"frozen": [], "published": []}
+    for name in ("frozen", "published", "published", "frozen"):
+        step, b, g = steps[name]
+        runs[name].append(train_clips_per_second(step, b, g))
+    model, optimizer, generator, batch = published
+    split = train_split_ms(model, optimizer, batch, generator)
+    memory = {name: train_memory_gib(*steps[name]) for name in steps}
+    syncs = {name: count_host_syncs(lambda s=steps[name]: s[0](s[1], s[2]))
+             for name in steps}
+    step, b, g = steps["published"]
+    top, busy = breakdown.top_kernels(lambda: step(b, g), top=15)
+    log(f"train throughput b{BATCH_SIZE} clips/s, frozen step vs the "
+        f"published recipe (trunk trained, rand_aug): {json.dumps(runs)}; "
+        f"published step split ms {json.dumps(split)}; device memory GiB "
+        f"{json.dumps(memory)}; host syncs a step {json.dumps(syncs)}")
+    log(f"published step: device busy {busy:.2f} ms; top kernels "
+        f"{json.dumps(top)}")
+    log(f"trunk backward alone (b{BATCH_SIZE}): "
+        f"{json.dumps(breakdown.trunk_backward(model, batch['frames']))}")
+    log(f"tokenizer convs alone (b{BATCH_SIZE}): "
+        f"{json.dumps(breakdown.tok_conv_grads(model, batch['frames']))}")
+    return {f"{k} (trunk {'trained, rand_aug' if k == 'published' else 'frozen'})":
+            sum(v) / len(v) for k, v in runs.items()}, memory
 
 
 def phase_train_throughput(model, optimizer, generator, batch):
@@ -1690,18 +1868,39 @@ def run_main(argv):
     return result, out.getvalue(), time.perf_counter() - t0
 
 
+def calibrated_build_model(cfg, device="cuda", seed: int = 0):
+    """``entry.build_model`` with the random trunk's BatchNorm statistics
+    calibrated on a synthetic batch (``calibrate_frozen_bn``, as
+    ``entry.train_entry`` does).  It stands in for the pretrained slow_r50
+    that the published recipe loads (importing weights is ROADMAP queue A
+    item 1): with the random init's identity statistics the trunk's
+    features reach ~1e4, the gradients ~1e28, their global norm overflows
+    f32, and the trained trunk's first updates turn the losses to NaN."""
+    model = entry.build_model(cfg, device, seed)
+    frames = entry.device_batch(cfg, BATCH_SIZE, seed, device)["frames"]
+    calibrate_frozen_bn(model.backbone, model.normalize_frames(frames))
+    return model
+
+
 def phase_driver(tmp: str):
-    """The agqa_hgqa driver at the flagship flags with --pallasFFNTrain at
-    B=32 on synthetic data: two epochs (launch counts per train step and
-    per eval forward, finite losses, checkpoints, LAST reloaded bit-equal),
-    then the test protocol from --load LAST (oracle 1.0, predict files)."""
+    """The agqa_hgqa driver at the published flags with --pallasFFNTrain at
+    B=32 on synthetic data (its random trunk's BatchNorm statistics
+    calibrated: ``calibrated_build_model``): two epochs (launch counts per
+    train step and per eval forward, finite losses, checkpoints, LAST
+    reloaded bit-equal), then the test protocol from --load LAST (oracle
+    1.0, predict files)."""
     out = os.path.join(tmp, "train")
     argv = DRIVER_FLAGS + ["--syntheticData", "64", "--syntheticValid", "32",
                            "--batchSize", str(BATCH_SIZE), "--epochs", "2",
                            "--logFreq", "1", "--output", out, "--dataDir",
                            tmp]
-    with _Counted() as counted:
-        result, stdout, seconds = run_main(argv)
+    build = common.build_model
+    common.build_model = calibrated_build_model
+    try:
+        with _Counted() as counted:
+            result, stdout, seconds = run_main(argv)
+    finally:
+        common.build_model = build
     want_train = (38, 34, 0, 18, 14, 0, 0, 0, 0)
     want_eval = (0, 0, 18, 0, 0, 0, 0, 0, 0)
     if len(counted.train) != 4 or any(c != want_train for c in counted.train):
@@ -1913,11 +2112,16 @@ def main(argv=None) -> int:
     olhs_launches = main_launches["FFN + out_ln + headsliced"]
     cps = phase_throughput(model)
     del model
-    train_model, optimizer, generator, batch, train_launches = (
-        phase_train_main_path())
+    train_model, optimizer, generator, batch, _ = phase_train_main_path()
+    published = phase_train_published()
+    train_launches = published[4]
     train_cps = phase_train_throughput(train_model, optimizer, generator,
                                        batch)
-    del train_model, optimizer, batch
+    published_cps, train_memory = phase_train_published_throughput(
+        (train_model, optimizer, generator, batch), published[:4])
+    train_cps.update(published_cps)
+    del train_model, optimizer, batch, published
+    gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         driver_counts, epoch_s = phase_driver(tmp)
@@ -2032,8 +2236,8 @@ def main(argv=None) -> int:
             for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
                       "transpose_ms", "library_ms", "bound_ms")
             for b in (bsz, 2)))
-    log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; driver epochs "
-        f"{epoch_s} s")
+    log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; train step device "
+        f"memory GiB {json.dumps(train_memory)}; driver epochs {epoch_s} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

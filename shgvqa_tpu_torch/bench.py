@@ -9,12 +9,17 @@ seeds) are staged on the card once, two forwards warm it up, then ten
 forwards are enqueued and timed on the host clock up to
 ``torch.cuda.synchronize()``.
 
-Train protocol (``--train``): ``entry.train_entry()`` at B=32 (dropout on,
-the fused attention kernels at every training attention site); two steps
-warm up, then five steps are timed on the host clock up to
-``torch.cuda.synchronize()``.  ``split_ms`` is the device time of each part
-of a step (CUDA events around the same calls ``train.step`` makes; the
-trunk by hooks on it), mean over five more steps.
+Train protocol (``--train``): ``entry.train_entry(published=True)`` at
+B=32, the published AGQA recipe (the trunk trained, RandAugment on the
+device; dropout on, the fused attention kernels at every training
+attention site), or with ``--frozen-trunk`` the frozen trunk without
+augmentation; two steps warm up, then five steps are timed on the host
+clock up to ``torch.cuda.synchronize()``.  ``split_ms`` is the device time
+of each part of a step (``train_split_ms``), mean over five more steps;
+``peak_gib`` the most device memory allocated during a step
+(``torch.cuda.max_memory_allocated``), ``resident_gib`` what was allocated
+before it (weights, optimizer state, batch); ``host_syncs`` the
+synchronizing calls a step makes (``count_host_syncs``).
 
 The line carries the card's name and power limit.  It needs a CUDA card:
 with none it raises.
@@ -23,13 +28,18 @@ with none it raises.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import statistics
 import subprocess
 import time
+import warnings
 from typing import Callable, Dict, List, Tuple
 
 import torch
+
+from shgvqa_tpu_torch.models import shgvqa as shgvqa_model
 
 from shgvqa_tpu_torch.entry import (
     build_model,
@@ -107,23 +117,43 @@ def train_clips_per_second(step: Callable, batch: Dict[str, torch.Tensor],
 def train_split_ms(model, optimizer, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator, iters: int = 5
                    ) -> Dict[str, float]:
-    """Device ms of each part of a train step: the frozen trunk, the rest of
-    the forward, the losses (matching included), the backward and the
-    optimizer update; mean over ``iters`` steps."""
+    """Device ms of each part of a train step, mean over ``iters`` steps,
+    from CUDA events around the calls ``train.step`` makes: the frames'
+    augmentation (0 without one), the trunk's forward, the rest of the
+    forward, the losses (matching included), the backward and within it
+    the trunk's share (from the gradient of the trunk's output to the end
+    of the backward: the trunk's own backward, 0 for a frozen trunk), and
+    the optimizer update."""
     cfg = model.cfg
-    names = ("start", "trunk_in", "trunk_out", "forward", "losses",
-             "backward", "optimizer")
+    names = ("start", "aug_in", "aug_out", "trunk_in", "trunk_out",
+             "forward", "losses", "trunk_bwd", "backward", "optimizer")
     marks = [{n: torch.cuda.Event(enable_timing=True) for n in names}
              for _ in range(iters)]
     cur = {}
+    augment = shgvqa_model.augment_clips
+
+    def timed_augment(*args, **kw):
+        cur["m"]["aug_in"].record()
+        cur["seen"].add("aug")
+        out = augment(*args, **kw)
+        cur["m"]["aug_out"].record()
+        return out
+
+    def trunk_out(_mod, _args, out):
+        cur["m"]["trunk_out"].record()
+        if out.requires_grad:
+            cur["seen"].add("trunk_bwd")
+            out.register_hook(lambda g: cur["m"]["trunk_bwd"].record())
+
     hooks = [model.backbone.register_forward_pre_hook(
                  lambda *_: cur["m"]["trunk_in"].record()),
-             model.backbone.register_forward_hook(
-                 lambda *_: cur["m"]["trunk_out"].record())]
+             model.backbone.register_forward_hook(trunk_out)]
+    shgvqa_model.augment_clips = timed_augment
+    seen = []
     try:
         model.train()
         for m in marks:
-            cur["m"] = m
+            cur["m"], cur["seen"] = m, set()
             m["start"].record()
             outputs = model(batch, generator)
             m["forward"].record()
@@ -134,38 +164,85 @@ def train_split_ms(model, optimizer, batch: Dict[str, torch.Tensor],
             m["backward"].record()
             optimizer.step()
             m["optimizer"].record()
+            seen.append(cur["seen"])
         torch.cuda.synchronize()
     finally:
+        shgvqa_model.augment_clips = augment
         for h in hooks:
             h.remove()
 
-    def ms(start, end):
-        return sum(m[start].elapsed_time(m[end]) for m in marks) / iters
+    def ms(start, end, part=None):
+        return sum(m[start].elapsed_time(m[end])
+                   for m, s in zip(marks, seen)
+                   if part is None or part in s) / iters
 
-    trunk = ms("trunk_in", "trunk_out")
-    return {"trunk": trunk, "forward (rest)": ms("start", "forward") - trunk,
+    aug, trunk = ms("aug_in", "aug_out", "aug"), ms("trunk_in", "trunk_out")
+    return {"augment": aug, "trunk": trunk,
+            "forward (rest)": ms("start", "forward") - trunk - aug,
             "losses": ms("forward", "losses"),
             "backward": ms("losses", "backward"),
+            "backward: trunk": ms("trunk_bwd", "backward", "trunk_bwd"),
             "optimizer": ms("backward", "optimizer"),
             "step": ms("start", "optimizer")}
+
+
+def train_memory_gib(step: Callable, batch: Dict[str, torch.Tensor],
+                     generator: torch.Generator) -> Dict[str, float]:
+    """The device memory allocated before one train step (``resident``)
+    and the most allocated during it (``peak``), in GiB."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(batch, generator)
+    torch.cuda.synchronize()
+    return {"resident_gib": resident / 2 ** 30,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def count_host_syncs(fn: Callable) -> Dict[str, object]:
+    """The synchronizing CUDA calls ``fn()`` makes (a copy to the host, a
+    blocking copy from pageable memory, a stream synchronize), as
+    ``torch.cuda.set_sync_debug_mode`` reports them: their ``count`` and
+    the Python lines that made them (``sites``, file:line -> calls)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return {"count": sum(sites.values()), "sites": dict(sites)}
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="clips/s on one card")
     parser.add_argument("--train", action="store_true",
                         help="time the flagship train step instead")
+    parser.add_argument("--frozen-trunk", action="store_true",
+                        help="with --train: the frozen trunk and no "
+                             "augmentation instead of the published recipe")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     if args.train:
-        model, optimizer, generator, batch = train_entry(dev, BATCH_SIZE)
+        published = not args.frozen_trunk
+        model, optimizer, generator, batch = train_entry(
+            dev, BATCH_SIZE, published=published)
         step = make_train_step(model.cfg, model, optimizer)
         cps = train_clips_per_second(step, batch, generator)
+        recipe = ("trained trunk, rand_aug (the published recipe)"
+                  if published else "frozen trunk, no_aug")
         line = {
             "metric": f"clips/s (train step: uint8 frames->losses->BertAdam, "
-                      f"HGQA b{BATCH_SIZE}, bf16, frozen trunk, fused "
+                      f"HGQA b{BATCH_SIZE}, bf16, {recipe}, fused "
                       "attention kernels)",
             "value": cps, "unit": "clips/s",
-            "split_ms": train_split_ms(model, optimizer, batch, generator)}
+            "split_ms": train_split_ms(model, optimizer, batch, generator),
+            "host_syncs": count_host_syncs(lambda: step(batch, generator)),
+            **train_memory_gib(step, batch, generator)}
     else:
         cfg = flagship_cfg()
         model = build_model(cfg, dev)

@@ -12,10 +12,16 @@ runs every attention site through the fused attention forward
 (``use_pallas_attention``, ``--pallasAttention``); ``--out-ln-headsliced``
 runs every AttOutput through ``fused_out_ln`` and every attention site
 through the head-sliced kernel (``set_out_ln_kernel``,
-``set_headsliced_kernel``).  ``--train`` prints
-the train step's time (host clock, after two warm-up steps), its split
-(``bench.train_split_ms``), the device kernels with the most time in one
-profiled step and the device busy share.
+``set_headsliced_kernel``).  ``--train`` prints, for the published AGQA
+recipe (the trunk trained, RandAugment on the device; ``--frozen-trunk``:
+the frozen trunk without augmentation), the train step's time (host
+clock, after two warm-up steps), its split (``bench.train_split_ms``:
+augment, trunk, rest of the forward, losses, backward with the trunk's
+share, optimizer), the device kernels with the most time in one profiled
+step and the device busy share, the kernels of the trunk's backward alone
+(``trunk_backward``), and the tokenizer convs' forward, input gradient and
+weight gradient alone (``tok_conv_grads``: device ms and top kernels
+each).
 
 Without ``--train``, the line has:
 
@@ -40,12 +46,14 @@ import time
 from collections import defaultdict
 
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from shgvqa_tpu_torch.bench import (
     BATCH_SIZE,
     card_name_and_power_limit,
+    time_ms,
     train_split_ms,
 )
 from shgvqa_tpu_torch.entry import (
@@ -136,8 +144,82 @@ def top_kernels(run, top: int = 25):
             for k, ms, n in rows[:top]], busy
 
 
-def train_breakdown() -> dict:
-    model, optimizer, generator, batch = train_entry(batch_size=BATCH_SIZE)
+def trunk_backward(model, frames, top: int = 12) -> dict:
+    """The device kernels of the trunk's backward alone (a forward of the
+    unaugmented frames, then the gradient of the sum of its features), and
+    their summed device time."""
+    training = model.training
+    model.eval()
+    try:
+        out = model.backbone(model.normalize_frames(frames))
+        torch.cuda.synchronize()
+        kernels, busy = top_kernels(lambda: out.float().sum().backward(), top)
+    finally:
+        model.train(training)
+        for p in model.backbone.parameters():
+            p.grad = None
+    return {"device_ms": busy, "top_kernels": kernels}
+
+
+def conv_grads(conv, x: torch.Tensor, iters: int = 10) -> dict:
+    """A ``Conv3d`` module's forward, input gradient and weight gradient on
+    ``x`` (NCDHW), each alone as autograd calls it
+    (``aten.convolution_backward`` with one output): device ms by CUDA
+    events (mean of ``iters`` calls) and its top device kernels."""
+    dt = conv.dtype
+    x, w = x.to(dt), conv.weight.detach().to(dt)
+    bias = None if conv.bias is None else conv.bias.detach().to(dt)
+    args = (list(conv.stride), list(conv.padding))
+    with torch.no_grad():
+        dy = torch.randn_like(F.conv3d(x, w, bias, *args))
+
+    def grad(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            dy, x, w, None if bias is None else [bias.shape[0]], *args,
+            [1, 1, 1], False, [0, 0, 0], 1, mask)
+
+    parts = {"forward": lambda: F.conv3d(x, w, bias, *args),
+             "input gradient": grad([True, False, False]),
+             "weight gradient": grad([False, True, False])}
+    out = {}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            ms = time_ms(fn, iters=iters, warmup=2)
+            # a profiling session can lose kernels: take one whose top
+            # kernels hold most of the two calls' time
+            for _ in range(3):
+                kernels, busy = top_kernels(lambda: (fn(), fn()), top=3)
+                if busy > ms:
+                    break
+            out[name] = {"ms": ms, "top_kernels": kernels}
+    return out
+
+
+def tok_conv_grads(model, frames) -> dict:
+    """``conv_grads`` of the tokenizer's two convs on the inputs one
+    eval forward of ``frames`` gives them."""
+    tok = model.head.lxrt.encoder.visual_tokenizer
+    inputs = {}
+    hooks = [conv.register_forward_pre_hook(
+                 lambda mod, args, name=name: inputs.setdefault(
+                     name, args[0].detach()))
+             for name, conv in (("conv1", tok.conv1), ("conv2", tok.conv2))]
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            tok(model.encode_frames(frames))
+    finally:
+        model.train(training)
+        for h in hooks:
+            h.remove()
+    return {name: dict(conv_grads(getattr(tok, name), x),
+                       shape=list(x.shape)) for name, x in inputs.items()}
+
+
+def train_breakdown(published: bool = True) -> dict:
+    model, optimizer, generator, batch = train_entry(
+        batch_size=BATCH_SIZE, published=published)
     step = make_train_step(model.cfg, model, optimizer)
     for _ in range(2):
         step(batch, generator)
@@ -147,10 +229,15 @@ def train_breakdown() -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
     kernels, busy_ms = top_kernels(lambda: step(batch, generator))
-    return {"batch_size": BATCH_SIZE, "mode": "train", "step_ms": step_ms,
+    return {"batch_size": BATCH_SIZE, "mode": "train",
+            "recipe": "published" if published else "frozen trunk",
+            "step_ms": step_ms,
             "split_ms": train_split_ms(model, optimizer, batch, generator),
             "device_busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
-            "top_kernels": kernels, "card": card_name_and_power_limit()}
+            "top_kernels": kernels,
+            "trunk_backward": trunk_backward(model, batch["frames"]),
+            "tok_conv_grads": tok_conv_grads(model, batch["frames"]),
+            "card": card_name_and_power_limit()}
 
 
 def main(argv=None) -> None:
@@ -167,10 +254,13 @@ def main(argv=None) -> None:
                       help="also run the out_ln and head-sliced attention "
                            "kernels")
     mode.add_argument("--train", action="store_true",
-                      help="break down one train step instead")
+                      help="break down one train step of the published "
+                           "recipe instead")
+    ap.add_argument("--frozen-trunk", action="store_true",
+                    help="with --train: the frozen trunk and no augmentation")
     args = ap.parse_args(argv)
     if args.train:
-        print(json.dumps(train_breakdown()))
+        print(json.dumps(train_breakdown(not args.frozen_trunk)))
         return
     cfg = flagship_cfg().replace(use_pallas_ffn=not args.plain_ffn,
                                  use_pallas_attention=args.attention)

@@ -93,10 +93,15 @@ class DataConfig:
     max_seq_length: int = 40
     image_size: int = 224
 
+    # training only: no_aug / no_aug_slowfast leave the frames alone,
+    # rand_aug / rand_aug_slowfast run RandAugment, aug_mix AugMix
+    # (data/transforms.py)
     augment_type: str = "no_aug"
     # dtype of the frames pipeline; "" follows compute_dtype
     aug_dtype: str = ""
+    # run each heavy op class on the clips that drew it
     aug_subbatch: bool = True
+    # aug_mix: the chains as one (width * B) batch
     aug_fold_chains: bool = True
     qa_arrange_type: str = "add_sep_all"
     qtype: str = "Feasibility"
@@ -288,11 +293,9 @@ _UNPORTED = (
 
 # options only training reads
 _TRAIN_UNPORTED = (
-    ("data.augment_type", "no_aug", "12 (augmentation)"),
     ("loss_hg_per_frame", True, "8 (the global matcher mode)"),
     ("optim.optim", "bert", "10 (the rms/adam/adamax/sgd optimizers)"),
     ("steps_per_loop", 1, "10 (--stepsPerLoop)"),
-    ("freeze_backbone", True, "11 (training the trunk)"),
     ("freeze_weights", False, "15 (--freezeWeights)"),
     ("mce_loss", False, "15 (--mceLoss)"),
 )

@@ -9,8 +9,11 @@ it runs the frames path of ``bench.py``: uint8 frames through on-device
 normalization, the trunk and the head.  ``train_entry`` returns what the
 flagship train step needs: the model in training mode, its optimizer
 (global-norm clip + BertAdam over the trainable parameters), a generator
-for the dropout masks and a labelled batch (the labels of
-``__graft_entry__._example_batch(with_labels=True)``).
+for the augmentation and the dropout masks and a labelled batch (the
+labels of ``__graft_entry__._example_batch(with_labels=True)``); the
+trunk frozen and no augmentation (the config's defaults), or with
+``published=True`` the published AGQA recipe's trunk and augmentation
+(``published_train_cfg``).
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a CUDA device it raises.
@@ -18,6 +21,7 @@ Every entry point runs on the card unless the caller passes
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -78,6 +82,15 @@ def example_batch(cfg: Config, batch_size: int = 2, seed: int = 0,
     return batch
 
 
+def published_train_cfg() -> Config:
+    """The flagship as the published AGQA recipe trains it
+    (``README.md``: no ``--freezeBackbone``, ``--augmentType rand_aug``):
+    the trunk trains, and RandAugment runs on the device."""
+    cfg = flagship_cfg()
+    return cfg.replace(freeze_backbone=False, data=dataclasses.replace(
+        cfg.data, augment_type="rand_aug"))
+
+
 def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -136,22 +149,26 @@ class TrainEntry(NamedTuple):
     batch: Dict[str, torch.Tensor]
 
 
-def train_entry(device="cuda", batch_size: int = 32, seed: int = 0
-                ) -> TrainEntry:
+def train_entry(device="cuda", batch_size: int = 32, seed: int = 0,
+                published: bool = False) -> TrainEntry:
     """The flagship train step's pieces at the published batch (32): the
-    model with random weights from ``seed`` in training mode (the frozen
-    trunk's BatchNorm statistics calibrated on the batch, as a pretrained
-    trunk's normalize its activations: ``calibrate_frozen_bn``), its optimizer
-    (the config's BertAdam over ``TRAIN_T_TOTAL`` steps, so the first
-    update has lr 0), a generator seeded with ``seed`` on ``device``
-    for the dropout masks, and a labelled batch with uint8 frames.  Run a
-    step with ``train.step.make_train_step(model.cfg, model, optimizer)``."""
-    cfg = flagship_cfg()
-    model = build_model(cfg, device, seed).train()
+    model with random weights from ``seed`` in training mode (the trunk's
+    BatchNorm statistics calibrated on the batch's unaugmented frames, as a
+    pretrained trunk's normalize its activations: ``calibrate_frozen_bn``;
+    training leaves them alone), its optimizer (the config's BertAdam over
+    ``TRAIN_T_TOTAL`` steps, so the first update has lr 0), a generator
+    seeded with ``seed`` on ``device`` for the augmentation and the dropout
+    masks, and a labelled batch with uint8 frames.  The trunk is frozen and
+    the frames unaugmented, or with ``published`` as the published recipe
+    trains (``published_train_cfg``).  Run a step with
+    ``train.step.make_train_step(model.cfg, model, optimizer)``."""
+    cfg = published_train_cfg() if published else flagship_cfg()
+    model = build_model(cfg, device, seed)
     dev = resolve_device(device)
     batch = device_batch(cfg, batch_size, seed, dev, with_labels=True)
     calibrate_frozen_bn(model.backbone,
                         model.normalize_frames(batch["frames"]))
+    model.train()
     o = cfg.optim
     optimizer = make_optimizer(
         model, o.lr, TRAIN_T_TOTAL, o.warmup, o.schedule, o.b1, o.b2, o.eps,

@@ -17,8 +17,8 @@ one-row halo, since a whole frame does not fit in shared memory.
   cast as ``FrozenBatchNorm`` does), ReLU; the residual sum in x's dtype.
 - ``fused_bottleneck`` runs the plain version for a tensor on the CPU and
   the kernel for a CUDA tensor; on the card it launches the kernel or
-  raises.  It is forward only (the trunk is frozen) and raises when a
-  gradient is required.  ``fused_bottleneck.launches`` counts the kernel's
+  raises.  It is forward only, as ``_make_block`` is, and raises when a
+  gradient is required (``Bottleneck3D`` then runs its convs).  ``fused_bottleneck.launches`` counts the kernel's
   launches.
 
 Weights come in the port's conv layouts with the unit kernel dimensions
@@ -102,9 +102,8 @@ def _check(x, wa, wb, wc, proj, vectors):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in [x, *got.values()]
             + [v for v, _ in vectors.values()]):
-        raise RuntimeError("fused_bottleneck is forward only (the frozen "
-                           "trunk): run it under torch.no_grad() or "
-                           "inference_mode")
+        raise RuntimeError("fused_bottleneck is forward only: run it "
+                           "under torch.no_grad() or inference_mode")
 
 
 def fused_bottleneck(x, wa, sa, ba, wb, sb, bb, wc, sc, bc, proj=None):

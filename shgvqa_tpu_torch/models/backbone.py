@@ -13,12 +13,21 @@ trunk runs on the NCDHW view of that tensor, which is ``channels_last_3d``
 in memory; move the module with ``.to(memory_format=torch.channels_last_3d)``
 on the card so cuDNN sees channels-last weights as well.
 
+The trunk trains (``freeze_backbone`` off, the published AGQA recipe) or
+is frozen (under ``torch.no_grad()`` in the model).  Either way its
+BatchNorm uses the stored statistics: ``weight`` and ``bias`` are
+parameters that train with the convs, ``running_mean`` and
+``running_var`` are buffers that nothing but ``calibrate_frozen_bn``
+writes.
+
 A block of stride 1 and temporal kernel 1 (res_2 blocks 0-2 and res_3
 blocks 1-3: 6 of the 16) runs as one call of ``kernels.bottleneck``'s
 ``fused_bottleneck`` on its frames when its ``use_kernel`` is set
 (``set_block_kernel``; off by default, as the JAX package has no such
-path); the other blocks always run on the convs.  The trunk is frozen and
-runs under ``torch.no_grad()`` in the model, which the kernel needs.
+path) and no gradient is required: autograd off, or neither the block's
+input nor its parameters require one.  The kernel is forward only (the JAX
+``_make_block`` has no backward), so a block in a trained trunk runs on
+the convs; so do the other 10 blocks always.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from shgvqa_tpu_torch.models.layers import Conv3d, empty_param
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with stored statistics: fold (inv, shift) in f32, cast to
-    the compute dtype, apply to an NCDHW tensor."""
+    the compute dtype, apply to an NCDHW tensor.  ``weight`` and ``bias``
+    take gradients; the statistics are buffers and never change here."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -89,13 +99,19 @@ class Bottleneck3D(nn.Module):
 
     def forward(self, x):
         if (self.use_kernel and self.temporal_kernel == 1
-                and self.spatial_stride == 1):
+                and self.spatial_stride == 1 and not self._needs_grad(x)):
             return self._fused(x)
         h = torch.relu(self.bn_a(self.conv_a(x)))
         h = torch.relu(self.bn_b(self.conv_b(h)))
         h = self.bn_c(self.conv_c(h))
         residual = self.bn_proj(self.conv_proj(x)) if self.has_proj else x
         return torch.relu(h + residual)
+
+    def _needs_grad(self, x) -> bool:
+        """Whether this forward must record a graph, which the fused kernel
+        cannot."""
+        return torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in self.parameters()))
 
     def kernel_operands(self):
         """What ``fused_bottleneck`` takes after the frames: the conv

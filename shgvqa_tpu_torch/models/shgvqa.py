@@ -19,9 +19,12 @@ generator when None), the training attention sites run the fused kernels
 ``Trainer`` turns on everywhere) and, with ``use_pallas_ffn_train``, every
 FFN block runs the fused train kernels.  With ``use_pallas_attention``
 (``--pallasAttention``) every attention site outside training runs the
-fused forward kernel at rate 0.  The frozen trunk runs under
-``torch.no_grad()``, as the JAX package's ``stop_gradient`` and its
-two-launch trunk do; its BatchNorm always uses the stored statistics.
+fused forward kernel at rate 0.  With ``freeze_backbone`` the trunk runs
+under ``torch.no_grad()``, as the JAX package's ``stop_gradient`` and its
+two-launch trunk do; otherwise it trains in the graph.  Its BatchNorm
+always uses the stored statistics.  In training mode with an augmenting
+``augment_type`` the frames are augmented on the device before they are
+normalized, with draws from the same generator.
 Every option the flagship does not use raises
 (``configs.config.check_ported``; training options are checked when the
 model runs in training mode).
@@ -37,7 +40,12 @@ from torch import nn
 
 from shgvqa_tpu_torch.configs.config import Config, check_ported, torch_dtype
 from shgvqa_tpu_torch.data.featurize import hg_segment_ids, situation_causal_mask
-from shgvqa_tpu_torch.data.transforms import NORM_STATS, normalize_clip
+from shgvqa_tpu_torch.data.transforms import (
+    AUGMENT_TYPES,
+    NORM_STATS,
+    augment_clips,
+    normalize_clip,
+)
 from shgvqa_tpu_torch.models.backbone import make_backbone
 from shgvqa_tpu_torch.models.decoder import HGDecoder
 from shgvqa_tpu_torch.models.encoder import LXRTModel
@@ -130,9 +138,10 @@ class ShgVqaModel(nn.Module):
 
 
 class VideoShgVqaModel(nn.Module):
-    """Frames -> answer: uint8 frames / 255 in the frames dtype, then
-    ``normalize_clip`` with the trunk's ``NORM_STATS``, the frozen slow_r50
-    trunk, and the ``ShgVqaModel`` head.
+    """Frames -> answer: uint8 frames / 255 in the frames dtype, in training
+    the augmentation of ``data.augment_type``, then ``normalize_clip`` with
+    the trunk's ``NORM_STATS``, the slow_r50 trunk (frozen or trained, by
+    ``freeze_backbone``), and the ``ShgVqaModel`` head.
 
     Frames are (B, visual_t + 8, image_size, image_size, 3)."""
 
@@ -151,23 +160,38 @@ class VideoShgVqaModel(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
+        """``generator`` draws the augmentation and then the dropout masks
+        in training mode."""
         if "frames" in batch:
-            feats = self.encode_frames(batch["frames"])
+            feats = self.encode_frames(batch["frames"], generator)
             batch = {k: v for k, v in batch.items() if k != "frames"}
             batch["visual_feats"] = feats
         return self.head(batch, generator)
 
-    def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, T, H, W, 3) uint8 frames -> (B, T, h, w, C) features; the
-        frozen trunk records no graph."""
+    def encode_frames(self, frames: torch.Tensor,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """(B, T, H, W, 3) uint8 frames -> (B, T, h, w, C) features.  A
+        frozen trunk records no graph; a trained one is in the graph."""
         if frames.dtype != torch.uint8:
             raise TypeError(f"frames must be uint8, got {frames.dtype}")
-        with torch.no_grad():
-            return self.backbone(self.normalize_frames(frames))
+        if self.cfg.freeze_backbone:
+            with torch.no_grad():
+                return self.backbone(self.normalize_frames(frames, generator))
+        return self.backbone(self.normalize_frames(frames, generator))
 
-    def normalize_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """uint8 frames / 255 in the frames dtype, then ``normalize_clip``
-        with the trunk's ``NORM_STATS``: the trunk's input."""
-        pix_dt = torch_dtype(self.cfg.data.aug_dtype or self.cfg.compute_dtype)
+    def normalize_frames(self, frames: torch.Tensor,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+        """The trunk's input: uint8 frames / 255 in the frames dtype, in
+        training mode the augmentation of ``data.augment_type`` (draws from
+        ``generator``), then ``normalize_clip`` with the trunk's
+        ``NORM_STATS``."""
+        data = self.cfg.data
+        pix_dt = torch_dtype(data.aug_dtype or self.cfg.compute_dtype)
         mean, std = NORM_STATS[self.cfg.backbone]
-        return normalize_clip(frames.to(pix_dt) / 255.0, mean, std)
+        x = frames.to(pix_dt) / 255.0
+        if self.training and data.augment_type in AUGMENT_TYPES:
+            x = augment_clips(x, data.augment_type, generator,
+                              data.aug_subbatch, data.aug_fold_chains)
+        return normalize_clip(x, mean, std)

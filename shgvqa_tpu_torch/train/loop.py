@@ -9,14 +9,15 @@
   ``metrics.jsonl``;
 - the optimizer (global-norm clip + BertAdam) over the trainable
   parameters, with ``t_total = epochs * steps_per_epoch``;
-- the dropout masks drawn from one ``torch.Generator`` on the device,
-  seeded from ``--seed`` at the start of ``train`` (the JAX
-  ``PRNGKey(cfg.seed)``).
+- the augmentation's draws and the dropout masks from one
+  ``torch.Generator`` on the device, seeded from ``--seed`` at the start
+  of ``train`` (the JAX ``PRNGKey(cfg.seed)``): one seed draws the same
+  augmentation and masks on two runs.
 
 The TPU's flat optimizer state and ``--stepsPerLoop`` are not carried over
-(``check_ported`` raises for them); the trunk is frozen and runs without a
-graph (``VideoShgVqaModel.encode_frames``), which is what the JAX
-two-launch trunk does.
+(``check_ported`` raises for them).  A frozen trunk runs without a graph
+(``VideoShgVqaModel.encode_frames``), which is what the JAX two-launch
+trunk does; a trained one is in the step's graph.
 """
 
 from __future__ import annotations

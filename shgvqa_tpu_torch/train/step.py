@@ -6,11 +6,14 @@ through the per-frame Hungarian matching.  The plain ``logit`` head gets no
 loss; it still trains through the shared ``logit_fc`` of the hg path.
 Task 'vqa': bce(logit, target) * num_answers.
 
-A train step is one dropout-bearing forward from uint8 frames (the frozen
-trunk without a graph), the matching on the device, the losses, one
-backward, the global-norm clip and BertAdam -- all on the device, with no
-host sync: the metrics come back as device tensors.  The caller's
-``torch.Generator`` takes the place of the JAX step's ``dropout`` key.
+A train step is one dropout-bearing forward from uint8 frames (augmented
+on the device with an augmenting ``augment_type``; the trunk in the graph,
+or without one under ``freeze_backbone``), the matching on the device, the
+losses, one backward, the global-norm clip and BertAdam -- all on the
+device: the metrics come back as device tensors (the augmentation reads
+its drawn ops on the host, ``data/transforms.py``).  The caller's
+``torch.Generator`` takes the place of the JAX step's ``dropout`` and
+``augment`` keys.
 """
 
 from __future__ import annotations
@@ -89,7 +92,9 @@ def connected_param_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
 
 def trainable_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
     """``connected_param_mask`` and, with ``freeze_backbone``, not the
-    trunk (as the JAX drivers compose them, ``cli/common.py``)."""
+    trunk (as the JAX drivers compose them, ``cli/common.py``).  Without
+    it every trunk parameter trains, the BatchNorm ``weight`` and ``bias``
+    included; the BatchNorm statistics are buffers, not parameters."""
     mask = connected_param_mask(model, cfg)
     if cfg.freeze_backbone:
         mask = {n: m and "backbone" not in n.split(".")

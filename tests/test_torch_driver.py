@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from shgvqa_tpu_torch.cli import agqa_hgqa, common
-from shgvqa_tpu_torch.configs.config import tiny_test_config
+from shgvqa_tpu_torch.configs.config import check_ported, tiny_test_config
 from shgvqa_tpu_torch.entry import build_model, example_batch
 from shgvqa_tpu_torch.models import layers, shgvqa
 from shgvqa_tpu_torch.models.backbone import SlowR50
@@ -160,6 +160,31 @@ def test_test_protocol_with_pallas_attention(run, tmp_path, monkeypatch):
         assert len(json.loads((tmp_path / name).read_text())) == 24
 
 
+def test_published_recipe_trains_the_trunk_and_repeats_bit_equal(
+        tmp_path, monkeypatch):
+    """The published recipe (no ``--freezeBackbone``, ``--augmentType
+    rand_aug``) for an epoch, twice from one seed: the same bits in LAST;
+    against the initial weights (``--epochs 0``) every trunk conv and
+    BatchNorm weight moved and the BatchNorm statistics did not."""
+    _shrink(monkeypatch)
+    argv = [a for a in FLAGS if a != "--freezeBackbone"] + [
+        "--augmentType", "rand_aug", "--tiny", "--syntheticData", "8",
+        "--batchSize", "2", "--dataDir", str(tmp_path)]
+    last = {}
+    for name, epochs in (("init", "0"), ("a", "1"), ("b", "1")):
+        _main(argv + ["--epochs", epochs, "--output", str(tmp_path / name)])
+        last[name] = torch.load(tmp_path / name / "LAST",
+                                weights_only=True)["params"]
+    for k, v in last["a"].items():
+        assert torch.equal(v, last["b"][k]), k
+    trunk = [k for k in last["a"] if k.startswith("backbone.")]
+    stats = [k for k in trunk if k.endswith(("running_mean", "running_var"))]
+    assert stats and len(stats) < len(trunk)
+    for k in trunk:
+        same = torch.equal(last["a"][k], last["init"][k])
+        assert same == (k in stats), k
+
+
 def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
                                                           tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -171,12 +196,28 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     (["--multiGPU"], "item 14"),
     (["--loadLXMERT", "snap/x"], "item 18"),
     (["--outputAttn"], "item 15"),
-    (["--augmentType", "rand_aug"], "item 12"),
+    (["--mceLoss"], "item 15"),
     (["--stepsPerLoop", "4"], "item 10"),
-], ids=["multiGPU", "loadLXMERT", "outputAttn", "augment", "stepsPerLoop"])
+], ids=["multiGPU", "loadLXMERT", "outputAttn", "mceLoss", "stepsPerLoop"])
 def test_driver_refuses_unported_options(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         agqa_hgqa.main(_argv(tmp_path, *extra), device="cpu")
+
+
+@pytest.mark.parametrize("aug", ["no_aug", "no_aug_slowfast", "rand_aug",
+                                 "rand_aug_slowfast", "aug_mix"])
+def test_published_recipe_flags_parse_and_pass_the_train_checks(aug):
+    """The published AGQA recipe (``README.md``): every ``--augmentType``
+    and no ``--freezeBackbone`` parse to a trained trunk and pass
+    ``check_ported(..., train=True)``."""
+    argv = [a for a in FLAGS if a != "--freezeBackbone"]
+    cfg, _ = common.parse_reference_flags_with_extras(
+        argv + ["--augmentType", aug], dataset="agqa")
+    assert cfg.data.augment_type == aug and not cfg.freeze_backbone
+    check_ported(cfg, video=True, train=True)
+    frozen, _ = common.parse_reference_flags_with_extras(FLAGS,
+                                                         dataset="agqa")
+    assert frozen.freeze_backbone
 
 
 def test_driver_refuses_star_and_the_global_matcher(tmp_path):

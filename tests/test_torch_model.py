@@ -243,12 +243,12 @@ def test_unported_options_raise(override):
 
 def test_training_mode_raises():
     """Training runs now; an option only training reads and the port does
-    not take raises in training mode, and is ignored in eval mode."""
-    cfg = tiny_test_config(task="hgqa", data=dataclasses.replace(
-        tiny_test_config().data, augment_type="rand_aug"))
+    not take (``--mceLoss``, ROADMAP queue A item 15) raises in training
+    mode, and is ignored in eval mode."""
+    cfg = tiny_test_config(task="hgqa", mce_loss=True)
     model = init_weights(ShgVqaModel(cfg), 0).train()
     batch = _torch_batch(_batch(jax_tiny()))
-    with pytest.raises(NotImplementedError, match="augment_type.*not ported"):
+    with pytest.raises(NotImplementedError, match="mce_loss.*not ported"):
         model(batch)
     with torch.inference_mode():
         assert set(model.eval()(batch)) == set(OUTPUTS)
