@@ -111,11 +111,12 @@ it exits non-zero before printing any result.
    of a published step and of the trunk's backward alone, and the
    tokenizer convs' forward, input gradient and weight gradient alone;
 8. the driver: ``cli.agqa_hgqa.main`` at the published flags (no
-   ``--freezeBackbone``, ``--augmentType rand_aug``; its random trunk's
-   BatchNorm statistics calibrated on a synthetic batch, in place of the
-   pretrained trunk the recipe loads) with
+   ``--freezeBackbone``, ``--augmentType rand_aug``) with
    ``--pallasFFNTrain`` at B=32 on synthetic data under a temporary
-   directory: two epochs with the launch counts set to 0 before each train
+   directory, its trunk loaded through ``--backboneWeights`` from the
+   file phase 9 writes first (a trunk with BatchNorm statistics calibrated
+   on a synthetic batch, as the pretrained trunk the recipe loads): two
+   epochs with the launch counts set to 0 before each train
    step and eval forward and read after it (38 attention forwards, 34
    backwards, 18 FFN train forwards, 14 backwards, 0 FFN per train step;
    18 FFN and nothing else per eval forward), finite losses, CURRENT and
@@ -123,23 +124,41 @@ it exits non-zero before printing any result.
    ``--load LAST`` (oracle score 1.0, the predict files), and again with
    ``--pallasAttention`` (38 attention forwards and 18 FFN per eval
    forward);
-9. the plain path, then two plain train steps, on the card against the
-   CPU at tiny size in f32;
-10. the card line, one ``{"kernels": [...]}`` line (nine kernels), and
+9. weights (written before phase 8, which reads the trunk file), at full
+   width and depth: one flagship model (its trunk's BatchNorm statistics
+   calibrated) written as pytorchvideo's ``SLOW_8x8_R50.pyth``
+   (``model_state``, a ``blocks.5`` head) and converted by
+   ``python -m shgvqa_tpu_torch.utils.convert_slow_r50``'s ``main``, as a
+   reference ``BEST.pth`` (``module.`` prefixes, the x-layers' aliases,
+   unread cross variants), as the port's own LAST, and its language tower
+   as bert-base's ``pytorch_model.bin`` (12 layers, ``gamma``/``beta``,
+   ``bert.``); then the trunk file through ``Trainer.load_backbone``
+   bit-equal; ``--test --load <dir>/BEST`` (extensionless) and ``--load``
+   of LAST, plain and with ``--pallasAttention``: the driver's state
+   bit-equal, identical ``predict.json`` and ``predict_hg.json``, 18 FFN
+   (38 attention + 18 FFN) launches per eval forward, the import's seconds
+   on the host and to the card and its tensor count; one driver epoch
+   without ``--fromScratch`` (embeddings + 5 layers loaded, the pooler
+   skipped, finite losses); three B=8 flagship train steps with each of
+   ``--optim adam|adamax|rms|sgd`` (finite losses, the trainable tensors
+   move, the rest do not);
+10. the plain path, then two plain train steps, on the card against the
+    CPU at tiny size in f32;
+11. the card line, one ``{"kernels": [...]}`` line (nine kernels), and
     last ``{"ok": true, "device": {...}}``.
 
 Launch counts are read as a tuple of nine: (attention forward, attention
 backward, FFN, FFN train forward, FFN train backward, tokenizer conv,
 bottleneck, out_ln, head-sliced attention).
 
-TF32 is switched off for f32 matmuls and convolutions (phase 9 compares
+TF32 is switched off for f32 matmuls and convolutions (phase 10 compares
 f32 results).  ``bound_ms`` is max(operations / 989 TFLOP/s bf16, bytes /
 3.35 TB/s): the H100 SXM's published dense peaks, each input read once and
 each output written once.  ``--only attention`` (``--only ffn_train``,
 ``--only tok_block``, ``--only out_ln_headsliced``) runs phases 1-2 and the
 attention (FFN train; tokenizer conv and bottleneck; out_ln and head-sliced
-attention) checks of phase 3, ``--only ffn`` those of the FFN, and prints no
-result lines.
+attention) checks of phase 3, ``--only ffn`` those of the FFN, ``--only
+weights`` phases 1-2, 8 and 9, and prints no result lines.
 """
 
 from __future__ import annotations
@@ -149,6 +168,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -179,6 +199,7 @@ from shgvqa_tpu_torch.bench import (
     train_split_ms,
 )
 from shgvqa_tpu_torch.configs.config import tiny_test_config
+from shgvqa_tpu_torch.convert import to_jax_variables
 from shgvqa_tpu_torch.data.featurize import situation_causal_mask
 from shgvqa_tpu_torch.kernels import _build
 from shgvqa_tpu_torch.kernels.bottleneck import (
@@ -234,13 +255,14 @@ from shgvqa_tpu_torch.models.layers import (
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
 from shgvqa_tpu_torch.train import loop
 from shgvqa_tpu_torch.train.loop import Trainer
-from shgvqa_tpu_torch.train.optimizer import make_optimizer
+from shgvqa_tpu_torch.train.optimizer import PLAIN_OPTIMIZERS, make_optimizer
 from shgvqa_tpu_torch.train.step import (
     compute_losses,
     make_eval_step,
     make_train_step,
     trainable_mask,
 )
+from shgvqa_tpu_torch.utils import convert_slow_r50
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -305,6 +327,15 @@ DRIVER_FLAGS = ["--taskHGQA", "--noCaps", "--crossAttnType", "cross",
                 "--dlayers", "5", "--backbone", "slow_r50", "--fromScratch",
                 "--LossHGPerFrame", "--augmentType", "rand_aug",
                 "--pallasFFNTrain"]
+# launches of a driver train step, and the eval modes of --test: (extra
+# flags, launches per eval forward)
+DRIVER_TRAIN_LAUNCHES = (38, 34, 0, 18, 14, 0, 0, 0, 0)
+EVAL_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0)),
+              (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0)))
+# the weight files of phases 8 and 9: their model's seed (not the driver's
+# --seed, so an import that misses a tensor shows) and bert-base's depth
+WEIGHTS_SEED = 7
+BERT_LAYERS = 12
 
 
 def log(msg: str) -> None:
@@ -1819,7 +1850,7 @@ def phase_train_throughput(model, optimizer, generator, batch):
 class _Counted:
     """Wraps the train and eval steps the driver's Trainer builds so that
     every launch count is set to 0 just before each step and read just
-    after it; keeps the trained model."""
+    after it; keeps the driver's model."""
 
     def __init__(self):
         self.train, self.eval, self.losses, self.model = [], [], [], None
@@ -1831,8 +1862,7 @@ class _Counted:
         def counted(make, sink, keep_loss):
             def build(cfg, model, *args, **kw):
                 fn = make(cfg, model, *args, **kw)
-                if keep_loss:
-                    self.model = model
+                self.model = model
 
                 def run(*a):
                     torch.cuda.synchronize()
@@ -1868,41 +1898,28 @@ def run_main(argv):
     return result, out.getvalue(), time.perf_counter() - t0
 
 
-def calibrated_build_model(cfg, device="cuda", seed: int = 0):
-    """``entry.build_model`` with the random trunk's BatchNorm statistics
-    calibrated on a synthetic batch (``calibrate_frozen_bn``, as
-    ``entry.train_entry`` does).  It stands in for the pretrained slow_r50
-    that the published recipe loads (importing weights is ROADMAP queue A
-    item 1): with the random init's identity statistics the trunk's
-    features reach ~1e4, the gradients ~1e28, their global norm overflows
-    f32, and the trained trunk's first updates turn the losses to NaN."""
-    model = entry.build_model(cfg, device, seed)
-    frames = entry.device_batch(cfg, BATCH_SIZE, seed, device)["frames"]
-    calibrate_frozen_bn(model.backbone, model.normalize_frames(frames))
-    return model
+def driver_argv(tmp: str, out: str, *extra: str):
+    """The published flags on synthetic data at B=32 (eval B=8)."""
+    return DRIVER_FLAGS + ["--syntheticData", "64", "--syntheticValid", "32",
+                           "--batchSize", str(BATCH_SIZE), "--logFreq", "1",
+                           "--output", out, "--dataDir", tmp, *extra]
 
 
-def phase_driver(tmp: str):
+def phase_driver(tmp: str, files: dict):
     """The agqa_hgqa driver at the published flags with --pallasFFNTrain at
-    B=32 on synthetic data (its random trunk's BatchNorm statistics
-    calibrated: ``calibrated_build_model``): two epochs (launch counts per
-    train step and per eval forward, finite losses, checkpoints, LAST
-    reloaded bit-equal), then the test protocol from --load LAST (oracle
-    1.0, predict files)."""
+    B=32 on synthetic data, its trunk from ``--backboneWeights`` (the
+    calibrated trunk file of ``write_weight_files``): two epochs (launch
+    counts per train step and per eval forward, finite losses,
+    checkpoints, LAST reloaded bit-equal), then the test protocol from
+    --load LAST (oracle 1.0, predict files)."""
     out = os.path.join(tmp, "train")
-    argv = DRIVER_FLAGS + ["--syntheticData", "64", "--syntheticValid", "32",
-                           "--batchSize", str(BATCH_SIZE), "--epochs", "2",
-                           "--logFreq", "1", "--output", out, "--dataDir",
-                           tmp]
-    build = common.build_model
-    common.build_model = calibrated_build_model
-    try:
-        with _Counted() as counted:
-            result, stdout, seconds = run_main(argv)
-    finally:
-        common.build_model = build
-    want_train = (38, 34, 0, 18, 14, 0, 0, 0, 0)
-    want_eval = (0, 0, 18, 0, 0, 0, 0, 0, 0)
+    argv = driver_argv(tmp, out, "--epochs", "2", "--backboneWeights",
+                       files["trunk"])
+    with _Counted() as counted:
+        result, stdout, seconds = run_main(argv)
+    if f"Loaded pretrained backbone from {files['trunk']}" not in stdout:
+        raise AssertionError("the driver did not load --backboneWeights")
+    want_train, want_eval = DRIVER_TRAIN_LAUNCHES, EVAL_MODES[0][1]
     if len(counted.train) != 4 or any(c != want_train for c in counted.train):
         raise AssertionError(f"driver train steps launched {counted.train}, "
                              f"expected 4 x {want_train}")
@@ -1939,9 +1956,7 @@ def phase_driver(tmp: str):
 
     # the test protocol from LAST, then again with --pallasAttention (the
     # attention forward kernel at every site of each eval forward)
-    for extra, want in (([], want_eval),
-                        (["--pallasAttention"],
-                         (38, 0, 18, 0, 0, 0, 0, 0, 0))):
+    for extra, want in EVAL_MODES:
         test_out = os.path.join(tmp, "test" + "".join(extra))
         argv_test = [a if a != out else test_out for a in argv] + [
             "--test", "test", "--load", os.path.join(out, "LAST")] + extra
@@ -1961,6 +1976,218 @@ def phase_driver(tmp: str):
             f"32 answers, launches per eval forward {counted.eval[0]}, "
             f"{seconds:.1f} s")
     return train_counts, epochs
+
+
+def weight_file_writers():
+    """``tests/test_torch_reference_writer.py`` (numpy and the port only),
+    loaded by its path: no weight file of these kinds is in the repository
+    or can be fetched, so the script writes its own."""
+    path = Path(__file__).resolve().parent / "tests" / (
+        "test_torch_reference_writer.py")
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_reference_writer", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_weight_files(tmp: str) -> dict:
+    """The files a user of the published recipe has, written from one
+    flagship model (seed ``WEIGHTS_SEED``, its trunk's BatchNorm statistics
+    calibrated on a synthetic batch, as a pretrained trunk's normalize its
+    activations): its slow_r50 trunk as pytorchvideo's ``{"model_state":
+    ...}`` with a ``blocks.5`` head, converted by
+    ``utils/convert_slow_r50``'s CLI; the whole model as a reference
+    ``BEST.pth`` (``module.`` prefixes, the x-layers' aliases, an unread
+    cross variant of ``pooler_dict`` and ``cross_attn_layer``); the same
+    weights as the port's own LAST; its language tower as bert-base's
+    ``pytorch_model.bin`` (12 layers, ``gamma``/``beta``, ``bert.``)."""
+    writer = weight_file_writers()
+    # the driver's config: the published flags, the synthetic answers
+    cfg, extras = common.parse_reference_flags_with_extras(
+        driver_argv(tmp, os.path.join(tmp, "own")), dataset="agqa")
+    cfg = common.resolve_num_answers(cfg, common.build_data(
+        cfg, extras, cfg.data.train_split))
+    model = entry.build_model(cfg, "cuda", seed=WEIGHTS_SEED)
+    frames = entry.device_batch(cfg, BATCH_SIZE, WEIGHTS_SEED)["frames"]
+    calibrate_frozen_bn(model.backbone, model.normalize_frames(frames))
+    v = to_jax_variables(model.state_dict())
+    files = {"trunk_pyth": os.path.join(tmp, "SLOW_8x8_R50.pyth"),
+             "trunk": os.path.join(tmp, "slow_r50_flax.msgpack"),
+             "reference": os.path.join(tmp, "ref", "BEST"),
+             "own": os.path.join(cfg.output, "LAST"),
+             "bert": os.path.join(tmp, "bert", "pytorch_model.bin")}
+    trunk = writer.pytorchvideo_state_dict(v["params"]["backbone"],
+                                           v["batch_stats"]["backbone"],
+                                           head_classes=400)
+    torch.save({"model_state": {k: torch.from_numpy(x)
+                                for k, x in trunk.items()}},
+               files["trunk_pyth"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_slow_r50.main([files["trunk_pyth"], files["trunk"]])
+    for name in ("reference", "bert"):
+        os.makedirs(os.path.dirname(files[name]), exist_ok=True)
+    writer.save_torch(writer.reference_state_dict(v, model.head.cfg,
+                                                  prefix="module."),
+                      files["reference"] + ".pth")
+    writer.save_torch(writer.bert_state_dict(
+        v["params"]["head"]["lxrt"],
+        extra_layers=BERT_LAYERS - cfg.encoder.l_layers), files["bert"])
+    trainer = Trainer(cfg, 1, model)
+    trainer.ckpt.save("LAST", trainer.state_dict())
+    files["trunk_state"] = {k: t.cpu() for k, t in
+                            model.backbone.state_dict().items()}
+    files["cfg"] = cfg
+    del trainer, model, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizes = {k: os.path.getsize(files[k] + (".pth" if k == "reference"
+                                            else ""))
+             for k in ("trunk_pyth", "trunk", "reference", "own", "bert")}
+    files["bytes"] = sizes
+    log(f"weight files (bytes): {json.dumps(sizes)}")
+    return files
+
+
+def phase_weights_import(tmp: str, files: dict):
+    """The weight imports on the card at full width and depth: the trunk
+    file through ``Trainer.load_backbone`` bit-equal (BatchNorm statistics
+    included); ``--test`` from the reference ``BEST.pth`` (the
+    extensionless ``--load path/BEST``) and from the port's LAST of the
+    same weights, plain and with ``--pallasAttention``: identical
+    predictions, the launch counts per eval forward, the import's seconds
+    on the host and to the card and its tensor count; one driver epoch
+    without ``--fromScratch`` loading bert-base's names (embeddings + 5
+    layers, the pooler skipped); three B=8 train steps with each of
+    ``--optim adam|adamax|rms|sgd``."""
+    cfg = files["cfg"].replace(output=os.path.join(tmp, "bb"))
+    model = entry.build_model(cfg, "cuda", seed=cfg.seed)
+    t0 = time.perf_counter()
+    Trainer(cfg, 1, model).load_backbone(files["trunk"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for name, value in model.backbone.state_dict().items():
+        if not torch.equal(value.cpu(), files["trunk_state"][name]):
+            raise AssertionError(f"--backboneWeights loads {name} "
+                                 "differently")
+    log(f"weights: the trunk file loads bit-equal "
+        f"({len(files['trunk_state'])} tensors, BatchNorm statistics "
+        f"included) in {load_s:.2f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    imports = {}
+    for extra, want in EVAL_MODES:
+        preds, states = {}, {}
+        for source in ("reference", "own"):
+            out = os.path.join(tmp, f"test_{source}" + "".join(extra))
+            argv = driver_argv(tmp, out, "--test", "test", "--load",
+                               files[source], *extra)
+            with _Counted() as counted:
+                _, stdout, seconds = run_main(argv)
+            if "Oracle score: 1.0000" not in stdout:
+                raise AssertionError(f"--test from {source} {extra}: the "
+                                     "oracle score is not 1.0")
+            if len(counted.eval) != 4 or any(c != want
+                                             for c in counted.eval):
+                raise AssertionError(f"--test from {source} {extra} "
+                                     f"launched {counted.eval}, expected "
+                                     f"4 x {want}")
+            states[source] = {k: t.cpu() for k, t in
+                              counted.model.state_dict().items()}
+            del counted
+            preds[source] = {}
+            for name in ("predict.json", "predict_hg.json"):
+                with open(os.path.join(out, name)) as f:
+                    preds[source][name] = json.load(f)
+            found = re.search(r"Imported reference checkpoint \S+: (\d+) "
+                              r"tensors in ([\d.]+) s on the host, "
+                              r"([\d.]+) s to \w+", stdout)
+            if source == "reference":
+                if not found:
+                    raise AssertionError("no reference import logged")
+                imports[" ".join(extra) or "plain"] = {
+                    "tensors": int(found.group(1)),
+                    "host_s": float(found.group(2)),
+                    "to_card_s": float(found.group(3)),
+                    "test_run_s": round(seconds, 2)}
+        for name, value in states["own"].items():
+            if not torch.equal(value, states["reference"][name]):
+                raise AssertionError(f"--test {extra}: BEST.pth imports "
+                                     f"{name} differently from LAST")
+        if preds["reference"] != preds["own"]:
+            raise AssertionError(f"--test {extra}: the reference .pth and "
+                                 "the port's LAST of the same weights "
+                                 "predict differently")
+        answers = {p["prediction"] for p in preds["own"]["predict_hg.json"]}
+        log(f"weights: --test {' '.join(extra) or '(plain)'} from BEST.pth "
+            f"and from LAST: the driver's {len(states['own'])} tensors "
+            f"bit-equal, identical predict.json and predict_hg.json "
+            f"({len(answers)} distinct hg answers), launches per eval "
+            f"forward {want}")
+        del states
+    log(f"weights: reference import {json.dumps(imports)}; BEST.pth "
+        f"{files['bytes']['reference']} bytes")
+
+    out = os.path.join(tmp, "bert_run")
+    argv = [a for a in driver_argv(tmp, out, "--epochs", "1",
+                                   "--backboneWeights", files["trunk"],
+                                   "--bertWeights", files["bert"])
+            if a != "--fromScratch"]
+    with _Counted() as counted:
+        _, stdout, seconds = run_main(argv)
+    loaded = (f"Loaded BERT pretrained weights from {files['bert']} into "
+              "'lxrt': 85 tensors; skipped 1")
+    if loaded not in stdout:
+        raise AssertionError("the driver did not load bert-base's "
+                             "embeddings and 5 layers")
+    if (not counted.losses
+            or not all(math.isfinite(x) for x in counted.losses)):
+        raise AssertionError(f"driver losses after the imports "
+                             f"{counted.losses}")
+    log(f"weights: one driver epoch without --fromScratch: {loaded}; "
+        f"losses {counted.losses}; {seconds:.1f} s")
+
+    te = entry.train_entry("cuda", batch_size=8)
+    model, generator, batch = te.model, te.generator, te.batch
+    mask = trainable_mask(model, model.cfg)
+    o = model.cfg.optim
+    for name in PLAIN_OPTIMIZERS:
+        opt = make_optimizer(model, o.lr, 100, trainable_mask=mask,
+                             grad_clip=o.grad_clip, name=name)
+        step = make_train_step(model.cfg, model, opt)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        losses = [step(batch, generator)["total_loss"].item()
+                  for _ in range(3)]
+        trained = {id(p) for p in opt.params}
+        moved, still = 0, []
+        for n, p in model.named_parameters():
+            same = torch.equal(p.detach(), before[n])
+            if id(p) not in trained:
+                if not same:
+                    raise AssertionError(f"--optim {name}: frozen {n} "
+                                         "changed")
+                continue
+            moved += not same
+            # adam, adamax and rms step ~lr in every element with a
+            # gradient; sgd's lr * g can fall below f32 resolution
+            if same and p.grad is not None and p.grad.any():
+                still.append(n)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"--optim {name}: losses {losses}")
+        if moved == 0 or (name != "sgd" and still):
+            raise AssertionError(f"--optim {name}: {moved} of "
+                                 f"{len(opt.params)} trainable tensors "
+                                 f"moved; with a gradient and still: {still}")
+        log(f"weights: --optim {name}, 3 flagship train steps at B=8: "
+            f"losses {[round(x, 4) for x in losses]}, {moved} of "
+            f"{len(opt.params)} trainable tensors moved")
+        del opt, step, before
+    del te, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return imports
 
 
 def phase_plain_train_step_card_vs_cpu(device="cuda"):
@@ -2041,7 +2268,8 @@ def phase_plain_path_card_vs_cpu():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
-                                           "tok_block", "out_ln_headsliced"),
+                                           "tok_block", "out_ln_headsliced",
+                                           "weights"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -2090,6 +2318,13 @@ def main(argv=None) -> int:
         log(f"tokenizer conv and bottleneck kernels ok; max errors {tok_err}, "
             f"{block_err}")
         return 0
+    if args.only == "weights":
+        with tempfile.TemporaryDirectory() as tmp:
+            files = write_weight_files(tmp)
+            phase_driver(tmp, files)
+            phase_weights_import(tmp, files)
+        log("weight files, driver and imports ok")
+        return 0
     if args.only == "out_ln_headsliced":
         out_ln_rows, out_ln_err = phase_out_ln_kernel()
         log_out_ln_per_forward(out_ln_rows)
@@ -2124,7 +2359,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        driver_counts, epoch_s = phase_driver(tmp)
+        files = write_weight_files(tmp)
+        driver_counts, epoch_s = phase_driver(tmp, files)
+        imports = phase_weights_import(tmp, files)
+        weight_bytes = files["bytes"]
+        del files
     phase_plain_path_card_vs_cpu()
     phase_plain_train_step_card_vs_cpu()
 
@@ -2238,6 +2477,8 @@ def main(argv=None) -> int:
             for b in (bsz, 2)))
     log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; train step device "
         f"memory GiB {json.dumps(train_memory)}; driver epochs {epoch_s} s")
+    log(f"weight import: BEST.pth {weight_bytes['reference']} bytes, "
+        f"{json.dumps(imports)} ({card})")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

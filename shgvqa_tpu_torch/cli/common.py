@@ -8,11 +8,19 @@ per-epoch validation and CURRENT/BEST/LAST checkpoints) or, with
 ``--test``, the test protocol (oracle score, predictions from ``--load``,
 the metric fan-out and the ``predict.json`` / ``predict_hg.json`` dumps).
 
+The train path loads weights in the JAX driver's order: the pretrained
+trunk (``--backboneWeights``, else ``{dataDir}/slow_r50_flax.msgpack``),
+then, without ``--fromScratch``, bert-base (``--bertWeights``, else
+``{dataDir}/pytorch_model.bin``), then ``--load``; a missing pretrained
+file is reported and the run goes on at random init, as the JAX driver
+does.  ``--test`` loads only ``--load``.  ``--load`` reads the port's own
+checkpoints and reference ``.pth`` snapshots (``path/BEST`` with
+``BEST.pth`` beside it).
+
 It runs on the card unless the caller passes ``device="cpu"``.  What the
 port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: the STAR dataset, ``--outputAttn``, mesh and multi-host flags,
-``--loadLXMERT(QA)``, and loading pretrained weight files (a missing file
-is reported and the run goes on at random init, as the JAX driver does).
+item: the STAR dataset, ``--outputAttn``, mesh and multi-host flags and
+``--loadLXMERT(QA)``.
 """
 
 from __future__ import annotations
@@ -115,25 +123,27 @@ def _check_driver_flags(cfg: Config, extras: dict, dataset: str) -> None:
     check_ported(cfg, video=True, train=not cfg.data.test_split)
 
 
-def _report_weight_files(cfg: Config, extras: dict) -> None:
-    """The pretrained-weight files the JAX driver loads: a missing one is
-    reported as the JAX driver reports it; a present one raises."""
-    files = [(extras.get("backbone_weights") or os.path.join(
-                  cfg.data.data_dir, f"{cfg.backbone}_flax.msgpack"),
-              "no pretrained backbone at {}; backbone stays at random init "
-              "(convert via tools/convert_slow_r50.py)")]
+def load_pretrained_weights(trainer: Trainer, cfg: Config,
+                            extras: dict) -> None:
+    """The pretrained files the JAX driver loads before ``--load``: the
+    trunk, then bert-base unless ``--fromScratch``; a missing file is
+    reported as the JAX driver reports it."""
+    bbw = extras.get("backbone_weights") or os.path.join(
+        cfg.data.data_dir, f"{cfg.backbone}_flax.msgpack")
+    if os.path.isfile(bbw):
+        trainer.load_backbone(bbw)
+    else:
+        print(f"no pretrained backbone at {bbw}; backbone stays at random "
+              "init (convert via tools/convert_slow_r50.py)", flush=True)
     if not cfg.from_scratch:
-        files.append((extras.get("bert_weights") or os.path.join(
-                          cfg.data.data_dir, "pytorch_model.bin"),
-                      "no BERT weights at {}; encoder stays at scratch init "
-                      "(pass --fromScratch to silence, or fetch per "
-                      "tools/fetch_bert_vocab.py notes)"))
-    for path, missing in files:
-        if os.path.isfile(path):
-            raise NotImplementedError(
-                f"loading pretrained weights ({path}) into the port is not "
-                "ported yet (ROADMAP queue A item 1)")
-        print(missing.format(path), flush=True)
+        bw = extras.get("bert_weights") or os.path.join(
+            cfg.data.data_dir, "pytorch_model.bin")
+        if os.path.isfile(bw):
+            trainer.load_bert_pretrained(bw)
+        else:
+            print(f"no BERT weights at {bw}; encoder stays at scratch init "
+                  "(pass --fromScratch to silence, or fetch per "
+                  "tools/fetch_bert_vocab.py notes)", flush=True)
 
 
 def run_driver(dataset: str, argv=None, device="cuda") -> dict:
@@ -207,7 +217,7 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
     # and pooler under hgqa) and the frozen trunk
     trainer = Trainer(cfg, steps_per_epoch=max(1, len(train_batcher)),
                       model=model, trainable_mask=trainable_mask(model, cfg))
-    _report_weight_files(cfg, extras)
+    load_pretrained_weights(trainer, cfg, extras)
     if cfg.load:
         trainer.load(cfg.load)
 

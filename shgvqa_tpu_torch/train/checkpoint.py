@@ -6,9 +6,10 @@ validation score it selects on improves, and ``LAST`` at exit.  Each is one
 ``torch.save`` file of ``{"params", "opt_state", "step"}`` (the optimizer
 state included, so a run resumes where it stopped), written to a temporary
 name and renamed, so a reader never sees a partial file.  ``restore``
-accepts a name or a path, as ``--load path/BEST`` does.  The JAX package's
-orbax checkpoints (directories) and reference ``.pth`` snapshots are not
-read: loading one raises.
+accepts a name or a path, as ``--load path/BEST`` does.  A reference
+``.pth`` snapshot is not one of these files: ``Trainer.load`` sends it to
+``Trainer.load_reference`` (``utils/ref_import.py``).  The JAX package's
+orbax checkpoints (directories) are not read: restoring one raises.
 """
 
 from __future__ import annotations
@@ -38,12 +39,13 @@ class CheckpointManager:
     def restore(self, name_or_path: str, map_location=None) -> Any:
         path = (self.path(name_or_path) if name_or_path in CHECKPOINT_NAMES
                 else os.path.abspath(name_or_path))
-        if (os.path.isdir(path) or path.endswith(".pth")
-                or (not os.path.exists(path) and os.path.isfile(path + ".pth"))):
+        if os.path.isdir(path):
             raise NotImplementedError(
-                f"{name_or_path} is a JAX (orbax) checkpoint or a reference "
-                ".pth snapshot; loading those into the port is not ported yet "
-                "(ROADMAP queue A item 1)")
+                f"{name_or_path} is a directory: a JAX (orbax) checkpoint, "
+                "which the port does not read (ROADMAP queue A item 1, "
+                "ROADMAP C). It reads its own checkpoints, reference .pth "
+                "snapshots (--load path/BEST), and JAX variables carried "
+                "across by shgvqa_tpu_torch.convert.from_jax_variables")
         return torch.load(path, map_location=map_location, weights_only=True)
 
     def exists(self, name: str) -> bool:

@@ -7,8 +7,13 @@
   answer score otherwise), LAST at exit, even on an error;
 - loss lines every ``log_freq`` steps to stdout, ``log.log`` and
   ``metrics.jsonl``;
-- the optimizer (global-norm clip + BertAdam) over the trainable
-  parameters, with ``t_total = epochs * steps_per_epoch``;
+- the optimizer (global-norm clip + BertAdam, or the ``--optim`` stock
+  rule) over the trainable parameters, with ``t_total = epochs *
+  steps_per_epoch``;
+- the weight imports of the JAX ``Trainer``: ``load_backbone`` (a
+  converted slow_r50 trunk), ``load_bert_pretrained`` (bert-base into the
+  language tower) and ``load_reference`` (a reference ``.pth``, which
+  ``load`` dispatches to); each ends by resetting the optimizer's state;
 - the augmentation's draws and the dropout masks from one
   ``torch.Generator`` on the device, seeded from ``--seed`` at the start
   of ``train`` (the JAX ``PRNGKey(cfg.seed)``): one seed draws the same
@@ -29,10 +34,24 @@ import torch
 from torch import nn
 
 from shgvqa_tpu_torch.configs.config import Config, check_ported
-from shgvqa_tpu_torch.train.checkpoint import CheckpointManager
+from shgvqa_tpu_torch.convert import from_jax_variables, to_jax_variables
+from shgvqa_tpu_torch.train.checkpoint import (
+    CHECKPOINT_NAMES,
+    CheckpointManager,
+)
 from shgvqa_tpu_torch.train.metrics import MetricWriter, Profiler
 from shgvqa_tpu_torch.train.optimizer import make_optimizer
 from shgvqa_tpu_torch.train.step import make_eval_step, make_train_step
+from shgvqa_tpu_torch.utils.flax_msgpack import msgpack_restore
+from shgvqa_tpu_torch.utils.ref_import import (
+    is_reference_checkpoint,
+    load_reference_checkpoint,
+    reference_to_variables,
+)
+from shgvqa_tpu_torch.utils.torch_import import (
+    bert_to_lxrt_params,
+    load_torch_state_dict,
+)
 
 HG_TASKS = ("hgqa", "vhga", "hgvqa")
 
@@ -164,30 +183,104 @@ class Trainer:
             return quesid2ans, hg_quesid2ans, hg_acc
         return quesid2ans, hg_quesid2ans
 
+    # -- weight imports ---------------------------------------------------
+    def _reset_opt(self) -> None:
+        """Zero the optimizer's state and its step count: after a weight
+        import, as the JAX ``_reset_opt`` rebuilds it (the reference never
+        checkpoints its moments)."""
+        with torch.no_grad():
+            for t in self.optimizer.m + self.optimizer.v:
+                t.zero_()
+        self.optimizer.step_count = 0
+
+    def load_backbone(self, path: str) -> None:
+        """Converted pretrained trunk weights (parameters and BatchNorm
+        statistics) from a ``convert_slow_r50`` msgpack.  Loaded with
+        ``load_state_dict(strict=True)`` on the trunk: a file of another
+        topology or width raises here, where the JAX package swaps the
+        subtree in and fails only when the model runs."""
+        with open(path, "rb") as f:
+            tree = msgpack_restore(f.read())
+        trunk = self.model.backbone
+        state = from_jax_variables(tree, trunk)
+        trunk.load_state_dict(state, strict=True)
+        self.metrics.log(f"Loaded pretrained backbone from {path} "
+                         f"({len(state)} tensors incl. BN stats)")
+        self._reset_opt()
+
+    def load_bert_pretrained(self, path: str) -> None:
+        """No ``--fromScratch``: bert-base weights into the language tower
+        (embeddings, l-layers; the pooler where it has a ``dense``), by
+        the reference's name-matched partial load."""
+        sd = load_torch_state_dict(path)
+        lxrt = self.model.head.lxrt
+        params, report = bert_to_lxrt_params(
+            sd, to_jax_variables(lxrt.state_dict())["params"])
+        lxrt.load_state_dict(from_jax_variables({"params": params}, lxrt),
+                             strict=True)
+        self.metrics.log(
+            f"Loaded BERT pretrained weights from {path} into 'lxrt': "
+            f"{len(report['loaded'])} tensors"
+            + (f"; skipped {len(report['skipped'])}"
+               if report["skipped"] else ""))
+        self._reset_opt()
+
+    def load_reference(self, path: str) -> None:
+        """``--load`` of a reference ``.pth`` (or ``path/BEST`` with
+        ``BEST.pth`` beside it): a trained AGQAModel state_dict mapped onto
+        every parameter and statistic; the optimizer restarts."""
+        t0 = time.perf_counter()
+        sd = load_reference_checkpoint(path)
+        # the head's config: its token count follows from the trunk
+        variables, report = reference_to_variables(
+            sd, to_jax_variables(self.model.state_dict()),
+            self.model.head.cfg)
+        state = from_jax_variables(variables, self.model)
+        t1 = time.perf_counter()
+        self.model.load_state_dict(state, strict=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        self.metrics.log(
+            f"Imported reference checkpoint {path}: "
+            f"{len(report['mapped'])} tensors in {t1 - t0:.2f} s on the "
+            f"host, {t2 - t1:.2f} s to {self.device.type}"
+            + (f"; skipped {report['skipped']}" if report["skipped"] else ""))
+        self._reset_opt()
+
     # -- state ------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
         opt = self.optimizer
         return {
             "params": self.model.state_dict(),
-            "opt_state": {"m": list(opt.m), "v": list(opt.v),
-                          "step_count": opt.step_count},
+            "opt_state": {"name": opt.name, "m": list(opt.m),
+                          "v": list(opt.v), "step_count": opt.step_count},
             "step": self.step,
         }
 
     def load(self, name_or_path: str, params_only: bool = False) -> None:
         """Restore one of this trainer's checkpoints (CURRENT/BEST/LAST or a
         path to one): the parameters, the step count and, unless
-        ``params_only``, the optimizer moments and step."""
+        ``params_only``, the optimizer's state and step.  A reference
+        ``.pth`` (``path.pth``, or ``path`` with only ``path.pth`` beside
+        it) goes to ``load_reference``."""
+        if (name_or_path not in CHECKPOINT_NAMES
+                and is_reference_checkpoint(name_or_path)):
+            self.load_reference(name_or_path)
+            return
         state = self.ckpt.restore(name_or_path, map_location=self.device)
         self.model.load_state_dict(state["params"], strict=True)
         self.step = int(state["step"])
         if params_only:
             return
         opt, saved = self.optimizer, state["opt_state"]
-        if len(saved["m"]) != len(opt.m):
+        name = saved.get("name", "bert")
+        if (name, len(saved["m"]), len(saved["v"])) != (
+                opt.name, len(opt.m), len(opt.v)):
             raise ValueError(
-                f"{name_or_path}: the checkpoint's optimizer covers "
-                f"{len(saved['m'])} tensors, this trainer's {len(opt.m)}")
+                f"{name_or_path}: the checkpoint's optimizer is {name} over "
+                f"{len(saved['m'])} + {len(saved['v'])} tensors, this "
+                f"trainer's {opt.name} over {len(opt.m)} + {len(opt.v)}")
         with torch.no_grad():
             for dst, src in zip(opt.m + opt.v, saved["m"] + saved["v"]):
                 dst.copy_(src)

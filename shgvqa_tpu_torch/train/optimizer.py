@@ -1,5 +1,6 @@
-"""BertAdam behind a global-norm clip: the port of ``bert_adam`` and
-``make_optimizer`` in ``shgvqa_tpu/train/optimizer.py``.
+"""BertAdam, or a stock torch optimizer, behind a global-norm clip: the port
+of ``bert_adam``, ``plain_optimizer`` and ``make_optimizer`` in
+``shgvqa_tpu/train/optimizer.py``.
 
 BertAdam (the reference's ``lxrt/optimization.py``) differs from stock Adam:
 - NO bias correction of the moments;
@@ -14,10 +15,22 @@ frozen and grad-disconnected parameters never enter the optimizer, so they
 are left out of the clip norm and get exactly zero update and no weight
 decay (the JAX ``multi_transform`` with ``set_to_zero``, :309-319).
 
+``--optim rms|adam|adamax|sgd`` (any name without "bert") binds the stock
+torch optimizer the reference constructs with only (params, lr): no
+schedule, no weight decay, torch's default hyperparameters, behind the same
+clip and mask (``PlainOptimizer``):
+- adam: b1 .9, b2 .999, eps 1e-8, bias-corrected moments;
+- adamax: exp_inf = max(b2 u, |g| + eps), the lr bias-corrected by
+  (1 - b1^t);
+- rms: alpha .99, eps 1e-8 added outside the square root;
+- sgd: p -= lr g (no momentum).
+
 One update over all parameters per step (``torch._foreach_*``), in place;
 the JAX package's flat (N/256, 256) TPU layout is not carried over.  The
 learning rate is computed on the host from the host's step count, so a
-step needs no sync.
+step needs no sync.  Every optimizer keeps its state in ``m`` and ``v``
+(lists of tensors, empty where its rule has none) and ``step_count``,
+which ``Trainer.state_dict`` saves and ``Trainer.load`` restores.
 """
 
 from __future__ import annotations
@@ -48,6 +61,18 @@ SCHEDULES: Dict[str, Callable[[float, float], float]] = {
 }
 
 
+def clipped_grads(params, grad_clip: float):
+    """The parameters' gradients (None reads as zeros) clipped to global
+    norm ``grad_clip``, and their global norm before the clip."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    # optax clip_by_global_norm: unchanged below the limit, else g / norm
+    # * limit
+    scale = torch.where(norm < grad_clip, 1.0, grad_clip / norm)
+    return torch._foreach_mul(grads, scale), norm
+
+
 class BertAdam:
     """clip_by_global_norm(grad_clip) -> BertAdam over ``params``, updating
     them in place from their ``.grad`` (None reads as zeros)."""
@@ -58,6 +83,7 @@ class BertAdam:
                  b2: float = 0.999, eps: float = 1e-6,
                  weight_decay: float = 0.01, grad_clip: float = 5.0):
         self.params = list(params)
+        self.name = "bert"
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
         self.step_count = 0
@@ -79,15 +105,7 @@ class BertAdam:
     def step(self) -> torch.Tensor:
         """One update; returns the gradients' global norm before the clip
         (a device tensor)."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
-        # optax clip_by_global_norm: unchanged below the limit, else g / norm
-        # * limit
-        scale = torch.where(norm < self.grad_clip, 1.0,
-                            self.grad_clip / norm)
-        grads = torch._foreach_mul(grads, scale)
+        grads, norm = clipped_grads(self.params, self.grad_clip)
         torch._foreach_mul_(self.m, self.b1)
         torch._foreach_add_(self.m, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.v, self.b2)
@@ -102,20 +120,85 @@ class BertAdam:
         return norm
 
 
+PLAIN_OPTIMIZERS = ("adam", "adamax", "rms", "sgd")
+
+
+class PlainOptimizer:
+    """clip_by_global_norm(grad_clip) -> the stock torch rule ``name``
+    (adam, adamax, rms or sgd) at a constant ``lr``, updating ``params``
+    in place from their ``.grad`` (None reads as zeros)."""
+
+    B1, B2, EPS, ALPHA = 0.9, 0.999, 1e-8, 0.99
+
+    def __init__(self, params: Iterable[torch.Tensor], name: str, lr: float,
+                 grad_clip: float = 5.0):
+        if name not in PLAIN_OPTIMIZERS:
+            raise ValueError(
+                f"unknown optimizer {name!r}; the reference accepts "
+                "rms/adam/adamax/sgd or any name containing 'bert'")
+        self.params = list(params)
+        self.name, self.lr, self.grad_clip = name, lr, grad_clip
+        self.m = ([torch.zeros_like(p) for p in self.params]
+                  if name in ("adam", "adamax") else [])
+        self.v = ([torch.zeros_like(p) for p in self.params]
+                  if name != "sgd" else [])
+        self.step_count = 0
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """One update; returns the gradients' global norm before the clip
+        (a device tensor)."""
+        grads, norm = clipped_grads(self.params, self.grad_clip)
+        t = self.step_count + 1
+        b1, b2, eps = self.B1, self.B2, self.EPS
+        if self.name in ("adam", "adamax"):
+            torch._foreach_mul_(self.m, b1)
+            torch._foreach_add_(self.m, grads, alpha=1.0 - b1)
+            step = -self.lr / (1.0 - b1 ** t)
+        if self.name == "adam":
+            torch._foreach_mul_(self.v, b2)
+            torch._foreach_addcmul_(self.v, grads, grads, value=1.0 - b2)
+            denom = torch._foreach_sqrt(self.v)
+            torch._foreach_div_(denom, math.sqrt(1.0 - b2 ** t))
+            torch._foreach_add_(denom, eps)
+            torch._foreach_addcdiv_(self.params, self.m, denom, value=step)
+        elif self.name == "adamax":
+            torch._foreach_mul_(self.v, b2)
+            torch._foreach_maximum_(self.v, torch._foreach_add(
+                torch._foreach_abs(grads), eps))
+            torch._foreach_addcdiv_(self.params, self.m, self.v, value=step)
+        elif self.name == "rms":
+            a = self.ALPHA
+            torch._foreach_mul_(self.v, a)
+            torch._foreach_addcmul_(self.v, grads, grads, value=1.0 - a)
+            denom = torch._foreach_sqrt(self.v)
+            torch._foreach_add_(denom, eps)
+            torch._foreach_addcdiv_(self.params, grads, denom,
+                                    value=-self.lr)
+        else:
+            torch._foreach_add_(self.params, grads, alpha=-self.lr)
+        self.step_count += 1
+        return norm
+
+
 def make_optimizer(model: nn.Module, lr: float, t_total: int,
                    warmup: float = 0.1, schedule: str = "warmup_linear",
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
                    weight_decay: float = 0.01, grad_clip: float = 5.0,
                    trainable_mask: Optional[Dict[str, bool]] = None,
-                   name: str = "bert") -> BertAdam:
-    """BertAdam behind the global-norm clip over the parameters of
-    ``model`` that ``trainable_mask`` (parameter name -> bool; all when
-    None) marks trainable."""
-    if "bert" not in name:
-        raise NotImplementedError(
-            f"--optim {name} is not ported yet (ROADMAP queue A item 10); "
-            "the port runs BertAdam")
+                   name: str = "bert"):
+    """BertAdam (any ``name`` containing "bert") or the stock optimizer
+    ``name`` (``PlainOptimizer``: constant ``lr``, torch defaults; the
+    schedule and BertAdam's hyperparameters unused) behind the global-norm
+    clip, over the parameters of ``model`` that ``trainable_mask``
+    (parameter name -> bool; all when None) marks trainable."""
     params = [p for n, p in model.named_parameters()
               if trainable_mask is None or trainable_mask[n]]
+    if "bert" not in name:
+        return PlainOptimizer(params, name, lr, grad_clip)
     return BertAdam(params, lr, t_total, warmup, schedule, b1, b2, eps,
                     weight_decay, grad_clip)

@@ -198,7 +198,10 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     (["--outputAttn"], "item 15"),
     (["--mceLoss"], "item 15"),
     (["--stepsPerLoop", "4"], "item 10"),
-], ids=["multiGPU", "loadLXMERT", "outputAttn", "mceLoss", "stepsPerLoop"])
+    (["--loadLXMERTQA", "snap/x"], "item 18"),
+    (["--vitInit"], "item 17"),
+], ids=["multiGPU", "loadLXMERT", "outputAttn", "mceLoss", "stepsPerLoop",
+        "loadLXMERTQA", "vitInit"])
 def test_driver_refuses_unported_options(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         agqa_hgqa.main(_argv(tmp_path, *extra), device="cpu")
@@ -230,9 +233,11 @@ def test_driver_refuses_star_and_the_global_matcher(tmp_path):
 
 def test_driver_refuses_a_present_pretrained_weight_file(tmp_path,
                                                          monkeypatch):
+    """A present trunk file is loaded (``tests/test_torch_weights_import.py``
+    loads real ones); one that is not flax msgpack stops the run."""
     _shrink(monkeypatch)
     (tmp_path / "slow_r50_flax.msgpack").write_bytes(b"weights")
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(ValueError, match="msgpack"):
         _main(_argv(tmp_path))
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of shgvqa_tpu_torch/ and nothing in
-chip_smoke.py imports jax, flax or shgvqa_tpu; its entry points refuse to
+"""The port stands alone: no file of shgvqa_tpu_torch/, nothing in
+chip_smoke.py and nothing in the weight-file writers it imports from the
+tests imports jax, flax, msgpack or shgvqa_tpu; its entry points refuse to
 run without a card unless asked for the CPU; the kernel build has no
 fallback; chip_smoke.py fails without a card and outside the repo."""
 
@@ -17,9 +18,10 @@ from shgvqa_tpu_torch import entry
 from shgvqa_tpu_torch.kernels import _build
 
 REPO = Path(__file__).resolve().parent.parent
+# chip_smoke.py imports the weight-file writers of the tests on the card
 PORT_FILES = sorted((REPO / "shgvqa_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "flax", "shgvqa_tpu")
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_reference_writer.py"]
+FORBIDDEN = ("jax", "flax", "msgpack", "shgvqa_tpu")
 
 
 def _imported_modules(path: Path):

@@ -1,7 +1,9 @@
 """The port's BertAdam (train/optimizer.py) against the JAX
 ``make_optimizer``: global-norm clip + BertAdam with a trainable mask over
 three steps, with the clip both idle and active; the first update's lr of
-0; masked parameters untouched (no weight decay); the three schedules."""
+0; masked parameters untouched (no weight decay); the three schedules; an
+unknown ``--optim`` name refused.  The stock optimizers are held to the
+JAX ones in ``tests/test_torch_weights_import.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -65,6 +67,10 @@ def test_schedules_match_jax(name):
 
 
 def test_other_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """A name that is neither BertAdam's nor one of the reference's stock
+    optimizers raises, as the JAX ``plain_optimizer`` does."""
+    with pytest.raises(ValueError, match="unknown optimizer 'adagrad'"):
         optimizer.make_optimizer(_Params({"a": np.zeros(2, np.float32)}),
-                                 1e-3, 10, name="adam")
+                                 1e-3, 10, name="adagrad")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        jax_opt.make_optimizer(1e-3, 10, name="adagrad")
