@@ -110,6 +110,30 @@ it exits non-zero before printing any result.
    (``torch.cuda.max_memory_allocated``) and host syncs, the top kernels
    of a published step and of the trunk's backward alone, and the
    tokenizer convs' forward, input gradient and weight gradient alone;
+7b. steps per loop (``--stepsPerLoop``, ``train/graph.py``), on the two
+   train models of phase 6 at B=32 with the attention kernels, the FFN
+   train kernels and the block switch, (a) the trunk frozen, (b) the
+   published recipe: from one saved state (the optimizer restarted) and
+   generator seed, 8 single eager steps three times, then 8 steps as
+   4-step chunks (the first eager, the second captured into a CUDA graph
+   and replayed): every loss finite; in the per-step losses and in the
+   parameters, the median of the graph's distances to the eager runs at
+   most 2x the median distance between two eager runs (1e-6 relative
+   where eager repeats closer, bit-equal where it repeats bit-equal); its
+   generator state bit-equal; the launch counts while capturing 4x a
+   step's (38, 34, 0, 18, 14, 0, 6 or 0, 0, 0); no host sync in a
+   replayed chunk; then train clips/s at k=1 and k=4 in turns (frozen and
+   published at B=32, frozen at B=8), each one's device busy share
+   (torch.profiler tracing the card, 2 eager steps and one replay), peak
+   and reserved memory and host syncs, and the
+   published augmentation's device ms on the sub-batch path and on the
+   select tree (bit-equal).  After phase 9, the driver at the published
+   flags with ``--pallasFFNTrain --stepsPerLoop 2`` on 96 synthetic clips
+   at B=32 for two epochs (3 steps each: a chunk and a single step):
+   finite losses at 6 steps, one capture and one replay, 6 steps'
+   training launches, the reserved memory after the eager chunk and after
+   the capture and replay, LAST reloaded bit-equal, ``--test`` from it
+   with oracle 1.0;
 8. the driver: ``cli.agqa_hgqa.main`` at the published flags (no
    ``--freezeBackbone``, ``--augmentType rand_aug``) with
    ``--pallasFFNTrain`` at B=32 on synthetic data under a temporary
@@ -158,7 +182,9 @@ each output written once.  ``--only attention`` (``--only ffn_train``,
 ``--only tok_block``, ``--only out_ln_headsliced``) runs phases 1-2 and the
 attention (FFN train; tokenizer conv and bottleneck; out_ln and head-sliced
 attention) checks of phase 3, ``--only ffn`` those of the FFN, ``--only
-weights`` phases 1-2, 8 and 9, and prints no result lines.
+weights`` phases 1-2, 8 and 9, ``--only steps_per_loop`` phases 1-2 and
+7b (the weight files written for its driver run), and prints no result
+lines.
 """
 
 from __future__ import annotations
@@ -174,6 +200,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -190,6 +217,7 @@ from shgvqa_tpu_torch import breakdown
 from shgvqa_tpu_torch.bench import (
     BATCH_SIZE,
     card_name_and_power_limit,
+    chunked_step,
     clips_per_second,
     count_host_syncs,
     time_ms,
@@ -198,9 +226,10 @@ from shgvqa_tpu_torch.bench import (
     train_memory_gib,
     train_split_ms,
 )
-from shgvqa_tpu_torch.configs.config import tiny_test_config
+from shgvqa_tpu_torch.configs.config import tiny_test_config, torch_dtype
 from shgvqa_tpu_torch.convert import to_jax_variables
 from shgvqa_tpu_torch.data.featurize import situation_causal_mask
+from shgvqa_tpu_torch.data.transforms import augment_clips
 from shgvqa_tpu_torch.kernels import _build
 from shgvqa_tpu_torch.kernels.bottleneck import (
     bottleneck_reference,
@@ -254,6 +283,7 @@ from shgvqa_tpu_torch.models.layers import (
 )
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
 from shgvqa_tpu_torch.train import loop
+from shgvqa_tpu_torch.train.graph import StepChunks, use_select_tree
 from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.optimizer import PLAIN_OPTIMIZERS, make_optimizer
 from shgvqa_tpu_torch.train.step import (
@@ -1847,6 +1877,393 @@ def phase_train_throughput(model, optimizer, generator, batch):
     return {k: sum(v) / len(v) for k, v in runs.items()}
 
 
+# --stepsPerLoop (train/graph.py): k of the phase's chunks, and the steps of
+# each equivalence run (chunk 1 eager, chunk 2 captured and replayed)
+SPL_K, SPL_STEPS = 4, 8
+# launches of one step of each recipe with the phase's switches on (the
+# attention kernels, the FFN train kernels, the block switch): a published
+# step's blocks run their convs under a gradient
+SPL_LAUNCHES = {"frozen": (38, 34, 0, 18, 14, 0, 6, 0, 0),
+                "published": (38, 34, 0, 18, 14, 0, 0, 0, 0)}
+# a graph run may differ from eager by no more than 2x eager's own spread
+# (medians: of the graph's distances to each eager run, and of the eager
+# runs' distances to each other), and by 1e-6 relative where eager repeats
+# to within that
+SPL_EAGER_RUNS, SPL_SPREAD, SPL_FLOOR = 3, 2.0, 1e-6
+
+
+def spl_batches(cfg, bsz, n):
+    """``n`` distinct batches made on the card from one ``device_batch``:
+    batch i's frames drawn anew (uint8, from seed 100 + i), its other
+    fields rolled by i clips (numpy's frames of eight flagship batches
+    take seconds on the host)."""
+    base = entry.device_batch(cfg, bsz, 100, with_labels=True)
+    batches = []
+    for i in range(n):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        batch = {k: v.roll(i, 0) for k, v in base.items() if k != "frames"}
+        batch["frames"] = torch.randint(0, 256, base["frames"].shape,
+                                        dtype=torch.uint8, device="cuda",
+                                        generator=g)
+        batches.append(batch)
+    return batches
+
+
+def spl_state(model, optimizer, generator):
+    """A copy of what a train step changes: the model's state, the moments,
+    the step count and the generator's state."""
+    return ({k: v.clone() for k, v in model.state_dict().items()},
+            [t.clone() for t in optimizer.m + optimizer.v],
+            optimizer.step_count, generator.get_state())
+
+
+def spl_restore(model, optimizer, generator, state):
+    params, moments, count, gen = state
+    model.load_state_dict(params)
+    with torch.no_grad():
+        for dst, src in zip(optimizer.m + optimizer.v, moments):
+            dst.copy_(src)
+    optimizer.step_count = count
+    optimizer.zero_grad()
+    generator.set_state(gen)
+
+
+def spl_eager(model, optimizer, generator, batches):
+    """``len(batches)`` single train steps: their losses, the trainable
+    parameters after and the generator's state."""
+    step = make_train_step(model.cfg, model, optimizer)
+    losses = torch.stack([step(b, generator)["total_loss"].detach()
+                          for b in batches])
+    return (losses.cpu(), [p.detach().clone() for p in optimizer.params],
+            generator.get_state())
+
+
+def spl_graph(model, optimizer, generator, batches):
+    """The same steps as ``SPL_K``-step chunks (``train/graph.py``, the
+    augmentation on its select tree): chunk 1 eager, then one capture and
+    one replay, with the launch counts of the chunk that captures.  Returns
+    (losses, parameters, generator state), the counts and the
+    ``StepChunks`` with its graph."""
+    cfg = model.cfg
+    use_select_tree(model)
+    chunks = StepChunks(make_train_step(model.cfg, model, optimizer),
+                        optimizer, generator, SPL_K)
+    losses = [chunks.run(batches[:SPL_K])["total_loss"].clone()]
+    torch.cuda.synchronize()
+    reset_counts()
+    losses.append(chunks.run(batches[SPL_K:])["total_loss"].clone())
+    captured = counts()
+    torch.cuda.synchronize()
+    out = (torch.cat(losses).cpu(),
+           [p.detach().clone() for p in optimizer.params],
+           generator.get_state())
+    model.cfg = cfg
+    if (chunks.captures, chunks.replays) != (1, 1):
+        raise AssertionError(f"{chunks.captures} captures and "
+                             f"{chunks.replays} replays, expected 1 and 1")
+    return out, captured, chunks
+
+
+def spl_distance(a, b):
+    """(max relative difference of the per-step losses, relative Frobenius
+    difference of all trainable parameters, generator states equal)."""
+    (la, pa, ga), (lb, pb, gb) = a, b
+    loss = ((la - lb).abs() / lb.abs()).max().item()
+    num = sum((x - y).float().square().sum() for x, y in zip(pa, pb))
+    den = sum(y.float().square().sum() for y in pb)
+    return loss, (num / den).sqrt().item(), torch.equal(ga, gb)
+
+
+def spl_equivalence(name, model, optimizer, generator, bsz=BATCH_SIZE):
+    """``SPL_STEPS`` steps from one saved state (the optimizer restarted)
+    and generator seed: ``SPL_EAGER_RUNS`` times as single eager steps,
+    then as ``SPL_K``-step chunks through a graph; every loss finite.  The
+    attention backward sums dQ with atomics, so eager does not repeat its
+    bits.  In its per-step losses and in its parameters, the graph run's
+    median distance to the eager runs may be at most ``SPL_SPREAD`` x the
+    median distance between two eager runs, at least ``SPL_FLOOR``; where
+    eager repeats bit-equal the graph must too.  The graph run ends with
+    the generator's state of every eager run; the chunk that captures
+    launches ``SPL_K`` steps' kernels.  Returns the ``StepChunks`` with its
+    graph."""
+    batches = spl_batches(model.cfg, bsz, SPL_STEPS)
+    # the optimizer restarts, as after a weight import: the earlier phases'
+    # steps on one batch at the schedule's peak leave the random model near
+    # divergence, where eager and graph runs alike may turn NaN
+    with torch.no_grad():
+        for t in optimizer.m + optimizer.v:
+            t.zero_()
+    optimizer.step_count = 0
+    generator.manual_seed(11)
+    start = spl_state(model, optimizer, generator)
+    t0 = time.perf_counter()
+    eager = []
+    for _ in range(SPL_EAGER_RUNS):
+        spl_restore(model, optimizer, generator, start)
+        eager.append(spl_eager(model, optimizer, generator, batches))
+    spl_restore(model, optimizer, generator, start)
+    graph_run, captured, chunks = spl_graph(model, optimizer, generator,
+                                            batches)
+    spl_restore(model, optimizer, generator, start)
+    del start, batches
+    pairs = [spl_distance(eager[i], eager[j])
+             for i in range(len(eager)) for j in range(i + 1, len(eager))]
+    gaps = [spl_distance(graph_run, e) for e in eager]
+    log(f"steps per loop, {name} b{bsz}: {SPL_STEPS} steps, k={SPL_K}, "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"losses eager {[e[0].tolist() for e in eager]}, graph "
+        f"{graph_run[0].tolist()}; eager pairs (loss, parameters, generator "
+        f"equal) {pairs}; graph vs each eager run {gaps}")
+    if not all(torch.isfinite(run[0]).all() for run in eager + [graph_run]):
+        raise AssertionError(f"{name}: a non-finite loss")
+    if not all(g[2] for g in gaps + pairs):
+        raise AssertionError(f"{name}: the generator's state after the "
+                             "graph run differs from eager")
+    for i, what in enumerate(("loss", "parameters")):
+        if max(p[i] for p in pairs) == 0.0 and max(g[i] for g in gaps):
+            raise AssertionError(f"{name}: eager repeats its {what} "
+                                 f"bit-equal, the graph differs by "
+                                 f"{[g[i] for g in gaps]}")
+        spread = statistics.median(p[i] for p in pairs)
+        near = statistics.median(g[i] for g in gaps)
+        log(f"steps per loop, {name}: {what}, median graph-eager {near}, "
+            f"median eager-eager {spread}")
+        if near > max(SPL_SPREAD * spread, SPL_FLOOR):
+            raise AssertionError(f"{name}: the graph's {what} differ by "
+                                 f"{near} (median), eager's own spread "
+                                 f"{spread} (median)")
+    want = tuple(SPL_K * c for c in SPL_LAUNCHES[name])
+    log(f"steps per loop, {name}: launches while capturing "
+        f"({COUNT_NAMES}) {captured}")
+    if captured != want:
+        raise AssertionError(f"{name}: capture launched {captured}, "
+                             f"expected {want}")
+    return chunks
+
+
+def busy_share(fn, tries: int = 3):
+    """(device busy ms, host ms, busy share) of one ``fn()`` under
+    torch.profiler, tracing the card only (a trace can miss every kernel:
+    it tries again); None where no trace holds device time."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        if busy > 0.0:
+            return busy, wall, busy / wall
+    return None
+
+
+def spl_throughput(name, model, optimizer, generator, batch, chunks=None):
+    """Train clips/s at k=1 (2 steps a turn) and k=``SPL_K`` (a replay a
+    turn) in turns on ``batch``, through ``chunks`` (a ``StepChunks`` whose
+    graph holds these shapes) or a graph captured here first; the device
+    busy share of 2 eager steps and of one replay; the host syncs, peak
+    memory and reserved memory of a step and of a replayed chunk."""
+    t0 = time.perf_counter()
+    bsz = batch["frames"].shape[0]
+    cfg = model.cfg
+    step = make_train_step(cfg, model, optimizer)
+    if chunks is None:
+        chunked = chunked_step(model, optimizer, generator, SPL_K)
+        for _ in range(2):                  # the eager chunk, the capture
+            chunked(batch, generator)
+        chunks = chunked.chunks
+        model.cfg = cfg                      # k=1 on the sub-batch path
+
+    def chunked(b, _g=None):
+        return chunks.run([b] * SPL_K)
+
+    runs = {"k=1": [], f"k={SPL_K}": []}
+    for k in (1, SPL_K, SPL_K, 1):
+        if k == 1:
+            runs["k=1"].append(train_clips_per_second(
+                step, batch, generator, iters=2, warmup=1))
+        else:
+            runs[f"k={k}"].append(train_clips_per_second(
+                chunked, batch, generator, iters=1, warmup=0, steps=k))
+
+    def eager_chunk():
+        for _ in range(2):
+            step(batch, generator)
+
+    busy = {"k=1": busy_share(eager_chunk),
+            f"k={SPL_K}": busy_share(lambda: chunked(batch, generator))}
+    memory, syncs = {}, {}
+    for k, fn in (("k=1", step), (f"k={SPL_K}", chunked)):
+        # one call: its host syncs, and the allocator's peak and reserved
+        # memory (a graph's pool is reserved, its tensors' peak unseen)
+        torch.cuda.reset_peak_memory_stats()
+        syncs[k] = count_host_syncs(lambda: fn(batch, generator))
+        memory[k] = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+    log(f"steps per loop, {name} b{bsz}: train clips/s {json.dumps(runs)}; "
+        f"device busy ms, host ms, share (2 eager steps; one replay) "
+        f"{json.dumps(busy)}; device memory GiB {json.dumps(memory)}; host "
+        f"syncs {json.dumps(syncs)}; {time.perf_counter() - t0:.1f} s")
+    if syncs[f"k={SPL_K}"]["count"]:
+        raise AssertionError(f"{name} b{bsz}: a replayed chunk synced the "
+                             "host")
+    del chunked, chunks
+    optimizer.zero_grad()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: sum(v) / len(v) for k, v in runs.items()}
+
+
+def spl_augment_ms(model, batch):
+    """The published augmentation alone at the batch's size: device ms by
+    events with the sub-batch path and with the select tree (median [min,
+    max] of 3 turns of 5 calls), and the two bit-equal from one seed."""
+    data = model.cfg.data
+    x = batch["frames"].to(torch_dtype(data.aug_dtype
+                                       or model.cfg.compute_dtype)) / 255.0
+    kind = data.augment_type
+    out, ms = {}, {}
+    for sub in (True, False):
+        key = "sub-batch" if sub else "select tree"
+        out[key] = augment_clips(x, kind, torch.Generator(
+            device="cuda").manual_seed(7), subbatch=sub)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        ms.update(spread(key, lambda: augment_clips(x, kind, g,
+                                                    subbatch=sub),
+                         turns=3, iters=5, warmup=1))
+    if not torch.equal(out["sub-batch"], out["select tree"]):
+        raise AssertionError("the select tree's augmentation differs from "
+                             "the sub-batch path's")
+    log(f"steps per loop: augment b{x.shape[0]} ms {json.dumps(ms)}; the two "
+        "paths bit-equal")
+    return ms
+
+
+def phase_steps_per_loop(name, recipe):
+    """``--stepsPerLoop``'s k-step CUDA graph (``train/graph.py``) on the
+    flagship at B=32 with the attention kernels, the FFN train kernels and
+    the block switch, for ``name`` "frozen" (the trunk frozen) or
+    "published" (the published recipe): the graph against eager steps
+    (``spl_equivalence``), then clips/s at k=1 and k=``SPL_K`` in turns
+    (``spl_throughput``), frozen also at B=8, published also the
+    augmentation's two paths (``spl_augment_ms``).  ``recipe`` is (model,
+    optimizer, generator, batch); the switches are off again after."""
+    model, optimizer, generator, batch = recipe
+    out = {}
+    t0 = time.perf_counter()
+    set_block_kernel(model, True)
+    set_ffn_train_kernel(model, True)
+    try:
+        chunks = spl_equivalence(name, model, optimizer, generator)
+        out[f"{name} b{batch['frames'].shape[0]}"] = spl_throughput(
+            name, model, optimizer, generator, batch, chunks)
+        del chunks
+        if name == "frozen":
+            small = entry.device_batch(model.cfg, 8, 0, with_labels=True)
+            out[f"{name} b8"] = spl_throughput(name, model, optimizer,
+                                               generator, small)
+        else:
+            out["augment ms"] = spl_augment_ms(model, batch)
+    finally:
+        set_block_kernel(model, False)
+        set_ffn_train_kernel(model, False)
+    log(f"steps per loop, {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+class _Recorded(loop.Trainer):
+    """The driver's Trainer, kept for the checks after its run."""
+
+    made: list = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        _Recorded.made.append(self)
+
+
+def phase_driver_steps_per_loop(tmp: str, files: dict):
+    """The driver at the published flags with ``--pallasFFNTrain
+    --stepsPerLoop 2`` on 96 synthetic clips at B=32 (3 steps an epoch: a
+    chunk of 2 and a single step), its trunk from ``--backboneWeights``,
+    two epochs: finite losses at 6 steps, one capture and one replay, the
+    launches of 6 steps run on the host (the eager chunk, the capture and
+    two single steps), the reserved device memory after each chunk (the
+    eager one; the capture, which empties the allocator's cache, and its
+    replay); LAST reloaded bit-equal; ``--test`` from it (oracle 1.0)."""
+    t0 = time.perf_counter()
+    out, data = os.path.join(tmp, "spl"), os.path.join(tmp, "spl_data")
+    os.makedirs(data, exist_ok=True)
+    argv = DRIVER_FLAGS + [
+        "--syntheticData", "96", "--syntheticValid", "8", "--batchSize",
+        str(BATCH_SIZE), "--logFreq", "1", "--output", out, "--dataDir",
+        data, "--epochs", "2", "--stepsPerLoop", "2", "--backboneWeights",
+        files["trunk"]]
+    saved, _Recorded.made = common.Trainer, []
+    common.Trainer = _Recorded
+    run, reserved = StepChunks.run, []
+
+    def recorded(chunks, batches):
+        out = run(chunks, batches)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved() / 2 ** 30)
+        return out
+
+    StepChunks.run = recorded
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        result, _, seconds = run_main(argv)
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        common.Trainer, StepChunks.run = saved, run
+    trainer = _Recorded.made[-1]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["total_loss"] for line in f]
+    chunks = trainer.chunks
+    if (result["steps"], len(losses)) != (6, 6) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"driver at --stepsPerLoop 2: {result['steps']} "
+                             f"steps, losses {losses}")
+    if chunks is None or (chunks.captures, chunks.replays) != (1, 1):
+        raise AssertionError("driver at --stepsPerLoop 2: not one capture "
+                             "and one replay")
+    want = tuple(6 * c for c in DRIVER_TRAIN_LAUNCHES)
+    if [launched[i] for i in (0, 1, 3, 4)] != [want[i] for i in (0, 1, 3, 4)]:
+        raise AssertionError(f"driver at --stepsPerLoop 2 launched "
+                             f"{launched}, expected {want} in training")
+    cfg = trainer.model.cfg
+    fresh = entry.build_model(cfg, "cuda", seed=1)
+    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
+        os.path.join(out, "LAST"))
+    trained = trainer.model.state_dict()
+    for name, value in fresh.state_dict().items():
+        if not torch.equal(value, trained[name]):
+            raise AssertionError(f"LAST reloads {name} differently")
+    del fresh, trained, trainer, chunks, _Recorded.made[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    test_out = os.path.join(tmp, "spl_test")
+    argv_test = [a if a != out else test_out for a in argv] + [
+        "--test", "test", "--load", os.path.join(out, "LAST")]
+    _, stdout, test_seconds = run_main(argv_test)
+    if "Oracle score: 1.0000" not in stdout:
+        raise AssertionError("--test from the --stepsPerLoop 2 LAST: oracle "
+                             "score not 1.0")
+    log(f"driver --stepsPerLoop 2: 6 steps, losses {losses}, 1 capture and "
+        f"1 replay, launches ({COUNT_NAMES}) {launched} (6 steps on the "
+        f"host, eval forwards' FFN included), reserved GiB after the eager "
+        f"chunk and after the capture and replay {reserved}, peak allocated "
+        f"GiB {peak}, LAST reloads "
+        f"bit-equal, "
+        f"--test oracle 1.0; {seconds:.1f} s and {test_seconds:.1f} s, "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    return losses
+
+
 class _Counted:
     """Wraps the train and eval steps the driver's Trainer builds so that
     every launch count is set to 0 just before each step and read just
@@ -2269,7 +2686,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
                                            "tok_block", "out_ln_headsliced",
-                                           "weights"),
+                                           "weights", "steps_per_loop"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -2325,6 +2742,18 @@ def main(argv=None) -> int:
             phase_weights_import(tmp, files)
         log("weight files, driver and imports ok")
         return 0
+    if args.only == "steps_per_loop":
+        spl_cps = phase_steps_per_loop("frozen", entry.train_entry())
+        gc.collect()
+        torch.cuda.empty_cache()
+        spl_cps.update(phase_steps_per_loop(
+            "published", entry.train_entry(published=True)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_driver_steps_per_loop(tmp, write_weight_files(tmp))
+        log(f"steps per loop ok; {json.dumps(spl_cps)}")
+        return 0
     if args.only == "out_ln_headsliced":
         out_ln_rows, out_ln_err = phase_out_ln_kernel()
         log_out_ln_per_forward(out_ln_rows)
@@ -2355,13 +2784,20 @@ def main(argv=None) -> int:
     published_cps, train_memory = phase_train_published_throughput(
         (train_model, optimizer, generator, batch), published[:4])
     train_cps.update(published_cps)
-    del train_model, optimizer, batch, published
+    spl_cps = phase_steps_per_loop(
+        "frozen", (train_model, optimizer, generator, batch))
+    del train_model, optimizer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    spl_cps.update(phase_steps_per_loop("published", published[:4]))
+    del published
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         files = write_weight_files(tmp)
         driver_counts, epoch_s = phase_driver(tmp, files)
         imports = phase_weights_import(tmp, files)
+        phase_driver_steps_per_loop(tmp, files)
         weight_bytes = files["bytes"]
         del files
     phase_plain_path_card_vs_cpu()
@@ -2477,6 +2913,8 @@ def main(argv=None) -> int:
             for b in (bsz, 2)))
     log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; train step device "
         f"memory GiB {json.dumps(train_memory)}; driver epochs {epoch_s} s")
+    log(f"steps per loop (k=1 vs a {SPL_K}-step graph) train clips/s: "
+        f"{json.dumps(spl_cps)}")
     log(f"weight import: BEST.pth {weight_bytes['reference']} bytes, "
         f"{json.dumps(imports)} ({card})")
     log(card)

@@ -2,7 +2,8 @@
 HGQA inference (uint8 frames -> answer) in clips/s, or with ``--train`` the
 flagship train step in clips/s.
 
-    python -m shgvqa_tpu_torch.bench [--train]
+    python -m shgvqa_tpu_torch.bench [--train [--frozen-trunk]
+                                      [--steps-per-loop K]]
 
 Inference protocol: the inputs (two batches of 32 clips from different
 seeds) are staged on the card once, two forwards warm it up, then ten
@@ -21,6 +22,14 @@ of each part of a step (``train_split_ms``), mean over five more steps;
 before it (weights, optimizer state, batch); ``host_syncs`` the
 synchronizing calls a step makes (``count_host_syncs``).
 
+With ``--steps-per-loop K`` (K > 1) the steps run as the trainer runs
+``--stepsPerLoop K`` (``train/graph.StepChunks``, the augmentation on its
+select tree): K-step chunks of the same batch, the first eager, the second
+captured into a CUDA graph and replayed, then five replays timed on the
+host clock; ``host_syncs`` is one replayed chunk's, ``peak_gib`` and
+``reserved_gib`` a replayed chunk's peak and the allocator's reserved
+memory after it.
+
 The line carries the card's name and power limit.  It needs a CUDA card:
 with none it raises.
 """
@@ -34,6 +43,7 @@ import os
 import statistics
 import subprocess
 import time
+import traceback
 import warnings
 from typing import Callable, Dict, List, Tuple
 
@@ -48,6 +58,7 @@ from shgvqa_tpu_torch.entry import (
     resolve_device,
     train_entry,
 )
+from shgvqa_tpu_torch.train.graph import StepChunks, use_select_tree
 from shgvqa_tpu_torch.train.step import compute_losses, make_train_step
 
 BATCH_SIZE = 32
@@ -102,8 +113,9 @@ def clips_per_second(model, batches: List[Dict[str, torch.Tensor]],
 
 def train_clips_per_second(step: Callable, batch: Dict[str, torch.Tensor],
                            generator: torch.Generator, iters: int = 5,
-                           warmup: int = 2) -> float:
-    """Clips/s of ``step(batch, generator)`` (a train step)."""
+                           warmup: int = 2, steps: int = 1) -> float:
+    """Clips/s of ``step(batch, generator)``: a train step, or a chunk of
+    ``steps`` steps on the batch."""
     for _ in range(warmup):
         step(batch, generator)
     torch.cuda.synchronize()
@@ -111,7 +123,25 @@ def train_clips_per_second(step: Callable, batch: Dict[str, torch.Tensor],
     for _ in range(iters):
         step(batch, generator)
     torch.cuda.synchronize()
-    return batch["frames"].shape[0] * iters / (time.perf_counter() - t0)
+    return (batch["frames"].shape[0] * steps * iters
+            / (time.perf_counter() - t0))
+
+
+def chunked_step(model, optimizer, generator: torch.Generator, k: int
+                 ) -> Callable:
+    """A callable ``(batch, generator) -> metrics`` that trains a chunk of
+    ``k`` steps on ``batch`` as ``Trainer.train`` does at ``--stepsPerLoop
+    k`` (the augmentation switched to its select tree); its ``chunks`` is
+    the ``StepChunks``."""
+    use_select_tree(model)
+    chunks = StepChunks(make_train_step(model.cfg, model, optimizer),
+                        optimizer, generator, k)
+
+    def run(batch, _generator=None):
+        return chunks.run([batch] * k)
+
+    run.chunks = chunks
+    return run
 
 
 def train_split_ms(model, optimizer, batch: Dict[str, torch.Tensor],
@@ -196,25 +226,43 @@ def train_memory_gib(step: Callable, batch: Dict[str, torch.Tensor],
     step(batch, generator)
     torch.cuda.synchronize()
     return {"resident_gib": resident / 2 ** 30,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
 
 
 def count_host_syncs(fn: Callable) -> Dict[str, object]:
     """The synchronizing CUDA calls ``fn()`` makes (a copy to the host, a
     blocking copy from pageable memory, a stream synchronize), as
     ``torch.cuda.set_sync_debug_mode`` reports them: their ``count`` and
-    the Python lines that made them (``sites``, file:line -> calls)."""
+    the Python lines that made them (``sites``, file:line -> calls; a line
+    inside torch followed by the innermost line of this repository that
+    led to it)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sites: collections.Counter = collections.Counter()
+
+    def record(message, category, filename, lineno, *rest):
+        # torch's own words for a sync; its one-time notice that the debug
+        # mode is experimental also says "synchronizing"
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        site = f"{os.path.relpath(filename, root)}:{lineno}"
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(root)
+                and os.path.abspath(f.filename) != os.path.abspath(__file__)]
+        if ours and not filename.startswith(root):
+            site += (f" <- {os.path.relpath(ours[-1].filename, root)}:"
+                     f"{ours[-1].lineno}")
+        sites[site] += 1
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    sites = collections.Counter(
-        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
     return {"count": sum(sites.values()), "sites": dict(sites)}
 
 
@@ -225,24 +273,38 @@ def main(argv=None) -> None:
     parser.add_argument("--frozen-trunk", action="store_true",
                         help="with --train: the frozen trunk and no "
                              "augmentation instead of the published recipe")
+    parser.add_argument("--steps-per-loop", type=int, default=1,
+                        help="with --train: K steps a launch, as "
+                             "--stepsPerLoop K trains (a K-step CUDA graph)")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     if args.train:
         published = not args.frozen_trunk
         model, optimizer, generator, batch = train_entry(
             dev, BATCH_SIZE, published=published)
-        step = make_train_step(model.cfg, model, optimizer)
-        cps = train_clips_per_second(step, batch, generator)
+        k = args.steps_per_loop
         recipe = ("trained trunk, rand_aug (the published recipe)"
                   if published else "frozen trunk, no_aug")
         line = {
             "metric": f"clips/s (train step: uint8 frames->losses->BertAdam, "
                       f"HGQA b{BATCH_SIZE}, bf16, {recipe}, fused "
-                      "attention kernels)",
-            "value": cps, "unit": "clips/s",
-            "split_ms": train_split_ms(model, optimizer, batch, generator),
-            "host_syncs": count_host_syncs(lambda: step(batch, generator)),
-            **train_memory_gib(step, batch, generator)}
+                      "attention kernels"
+                      + (f", {k} steps a CUDA graph replay)" if k > 1
+                         else ")"),
+            "unit": "clips/s"}
+        if k > 1:
+            step = chunked_step(model, optimizer, generator, k)
+            line["value"] = train_clips_per_second(step, batch, generator,
+                                                   steps=k)
+            line["captures"] = step.chunks.captures
+        else:
+            step = make_train_step(model.cfg, model, optimizer)
+            line["value"] = train_clips_per_second(step, batch, generator)
+            line["split_ms"] = train_split_ms(model, optimizer, batch,
+                                              generator)
+        line.update(
+            host_syncs=count_host_syncs(lambda: step(batch, generator)),
+            **train_memory_gib(step, batch, generator))
     else:
         cfg = flagship_cfg()
         model = build_model(cfg, dev)

@@ -184,10 +184,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "unchanged (configs/config.py)")
     p.add_argument("--stepsPerLoop", dest="steps_per_loop", type=int,
                    default=1,
-                   help="train k optimizer steps per device launch "
-                        "(lax.scan over k staged batches; same math and "
-                        "per-step keys, amortizes per-launch dispatch — "
-                        "configs/config.py steps_per_loop)")
+                   help="train k BertAdam steps per launch (on a card "
+                        "one replay of a k-step CUDA graph over k staged "
+                        "batches; the same steps and draws as k single "
+                        "steps: train/graph.py)")
     p.add_argument("--profile", action="store_true",
                    help="capture a profiler trace to {output}/profile")
     p.add_argument("--dataParallel", dest="data_parallel", type=int, default=-1)

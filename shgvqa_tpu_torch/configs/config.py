@@ -294,7 +294,6 @@ _UNPORTED = (
 # options only training reads
 _TRAIN_UNPORTED = (
     ("loss_hg_per_frame", True, "8 (the global matcher mode)"),
-    ("steps_per_loop", 1, "10 (--stepsPerLoop)"),
     ("freeze_weights", False, "15 (--freezeWeights)"),
     ("mce_loss", False, "15 (--mceLoss)"),
 )

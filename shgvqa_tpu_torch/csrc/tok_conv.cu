@@ -190,7 +190,7 @@ __global__ void tok_conv_reduce_kernel(const Params p) {
 // boxes, 128-byte swizzle.
 cudaError_t im2col_map(CUtensorMap* map, const void* x, int b, int t, int h, int w, int ci,
                        int kt) {
-  const cudaError_t bound = cudaFree(nullptr);   // a current context (see tensor_map)
+  const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return bound;
   static PFN_cuTensorMapEncodeIm2col_v12000 encode = nullptr;
   if (encode == nullptr) {

@@ -510,15 +510,33 @@ __device__ __forceinline__ void gemm_epilogue(const float (&acc)[BN / 2], int m,
   gemm_epilogue_at<BN>(acc, m, blockIdx.y * kGemmBM, blockIdx.x * BN, load, store);
 }
 
+// Makes the device's context current on the calling thread, once per
+// thread.  A driver call (cuTensorMapEncode*) fails on a thread with no
+// current context, as a thread that has made no runtime call yet
+// (autograd's backward thread, when the device index already matches).
+// cudaFree(nullptr) binds it, but cudaFree is not permitted while a stream
+// is being captured into a CUDA graph, so a thread makes it only on its
+// first map: the first steps of a captured run are eager, and autograd's
+// device thread lives for the whole process.
+cudaError_t bind_context() {
+  static thread_local bool bound = false;
+  if (!bound) {
+    const cudaError_t err = cudaFree(nullptr);
+    if (err != cudaSuccess) return err;
+    bound = true;
+  }
+  return cudaSuccess;
+}
+
 // A TMA map of a row-major (rows, cols) bf16 matrix in boxes of
 // (box_rows, box_cols).  cuTensorMapEncodeTiled is a driver function: it is
-// found through the runtime, so the library needs no -lcuda.  It fails on a
-// thread with no current context, as a thread that has made no runtime
-// call yet (autograd's backward thread, when the device index already
-// matches), so a runtime call binds the context first.
+// found through the runtime, so the library needs no -lcuda.  It is a host
+// call: the map goes into the launch's parameters, so a captured graph
+// keeps it, which holds because the graph's pool gives every replay the
+// same addresses.
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
                        int box_cols, CUtensorMapSwizzle swizzle) {
-  const cudaError_t bound = cudaFree(nullptr);
+  const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return bound;
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {

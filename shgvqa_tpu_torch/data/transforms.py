@@ -27,13 +27,16 @@ clips that drew it, gathered by index and copied back; the geometry runs as
 its three passes, each on the clips that need it.  That needs the drawn ops
 on the host: one host sync a ``rand_augment_batch`` or ``aug_mix_batch``
 call (the index copies to the device go through pinned memory and do not
-wait), and shapes that change from call to call.  Each op computes every clip alone (the means in f64,
-the histograms as integer counts, the blur in f32 element by element), so
-the two paths give the same bits.
+wait), and shapes that change from call to call: a CUDA graph of the train
+step (``--stepsPerLoop``, ``train/graph.py``) runs the select tree.  Each
+op computes every clip alone (the means in f64, the histograms as integer
+counts, the blur in f32 element by element), so the two paths give the
+same bits, in the same (contiguous) layout.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -56,9 +59,19 @@ AUGMENT_TYPES = ("rand_aug", "rand_aug_slowfast", "aug_mix")
 def normalize_clip(frames01: torch.Tensor, mean, std) -> torch.Tensor:
     """(..., 3) frames in [0, 1] -> (x - mean) / std over the channel axis,
     in the frames' dtype."""
-    mean, std = (_to_device(torch.tensor(v, dtype=frames01.dtype),
-                            frames01.device) for v in (mean, std))
+    mean, std = (_stats(tuple(v), frames01.dtype, frames01.device)
+                 for v in (mean, std))
     return (frames01 - mean) / std
+
+
+@functools.lru_cache(maxsize=None)
+def _stats(values: Tuple[float, ...], dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once per device and dtype:
+    a copy enqueued from temporary pinned memory on every call would, in a
+    captured CUDA graph, read that memory again at each replay after it was
+    freed."""
+    return _to_device(torch.tensor(values, dtype=dtype), device)
 
 
 def _to_device(host: torch.Tensor, device) -> torch.Tensor:
@@ -359,7 +372,10 @@ def apply_layer_batch(x: torch.Tensor, op: torch.Tensor, apply: torch.Tensor,
             out = torch.where(_clip(op == i), run(i, x), out)
         is_geo = (op == _GEO_ROT) | (op >= _GEO_SHX)
         warped = _geo_passes(x, lam1, beta, lam3, t1, t2, pad)
-        return torch.where(_clip(is_geo), warped, out)
+        # the geometry's passes leave a permuted layout: give the trunk the
+        # sub-batch path's contiguous one, or its convs' gradients round
+        # differently
+        return torch.where(_clip(is_geo), warped, out).contiguous()
 
     if host_ops is None:
         host_ops = op.tolist()

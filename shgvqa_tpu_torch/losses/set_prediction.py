@@ -19,8 +19,10 @@ from shgvqa_tpu_torch.ops.matcher import match_targets_per_frame
 
 def empty_weight(num_classes_with_bg: int, eos_coef: float,
                  background_idx: int = 0, device=None) -> torch.Tensor:
+    """Ones with ``eos_coef`` at the background class, filled on the device
+    (no copy from the host)."""
     w = torch.ones(num_classes_with_bg, device=device)
-    w[background_idx] = eos_coef
+    w[background_idx:background_idx + 1].fill_(eos_coef)
     return w
 
 

@@ -19,10 +19,18 @@
   of ``train`` (the JAX ``PRNGKey(cfg.seed)``): one seed draws the same
   augmentation and masks on two runs.
 
-The TPU's flat optimizer state and ``--stepsPerLoop`` are not carried over
-(``check_ported`` raises for them).  A frozen trunk runs without a graph
+``--stepsPerLoop k`` (k > 1, BertAdam) trains k steps per launch, as the
+JAX flat mode scans them: the batches are gathered k at a time and each
+full chunk runs through ``train/graph.StepChunks`` (on a card, one replay
+of a k-step CUDA graph after an eager first chunk and one capture); a
+trailing partial chunk of an epoch runs as single steps.  The model's
+augmentation then runs its full-batch select tree (``aug_subbatch`` off:
+the same bits, no host sync, static shapes).  Under ``--optim
+rms|adam|adamax|sgd`` the flag has no effect, as in JAX, where it needs
+the flat state that only BertAdam has.  The TPU's flat optimizer state is
+not carried over.  A frozen trunk runs without an autograd graph
 (``VideoShgVqaModel.encode_frames``), which is what the JAX two-launch
-trunk does; a trained one is in the step's graph.
+trunk does; a trained one is in the step's autograd graph.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from shgvqa_tpu_torch.train.checkpoint import (
     CHECKPOINT_NAMES,
     CheckpointManager,
 )
+from shgvqa_tpu_torch.train.graph import StepChunks, use_select_tree
 from shgvqa_tpu_torch.train.metrics import MetricWriter, Profiler
 from shgvqa_tpu_torch.train.optimizer import make_optimizer
 from shgvqa_tpu_torch.train.step import make_eval_step, make_train_step
@@ -72,6 +81,7 @@ class Trainer:
             o.schedule, o.b1, o.b2, o.eps, o.weight_decay, o.grad_clip,
             trainable_mask, o.optim)
         self.step = 0
+        self.chunks: Optional[StepChunks] = None
         self.ckpt = CheckpointManager(cfg.output)
         self.metrics = MetricWriter(cfg.output)
         self.profiler = Profiler(cfg.output, enabled=cfg.profile)
@@ -94,6 +104,9 @@ class Trainer:
         if log is None:
             log = self.metrics.log
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        k = self._steps_per_launch(log)
+        self.chunks = (StepChunks(self._train_step, self.optimizer,
+                                  generator, k) if k > 1 else None)
         best = 0.0
         stale = 0
         history = []
@@ -105,21 +118,38 @@ class Trainer:
                         f"(no improvement for {stale} validations)")
                     break
                 t0 = time.time()
-                n_steps = 0
-                for batch in train_batches(epoch):
-                    batch = dict(batch)
-                    batch.pop("ques_id", None)
-                    batch.pop("n_valid", None)
-                    metrics = self._train_step(batch, generator)
+                first = self.step
+
+                def log_step(metrics, row=None):
                     if self.step % cfg.log_freq == 0:
-                        m = {k: float(v.detach()) for k, v in metrics.items()
-                             if k != "grad_norm"}
-                        parts = " ".join(f"{k}={v:0.4f}" for k, v in m.items())
+                        m = {name: float(v.detach() if row is None else v[row])
+                             for name, v in metrics.items()
+                             if name != "grad_norm"}
+                        parts = " ".join(f"{name}={v:0.4f}"
+                                         for name, v in m.items())
                         log(f"Epoch {epoch} step {self.step}: {parts}")
                         self.metrics.write(self.step, m, epoch=epoch)
                     self.profiler.step(self.step)
                     self.step += 1
-                    n_steps += 1
+
+                chunk = []
+                for batch in train_batches(epoch):
+                    batch = dict(batch)
+                    batch.pop("ques_id", None)
+                    batch.pop("n_valid", None)
+                    if self.chunks is None:
+                        log_step(self._train_step(batch, generator))
+                        continue
+                    chunk.append(batch)
+                    if len(chunk) == k:
+                        metrics = self.chunks.run(chunk)
+                        for row in range(k):
+                            log_step(metrics, row)
+                        chunk = []
+                # a trailing partial chunk: single steps
+                for batch in chunk:
+                    log_step(self._train_step(batch, generator))
+                n_steps = self.step - first
                 dt = time.time() - t0
                 log(f"Epoch {epoch}: {n_steps} steps in {dt:0.1f}s")
                 self.ckpt.save("CURRENT", self.state_dict())
@@ -142,6 +172,21 @@ class Trainer:
             self.profiler.close()
             self.ckpt.save("LAST", self.state_dict())
         return {"best": best, "history": history, "steps": self.step}
+
+    def _steps_per_launch(self, log: Callable[[str], None]) -> int:
+        """k of ``--stepsPerLoop``: 1 unless the optimizer is BertAdam.
+        For k > 1 the model's augmentation switches to its select tree."""
+        k = self.cfg.steps_per_loop
+        if k < 1:
+            raise ValueError(f"--stepsPerLoop must be >= 1, got {k}")
+        if k > 1 and self.optimizer.name != "bert":
+            log(f"--stepsPerLoop {k} has no effect with --optim "
+                f"{self.optimizer.name} (it chunks BertAdam steps only, as "
+                "the JAX flat mode); training single steps")
+            return 1
+        if k > 1:
+            use_select_tree(self.model)
+        return k
 
     # -- evaluation -------------------------------------------------------
     def predict(self, batches: Iterable[Dict[str, Any]],

@@ -28,7 +28,10 @@ clip and mask (``PlainOptimizer``):
 One update over all parameters per step (``torch._foreach_*``), in place;
 the JAX package's flat (N/256, 256) TPU layout is not carried over.  The
 learning rate is computed on the host from the host's step count, so a
-step needs no sync.  Every optimizer keeps its state in ``m`` and ``v``
+step needs no sync.  BertAdam multiplies its update by the learning rate
+as an f32 scalar tensor on the device: filled from the host's value, or
+given by the caller (``train/graph.py`` replays k steps whose rates it
+copies into a static tensor); both take the one formula.  Every optimizer keeps its state in ``m`` and ``v``
 (lists of tensors, empty where its rule has none) and ``step_count``,
 which ``Trainer.state_dict`` saves and ``Trainer.load`` restores.
 """
@@ -102,9 +105,14 @@ class BertAdam:
             p.grad = None
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, lr: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update; returns the gradients' global norm before the clip
-        (a device tensor)."""
+        (a device tensor).  ``lr`` is this step's learning rate, an f32
+        scalar on the parameters' device; when None, ``lr_at(step_count)``
+        (computed in double on the host, then f32)."""
+        if lr is None:
+            lr = torch.full((), self.lr_at(self.step_count),
+                            dtype=torch.float32, device=self.params[0].device)
         grads, norm = clipped_grads(self.params, self.grad_clip)
         torch._foreach_mul_(self.m, self.b1)
         torch._foreach_add_(self.m, grads, alpha=1.0 - self.b1)
@@ -114,8 +122,10 @@ class BertAdam:
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(self.m, denom)
         torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update,
-                            alpha=-self.lr_at(self.step_count))
+        # p - lr * update, the product rounded before the difference (one
+        # rounding point whether lr is filled here or replayed by a graph)
+        torch._foreach_mul_(update, lr)
+        torch._foreach_sub_(self.params, update)
         self.step_count += 1
         return norm
 

@@ -10,15 +10,16 @@ A train step is one dropout-bearing forward from uint8 frames (augmented
 on the device with an augmenting ``augment_type``; the trunk in the graph,
 or without one under ``freeze_backbone``), the matching on the device, the
 losses, one backward, the global-norm clip and BertAdam -- all on the
-device: the metrics come back as device tensors (the augmentation reads
-its drawn ops on the host, ``data/transforms.py``).  The caller's
-``torch.Generator`` takes the place of the JAX step's ``dropout`` and
-``augment`` keys.
+device: the metrics come back as device tensors (the sub-batch
+augmentation reads its drawn ops on the host, ``data/transforms.py``;
+the full-batch select tree, which ``train/graph.py`` runs, reads
+nothing).  The caller's ``torch.Generator`` takes the place of the JAX
+step's ``dropout`` and ``augment`` keys.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -103,18 +104,22 @@ def trainable_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
 
 
 def make_train_step(cfg: Config, model: nn.Module, optimizer):
-    """train_step(batch, generator) -> metrics: one forward in training
-    mode, the losses, the backward and one optimizer update, in place."""
+    """train_step(batch, generator, lr=None) -> metrics: one forward in
+    training mode, the losses, the backward and one optimizer update, in
+    place.  ``lr`` (BertAdam only) is the step's learning rate as a device
+    scalar (``BertAdam.step``)."""
 
     def train_step(batch: Dict[str, torch.Tensor],
-                   generator: torch.Generator = None
+                   generator: torch.Generator = None,
+                   lr: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         model.train()
         outputs = model(batch, generator)
         loss, metrics = compute_losses(cfg, outputs, batch)
         optimizer.zero_grad()
         loss.backward()
-        metrics["grad_norm"] = optimizer.step()
+        metrics["grad_norm"] = (optimizer.step() if lr is None
+                                else optimizer.step(lr))
         return metrics
 
     return train_step

@@ -197,10 +197,10 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     (["--loadLXMERT", "snap/x"], "item 18"),
     (["--outputAttn"], "item 15"),
     (["--mceLoss"], "item 15"),
-    (["--stepsPerLoop", "4"], "item 10"),
+    (["--freezeWeights"], "item 15"),
     (["--loadLXMERTQA", "snap/x"], "item 18"),
     (["--vitInit"], "item 17"),
-], ids=["multiGPU", "loadLXMERT", "outputAttn", "mceLoss", "stepsPerLoop",
+], ids=["multiGPU", "loadLXMERT", "outputAttn", "mceLoss", "freezeWeights",
         "loadLXMERTQA", "vitInit"])
 def test_driver_refuses_unported_options(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -221,6 +221,31 @@ def test_published_recipe_flags_parse_and_pass_the_train_checks(aug):
     frozen, _ = common.parse_reference_flags_with_extras(FLAGS,
                                                          dataset="agqa")
     assert frozen.freeze_backbone
+
+
+def test_driver_trains_two_steps_a_launch_as_single_steps(tmp_path,
+                                                           monkeypatch):
+    """``--stepsPerLoop 2`` parses, passes the train checks and trains 3
+    steps an epoch (one chunk of 2, then a single step) for 2 epochs
+    through ``run_driver``: the same losses and LAST as ``--stepsPerLoop
+    1``."""
+    cfg, _ = common.parse_reference_flags_with_extras(
+        FLAGS + ["--stepsPerLoop", "2"], dataset="agqa")
+    assert cfg.steps_per_loop == 2
+    check_ported(cfg, video=True, train=True)
+    _shrink(monkeypatch)
+    runs = {}
+    for k in ("1", "2"):
+        out = tmp_path / k
+        result, _ = _main(_argv(out, "--syntheticData", "6", "--logFreq",
+                                "1", "--stepsPerLoop", k))
+        assert result["steps"] == 6
+        runs[k] = ([json.loads(x)["total_loss"] for x in
+                    (out / "metrics.jsonl").read_text().splitlines()],
+                   torch.load(out / "LAST", weights_only=True))
+    assert len(runs["2"][0]) == 6 and runs["2"][0] == runs["1"][0]
+    for key, value in runs["1"][1]["params"].items():
+        assert torch.equal(value, runs["2"][1]["params"][key]), key
 
 
 def test_driver_refuses_star_and_the_global_matcher(tmp_path):
