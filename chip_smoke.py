@@ -72,6 +72,19 @@ it exits non-zero before printing any result.
      (``tools/proto_headsliced_attn.py``): B=64, (40, 40), (393, 393),
      (128, 393), a 10% key mask, the max error between the two paths and
      both times, one line per shape;
+   - the global matcher's kernel (``csrc/matcher.cu``) at (B, 128, 128)
+     and (B, 48, 48), B=32 and 8, costs from seeded logits and labels
+     compacted as the set loss compacts them, a batch of ties and one with
+     zero targets, one problem at the kernel's largest n: row_to_col and
+     the search steps bit-equal to the plain version on the host's copy,
+     the total cost within 1e-5 of scipy's; one column more raises naming
+     the limit; the kernel's time (events and device), the plain
+     version's on the card at B=8 (one turn, bit-equal to the host's),
+     scipy on the host with the copy to it (the yardstick), and the
+     bound: the longest
+     problem's search steps, each a reduction of ceil(log2(n + 1))
+     dependent compares of 4 cycles at the card's highest SM clock, or the
+     bytes if more;
 4. main path: ``entry.entry()`` -- the flagship uint8 frames -> hg_logit
    forward at B=2 -- with every launch count set to 0 just before and read
    just after: with the FFN kernel (18 launches), with no kernel, with
@@ -121,13 +134,17 @@ it exits non-zero before printing any result.
    most 2x the median distance between two eager runs (1e-6 relative
    where eager repeats closer, bit-equal where it repeats bit-equal); its
    generator state bit-equal; the launch counts while capturing 4x a
-   step's (38, 34, 0, 18, 14, 0, 6 or 0, 0, 0); no host sync in a
+   step's (38, 34, 0, 18, 14, 0, 6 or 0, 0, 0, 0); no host sync in a
    replayed chunk; then train clips/s at k=1 and k=4 in turns (frozen and
    published at B=32, frozen at B=8), each one's device busy share
    (torch.profiler tracing the card, 2 eager steps and one replay), peak
    and reserved memory and host syncs, and the
-   published augmentation's device ms on the sub-batch path and on the
-   select tree (bit-equal).  After phase 9, the driver at the published
+   published augmentation's device ms on the sub-batch path, the select
+   tree and the fixed-capacity path (bit-equal), then the fixed-capacity
+   path captured into a CUDA graph (its overflow branches as conditional
+   nodes) and replayed on draws under every capacity and on draws over
+   them, each bit-equal to the select tree, with the replay's ms.  After
+   phase 9, the driver at the published
    flags with ``--pallasFFNTrain --stepsPerLoop 2`` on 96 synthetic clips
    at B=32 for two epochs (3 steps each: a chunk and a single step):
    finite losses at 6 steps, one capture and one replay, 6 steps'
@@ -166,14 +183,29 @@ it exits non-zero before printing any result.
    skipped, finite losses); three B=8 flagship train steps with each of
    ``--optim adam|adamax|rms|sgd`` (finite losses, the trainable tensors
    move, the rest do not);
+9b. STAR, after the weight files: ``cli.star.main`` at README.md's STAR
+    flags with ``--noCaps --stepsPerLoop 2`` at B=8 on 128 synthetic
+    questions (32 of the Interaction type: four steps an epoch) and 16
+    valid, the trunk from ``--backboneWeights``, two epochs: the launches
+    of every train step run on the host (38 attention forwards, 34
+    backwards, 2 matcher) and of each valid forward (18 FFN, 2 matcher),
+    one capture and three replays, finite losses, LAST reloaded bit-equal;
+    with an hg mask that is not a prefix and with the mask all ones,
+    ``--pallasAttention`` and the head-sliced switch against the plain
+    path (hg_logit) and the training kernels against the plain attention
+    (loss and gradients, dropout 0), each nearer the masked plain run than
+    the unmasked one, moved by the mask, and hg_logit and the loss within
+    half the mask's effect of the masked plain run;
+    ``--test`` from LAST (oracle 1.0, ``by_qtype``, both predict files),
+    plain and with ``--pallasAttention``;
 10. the plain path, then two plain train steps, on the card against the
     CPU at tiny size in f32;
-11. the card line, one ``{"kernels": [...]}`` line (nine kernels), and
+11. the card line, one ``{"kernels": [...]}`` line (ten kernels), and
     last ``{"ok": true, "device": {...}}``.
 
-Launch counts are read as a tuple of nine: (attention forward, attention
+Launch counts are read as a tuple of ten: (attention forward, attention
 backward, FFN, FFN train forward, FFN train backward, tokenizer conv,
-bottleneck, out_ln, head-sliced attention).
+bottleneck, out_ln, head-sliced attention, matcher).
 
 TF32 is switched off for f32 matmuls and convolutions (phase 10 compares
 f32 results).  ``bound_ms`` is max(operations / 989 TFLOP/s bf16, bytes /
@@ -183,7 +215,9 @@ each output written once.  ``--only attention`` (``--only ffn_train``,
 attention (FFN train; tokenizer conv and bottleneck; out_ln and head-sliced
 attention) checks of phase 3, ``--only ffn`` those of the FFN, ``--only
 weights`` phases 1-2, 8 and 9, ``--only steps_per_loop`` phases 1-2 and
-7b (the weight files written for its driver run), and prints no result
+7b (the weight files written for its driver run), ``--only matcher``
+phases 1-2 and the matcher's checks of phase 3, ``--only star`` phases 1-2
+and 9b (the weight files written for its trunk), and prints no result
 lines.
 """
 
@@ -200,6 +234,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -210,9 +245,10 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.optimize import linear_sum_assignment
 
 from shgvqa_tpu_torch import entry
-from shgvqa_tpu_torch.cli import agqa_hgqa, common
+from shgvqa_tpu_torch.cli import agqa_hgqa, common, star
 from shgvqa_tpu_torch import breakdown
 from shgvqa_tpu_torch.bench import (
     BATCH_SIZE,
@@ -229,8 +265,9 @@ from shgvqa_tpu_torch.bench import (
 from shgvqa_tpu_torch.configs.config import tiny_test_config, torch_dtype
 from shgvqa_tpu_torch.convert import to_jax_variables
 from shgvqa_tpu_torch.data.featurize import situation_causal_mask
-from shgvqa_tpu_torch.data.transforms import augment_clips
-from shgvqa_tpu_torch.kernels import _build
+from shgvqa_tpu_torch.data import transforms
+from shgvqa_tpu_torch.data.transforms import augment_clips, sample_rand_augment
+from shgvqa_tpu_torch.kernels import _build, cond
 from shgvqa_tpu_torch.kernels.bottleneck import (
     bottleneck_reference,
     fused_bottleneck,
@@ -282,8 +319,10 @@ from shgvqa_tpu_torch.models.layers import (
     set_out_ln_kernel,
 )
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
+from shgvqa_tpu_torch.ops import matcher
+from shgvqa_tpu_torch.ops.matcher import hungarian_square
 from shgvqa_tpu_torch.train import loop
-from shgvqa_tpu_torch.train.graph import StepChunks, use_select_tree
+from shgvqa_tpu_torch.train.graph import StepChunks
 from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.optimizer import PLAIN_OPTIMIZERS, make_optimizer
 from shgvqa_tpu_torch.train.step import (
@@ -359,9 +398,9 @@ DRIVER_FLAGS = ["--taskHGQA", "--noCaps", "--crossAttnType", "cross",
                 "--pallasFFNTrain"]
 # launches of a driver train step, and the eval modes of --test: (extra
 # flags, launches per eval forward)
-DRIVER_TRAIN_LAUNCHES = (38, 34, 0, 18, 14, 0, 0, 0, 0)
-EVAL_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0)),
-              (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0)))
+DRIVER_TRAIN_LAUNCHES = (38, 34, 0, 18, 14, 0, 0, 0, 0, 0)
+EVAL_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
+              (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0, 0)))
 # the weight files of phases 8 and 9: their model's seed (not the driver's
 # --seed, so an import that misses a tensor shows) and bert-base's depth
 WEIGHTS_SEED = 7
@@ -1444,6 +1483,180 @@ def phase_headsliced_ab(b=64, shapes=((40, 40), (393, 393), (128, 393))):
                 transpose_path_ms_range=tr_range, speedup=tr_ms / hs_ms)))
 
 
+# the global matcher's problems (loss_hg_per_frame off): (name, B, queries,
+# targets a situation, classes with the background); one clip a problem of
+# 16 situations, the labels compacted as the set loss compacts them
+MATCHER_SHAPES = (("relations", 128, 8, 564), ("actions", 48, 3, 112))
+MATCHER_BATCHES = (BATCH_SIZE, 8)
+# the STAR train step's batch (STAR_FLAGS), at which the plain version is
+# timed on the card
+STAR_BATCH = 8
+# total cost against scipy's linear_sum_assignment (f32 sums of <= 128
+# terms in another order)
+MATCHER_COST_TOL = 1e-5
+# a dependent f32 compare on Hopper takes at least this many cycles: the
+# issue latency of dependent arithmetic on the SM
+DEPENDENT_CYCLES = 4
+
+
+def max_sm_clock_hz() -> float:
+    """``nvidia-smi --query-gpu=clocks.max.sm`` in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def matcher_costs(bsz, n, slots, classes, seed, ties=False, empty=False):
+    """(B, n, n) f32 costs of the global matcher from random logits and
+    labels: -softmax(logits)[label] over the compacted labels
+    (``ops.matcher.compact_labels``), the columns past each clip's count
+    padded to 0, as ``assign_padded`` sees them.  ``ties`` rounds the
+    probabilities to eighths (many equal costs); ``empty`` gives every clip
+    zero targets."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = 2.0 * torch.randn(bsz, n, classes, device="cuda", generator=g)
+    labels = torch.randint(1, classes, (bsz, NUM_SITUATIONS, slots),
+                           device="cuda", generator=g)
+    lengths = torch.randint(0, slots + 1, (bsz, NUM_SITUATIONS),
+                            device="cuda", generator=g)
+    if empty:
+        lengths.zero_()
+    flat, valid = matcher.compact_labels(labels, lengths)
+    prob = torch.softmax(logits, dim=-1)
+    if ties:
+        prob = (prob * 8.0).round() / 8.0
+    cost = matcher._class_cost(prob, flat)
+    cols = torch.arange(n, device="cuda")
+    return torch.where(cols < valid[:, None, None], cost, 0.0).contiguous()
+
+
+def matcher_bound(bsz, n, steps, clock_hz):
+    """(ms, arithmetic): the larger of the bytes (the f32 costs read once,
+    the int64 rows written once) over the memory rate and the chain of
+    dependent search steps: the problems run side by side (one block each,
+    B <= 132 SMs), so the longest problem's steps, each at least one
+    reduction of ceil(log2(n + 1)) dependent compares of DEPENDENT_CYCLES
+    cycles at the card's highest SM clock."""
+    t_bytes = (bsz * n * n * 4 + bsz * n * 8) / PEAK_HBM_BYTES
+    depth = math.ceil(math.log2(n + 1))
+    t_steps = steps * depth * DEPENDENT_CYCLES / clock_hz
+    return max(t_bytes, t_steps) * 1e3, (
+        f"max({bsz * n * n * 4 + bsz * n * 8} B / 3.35 TB/s, {steps} steps x "
+        f"{depth} compares x {DEPENDENT_CYCLES} cycles / "
+        f"{clock_hz / 1e6:.0f} MHz)")
+
+
+def check_matcher(tag, cost, time_plain=False):
+    """Kernel against the plain version on the host's copy of ``cost`` (the
+    CPU runs the card's f32 operations in the same order, and the CPU tests
+    hold it to the JAX solver): row_to_col and the search steps bit-equal,
+    the total cost against scipy's within MATCHER_COST_TOL.  With
+    ``time_plain`` also the plain version on the card, bit-equal to the
+    host's, and its ms (one turn: it reads the host at every search step).
+    Returns the kernel's steps, max |row_to_col - plain| and the plain
+    version's ms on the card (None without ``time_plain``)."""
+    rows, steps = matcher._launch(cost)
+    host = cost.cpu()
+    p, _, _, plain_steps = matcher._augmenting_path_solve(host)
+    plain, got = matcher._row_to_col(p), rows.cpu()
+    err = int((got - plain).abs().max())
+    if err:
+        raise AssertionError(f"matcher {tag}: row_to_col differs from the "
+                             f"plain version in {int((got != plain).sum())} "
+                             "places")
+    if not torch.equal(steps.cpu().long(), plain_steps):
+        raise AssertionError(f"matcher {tag}: search steps {steps.tolist()},"
+                             f" plain {plain_steps.tolist()}")
+    plain_ms = None
+    if time_plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = matcher._row_to_col(matcher._augmenting_path_solve(cost)[0])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(on_card.cpu(), plain):
+            raise AssertionError(f"matcher {tag}: the plain version on the "
+                                 "card differs from the host's")
+    c, r = host.numpy(), got.numpy()
+    for ci, row in zip(c, r):
+        ri, cj = linear_sum_assignment(ci)
+        ours, best = float(ci[np.arange(len(row)), row].sum()), float(
+            ci[ri, cj].sum())
+        if abs(ours - best) > MATCHER_COST_TOL:
+            raise AssertionError(f"matcher {tag}: total cost {ours}, "
+                                 f"scipy's {best}")
+    return steps, err, plain_ms
+
+
+def phase_matcher_kernel():
+    """The global matcher's kernel (``csrc/matcher.cu``) against its plain
+    version at (B, 128, 128) and (B, 48, 48), B = 32 and 8, plus a batch
+    made of ties and one with zero targets: row_to_col and steps bit-equal,
+    scipy's total cost; the kernel's time by events and its device time,
+    the plain version's on the card at the STAR step's B=8 (one turn),
+    scipy on the host with the copy to the host (the reference's own
+    route, ``lxrt/matcher.py:76-80``) as the yardstick, and the bound.  At
+    the kernel's largest n one problem launches and agrees; one column
+    more raises naming the limit.  Returns the rows and max |row_to_col -
+    plain| over every case."""
+    t0 = time.perf_counter()
+    clock = max_sm_clock_hz()
+    rows, max_err = {}, 0
+    for bsz in MATCHER_BATCHES:
+        for name, n, slots, classes in MATCHER_SHAPES:
+            cost = matcher_costs(bsz, n, slots, classes, seed=bsz + n)
+            steps, err, plain_ms = check_matcher(
+                f"{name} b{bsz}", cost, time_plain=bsz == STAR_BATCH)
+            max_err = max(max_err, err)
+            row = {"steps_max": int(steps.max()), "steps_sum":
+                   int(steps.sum()), "plain_ms": plain_ms}
+            row["bound_ms"], row["bound"] = matcher_bound(
+                bsz, n, row["steps_max"], clock)
+            row.update(spread("kernel_ms", lambda: matcher._launch(cost)))
+            mine, _, _ = device_ms(lambda: matcher._launch(cost),
+                                   own=("hungarian_kernel",))
+            row["kernel_device_ms"] = mine
+            t1 = time.perf_counter()
+            host = cost.cpu().numpy()
+            for c in host:
+                linear_sum_assignment(c)
+            row["scipy_host_ms"] = (time.perf_counter() - t1) * 1e3
+            row["bound_by"] = "operations"
+            rows[(name, bsz)] = row
+            log(f"matcher {name} b{bsz} ({n} x {n}): bit-equal to the plain "
+                f"version, scipy's total cost; {json.dumps(row)}")
+    for tag, kw in (("ties", dict(ties=True)), ("zero targets",
+                                                dict(empty=True))):
+        cost = matcher_costs(4, 128, 8, 564, seed=3, **kw)
+        max_err = max(max_err, check_matcher(tag, cost)[1])
+        log(f"matcher {tag} b4 (128 x 128): bit-equal to the plain version, "
+            "scipy's total cost")
+    max_n = matcher._lib().shgvqa_hungarian_max_n()
+    cost = torch.rand(1, max_n, max_n, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(4))
+    max_err = max(max_err, check_matcher(f"n={max_n}", cost)[1])
+    try:
+        matcher._launch(torch.zeros(1, max_n + 1, max_n + 1, device="cuda"))
+    except ValueError as e:
+        if f"n <= {max_n}" not in str(e):
+            raise AssertionError(f"matcher n={max_n + 1}: refused without "
+                                 f"naming the limit: {e}") from e
+    else:
+        raise AssertionError(f"matcher n={max_n + 1}: launched above the "
+                             f"limit n <= {max_n}")
+    log(f"matcher n={max_n} (the limit): bit-equal to the plain version, "
+        f"scipy's total cost; n={max_n + 1} refused naming the limit; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    return rows, max_err
+
+
+def per_step_matcher(rows, bsz, key):
+    """``key`` summed over one train step's two problems at ``bsz``."""
+    return sum(rows[(name, bsz)][key] for name, *_ in MATCHER_SHAPES)
+
+
 def per_forward_attn(rows, bsz, key):
     """Sum over the attention sites of one inference forward of ``key``."""
     return sum(nf * rows[(name, bsz)][key]
@@ -1482,12 +1695,12 @@ MODES = {
 
 # phase 4's forwards: (name, mode, launches per B=2 forward)
 MAIN_RUNS = (
-    ("FFN kernel", "kernel", (0, 0, 18, 0, 0, 0, 0, 0, 0)),
-    ("plain", "plain", (0,) * 9),
-    ("FFN + tok + block kernels", "tok_block", (0, 0, 18, 0, 0, 2, 6, 0, 0)),
-    ("FFN + attention kernels", "attention", (38, 0, 18, 0, 0, 0, 0, 0, 0)),
+    ("FFN kernel", "kernel", (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
+    ("plain", "plain", (0,) * 10),
+    ("FFN + tok + block kernels", "tok_block", (0, 0, 18, 0, 0, 2, 6, 0, 0, 0)),
+    ("FFN + attention kernels", "attention", (38, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
     ("FFN + out_ln + headsliced", "out_ln_headsliced",
-     (0, 0, 18, 0, 0, 0, 0, 18, 38)),
+     (0, 0, 18, 0, 0, 0, 0, 18, 38, 0)),
 )
 
 
@@ -1552,7 +1765,7 @@ def phase_throughput(model):
 
 
 COUNT_NAMES = ("attention fwd, bwd, ffn, ffn train fwd, bwd, tok, block, "
-               "out_ln, headsliced")
+               "out_ln, headsliced, matcher")
 
 
 def reset_counts():
@@ -1565,17 +1778,18 @@ def reset_counts():
     fused_bottleneck.launches = 0
     fused_out_ln.launches = 0
     headsliced_attention.launches = 0
+    hungarian_square.launches = 0
 
 
 def counts():
     """(attention forward, attention backward, FFN, FFN train forward, FFN
     train backward, tokenizer conv, bottleneck, out_ln, head-sliced
-    attention) launches since ``reset_counts``."""
+    attention, matcher) launches since ``reset_counts``."""
     return (fused_attention.launches, fused_attention.bwd_launches,
             fused_ffn.launches, fused_ffn_train.launches,
             fused_ffn_train.bwd_launches, fused_tok_conv.launches,
             fused_bottleneck.launches, fused_out_ln.launches,
-            headsliced_attention.launches)
+            headsliced_attention.launches, hungarian_square.launches)
 
 
 def grad_norm(params):
@@ -1613,7 +1827,7 @@ def phase_train_main_path():
             raise AssertionError(f"train step {i}: non-finite {values}")
         log(f"train step {i}: launches ({COUNT_NAMES}) "
             f"{step_counts[-1]}; {json.dumps(values)}")
-    if any(c != (38, 34, 0, 0, 0, 0, 6, 0, 0) for c in step_counts):
+    if any(c != (38, 34, 0, 0, 0, 0, 6, 0, 0, 0) for c in step_counts):
         raise AssertionError(f"train step launches {step_counts}, expected "
                              "38 attention forward, 34 backward, 0 FFN, 0 "
                              "tokenizer, 6 bottleneck")
@@ -1629,7 +1843,7 @@ def phase_train_main_path():
     preds = make_eval_step(cfg, model, with_hg_metrics=True)(eval_batch)
     torch.cuda.synchronize()
     eval_counts = counts()
-    if eval_counts != (0, 0, 18, 0, 0, 2, 6, 0, 0):
+    if eval_counts != (0, 0, 18, 0, 0, 2, 6, 0, 0, 0):
         raise AssertionError(f"eval step launches {eval_counts}, expected 0 "
                              "attention, 18 FFN, 2 tokenizer, 6 bottleneck")
     log(f"eval step b2: launches {eval_counts}; rel/act class acc "
@@ -1740,7 +1954,7 @@ def phase_train_published():
             raise AssertionError(f"published step {i}: non-finite {values}")
         log(f"published step {i}: launches ({COUNT_NAMES}) "
             f"{step_counts[-1]}; {json.dumps(values)}")
-    if any(c != (38, 34, 0, 0, 0, 0, 0, 0, 0) for c in step_counts):
+    if any(c != (38, 34, 0, 0, 0, 0, 0, 0, 0, 0) for c in step_counts):
         raise AssertionError(f"published step launches {step_counts}, "
                              "expected 38 attention forward, 34 backward, 0 "
                              "FFN, 0 tokenizer, 0 bottleneck")
@@ -1883,8 +2097,8 @@ SPL_K, SPL_STEPS = 4, 8
 # launches of one step of each recipe with the phase's switches on (the
 # attention kernels, the FFN train kernels, the block switch): a published
 # step's blocks run their convs under a gradient
-SPL_LAUNCHES = {"frozen": (38, 34, 0, 18, 14, 0, 6, 0, 0),
-                "published": (38, 34, 0, 18, 14, 0, 0, 0, 0)}
+SPL_LAUNCHES = {"frozen": (38, 34, 0, 18, 14, 0, 6, 0, 0, 0),
+                "published": (38, 34, 0, 18, 14, 0, 0, 0, 0, 0)}
 # a graph run may differ from eager by no more than 2x eager's own spread
 # (medians: of the graph's distances to each eager run, and of the eager
 # runs' distances to each other), and by 1e-6 relative where eager repeats
@@ -1940,13 +2154,11 @@ def spl_eager(model, optimizer, generator, batches):
 
 def spl_graph(model, optimizer, generator, batches):
     """The same steps as ``SPL_K``-step chunks (``train/graph.py``, the
-    augmentation on its select tree): chunk 1 eager, then one capture and
-    one replay, with the launch counts of the chunk that captures.  Returns
-    (losses, parameters, generator state), the counts and the
-    ``StepChunks`` with its graph."""
-    cfg = model.cfg
-    use_select_tree(model)
-    chunks = StepChunks(make_train_step(model.cfg, model, optimizer),
+    augmentation on its fixed-capacity path): chunk 1 eager, then one
+    capture and one replay, with the launch counts of the chunk that
+    captures.  Returns (losses, parameters, generator state), the counts
+    and the ``StepChunks`` with its graph."""
+    chunks = StepChunks(model, make_train_step(model.cfg, model, optimizer),
                         optimizer, generator, SPL_K)
     losses = [chunks.run(batches[:SPL_K])["total_loss"].clone()]
     torch.cuda.synchronize()
@@ -1957,7 +2169,6 @@ def spl_graph(model, optimizer, generator, batches):
     out = (torch.cat(losses).cpu(),
            [p.detach().clone() for p in optimizer.params],
            generator.get_state())
-    model.cfg = cfg
     if (chunks.captures, chunks.replays) != (1, 1):
         raise AssertionError(f"{chunks.captures} captures and "
                              f"{chunks.replays} replays, expected 1 and 1")
@@ -2075,7 +2286,6 @@ def spl_throughput(name, model, optimizer, generator, batch, chunks=None):
         for _ in range(2):                  # the eager chunk, the capture
             chunked(batch, generator)
         chunks = chunked.chunks
-        model.cfg = cfg                      # k=1 on the sub-batch path
 
     def chunked(b, _g=None):
         return chunks.run([b] * SPL_K)
@@ -2118,27 +2328,91 @@ def spl_throughput(name, model, optimizer, generator, batch, chunks=None):
 
 
 def spl_augment_ms(model, batch):
-    """The published augmentation alone at the batch's size: device ms by
-    events with the sub-batch path and with the select tree (median [min,
-    max] of 3 turns of 5 calls), and the two bit-equal from one seed."""
+    """The published augmentation alone at the batch's size (its two
+    RandAugment layers at apply 0.5): device ms by events with the
+    sub-batch path, with the select tree and with the fixed-capacity path
+    eagerly (median [min, max] of 3 turns of 5 calls), the three bit-equal
+    from one seed; then the fixed-capacity path captured into a CUDA graph
+    (its overflow branches as conditional nodes) on static draws, replayed
+    with draws under every class's capacity and with draws where every clip
+    rotates (over the capacities): each replay bit-equal to the select tree
+    on the same draws, and the replay's device ms."""
     data = model.cfg.data
     x = batch["frames"].to(torch_dtype(data.aug_dtype
                                        or model.cfg.compute_dtype)) / 255.0
     kind = data.augment_type
+    paths = {"sub-batch": "subbatch", "select tree": "select",
+             "fixed capacity eager": "capacity"}
     out, ms = {}, {}
-    for sub in (True, False):
-        key = "sub-batch" if sub else "select tree"
+    for key, path in paths.items():
         out[key] = augment_clips(x, kind, torch.Generator(
-            device="cuda").manual_seed(7), subbatch=sub)
+            device="cuda").manual_seed(7), path)
         g = torch.Generator(device="cuda").manual_seed(7)
-        ms.update(spread(key, lambda: augment_clips(x, kind, g,
-                                                    subbatch=sub),
+        ms.update(spread(key, lambda: augment_clips(x, kind, g, path),
                          turns=3, iters=5, warmup=1))
-    if not torch.equal(out["sub-batch"], out["select tree"]):
-        raise AssertionError("the select tree's augmentation differs from "
-                             "the sub-batch path's")
-    log(f"steps per loop: augment b{x.shape[0]} ms {json.dumps(ms)}; the two "
-        "paths bit-equal")
+    if not (torch.equal(out["sub-batch"], out["select tree"])
+            and torch.equal(out["fixed capacity eager"],
+                            out["select tree"])):
+        raise AssertionError("the augmentation's three paths differ")
+    ms.update(spl_augment_graph(x))
+    log(f"steps per loop: augment b{x.shape[0]} ms {json.dumps(ms)}; the "
+        "three paths bit-equal")
+    return ms
+
+
+def spl_augment_graph(x, layers=2, prob=0.5):
+    """The fixed-capacity RandAugment of ``x`` captured on static draws and
+    replayed with and without overflow (``spl_augment_ms``)."""
+    bsz, dev = x.shape[0], x.device
+    g = torch.Generator(device=dev).manual_seed(21)
+    op, apply, sign = (t.clone() for t in sample_rand_augment(
+        bsz, layers, prob, g, dev))
+
+    def run():
+        return transforms._augment(x, op, apply, sign, 9, 8, "capacity",
+                                   prob)
+
+    def over_capacity(draw):
+        o = torch.where(draw[1], draw[0], torch.zeros_like(draw[0]))
+        caps = [(ids, transforms._class_cap(bsz, prob * len(ids) / 14.0))
+                for _, ids in transforms._GATHERED]
+        return any(int(sum((o[:, layer] == i).sum() for i in ids)) > cap
+                   for ids, cap in caps for layer in range(layers))
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), cond.warm_up():
+        run()                              # the warm-up: both branches
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    nodes = cond.branch.nodes
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        y = run()
+    nodes = cond.branch.nodes - nodes
+    ms = {}
+    rotate = (torch.full_like(op, transforms._GEO_ROT),
+              torch.ones_like(apply), torch.ones_like(sign))
+    for case, draw in (("no overflow", None), ("overflow", rotate)):
+        while draw is None or (case == "no overflow" and
+                               over_capacity(draw)):
+            draw = sample_rand_augment(bsz, layers, prob, g, dev)
+        if over_capacity(draw) != (case == "overflow"):
+            raise AssertionError(f"augment graph: the {case} draws")
+        for dst, src in zip((op, apply, sign), draw):
+            dst.copy_(src)
+        graph.replay()
+        want = transforms._augment(x, op, apply, sign, 9, 8, "select")
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            raise AssertionError(f"augment graph, {case}: the replay "
+                                 "differs from the select tree")
+        ms.update(spread(f"fixed capacity graph, {case}", graph.replay,
+                         turns=3, iters=5, warmup=1))
+    log(f"steps per loop: the fixed-capacity augmentation captured with "
+        f"{nodes} conditional nodes; replays with and without overflow "
+        "bit-equal to the select tree")
+    del graph
     return ms
 
 
@@ -2267,10 +2541,12 @@ def phase_driver_steps_per_loop(tmp: str, files: dict):
 class _Counted:
     """Wraps the train and eval steps the driver's Trainer builds so that
     every launch count is set to 0 just before each step and read just
-    after it; keeps the driver's model."""
+    after it; keeps the driver's model.  With ``sync`` off (steps that a
+    CUDA graph captures) it neither synchronizes nor reads the loss."""
 
-    def __init__(self):
+    def __init__(self, sync: bool = True):
         self.train, self.eval, self.losses, self.model = [], [], [], None
+        self.sync = sync
 
     def __enter__(self):
         self._saved = (loop.make_train_step, loop.make_eval_step)
@@ -2282,13 +2558,15 @@ class _Counted:
                 self.model = model
 
                 def run(*a):
-                    torch.cuda.synchronize()
+                    if self.sync:
+                        torch.cuda.synchronize()
                     reset_counts()
                     out = fn(*a)
-                    torch.cuda.synchronize()
                     sink.append(counts())
-                    if keep_loss:
-                        self.losses.append(out["total_loss"].item())
+                    if self.sync:
+                        torch.cuda.synchronize()
+                        if keep_loss:
+                            self.losses.append(out["total_loss"].item())
                     return out
                 return run
             return build
@@ -2301,14 +2579,14 @@ class _Counted:
         loop.make_train_step, loop.make_eval_step = self._saved
 
 
-def run_main(argv):
-    """``agqa_hgqa.main(argv)`` on the card; its stdout is captured, then
-    printed.  Returns (result, stdout, seconds)."""
+def run_main(argv, main=agqa_hgqa.main):
+    """``main(argv)`` (the agqa_hgqa driver's by default) on the card; its
+    stdout is captured, then printed.  Returns (result, stdout, seconds)."""
     out = io.StringIO()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
-            result = agqa_hgqa.main(argv)
+            result = main(argv)
     finally:
         for line in out.getvalue().splitlines():
             log(f"  | {line}")
@@ -2393,6 +2671,231 @@ def phase_driver(tmp: str, files: dict):
             f"32 answers, launches per eval forward {counted.eval[0]}, "
             f"{seconds:.1f} s")
     return train_counts, epochs
+
+
+# README.md's STAR line (cli/star.py) with --noCaps, at --stepsPerLoop 2
+STAR_FLAGS = ["--taskHGQA", "--useHGMask", "--qType", "Interaction",
+              "--qaArrangeType", "add_sep_all", "--batchSize", "8",
+              "--noCaps", "--stepsPerLoop", "2"]
+# --qType Interaction keeps one synthetic question in four: 128 give four
+# B=8 steps an epoch (two 2-step chunks), 16 valid one eval forward of 4
+STAR_DATA = ["--syntheticData", "128", "--syntheticValid", "16",
+             "--logFreq", "1", "--epochs", "2"]
+# launches of a STAR train step (the trunk frozen, the global matcher) and
+# of a valid forward with labels (its class accuracy matched globally);
+# the eval modes of --test (no labels: no matching)
+STAR_TRAIN_LAUNCHES = (38, 34, 0, 0, 0, 0, 0, 0, 0, 2)
+# under the hg mask, a kernel path's output may differ from the masked plain
+# run by at most this share of the mask's effect on the plain path, and the
+# mask must move the kernel path by at least this share of that effect
+# (star_mask_kernels): between the kernels' noise (hg_logit ~4.6e-3 of an
+# effect of ~2.5e-2 on an NVIDIA H100 80GB HBM3 at 700 W) and the whole
+# effect, where a kernel that dropped the mask lands
+MASK_SHARE = 0.5
+STAR_VALID_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2)
+STAR_TEST_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
+                   (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0, 0)))
+
+
+def star_mask_kernels(trainer):
+    """The attention paths under ``--useHGMask`` with an hg mask that is not
+    a prefix, on the STAR driver's model (its calibrated trunk) at B=8:
+    the eval forward's hg_logit with ``--pallasAttention`` (38 attention
+    forwards) and with the head-sliced switch (38 head-sliced), and a train
+    step's loss and gradients with the training kernels at dropout 0.
+    Each runs with the mask and with the mask all ones, on the kernel path
+    and on the plain path; the mask's effect is the plain path's change.
+    Every kernel path must be nearer the masked plain run than the
+    unmasked one, within TRAIN_TOL of it (phases 4 and 6), and moved by
+    the mask itself by at least ``MASK_SHARE`` of the effect; hg_logit and
+    the loss must also be within ``MASK_SHARE`` of the effect of the masked
+    plain run.  The gradients are not held to that share: through the
+    bf16 backward their distance to plain is about half the effect.  A
+    kernel that dropped the mask would not move
+    with it and would land a whole effect away."""
+    model, cfg = trainer.model, trainer.model.cfg
+    batch = entry.device_batch(cfg, 8, 5, with_labels=True)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    mask = torch.rand(batch["hg_mask"].shape, device="cuda", generator=g)
+    batch["hg_mask"] = (mask < 0.6).to(torch.int32)
+    batch["hg_mask"][:, :, 0] = 0                   # a hole at every start
+    inputs = {True: batch, False: dict(
+        batch, hg_mask=torch.ones_like(batch["hg_mask"]))}
+    model.eval()
+    outs = {}
+    for name, switch, at in (("plain", None, None),
+                             ("pallasAttention", set_attention_kernel_eval,
+                              0),
+                             ("headsliced", set_headsliced_kernel, 8)):
+        for masked, b in inputs.items():
+            if switch is not None:
+                switch(model, True)
+            reset_counts()
+            outs[(name, masked)] = entry.hg_logit_forward(model, b).float()
+            launched = counts()
+            if switch is not None:
+                switch(model, False)
+                if launched[at] != 38:
+                    raise AssertionError(f"STAR hg mask, {name}: launches "
+                                         f"{launched}")
+    rates = {m: m.rate for m in model.modules() if isinstance(m, Dropout)}
+    set_dropout_rate(model, 0.0)
+    model.train()
+    train = {}
+    for name, attn in (("kernel", True), ("plain", False)):
+        set_attention_kernel(model, attn)
+        for masked, b in inputs.items():
+            trainer.optimizer.zero_grad()
+            loss, _ = compute_losses(cfg, model(b, g), b)
+            loss.backward()
+            train[(name, masked)] = (
+                loss.detach().float().reshape(1), torch.cat(
+                    [p.grad.float().flatten() for p in trainer.optimizer.params
+                     if p.grad is not None]))
+    trainer.optimizer.zero_grad()
+    set_attention_kernel(model, True)
+    for m, rate in rates.items():
+        m.rate = rate
+    model.eval()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    # (tag, kernel with the mask, kernel with ones, plain with the mask,
+    # plain with ones, held to MASK_SHARE of the effect)
+    cases = [(f"hg_logit {name}", outs[(name, True)], outs[(name, False)],
+              outs[("plain", True)], outs[("plain", False)], True)
+             for name in ("pallasAttention", "headsliced")]
+    cases += [(f"train {what}", train[("kernel", True)][i],
+               train[("kernel", False)][i], train[("plain", True)][i],
+               train[("plain", False)][i], i == 0)
+              for i, what in enumerate(("loss", "gradients"))]
+    report, faults = [], []
+    for tag, got, got_ones, masked, ones, share in cases:
+        near, far = rel(got, masked), rel(got, ones)
+        effect, own = rel(ones, masked), rel(got_ones, got)
+        report.append(f"{tag}: rel to masked plain {near:.3e}, to unmasked "
+                      f"plain {far:.3e}, the mask's effect {effect:.3e} on "
+                      f"plain and {own:.3e} on the kernel path")
+        limit = min(TRAIN_TOL, MASK_SHARE * effect) if share else TRAIN_TOL
+        if (effect == 0.0 or near > limit or near >= far
+                or own < MASK_SHARE * effect):
+            faults.append(tag)
+    log(f"STAR hg mask (not a prefix, b8), kernel paths vs the plain path "
+        f"(relative Frobenius; limits: {MASK_SHARE} x the effect for "
+        f"hg_logit and the loss, {TRAIN_TOL}; the kernel's own effect at "
+        f"least {MASK_SHARE} x plain's): " + "; ".join(report))
+    if faults:
+        raise AssertionError(f"STAR hg mask: {faults} not held to the "
+                             "masked plain run")
+
+
+def phase_star_driver(tmp: str, files: dict):
+    """``cli.star.main`` at README.md's STAR flags with ``--noCaps
+    --stepsPerLoop 2`` at B=8 on synthetic STAR, its trunk from
+    ``--backboneWeights``, two epochs of four steps: the launch counts of
+    every step run on the host (the eager chunk and the capture; a replay
+    runs no Python) and of every valid forward, one capture and three
+    replays, finite losses, LAST reloaded bit-equal; then ``--test`` from
+    LAST (oracle 1.0, ``by_qtype``, both predict files), plain and with
+    ``--pallasAttention``; between them ``star_mask_kernels`` on the
+    trained model.  Returns the launches of the first train step."""
+    t0 = time.perf_counter()
+    out, data = os.path.join(tmp, "star"), os.path.join(tmp, "star_data")
+    os.makedirs(data, exist_ok=True)
+    argv = STAR_FLAGS + STAR_DATA + ["--output", out, "--dataDir", data,
+                                     "--backboneWeights", files["trunk"]]
+    saved, _Recorded.made = common.Trainer, []
+    common.Trainer = _Recorded
+    try:
+        with _Counted(sync=False) as counted:
+            result, stdout, seconds = run_main(argv, star.main)
+    finally:
+        common.Trainer = saved
+    trainer = _Recorded.made[-1]
+    chunks = trainer.chunks
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["total_loss"] for line in f]
+    if "star driver: task=hgqa" not in stdout or (
+            f"Loaded pretrained backbone from {files['trunk']}" not in stdout):
+        raise AssertionError("the STAR driver did not start or did not load "
+                             "--backboneWeights")
+    if (result["steps"], len(losses)) != (8, 8) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"STAR driver: {result['steps']} steps, losses "
+                             f"{losses}")
+    if chunks is None or (chunks.captures, chunks.replays) != (1, 3):
+        raise AssertionError("STAR driver: not one capture and three "
+                             "replays")
+    if counted.train != [STAR_TRAIN_LAUNCHES] * 4:
+        raise AssertionError(f"STAR train steps launched {counted.train}, "
+                             f"expected 4 x {STAR_TRAIN_LAUNCHES}")
+    train_launches = counted.train[0]
+    if counted.eval != [STAR_VALID_LAUNCHES] * 2:
+        raise AssertionError(f"STAR valid forwards launched {counted.eval}, "
+                             f"expected 2 x {STAR_VALID_LAUNCHES}")
+    cfg = trainer.model.cfg
+    if cfg.loss_hg_per_frame or not cfg.use_hg_mask:
+        raise AssertionError("STAR driver: not the global matcher with the "
+                             "hg mask")
+    fresh = entry.build_model(cfg, "cuda", seed=1)
+    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
+        os.path.join(out, "LAST"))
+    trained = trainer.model.state_dict()
+    for name, value in fresh.state_dict().items():
+        if not torch.equal(value, trained[name]):
+            raise AssertionError(f"STAR LAST reloads {name} differently")
+    del fresh, trained, chunks
+    star_mask_kernels(trainer)
+    del trainer, _Recorded.made[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"STAR driver: 8 steps, losses {losses}, 1 capture and 3 replays, "
+        f"launches ({COUNT_NAMES}) per train step run on the host "
+        f"{counted.train[0]}, per valid forward {counted.eval[0]}; history "
+        f"{result['history']}; LAST reloads bit-equal; {seconds:.1f} s")
+    for extra, want in STAR_TEST_MODES:
+        test_out = os.path.join(tmp, "star_test" + "".join(extra))
+        argv_test = [a if a != out else test_out for a in argv] + [
+            "--test", "test", "--load", os.path.join(out, "LAST")] + extra
+        with _Counted() as counted:
+            result, stdout, test_seconds = run_main(argv_test, star.main)
+        if "Oracle score: 1.0000" not in stdout:
+            raise AssertionError(f"STAR --test {extra}: oracle score not "
+                                 "1.0")
+        if not counted.eval or any(c != want for c in counted.eval):
+            raise AssertionError(f"STAR --test {extra} forwards launched "
+                                 f"{counted.eval}, expected {want} each")
+        if set(result["by_qtype"]) != {"Interaction", "Sequence",
+                                       "Prediction", "Feasibility"}:
+            raise AssertionError(f"STAR --test by_qtype {result['by_qtype']}")
+        for name in ("predict.json", "predict_hg.json"):
+            with open(os.path.join(test_out, name)) as f:
+                if len(json.load(f)) != 4:
+                    raise AssertionError(f"STAR {name} does not hold 4 "
+                                         "answers")
+        log(f"STAR --test {' '.join(extra)}: oracle 1.0, acc {result['acc']}"
+            f", hg_acc {result['hg_acc']}, by_qtype {result['by_qtype']}, "
+            f"predict files of 4 answers, launches per eval forward "
+            f"{counted.eval[0]}, {test_seconds:.1f} s")
+    log(f"STAR phase: {time.perf_counter() - t0:.1f} s")
+    return train_launches
+
+
+def clear_outputs(tmp: str, keep: str) -> None:
+    """Delete everything the phases wrote under ``tmp`` but ``keep`` (the
+    trunk file the later phases load).  The card machine's disk keeps every
+    block once written, deleted or not, and checkpoints are ~4 GB each:
+    blocks freed here are written again by the next phase, so the disk
+    grows by the largest phase rather than by their sum."""
+    for name in os.listdir(tmp):
+        path = os.path.join(tmp, name)
+        if path == keep:
+            continue
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
 
 
 def weight_file_writers():
@@ -2686,7 +3189,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
                                            "tok_block", "out_ln_headsliced",
-                                           "weights", "steps_per_loop"),
+                                           "weights", "steps_per_loop",
+                                           "matcher", "star"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -2754,6 +3258,15 @@ def main(argv=None) -> int:
             phase_driver_steps_per_loop(tmp, write_weight_files(tmp))
         log(f"steps per loop ok; {json.dumps(spl_cps)}")
         return 0
+    if args.only == "matcher":
+        _, err = phase_matcher_kernel()
+        log(f"matcher kernel ok; max |row_to_col - plain| {err}")
+        return 0
+    if args.only == "star":
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_star_driver(tmp, write_weight_files(tmp))
+        log("STAR driver ok")
+        return 0
     if args.only == "out_ln_headsliced":
         out_ln_rows, out_ln_err = phase_out_ln_kernel()
         log_out_ln_per_forward(out_ln_rows)
@@ -2771,6 +3284,7 @@ def main(argv=None) -> int:
     out_ln_rows, out_ln_err = phase_out_ln_kernel()
     hs_rows, hs_err = phase_headsliced_kernel()
     phase_headsliced_ab()
+    matcher_rows, matcher_err = phase_matcher_kernel()
     model, main_launches = phase_main_path()
     launches = main_launches["FFN + tok + block kernels"]
     olhs_launches = main_launches["FFN + out_ln + headsliced"]
@@ -2797,7 +3311,10 @@ def main(argv=None) -> int:
         files = write_weight_files(tmp)
         driver_counts, epoch_s = phase_driver(tmp, files)
         imports = phase_weights_import(tmp, files)
+        clear_outputs(tmp, files["trunk"])
         phase_driver_steps_per_loop(tmp, files)
+        clear_outputs(tmp, files["trunk"])
+        star_launches = phase_star_driver(tmp, files)
         weight_bytes = files["bytes"]
         del files
     phase_plain_path_card_vs_cpu()
@@ -2911,6 +3428,27 @@ def main(argv=None) -> int:
             for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
                       "transpose_ms", "library_ms", "bound_ms")
             for b in (bsz, 2)))
+    star_bsz = STAR_BATCH
+    kernels.append({
+        "name": "hungarian_square", "route": "cuda",
+        "source": "shgvqa_tpu_torch/csrc/matcher.cu",
+        "replaces": "shgvqa_tpu/ops/matcher.py:37",
+        "launches": star_launches[9], "max_abs_err": matcher_err,
+        "ms": per_step_matcher(matcher_rows, star_bsz, "kernel_ms"),
+        "plain_ms": per_step_matcher(matcher_rows, star_bsz, "plain_ms"),
+        "bound_ms": per_step_matcher(matcher_rows, star_bsz, "bound_ms"),
+        "bound_by": "operations", "library_ms": None,
+    })
+    log(f"hungarian_square per STAR train step ({star_launches[9]} "
+        "launches: relations 128 x 128, actions 48 x 48; yardstick: scipy's "
+        "linear_sum_assignment on the host with the copy; no PyTorch call "
+        "solves an assignment): " + ", ".join(
+            f"{k} {per_step_matcher(matcher_rows, b, k)} at b{b}"
+            for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                      "scipy_host_ms", "bound_ms")
+            for b in MATCHER_BATCHES
+            if all(matcher_rows[(n, b)][k] is not None
+                   for n, *_ in MATCHER_SHAPES)))
     log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; train step device "
         f"memory GiB {json.dumps(train_memory)}; driver epochs {epoch_s} s")
     log(f"steps per loop (k=1 vs a {SPL_K}-step graph) train clips/s: "

@@ -24,8 +24,8 @@ synchronizing calls a step makes (``count_host_syncs``).
 
 With ``--steps-per-loop K`` (K > 1) the steps run as the trainer runs
 ``--stepsPerLoop K`` (``train/graph.StepChunks``, the augmentation on its
-select tree): K-step chunks of the same batch, the first eager, the second
-captured into a CUDA graph and replayed, then five replays timed on the
+fixed-capacity path): K-step chunks of the same batch, the first eager, the
+second captured into a CUDA graph and replayed, then five replays timed on the
 host clock; ``host_syncs`` is one replayed chunk's, ``peak_gib`` and
 ``reserved_gib`` a replayed chunk's peak and the allocator's reserved
 memory after it.
@@ -58,7 +58,7 @@ from shgvqa_tpu_torch.entry import (
     resolve_device,
     train_entry,
 )
-from shgvqa_tpu_torch.train.graph import StepChunks, use_select_tree
+from shgvqa_tpu_torch.train.graph import StepChunks
 from shgvqa_tpu_torch.train.step import compute_losses, make_train_step
 
 BATCH_SIZE = 32
@@ -131,10 +131,9 @@ def chunked_step(model, optimizer, generator: torch.Generator, k: int
                  ) -> Callable:
     """A callable ``(batch, generator) -> metrics`` that trains a chunk of
     ``k`` steps on ``batch`` as ``Trainer.train`` does at ``--stepsPerLoop
-    k`` (the augmentation switched to its select tree); its ``chunks`` is
-    the ``StepChunks``."""
-    use_select_tree(model)
-    chunks = StepChunks(make_train_step(model.cfg, model, optimizer),
+    k`` (the steps' augmentation on its fixed-capacity path); its
+    ``chunks`` is the ``StepChunks``."""
+    chunks = StepChunks(model, make_train_step(model.cfg, model, optimizer),
                         optimizer, generator, k)
 
     def run(batch, _generator=None):

@@ -1,5 +1,5 @@
 """Driver machinery of the entry points: the port of
-``shgvqa_tpu/cli/common.py`` for the AGQA dataset.
+``shgvqa_tpu/cli/common.py`` for the AGQA and STAR datasets.
 
 ``run_driver`` parses the reference's flags into a ``Config`` and runs
 either the train path (data, tokenizer, batchers, the model with random
@@ -17,10 +17,15 @@ does.  ``--test`` loads only ``--load``.  ``--load`` reads the port's own
 checkpoints and reference ``.pth`` snapshots (``path/BEST`` with
 ``BEST.pth`` beside it).
 
+STAR passes each question's keyframes to the frame loader, scores the
+4-way answer index (BEST on the hg score, ``log.log`` under ``--output``),
+and its test protocol reports ``acc``, ``hg_acc`` and the per-question-type
+``by_qtype`` with both predict files.
+
 It runs on the card unless the caller passes ``device="cpu"``.  What the
 port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: the STAR dataset, ``--outputAttn``, mesh and multi-host flags and
-``--loadLXMERT(QA)``.
+item: ``--outputAttn``, mesh and multi-host flags, ``--loadLXMERT(QA)``,
+the per-choice QA arrangements and ``--taskHGVQA``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from shgvqa_tpu_torch.data.agqa import (
     SyntheticFrameLoader,
 )
 from shgvqa_tpu_torch.data.pipeline import Batcher, prefetch
+from shgvqa_tpu_torch.data.star import STARData, STARItemSource
 from shgvqa_tpu_torch.data.tokenization import (
     BertTokenizer,
     build_vocab_from_corpus,
@@ -71,7 +77,7 @@ def build_tokenizer(cfg: Config, extras: dict, corpus) -> BertTokenizer:
     return BertTokenizer(path)
 
 
-def build_data(cfg: Config, extras: dict, split: str) -> AGQAData:
+def build_data(cfg: Config, extras: dict, split: str):
     """The raw data of a split (synthetic or from files)."""
     n_syn = extras.get("synthetic_data") or 0
     if extras.get("synthetic_valid") and not n_syn:
@@ -81,24 +87,33 @@ def build_data(cfg: Config, extras: dict, split: str) -> AGQAData:
             "it would silently swap the valid/test split for synthetic)")
     if split != cfg.data.train_split and extras.get("synthetic_valid"):
         n_syn = extras["synthetic_valid"]
+    data_cls = STARData if cfg.data.dataset == "star" else AGQAData
     if n_syn:
         # a stable hash: builtin hash() is randomized per process
-        return AGQAData.synthetic(cfg, split, n=n_syn,
+        return data_cls.synthetic(cfg, split, n=n_syn,
                                   seed=zlib.crc32(split.encode()) % 1000)
-    return AGQAData.from_files(cfg, split)
+    return data_cls.from_files(cfg, split)
 
 
-def build_item_source(cfg: Config, extras: dict, data: AGQAData, tokenizer,
-                      test_mode: bool = False) -> AGQAItemSource:
+def build_item_source(cfg: Config, extras: dict, data, tokenizer,
+                      test_mode: bool = False):
+    star = cfg.data.dataset == "star"
     if extras.get("synthetic_data"):
         loader = SyntheticFrameLoader(cfg.data.clip_len, cfg.data.image_size)
+        if star:
+            base = loader
+            loader = lambda vid, fids=None: base(vid)  # noqa: E731
     elif extras.get("frame_loader") == "native":
         raise NotImplementedError(
             "--frameLoader native (the C++ PNG decoder) is not ported yet "
             "(ROADMAP queue A item 13); the port decodes with PIL")
     else:
-        loader = FrameLoader(cfg.data.frame_dir, data.frame_ids,
-                             cfg.data.clip_len, cfg.data.image_size)
+        # STAR passes each question's keyframes (star_data:199-205)
+        loader = FrameLoader(cfg.data.frame_dir, {} if star else
+                             data.frame_ids, cfg.data.clip_len,
+                             cfg.data.image_size)
+    if star:
+        return STARItemSource(data, tokenizer, cfg, loader, test_mode)
     return AGQAItemSource(data, tokenizer, cfg, loader, test_mode)
 
 
@@ -107,9 +122,6 @@ def resolve_num_answers(cfg: Config, data) -> Config:
 
 
 def _check_driver_flags(cfg: Config, extras: dict, dataset: str) -> None:
-    if dataset != "agqa" or cfg.data.dataset != "agqa":
-        raise NotImplementedError(
-            "the STAR driver is not ported yet (ROADMAP queue A item 15)")
     if (extras.get("multi_gpu") or cfg.mesh.model_parallel > 1
             or cfg.mesh.data_parallel not in (-1, 1)):
         raise NotImplementedError(
@@ -233,6 +245,8 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
             tr.metrics.log(
                 f"valid rel class acc {hg_acc['rel_class_acc']:0.2f} "
                 f"act class acc {hg_acc['act_class_acc']:0.2f}")
+        if cfg.data.dataset == "star":
+            return evaluator.evaluate(q2a), evaluator.evaluate(hg_q2a)
         return (evaluator.evaluate_overall(q2a),
                 evaluator.evaluate_overall(hg_q2a))
 
@@ -244,11 +258,21 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
     return results
 
 
-def report_test(cfg: Config, data: AGQAData, q2a, hg_q2a) -> dict:
-    """The AGQA test-protocol fan-out and the prediction dumps."""
+def report_test(cfg: Config, data, q2a, hg_q2a) -> dict:
+    """The AGQA test-protocol fan-out (STAR: the answer and hg accuracy and
+    the hg per-question-type breakdown) and the prediction dumps."""
     out = {}
     ev = data.evaluator()
     os.makedirs(cfg.output, exist_ok=True)
+    if cfg.data.dataset == "star":
+        out["acc"] = ev.evaluate(q2a)
+        out["hg_acc"] = ev.evaluate(hg_q2a)
+        out["by_qtype"] = ev.evaluate_by_qtype(hg_q2a)
+        ev.dump_result(q2a, os.path.join(cfg.output, "predict.json"))
+        ev.dump_result(hg_q2a, os.path.join(cfg.output, "predict_hg.json"))
+        for k, v in out.items():
+            print(f"{k}: {v}", flush=True)
+        return out
     for name, preds in (("", q2a), ("hg_", hg_q2a)):
         if cfg.data.indirect_ref:
             out[name + "all_qtypes"] = ev.evaluate_all_qtypes(preds)

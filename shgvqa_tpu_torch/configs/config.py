@@ -285,7 +285,6 @@ _UNPORTED = (
     ("encoder.vit_init", False, "17 (--vitInit)"),
     ("decoder.linear_cls", False, "15 (--linearCls)"),
     ("gt_hg", False, "15 (GT-HG mode)"),
-    ("use_hg_mask", False, "15 (--useHGMask)"),
     ("after_cross_attn_feats", False, "15 (--afterCrossAttnFeats)"),
     ("output_attention", False, "15 (--outputAttn)"),
     ("remat", False, "19 (remat policies)"),
@@ -293,7 +292,6 @@ _UNPORTED = (
 
 # options only training reads
 _TRAIN_UNPORTED = (
-    ("loss_hg_per_frame", True, "8 (the global matcher mode)"),
     ("freeze_weights", False, "15 (--freezeWeights)"),
     ("mce_loss", False, "15 (--mceLoss)"),
 )
@@ -315,6 +313,11 @@ def check_ported(cfg: Config, video: bool = False, train: bool = False
         raise NotImplementedError(
             f"task '{cfg.task}' is not ported yet (ROADMAP queue A item 15); "
             "the port runs 'hgqa' and 'vqa'")
+    if cfg.data.qa_arrange_type in ("add_sep", "no_sep"):
+        raise NotImplementedError(
+            f"per-choice QA (--qaArrangeType {cfg.data.qa_arrange_type}) is "
+            "not ported yet (ROADMAP queue A item 15); the port supports "
+            "add_sep_all and no_sep_all")
     checks = (_UNPORTED + (_VIDEO_UNPORTED if video else ())
               + (_TRAIN_UNPORTED if train else ()))
     for path, want, item in checks:

@@ -1,5 +1,5 @@
-"""Deterministic synthetic micro-datasets in the AGQA schema: the port's own
-copy of the AGQA half of ``shgvqa_tpu/data/synthetic.py``.
+"""Deterministic synthetic micro-datasets in the AGQA and STAR schemas: the
+port's own copy of ``shgvqa_tpu/data/synthetic.py``.
 
 The generators give the exact annotation fields the evaluator and the
 dataset consume.  Answers follow a fixed (question template, object) rule
@@ -131,6 +131,62 @@ def make_agqa_data(
             "direct_equiv": f"Q{int(rng.randint(n)):05d}" if rng.rand() < 0.5 else None,
         })
     return datums, vocab, frame_triplets, frame_actions, frame_ids
+
+
+def make_star_data(
+    n: int = 32,
+    n_videos: int = 4,
+    frames_per_video: int = 8,
+    num_rel_classes: int = 11,
+    num_act_classes: int = 7,
+    max_rel: int = 3,
+    max_act: int = 2,
+    seed: int = 0,
+) -> Tuple[List[dict], Dict[str, float]]:
+    """Returns (datums, fps_dict).  Datums carry STAR fields:
+    question_id (qtype-prefixed), video_id, question, choices, answer_choice,
+    situations: {frame_id: {"rel_labels": [...], "actions": [...]}}, start/end.
+    """
+    rng = np.random.RandomState(seed)
+    qtypes = ["Interaction", "Sequence", "Prediction", "Feasibility"]
+    videos = [f"SVID{v:03d}" for v in range(n_videos)]
+    datums: List[dict] = []
+    for i in range(n):
+        qtype = qtypes[i % 4]
+        vid = videos[i % n_videos]
+        obj_idx = int(rng.randint(len(_OBJECTS)))
+        obj = _OBJECTS[obj_idx]
+        situations = {}
+        for fi in range(frames_per_video):
+            fid = f"{fi:06d}"
+            # counts random (padding coverage), values rule-determined so
+            # the valid split is learnable (see rule_frame_labels)
+            n_rel = int(rng.randint(1, max_rel + 1))
+            n_act = int(rng.randint(1, max_act + 1))
+            situations[fid] = {
+                "rel_labels": rule_frame_labels(
+                    i % n_videos, fi, num_rel_classes, n_rel),
+                "actions": rule_frame_labels(
+                    i % n_videos, fi, num_act_classes, n_act),
+            }
+        choices = {
+            str(c): f"{_ANSWERS[int(rng.randint(len(_ANSWERS)))]} the {obj}"
+            for c in range(4)
+        }
+        datums.append({
+            "question_id": f"{qtype}_T1_{i:05d}",
+            "video_id": vid,
+            "question": f"what happened to the {obj}?",
+            "choices": choices,
+            # learnable: the answer choice is a fixed function of the
+            # question's object (rule_answer analog for 4-way choices)
+            "answer_choice": obj_idx % 4,
+            "situations": situations,
+            "start": 0.0,
+            "end": float(frames_per_video),
+        })
+    fps = {vid: 1.0 for vid in videos}
+    return datums, fps
 
 
 def make_frames(n_frames: int, size: int = 32, seed: int = 0) -> np.ndarray:

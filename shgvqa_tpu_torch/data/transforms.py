@@ -20,18 +20,28 @@ device (op uniform over the 14, apply with ``prob``, sign +-1; AugMix's
 Dirichlet and Beta weights from the same generator).  The two packages'
 random streams differ, so the port is held to JAX at fixed draws.
 
-``apply_layer_batch`` runs one layer over the batch.  With ``subbatch`` off
-every op runs on the whole batch and a select tree picks each clip's result
-(no host sync).  With it on (the default) each op class runs only on the
-clips that drew it, gathered by index and copied back; the geometry runs as
-its three passes, each on the clips that need it.  That needs the drawn ops
-on the host: one host sync a ``rand_augment_batch`` or ``aug_mix_batch``
-call (the index copies to the device go through pinned memory and do not
-wait), and shapes that change from call to call: a CUDA graph of the train
-step (``--stepsPerLoop``, ``train/graph.py``) runs the select tree.  Each
-op computes every clip alone (the means in f64, the histograms as integer
-counts, the blur in f32 element by element), so the two paths give the
-same bits, in the same (contiguous) layout.
+``apply_layer_batch`` runs one layer over the batch, on one of three paths
+(``AUG_PATHS``) that give the same bits in the same (contiguous) layout:
+each op computes every clip alone (the means in f64, the histograms as
+integer counts, the blur in f32 element by element).
+- ``"select"``, the select tree: every op on the whole batch, a select
+  picks each clip's result.  No host read, static shapes.
+- ``"subbatch"``, the sub-batch path (the default): each op class runs
+  only on the clips that drew it, gathered by index and copied back; the
+  geometry runs as its three passes, each on the clips that need it.  That
+  needs the drawn ops on the host: one host sync a ``rand_augment_batch``
+  or ``aug_mix_batch`` call (the index copies to the device go through
+  pinned memory and do not wait), and shapes that change from call to call.
+- ``"capacity"``, the fixed-capacity path, the JAX gathered path: each
+  heavy class (autocontrast, contrast, equalize,
+  sharpness and the three shear passes) runs on ``_class_cap`` rows, the
+  clips that drew it first (a stable argsort on the device) and others
+  after them, whose results are not kept; the elementwise ops stay on the
+  select tree.  When a class drew more clips than its capacity, the layer
+  takes the select tree instead: ``kernels/cond.branch``, which a CUDA
+  graph of the train step (``--stepsPerLoop``, ``train/graph.py``) captures
+  as conditional nodes.  No host read, static shapes, and the work of the
+  sub-batch path plus the padding rows.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from shgvqa_tpu_torch.kernels import cond
 
 NORM_STATS: Dict[str, Tuple[Tuple[float, ...], Tuple[float, ...]]] = {
     "slow_r50": ((0.45, 0.45, 0.45), (0.225, 0.225, 0.225)),
@@ -308,8 +320,15 @@ _OP_EQUALIZE, _OP_SHARPNESS = 2, 9
 # the ops a layer runs on the whole batch or on gathered clips, in the JAX
 # select tree's order (the geometry after them, in its own passes)
 _PLAIN_OPS = (1, 7, 4, 5, 6, 8, _OP_EQUALIZE, _OP_SHARPNESS)
-_IS_X1 = (_GEO_ROT, _GEO_SHX, _GEO_TRX)
-_IS_Y = (_GEO_ROT, _GEO_SHY, _GEO_TRY)
+_ELEMENTWISE_OPS = (4, 5, 6, 8)
+# the layer's paths, one switch (module docstring)
+AUG_PATHS = ("select", "subbatch", "capacity")
+# the classes gathered by the sub-batch and fixed-capacity paths beside the
+# elementwise ops, in the JAX gathered path's order: (name, ops)
+_GATHERED = ((1, (1,)), (7, (7,)), (_OP_EQUALIZE, (_OP_EQUALIZE,)),
+             (_OP_SHARPNESS, (_OP_SHARPNESS,)),
+             ("x1", (_GEO_ROT, _GEO_SHX, _GEO_TRX)),
+             ("y", (_GEO_ROT, _GEO_SHY, _GEO_TRY)), ("rot", (_GEO_ROT,)))
 
 
 def sample_rand_augment(n: int, num_layers: int, prob: float,
@@ -328,16 +347,30 @@ def sample_rand_augment(n: int, num_layers: int, prob: float,
     return op, apply, sign
 
 
+def _class_cap(b: int, p_class: float, sigmas: float = 3.0) -> int:
+    """The fixed capacity of one op class in a layer of ``b`` clips: the
+    mean + ``sigmas``-sigma tail of the Binomial(b, p_class) count, + 1, at
+    most b (the JAX package's ``_class_cap``: overflow ~1e-3 a layer at 3
+    sigma, which the select tree then serves)."""
+    mean = b * p_class
+    sd = (b * p_class * (1.0 - p_class)) ** 0.5
+    return min(b, int(math.ceil(mean + sigmas * sd)) + 1)
+
+
 def apply_layer_batch(x: torch.Tensor, op: torch.Tensor, apply: torch.Tensor,
                       sign: torch.Tensor, magnitude: int = 9,
-                      eq_stride: int = 8, subbatch: bool = True,
-                      host_ops: Optional[Sequence[int]] = None
-                      ) -> torch.Tensor:
+                      eq_stride: int = 8, path: str = "subbatch",
+                      host_ops: Optional[Sequence[int]] = None,
+                      apply_prob: float = 1.0) -> torch.Tensor:
     """One RandAugment layer over the batch: clip i gets op ``op[i]`` (the
     identity where ``apply[i]`` is False) at ``magnitude``/31 of its
-    largest level, signed by ``sign[i]``.  ``subbatch`` runs each op class
-    on the clips that drew it (module docstring); ``host_ops`` are the
-    effective ops on the host, read from the device when None."""
+    largest level, signed by ``sign[i]``, on ``path`` (module docstring):
+    ``"capacity"`` sizes its rows for ``apply_prob``, the probability that
+    a layer applies; ``host_ops`` are the effective ops on the host for
+    ``"subbatch"``, read from the device when None."""
+    if path not in AUG_PATHS:
+        raise ValueError(f"augmentation path {path!r}, not one of "
+                         f"{AUG_PATHS}")
     b, _, h, w, _ = x.shape
     op = torch.where(apply, op, torch.zeros_like(op))
 
@@ -360,16 +393,27 @@ def apply_layer_batch(x: torch.Tensor, op: torch.Tensor, apply: torch.Tensor,
     ys, xs = _centered(h, x.device), _centered(w, x.device)
 
     def run(i, clips, rows=None):
-        """Op i on ``clips``: the batch's ``rows`` (all when None)."""
+        """Op class i on ``clips``: the batch's ``rows`` (all when None)."""
+        if i == "x1":
+            return _shear_rows(clips, lam1[rows, None] * ys + t1[rows, None],
+                               pad)
+        if i == "y":
+            return _shear_cols(clips, beta[rows, None] * xs + t2[rows, None],
+                               pad)
+        if i == "rot":
+            return _shear_rows(clips, lam3[rows, None] * ys
+                               + torch.zeros_like(ys), pad)
         if i == _OP_EQUALIZE:
             return op_equalize_batch(clips, stride=eq_stride)
         v = lvl(i)
         return RAND_AUGMENT_OPS[i][0](clips, v if rows is None else v[rows])
 
-    if not subbatch:
+    def select_tree(ops=_PLAIN_OPS, geometry=True):
         out = x
-        for i in _PLAIN_OPS:
+        for i in ops:
             out = torch.where(_clip(op == i), run(i, x), out)
+        if not geometry:
+            return out
         is_geo = (op == _GEO_ROT) | (op >= _GEO_SHX)
         warped = _geo_passes(x, lam1, beta, lam3, t1, t2, pad)
         # the geometry's passes leave a permuted layout: give the trunk the
@@ -377,11 +421,39 @@ def apply_layer_batch(x: torch.Tensor, op: torch.Tensor, apply: torch.Tensor,
         # differently
         return torch.where(_clip(is_geo), warped, out).contiguous()
 
+    if path == "select":
+        return select_tree()
+    if path == "capacity":
+        caps = {n: _class_cap(b, apply_prob * len(ids) / 14.0)
+                for n, ids in _GATHERED}
+        if min(caps.values()) >= b:
+            return select_tree()                   # tiny batches: no win
+        masks = {n: functools.reduce(torch.logical_or,
+                                     [op == i for i in ids])
+                 for n, ids in _GATHERED}
+
+        def gathered():
+            out = select_tree(_ELEMENTWISE_OPS, geometry=False)
+            for name, _ in _GATHERED:
+                # the class's clips first, then others to fill the rows;
+                # ops read OUT, so the geometry's passes chain
+                rows = torch.argsort((~masks[name]).to(torch.uint8),
+                                     stable=True)[:caps[name]]
+                sub = out.index_select(0, rows)
+                y = run(name, sub, rows)
+                out.index_copy_(0, rows, torch.where(
+                    _clip(masks[name][rows]), y, sub))
+            return out
+
+        overflow = torch.stack([masks[n].sum() > caps[n]
+                                for n, _ in _GATHERED]).any()
+        return cond.branch(overflow, select_tree, gathered,
+                           torch.empty_like(x))
+
     if host_ops is None:
         host_ops = op.tolist()
     # the clips of each class, in one index tensor copied to the device
-    classes = [(i, (i,)) for i in _PLAIN_OPS] + [
-        ("x1", _IS_X1), ("y", _IS_Y), ("rot", (_GEO_ROT,))]
+    classes = [(i, (i,)) for i in _ELEMENTWISE_OPS] + list(_GATHERED)
     members = [[n for n, o in enumerate(host_ops) if o in ids]
                for _, ids in classes]
     if not any(members):
@@ -395,42 +467,35 @@ def apply_layer_batch(x: torch.Tensor, op: torch.Tensor, apply: torch.Tensor,
             continue
         rows = flat[start:start + len(m)]
         start += len(m)
-        sub = out.index_select(0, rows)
-        if name == "x1":
-            y = _shear_rows(sub, lam1[rows, None] * ys + t1[rows, None], pad)
-        elif name == "y":
-            y = _shear_cols(sub, beta[rows, None] * xs + t2[rows, None], pad)
-        elif name == "rot":
-            y = _shear_rows(sub, lam3[rows, None] * ys
-                            + torch.zeros_like(ys), pad)
-        else:
-            y = run(name, sub, rows)
-        out.index_copy_(0, rows, y)
+        out.index_copy_(0, rows, run(name, out.index_select(0, rows), rows))
     return out
 
 
-def _augment(frames01, op, apply, sign, magnitude, eq_stride, subbatch):
+def _augment(frames01, op, apply, sign, magnitude, eq_stride, path,
+             apply_prob=1.0):
     """Every layer of (B, num_layers) draws over the batch."""
     host = (torch.where(apply, op, torch.zeros_like(op)).tolist()
-            if subbatch else None)
+            if path == "subbatch" else None)
     x = frames01
     for layer in range(op.shape[1]):
         x = apply_layer_batch(
             x, op[:, layer], apply[:, layer], sign[:, layer], magnitude,
-            eq_stride, subbatch,
-            [row[layer] for row in host] if subbatch else None)
+            eq_stride, path,
+            None if host is None else [row[layer] for row in host],
+            apply_prob)
     return x
 
 
 def rand_augment_batch(frames01: torch.Tensor, generator: torch.Generator,
                        num_layers: int = 2, magnitude: int = 9,
                        prob: float = 0.5, eq_stride: int = 8,
-                       subbatch: bool = True) -> torch.Tensor:
+                       path: str = "subbatch") -> torch.Tensor:
     """Video-consistent RandAugment of (B, T, H, W, C) frames in [0, 1]:
     per clip and layer one op draw from ``generator``."""
     op, apply, sign = sample_rand_augment(frames01.shape[0], num_layers, prob,
                                           generator, frames01.device)
-    return _augment(frames01, op, apply, sign, magnitude, eq_stride, subbatch)
+    return _augment(frames01, op, apply, sign, magnitude, eq_stride, path,
+                    prob)
 
 
 def _exponential(shape, generator, device) -> torch.Tensor:
@@ -452,7 +517,7 @@ def aug_mix_weights(b: int, width: int, generator: torch.Generator, device
 
 def aug_mix_batch(frames01: torch.Tensor, generator: torch.Generator,
                   severity: int = 3, width: int = 3, depth: int = 2,
-                  eq_stride: int = 8, subbatch: bool = True,
+                  eq_stride: int = 8, path: str = "subbatch",
                   fold_chains: bool = True) -> torch.Tensor:
     """AugMix: ``width`` RandAugment chains of ``depth`` layers at
     ``severity`` (every layer applied) mixed with ``aug_mix_weights``,
@@ -467,11 +532,11 @@ def aug_mix_batch(frames01: torch.Tensor, generator: torch.Generator,
     if fold_chains:
         tiled = frames01.repeat(width, 1, 1, 1, 1)
         chains = _augment(tiled, op, apply, sign, severity, eq_stride,
-                          subbatch).view((width, b) + frames01.shape[1:])
+                          path).view((width, b) + frames01.shape[1:])
     else:
         rows = lambda i: slice(i * b, (i + 1) * b)   # noqa: E731
         chains = [_augment(frames01, op[rows(i)], apply[rows(i)],
-                           sign[rows(i)], severity, eq_stride, subbatch)
+                           sign[rows(i)], severity, eq_stride, path)
                   for i in range(width)]
     mixed = torch.zeros_like(frames01)
     for i in range(width):
@@ -481,14 +546,14 @@ def aug_mix_batch(frames01: torch.Tensor, generator: torch.Generator,
 
 
 def augment_clips(frames01: torch.Tensor, augment_type: str,
-                  generator: torch.Generator, subbatch: bool = True,
+                  generator: torch.Generator, path: str = "subbatch",
                   fold_chains: bool = True) -> torch.Tensor:
     """The training augmentation of ``augment_type`` (``AUGMENT_TYPES``)
-    at the JAX defaults: RandAugment for 'rand_aug' and
-    'rand_aug_slowfast', AugMix for 'aug_mix'."""
+    at the JAX defaults on ``path`` (``AUG_PATHS``): RandAugment for
+    'rand_aug' and 'rand_aug_slowfast', AugMix for 'aug_mix'."""
     if augment_type == "aug_mix":
-        return aug_mix_batch(frames01, generator, subbatch=subbatch,
+        return aug_mix_batch(frames01, generator, path=path,
                              fold_chains=fold_chains)
     if augment_type in ("rand_aug", "rand_aug_slowfast"):
-        return rand_augment_batch(frames01, generator, subbatch=subbatch)
+        return rand_augment_batch(frames01, generator, path=path)
     raise ValueError(f"augment_type {augment_type!r} does not augment")

@@ -1,11 +1,15 @@
 """Set-prediction (Hungarian-matched) classification loss: the port of
-``shgvqa_tpu/losses/set_prediction.py`` (per-frame mode).
+``shgvqa_tpu/losses/set_prediction.py``.
 
 - matched queries get their target class, all others the background 0;
 - weighted cross entropy with ``empty_weight`` (ones, ``eos_coef`` on the
   background), normalized as torch's ``F.cross_entropy(weight=...)``: by
   the SUM of the selected targets' weights, not the element count;
-- ``class_error`` = 100 - top-1 accuracy over the MATCHED slots only.
+- ``class_error`` = 100 - top-1 accuracy over the MATCHED slots only;
+- per frame (``loss_hg_per_frame``) each situation's queries match its own
+  targets; globally all Q queries of a clip match all its targets, the
+  driver layout's (B, S, K) labels compacted on the device first
+  (``ops.matcher.compact_labels``), with no host read.
 """
 
 from __future__ import annotations
@@ -14,7 +18,11 @@ from typing import Dict
 
 import torch
 
-from shgvqa_tpu_torch.ops.matcher import match_targets_per_frame
+from shgvqa_tpu_torch.ops.matcher import (
+    compact_labels,
+    match_targets_global,
+    match_targets_per_frame,
+)
 
 
 def empty_weight(num_classes_with_bg: int, eos_coef: float,
@@ -49,17 +57,19 @@ def hungarian_set_loss(logits: torch.Tensor, labels: torch.Tensor,
                        per_frame: bool, num_situations: int,
                        background_idx: int = 0) -> Dict[str, torch.Tensor]:
     """logits (B, Q, C) decoder class logits; labels (B, S, K) and lengths
-    (B, S) per frame.  Returns {'loss_ce', 'class_error'} like the
-    reference loss dict."""
-    if not per_frame:
-        raise NotImplementedError(
-            "the global (whole-clip) matcher mode is not ported yet (ROADMAP "
-            "queue A item 8); the port supports loss_hg_per_frame=True")
+    (B, S) per situation (globally also (B, N) and (B,)).  Returns
+    {'loss_ce', 'class_error'} like the reference loss dict."""
     b, q, c = logits.shape
-    s = num_situations
-    logits_f = logits.reshape(b, s, q // s, c)
-    target, matched = match_targets_per_frame(logits_f, labels, lengths,
-                                              background_idx)
-    loss = weighted_cross_entropy(logits_f, target, class_weights)
-    acc = matched_top1_accuracy(logits_f, target, matched)
+    if per_frame:
+        s = num_situations
+        logits = logits.reshape(b, s, q // s, c)
+        target, matched = match_targets_per_frame(logits, labels, lengths,
+                                                  background_idx)
+    else:
+        if labels.dim() == 3:
+            labels, lengths = compact_labels(labels, lengths)
+        target, matched = match_targets_global(logits, labels, lengths,
+                                               background_idx)
+    loss = weighted_cross_entropy(logits, target, class_weights)
+    acc = matched_top1_accuracy(logits, target, matched)
     return {"loss_ce": loss, "class_error": 100.0 - acc}

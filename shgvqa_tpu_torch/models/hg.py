@@ -1,6 +1,5 @@
 """Hypergraph query embeddings and the HG<->question cross encoder: the port
-of ``shgvqa_tpu/models/hg.py`` (GT-HG mode and ``--useHGMask`` are not
-ported yet).
+of ``shgvqa_tpu/models/hg.py`` (GT-HG mode is not ported yet).
 
 - ``HGEmbeddings``: the WHOLE (num_queries, D) table is the batch's learned
   queries, plus situation type embeddings, then LayerNorm(1e-12) and, in
@@ -9,6 +8,9 @@ ported yet).
 - ``HGQCrossEncoder``: act/rel type tokens added per situation slot (act
   slots first), a CLS token prepended, the tied cross layer ``x_tied`` run
   ``x_layers`` times against the question, then ``Pooler2(hg, lang)``.
+  With an ``hg_mask`` (``--useHGMask``: 1 on the slots that hold a label),
+  a 1 for the CLS token is prepended and it becomes the additive -10000
+  key mask, in the compute dtype, of every attention over the hg tokens.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from shgvqa_tpu_torch.models.layers import (
     LayerNorm,
     Pooler2,
     empty_param,
+    extend_mask,
 )
 
 
@@ -72,9 +75,11 @@ class HGQCrossEncoder(nn.Module):
         self.rel_token.zero_()
         self.cls_token.zero_()
 
-    def forward(self, lang_feats, lang_ext_mask, hg_feats, g=None):
+    def forward(self, lang_feats, lang_ext_mask, hg_feats, g=None,
+                hg_mask=None):
         """lang_feats (B, Lt, D); lang_ext_mask additive (B,1,1,Lt);
-        hg_feats (B, S*(A+R), D).  Returns the pooled (B, D)."""
+        hg_feats (B, S*(A+R), D); hg_mask {0,1} (B, S, A+R) or (B,
+        S*(A+R)), or None.  Returns the pooled (B, D)."""
         b, total, d = hg_feats.shape
         slots = self.num_max_act + self.num_max_rel
         type_tokens = torch.cat(
@@ -85,7 +90,12 @@ class HGQCrossEncoder(nn.Module):
               + type_tokens[None]).reshape(b, total, d)
         cls = self.cls_token.to(self.dtype).expand(b, 1, d)
         hg = torch.cat([cls, hg], dim=1)
+        hg_ext = None
+        if hg_mask is not None:
+            full = torch.cat([hg_mask.new_ones(b, 1),
+                              hg_mask.reshape(b, -1)], dim=1)
+            hg_ext = extend_mask(full, self.dtype)
         lang = lang_feats
         for _ in range(self.x_layers):
-            lang, hg = self.x_tied(lang, lang_ext_mask, hg, None, g)
+            lang, hg = self.x_tied(lang, lang_ext_mask, hg, hg_ext, g)
         return self.pooler(hg, lang)

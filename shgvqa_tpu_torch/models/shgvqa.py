@@ -9,8 +9,9 @@ in ``shgvqa_tpu/models/shgvqa.py`` (tasks 'hgqa' and 'vqa', inference).
    positions under the situation-causal mask; MLP heads give ``rel_preds``
    and ``act_preds`` over (classes + 1), background 0;
 4. per situation the hg tokens are [act slots ++ rel slots]; they go through
-   the HG<->question cross encoder and ``hg_logit`` comes from the SAME
-   ``logit_fc``.
+   the HG<->question cross encoder (under ``use_hg_mask`` the batch's
+   ``hg_mask`` masks the empty slots as keys) and ``hg_logit`` comes from
+   the SAME ``logit_fc``.
 
 In training mode (``model.train()``) every dropout site drops, with masks
 drawn from the ``generator`` passed to ``forward`` (the device's default
@@ -131,7 +132,8 @@ class ShgVqaModel(nn.Module):
         act_out = self.action_decoder(act_q, memory, self.act_mask, None, g)
         hg_in = torch.cat([act_out.reshape(b, s, -1, d),
                            rel_out.reshape(b, s, -1, d)], dim=2).reshape(b, -1, d)
-        x_hg = self.hgq_encoder(lang_snap, lang_ext, hg_in, g)
+        hg_mask = batch.get("hg_mask") if cfg.use_hg_mask else None
+        x_hg = self.hgq_encoder(lang_snap, lang_ext, hg_in, g, hg_mask)
         return {"logit": logit, "hg_logit": self.logit_fc(x_hg),
                 "rel_preds": self.class_embed(rel_out),
                 "act_preds": self.action_embed(act_out)}
@@ -156,6 +158,10 @@ class VideoShgVqaModel(nn.Module):
         self.head = ShgVqaModel(cfg.replace(encoder=dataclasses.replace(
             cfg.encoder, visual_feat_dim=self.backbone.out_channels,
             visual_hw=self.backbone.spatial_out(cfg.data.image_size))))
+        # the training augmentation's path (data/transforms.AUG_PATHS): a
+        # CUDA graph of the train step switches it to "capacity", which
+        # reads nothing on the host (train/graph.fixed_capacity)
+        self.aug_path = "subbatch" if cfg.data.aug_subbatch else "select"
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
@@ -193,5 +199,5 @@ class VideoShgVqaModel(nn.Module):
         x = frames.to(pix_dt) / 255.0
         if self.training and data.augment_type in AUGMENT_TYPES:
             x = augment_clips(x, data.augment_type, generator,
-                              data.aug_subbatch, data.aug_fold_chains)
+                              self.aug_path, data.aug_fold_chains)
         return normalize_clip(x, mean, std)

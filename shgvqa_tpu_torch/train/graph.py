@@ -9,10 +9,14 @@ the train step would:
 - the k batches are copied into k static slots on the current stream and
   the k learning rates (``BertAdam.lr_at``, double then f32) into a static
   (k,) tensor, through pinned memory on a card;
+- a chunk's steps run the model's augmentation on its fixed-capacity
+  path (``fixed_capacity``); single steps outside a chunk keep the model's
+  own path;
 - on a CUDA device the first chunk runs eagerly, on the stream the capture
   uses: its steps are real steps of the trajectory, and they are the
   warm-up that capture needs (kernel builds, cuBLAS and cuDNN handles and
-  workspaces, autograd's device thread and its streams).  The second chunk
+  workspaces, autograd's device thread and its streams, both branches of
+  the augmentation's overflow, ``kernels/cond.warm_up``).  The second chunk
   is captured once into a ``torch.cuda.CUDAGraph`` of the k whole steps
   (forward from uint8 frames, augmentation included, matching, losses,
   backward, clip and BertAdam) and replayed; every later chunk is one
@@ -29,7 +33,8 @@ mode those calls would break the capture.  The step body itself makes no
 host sync and no copy from host memory (the set losses' class weights
 are filled on the device, the normalization statistics and the learning
 rates are device tensors made outside it; the augmentation runs its
-full-batch select tree, which the trainer chooses for k > 1).
+fixed-capacity path, and its overflow branch is captured as conditional
+nodes, ``kernels/cond.py``).
 
 A capture or replay that fails raises, naming ``--stepsPerLoop``: nothing
 falls back to eager steps on a card.  The graph keeps the addresses of the
@@ -42,31 +47,41 @@ while capturing, none at a replay.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Callable, Dict, List, Optional
+import contextlib
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
 
+from shgvqa_tpu_torch.kernels import cond
 
-def use_select_tree(model: nn.Module) -> None:
-    """Switch ``model``'s training augmentation to its full-batch select
-    tree (``data.aug_subbatch`` off): the sub-batch path's bits, with no
-    host read and shapes that do not change, as a captured graph needs."""
-    cfg = getattr(model, "cfg", None)
-    if cfg is not None:
-        model.cfg = cfg.replace(data=dataclasses.replace(
-            cfg.data, aug_subbatch=False))
+
+@contextlib.contextmanager
+def fixed_capacity(model: nn.Module) -> Iterator[None]:
+    """While it lasts, a video model's training augmentation takes its
+    fixed-capacity path (``data/transforms.py``): the sub-batch path's bits,
+    with no host read and shapes that do not change, as a captured graph
+    needs.  A model without an augmentation path is left as it is."""
+    before = getattr(model, "aug_path", None)
+    if before is not None:
+        model.aug_path = "capacity"
+    try:
+        yield
+    finally:
+        if before is not None:
+            model.aug_path = before
 
 
 class StepChunks:
     """Runs chunks of ``k`` steps of ``train_step(batch, generator, lr)``
-    (``train.step.make_train_step`` over a ``BertAdam``), drawing from
-    ``generator``; ``captures`` and ``replays`` count the graph's."""
+    (``train.step.make_train_step`` over ``model`` and a ``BertAdam``),
+    drawing from ``generator``; ``captures`` and ``replays`` count the
+    graph's."""
 
-    def __init__(self, train_step: Callable, optimizer,
+    def __init__(self, model: nn.Module, train_step: Callable, optimizer,
                  generator: torch.Generator, k: int):
-        self.train_step, self.optimizer = train_step, optimizer
+        self.model, self.train_step = model, train_step
+        self.optimizer = optimizer
         self.generator, self.k = generator, k
         self.device = optimizer.params[0].device
         self.lrs = torch.zeros(k, dtype=torch.float32, device=self.device)
@@ -85,21 +100,23 @@ class StepChunks:
         device); returns the metrics, each (k,) with row i from step i,
         overwritten by the next chunk."""
         self._stage(batches)
-        if self._stream is None:
-            self._body()
-        elif not self._warm:
-            current = torch.cuda.current_stream(self.device)
-            self._stream.wait_stream(current)
-            with torch.cuda.stream(self._stream):
+        with fixed_capacity(self.model):
+            if self._stream is None:
                 self._body()
-            current.wait_stream(self._stream)
-            self._warm = True
-        else:
-            if self.graph is not None and self._addresses != self._state():
-                self.graph = None
-            if self.graph is None:
-                self._capture()
-            self._replay()
+            elif not self._warm:
+                current = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(current)
+                with torch.cuda.stream(self._stream), cond.warm_up():
+                    self._body()
+                current.wait_stream(self._stream)
+                self._warm = True
+            else:
+                if (self.graph is not None
+                        and self._addresses != self._state()):
+                    self.graph = None
+                if self.graph is None:
+                    self._capture()
+                self._replay()
         return self.metrics
 
     def _state(self) -> List[int]:

@@ -23,11 +23,11 @@
 JAX flat mode scans them: the batches are gathered k at a time and each
 full chunk runs through ``train/graph.StepChunks`` (on a card, one replay
 of a k-step CUDA graph after an eager first chunk and one capture); a
-trailing partial chunk of an epoch runs as single steps.  The model's
-augmentation then runs its full-batch select tree (``aug_subbatch`` off:
-the same bits, no host sync, static shapes).  Under ``--optim
-rms|adam|adamax|sgd`` the flag has no effect, as in JAX, where it needs
-the flat state that only BertAdam has.  The TPU's flat optimizer state is
+trailing partial chunk of an epoch runs as single steps.  A chunk's steps
+run the model's augmentation on its fixed-capacity path (the same bits, no
+host sync, static shapes); single steps keep the sub-batch path.  Under
+``--optim rms|adam|adamax|sgd`` the flag has no effect, as in JAX, where it
+needs the flat state that only BertAdam has.  The TPU's flat optimizer state is
 not carried over.  A frozen trunk runs without an autograd graph
 (``VideoShgVqaModel.encode_frames``), which is what the JAX two-launch
 trunk does; a trained one is in the step's autograd graph.
@@ -47,7 +47,7 @@ from shgvqa_tpu_torch.train.checkpoint import (
     CHECKPOINT_NAMES,
     CheckpointManager,
 )
-from shgvqa_tpu_torch.train.graph import StepChunks, use_select_tree
+from shgvqa_tpu_torch.train.graph import StepChunks
 from shgvqa_tpu_torch.train.metrics import MetricWriter, Profiler
 from shgvqa_tpu_torch.train.optimizer import make_optimizer
 from shgvqa_tpu_torch.train.step import make_eval_step, make_train_step
@@ -105,8 +105,9 @@ class Trainer:
             log = self.metrics.log
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         k = self._steps_per_launch(log)
-        self.chunks = (StepChunks(self._train_step, self.optimizer,
-                                  generator, k) if k > 1 else None)
+        self.chunks = (StepChunks(self.model, self._train_step,
+                                  self.optimizer, generator, k)
+                       if k > 1 else None)
         best = 0.0
         stale = 0
         history = []
@@ -174,8 +175,7 @@ class Trainer:
         return {"best": best, "history": history, "steps": self.step}
 
     def _steps_per_launch(self, log: Callable[[str], None]) -> int:
-        """k of ``--stepsPerLoop``: 1 unless the optimizer is BertAdam.
-        For k > 1 the model's augmentation switches to its select tree."""
+        """k of ``--stepsPerLoop``: 1 unless the optimizer is BertAdam."""
         k = self.cfg.steps_per_loop
         if k < 1:
             raise ValueError(f"--stepsPerLoop must be >= 1, got {k}")
@@ -184,8 +184,6 @@ class Trainer:
                 f"{self.optimizer.name} (it chunks BertAdam steps only, as "
                 "the JAX flat mode); training single steps")
             return 1
-        if k > 1:
-            use_select_tree(self.model)
         return k
 
     # -- evaluation -------------------------------------------------------

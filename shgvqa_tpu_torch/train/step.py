@@ -12,9 +12,10 @@ or without one under ``freeze_backbone``), the matching on the device, the
 losses, one backward, the global-norm clip and BertAdam -- all on the
 device: the metrics come back as device tensors (the sub-batch
 augmentation reads its drawn ops on the host, ``data/transforms.py``;
-the full-batch select tree, which ``train/graph.py`` runs, reads
-nothing).  The caller's ``torch.Generator`` takes the place of the JAX
-step's ``dropout`` and ``augment`` keys.
+its fixed-capacity path, which ``train/graph.py`` runs, reads nothing
+under a capture; the global matcher's kernel reads nothing either).  The
+caller's ``torch.Generator`` takes the place of the JAX step's ``dropout``
+and ``augment`` keys.
 """
 
 from __future__ import annotations

@@ -68,9 +68,14 @@ def test_parser_accepts_every_jax_flag():
 
 
 def test_unported_flags_still_raise():
+    """The global matcher (no --LossHGPerFrame) trains now; an option only
+    training reads and the port does not run still raises in training."""
     cfg = cli.parse_reference_flags(FLAGSHIP + ["--pallasFFNTrain"])
+    assert not cfg.loss_hg_per_frame
+    port_config.check_ported(cfg, video=True, train=True)
+    cfg = cli.parse_reference_flags(FLAGSHIP + ["--freezeWeights"])
     port_config.check_ported(cfg, video=True)       # inference: fine
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 15"):
         port_config.check_ported(cfg, video=True, train=True)
     for flag, item in (("--outputAttn", "15"), ("--scanLayers", "19"),
                        ("--untieXLayers", "15")):

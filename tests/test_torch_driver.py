@@ -249,11 +249,20 @@ def test_driver_trains_two_steps_a_launch_as_single_steps(tmp_path,
 
 
 def test_driver_refuses_star_and_the_global_matcher(tmp_path):
-    with pytest.raises(NotImplementedError, match="STAR"):
-        common.run_driver("star", _argv(tmp_path), device="cpu")
+    """STAR and the global matcher run now (``tests/test_torch_star.py``):
+    both pass the CLI's flag checks; what STAR still refuses is its capsule
+    encoder (no ``--noCaps``, item 17) and per-choice QA (item 15)."""
     argv = [a for a in _argv(tmp_path) if a != "--LossHGPerFrame"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        agqa_hgqa.main(argv, device="cpu")
+    for dataset in ("agqa", "star"):
+        cfg, extras = common.parse_reference_flags_with_extras(argv, dataset)
+        assert not cfg.loss_hg_per_frame
+        common._check_driver_flags(cfg, extras, dataset)
+    no_caps = [a for a in argv if a != "--noCaps"]
+    with pytest.raises(NotImplementedError, match="item 17"):
+        common.run_driver("star", no_caps, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        common.run_driver("star", argv + ["--qaArrangeType", "add_sep"],
+                          device="cpu")
 
 
 def test_driver_refuses_a_present_pretrained_weight_file(tmp_path,

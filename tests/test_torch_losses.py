@@ -41,9 +41,19 @@ def test_hungarian_set_loss_matches_jax(slots, classes):
 
 
 def test_global_matching_mode_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        hungarian_set_loss(torch.zeros(1, 16, 5), torch.ones(1, 2, 8).int(),
-                           torch.ones(1, 2).int(), empty_weight(5, 0.1),
+    """The global mode runs on the CPU (its plain solver; the JAX loss in
+    tests/test_torch_matcher.py); on a device without the matcher's kernel
+    it raises rather than fall back."""
+    got = hungarian_set_loss(torch.zeros(1, 16, 5), torch.ones(1, 2, 8).int(),
+                             torch.ones(1, 2).int(), empty_weight(5, 0.1),
+                             per_frame=False, num_situations=2)
+    # zero logits predict the background, 0; every matched target is 1
+    assert torch.isfinite(got["loss_ce"]) and got["class_error"] == 100.0
+    with pytest.raises(NotImplementedError, match="no kernel for meta"):
+        hungarian_set_loss(torch.zeros(1, 16, 5, device="meta"),
+                           torch.ones(1, 2, 8, device="meta").int(),
+                           torch.ones(1, 2, device="meta").int(),
+                           empty_weight(5, 0.1, device="meta"),
                            per_frame=False, num_situations=2)
 
 

@@ -1,18 +1,156 @@
-"""The port's per-frame Hungarian matcher (ops/matcher.py) against the JAX
-``match_targets_per_frame``: the same target grid and ``matched`` bit for
-bit (ties included), and the same total cost as scipy's
-``linear_sum_assignment`` on every problem."""
+"""The port's Hungarian matching (``ops/matcher.py``) against the JAX
+package.  Per frame: ``match_targets_per_frame`` bit for bit (ties
+included) and the total cost of scipy's ``linear_sum_assignment``.
+Globally: the plain ``hungarian_square`` (the plain version of the kernel
+``csrc/matcher.cu``) against the JAX ``jax.lax`` solver, row for row, on
+random costs and on costs made of ties; its total cost against scipy's;
+early exit against the fixed trip counts; the global ``assign_padded``,
+``match_targets_global`` and ``hungarian_set_loss`` in the driver layout
+against JAX's; the card path through a stand-in C entry, and its refusals
+(no fallback)."""
 
+import contextlib
 import itertools
+from types import SimpleNamespace
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
 
+from shgvqa_tpu.losses import set_prediction as jax_loss
 from shgvqa_tpu.ops import matcher as jax_matcher
+from shgvqa_tpu_torch.losses import set_prediction
 from shgvqa_tpu_torch.ops import matcher
-from test_torch_common import t
+from test_torch_common import t, tensor_at
+
+# the global mode's loss tolerance
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def jax_square():
+    return jax.jit(jax.vmap(jax_matcher.hungarian_square))
+
+
+def _costs(kind, n, batch, seed):
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        # -softmax-like costs in (-1, 0]
+        return -rng.rand(batch, n, n).astype(np.float32)
+    # ties: few distinct values, exactly representable, so every rounding
+    # of a sum agrees and only the tie rules decide
+    return (-rng.randint(0, 4, size=(batch, n, n)) / 8.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("n", [13, 24, 48])
+def test_plain_solver_matches_jax_row_for_row(jax_square, n, kind):
+    costs = _costs(kind, n, 3, seed=n)
+    want = np.asarray(jax_square(jnp.asarray(costs)))
+    got = matcher.hungarian_square(t(costs))
+    assert got.dtype == torch.long and got.shape == (3, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for c, r in zip(costs, got.numpy()):
+        assert sorted(r) == list(range(n))
+        rows, cols = linear_sum_assignment(c)
+        assert abs(c[np.arange(n), r].sum() - c[rows, cols].sum()) <= 1e-5
+
+
+def test_every_problem_made_of_ties():
+    """All costs equal: the first-minimum rules give the identity."""
+    got = matcher.hungarian_square(torch.full((2, 16, 16), -0.5))
+    assert torch.equal(got, torch.arange(16).expand(2, 16))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_early_exit_is_the_fixed_trips(kind):
+    """The masked tail of the fixed trip counts is a no-op: stopping when
+    every problem is done leaves p, u and v bit-equal."""
+    costs = t(_costs(kind, 20, 4, seed=3))
+    early = matcher._augmenting_path_solve(costs, early_exit=True)
+    fixed = matcher._augmenting_path_solve(costs, early_exit=False)
+    for a, b in zip(early, fixed):
+        assert torch.equal(a, b)
+    steps = early[3]
+    assert (steps >= 20).all() and (steps < 20 * 21).all()
+
+
+def test_batched_plain_solver_is_each_problem_alone():
+    costs = t(_costs("random", 14, 5, seed=8))
+    batched = matcher.hungarian_square_reference(costs.reshape(5, 1, 14, 14))
+    for i in range(5):
+        assert torch.equal(batched[i, 0],
+                           matcher.hungarian_square_reference(costs[i]))
+
+
+def test_assign_padded_above_the_dp_matches_jax():
+    """Rectangular (20, 17) problems with 0-17 real columns: the square
+    solver's side of ``assign_padded``."""
+    rng = np.random.RandomState(4)
+    cost = -rng.rand(4, 20, 17).astype(np.float32)
+    valid = np.array([17, 9, 0, 3], np.int32)
+    want = jax.vmap(jax_matcher.assign_padded)(jnp.asarray(cost),
+                                               jnp.asarray(valid))
+    got = matcher.assign_padded(t(cost), t(valid).long())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _driver_labels(rng, b, s, k, classes):
+    lengths = rng.randint(0, k + 1, size=(b, s)).astype(np.int32)
+    lengths[0] = 0                                  # a clip with no target
+    labels = rng.randint(1, classes, size=(b, s, k)).astype(np.int32)
+    labels[np.arange(k)[None, None] >= lengths[..., None]] = 0
+    return labels, lengths
+
+
+@pytest.mark.parametrize("s,r,classes", [(4, 4, 12), (4, 2, 8), (3, 8, 30)],
+                         ids=["q16", "q8-dp", "q24"])
+def test_global_targets_and_loss_match_jax(s, r, classes):
+    """The driver layout: (B, S, K) labels compacted on the device, the
+    whole clip matched (the subset DP at Q <= 12, the square solver above),
+    against ``match_targets_global`` and ``hungarian_set_loss`` of JAX."""
+    rng = np.random.RandomState(s * r)
+    b, q = 3, s * r
+    logits = rng.randn(b, q, classes + 1).astype(np.float32) * 2.0
+    labels, lengths = _driver_labels(rng, b, s, r, classes + 1)
+    weights = jax_loss.empty_weight(classes + 1, 0.1)
+    want = jax_loss.hungarian_set_loss(
+        jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(lengths),
+        weights, per_frame=False, num_situations=s)
+    got = set_prediction.hungarian_set_loss(
+        t(logits), t(labels), t(lengths),
+        set_prediction.empty_weight(classes + 1, 0.1), per_frame=False,
+        num_situations=s)
+    for key in ("loss_ce", "class_error"):
+        assert abs(float(got[key]) - float(want[key])) <= TOL * max(
+            1.0, abs(float(want[key]))), key
+
+    flat, n_valid = matcher.compact_labels(t(labels).long(), t(lengths))
+    jflat = np.zeros_like(labels.reshape(b, -1))
+    for i in range(b):
+        real = [x for row, n in zip(labels[i], lengths[i]) for x in row[:n]]
+        jflat[i, :len(real)] = real
+        assert int(n_valid[i]) == len(real)
+        assert flat[i, :len(real)].tolist() == real
+    jt, jm = jax_matcher.match_targets_global(
+        jnp.asarray(logits), jnp.asarray(jflat),
+        jnp.asarray(n_valid.numpy()))
+    gt, gm = matcher.match_targets_global(t(logits), flat, n_valid)
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(jm))
+    assert not gm[0].any()
 
 
 def _problem(seed, b, s, r, c, ties=False):
@@ -67,5 +205,70 @@ def test_bitmask_dp_is_optimal_by_enumeration(n):
 
 
 def test_problems_beyond_the_dp_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        matcher.assign_padded(torch.zeros(16, 16), torch.tensor(16))
+    """Beyond ``DP_MAX_N`` the square solver takes the problem: on the CPU
+    its plain version (the JAX solver's rows), on a device without the
+    kernel an error, never a fallback."""
+    cost = -torch.rand(16, 16, generator=torch.Generator().manual_seed(0))
+    rows, matched = matcher.assign_padded(cost, torch.tensor(16))
+    want = jax_matcher.assign_padded(jnp.asarray(cost.numpy()), 16)[0]
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(want))
+    assert matched.all()
+    with pytest.raises(NotImplementedError, match="no kernel for meta"):
+        matcher.assign_padded(torch.zeros(16, 16, device="meta"),
+                              torch.tensor(16, device="meta"))
+
+
+# -- the card path ------------------------------------------------------------
+
+@contextlib.contextmanager
+def _stand_in(monkeypatch, entry, max_n=238):
+    monkeypatch.setattr(matcher, "_lib", lambda: SimpleNamespace(
+        shgvqa_hungarian=entry, shgvqa_hungarian_max_n=lambda: max_n,
+        shgvqa_matcher_error_string=lambda err: b"stand-in error"))
+    monkeypatch.setattr(matcher, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    yield
+
+
+def test_card_path_with_a_stand_in_entry(monkeypatch):
+    """``_launch`` on CPU tensors with the C entry replaced by the plain
+    solver: the entry gets (P, n, n) f32 and writes row_to_col and the
+    steps, which the wrapper returns; launches count the calls."""
+    costs = t(_costs("random", 30, 4, seed=2))
+    calls = []
+
+    def entry(pc, pr, ps, bsz, n, stream):
+        c = tensor_at(pc, (bsz, n, n), torch.float32).clone()
+        p, _, _, steps = matcher._augmenting_path_solve(c)
+        tensor_at(pr, (bsz, n), torch.long).copy_(matcher._row_to_col(p))
+        tensor_at(ps, (bsz,), torch.int32).copy_(steps)
+        calls.append((bsz, n))
+        return 0
+
+    before = matcher.hungarian_square.launches
+    with _stand_in(monkeypatch, entry):
+        got, steps = matcher._launch(costs)
+    assert calls == [(4, 30)]
+    assert torch.equal(got, matcher.hungarian_square_reference(costs))
+    assert steps.dtype == torch.int32 and (steps >= 30).all()
+    assert matcher.hungarian_square.launches == before + 1
+
+
+def test_card_path_raises_and_never_falls_back(monkeypatch):
+    costs = t(_costs("random", 30, 2, seed=1))
+    with _stand_in(monkeypatch, lambda *args: 98):
+        with pytest.raises(RuntimeError, match="CUDA error 98"):
+            matcher._launch(costs)
+    with _stand_in(monkeypatch, lambda *args: 0, max_n=29):
+        with pytest.raises(ValueError, match="n <= 29"):
+            matcher._launch(costs)
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(matcher, "_lib", no_build)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        matcher._launch(costs)
+    with pytest.raises(NotImplementedError, match="no kernel for meta"):
+        matcher.hungarian_square(torch.empty(2, 30, 30, device="meta"))

@@ -222,7 +222,7 @@ def test_converter_round_trip_is_strict(hgqa):
 
 @pytest.mark.parametrize("override", [
     dict(task="q"), dict(task="vhga"), dict(task="hgvqa"),
-    dict(gt_hg=True), dict(use_hg_mask=True), dict(output_attention=True),
+    dict(gt_hg=True), dict(encoder="capsules"), dict(output_attention=True),
     dict(after_cross_attn_feats=True), dict(encoder="cross_self"),
     dict(encoder="scan_layers"), dict(quant_backbone="int8"),
     dict(backbone="resnext101"), dict(backbone_chunks=2),
@@ -232,6 +232,9 @@ def test_unported_options_raise(override):
     if override.get("encoder") == "cross_self":
         cfg = cfg.replace(encoder=dataclasses.replace(
             cfg.encoder, cross_attn_type="cross_self"))
+    elif override.get("encoder") == "capsules":
+        cfg = cfg.replace(encoder=dataclasses.replace(
+            cfg.encoder, no_caps=False))
     elif override.get("encoder") == "scan_layers":
         cfg = cfg.replace(encoder=dataclasses.replace(
             cfg.encoder, scan_layers=True))

@@ -3,7 +3,8 @@ on the CPU, where every chunk runs the graph's body eagerly through the
 same staging: k=2 against k=1 (3 steps an epoch: one chunk and a trailing
 single step; 2 epochs) bit-equal in parameters, moments, step count and
 per-step losses with the trunk trained, RandAugment and dropout on, the
-augmentation's select tree giving the sub-batch path's bits; the same run
+augmentation's fixed-capacity path (at B=2 its select tree) giving the
+sub-batch path's bits; the same run
 at dropout 0 without augmentation against the JAX ``Trainer`` at k=2 in
 flat mode; ``BertAdam.step(lr=<tensor>)`` against the host's learning
 rate and the JAX optimizer; the chunk body making no host read; ``--optim
@@ -104,19 +105,23 @@ def _losses(out_dir):
 @pytest.fixture(scope="module")
 def published_runs(tmp_path_factory):
     """The published recipe at k=1 and k=2, 2 epochs of 3 steps each, with
-    the trunk's input of every step."""
+    the trunk's input of every step and the augmentation's path it took."""
     runs = {}
     with pytest.MonkeyPatch.context() as mp:
         for k in (1, 2):
             out = tmp_path_factory.mktemp(f"k{k}")
             trainer = _video_trainer(out, mp, k)
-            inputs = []
-            trainer.model.backbone.register_forward_pre_hook(
-                lambda _m, args: inputs.append(args[0].detach().clone()))
+            inputs, paths = [], []
+
+            def record(_m, args, model=trainer.model):
+                inputs.append(args[0].detach().clone())
+                paths.append(model.aug_path)
+
+            trainer.model.backbone.register_forward_pre_hook(record)
             batches = _frames_batches(trainer.model.cfg)
             summary = trainer.train(lambda epoch: iter(batches))
             runs[k] = dict(trainer=trainer, summary=summary, inputs=inputs,
-                           losses=_losses(out),
+                           paths=paths, losses=_losses(out),
                            log=(out / "log.log").read_text())
     return runs
 
@@ -139,12 +144,18 @@ def test_two_steps_a_launch_are_bit_equal_to_single_steps(published_runs):
 
 def test_the_select_tree_gives_the_sub_batch_bits_in_the_chunk(
         published_runs):
-    """k=2 runs the augmentation's full-batch select tree (no host read,
-    static shapes); k=1 the sub-batch path.  The trunk gets the same bits
+    """k=2 runs a chunk's steps on the augmentation's fixed-capacity path
+    (no host read, static shapes; at B=2 every capacity is the batch, so it
+    is the full-batch select tree) and the trailing single step on the
+    sub-batch path, as k=1 runs every step.  The trunk gets the same bits
     and the same (contiguous) layout at every step."""
     one, two = published_runs[1], published_runs[2]
     assert one["trainer"].model.cfg.data.aug_subbatch
-    assert not two["trainer"].model.cfg.data.aug_subbatch
+    assert two["trainer"].model.cfg.data.aug_subbatch
+    assert one["paths"] == ["subbatch"] * 6
+    # each epoch: one chunk of two steps, then a trailing single step
+    assert two["paths"] == ["capacity", "capacity", "subbatch"] * 2
+    assert two["trainer"].model.aug_path == "subbatch"
     assert len(one["inputs"]) == len(two["inputs"]) == 6
     for a, b in zip(one["inputs"], two["inputs"]):
         assert torch.equal(a, b) and a.stride() == b.stride()
@@ -279,13 +290,14 @@ def _no_host_reads():
 
 def test_the_chunk_body_makes_no_host_read(tmp_path, monkeypatch):
     """The published recipe (a trained toy trunk, RandAugment through the
-    select tree, dropout on): after the first chunk, which on a card is the
+    fixed-capacity path, dropout on): after the first chunk, which on a card is the
     warm-up before capture, the chunk body runs with every host read
     refused."""
     trainer = _video_trainer(tmp_path, monkeypatch, 2, epochs=1)
-    body, guarded = graph.StepChunks._body, []
+    body, guarded, paths = graph.StepChunks._body, [], []
 
     def checked(self):
+        paths.append(self.model.aug_path)
         if not guarded:
             guarded.append(False)
             return body(self)
@@ -297,7 +309,7 @@ def test_the_chunk_body_makes_no_host_read(tmp_path, monkeypatch):
     batches = _frames_batches(trainer.model.cfg, 4)
     trainer.train(lambda epoch: iter(batches))
     assert guarded == [False, True] and trainer.step == 4
-    assert not trainer.model.cfg.data.aug_subbatch
+    assert paths == ["capacity", "capacity"]
 
 
 def test_optimizers_other_than_bert_adam_train_single_steps(tmp_path,
@@ -309,7 +321,7 @@ def test_optimizers_other_than_bert_adam_train_single_steps(tmp_path,
     batches = _frames_batches(trainer.model.cfg)
     trainer.train(lambda epoch: iter(batches))
     assert trainer.chunks is None and trainer.step == 3
-    assert trainer.model.cfg.data.aug_subbatch
+    assert trainer.model.aug_path == "subbatch"
     assert ("--stepsPerLoop 2 has no effect with --optim adam"
             in (tmp_path / "log.log").read_text())
 

@@ -5,7 +5,14 @@ each of the 14 ops at a fixed magnitude and sign, one batch layer and two
 stacked layers at fixed (op, apply, sign) arrays.  Then the port's own
 promises: the sub-batch and full-batch layers and the folded and unfolded
 AugMix give the same bits, the draws cover every op at the apply rate,
-and one seed gives the same bits twice."""
+and one seed gives the same bits twice.  The fixed-capacity path (the JAX
+gathered path, which a CUDA graph of the train step runs): its class
+capacities equal JAX's, it gives the select tree's bits for RandAugment
+and AugMix with and without a class over its capacity, it matches the JAX
+gathered layer, and its branch runs with every host read refused when the
+conditional nodes of a capture are emulated on the CPU."""
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +22,7 @@ import torch
 
 from shgvqa_tpu.data import transforms as jt
 from shgvqa_tpu_torch.data import transforms as tt
+from shgvqa_tpu_torch.kernels import cond
 from test_torch_common import close, t
 
 # B clips of T frames, H != W so that a swapped axis shows
@@ -107,8 +115,8 @@ def _draws(seed, b=B, layers=1):
 
 
 @pytest.mark.parametrize("eq_stride", [1, 8])
-@pytest.mark.parametrize("subbatch", [True, False], ids=["sub", "full"])
-def test_layer_matches_jax(subbatch, eq_stride):
+@pytest.mark.parametrize("path", ["subbatch", "select"], ids=["sub", "full"])
+def test_layer_matches_jax(path, eq_stride):
     """One layer over 16 clips at fixed draws (every op at least once)
     against the JAX ``_apply_layer_batch``, f32, 1e-5."""
     b = 16
@@ -119,7 +127,7 @@ def test_layer_matches_jax(subbatch, eq_stride):
         jnp.asarray(sign), MAGNITUDE, eq_stride, apply_prob=1.0,
         subbatch=False))
     got = tt.apply_layer_batch(t(x), t(op).long(), t(apply), t(sign),
-                               MAGNITUDE, eq_stride, subbatch=subbatch)
+                               MAGNITUDE, eq_stride, path=path)
     close(got, want, 1e-5)
 
 
@@ -136,7 +144,7 @@ def test_two_layers_match_jax():
             jnp.asarray(sign[:, layer]), MAGNITUDE, 8, apply_prob=0.5,
             subbatch=False)
     got = tt._augment(t(x), t(op).long(), t(apply), t(sign), MAGNITUDE, 8,
-                      True)
+                      "subbatch")
     close(got, np.asarray(want), 1e-5)
 
 
@@ -149,7 +157,7 @@ def test_subbatch_and_full_layers_bit_equal(dtype):
         op, apply, sign = (t(a[:, 0]) for a in _draws(seed, b))
         sub = tt.apply_layer_batch(x, op.long(), apply, sign, MAGNITUDE)
         full = tt.apply_layer_batch(x, op.long(), apply, sign, MAGNITUDE,
-                                    subbatch=False)
+                                    path="select")
         assert sub.dtype == dtype
         assert torch.equal(sub, full), seed
     # every clip at the identity: the frames come back untouched
@@ -159,11 +167,11 @@ def test_subbatch_and_full_layers_bit_equal(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("subbatch", [True, False], ids=["sub", "full"])
-def test_aug_mix_folded_and_unfolded_bit_equal(dtype, subbatch):
+@pytest.mark.parametrize("path", ["subbatch", "select"], ids=["sub", "full"])
+def test_aug_mix_folded_and_unfolded_bit_equal(dtype, path):
     x = t(_frames(11, smooth=True), dtype)
     out = [tt.aug_mix_batch(x, torch.Generator().manual_seed(5),
-                            subbatch=subbatch, fold_chains=fold)
+                            path=path, fold_chains=fold)
            for fold in (True, False)]
     assert out[0].dtype == dtype and out[0].shape == x.shape
     assert torch.equal(out[0], out[1])
@@ -212,3 +220,156 @@ def test_one_seed_gives_the_same_bits(kind):
     assert torch.equal(out[0], out[1])
     assert not torch.equal(out[0], other)
     assert not torch.equal(out[0], x)
+
+
+# -- the fixed-capacity path ---------------------------------------------------
+
+@pytest.mark.parametrize("b", [2, 8, 16, 32, 96, 128])
+def test_class_cap_matches_jax(b):
+    for p in (0.5 / 14, 1.5 / 14, 1.0 / 14, 3.0 / 14, 0.3):
+        assert tt._class_cap(b, p) == jt._class_cap(b, p)
+
+
+@contextlib.contextmanager
+def _recorded_branches():
+    """The flags of every ``cond.branch`` call: True where a class drew
+    more clips than its capacity (the select tree ran)."""
+    flags, real = [], cond.branch
+
+    def record(flag, if_true, if_false, out):
+        flags.append(bool(flag))
+        return real(flag, if_true, if_false, out)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cond, "branch", record)
+        yield flags
+
+
+def _geometry_draws(b, layers=2):
+    """Every clip rotates at every layer: the x1, y and rot classes all
+    over their capacities (as tests/test_transforms.py forces it)."""
+    return (torch.full((b, layers), tt._GEO_ROT), torch.ones(b, layers,
+            dtype=torch.bool), torch.ones(b, layers))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fixed_capacity_rand_augment_is_the_select_tree(dtype):
+    """RandAugment at B=16 and 32 (apply 0.5), three seeds each: the
+    gathered classes take the select tree's bits and layout; then every
+    clip rotating, which overflows, takes the select tree itself."""
+    flags_seen = []
+    for b in (16, 32):
+        x = t(_frames(b, b=b, smooth=True), dtype)
+        for seed in range(3):
+            g = torch.Generator().manual_seed(seed)
+            op, apply, sign = tt.sample_rand_augment(b, 2, 0.5, g, "cpu")
+            full = tt._augment(x, op, apply, sign, MAGNITUDE, 8, "select")
+            with _recorded_branches() as flags:
+                cap = tt._augment(x, op, apply, sign, MAGNITUDE, 8,
+                                  "capacity", 0.5)
+            assert len(flags) == 2
+            flags_seen += flags
+            assert torch.equal(cap, full) and cap.stride() == full.stride()
+        op, apply, sign = _geometry_draws(b)
+        with _recorded_branches() as flags:
+            cap = tt._augment(x, op, apply, sign, MAGNITUDE, 8, "capacity",
+                              0.5)
+        assert flags == [True, True]
+        assert torch.equal(cap, tt._augment(x, op, apply, sign, MAGNITUDE,
+                                            8, "select"))
+    assert not any(flags_seen)
+
+
+def test_fixed_capacity_aug_mix_is_the_select_tree():
+    """AugMix at B=8 (its folded 3 x 8 rows at apply 1.0), two seeds: the
+    fixed-capacity chains against the select tree's, bit-equal."""
+    x = t(_frames(12, b=8, smooth=True))
+    for seed in (5, 6):
+        want = tt.aug_mix_batch(x, torch.Generator().manual_seed(seed),
+                                path="select")
+        with _recorded_branches() as flags:
+            got = tt.aug_mix_batch(x, torch.Generator().manual_seed(seed),
+                                   path="capacity")
+        assert len(flags) == 2
+        assert torch.equal(got, want)
+
+
+def test_fixed_capacity_layer_matches_the_jax_gathered_layer():
+    """One layer at fixed draws over 16 clips (every op at least once)
+    against the JAX gathered path (``subbatch=True``) at apply 1.0, f32
+    1e-5, with and without overflow."""
+    b = 16
+    x = _frames(4, b=b, smooth=True)
+    op, apply, sign = (a[:, 0] for a in _draws(5, b))
+    geo = np.full(b, tt._GEO_ROT, np.int32)
+    for ops in (op, geo):
+        want = np.asarray(jt._apply_layer_batch(
+            jnp.asarray(x), jnp.asarray(ops), jnp.asarray(apply),
+            jnp.asarray(sign), MAGNITUDE, 8, apply_prob=1.0, subbatch=True))
+        got = tt.apply_layer_batch(t(x), t(ops).long(), t(apply), t(sign),
+                                   MAGNITUDE, 8, path="capacity")
+        close(got, want, 1e-5)
+
+
+def _refuse(name):
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"the layer called {name}")
+    return refuse
+
+
+def _predicated(flag, bodies, out):
+    """The CPU's stand-in for the two IF nodes: each body runs, and its
+    result is kept where its condition holds (no host read)."""
+    for negate, body in bodies:
+        keep = flag != negate
+        out.copy_(torch.where(keep, body(), out))
+
+
+def test_fixed_capacity_branch_under_capture_reads_nothing_on_the_host(
+        monkeypatch):
+    """With the capture's conditional nodes emulated (``_capturing`` true,
+    the nodes' bodies predicated), a RandAugment batch at B=16 runs with
+    every host read refused and gives the select tree's bits, with and
+    without overflow."""
+    b = 16
+    x = t(_frames(9, b=b, smooth=True))
+    g = torch.Generator().manual_seed(2)
+    draws = [tt.sample_rand_augment(b, 2, 0.5, g, "cpu"), _geometry_draws(b)]
+    monkeypatch.setattr(cond, "_capturing", lambda device: True)
+    monkeypatch.setattr(cond, "_capture_branches", _predicated)
+    for op, apply, sign in draws:
+        want = tt._augment(x, op, apply, sign, MAGNITUDE, 8, "select")
+        with pytest.MonkeyPatch.context() as mp:
+            for name in ("item", "tolist", "cpu", "numpy", "__bool__",
+                         "__int__", "__float__"):
+                mp.setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
+            mp.setattr(torch, "tensor", _refuse("torch.tensor"))
+            got = tt._augment(x, op, apply, sign, MAGNITUDE, 8, "capacity",
+                              0.5)
+        assert torch.equal(got, want)
+
+
+def test_branch_runs_one_side_on_the_cpu():
+    out = torch.zeros(3)
+    calls = []
+    for flag in (True, False):
+        cond.branch(torch.tensor(flag), lambda: calls.append(1) or
+                    torch.ones(3), lambda: calls.append(0) or
+                    torch.full((3,), 2.0), out)
+        assert out.tolist() == ([1.0] * 3 if flag else [2.0] * 3)
+    assert calls == [1, 0]
+
+
+def test_warm_up_lasts_its_block_and_the_cpu_runs_one_side():
+    """``cond.warm_up`` (a card's runs of both branches before a capture)
+    holds inside its block only; on the CPU a branch runs one side even
+    inside it."""
+    assert not cond.branch.warming
+    out, calls = torch.zeros(2), []
+    with cond.warm_up():
+        assert cond.branch.warming
+        cond.branch(torch.tensor(True), lambda: calls.append(1) or
+                    torch.ones(2), lambda: calls.append(0) or torch.ones(2),
+                    out)
+    assert not cond.branch.warming and calls == [1]
