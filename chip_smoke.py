@@ -198,8 +198,36 @@ it exits non-zero before printing any result.
     half the mask's effect of the masked plain run;
     ``--test`` from LAST (oracle 1.0, ``by_qtype``, both predict files),
     plain and with ``--pallasAttention``;
+9c. the AGQA ablations, after STAR: ``cli.agqa_q.main`` (``--taskQ
+    --llayers 5 --stepsPerLoop 2``) and ``cli.agqa_vqa.main`` (the
+    published flags with ``--taskVQA --pallasFFNTrain``, the trunk from
+    ``--backboneWeights``) at B=8 on 32 synthetic clips and 16 valid for
+    one epoch: the launches of every train step run on the host (q: 5
+    attention forwards and backwards; vqa: 14 attention and 14 FFN-train
+    forwards and backwards) and of each valid forward (5 or 14 FFN), for q
+    one capture and one replay, finite losses, LAST reloaded bit-equal;
+    ``--test`` from LAST (oracle 1.0, both predict files), plain and with
+    ``--pallasAttention``; then the head model (``ShgVqaModel`` on random
+    trunk features) of 'vhga', 'hgvqa', the 'self', 'cross_self' and 'old'
+    layers, untied x-layers, ``--GTHG``, ``--afterCrossAttnFeats`` and
+    ``--linearCls`` at flagship widths in bf16, B=8: eval forwards plain,
+    with the FFN kernel and with ``--pallasAttention`` (within 5e-2 of the
+    plain path; the launch counts), at dropout 0 the attention kernels
+    against the plain attention and the FFN-train kernels against the
+    unfused FFN (the loss within 5e-2; the gradient vector within 5e-2 or,
+    where bf16 moves it further, within 2x the plain bf16 path's distance
+    to the f32 plain path of both), the launch counts, the parameters with
+    a gradient exactly the connected ones; two optimizer
+    steps (the launch counts; outside the trainable mask bit-identical,
+    the rest moved); the flagship's head first, as their baseline.  Phase 3 also holds
+    both attention kernels to the plain version at the shapes only these
+    models give: the joint [visn; lang] sequences of 'self' (433 and 217
+    tokens) under their joint key row and the deaf language mask (every
+    key masked) at the language, LXRT-cross and HG-cross shapes, B=8 and
+    32, with their device time and bound at B=32;
 10. the plain path, then two plain train steps, on the card against the
-    CPU at tiny size in f32;
+    CPU at tiny size in f32: the flagship task, 'q', 'vhga', 'hgvqa' and
+    the 'cross_self' layers;
 11. the card line, one ``{"kernels": [...]}`` line (ten kernels), and
     last ``{"ok": true, "device": {...}}``.
 
@@ -217,8 +245,9 @@ attention) checks of phase 3, ``--only ffn`` those of the FFN, ``--only
 weights`` phases 1-2, 8 and 9, ``--only steps_per_loop`` phases 1-2 and
 7b (the weight files written for its driver run), ``--only matcher``
 phases 1-2 and the matcher's checks of phase 3, ``--only star`` phases 1-2
-and 9b (the weight files written for its trunk), and prints no result
-lines.
+and 9b (the weight files written for its trunk), ``--only tasks`` phases
+1-2, the ablation shapes of phase 3, 9c (the weight files written for its
+trunk) and the ablations' cases of 10, and prints no result lines.
 """
 
 from __future__ import annotations
@@ -248,7 +277,7 @@ import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
 from shgvqa_tpu_torch import entry
-from shgvqa_tpu_torch.cli import agqa_hgqa, common, star
+from shgvqa_tpu_torch.cli import agqa_hgqa, agqa_q, agqa_vqa, common, star
 from shgvqa_tpu_torch import breakdown
 from shgvqa_tpu_torch.bench import (
     BATCH_SIZE,
@@ -318,6 +347,8 @@ from shgvqa_tpu_torch.models.layers import (
     set_headsliced_kernel,
     set_out_ln_kernel,
 )
+from shgvqa_tpu_torch.models.cross import _cat_masks
+from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
 from shgvqa_tpu_torch.ops import matcher
 from shgvqa_tpu_torch.ops.matcher import hungarian_square
@@ -327,6 +358,7 @@ from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.optimizer import PLAIN_OPTIMIZERS, make_optimizer
 from shgvqa_tpu_torch.train.step import (
     compute_losses,
+    connected_param_mask,
     make_eval_step,
     make_train_step,
     trainable_mask,
@@ -1093,6 +1125,88 @@ def attention_entries(rows, max_err, launches=None, bsz=BATCH_SIZE):
                 + ", ".join(f"{k} {per_step_text(rows, b, rk, backward)}"
                             for k, rk in keys if rk in rows[(widest[0], b)]))
     return entries
+
+
+# attention shapes only the AGQA ablations give (phase 3): (site, Lq, Lk,
+# key row, dropout rate).  'self' attends over the joint [visn; lang]
+# sequence (393 + 40 and 177 + 40 tokens) under the joint key row
+# (``models/cross._cat_masks``: zeros on the side without a mask, the
+# padded question's keys at -10000); 'vhga' masks every language key
+ABLATION_ATTN_SITES = (
+    ("self LXRT joint", 433, 433, "joint", 0.1),
+    ("self HG joint", 217, 217, "joint", 0.1),
+    ("deaf language self", 40, 40, "deaf", 0.1),
+    ("deaf LXRT cross visn<-lang", 393, 40, "deaf", 0.1),
+    ("deaf HG cross hg<-lang", 177, 40, "deaf", 0.1),
+)
+ABLATION_ATTN_BATCHES = (8, BATCH_SIZE)
+
+
+def ablation_attention_operands(b, lq, lk, kind, seed):
+    """bf16 q, k, v as ``attention_operands`` makes them and the site's
+    additive mask: the joint key row of ``_cat_masks`` (the first side
+    unmasked, the question's last 8 keys masked in every other clip) or
+    every key at -10000 (the deaf language mask)."""
+    q, k, v, _ = attention_operands(b, lq, lk, "none", seed)
+    if kind == "joint":
+        lang = torch.ones(b, 40, device="cuda")
+        lang[1::2, -8:] = 0.0
+        mask = _cat_masks(None, extend_mask(lang, torch.bfloat16), lk - 40,
+                          40)
+    else:
+        mask = extend_mask(torch.zeros(b, lk, device="cuda"), torch.bfloat16)
+    return q, k, v, mask
+
+
+def phase_ablation_attention():
+    """Both attention kernels at the ablations' new shapes and masks, B=8
+    and 32, against the plain version: the forward and dQ, dK, dV at rate
+    0 and at the site's rate with the kernels' own keep mask; the mask
+    must decompose to a key row; at B=32 the kernels' device time per call
+    (torch.profiler) beside the bound.  Returns the rows."""
+    t0 = time.perf_counter()
+    rows = {}
+    for bsz in ABLATION_ATTN_BATCHES:
+        for i, (name, lq, lk, kind, rate) in enumerate(ABLATION_ATTN_SITES):
+            q, k, v, mask = ablation_attention_operands(bsz, lq, lk, kind,
+                                                        300 + i)
+            key, pane = decompose_mask(mask, bsz, H, lq, lk)
+            if key is None or pane is not None:
+                raise AssertionError(f"{name}: the mask is not a key row")
+            tag = f"{name} b{bsz} ({lq}, {lk})"
+            _, _, _, (e0, r0), (e1, r1) = fwd_and_grads(
+                q, k, v, mask, 0.0, None, None, tag)
+            g = torch.Generator(device="cuda").manual_seed(17 + i)
+            state = g.get_state()
+            seed = draw_seed(g, q.device)
+            g.set_state(state)
+            keep = keep_mask(seed, bsz * H, lq, lk, rate).view(bsz, H, lq, lk)
+            out, do, leaves, (e2, r2), (e3, r3) = fwd_and_grads(
+                q, k, v, mask, rate, g, keep, tag)
+            row = dict(site=name, B=bsz, Lq=lq, Lk=lk, mask=kind, rate=rate,
+                       err_fwd=max(e0, e2), err_grads=max(e1, e3),
+                       rel_err_fwd=max(r0, r2), rel_err_grads=max(r1, r3))
+            if bsz == BATCH_SIZE:
+                fwd_ms, _, _ = device_ms(
+                    lambda: fused_attention(q, k, v, mask, rate, g),
+                    ("attn_fwd_kernel",))
+                bwd_ms, _, _ = device_ms(
+                    lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True),
+                    ("attn_bwd_prep_kernel", "attn_bwd_kernel",
+                     "attn_bwd_dq_kernel"))
+                bound, bound_by = attention_bound(bsz, lq, lk, key, pane,
+                                                  False)
+                bwd_bound, bwd_by = attention_bound(bsz, lq, lk, key, pane,
+                                                    True)
+                row.update(kernel_device_ms=fwd_ms, bound_ms=bound,
+                           bound_by=bound_by, bwd_kernel_device_ms=bwd_ms,
+                           bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by)
+            rows[(name, bsz)] = row
+            log(f"fused_attention (ablation shape) {json.dumps(row)}")
+            del q, k, v, mask, out, do, leaves
+    log(f"ablation attention shapes ok: {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def phase_tok_kernel(batch_sizes=(2, BATCH_SIZE)):
@@ -2882,6 +2996,363 @@ def phase_star_driver(tmp: str, files: dict):
     return train_launches
 
 
+# phase 9c: the AGQA ablation drivers at B=8 on 32 synthetic clips (4
+# steps) and 16 valid, one epoch: the question-only driver at the
+# language stack's flagship depth, two steps a launch; the video-QA driver
+# at the published flags with --pallasFFNTrain
+TASK_DATA = ["--syntheticData", "32", "--syntheticValid", "16",
+             "--batchSize", "8", "--logFreq", "1", "--epochs", "1"]
+Q_FLAGS = ["--taskQ", "--noCaps", "--llayers", "5", "--fromScratch",
+           "--stepsPerLoop", "2"]
+VQA_FLAGS = ["--taskVQA" if a == "--taskHGQA" else a for a in DRIVER_FLAGS]
+# (flags, launches per train step, per eval forward plain and with
+# --pallasAttention): q 5 language layers; vqa 5 + 5 + 2 x 2 cross sites
+TASK_DRIVERS = {
+    "q": (Q_FLAGS, (5, 5, 0, 0, 0, 0, 0, 0, 0, 0),
+          (0, 0, 5, 0, 0, 0, 0, 0, 0, 0), (5, 0, 5, 0, 0, 0, 0, 0, 0, 0)),
+    "vqa": (VQA_FLAGS, (14, 14, 0, 14, 14, 0, 0, 0, 0, 0),
+            (0, 0, 14, 0, 0, 0, 0, 0, 0, 0),
+            (14, 0, 14, 0, 0, 0, 0, 0, 0, 0)),
+}
+# the head-model variants: (name, config, encoder and decoder overrides,
+# attention forward and backward launches per train step, FFN launches
+# per eval forward, FFN-train forward and backward launches per train
+# step).  The backward skips what the loss does not reach: the LXRT
+# x-layers under hgqa / vhga (4 attention sites, 4 FFN; 2 and 2 for
+# 'self', 6 and 2 for 'cross_self') unless --afterCrossAttnFeats; under
+# --GTHG also the visual stream (5 r-layers) and the decoders (20 sites,
+# no FFN); under 'old' the HG encoder's last language attention and FFN
+# (its single-CLS pooler reads the hg stream only)
+TASK_VARIANTS = (
+    ("hgqa (flagship)", {}, {}, {}, 38, 34, 18, 18, 14),
+    ("vhga", dict(task="vhga"), {}, {}, 38, 34, 18, 18, 14),
+    ("hgvqa", dict(task="hgvqa"), {}, {}, 38, 38, 18, 18, 18),
+    ("self", {}, dict(cross_attn_type="self"), {}, 34, 32, 14, 14, 12),
+    ("cross_self", {}, dict(cross_attn_type="cross_self"), {}, 42, 36, 14,
+     14, 12),
+    ("old", {}, dict(cross_attn_type="old"), {}, 38, 33, 18, 18, 13),
+    ("untied", {}, dict(tie_x_layers=False), {}, 38, 34, 18, 18, 14),
+    ("gt_hg", dict(gt_hg=True), {}, {}, 18, 9, 18, 18, 9),
+    ("after_cross", dict(after_cross_attn_feats=True), {}, {}, 38, 38, 18,
+     18, 18),
+    ("linear_cls", {}, {}, dict(linear_cls=True), 38, 34, 18, 18, 14),
+)
+TASK_BATCH = 8
+# a kernel path's gradient vector may sit this many times the plain bf16
+# path's distance to the plain f32 path away from either, where that is
+# more than TRAIN_TOL (phase 9c)
+GRAD_NOISE = 2.0
+
+
+def phase_task_driver(tmp: str, files: dict, name: str):
+    """``cli.agqa_q.main`` / ``cli.agqa_vqa.main`` on TASK_DATA (the video
+    driver's trunk from ``--backboneWeights``): the launch counts of every
+    train step run on the host and of every valid forward, finite losses,
+    for 'q' one capture and one replay, LAST reloaded bit-equal; then
+    ``--test`` from LAST (oracle 1.0, both predict files of 16 answers),
+    plain and with ``--pallasAttention``.  Returns its seconds."""
+    t0 = time.perf_counter()
+    flags, train_want, eval_want, attn_want = TASK_DRIVERS[name]
+    main = agqa_q.main if name == "q" else agqa_vqa.main
+    out, data = os.path.join(tmp, name), os.path.join(tmp, f"{name}_data")
+    os.makedirs(data, exist_ok=True)
+    argv = flags + TASK_DATA + ["--output", out, "--dataDir", data]
+    if name != "q":
+        argv += ["--backboneWeights", files["trunk"]]
+    saved, _Recorded.made = common.Trainer, []
+    common.Trainer = _Recorded
+    try:
+        with _Counted(sync=name != "q") as counted:
+            result, stdout, seconds = run_main(argv, main)
+    finally:
+        common.Trainer = saved
+    trainer = _Recorded.made[-1]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["total_loss"] for line in f]
+    if f"agqa driver: task={name}" not in stdout or (
+            name != "q" and f"Loaded pretrained backbone from "
+            f"{files['trunk']}" not in stdout):
+        raise AssertionError(f"{name} driver did not start or did not load "
+                             "--backboneWeights")
+    if (result["steps"], len(losses)) != (4, 4) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name} driver: {result['steps']} steps, "
+                             f"losses {losses}")
+    chunks = trainer.chunks
+    if name == "q" and (chunks is None
+                        or (chunks.captures, chunks.replays) != (1, 1)):
+        raise AssertionError("q driver: not one capture and one replay")
+    if counted.train != [train_want] * 4:
+        raise AssertionError(f"{name} train steps launched {counted.train}, "
+                             f"expected 4 x {train_want}")
+    if counted.eval != [eval_want] * 8:
+        raise AssertionError(f"{name} valid forwards launched "
+                             f"{counted.eval}, expected 8 x {eval_want}")
+    cfg = trainer.model.cfg
+    fresh = entry.build_model(cfg, "cuda", seed=cfg.seed + 1)
+    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
+        os.path.join(out, "LAST"))
+    trained = trainer.model.state_dict()
+    for key, value in fresh.state_dict().items():
+        if not torch.equal(value, trained[key]):
+            raise AssertionError(f"{name} LAST reloads {key} differently")
+    del fresh, trained, trainer, chunks, _Recorded.made[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{name} driver: 4 steps, losses {losses}, launches "
+        f"({COUNT_NAMES}) per train step run on the host {counted.train[0]}"
+        f", per valid forward {counted.eval[0]}; history "
+        f"{result['history']}; LAST reloads bit-equal; {seconds:.1f} s")
+    for extra, want in (([], eval_want), (["--pallasAttention"],
+                                          attn_want)):
+        test_out = os.path.join(tmp, f"{name}_test" + "".join(extra))
+        argv_test = [a if a != out else test_out for a in argv] + [
+            "--test", "test", "--load", os.path.join(out, "LAST")] + extra
+        with _Counted() as counted:
+            result, stdout, test_seconds = run_main(argv_test, main)
+        if "Oracle score: 1.0000" not in stdout:
+            raise AssertionError(f"{name} --test {extra}: oracle score not "
+                                 "1.0")
+        if counted.eval != [want] * 8:
+            raise AssertionError(f"{name} --test {extra} forwards launched "
+                                 f"{counted.eval}, expected 8 x {want}")
+        for fname in ("predict.json", "predict_hg.json"):
+            with open(os.path.join(test_out, fname)) as f:
+                if len(json.load(f)) != 16:
+                    raise AssertionError(f"{name} {fname} does not hold 16 "
+                                         "answers")
+        log(f"{name} --test {' '.join(extra)}: oracle 1.0, predict files of "
+            f"16 answers, launches per eval forward {counted.eval[0]}, "
+            f"{test_seconds:.1f} s")
+    return time.perf_counter() - t0
+
+
+def variant_batch(cfg, bsz: int, seed: int):
+    """A labelled featurized batch of the flagship head on the card: random
+    trunk features (B, 16, 7, 7, 2048) in place of frames, a padded
+    question in every other clip, and under GT-HG the label ids."""
+    batch = entry.example_batch(cfg, bsz, seed, with_labels=True)
+    del batch["frames"]
+    e = cfg.encoder
+    batch["input_mask"][1::2, cfg.data.max_seq_length - 8:] = 0
+    batch["visual_feats"] = np.random.RandomState(seed).randn(
+        bsz, e.visual_t + 8, e.visual_hw, e.visual_hw, e.visual_feat_dim
+    ).astype(np.float32)
+    if cfg.gt_hg:
+        batch["rel_tgt_ids"] = batch["rel_labels"].reshape(bsz, -1)
+        batch["act_tgt_ids"] = batch["act_labels"].reshape(bsz, -1)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def grads_of(model, params, cfg, batch, generator):
+    """(loss, the gradient vector, the names with a gradient) of one
+    training forward and backward, with the launch counts it made."""
+    model.zero_grad(set_to_none=True)
+    reset_counts()
+    loss, _ = compute_losses(cfg, model(batch, generator), batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = counts()
+    reached = {n for n, p in params if p.grad is not None}
+    vec = torch.cat([p.grad.float().flatten() for _, p in params
+                     if p.grad is not None])
+    return loss.item(), vec, reached, launched
+
+
+def phase_task_variants():
+    """Each head-model variant of TASK_VARIANTS (the flagship first, as the
+    others' baseline) at flagship widths in bf16
+    on a B=8 featurized batch (random trunk features; the trunk is the
+    same for every variant): eval forwards plain, with the FFN kernel and
+    with ``--pallasAttention`` (hg_logit, or logit, within 5e-2 relative
+    Frobenius of the plain path; the launch counts); at dropout 0, as
+    phase 6, the attention kernels against the plain attention and the
+    FFN-train kernels against the unfused FFN: the loss within TRAIN_TOL,
+    the whole gradient vector within TRAIN_TOL or, where bf16 itself moves
+    it further, within GRAD_NOISE x the plain bf16 path's distance to the
+    plain path in f32 (same weights) of both (each distance and the three
+    tensors with the largest share of it logged); the launch counts; the
+    parameters with a gradient exactly ``connected_param_mask``'s; two
+    runs of the attention kernels (dQ by atomics); two
+    optimizer steps at the flagship's dropout (launch counts, finite
+    losses; outside ``trainable_mask`` bit-identical, the rest moved).
+    Returns its seconds."""
+    t0 = time.perf_counter()
+    base = entry.flagship_cfg()
+    for (name, top, enc, dec, attn_f, attn_b, ffn_n, ffn_f,
+         ffn_b) in TASK_VARIANTS:
+        t1 = time.perf_counter()
+        cfg = base.replace(**top, encoder=dataclasses.replace(
+            base.encoder, **enc), decoder=dataclasses.replace(
+                base.decoder, **dec))
+        model = init_weights(ShgVqaModel(cfg), seed=11).to("cuda").eval()
+        batch = variant_batch(cfg, TASK_BATCH, 11)
+        outs = {}
+        for mode, ffn, attn, want in (
+                ("plain", False, False, (0,) * 10),
+                ("FFN kernel", True, False,
+                 (0, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0)),
+                ("attention kernel", True, True,
+                 (attn_f, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0))):
+            set_ffn_kernel(model, ffn)
+            set_attention_kernel_eval(model, attn)
+            reset_counts()
+            with torch.inference_mode():
+                y = model(batch)
+            torch.cuda.synchronize()
+            if counts() != want:
+                raise AssertionError(f"{name} {mode} forward launched "
+                                     f"{counts()}, expected {want}")
+            key = "hg_logit" if "hg_logit" in y else "logit"
+            if not torch.isfinite(y[key]).all():
+                raise AssertionError(f"{name} {mode}: non-finite {key}")
+            outs[mode] = y[key].float()
+        set_ffn_kernel(model, True)
+        set_attention_kernel_eval(model, False)
+        fwd_rel = {m: ((o - outs["plain"]).norm()
+                       / outs["plain"].norm()).item()
+                   for m, o in outs.items() if m != "plain"}
+        if max(fwd_rel.values()) > 5e-2:
+            raise AssertionError(f"{name}: {key} differs from the plain "
+                                 f"path by {fwd_rel}")
+
+        rates = {m: m.rate for m in model.modules() if isinstance(m, Dropout)}
+        set_dropout_rate(model, 0.0)
+        model.train()
+        params = list(model.named_parameters())
+        generator = torch.Generator(device="cuda").manual_seed(11)
+        # (attention kernels, FFN train kernels), as phase 6: the attention
+        # kernels against the plain attention, then the FFN train kernels
+        # against the unfused FFN with the attention kernels on; the
+        # attention kernels twice (dQ is summed with atomics); and the
+        # plain path in f32 on the same weights, the yardstick of bf16
+        results = {}
+        for mode, attn, ffn in (("kernel", True, False),
+                                ("kernel again", True, False),
+                                ("plain", False, False),
+                                ("ffn kernel", True, True)):
+            set_attention_kernel(model, attn)
+            set_ffn_train_kernel(model, ffn)
+            results[mode] = grads_of(model, params, cfg, batch, generator)
+        ref = ShgVqaModel(cfg.replace(compute_dtype="float32"))
+        ref.load_state_dict(model.state_dict())
+        ref = ref.to("cuda").train()
+        set_dropout_rate(ref, 0.0)
+        set_attention_kernel(ref, False)
+        results["plain f32"] = grads_of(ref, list(ref.named_parameters()),
+                                        cfg, batch, generator)
+        del ref
+        want_train = (attn_f, attn_b, 0, ffn_f, ffn_b, 0, 0, 0, 0, 0)
+        want_attn = (attn_f, attn_b) + (0,) * 8
+        launched = {m: r[3] for m, r in results.items()}
+        if launched != {"kernel": want_attn, "kernel again": want_attn,
+                        "plain": (0,) * 10, "ffn kernel": want_train,
+                        "plain f32": (0,) * 10}:
+            raise AssertionError(f"{name} train forward and backward "
+                                 f"launched {launched}, expected "
+                                 f"{want_train} (both kernels)")
+        connected = {n for n, c in connected_param_mask(model, cfg).items()
+                     if c}
+        if any(r[2] != connected for r in results.values()):
+            raise AssertionError(f"{name}: the backward reaches other "
+                                 "parameters than connected_param_mask's")
+        names = [n for n, _ in params if n in connected]
+        sizes = [p.numel() for n, p in params if n in connected]
+        train_rel = {}
+        for what, (a, b) in (("attention", ("kernel", "plain")),
+                             ("FFN", ("ffn kernel", "kernel")),
+                             ("rerun", ("kernel again", "kernel")),
+                             ("plain vs f32", ("plain", "plain f32")),
+                             ("kernel vs f32", ("kernel", "plain f32")),
+                             ("ffn kernel vs f32", ("ffn kernel",
+                                                    "plain f32"))):
+            (la, ga, _, _), (lb, gb, _, _) = results[a], results[b]
+            # the tensors with the largest share of the squared difference,
+            # each with its own relative difference
+            parts = sorted(
+                (((x - y).square().sum().item(),
+                  ((x - y).norm() / y.norm().clamp_min(1e-30)).item(), n)
+                 for n, x, y in zip(names, ga.split(sizes),
+                                    gb.split(sizes))), reverse=True)
+            total = max(sum(p[0] for p in parts), 1e-30)
+            train_rel[what] = dict(
+                loss=abs(la - lb) / abs(lb),
+                grad=((ga - gb).norm() / gb.norm()).item(),
+                grad_norm=abs(ga.norm() - gb.norm()).item() / gb.norm().item(),
+                worst_tensors=[(n, round(sq / total, 4), round(r, 4))
+                               for sq, r, n in parts[:3]])
+        log(f"variant {name} train kernel vs plain (dropout 0): "
+            f"{json.dumps(train_rel)}")
+        # the loss within TRAIN_TOL of the plain path; the gradient vector
+        # within TRAIN_TOL of it or, where bf16 itself moves the vector
+        # further (a few tensors' gradients are sums that cancel), within
+        # GRAD_NOISE x the plain bf16 path's distance to f32 of both the
+        # plain bf16 path and the f32 one
+        noise = GRAD_NOISE * train_rel["plain vs f32"]["grad"]
+        for what, to_f32 in (("attention", "kernel vs f32"),
+                             ("FFN", "ffn kernel vs f32")):
+            loss, grad = train_rel[what]["loss"], train_rel[what]["grad"]
+            grad_f32 = train_rel[to_f32]["grad"]
+            if loss > TRAIN_TOL or (grad > TRAIN_TOL and (
+                    grad > noise or grad_f32 > noise)):
+                raise AssertionError(f"{name}: kernel and plain {what} "
+                                     f"train paths differ: {train_rel}")
+        lk, lp = results["kernel"][0], results["plain"][0]
+        rel_loss = train_rel["attention"]["loss"]
+        rel_grad = {w: train_rel[w]["grad"] for w in train_rel}
+        del results
+        model.zero_grad(set_to_none=True)
+        for m, rate in rates.items():
+            m.rate = rate
+        set_attention_kernel(model, True)
+        set_ffn_train_kernel(model, True)
+        o = cfg.optim
+        optimizer = make_optimizer(
+            model, o.lr, entry.TRAIN_T_TOTAL, o.warmup, o.schedule, o.b1,
+            o.b2, o.eps, o.weight_decay, o.grad_clip,
+            trainable_mask(model, cfg), o.optim)
+        step = make_train_step(cfg, model, optimizer)
+        before = {n: p.detach().clone() for n, p in params}
+        losses = []
+        for _ in range(2):
+            reset_counts()
+            metrics = step(batch, generator)
+            torch.cuda.synchronize()
+            if counts() != want_train:
+                raise AssertionError(f"{name} train step launched "
+                                     f"{counts()}, expected {want_train}")
+            losses.append(metrics["total_loss"].item())
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: train losses {losses}")
+        moved, tiny, frozen = moved_or_tiny(model, optimizer, before)
+        log(f"variant {name}: eval launches FFN {ffn_n}, attention "
+            f"{attn_f}; {key} rel Frobenius vs plain {json.dumps(fwd_rel)}; "
+            f"train launches ({COUNT_NAMES}) {want_train}; kernel vs plain "
+            f"(dropout 0) loss {lk:.6f} vs {lp:.6f} (rel {rel_loss:.2e}), "
+            f"gradient vector rel {json.dumps(rel_grad)}; losses {losses}; "
+            f"{len(moved)} tensors moved, {len(tiny)} below f32 resolution, "
+            f"{len(frozen)} outside the optimizer bit-identical; "
+            f"{time.perf_counter() - t1:.1f} s")
+        set_ffn_train_kernel(model, False)
+        del model, optimizer, step, before, batch, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def phase_tasks(tmp: str, files: dict):
+    """Phase 9c: both ablation drivers, then the head-model variants.
+    Returns the seconds of each part."""
+    t0 = time.perf_counter()
+    seconds = {name: phase_task_driver(tmp, files, name)
+               for name in TASK_DRIVERS}
+    clear_outputs(tmp, files["trunk"])
+    seconds["variants"] = phase_task_variants()
+    seconds["phase"] = time.perf_counter() - t0
+    log(f"phase 9c (AGQA ablations) seconds {json.dumps(seconds)}")
+    return seconds
+
+
 def clear_outputs(tmp: str, keep: str) -> None:
     """Delete everything the phases wrote under ``tmp`` but ``keep`` (the
     trunk file the later phases load).  The card machine's disk keeps every
@@ -3110,12 +3581,29 @@ def phase_weights_import(tmp: str, files: dict):
     return imports
 
 
-def phase_plain_train_step_card_vs_cpu(device="cuda"):
+# phase 10's tiny configurations: the flagship's, and one per ablation
+# task and for the cross_self layers
+CARD_VS_CPU = {
+    "hgqa": dict(task="hgqa"), "q": dict(task="q"),
+    "vhga": dict(task="vhga"), "hgvqa": dict(task="hgvqa"),
+    "cross_self": dict(task="hgqa", cross_attn_type="cross_self"),
+}
+
+
+def card_vs_cpu_cfg(name, **kw):
+    over = dict(CARD_VS_CPU[name])
+    cat = over.pop("cross_attn_type", "cross")
+    cfg = tiny_test_config(**over, **kw)
+    return cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                   cross_attn_type=cat))
+
+
+def phase_plain_train_step_card_vs_cpu(case="hgqa", device="cuda"):
     """Two plain train steps of the tiny f32 model (dropout 0) on the card
     against the CPU: the metrics of each step, and the parameters after
     (the first step's lr is 0, the second's is not)."""
-    cfg = tiny_test_config(task="hgqa", use_pallas_ffn=False,
-                           use_pallas_attention_train=False)
+    cfg = card_vs_cpu_cfg(case, use_pallas_ffn=False,
+                          use_pallas_attention_train=False)
     cpu = entry.build_model(cfg, "cpu", seed=2).train()
     gpu = copy.deepcopy(cpu).to(device)
     rng = np.random.RandomState(3)
@@ -3152,7 +3640,8 @@ def phase_plain_train_step_card_vs_cpu(device="cuda"):
         if dc[real].norm() > 0:
             worst_param = max(worst_param, ((dg - dc)[real].norm()
                                             / dc[real].norm()).item())
-    log(f"plain train step card vs CPU (tiny, f32, 2 steps): max rel metric "
+    log(f"plain train step card vs CPU ({case}, tiny, f32, 2 steps): max "
+        f"rel metric "
         f"error {worst_metric:.2e}, max rel parameter-update error "
         f"{worst_param:.2e}")
     if worst_metric > 1e-4 or worst_param > 1e-3:
@@ -3160,9 +3649,9 @@ def phase_plain_train_step_card_vs_cpu(device="cuda"):
                              f"{worst_metric}, updates {worst_param}")
 
 
-def phase_plain_path_card_vs_cpu():
+def phase_plain_path_card_vs_cpu(case="hgqa"):
     """The tiny f32 model's plain path on the card against the CPU."""
-    cfg = tiny_test_config(task="hgqa", use_pallas_ffn=False)
+    cfg = card_vs_cpu_cfg(case, use_pallas_ffn=False)
     cpu = entry.build_model(cfg, "cpu", seed=1)
     gpu = copy.deepcopy(cpu).to("cuda")
     rng = np.random.RandomState(0)
@@ -3180,7 +3669,8 @@ def phase_plain_path_card_vs_cpu():
                    for k, v in batch.items()})
     worst = max(((got[k].cpu() - want[k]).abs().max()
                  / want[k].abs().max()).item() for k in want)
-    log(f"plain path card vs CPU (tiny, f32): max rel error {worst:.2e}")
+    log(f"plain path card vs CPU ({case}, tiny, f32): max rel error "
+        f"{worst:.2e}")
     if worst > 1e-4:
         raise AssertionError(f"card and CPU disagree by {worst}")
 
@@ -3190,7 +3680,7 @@ def main(argv=None) -> int:
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
                                            "tok_block", "out_ln_headsliced",
                                            "weights", "steps_per_loop",
-                                           "matcher", "star"),
+                                           "matcher", "star", "tasks"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -3267,6 +3757,15 @@ def main(argv=None) -> int:
             phase_star_driver(tmp, write_weight_files(tmp))
         log("STAR driver ok")
         return 0
+    if args.only == "tasks":
+        phase_ablation_attention()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_tasks(tmp, write_weight_files(tmp))
+        for name in CARD_VS_CPU:
+            phase_plain_path_card_vs_cpu(name)
+            phase_plain_train_step_card_vs_cpu(name)
+        log("AGQA ablations ok")
+        return 0
     if args.only == "out_ln_headsliced":
         out_ln_rows, out_ln_err = phase_out_ln_kernel()
         log_out_ln_per_forward(out_ln_rows)
@@ -3278,6 +3777,7 @@ def main(argv=None) -> int:
 
     rows, max_err = phase_ffn_kernel()
     attn_rows, attn_err = phase_attention_kernels()
+    phase_ablation_attention()
     train_rows, train_err = phase_ffn_train_kernels()
     tok_rows, tok_err = phase_tok_kernel()
     block_rows, block_err = phase_block_kernel()
@@ -3315,10 +3815,13 @@ def main(argv=None) -> int:
         phase_driver_steps_per_loop(tmp, files)
         clear_outputs(tmp, files["trunk"])
         star_launches = phase_star_driver(tmp, files)
+        clear_outputs(tmp, files["trunk"])
+        phase_tasks(tmp, files)
         weight_bytes = files["bytes"]
         del files
-    phase_plain_path_card_vs_cpu()
-    phase_plain_train_step_card_vs_cpu()
+    for name in CARD_VS_CPU:
+        phase_plain_path_card_vs_cpu(name)
+        phase_plain_train_step_card_vs_cpu(name)
 
     bsz = BATCH_SIZE
     widest = max(FFN_SITES, key=lambda s: s[1] * rows[s[0] * bsz]["bound_ms"])

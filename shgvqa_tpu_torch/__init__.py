@@ -18,7 +18,9 @@ the fused attention forward and backward as hand-written CUDA kernels
 AGQA data, the ``Trainer`` of ``train/loop.py`` with validation,
 checkpoints and the test protocol), whose ``--pallasFFNTrain`` runs the
 fused FFN train pair, forward and backward, as hand-written CUDA kernels
-(``csrc/ffn_train.cu``, wrapper ``kernels/ffn.py``).  Options the port
-does not run yet raise ``NotImplementedError``
+(``csrc/ffn_train.cu``, wrapper ``kernels/ffn.py``); the ``agqa_vqa``,
+``agqa_q`` and ``star`` drivers, and the AGQA ablations (tasks 'q',
+'vhga', 'hgvqa', the cross-layer variants of ``models/cross.py``).
+Options the port does not run yet raise ``NotImplementedError``
 (``configs/config.check_ported``).
 """

@@ -22,10 +22,13 @@ STAR passes each question's keyframes to the frame loader, scores the
 and its test protocol reports ``acc``, ``hg_acc`` and the per-question-type
 ``by_qtype`` with both predict files.
 
+Task 'q' (``cli/agqa_q.py``) builds the question-only model: no frame
+loader, no trunk, no ``--backboneWeights``.
+
 It runs on the card unless the caller passes ``device="cpu"``.  What the
 port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: ``--outputAttn``, mesh and multi-host flags, ``--loadLXMERT(QA)``,
-the per-choice QA arrangements and ``--taskHGVQA``.
+item: ``--outputAttn``, mesh and multi-host flags, ``--loadLXMERT(QA)``
+and the per-choice QA arrangements.
 """
 
 from __future__ import annotations
@@ -98,7 +101,9 @@ def build_data(cfg: Config, extras: dict, split: str):
 def build_item_source(cfg: Config, extras: dict, data, tokenizer,
                       test_mode: bool = False):
     star = cfg.data.dataset == "star"
-    if extras.get("synthetic_data"):
+    if cfg.task == "q":
+        loader = None                   # the question-only model: no frames
+    elif extras.get("synthetic_data"):
         loader = SyntheticFrameLoader(cfg.data.clip_len, cfg.data.image_size)
         if star:
             base = loader
@@ -138,15 +143,18 @@ def _check_driver_flags(cfg: Config, extras: dict, dataset: str) -> None:
 def load_pretrained_weights(trainer: Trainer, cfg: Config,
                             extras: dict) -> None:
     """The pretrained files the JAX driver loads before ``--load``: the
-    trunk, then bert-base unless ``--fromScratch``; a missing file is
-    reported as the JAX driver reports it."""
-    bbw = extras.get("backbone_weights") or os.path.join(
-        cfg.data.data_dir, f"{cfg.backbone}_flax.msgpack")
-    if os.path.isfile(bbw):
-        trainer.load_backbone(bbw)
-    else:
-        print(f"no pretrained backbone at {bbw}; backbone stays at random "
-              "init (convert via tools/convert_slow_r50.py)", flush=True)
+    trunk (not for task 'q', which has none), then bert-base unless
+    ``--fromScratch``; a missing file is reported as the JAX driver
+    reports it."""
+    if cfg.task != "q":
+        bbw = extras.get("backbone_weights") or os.path.join(
+            cfg.data.data_dir, f"{cfg.backbone}_flax.msgpack")
+        if os.path.isfile(bbw):
+            trainer.load_backbone(bbw)
+        else:
+            print(f"no pretrained backbone at {bbw}; backbone stays at "
+                  "random init (convert via tools/convert_slow_r50.py)",
+                  flush=True)
     if not cfg.from_scratch:
         bw = extras.get("bert_weights") or os.path.join(
             cfg.data.data_dir, "pytorch_model.bin")
@@ -225,8 +233,8 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
             seed=cfg.seed, drop_last=cfg.data.parity_eval)
 
     model = build_model(cfg, dev, seed=cfg.seed)
-    # the optimizer skips what the loss does not reach (the LXRT x-layers
-    # and pooler under hgqa) and the frozen trunk
+    # the optimizer skips what the loss does not reach (e.g. the LXRT
+    # x-layers and pooler under hgqa) and what the freeze options freeze
     trainer = Trainer(cfg, steps_per_epoch=max(1, len(train_batcher)),
                       model=model, trainable_mask=trainable_mask(model, cfg))
     load_pretrained_weights(trainer, cfg, extras)

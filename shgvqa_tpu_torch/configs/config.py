@@ -266,6 +266,9 @@ def tiny_test_config(**overrides) -> Config:
     return cfg
 
 
+# the tasks whose model predicts a hypergraph
+HG_TASKS = ("hgqa", "vhga", "hgvqa")
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float64": torch.float64}
 
@@ -277,23 +280,16 @@ def torch_dtype(name: str) -> torch.dtype:
 # (field path, value the port supports, ROADMAP queue-A item that ports it)
 _UNPORTED = (
     ("encoder.scan_layers", False, "19 (scan stacks)"),
-    ("encoder.tie_x_layers", True, "15 (other tasks and options)"),
-    ("encoder.cross_attn_type", "cross", "15 (cross types self / cross_self)"),
     ("encoder.no_caps", True, "17 (capsules)"),
     ("encoder.shared_weights", False, "17 (--sharedWeights)"),
     ("encoder.patches", False, "17 (--patches)"),
     ("encoder.vit_init", False, "17 (--vitInit)"),
-    ("decoder.linear_cls", False, "15 (--linearCls)"),
-    ("gt_hg", False, "15 (GT-HG mode)"),
-    ("after_cross_attn_feats", False, "15 (--afterCrossAttnFeats)"),
     ("output_attention", False, "15 (--outputAttn)"),
-    ("remat", False, "19 (remat policies)"),
 )
 
 # options only training reads
 _TRAIN_UNPORTED = (
-    ("freeze_weights", False, "15 (--freezeWeights)"),
-    ("mce_loss", False, "15 (--mceLoss)"),
+    ("remat", False, "19 (remat policies)"),
 )
 
 _VIDEO_UNPORTED = (
@@ -309,10 +305,6 @@ def check_ported(cfg: Config, video: bool = False, train: bool = False
 
     ``video=True`` also checks the frames path (backbone options);
     ``train=True`` the options only training reads."""
-    if cfg.task not in ("hgqa", "vqa"):
-        raise NotImplementedError(
-            f"task '{cfg.task}' is not ported yet (ROADMAP queue A item 15); "
-            "the port runs 'hgqa' and 'vqa'")
     if cfg.data.qa_arrange_type in ("add_sep", "no_sep"):
         raise NotImplementedError(
             f"per-choice QA (--qaArrangeType {cfg.data.qa_arrange_type}) is "

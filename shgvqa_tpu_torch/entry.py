@@ -30,7 +30,7 @@ import torch
 from shgvqa_tpu_torch.configs.config import Config
 from shgvqa_tpu_torch.models.backbone import calibrate_frozen_bn
 from shgvqa_tpu_torch.models.layers import init_weights
-from shgvqa_tpu_torch.models.shgvqa import VideoShgVqaModel
+from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel, VideoShgVqaModel
 from shgvqa_tpu_torch.train.optimizer import BertAdam, make_optimizer
 from shgvqa_tpu_torch.train.step import trainable_mask
 
@@ -100,11 +100,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def build_model(cfg: Config, device="cuda", seed: int = 0) -> VideoShgVqaModel:
-    """A ``VideoShgVqaModel`` with seeded random weights, in eval mode, on
-    ``device`` (channels-last 3-D convs on the card)."""
+def build_model(cfg: Config, device="cuda", seed: int = 0) -> torch.nn.Module:
+    """A ``VideoShgVqaModel`` (task 'q': the question-only ``ShgVqaModel``,
+    as the JAX driver's ``make_model``) with seeded random weights, in eval
+    mode, on ``device`` (channels-last 3-D convs on the card)."""
     dev = resolve_device(device)
-    model = init_weights(VideoShgVqaModel(cfg), seed).eval()
+    cls = ShgVqaModel if cfg.task == "q" else VideoShgVqaModel
+    model = init_weights(cls(cfg), seed).eval()
     if dev.type == "cuda":
         return model.to(device=dev, memory_format=torch.channels_last_3d)
     return model.to(dev)

@@ -4,4 +4,4 @@ from shgvqa_tpu_torch.losses.set_prediction import (  # noqa: F401
     matched_top1_accuracy,
     weighted_cross_entropy,
 )
-from shgvqa_tpu_torch.losses.vqa import bce_vqa_loss  # noqa: F401
+from shgvqa_tpu_torch.losses.vqa import bce_vqa_loss, mce_vqa_loss  # noqa: F401

@@ -1,7 +1,10 @@
-"""Answer-head loss: the port of ``bce_vqa_loss`` in
-``shgvqa_tpu/losses/vqa.py``, ``nn.BCEWithLogitsLoss()(logit, one_hot) *
-num_answers`` -- the elementwise mean scaled by the answer-space size.  The
---mceLoss variant is not ported yet (``configs.config.check_ported``)."""
+"""Answer-head losses: the port of ``shgvqa_tpu/losses/vqa.py``.
+
+- BCE: ``nn.BCEWithLogitsLoss()(logit, one_hot) * num_answers`` -- the
+  elementwise mean scaled by the answer-space size;
+- MCE (``--mceLoss``): ``nn.CrossEntropyLoss(ignore_index=-1)`` on answer
+  indices.
+"""
 
 from __future__ import annotations
 
@@ -15,3 +18,15 @@ def bce_vqa_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     per_elem = (torch.clamp(logits, min=0.0) - logits * targets
                 + torch.log1p(torch.exp(-logits.abs())))
     return per_elem.mean() * logits.shape[-1]
+
+
+def mce_vqa_loss(logits: torch.Tensor, answer_idx: torch.Tensor
+                 ) -> torch.Tensor:
+    """logits (B, A), answer_idx (B,) with -1 = ignore.  The mean negative
+    log-likelihood over the kept rows (0 when none is kept), in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = answer_idx >= 0
+    idx = answer_idx.clamp(min=0).long()
+    nll = -torch.gather(logp, -1, idx[:, None])[:, 0]
+    nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    return nll.sum() / valid.sum().clamp(min=1)

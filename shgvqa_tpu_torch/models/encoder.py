@@ -1,11 +1,20 @@
-"""Tri-stream LXMERT-style encoder: the port of ``TriStreamEncoder`` and
-``LXRTModel`` in ``shgvqa_tpu/models/encoder.py`` (no-caps, unscanned path).
+"""Tri-stream LXMERT-style encoder: the port of ``TriStreamEncoder``,
+``LanguageEncoder`` and ``LXRTModel`` in ``shgvqa_tpu/models/encoder.py``
+(no-caps, unscanned path).
 
 - ``l_{i}`` layers on text, ``r_{i}`` layers on the visual tokens, then the
-  cross-modal layer ``x_tied``: ONE module called ``x_layers`` times, as the
-  published model ties its cross layers.
+  cross-modal layers of ``cross_attn_type`` (``models/cross.py``):
+  ``x_tied``, ONE module called ``x_layers`` times as the published model
+  ties them, or with ``tie_x_layers`` off (``--untieXLayers``) ``x_{i}``.
+  Under 'self' the joint [visn; lang] stream carries the concatenated mask
+  from the second x-layer on.
 - The hypergraph decoders read the PRE-cross snapshots, returned explicitly.
 - Masks are additive -10000, built in the compute dtype by ``extend_mask``.
+- ``LXRTModel(deaf=True)`` (task 'vhga') forces the language mask to all
+  masked; its pooler is ``Pooler2(visn, lang)`` under 'cross' and
+  ``Pooler(visn)`` under every other type, 'old' included.
+- ``LanguageEncoder`` is task 'q''s question-only model: embeddings,
+  ``l_{i}`` and ``Pooler``.
 """
 
 from __future__ import annotations
@@ -14,10 +23,11 @@ import torch
 from torch import nn
 
 from shgvqa_tpu_torch.configs.config import EncoderConfig
-from shgvqa_tpu_torch.models.cross import CrossLayer
+from shgvqa_tpu_torch.models.cross import CROSS_LAYER_TYPES, _cat_masks
 from shgvqa_tpu_torch.models.layers import (
     BertEmbeddings,
     BertLayer,
+    Pooler,
     Pooler2,
     extend_mask,
 )
@@ -43,8 +53,12 @@ class TriStreamEncoder(nn.Module):
         self.r_names = [f"r_{i}" for i in range(c.r_layers)]
         for name in self.l_names + self.r_names:
             setattr(self, name, BertLayer(**kw))
-        self.x_tied = CrossLayer(**kw)
-        self.x_layers = c.x_layers
+        x_cls = CROSS_LAYER_TYPES[c.cross_attn_type]
+        self.x_names = (["x_tied"] * c.x_layers if c.tie_x_layers
+                        else [f"x_{i}" for i in range(c.x_layers)])
+        for name in dict.fromkeys(self.x_names):
+            setattr(self, name, x_cls(**kw))
+        self.joint = c.cross_attn_type == "self"
 
     def forward(self, lang_emb, lang_mask, visual_feats, visn_mask=None,
                 g=None):
@@ -58,34 +72,79 @@ class TriStreamEncoder(nn.Module):
         for name in self.r_names:
             visn = getattr(self, name)(visn, visn_mask, g)
         lang_snapshot, visn_snapshot = lang, visn
-        for _ in range(self.x_layers):
-            lang, visn = self.x_tied(lang, lang_mask, visn, visn_mask, g)
+        for step, name in enumerate(self.x_names):
+            lang, visn = getattr(self, name)(lang, lang_mask, visn, visn_mask,
+                                             g, step)
+            if self.joint and step == 0:
+                visn_mask = _cat_masks(visn_mask, lang_mask,
+                                       visn.shape[1] - lang.shape[1],
+                                       lang.shape[1])
         return lang, visn, lang_snapshot, visn_snapshot
 
 
-class LXRTModel(nn.Module):
-    """Text + video encoder: embeddings -> tri-stream -> Pooler2(visn, lang)."""
+class LanguageEncoder(nn.Module):
+    """The question-only model (task 'q'): embeddings -> ``l_{i}`` ->
+    ``Pooler``."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32,
                  use_kernel: bool = False, kernel_train: bool = False):
+        super().__init__()
+        c = cfg
+        self.embeddings = BertEmbeddings(
+            c.vocab_size, c.hidden_size, c.max_position_embeddings,
+            c.type_vocab_size, dtype, c.hidden_dropout)
+        self.l_names = [f"l_{i}" for i in range(c.l_layers)]
+        for name in self.l_names:
+            setattr(self, name, BertLayer(
+                c.hidden_size, c.num_heads, c.head_dim, c.intermediate_size,
+                dtype, use_kernel, c.attention_dropout, c.hidden_dropout,
+                kernel_train))
+        self.pooler = Pooler(c.hidden_size, dtype)
+        self.dtype = dtype
+
+    def forward(self, input_ids, input_mask, segment_ids=None, g=None):
+        """Returns (the last layer's output, the pooled (B, D))."""
+        ext = extend_mask(input_mask, self.dtype)
+        x = self.embeddings(input_ids, segment_ids, g)
+        for name in self.l_names:
+            x = getattr(self, name)(x, ext, g)
+        return x, self.pooler(x)
+
+
+class LXRTModel(nn.Module):
+    """Text + video encoder: embeddings -> tri-stream -> the pooled output
+    (``Pooler2(visn, lang)`` under 'cross', else ``Pooler(visn)``); with
+    ``deaf`` the language mask is all masked."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32,
+                 use_kernel: bool = False, kernel_train: bool = False,
+                 deaf: bool = False):
         super().__init__()
         self.embeddings = BertEmbeddings(
             cfg.vocab_size, cfg.hidden_size, cfg.max_position_embeddings,
             cfg.type_vocab_size, dtype, cfg.hidden_dropout)
         self.encoder = TriStreamEncoder(cfg, dtype, use_kernel, kernel_train)
-        self.pooler = Pooler2(cfg.hidden_size, dtype)
+        self.pooler = (Pooler2(cfg.hidden_size, dtype)
+                       if cfg.cross_attn_type == "cross"
+                       else Pooler(cfg.hidden_size, dtype))
         self.dtype = dtype
+        self.deaf = deaf
 
     def forward(self, input_ids, input_mask, segment_ids, visual_feats,
                 visual_mask=None, g=None):
         """visual_mask: {0,1} (B, Lv) over the visual tokens, or None.
         Returns (pooled, lang, visn, lang_snapshot, visn_snapshot,
         lang_ext_mask)."""
+        if self.deaf:
+            input_mask = torch.zeros_like(input_mask)
         lang_ext = extend_mask(input_mask, self.dtype)
         visn_ext = (extend_mask(visual_mask, self.dtype)
                     if visual_mask is not None else None)
         emb = self.embeddings(input_ids, segment_ids, g)
         lang, visn, lang_snap, visn_snap = self.encoder(
             emb, lang_ext, visual_feats, visn_ext, g)
-        pooled = self.pooler(visn, lang)
+        # under 'self' / 'cross_self' the joint stream is `visn`: Pooler
+        # takes its first token
+        pooled = (self.pooler(visn, lang) if isinstance(self.pooler, Pooler2)
+                  else self.pooler(visn))
         return pooled, lang, visn, lang_snap, visn_snap, lang_ext

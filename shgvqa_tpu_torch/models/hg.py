@@ -1,13 +1,18 @@
 """Hypergraph query embeddings and the HG<->question cross encoder: the port
-of ``shgvqa_tpu/models/hg.py`` (GT-HG mode is not ported yet).
+of ``shgvqa_tpu/models/hg.py``.
 
 - ``HGEmbeddings``: the WHOLE (num_queries, D) table is the batch's learned
   queries, plus situation type embeddings, then LayerNorm(1e-12) and, in
   training, dropout.  Both tables zero row 0 at init (torch
-  ``padding_idx=0``).
+  ``padding_idx=0``).  In GT-HG mode (``gt_hg``) given ``token_ids`` (the
+  ground-truth labels) it embeds those instead; without them it takes the
+  whole table as the JAX module does, whose (classes + 1) rows must then
+  match the type ids' length (a ``TypeError`` otherwise, as JAX's).
 - ``HGQCrossEncoder``: act/rel type tokens added per situation slot (act
-  slots first), a CLS token prepended, the tied cross layer ``x_tied`` run
-  ``x_layers`` times against the question, then ``Pooler2(hg, lang)``.
+  slots first), a CLS token prepended, the tied cross layer ``x_tied`` of
+  ``cross_attn_type`` run ``x_layers`` times against the question (under
+  'self' the joint stream carries the concatenated mask from the second
+  step on), then ``Pooler2(hg, lang)`` under 'cross', else ``Pooler(hg)``.
   With an ``hg_mask`` (``--useHGMask``: 1 on the slots that hold a label),
   a 1 for the CLS token is prepended and it becomes the additive -10000
   key mask, in the compute dtype, of every attention over the hg tokens.
@@ -15,15 +20,18 @@ of ``shgvqa_tpu/models/hg.py`` (GT-HG mode is not ported yet).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from shgvqa_tpu_torch.configs.config import EncoderConfig
-from shgvqa_tpu_torch.models.cross import CrossLayer
+from shgvqa_tpu_torch.models.cross import CROSS_LAYER_TYPES, _cat_masks
 from shgvqa_tpu_torch.models.layers import (
     Dropout,
     Embed,
     LayerNorm,
+    Pooler,
     Pooler2,
     empty_param,
     extend_mask,
@@ -42,10 +50,21 @@ class HGEmbeddings(nn.Module):
         self.ln = LayerNorm(hidden_size, dtype=dtype)
         self.dropout = Dropout(dropout)
 
-    def forward(self, token_type_ids: torch.Tensor, g=None) -> torch.Tensor:
-        """token_type_ids (B, Q) situation indices -> (B, Q, D)."""
-        words = self.word_embeddings()[None]
-        x = self.ln(words + self.token_type_embeddings(token_type_ids))
+    def forward(self, token_type_ids: torch.Tensor, g=None,
+                token_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """token_type_ids (B, Q) situation indices -> (B, Q, D); with
+        ``token_ids`` (B, Q) the rows of those ids (GT-HG mode)."""
+        types = self.token_type_embeddings(token_type_ids)
+        if token_ids is not None:
+            words = self.word_embeddings(token_ids)
+        else:
+            words = self.word_embeddings()[None]
+            if words.shape[1] != types.shape[1]:
+                raise TypeError(
+                    f"add got incompatible shapes for broadcasting: "
+                    f"{(types.shape[0],) + tuple(words.shape[1:])}, "
+                    f"{tuple(types.shape)}")
+        x = self.ln(words + types)
         return self.dropout(x, g)
 
 
@@ -60,11 +79,13 @@ class HGQCrossEncoder(nn.Module):
         self.act_token = empty_param(1, 1, d)
         self.rel_token = empty_param(1, 1, d)
         self.cls_token = empty_param(1, 1, d)
-        self.x_tied = CrossLayer(d, cfg.num_heads, cfg.head_dim,
-                                 cfg.intermediate_size, dtype, use_kernel,
-                                 cfg.attention_dropout, cfg.hidden_dropout,
-                                 kernel_train)
-        self.pooler = Pooler2(d, dtype)
+        cat = cfg.cross_attn_type
+        self.x_tied = CROSS_LAYER_TYPES[cat](
+            d, cfg.num_heads, cfg.head_dim, cfg.intermediate_size, dtype,
+            use_kernel, cfg.attention_dropout, cfg.hidden_dropout,
+            kernel_train)
+        self.pooler = Pooler2(d, dtype) if cat == "cross" else Pooler(d, dtype)
+        self.joint = cat == "self"
         self.num_max_act = num_max_act
         self.num_max_rel = num_max_rel
         self.x_layers = cfg.x_layers
@@ -96,6 +117,12 @@ class HGQCrossEncoder(nn.Module):
                               hg_mask.reshape(b, -1)], dim=1)
             hg_ext = extend_mask(full, self.dtype)
         lang = lang_feats
-        for _ in range(self.x_layers):
-            lang, hg = self.x_tied(lang, lang_ext_mask, hg, hg_ext, g)
-        return self.pooler(hg, lang)
+        for step in range(self.x_layers):
+            lang, hg = self.x_tied(lang, lang_ext_mask, hg, hg_ext, g, step)
+            if self.joint and step == 0:
+                hg_ext = _cat_masks(hg_ext, lang_ext_mask,
+                                    hg.shape[1] - lang.shape[1],
+                                    lang.shape[1])
+        if isinstance(self.pooler, Pooler2):
+            return self.pooler(hg, lang)
+        return self.pooler(hg)

@@ -1,17 +1,30 @@
 """SHG-VQA task models: the port of ``ShgVqaModel`` and ``VideoShgVqaModel``
-in ``shgvqa_tpu/models/shgvqa.py`` (tasks 'hgqa' and 'vqa', inference).
+in ``shgvqa_tpu/models/shgvqa.py``.
 
 'hgqa' forward:
 1. features -> tri-stream encoder; ``logit`` from the pooled output through
    ``logit_fc``;
-2. the decoders' memory is the PRE-cross visual snapshot;
+2. the decoders' memory is the PRE-cross visual snapshot (the post-cross
+   stream under ``after_cross_attn_feats``, which also gives the HG cross
+   encoder the post-cross language);
 3. the rel/act HG decoders run from zero targets with the query tables as
-   positions under the situation-causal mask; MLP heads give ``rel_preds``
-   and ``act_preds`` over (classes + 1), background 0;
+   positions under the situation-causal mask; the heads (MLPs, or ``Dense``
+   under ``decoder.linear_cls``) give ``rel_preds`` and ``act_preds`` over
+   (classes + 1), background 0.  In GT-HG mode (``gt_hg``) a batch that
+   carries ``rel_tgt_ids`` / ``act_tgt_ids`` embeds those labels as the
+   hypergraph instead (tables sized by the class vocabulary), skips the
+   decoders and gives no ``rel_preds`` / ``act_preds``;
 4. per situation the hg tokens are [act slots ++ rel slots]; they go through
    the HG<->question cross encoder (under ``use_hg_mask`` the batch's
    ``hg_mask`` masks the empty slots as keys) and ``hg_logit`` comes from
    the SAME ``logit_fc``.
+
+The other tasks: 'q' is the question-only ``LanguageEncoder``
+(``bert_encoder``) into ``logit_fc``; 'vqa' stops after step 1; 'vhga' is
+'hgqa' with a deaf encoder (the language mask all masked); 'hgvqa' takes
+``hg_logit`` from ``logit_fc2`` on concat(pooled, x_hg).  The cross layers
+follow ``encoder.cross_attn_type`` and ``tie_x_layers``
+(``models/encoder.py``, ``models/hg.py``).
 
 In training mode (``model.train()``) every dropout site drops, with masks
 drawn from the ``generator`` passed to ``forward`` (the device's default
@@ -39,7 +52,12 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from shgvqa_tpu_torch.configs.config import Config, check_ported, torch_dtype
+from shgvqa_tpu_torch.configs.config import (
+    HG_TASKS,
+    Config,
+    check_ported,
+    torch_dtype,
+)
 from shgvqa_tpu_torch.data.featurize import hg_segment_ids, situation_causal_mask
 from shgvqa_tpu_torch.data.transforms import (
     AUGMENT_TYPES,
@@ -49,9 +67,10 @@ from shgvqa_tpu_torch.data.transforms import (
 )
 from shgvqa_tpu_torch.models.backbone import make_backbone
 from shgvqa_tpu_torch.models.decoder import HGDecoder
-from shgvqa_tpu_torch.models.encoder import LXRTModel
+from shgvqa_tpu_torch.models.encoder import LanguageEncoder, LXRTModel
 from shgvqa_tpu_torch.models.hg import HGEmbeddings, HGQCrossEncoder
 from shgvqa_tpu_torch.models.layers import (
+    Dense,
     MLPHead,
     set_attention_kernel_eval,
     set_ffn_train_kernel,
@@ -71,15 +90,24 @@ class ShgVqaModel(nn.Module):
         kernel_train = (cfg.use_pallas_attention_train
                         or cfg.use_pallas_attention)
         d = enc.hidden_size
-        self.lxrt = LXRTModel(enc, dt, kernel, kernel_train)
-        if cfg.task == "hgqa":
+        if cfg.task == "q":
+            self.bert_encoder = LanguageEncoder(enc, dt, kernel, kernel_train)
+        else:
+            self.lxrt = LXRTModel(enc, dt, kernel, kernel_train,
+                                  deaf=cfg.task == "vhga")
+        if cfg.task in HG_TASKS:
             s = data.num_situations
+            # GT-HG mode sizes the tables by the class vocabulary
+            rel_table = (cfg.num_rel_classes + 1 if cfg.gt_hg
+                         else data.num_rel_queries)
+            act_table = (cfg.num_act_classes + 1 if cfg.gt_hg
+                         else data.num_act_queries)
             # the relation queries drop at HGEmbeddings' default 0.1, the
             # action queries at the decoder's emb_dropout (as the JAX model)
             self.relation_query_embed = HGEmbeddings(
-                data.num_rel_queries, d, type_vocab_size=s, dtype=dt)
+                rel_table, d, type_vocab_size=s, dtype=dt)
             self.action_query_embed = HGEmbeddings(
-                data.num_act_queries, d, type_vocab_size=s, dtype=dt,
+                act_table, d, type_vocab_size=s, dtype=dt,
                 dropout=cfg.decoder.emb_dropout)
             dec = cfg.decoder
             self.rel_decoder = HGDecoder(dec.num_layers, d, dec.num_heads,
@@ -88,11 +116,14 @@ class ShgVqaModel(nn.Module):
             self.action_decoder = HGDecoder(dec.num_layers, d, dec.num_heads,
                                             dec.ffn_dim, dt, dec.dropout,
                                             kernel_train)
-            self.class_embed = MLPHead(d, cfg.num_rel_classes + 1, dtype=dt)
-            self.action_embed = MLPHead(d, cfg.num_act_classes + 1, dtype=dt)
+            head = Dense if dec.linear_cls else MLPHead
+            self.class_embed = head(d, cfg.num_rel_classes + 1, dtype=dt)
+            self.action_embed = head(d, cfg.num_act_classes + 1, dtype=dt)
             self.hgq_encoder = HGQCrossEncoder(
                 enc, num_max_act=data.num_act, num_max_rel=data.num_rel,
                 dtype=dt, use_kernel=kernel, kernel_train=kernel_train)
+            if cfg.task == "hgvqa":
+                self.logit_fc2 = MLPHead(2 * d, cfg.num_answers, dtype=dt)
             for kind, slots in (("rel", data.num_rel), ("act", data.num_act)):
                 self.register_buffer(f"{kind}_seg", torch.as_tensor(
                     hg_segment_ids(s, slots), dtype=torch.long),
@@ -116,27 +147,44 @@ class ShgVqaModel(nn.Module):
         if self.training:
             check_ported(cfg, train=True)
         g = generator
-        pooled, _, _, lang_snap, visn_snap, lang_ext = self.lxrt(
+        if cfg.task == "q":
+            _, pooled = self.bert_encoder(
+                batch["input_ids"], batch["input_mask"],
+                batch.get("segment_ids"), g)
+            return {"logit": self.logit_fc(pooled)}
+        pooled, lang, visn, lang_snap, visn_snap, lang_ext = self.lxrt(
             batch["input_ids"], batch["input_mask"], batch.get("segment_ids"),
             batch["visual_feats"], batch.get("visual_mask"), g)
         logit = self.logit_fc(pooled)
         if cfg.task == "vqa":
             return {"logit": logit}
 
-        memory = visn_snap
+        memory = visn if cfg.after_cross_attn_feats else visn_snap
+        lang_feats = lang if cfg.after_cross_attn_feats else lang_snap
         b = memory.shape[0]
         s, d = cfg.data.num_situations, cfg.encoder.hidden_size
-        rel_q = self.relation_query_embed(self.rel_seg.expand(b, -1), g)
-        act_q = self.action_query_embed(self.act_seg.expand(b, -1), g)
-        rel_out = self.rel_decoder(rel_q, memory, self.rel_mask, None, g)
-        act_out = self.action_decoder(act_q, memory, self.act_mask, None, g)
+        rel_seg, act_seg = self.rel_seg.expand(b, -1), self.act_seg.expand(b, -1)
+        out = {"logit": logit}
+        if cfg.gt_hg and "rel_tgt_ids" in batch and "act_tgt_ids" in batch:
+            rel_out = self.relation_query_embed(rel_seg, g,
+                                                batch["rel_tgt_ids"])
+            act_out = self.action_query_embed(act_seg, g,
+                                              batch["act_tgt_ids"])
+        else:
+            rel_q = self.relation_query_embed(rel_seg, g)
+            act_q = self.action_query_embed(act_seg, g)
+            rel_out = self.rel_decoder(rel_q, memory, self.rel_mask, None, g)
+            act_out = self.action_decoder(act_q, memory, self.act_mask, None,
+                                          g)
+            out["rel_preds"] = self.class_embed(rel_out)
+            out["act_preds"] = self.action_embed(act_out)
         hg_in = torch.cat([act_out.reshape(b, s, -1, d),
                            rel_out.reshape(b, s, -1, d)], dim=2).reshape(b, -1, d)
         hg_mask = batch.get("hg_mask") if cfg.use_hg_mask else None
-        x_hg = self.hgq_encoder(lang_snap, lang_ext, hg_in, g, hg_mask)
-        return {"logit": logit, "hg_logit": self.logit_fc(x_hg),
-                "rel_preds": self.class_embed(rel_out),
-                "act_preds": self.action_embed(act_out)}
+        x_hg = self.hgq_encoder(lang_feats, lang_ext, hg_in, g, hg_mask)
+        out["hg_logit"] = (self.logit_fc2(torch.cat([pooled, x_hg], dim=-1))
+                           if cfg.task == "hgvqa" else self.logit_fc(x_hg))
+        return out
 
 
 class VideoShgVqaModel(nn.Module):

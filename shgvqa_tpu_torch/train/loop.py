@@ -41,7 +41,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
-from shgvqa_tpu_torch.configs.config import Config, check_ported
+from shgvqa_tpu_torch.configs.config import HG_TASKS, Config, check_ported
 from shgvqa_tpu_torch.convert import from_jax_variables, to_jax_variables
 from shgvqa_tpu_torch.train.checkpoint import (
     CHECKPOINT_NAMES,
@@ -61,9 +61,6 @@ from shgvqa_tpu_torch.utils.torch_import import (
     bert_to_lxrt_params,
     load_torch_state_dict,
 )
-
-HG_TASKS = ("hgqa", "vhga", "hgvqa")
-
 
 class Trainer:
     """Trains and evaluates ``model`` (already on its device) under
@@ -227,6 +224,11 @@ class Trainer:
         return quesid2ans, hg_quesid2ans
 
     # -- weight imports ---------------------------------------------------
+    def _head(self) -> nn.Module:
+        """The task model: a video model's ``head``, or the model itself
+        (task 'q' has no trunk)."""
+        return getattr(self.model, "head", self.model)
+
     def _reset_opt(self) -> None:
         """Zero the optimizer's state and its step count: after a weight
         import, as the JAX ``_reset_opt`` rebuilds it (the reference never
@@ -242,9 +244,11 @@ class Trainer:
         ``load_state_dict(strict=True)`` on the trunk: a file of another
         topology or width raises here, where the JAX package swaps the
         subtree in and fails only when the model runs."""
+        trunk = getattr(self.model, "backbone", None)
+        if trunk is None:
+            raise ValueError("model has no backbone (task 'q')")
         with open(path, "rb") as f:
             tree = msgpack_restore(f.read())
-        trunk = self.model.backbone
         state = from_jax_variables(tree, trunk)
         trunk.load_state_dict(state, strict=True)
         self.metrics.log(f"Loaded pretrained backbone from {path} "
@@ -253,16 +257,19 @@ class Trainer:
 
     def load_bert_pretrained(self, path: str) -> None:
         """No ``--fromScratch``: bert-base weights into the language tower
-        (embeddings, l-layers; the pooler where it has a ``dense``), by
-        the reference's name-matched partial load."""
+        (embeddings, l-layers; the pooler where it has a ``dense``) of the
+        encoder (``lxrt``, or task 'q''s ``bert_encoder``), by the
+        reference's name-matched partial load."""
         sd = load_torch_state_dict(path)
-        lxrt = self.model.head.lxrt
+        head = self._head()
+        key = "lxrt" if hasattr(head, "lxrt") else "bert_encoder"
+        enc = getattr(head, key)
         params, report = bert_to_lxrt_params(
-            sd, to_jax_variables(lxrt.state_dict())["params"])
-        lxrt.load_state_dict(from_jax_variables({"params": params}, lxrt),
-                             strict=True)
+            sd, to_jax_variables(enc.state_dict())["params"])
+        enc.load_state_dict(from_jax_variables({"params": params}, enc),
+                            strict=True)
         self.metrics.log(
-            f"Loaded BERT pretrained weights from {path} into 'lxrt': "
+            f"Loaded BERT pretrained weights from {path} into '{key}': "
             f"{len(report['loaded'])} tensors"
             + (f"; skipped {len(report['skipped'])}"
                if report["skipped"] else ""))
@@ -276,8 +283,7 @@ class Trainer:
         sd = load_reference_checkpoint(path)
         # the head's config: its token count follows from the trunk
         variables, report = reference_to_variables(
-            sd, to_jax_variables(self.model.state_dict()),
-            self.model.head.cfg)
+            sd, to_jax_variables(self.model.state_dict()), self._head().cfg)
         state = from_jax_variables(variables, self.model)
         t1 = time.perf_counter()
         self.model.load_state_dict(state, strict=True)

@@ -1,10 +1,12 @@
 """Train and eval steps: the port of ``shgvqa_tpu/train/step.py``.
 
-Loss composition of task 'hgqa' (the reference's ``agqaHGQA.py``):
-bce(hg_logit, target) * num_answers + the relation and action set losses
-through the per-frame Hungarian matching.  The plain ``logit`` head gets no
-loss; it still trains through the shared ``logit_fc`` of the hg path.
-Task 'vqa': bce(logit, target) * num_answers.
+Loss composition of the hg tasks 'hgqa', 'vhga' and 'hgvqa' (the
+reference's ``agqaHGQA.py``): bce(hg_logit, target) * num_answers + the
+relation and action set losses through the Hungarian matching; GT-HG mode
+drops the set losses.  The plain ``logit`` head gets no loss; under 'hgqa'
+and 'vhga' it still trains through the shared ``logit_fc`` of the hg path.
+Tasks 'q' and 'vqa': bce(logit, target) * num_answers, or with
+``--mceLoss`` the cross-entropy on ``answer_idx``.
 
 A train step is one dropout-bearing forward from uint8 frames (augmented
 on the device with an augmenting ``augment_type``; the trunk in the graph,
@@ -25,11 +27,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from shgvqa_tpu_torch.configs.config import Config
+from shgvqa_tpu_torch.configs.config import HG_TASKS, Config
 from shgvqa_tpu_torch.losses import (
     bce_vqa_loss,
     empty_weight,
     hungarian_set_loss,
+    mce_vqa_loss,
 )
 
 
@@ -52,55 +55,117 @@ def compute_losses(cfg: Config, outputs: Dict[str, torch.Tensor],
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, metrics) of one forward's outputs."""
     metrics: Dict[str, torch.Tensor] = {}
-    if cfg.task == "vqa":
-        loss = bce_vqa_loss(outputs["logit"], batch["target"])
+    if cfg.task in ("q", "vqa"):
+        loss = (mce_vqa_loss(outputs["logit"], batch["answer_idx"])
+                if cfg.mce_loss
+                else bce_vqa_loss(outputs["logit"], batch["target"]))
         metrics["vqa_loss"] = metrics["total_loss"] = loss
         return loss, metrics
-    hgqa_loss = bce_vqa_loss(outputs["hg_logit"], batch["target"])
+    total = hgqa_loss = bce_vqa_loss(outputs["hg_logit"], batch["target"])
     metrics["hgqa_loss"] = hgqa_loss
     metrics["hg_train_acc"] = (
         torch.argmax(outputs["hg_logit"], dim=-1)
         == torch.argmax(batch["target"], dim=-1)).float().mean()
-    rel, act = _set_losses(cfg, outputs, batch)
-    total = hgqa_loss + rel["loss_ce"] + act["loss_ce"]
-    metrics["rel_loss"] = rel["loss_ce"]
-    metrics["act_loss"] = act["loss_ce"]
-    metrics["rel_class_error"] = rel["class_error"]
-    metrics["act_class_error"] = act["class_error"]
+    if not cfg.gt_hg:
+        rel, act = _set_losses(cfg, outputs, batch)
+        total = hgqa_loss + rel["loss_ce"] + act["loss_ce"]
+        metrics["rel_loss"] = rel["loss_ce"]
+        metrics["act_loss"] = act["loss_ce"]
+        metrics["rel_class_error"] = rel["class_error"]
+        metrics["act_class_error"] = act["class_error"]
     metrics["total_loss"] = total
     return total, metrics
 
 
+# GT-HG mode embeds the labels: the decoders and class heads are built but
+# bypassed
+_GT_HG_DEAD = ("rel_decoder", "action_decoder", "class_embed", "action_embed")
+
+
 def connected_param_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
     """Parameter name -> True where the parameter receives gradient from
-    the task's loss.  Under 'hgqa' the LXRT cross layers (``x_*``) and
-    pooler feed only the unsupervised ``logit``: the reference's
-    ``BertAdam.step`` skips them (their grad is None), so they get neither
-    update nor weight decay."""
+    the task's loss; the reference's ``BertAdam.step`` skips the others
+    (their grad is None), so they get neither update nor weight decay.
+
+    - 'hgqa' / 'vhga': the LXRT pooler feeds only the unsupervised
+      ``logit``, and so do the LXRT cross layers (``x_*``) unless
+      ``after_cross_attn_feats`` feeds their output to the hg path;
+    - 'hgvqa': ``logit_fc`` (the fusion head ``logit_fc2`` is supervised);
+    - GT-HG mode: the decoders and class heads, and under 'hgqa' / 'vhga'
+      without ``after_cross_attn_feats`` the whole visual stream (the trunk,
+      the tokenizer, the ``r_{i}``), whose only reader was the decoders;
+    - under 'old' with untied x-layers, the last one's ``lang_ffn``: the
+      single-CLS pooler reads the visual stream only, and without
+      ``after_cross_attn_feats`` nothing else reads the language one.
+
+    The JAX mask (``shgvqa_tpu/train/step.py:76-136``) keeps the LXRT
+    pooler under ``after_cross_attn_feats``, the visual stream under GT-HG
+    and that FFN, and weight-decays them; the port follows the reference
+    (ROADMAP C)."""
+    task, enc = cfg.task, cfg.encoder
+    after = cfg.after_cross_attn_feats
+    # the post-cross streams and the pooler feed only the unsupervised logit
+    logit_only = task in ("hgqa", "vhga")
+    blind = logit_only and cfg.gt_hg and not after
+    last_lang_ffn = (enc.cross_attn_type == "old" and not enc.tie_x_layers
+                     and not after)
+
+    def lxrt_connected(rest) -> bool:
+        if rest[0] == "pooler":
+            return not logit_only
+        if rest[0] != "encoder":
+            return True
+        if rest[1].startswith("x_"):
+            if logit_only and not after:
+                return False
+            return not (last_lang_ffn and rest[1] == f"x_{enc.x_layers - 1}"
+                        and rest[2] == "lang_ffn")
+        return not (blind and (rest[1] == "visual_tokenizer"
+                               or rest[1].startswith("r_")))
 
     def connected(name: str) -> bool:
         keys = name.split(".")
-        if cfg.task == "hgqa" and "lxrt" in keys:
-            rest = keys[keys.index("lxrt") + 1:]
-            if rest and rest[0] == "pooler":
-                return False
-            if len(rest) > 1 and rest[0] == "encoder" \
-                    and rest[1].startswith("x_"):
-                return False
-        return True
+        if "lxrt" in keys and not lxrt_connected(
+                keys[keys.index("lxrt") + 1:] + ["", ""]):
+            return False
+        if task not in HG_TASKS:
+            return True
+        if cfg.gt_hg and any(dead in keys for dead in _GT_HG_DEAD):
+            return False
+        if blind and "backbone" in keys:
+            return False
+        return not (task == "hgvqa" and "logit_fc" in keys)
 
     return {n: connected(n) for n, _ in model.named_parameters()}
 
 
+def _frozen_by_freeze_weights(keys) -> bool:
+    """``--freezeWeights``: the encoder's embeddings and every encoder
+    sublayer but the cross-modal x-layers, and the question-only model's
+    ``l_{i}``; the poolers, decoders and heads train."""
+    for enc in ("lxrt", "bert_encoder"):
+        if enc in keys:
+            rest = keys[keys.index(enc) + 1:]
+            if rest[0] == "encoder":
+                return not (len(rest) > 1 and rest[1].startswith("x_"))
+            return rest[0] == "embeddings" or rest[0].startswith("l_")
+    return False
+
+
 def trainable_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
-    """``connected_param_mask`` and, with ``freeze_backbone``, not the
-    trunk (as the JAX drivers compose them, ``cli/common.py``).  Without
-    it every trunk parameter trains, the BatchNorm ``weight`` and ``bias``
-    included; the BatchNorm statistics are buffers, not parameters."""
+    """``connected_param_mask``, and not what the freeze options freeze, as
+    the JAX drivers compose them (``cli/common.py``): with
+    ``freeze_backbone`` the trunk (without it every trunk parameter
+    trains, the BatchNorm ``weight`` and ``bias`` included; the BatchNorm
+    statistics are buffers, not parameters), with ``freeze_weights`` the
+    encoder but its x-layers."""
     mask = connected_param_mask(model, cfg)
-    if cfg.freeze_backbone:
-        mask = {n: m and "backbone" not in n.split(".")
-                for n, m in mask.items()}
+    for name in mask:
+        keys = name.split(".")
+        if cfg.freeze_backbone and "backbone" in keys:
+            mask[name] = False
+        if cfg.freeze_weights and _frozen_by_freeze_weights(keys):
+            mask[name] = False
     return mask
 
 
@@ -131,7 +196,8 @@ def make_eval_step(cfg: Config, model: nn.Module,
     """eval_step(batch) -> the answer argmaxes; with ``with_hg_metrics`` and
     an hg batch carrying labels, also the matched rel/act class accuracy
     from the same forward."""
-    want_hg_acc = with_hg_metrics and cfg.task == "hgqa"
+    want_hg_acc = (with_hg_metrics and cfg.task in HG_TASKS
+                   and not cfg.gt_hg)
 
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.eval()

@@ -11,12 +11,20 @@ encodes:
 
 - torch ``nn.Linear`` weights are (out, in), the JAX kernels (in, out);
   Conv3d weights (O, I, kT, kH, kW) become (kT, kH, kW, I, O);
+- the encoder's prefix follows the task: ``lxrt_encoder`` (hgqa, vqa,
+  hgvqa), ``deaf_encoder`` (vhga), ``bert_encoder`` (q, whose
+  BertFeatureExtraction holds embeddings, ``encoder.layer.{i}`` and a
+  single-CLS pooler);
 - the reference's x-layers are N references to one module, so every
   ``x_layers.{i}`` holds the same tensors: ``x_layers.0`` is read into the
-  tied ``x_tied``;
+  tied ``x_tied``; an untied model reads ``x_layers.{i}`` into each
+  ``x_{i}`` (``x_layers.0`` where an index is absent);
 - ``pooler_dict`` and ``cross_attn_layer`` are ModuleDicts of every cross
-  variant, with live parameters: only ``cross`` (its pooler's ``dense2``)
-  is read;
+  variant, with live parameters: only the configured ``cross_attn_type``
+  is read (its pooler's ``dense2`` under 'cross', ``dense`` otherwise);
+  'old' is the 'cross' layer under its own key;
+- ``--linearCls`` heads are one ``nn.Linear`` (``class_embed.weight``),
+  the others ``Sequential(Linear, GeLU, LayerNorm, Linear)``;
 - the tokenizer's ``position_encoding.pe.weight`` is sliced to the first
   ``visual_seq_length`` rows; ``visn_fc.conv.1`` and ``visn_fc.conv.4``
   are its two Conv3d layers;
@@ -26,9 +34,8 @@ encodes:
   statistics are merged with ``allow_new``.
 
 A leaf of another shape raises ``ValueError``, a destination the model does
-not have ``KeyError``.  What the port does not run raises
-``NotImplementedError`` naming its ROADMAP queue-A item: task ``q``, the
-cross variants other than ``cross``, and the other backbones' converters.
+not have ``KeyError``.  The other backbones' converters raise
+``NotImplementedError`` naming ROADMAP queue-A item 17.
 """
 
 from __future__ import annotations
@@ -74,9 +81,11 @@ def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
         load_torch_state_dict(reference_checkpoint_path(path)))
 
 
-def _cross_layer(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
-    """One reference cross-modal layer of the 'cross' variant (shared
-    bidirectional cross-attention) -> the CrossLayer tree."""
+def _cross_layer(sd: Dict[str, np.ndarray], prefix: str,
+                 cross_attn_type: str) -> Dict[str, Any]:
+    """One reference cross-modal layer -> the tree of the port's layer of
+    that type: 'cross' / 'old' ``CrossLayer``, 'self' ``SelfCrossLayer``,
+    'cross_self' ``CrossAndSelfLayer``."""
 
     def att(p):
         return {"query": _dense(sd, f"{p}.query"),
@@ -92,14 +101,47 @@ def _cross_layer(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
                 "output": _dense(sd, f"{out_p}.dense"),
                 "ln": _ln(sd, f"{out_p}.LayerNorm")}
 
-    return {
-        "visual_attention": {
-            "att": att(f"{prefix}.visual_attention.att"),
-            "output": att_out(f"{prefix}.visual_attention.output"),
-        },
-        "lang_ffn": ffn(f"{prefix}.lang_inter", f"{prefix}.lang_output"),
-        "visn_ffn": ffn(f"{prefix}.visn_inter", f"{prefix}.visn_output"),
-    }
+    def block(name, core):
+        return {core: att(f"{prefix}.{name}.{core}"),
+                "output": att_out(f"{prefix}.{name}.output")}
+
+    if cross_attn_type in ("cross", "old"):
+        return {"visual_attention": block("visual_attention", "att"),
+                "lang_ffn": ffn(f"{prefix}.lang_inter",
+                                f"{prefix}.lang_output"),
+                "visn_ffn": ffn(f"{prefix}.visn_inter",
+                                f"{prefix}.visn_output")}
+    vl_ffn = ffn(f"{prefix}.vl_inter", f"{prefix}.vl_output")
+    if cross_attn_type == "self":
+        return {"cross_att": block("cross_att", "self"), "vl_ffn": vl_ffn}
+    if cross_attn_type == "cross_self":
+        return {"visual_attention": block("visual_attention", "att"),
+                "self_att_layer": block("self_att_layer", "self"),
+                "vl_ffn": vl_ffn}
+    raise ValueError(f"unknown cross_attn_type {cross_attn_type!r}")
+
+
+def _x_layers(sd: Dict[str, np.ndarray], prefix: str, dst: Dict[str, Any],
+              cross_attn_type: str) -> Dict[str, Any]:
+    """The x-layers the model has (``x_tied``, or the untied ``x_{i}``)
+    from the reference's ``{prefix}.{i}``; an index the checkpoint lacks
+    reads index 0 (every index aliases one module there)."""
+    out = {}
+    for key in dst:
+        if not key.startswith("x_"):
+            continue
+        i = 0 if key == "x_tied" else int(key[2:])
+        if not any(k.startswith(f"{prefix}.{i}.") for k in sd):
+            i = 0
+        out[key] = _cross_layer(sd, f"{prefix}.{i}", cross_attn_type)
+    return out
+
+
+def _pooler(sd: Dict[str, np.ndarray], prefix: str,
+            cross_attn_type: str) -> Dict[str, Any]:
+    """The configured variant's pooler of ``{prefix}.pooler_dict``."""
+    key = "dense2" if cross_attn_type == "cross" else "dense"
+    return {key: _dense(sd, f"{prefix}.pooler_dict.{cross_attn_type}.{key}")}
 
 
 def _decoder_layer(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
@@ -120,7 +162,10 @@ def _decoder_layer(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
 
 
 def _mlp_head(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
-    """A classifier head: Sequential(Linear, GeLU, LayerNorm, Linear)."""
+    """A classifier head: Sequential(Linear, GeLU, LayerNorm, Linear), or
+    one Linear (``--linearCls``)."""
+    if f"{prefix}.weight" in sd:
+        return _dense(sd, prefix)
     return {"fc1": _dense(sd, f"{prefix}.0"),
             "ln": _ln(sd, f"{prefix}.2"),
             "fc2": _dense(sd, f"{prefix}.3")}
@@ -170,22 +215,19 @@ def reference_to_variables(
     """A reference AGQAModel state_dict onto ``variables`` ({"params",
     "batch_stats"?} in the JAX layout, not modified); returns
     (new_variables, {"mapped": [...], "skipped": [...]})."""
-    if cfg.task == "q":
-        raise NotImplementedError(
-            "importing a task 'q' checkpoint is not ported yet (ROADMAP "
-            "queue A item 15)")
     cat = cfg.encoder.cross_attn_type
-    if cat != "cross":
-        raise NotImplementedError(
-            f"importing a cross_attn_type {cat!r} checkpoint is not ported "
-            "yet (ROADMAP queue A item 15); the port reads 'cross'")
     sd = {k: np.asarray(v) for k, v in strip_module_prefix(sd).items()}
     variables = copy_tree(variables)
     params = variables["params"]
     head = params["head"] if "head" in params else params
     report: Dict[str, List[str]] = {"mapped": [], "skipped": []}
 
-    _fill_lxrt(sd, _encoder_prefix(sd), head["lxrt"], cfg.encoder, report)
+    ref_enc = _encoder_prefix(sd)
+    if cfg.task == "q":
+        _fill_q_encoder(sd, ref_enc, head["bert_encoder"], cfg.encoder,
+                        report)
+    else:
+        _fill_lxrt(sd, ref_enc, head["lxrt"], cfg.encoder, cat, report)
 
     if "hgq_encoder" in head:
         hq = "hgq_encoder"
@@ -193,8 +235,8 @@ def reference_to_variables(
             "act_token": sd[f"{hq}.act_token"],
             "rel_token": sd[f"{hq}.rel_token"],
             "cls_token": sd[f"{hq}.cls_token"],
-            "x_tied": _cross_layer(sd, f"{hq}.cross_attn_layer.cross"),
-            "pooler": {"dense2": _dense(sd, f"{hq}.pooler_dict.cross.dense2")},
+            "x_tied": _cross_layer(sd, f"{hq}.cross_attn_layer.{cat}", cat),
+            "pooler": _pooler(sd, hq, cat),
         }
         _strict_merge(head[hq], hgq, hq, report)
 
@@ -208,8 +250,9 @@ def reference_to_variables(
                     for i in range(cfg.decoder.num_layers)}
             _strict_merge(head[name], tree, name, report)
 
-    for name in ("class_embed", "action_embed", "logit_fc"):
-        if name in head and f"{name}.0.weight" in sd:
+    for name in ("class_embed", "action_embed", "logit_fc", "logit_fc2"):
+        if name in head and (f"{name}.0.weight" in sd
+                             or f"{name}.weight" in sd):
             _strict_merge(head[name], _mlp_head(sd, name), name, report)
 
     if "backbone" in params:
@@ -230,23 +273,24 @@ def reference_to_variables(
     return variables, report
 
 
-def _fill_lxrt(sd, ref_enc: str, lxrt: Dict[str, Any], enc_cfg,
+def _embeddings(sd, ref_enc: str) -> Dict[str, Any]:
+    return {
+        "word_embeddings": {
+            "embedding": sd[f"{ref_enc}.embeddings.word_embeddings.weight"]},
+        "position_embeddings": {
+            "embedding": sd[f"{ref_enc}.embeddings.position_embeddings"
+                            ".weight"]},
+        "token_type_embeddings": {
+            "embedding": sd[f"{ref_enc}.embeddings.token_type_embeddings"
+                            ".weight"]},
+        "ln": _ln(sd, f"{ref_enc}.embeddings.LayerNorm"),
+    }
+
+
+def _fill_lxrt(sd, ref_enc: str, lxrt: Dict[str, Any], enc_cfg, cat: str,
                report) -> None:
     n_vis = enc_cfg.visual_seq_length
-    tree: Dict[str, Any] = {
-        "embeddings": {
-            "word_embeddings": {
-                "embedding": sd[f"{ref_enc}.embeddings.word_embeddings"
-                                ".weight"]},
-            "position_embeddings": {
-                "embedding": sd[f"{ref_enc}.embeddings.position_embeddings"
-                                ".weight"]},
-            "token_type_embeddings": {
-                "embedding": sd[f"{ref_enc}.embeddings.token_type_embeddings"
-                                ".weight"]},
-            "ln": _ln(sd, f"{ref_enc}.embeddings.LayerNorm"),
-        },
-    }
+    tree: Dict[str, Any] = {"embeddings": _embeddings(sd, ref_enc)}
     enc: Dict[str, Any] = {}
     if f"{ref_enc}.encoder.visn_fc.conv.1.weight" in sd:
         enc["visual_tokenizer"] = {
@@ -268,12 +312,27 @@ def _fill_lxrt(sd, ref_enc: str, lxrt: Dict[str, Any], enc_cfg,
     for i in range(enc_cfg.r_layers):
         if f"{ref_enc}.encoder.r_layers.{i}.attention.self.query.weight" in sd:
             enc[f"r_{i}"] = _bert_layer(sd, f"{ref_enc}.encoder.r_layers.{i}")
-    # every x_layers.{i} aliases one module: the first is the tied layer
-    enc["x_tied"] = _cross_layer(sd, f"{ref_enc}.encoder.x_layers.0")
+    enc.update(_x_layers(sd, f"{ref_enc}.encoder.x_layers", lxrt["encoder"],
+                         cat))
     tree["encoder"] = enc
-    tree["pooler"] = {"dense2": _dense(
-        sd, f"{ref_enc}.pooler_dict.cross.dense2")}
+    tree["pooler"] = _pooler(sd, ref_enc, cat)
     _strict_merge(lxrt, tree, "lxrt", report)
+
+
+def _fill_q_encoder(sd, ref_enc: str, bert: Dict[str, Any], enc_cfg,
+                    report) -> None:
+    """Task 'q': the ``LanguageEncoder`` (``bert_encoder``: embeddings,
+    ``l_{i}``, a single-CLS pooler) from the reference's
+    BertFeatureExtraction."""
+    tree: Dict[str, Any] = {"embeddings": _embeddings(sd, ref_enc)}
+    for i in range(enc_cfg.l_layers):
+        tree[f"l_{i}"] = _bert_layer(sd, f"{ref_enc}.encoder.layer.{i}")
+    if f"{ref_enc}.pooler.dense.weight" in sd:
+        tree["pooler"] = {"dense": _dense(sd, f"{ref_enc}.pooler.dense")}
+    elif f"{ref_enc}.pooler_dict.self.dense.weight" in sd:
+        tree["pooler"] = {"dense": _dense(
+            sd, f"{ref_enc}.pooler_dict.self.dense")}
+    _strict_merge(bert, tree, "bert_encoder", report)
 
 
 def _strict_merge(dst: Dict[str, Any], src: Dict[str, Any], path: str,

@@ -116,8 +116,9 @@ def bert_to_lxrt_params(
     lxrt_params: Dict[str, Any],
     num_layers: int | None = None,
 ) -> Tuple[Dict[str, Any], Dict[str, List[str]]]:
-    """Overwrite an LXRTModel param tree (JAX layout) with bert weights;
-    returns (new_params, {"loaded": [...], "skipped": [...]})."""
+    """Overwrite an LXRTModel (or LanguageEncoder) param tree (JAX layout)
+    with bert weights; returns (new_params, {"loaded": [...], "skipped":
+    [...]})."""
     sd = normalize_bert_keys(sd)
     params = copy_tree(lxrt_params)
     loaded: List[str] = []
@@ -135,7 +136,9 @@ def bert_to_lxrt_params(
             "ln": _ln(sd, "embeddings.LayerNorm"),
         }
 
-    enc_dst = params["encoder"]
+    # the l_{i} layers sit under "encoder" in LXRTModel, at the top of
+    # LanguageEncoder
+    enc_dst = params.get("encoder", params)
     n_avail = 0
     while f"encoder.layer.{n_avail}.attention.self.query.weight" in sd:
         n_avail += 1
@@ -144,8 +147,12 @@ def bert_to_lxrt_params(
         n_model += 1
     n = min(n_avail, n_model) if num_layers is None \
         else min(num_layers, n_avail, n_model)
-    src["encoder"] = {f"l_{i}": _bert_layer(sd, f"encoder.layer.{i}")
-                      for i in range(n)}
+    enc_src = {f"l_{i}": _bert_layer(sd, f"encoder.layer.{i}")
+               for i in range(n)}
+    if "encoder" in params:
+        src["encoder"] = enc_src
+    else:
+        src.update(enc_src)
 
     if "pooler.dense.weight" in sd:
         src["pooler"] = {"dense": _dense(sd, "pooler.dense")}

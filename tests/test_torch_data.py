@@ -68,20 +68,27 @@ def test_parser_accepts_every_jax_flag():
 
 
 def test_unported_flags_still_raise():
-    """The global matcher (no --LossHGPerFrame) trains now; an option only
-    training reads and the port does not run still raises in training."""
+    """The global matcher (no --LossHGPerFrame) and the options of queue A
+    item 15 train now; an option only training reads and the port does not
+    run still raises in training, and per-choice QA, --outputAttn and the
+    scanned stacks raise."""
     cfg = cli.parse_reference_flags(FLAGSHIP + ["--pallasFFNTrain"])
     assert not cfg.loss_hg_per_frame
     port_config.check_ported(cfg, video=True, train=True)
-    cfg = cli.parse_reference_flags(FLAGSHIP + ["--freezeWeights"])
+    for flags in (["--freezeWeights"], ["--mceLoss"], ["--untieXLayers"],
+                  ["--GTHG"], ["--linearCls"], ["--afterCrossAttnFeats"],
+                  ["--crossAttnType", "cross_self"]):
+        port_config.check_ported(cli.parse_reference_flags(
+            FLAGSHIP + flags), video=True, train=True)
+    cfg = cli.parse_reference_flags(FLAGSHIP + ["--remat"])
     port_config.check_ported(cfg, video=True)       # inference: fine
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         port_config.check_ported(cfg, video=True, train=True)
-    for flag, item in (("--outputAttn", "15"), ("--scanLayers", "19"),
-                       ("--untieXLayers", "15")):
+    for flags, item in ((["--outputAttn"], "15"), (["--scanLayers"], "19"),
+                        (["--qaArrangeType", "add_sep"], "15")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             port_config.check_ported(cli.parse_reference_flags(
-                FLAGSHIP + [flag]), video=True)
+                FLAGSHIP + flags), video=True)
 
 
 def _jax_cfg():

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from shgvqa_tpu_torch.cli import agqa_hgqa, common
+from shgvqa_tpu_torch.cli import agqa_hgqa, agqa_q, agqa_vqa, common
 from shgvqa_tpu_torch.configs.config import check_ported, tiny_test_config
 from shgvqa_tpu_torch.entry import build_model, example_batch
 from shgvqa_tpu_torch.models import layers, shgvqa
@@ -196,11 +196,11 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     (["--multiGPU"], "item 14"),
     (["--loadLXMERT", "snap/x"], "item 18"),
     (["--outputAttn"], "item 15"),
-    (["--mceLoss"], "item 15"),
-    (["--freezeWeights"], "item 15"),
+    (["--qaArrangeType", "add_sep"], "item 15"),
+    (["--remat"], "item 19"),
     (["--loadLXMERTQA", "snap/x"], "item 18"),
     (["--vitInit"], "item 17"),
-], ids=["multiGPU", "loadLXMERT", "outputAttn", "mceLoss", "freezeWeights",
+], ids=["multiGPU", "loadLXMERT", "outputAttn", "perChoice", "remat",
         "loadLXMERTQA", "vitInit"])
 def test_driver_refuses_unported_options(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -322,3 +322,97 @@ def test_predict_skips_pad_rows(tmp_path, monkeypatch):
     assert set(acc) == {"rel_class_acc", "act_class_acc"}
     q2a_only = trainer.predict([padded])
     assert len(q2a_only) == 2 and list(q2a_only[0]) == ["a"]
+
+
+# the ablation drivers: (module, task flag, train steps' attention forward /
+# backward and FFN-train forward / backward sites, eval FFN sites) at the
+# flagship topology (5 / 2 / 5 layers)
+ABLATIONS = {"q": (agqa_q, "--taskQ", 5, 5, 5, 5, 5),
+             "vqa": (agqa_vqa, "--taskVQA", 14, 14, 14, 14, 14)}
+
+
+def _site_spies(monkeypatch):
+    """Counts of the kernel wrappers' calls (what the card launches; on the
+    CPU they run their plain versions), a backward through a site counted
+    by a hook on its output."""
+    calls = {k: 0 for k in ("attn", "attn_bwd", "ffn", "ffn_train",
+                            "ffn_train_bwd")}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            out = fn(*a, **kw)
+            if out.requires_grad and name + "_bwd" in calls:
+                out.register_hook(lambda g: calls.__setitem__(
+                    name + "_bwd", calls[name + "_bwd"] + 1))
+            return out
+        return wrapped
+
+    for name, attr in (("attn", "fused_attention"), ("ffn", "fused_ffn"),
+                       ("ffn_train", "fused_ffn_train")):
+        monkeypatch.setattr(layers, attr, spy(name, getattr(layers, attr)))
+    return calls
+
+
+@pytest.mark.parametrize("task", sorted(ABLATIONS))
+def test_ablation_driver_trains_reloads_and_tests(tmp_path, monkeypatch,
+                                                  task):
+    """``cli.agqa_q`` / ``cli.agqa_vqa`` on synthetic data: one epoch (the
+    kernel wrappers called at the flagship topology's sites per train step
+    and per eval forward; 'q' builds no trunk and loads none), LAST
+    reloaded bit-equal, then ``--test`` from it (oracle 1.0, both predict
+    files)."""
+    module, flag, attn, attn_bwd, ffn_t, ffn_t_bwd, ffn = ABLATIONS[task]
+    _shrink(monkeypatch)
+    calls = _site_spies(monkeypatch)
+    argv = [a for a in FLAGS if a != "--taskHGQA"] + [
+        flag, "--tiny", "--syntheticData", "8", "--syntheticValid", "4",
+        "--batchSize", "2", "--logFreq", "1", "--dataDir", str(tmp_path)]
+    out = tmp_path / "train"
+
+    def run(*extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = module.main(argv + list(extra), device="cpu")
+        return result, buf.getvalue()
+
+    result, stdout = run("--epochs", "1", "--output", str(out))
+    assert f"agqa driver: task={task} device=cpu" in stdout
+    assert ("no pretrained backbone" in stdout) == (task != "q")
+    # 8 items at B=2; 4 valid items at the AGQA eval batch, B // 4 = 1
+    steps, evals = result["steps"], 4
+    assert steps == 4
+    assert calls == {"attn": attn * steps, "attn_bwd": attn_bwd * steps,
+                     "ffn_train": ffn_t * steps,
+                     "ffn_train_bwd": ffn_t_bwd * steps, "ffn": ffn * evals}
+    records = [json.loads(x) for x in
+               (out / "metrics.jsonl").read_text().splitlines()]
+    assert len(records) == steps and all(
+        {"vqa_loss", "total_loss"} <= set(r)
+        and np.isfinite(r["total_loss"]) for r in records)
+    saved = torch.load(out / "LAST", weights_only=True)["params"]
+    assert any(k.startswith("backbone.") for k in saved) == (task != "q")
+    run("--epochs", "0", "--load", str(out / "LAST"), "--output",
+        str(tmp_path / "again"))
+    again = torch.load(tmp_path / "again" / "LAST", weights_only=True)
+    for k, v in saved.items():
+        assert torch.equal(v, again["params"][k]), k
+    test_out = tmp_path / "test"
+    result, stdout = run("--test", "test", "--load", str(out / "LAST"),
+                         "--output", str(test_out))
+    assert "Oracle score: 1.0000" in stdout
+    assert len(result["all_qtypes"]) == 31
+    for name in ("predict.json", "predict_hg.json"):
+        assert len(json.loads((test_out / name).read_text())) == 4
+
+
+@pytest.mark.parametrize("extra", [["--outputAttn"],
+                                   ["--qaArrangeType", "no_sep"]],
+                         ids=["outputAttn", "perChoice"])
+@pytest.mark.parametrize("task", sorted(ABLATIONS))
+def test_ablation_drivers_refuse_what_stays_item_15(tmp_path, task, extra):
+    module, flag = ABLATIONS[task][:2]
+    with pytest.raises(NotImplementedError, match="item 15"):
+        module.main([flag, "--noCaps", "--syntheticData", "8", "--output",
+                     str(tmp_path),
+                     "--dataDir", str(tmp_path), *extra], device="cpu")

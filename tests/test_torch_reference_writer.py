@@ -10,18 +10,18 @@ it on the card.  ``tests/test_torch_weights_import.py`` pins
 are); the tests here hold the port's importers to the writers.
 
 The reference's layout, as the JAX importer reads it:
-- the encoder under ``lxrt_encoder.model.bert``; its ``x_layers.{i}`` are
-  N aliases of one module, so every index holds the same tensors;
+- the encoder under ``lxrt_encoder.model.bert`` (``deaf_encoder`` for task
+  'vhga', ``bert_encoder`` for 'q'); its ``x_layers.{i}`` are N aliases of
+  one module, so every index holds the same tensors (an untied model's
+  ``x_{i}`` each at its index);
 - ``pooler_dict`` and ``hgq_encoder.cross_attn_layer`` hold every cross
-  variant with live parameters; ``extras`` adds a ``self`` variant next to
-  the ``cross`` one that is read;
+  variant with live parameters; ``extras`` adds another variant next to
+  the one that is read;
 - the tokenizer's ``position_encoding.pe.weight`` has more rows than the
   model's tokens (it is sliced on import); its convs are ``visn_fc.conv.1``
   and ``visn_fc.conv.4``;
 - the trunk under ``vid_encoder.backbone.`` with pytorchvideo's names.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -72,19 +72,56 @@ def _bert_layer(out, prefix, tree, ln=("weight", "bias")):
     _layer_norm(out, f"{prefix}.output.LayerNorm", ffn["ln"], ln)
 
 
-def _cross_layer(out, prefix, tree):
-    va = tree["visual_attention"]
+def _att_block(out, prefix, core, tree):
+    """A BertSelfattLayer / BertCrossattLayer: the q, k, v projections
+    under ``{prefix}.{core}`` and the output dense and LayerNorm."""
     for name in ("query", "key", "value"):
-        _linear(out, f"{prefix}.visual_attention.att.{name}", va["att"][name])
-    _linear(out, f"{prefix}.visual_attention.output.dense",
-            va["output"]["dense"])
-    _layer_norm(out, f"{prefix}.visual_attention.output.LayerNorm",
-                va["output"]["ln"])
-    for side in ("lang", "visn"):
-        ffn = tree[f"{side}_ffn"]
-        _linear(out, f"{prefix}.{side}_inter.dense", ffn["intermediate"])
-        _linear(out, f"{prefix}.{side}_output.dense", ffn["output"])
-        _layer_norm(out, f"{prefix}.{side}_output.LayerNorm", ffn["ln"])
+        _linear(out, f"{prefix}.{core}.{name}", tree[core][name])
+    _linear(out, f"{prefix}.output.dense", tree["output"]["dense"])
+    _layer_norm(out, f"{prefix}.output.LayerNorm", tree["output"]["ln"])
+
+
+def _ffn(out, inter, output, tree):
+    _linear(out, f"{inter}.dense", tree["intermediate"])
+    _linear(out, f"{output}.dense", tree["output"])
+    _layer_norm(out, f"{output}.LayerNorm", tree["ln"])
+
+
+def _cross_layer(out, prefix, tree):
+    """A cross-modal layer of any variant, by the tree's modules: 'cross' /
+    'old' (``visual_attention``, ``lang_ffn``, ``visn_ffn``), 'self'
+    (``cross_att``, ``vl_ffn``), 'cross_self' (``visual_attention``,
+    ``self_att_layer``, ``vl_ffn``)."""
+    if "visual_attention" in tree:
+        _att_block(out, f"{prefix}.visual_attention", "att",
+                   tree["visual_attention"])
+    if "cross_att" in tree:
+        _att_block(out, f"{prefix}.cross_att", "self", tree["cross_att"])
+    if "self_att_layer" in tree:
+        _att_block(out, f"{prefix}.self_att_layer", "self",
+                   tree["self_att_layer"])
+    for side in ("lang", "visn", "vl"):
+        if f"{side}_ffn" in tree:
+            _ffn(out, f"{prefix}.{side}_inter", f"{prefix}.{side}_output",
+                 tree[f"{side}_ffn"])
+
+
+def _pooler(out, prefix, tree, cat):
+    """``{prefix}.pooler_dict.{cat}``: ``dense2`` under 'cross', else
+    ``dense``."""
+    key = "dense2" if cat == "cross" else "dense"
+    _linear(out, f"{prefix}.pooler_dict.{cat}.{key}", tree[key])
+
+
+def _head(out, name, tree):
+    """A classifier head: one Linear (``--linearCls``) or Sequential(Linear,
+    GeLU, LayerNorm, Linear)."""
+    if "Dense_0" in tree:
+        _linear(out, name, tree)
+        return
+    _linear(out, f"{name}.0", tree["fc1"])
+    _layer_norm(out, f"{name}.2", tree["ln"])
+    _linear(out, f"{name}.3", tree["fc2"])
 
 
 def _random_self_variant(out, prefix, d, f, rng):
@@ -153,58 +190,81 @@ def pytorchvideo_state_dict(params, stats, head_classes=None, seed=0):
 
 
 def reference_state_dict(variables, cfg, seed=0, prefix="", extras=True):
-    """The model's variables (JAX layout, ``{"params": {"backbone",
-    "head"}, "batch_stats"}``) -> a reference AGQAModel ``state_dict`` of
-    numpy arrays, names prefixed with ``prefix`` (``"module."`` for a
-    DataParallel save).  ``extras`` adds what the reference holds and the
-    import skips: the unread cross variants of ``pooler_dict`` and
-    ``cross_attn_layer`` (random), and pe rows past the model's tokens."""
+    """A model's variables (JAX layout: ``{"params": {"backbone", "head"},
+    "batch_stats"}``, or a head's ``{"params": {...}}``) -> a reference
+    AGQAModel ``state_dict`` of numpy arrays, names prefixed with
+    ``prefix`` (``"module."`` for a DataParallel save).  The encoder sits
+    under the task's attribute (``deaf_encoder`` for 'vhga',
+    ``bert_encoder`` for 'q'); the x-layers and poolers under the
+    configured ``cross_attn_type``; a tied model's ``x_tied`` under every
+    ``x_layers.{i}``.  ``extras`` adds what the reference holds and the
+    import skips: another cross variant's ``pooler_dict`` and
+    ``cross_attn_layer`` entries (random), and pe rows past the model's
+    tokens."""
     rng = np.random.RandomState(seed)
-    head = variables["params"]["head"]
+    params = variables["params"]
+    head = params.get("head", params)
     enc = cfg.encoder
-    d = enc.hidden_size
+    cat = enc.cross_attn_type
+    d, f = enc.hidden_size, enc.intermediate_size
+    encoder = {"q": "bert_encoder", "vhga": "deaf_encoder"}.get(
+        cfg.task, "lxrt_encoder") + ".model.bert"
     out = {}
-    lx = head["lxrt"]
+    lx = head["bert_encoder" if cfg.task == "q" else "lxrt"]
     emb = lx["embeddings"]
     for name in ("word_embeddings", "position_embeddings",
                  "token_type_embeddings"):
-        out[f"{ENCODER}.embeddings.{name}.weight"] = emb[name]["embedding"]
-    _layer_norm(out, f"{ENCODER}.embeddings.LayerNorm", emb["ln"])
-    e = lx["encoder"]
-    tok = e["visual_tokenizer"]
-    vf = f"{ENCODER}.encoder.visn_fc"
-    for name, idx in (("conv1", 1), ("conv2", 4)):
-        out[f"{vf}.conv.{idx}.weight"] = _conv(tok[name]["kernel"])
-        out[f"{vf}.conv.{idx}.bias"] = tok[name]["bias"]
-    out[f"{vf}.cls_token"] = tok["cls_token"]
-    pe = tok["pos_embedding"]
-    if extras:
-        pe = np.concatenate([pe, rng.randn(7, d).astype(np.float32)])
-    out[f"{vf}.position_encoding.pe.weight"] = pe
-    for i in range(enc.l_layers):
-        _bert_layer(out, f"{ENCODER}.encoder.layer.{i}", e[f"l_{i}"])
-    for i in range(enc.r_layers):
-        _bert_layer(out, f"{ENCODER}.encoder.r_layers.{i}", e[f"r_{i}"])
-    for i in range(enc.x_layers):
-        _cross_layer(out, f"{ENCODER}.encoder.x_layers.{i}", e["x_tied"])
-    _linear(out, f"{ENCODER}.pooler_dict.cross.dense2", lx["pooler"]["dense2"])
+        out[f"{encoder}.embeddings.{name}.weight"] = emb[name]["embedding"]
+    _layer_norm(out, f"{encoder}.embeddings.LayerNorm", emb["ln"])
+    if cfg.task == "q":
+        for i in range(enc.l_layers):
+            _bert_layer(out, f"{encoder}.encoder.layer.{i}", lx[f"l_{i}"])
+        _linear(out, f"{encoder}.pooler.dense", lx["pooler"]["dense"])
+    else:
+        e = lx["encoder"]
+        tok = e["visual_tokenizer"]
+        vf = f"{encoder}.encoder.visn_fc"
+        for name, idx in (("conv1", 1), ("conv2", 4)):
+            out[f"{vf}.conv.{idx}.weight"] = _conv(tok[name]["kernel"])
+            out[f"{vf}.conv.{idx}.bias"] = tok[name]["bias"]
+        out[f"{vf}.cls_token"] = tok["cls_token"]
+        pe = tok["pos_embedding"]
+        if extras:
+            pe = np.concatenate([pe, rng.randn(7, d).astype(np.float32)])
+        out[f"{vf}.position_encoding.pe.weight"] = pe
+        for i in range(enc.l_layers):
+            _bert_layer(out, f"{encoder}.encoder.layer.{i}", e[f"l_{i}"])
+        for i in range(enc.r_layers):
+            _bert_layer(out, f"{encoder}.encoder.r_layers.{i}", e[f"r_{i}"])
+        for i in range(enc.x_layers):
+            _cross_layer(out, f"{encoder}.encoder.x_layers.{i}",
+                         e["x_tied"] if "x_tied" in e else e[f"x_{i}"])
+        _pooler(out, encoder, lx["pooler"], cat)
 
-    hq = head["hgq_encoder"]
-    for name in ("act_token", "rel_token", "cls_token"):
-        out[f"hgq_encoder.{name}"] = hq[name]
-    _cross_layer(out, "hgq_encoder.cross_attn_layer.cross", hq["x_tied"])
-    _linear(out, "hgq_encoder.pooler_dict.cross.dense2",
-            hq["pooler"]["dense2"])
-    if extras:
-        f = enc.intermediate_size
-        for p in (f"{ENCODER}.pooler_dict.self.dense",
-                  "hgq_encoder.pooler_dict.self.dense"):
-            out[f"{p}.weight"] = rng.randn(d, d).astype(np.float32)
+    if "hgq_encoder" in head:
+        hq = head["hgq_encoder"]
+        for name in ("act_token", "rel_token", "cls_token"):
+            out[f"hgq_encoder.{name}"] = hq[name]
+        _cross_layer(out, f"hgq_encoder.cross_attn_layer.{cat}",
+                     hq["x_tied"])
+        _pooler(out, "hgq_encoder", hq["pooler"], cat)
+    if extras and cfg.task != "q":
+        other = "cross" if cat == "self" else "self"
+        key = "dense2" if other == "cross" else "dense"
+        pools = [encoder] + (["hgq_encoder"] if "hgq_encoder" in head
+                             else [])
+        for p in pools:
+            p = f"{p}.pooler_dict.{other}.{key}"
+            width = 2 * d if other == "cross" else d
+            out[f"{p}.weight"] = rng.randn(d, width).astype(np.float32)
             out[f"{p}.bias"] = rng.randn(d).astype(np.float32)
-        _random_self_variant(out, "hgq_encoder.cross_attn_layer.self", d, f,
-                             rng)
+        if "hgq_encoder" in head and other == "self":
+            _random_self_variant(out, "hgq_encoder.cross_attn_layer.self",
+                                 d, f, rng)
 
     for name in ("relation_query_embed", "action_query_embed"):
+        if name not in head:
+            continue
         q = head[name]
         out[f"{name}.word_embeddings.weight"] = q["word_embeddings"][
             "embedding"]
@@ -212,16 +272,16 @@ def reference_state_dict(variables, cfg, seed=0, prefix="", extras=True):
             "token_type_embeddings"]["embedding"]
         _layer_norm(out, f"{name}.LayerNorm", q["ln"])
     for name in ("rel_decoder", "action_decoder"):
-        for i in range(cfg.decoder.num_layers):
+        for i in range(cfg.decoder.num_layers if name in head else 0):
             _decoder_layer(out, f"{name}.layers.{i}", head[name][f"layer_{i}"])
-    for name in ("class_embed", "action_embed", "logit_fc"):
-        _linear(out, f"{name}.0", head[name]["fc1"])
-        _layer_norm(out, f"{name}.2", head[name]["ln"])
-        _linear(out, f"{name}.3", head[name]["fc2"])
+    for name in ("class_embed", "action_embed", "logit_fc", "logit_fc2"):
+        if name in head:
+            _head(out, name, head[name])
 
-    trunk = pytorchvideo_state_dict(variables["params"]["backbone"],
-                                    variables["batch_stats"]["backbone"])
-    out.update({f"vid_encoder.backbone.{k}": v for k, v in trunk.items()})
+    if "backbone" in params:
+        trunk = pytorchvideo_state_dict(params["backbone"],
+                                        variables["batch_stats"]["backbone"])
+        out.update({f"vid_encoder.backbone.{k}": v for k, v in trunk.items()})
     return {prefix + k: v for k, v in out.items()}
 
 
@@ -334,20 +394,14 @@ def test_bert_writer_loads_the_language_tower_and_skips_the_pooler(
         assert torch.equal(got[k], v) == tower, k
 
 
-@pytest.mark.parametrize("case", ["task_q", "cross_self", "slowfast"])
+@pytest.mark.parametrize("case", ["slowfast_r50", "slowfast_r101",
+                                  "resnext101"])
 def test_what_the_port_does_not_run_raises_naming_its_item(monkeypatch,
                                                           case):
+    """The other trunks' converters raise naming item 17 (every task and
+    cross variant imports: tests/test_torch_weights_import.py)."""
     cfg, model = _toy_model(monkeypatch)
     v = to_jax_variables(model.state_dict())
     sd = reference_state_dict(v, cfg)
-    cfg = model.head.cfg
-    if case == "task_q":
-        cfg, item = cfg.replace(task="q"), "item 15"
-    elif case == "cross_self":
-        cfg = cfg.replace(encoder=dataclasses.replace(
-            cfg.encoder, cross_attn_type="cross_self"))
-        item = "item 15"
-    else:
-        cfg, item = cfg.replace(backbone="slowfast_r50"), "item 17"
-    with pytest.raises(NotImplementedError, match=item):
-        reference_to_variables(sd, v, cfg)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        reference_to_variables(sd, v, model.head.cfg.replace(backbone=case))

@@ -422,8 +422,8 @@ def test_star_driver_trains_and_tests_on_the_cpu(tmp_path, monkeypatch):
     ([], "item 17"),
     (["--noCaps", "--qaArrangeType", "add_sep"], "item 15"),
     (["--noCaps", "--qaArrangeType", "no_sep"], "item 15"),
-    (["--noCaps", "--taskHGVQA"], "item 15"),
-], ids=["capsules", "add_sep", "no_sep", "hgvqa"])
+    (["--noCaps", "--outputAttn"], "item 15"),
+], ids=["capsules", "add_sep", "no_sep", "outputAttn"])
 def test_star_driver_refuses_what_is_not_ported(tmp_path, extra, match):
     argv = [a for a in FLAGS if a not in ("--noCaps", "--taskHGQA")] + extra
     if "--taskHGVQA" not in extra:

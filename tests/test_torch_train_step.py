@@ -65,14 +65,13 @@ def _mask_by_port_name(mask_tree, variables):
     return {k: bool(v.all()) for k, v in from_jax_variables(full).items()}
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """Three JAX train steps with dropout off (flax's Dropout patched to
-    the identity while tracing: the relation queries' HGEmbeddings drops at
-    a fixed 0.1 that no config field reaches)."""
-    cfg = jax_tiny(task="hgqa")
+def run_jax_steps(cfg, batch):
+    """Three JAX train steps of ``cfg`` on ``batch`` with dropout off
+    (flax's Dropout patched to the identity while tracing: the relation
+    queries' HGEmbeddings drops at a fixed 0.1 that no config field
+    reaches), from one perturbed init, under the connected-parameter
+    mask."""
     model = JaxShgVqaModel(cfg)
-    batch = _labelled_batch(cfg)
     init = jax.jit(lambda r, b: model.init(r, b, deterministic=True))
     variables = jax.tree_util.tree_map(jnp.asarray, perturb(
         jax.device_get(init(jax.random.PRNGKey(0), batch)),
@@ -95,8 +94,16 @@ def jax_run():
                 params=jax.device_get(params), metrics=metrics)
 
 
-def _port(jax_run, dropout=0.0):
-    cfg = tiny_test_config(task="hgqa")
+@pytest.fixture(scope="module")
+def jax_run():
+    cfg = jax_tiny(task="hgqa")
+    return run_jax_steps(cfg, _labelled_batch(cfg))
+
+
+def port_for(jax_run, cfg, dropout=0.0):
+    """The port's model of ``cfg`` with ``jax_run``'s initial weights in
+    training mode, every dropout at ``dropout``, its optimizer over the
+    trainable parameters and the batch as tensors."""
     model = load_port(ShgVqaModel(cfg), jax_run["variables"]).train()
     layers.set_dropout_rate(model, dropout)
     opt = make_optimizer(model, LR, T_TOTAL,
@@ -105,8 +112,13 @@ def _port(jax_run, dropout=0.0):
     return cfg, model, opt, batch
 
 
-def test_train_steps_match_jax(jax_run):
-    cfg, model, opt, batch = _port(jax_run)
+def _port(jax_run, dropout=0.0):
+    return port_for(jax_run, tiny_test_config(task="hgqa"), dropout)
+
+
+def check_steps_match(jax_run, cfg, model, opt, batch):
+    """Three port train steps against ``jax_run``'s: the mask, every
+    metric at each step, and each parameter's change (UPDATE_TOL)."""
     assert step.connected_param_mask(model, cfg) == _mask_by_port_name(
         jax_run["mask"], jax_run["variables"])
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -134,6 +146,10 @@ def test_train_steps_match_jax(jax_run):
         assert err <= UPDATE_TOL * d_jax[~noise].norm().item() + 1e-12, \
             (name, err)
         assert ((d_port - d_jax)[noise].abs() <= 2 * max_move).all(), name
+
+
+def test_train_steps_match_jax(jax_run):
+    check_steps_match(jax_run, *_port(jax_run))
 
 
 def test_backward_reaches_exactly_the_connected_parameters(jax_run):

@@ -12,6 +12,9 @@ widths) swapped into both packages' ``make_backbone``, at 64-pixel frames
 - a reference ``.pth`` through both importers (plain, ``module.``
   prefixed, extensionless): the state, the mapped lists, the outputs in f32
   and bf16, the errors;
+- reference checkpoints of the AGQA ablations (tasks 'q', 'vhga',
+  'hgvqa', the 'self' / 'cross_self' / 'old' cross layers, untied
+  x-layers, ``--linearCls``) through both importers, and their outputs;
 - the BERT import's lists and tensors;
 - the ``agqa_hgqa`` drivers: ``--test --load`` of a ``.pth`` in both, the
   train path's imports and messages;
@@ -46,6 +49,7 @@ from shgvqa_tpu.kernels import attention as pallas_attn
 from shgvqa_tpu.kernels import ffn as pallas_ffn
 from shgvqa_tpu.models import backbone as jax_backbone
 from shgvqa_tpu.models.backbone import SlowR50 as JaxSlowR50
+from shgvqa_tpu.models.shgvqa import ShgVqaModel as JaxShgVqaModel
 from shgvqa_tpu.models.shgvqa import VideoShgVqaModel as JaxVideoModel
 from shgvqa_tpu.train import optimizer as jax_opt
 from shgvqa_tpu.train.loop import Trainer as JaxTrainer
@@ -58,7 +62,8 @@ from shgvqa_tpu_torch.data.transforms import NORM_STATS, normalize_clip
 from shgvqa_tpu_torch.entry import build_model, example_batch
 from shgvqa_tpu_torch.models import shgvqa
 from shgvqa_tpu_torch.models.backbone import SlowR50, calibrate_frozen_bn
-from shgvqa_tpu_torch.models.shgvqa import VideoShgVqaModel
+from shgvqa_tpu_torch.models.layers import init_weights
+from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel, VideoShgVqaModel
 from shgvqa_tpu_torch.train import optimizer
 from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.step import trainable_mask
@@ -427,6 +432,78 @@ def test_reference_pth_errors_match_jax(setup, tmp_path, fault, error):
         _port_trainer(pcfg, setup["v"]).load(path)
 
 
+# -- reference checkpoints of the AGQA ablations ----------------------------
+
+# name -> (config overrides, encoder overrides, decoder overrides)
+REF_VARIANTS = {
+    "q": (dict(task="q"), {}, {}),
+    "vhga": (dict(task="vhga"), {}, {}),
+    "hgvqa": (dict(task="hgvqa"), {}, {}),
+    "self": ({}, dict(cross_attn_type="self"), {}),
+    "cross_self": ({}, dict(cross_attn_type="cross_self"), {}),
+    "old": ({}, dict(cross_attn_type="old"), {}),
+    "untied": ({}, dict(tie_x_layers=False), {}),
+    "linear_cls": ({}, {}, dict(linear_cls=True)),
+}
+
+
+def _variant_cfgs(name):
+    top, enc, dec = REF_VARIANTS[name]
+
+    def build(tiny):
+        cfg = tiny(**{"task": "hgqa", **top})
+        return cfg.replace(encoder=dataclasses.replace(cfg.encoder, **enc),
+                           decoder=dataclasses.replace(cfg.decoder, **dec))
+    return build(jax_tiny), build(tiny_test_config)
+
+
+@pytest.mark.parametrize("name", sorted(REF_VARIANTS))
+def test_reference_variant_imports_bit_equal_to_jax(name):
+    """A reference-layout state_dict of a task or cross variant (random
+    arrays: a perturbed port head in the JAX layout, written by
+    ``reference_state_dict`` with another variant's entries beside it)
+    through both importers onto other weights: the JAX importer gives the
+    written tree back, the port's the same bits and the same mapped list;
+    both heads then give the same outputs (f32, 1e-4)."""
+    jcfg, pcfg = _variant_cfgs(name)
+    port = ShgVqaModel(pcfg)
+    state = {k: torch.from_numpy(np.random.RandomState(3).randn(
+        *v.shape).astype(np.float32) * 0.05) for k, v in
+        init_weights(port, 0).state_dict().items()}
+    port.load_state_dict(state)
+    v = to_jax_variables(port.state_dict())
+    sd = reference_state_dict(v, pcfg, seed=2)
+    start = _other(v, 4)
+    want, jax_report = jax_ref.reference_to_variables(sd, start, jcfg)
+    _assert_trees_equal(_host(want), v)
+    got, report = ref_import.reference_to_variables(sd, start, pcfg)
+    _assert_trees_equal(got, _host(want))
+    assert report == jax_report and not report["skipped"]
+    assert len(report["mapped"]) == len(state)
+    fresh = ShgVqaModel(pcfg)
+    fresh.load_state_dict(from_jax_variables(got, fresh), strict=True)
+    batch = _feature_batch(jcfg)
+    outs = JaxShgVqaModel(jcfg).apply(
+        jax.tree_util.tree_map(jnp.asarray, want), batch, deterministic=True)
+    with torch.inference_mode():
+        mine = fresh.eval()({k: torch.as_tensor(x) for k, x in batch.items()})
+    assert set(mine) == set(outs)
+    for key in outs:
+        close(mine[key], outs[key], 1e-4)
+
+
+def _feature_batch(cfg, seed=0):
+    """A featurized batch (visual features, no frames; none for 'q')."""
+    batch = _frames_batch(cfg, seed)
+    del batch["frames"]
+    if cfg.task != "q":
+        e = cfg.encoder
+        batch["visual_feats"] = np.random.RandomState(seed).randn(
+            2, e.visual_t + 8, e.visual_hw, e.visual_hw, e.visual_feat_dim
+        ).astype(np.float32)
+    return batch
+
+
 # -- BERT -------------------------------------------------------------------
 
 def test_bert_import_matches_jax(setup, tmp_path):
@@ -449,6 +526,36 @@ def test_bert_import_matches_jax(setup, tmp_path):
     for k, t in from_jax_variables({"params": _host(want)},
                                    port.model.head.lxrt).items():
         assert torch.equal(got[k], t), k
+
+
+def test_bert_import_into_the_question_only_model_matches_jax(setup,
+                                                             tmp_path):
+    """Task 'q''s ``bert_encoder`` (its ``l_{i}`` at the top, a
+    single-CLS pooler): the same tree and lists as the JAX importer, bert's
+    pooler loaded; the port's ``Trainer`` (a model without a trunk) loads
+    it and refuses a trunk file."""
+    _, pcfg = _variant_cfgs("q")
+    model = init_weights(ShgVqaModel(pcfg.replace(output=str(tmp_path))), 0)
+    tree = to_jax_variables(model.bert_encoder.state_dict())["params"]
+    tower = _other({"params": {"embeddings": tree["embeddings"], "encoder": {
+        k: x for k, x in tree.items() if k.startswith("l_")}}}, 9)["params"]
+    path = tmp_path / "pytorch_model.bin"
+    save_torch(bert_state_dict(tower, extra_layers=1), path)
+    sd = jax_torch_import.load_torch_state_dict(str(path))
+    want, jax_report = jax_torch_import.bert_to_lxrt_params(sd, tree)
+    got, report = torch_import.bert_to_lxrt_params(
+        torch_import.load_torch_state_dict(str(path)), tree)
+    _assert_trees_equal(got, _host(want))
+    assert report == jax_report and not report["skipped"]
+    assert len(report["loaded"]) == 5 + 2 * 16 + 2   # and the pooler
+    trainer = Trainer(model.cfg, 1, model)
+    trainer.load_bert_pretrained(str(path))
+    state = model.bert_encoder.state_dict()
+    for k, t in from_jax_variables({"params": got},
+                                   model.bert_encoder).items():
+        assert torch.equal(state[k], t), k
+    with pytest.raises(ValueError, match="no backbone"):
+        trainer.load_backbone(str(path))
 
 
 # -- the drivers ------------------------------------------------------------
