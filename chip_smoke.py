@@ -347,6 +347,7 @@ from shgvqa_tpu_torch.models.layers import (
     set_headsliced_kernel,
     set_out_ln_kernel,
 )
+from shgvqa_tpu_torch.losses.set_prediction import matched_target_grid
 from shgvqa_tpu_torch.models.cross import _cat_masks
 from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
@@ -1611,6 +1612,14 @@ MATCHER_COST_TOL = 1e-5
 # a dependent f32 compare on Hopper takes at least this many cycles: the
 # issue latency of dependent arithmetic on the SM
 DEPENDENT_CYCLES = 4
+# the large path's problems, above the shared-memory path's limit, at the
+# STAR step's B=8: (name, n, situations, relations a situation); n = 239 is
+# the limit + 1 and n = 1024 dense uniform costs, n = 480 STAR's costs at
+# --numSituations 60 --numRel 8 (repeated labels and padded columns: ~7x
+# the search steps of uniform costs; at n = 1024 they take the host's plain
+# version minutes)
+MATCHER_LARGE = (("limit + 1", None, None, None), ("480", 480, 60, 8),
+                 ("1024", 1024, None, None))
 
 
 def max_sm_clock_hz() -> float:
@@ -1622,7 +1631,8 @@ def max_sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def matcher_costs(bsz, n, slots, classes, seed, ties=False, empty=False):
+def matcher_costs(bsz, n, slots, classes, seed, ties=False, empty=False,
+                  situations=NUM_SITUATIONS):
     """(B, n, n) f32 costs of the global matcher from random logits and
     labels: -softmax(logits)[label] over the compacted labels
     (``ops.matcher.compact_labels``), the columns past each clip's count
@@ -1631,9 +1641,9 @@ def matcher_costs(bsz, n, slots, classes, seed, ties=False, empty=False):
     zero targets."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     logits = 2.0 * torch.randn(bsz, n, classes, device="cuda", generator=g)
-    labels = torch.randint(1, classes, (bsz, NUM_SITUATIONS, slots),
+    labels = torch.randint(1, classes, (bsz, situations, slots),
                            device="cuda", generator=g)
-    lengths = torch.randint(0, slots + 1, (bsz, NUM_SITUATIONS),
+    lengths = torch.randint(0, slots + 1, (bsz, situations),
                             device="cuda", generator=g)
     if empty:
         lengths.zero_()
@@ -1662,7 +1672,7 @@ def matcher_bound(bsz, n, steps, clock_hz):
         f"{clock_hz / 1e6:.0f} MHz)")
 
 
-def check_matcher(tag, cost, time_plain=False):
+def check_matcher(tag, cost, time_plain=False, paths=(None,)):
     """Kernel against the plain version on the host's copy of ``cost`` (the
     CPU runs the card's f32 operations in the same order, and the CPU tests
     hold it to the JAX solver): row_to_col and the search steps bit-equal,
@@ -1670,19 +1680,24 @@ def check_matcher(tag, cost, time_plain=False):
     ``time_plain`` also the plain version on the card, bit-equal to the
     host's, and its ms (one turn: it reads the host at every search step).
     Returns the kernel's steps, max |row_to_col - plain| and the plain
-    version's ms on the card (None without ``time_plain``)."""
-    rows, steps = matcher._launch(cost)
+    version's ms on the card (None without ``time_plain``).  Each of
+    ``paths`` (None: the wrapper's choice, or one of ``matcher.PATHS``) is
+    held to the same plain run."""
     host = cost.cpu()
     p, _, _, plain_steps = matcher._augmenting_path_solve(host)
-    plain, got = matcher._row_to_col(p), rows.cpu()
-    err = int((got - plain).abs().max())
-    if err:
-        raise AssertionError(f"matcher {tag}: row_to_col differs from the "
-                             f"plain version in {int((got != plain).sum())} "
-                             "places")
-    if not torch.equal(steps.cpu().long(), plain_steps):
-        raise AssertionError(f"matcher {tag}: search steps {steps.tolist()},"
-                             f" plain {plain_steps.tolist()}")
+    plain = matcher._row_to_col(p)
+    for path in paths:
+        rows, steps = matcher._launch(cost, path)
+        got = rows.cpu()
+        err = int((got - plain).abs().max())
+        if err:
+            raise AssertionError(
+                f"matcher {tag} ({path or 'auto'}): row_to_col differs from "
+                f"the plain version in {int((got != plain).sum())} places")
+        if not torch.equal(steps.cpu().long(), plain_steps):
+            raise AssertionError(f"matcher {tag} ({path or 'auto'}): search "
+                                 f"steps {steps.tolist()}, plain "
+                                 f"{plain_steps.tolist()}")
     plain_ms = None
     if time_plain:
         torch.cuda.synchronize()
@@ -1712,8 +1727,13 @@ def phase_matcher_kernel():
     the plain version's on the card at the STAR step's B=8 (one turn),
     scipy on the host with the copy to the host (the reference's own
     route, ``lxrt/matcher.py:76-80``) as the yardstick, and the bound.  At
-    the kernel's largest n one problem launches and agrees; one column
-    more raises naming the limit.  Returns the rows and max |row_to_col -
+    the shared-memory path's largest n one problem launches and agrees.
+    Above it the large path (cost in global memory): n = limit + 1, 480
+    and 1024 at B=8, each bit-equal and at scipy's cost, also with its
+    state in a workspace, the last two timed (events, device time, bound,
+    scipy); the large path forced at the B=8 problems of 128 and 48 too.
+    Returns
+    the rows (the large path's under ("large", n)) and max |row_to_col -
     plain| over every case."""
     t0 = time.perf_counter()
     clock = max_sm_clock_hz()
@@ -1721,8 +1741,10 @@ def phase_matcher_kernel():
     for bsz in MATCHER_BATCHES:
         for name, n, slots, classes in MATCHER_SHAPES:
             cost = matcher_costs(bsz, n, slots, classes, seed=bsz + n)
+            # at the STAR batch the large path, forced, on the same costs
             steps, err, plain_ms = check_matcher(
-                f"{name} b{bsz}", cost, time_plain=bsz == STAR_BATCH)
+                f"{name} b{bsz}", cost, time_plain=bsz == STAR_BATCH,
+                paths=(None, "large") if bsz == STAR_BATCH else (None,))
             max_err = max(max_err, err)
             row = {"steps_max": int(steps.max()), "steps_sum":
                    int(steps.sum()), "plain_ms": plain_ms}
@@ -1747,22 +1769,52 @@ def phase_matcher_kernel():
         max_err = max(max_err, check_matcher(tag, cost)[1])
         log(f"matcher {tag} b4 (128 x 128): bit-equal to the plain version, "
             "scipy's total cost")
-    max_n = matcher._lib().shgvqa_hungarian_max_n()
+    lib = matcher._lib()
+    max_n = lib.shgvqa_hungarian_max_n()
     cost = torch.rand(1, max_n, max_n, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(4))
     max_err = max(max_err, check_matcher(f"n={max_n}", cost)[1])
-    try:
-        matcher._launch(torch.zeros(1, max_n + 1, max_n + 1, device="cuda"))
-    except ValueError as e:
-        if f"n <= {max_n}" not in str(e):
-            raise AssertionError(f"matcher n={max_n + 1}: refused without "
-                                 f"naming the limit: {e}") from e
-    else:
-        raise AssertionError(f"matcher n={max_n + 1}: launched above the "
-                             f"limit n <= {max_n}")
-    log(f"matcher n={max_n} (the limit): bit-equal to the plain version, "
-        f"scipy's total cost; n={max_n + 1} refused naming the limit; "
-        f"phase {time.perf_counter() - t0:.1f} s")
+    log(f"matcher n={max_n} (the shared-memory path's limit; the large "
+        f"path's state fits shared memory up to n="
+        f"{lib.shgvqa_hungarian_large_smem_max_n()}): bit-equal to the "
+        "plain version, scipy's total cost")
+    for name, n, situations, slots in MATCHER_LARGE:
+        t1 = time.perf_counter()
+        bsz = STAR_BATCH
+        if situations is None:
+            n = n or max_n + 1
+            cost = -torch.rand(bsz, n, n, device="cuda", generator=torch.
+                               Generator(device="cuda").manual_seed(n))
+        else:
+            cost = matcher_costs(bsz, n, slots, 564, seed=n,
+                                 situations=situations)
+        if matcher._pick_path(lib, n) != "large":
+            raise AssertionError(f"matcher n={n}: the wrapper picks "
+                                 f"{matcher._pick_path(lib, n)}")
+        steps, err, _ = check_matcher(f"n={n} b{bsz}", cost,
+                                      paths=(None, "large_global"))
+        max_err = max(max_err, err)
+        row = {"n": n, "steps_max": int(steps.max()),
+               "steps_sum": int(steps.sum())}
+        if name != "limit + 1":
+            row["bound_ms"], row["bound"] = matcher_bound(
+                bsz, n, row["steps_max"], clock)
+            row.update(spread("kernel_ms", lambda: matcher._launch(cost),
+                              turns=3, iters=2, warmup=1))
+            row["kernel_device_ms"] = device_ms(
+                lambda: matcher._launch(cost),
+                own=("hungarian_large_kernel",), calls=4)[0]
+            t2 = time.perf_counter()
+            for c in cost.cpu().numpy():
+                linear_sum_assignment(c)
+            row["scipy_host_ms"] = (time.perf_counter() - t2) * 1e3
+            row["bound_by"] = "operations"
+            rows[("large", n)] = row
+        log(f"matcher large path {name} (n={n}) b{bsz}: bit-equal to the "
+            "plain version, its state in shared memory and in a workspace; "
+            f"scipy's total cost; {json.dumps(row)}; "
+            f"{time.perf_counter() - t1:.1f} s")
+    log(f"matcher phase {time.perf_counter() - t0:.1f} s")
     return rows, max_err
 
 
@@ -2656,15 +2708,29 @@ class _Counted:
     """Wraps the train and eval steps the driver's Trainer builds so that
     every launch count is set to 0 just before each step and read just
     after it; keeps the driver's model.  With ``sync`` off (steps that a
-    CUDA graph captures) it neither synchronizes nor reads the loss."""
+    CUDA graph captures) it neither synchronizes nor reads the loss.  The
+    attention dumps (``--outputAttn``) are counted the same way, a whole
+    dump at a time: ``dumps`` holds (launches, the dump's summary)."""
 
     def __init__(self, sync: bool = True):
         self.train, self.eval, self.losses, self.model = [], [], [], None
+        self.dumps = []
         self.sync = sync
 
     def __enter__(self):
-        self._saved = (loop.make_train_step, loop.make_eval_step)
-        make_train, make_eval = self._saved
+        self._saved = (loop.make_train_step, loop.make_eval_step,
+                       common._dump_attentions)
+        make_train, make_eval, dump = self._saved
+
+        def counted_dump(*a, **kw):
+            torch.cuda.synchronize()
+            reset_counts()
+            summary = dump(*a, **kw)
+            torch.cuda.synchronize()
+            self.dumps.append((counts(), summary))
+            return summary
+
+        common._dump_attentions = counted_dump
 
         def counted(make, sink, keep_loss):
             def build(cfg, model, *args, **kw):
@@ -2690,7 +2756,8 @@ class _Counted:
         return self
 
     def __exit__(self, *exc):
-        loop.make_train_step, loop.make_eval_step = self._saved
+        (loop.make_train_step, loop.make_eval_step,
+         common._dump_attentions) = self._saved
 
 
 def run_main(argv, main=agqa_hgqa.main):
@@ -2705,6 +2772,14 @@ def run_main(argv, main=agqa_hgqa.main):
         for line in out.getvalue().splitlines():
             log(f"  | {line}")
     return result, out.getvalue(), time.perf_counter() - t0
+
+
+# a dumps forward: the FFN kernel at its 18 sites and no attention kernel;
+# globally matched grids add the matcher's two problems
+DUMPS_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)
+# the HG cross encoder's tokens: CLS + 16 situations x (3 actions + 8
+# relations)
+HG_TOKENS = 1 + NUM_SITUATIONS * (3 + 8)
 
 
 def driver_argv(tmp: str, out: str, *extra: str):
@@ -2784,7 +2859,72 @@ def phase_driver(tmp: str, files: dict):
         log(f"driver --test {' '.join(extra)}: oracle 1.0, predict files of "
             f"32 answers, launches per eval forward {counted.eval[0]}, "
             f"{seconds:.1f} s")
+    # --outputAttn: the attention dumps of a test split of 8 questions, one
+    # batch (its zero label grids matched per frame by the subset DP, not
+    # the matcher kernel), every attention on the plain path
+    test_out = os.path.join(tmp, "test_attn")
+    argv_test = [a if a != out else test_out for a in argv] + [
+        "--test", "test", "--load", os.path.join(out, "LAST"),
+        "--outputAttn", "--syntheticValid", "8"]
+    with _Counted() as counted:
+        result, stdout, seconds = run_main(argv_test)
+    check_dumps("driver --test --outputAttn", counted, test_out, 8,
+                DUMPS_LAUNCHES, hg_tokens=HG_TOKENS, grids=True)
+    if counted.eval != [EVAL_MODES[0][1]]:
+        raise AssertionError(f"driver --test --outputAttn forwards launched "
+                             f"{counted.eval}")
+    log(f"driver --test --outputAttn: {seconds:.1f} s")
     return train_counts, epochs
+
+
+def check_dumps(tag, counted, out, questions, want, hg_tokens, grids,
+                per_choice=False):
+    """One ``--outputAttn`` dump of ``questions`` questions under ``out``:
+    ``want`` launches per batch (no attention kernel), both JSON files with
+    an entry a question, each attention (heads, ``hg_tokens``), the grids
+    (S, slots) where ``grids``, the npz maps' keys (under per-choice the HG
+    encoder's maps with 4 rows a clip).  Logs the dump's host seconds."""
+    if len(counted.dumps) != 1:
+        raise AssertionError(f"{tag}: {len(counted.dumps)} dumps")
+    launched, summary = counted.dumps[0]
+    batches = summary["batches"]
+    if launched != tuple(batches * w for w in want):
+        raise AssertionError(f"{tag}: the dump launched {launched}, "
+                             f"expected {batches} x {want}")
+    for name in ("val_attentions_cross_2.json",
+                 "hg_val_attentions_cross_2.json"):
+        with open(os.path.join(out, name)) as f:
+            entries = json.load(f)
+        if len(entries) != questions:
+            raise AssertionError(f"{tag}: {name} holds {len(entries)} "
+                                 f"entries, expected {questions}")
+        for e in entries:
+            if np.asarray(e["attention"]).shape != (H, hg_tokens):
+                raise AssertionError(f"{tag}: an attention of shape "
+                                     f"{np.asarray(e['attention']).shape}")
+            if "rel_pred" in e and np.asarray(e["rel_pred"]).shape != (
+                    NUM_SITUATIONS, 8):
+                raise AssertionError(f"{tag}: a rel grid of shape "
+                                     f"{np.asarray(e['rel_pred']).shape}")
+        if name.startswith("val") and grids != ("rel_pred" in entries[0]):
+            raise AssertionError(f"{tag}: grids {'rel_pred' in entries[0]},"
+                                 f" expected {grids}")
+    with np.load(os.path.join(out, "attentions", "batch000.npz")) as maps:
+        keys = set(maps.files)
+        need = {"ques_ids", "attn.encoder.lang.4", "attn.encoder.visn.4",
+                "attn.encoder.cross.1.xl", "attn.encoder.cross.1.xv",
+                "attn.hgq.1.xl", "attn.hgq.1.xv"}
+        if not need <= keys:
+            raise AssertionError(f"{tag}: npz keys {sorted(keys)}")
+        rows = maps["attn.hgq.1.xl"].shape[0]
+        clips = len(maps["ques_ids"])
+        if rows != clips * (4 if per_choice else 1):
+            raise AssertionError(f"{tag}: the HG maps have {rows} rows for "
+                                 f"{clips} clips")
+    log(f"{tag}: {questions} questions in {batches} batches, launches per "
+        f"batch ({COUNT_NAMES}) {want}, {len(keys) - 1} maps a batch, dump "
+        f"host seconds {summary['seconds']:.2f}")
+    return summary["seconds"]
 
 
 # README.md's STAR line (cli/star.py) with --noCaps, at --stepsPerLoop 2
@@ -3179,167 +3319,175 @@ def phase_task_variants():
     Returns its seconds."""
     t0 = time.perf_counter()
     base = entry.flagship_cfg()
-    for (name, top, enc, dec, attn_f, attn_b, ffn_n, ffn_f,
-         ffn_b) in TASK_VARIANTS:
-        t1 = time.perf_counter()
+    for (name, top, enc, dec, *want) in TASK_VARIANTS:
         cfg = base.replace(**top, encoder=dataclasses.replace(
             base.encoder, **enc), decoder=dataclasses.replace(
                 base.decoder, **dec))
-        model = init_weights(ShgVqaModel(cfg), seed=11).to("cuda").eval()
-        batch = variant_batch(cfg, TASK_BATCH, 11)
-        outs = {}
-        for mode, ffn, attn, want in (
-                ("plain", False, False, (0,) * 10),
-                ("FFN kernel", True, False,
-                 (0, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0)),
-                ("attention kernel", True, True,
-                 (attn_f, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0))):
-            set_ffn_kernel(model, ffn)
-            set_attention_kernel_eval(model, attn)
-            reset_counts()
-            with torch.inference_mode():
-                y = model(batch)
-            torch.cuda.synchronize()
-            if counts() != want:
-                raise AssertionError(f"{name} {mode} forward launched "
-                                     f"{counts()}, expected {want}")
-            key = "hg_logit" if "hg_logit" in y else "logit"
-            if not torch.isfinite(y[key]).all():
-                raise AssertionError(f"{name} {mode}: non-finite {key}")
-            outs[mode] = y[key].float()
-        set_ffn_kernel(model, True)
-        set_attention_kernel_eval(model, False)
-        fwd_rel = {m: ((o - outs["plain"]).norm()
-                       / outs["plain"].norm()).item()
-                   for m, o in outs.items() if m != "plain"}
-        if max(fwd_rel.values()) > 5e-2:
-            raise AssertionError(f"{name}: {key} differs from the plain "
-                                 f"path by {fwd_rel}")
-
-        rates = {m: m.rate for m in model.modules() if isinstance(m, Dropout)}
-        set_dropout_rate(model, 0.0)
-        model.train()
-        params = list(model.named_parameters())
-        generator = torch.Generator(device="cuda").manual_seed(11)
-        # (attention kernels, FFN train kernels), as phase 6: the attention
-        # kernels against the plain attention, then the FFN train kernels
-        # against the unfused FFN with the attention kernels on; the
-        # attention kernels twice (dQ is summed with atomics); and the
-        # plain path in f32 on the same weights, the yardstick of bf16
-        results = {}
-        for mode, attn, ffn in (("kernel", True, False),
-                                ("kernel again", True, False),
-                                ("plain", False, False),
-                                ("ffn kernel", True, True)):
-            set_attention_kernel(model, attn)
-            set_ffn_train_kernel(model, ffn)
-            results[mode] = grads_of(model, params, cfg, batch, generator)
-        ref = ShgVqaModel(cfg.replace(compute_dtype="float32"))
-        ref.load_state_dict(model.state_dict())
-        ref = ref.to("cuda").train()
-        set_dropout_rate(ref, 0.0)
-        set_attention_kernel(ref, False)
-        results["plain f32"] = grads_of(ref, list(ref.named_parameters()),
-                                        cfg, batch, generator)
-        del ref
-        want_train = (attn_f, attn_b, 0, ffn_f, ffn_b, 0, 0, 0, 0, 0)
-        want_attn = (attn_f, attn_b) + (0,) * 8
-        launched = {m: r[3] for m, r in results.items()}
-        if launched != {"kernel": want_attn, "kernel again": want_attn,
-                        "plain": (0,) * 10, "ffn kernel": want_train,
-                        "plain f32": (0,) * 10}:
-            raise AssertionError(f"{name} train forward and backward "
-                                 f"launched {launched}, expected "
-                                 f"{want_train} (both kernels)")
-        connected = {n for n, c in connected_param_mask(model, cfg).items()
-                     if c}
-        if any(r[2] != connected for r in results.values()):
-            raise AssertionError(f"{name}: the backward reaches other "
-                                 "parameters than connected_param_mask's")
-        names = [n for n, _ in params if n in connected]
-        sizes = [p.numel() for n, p in params if n in connected]
-        train_rel = {}
-        for what, (a, b) in (("attention", ("kernel", "plain")),
-                             ("FFN", ("ffn kernel", "kernel")),
-                             ("rerun", ("kernel again", "kernel")),
-                             ("plain vs f32", ("plain", "plain f32")),
-                             ("kernel vs f32", ("kernel", "plain f32")),
-                             ("ffn kernel vs f32", ("ffn kernel",
-                                                    "plain f32"))):
-            (la, ga, _, _), (lb, gb, _, _) = results[a], results[b]
-            # the tensors with the largest share of the squared difference,
-            # each with its own relative difference
-            parts = sorted(
-                (((x - y).square().sum().item(),
-                  ((x - y).norm() / y.norm().clamp_min(1e-30)).item(), n)
-                 for n, x, y in zip(names, ga.split(sizes),
-                                    gb.split(sizes))), reverse=True)
-            total = max(sum(p[0] for p in parts), 1e-30)
-            train_rel[what] = dict(
-                loss=abs(la - lb) / abs(lb),
-                grad=((ga - gb).norm() / gb.norm()).item(),
-                grad_norm=abs(ga.norm() - gb.norm()).item() / gb.norm().item(),
-                worst_tensors=[(n, round(sq / total, 4), round(r, 4))
-                               for sq, r, n in parts[:3]])
-        log(f"variant {name} train kernel vs plain (dropout 0): "
-            f"{json.dumps(train_rel)}")
-        # the loss within TRAIN_TOL of the plain path; the gradient vector
-        # within TRAIN_TOL of it or, where bf16 itself moves the vector
-        # further (a few tensors' gradients are sums that cancel), within
-        # GRAD_NOISE x the plain bf16 path's distance to f32 of both the
-        # plain bf16 path and the f32 one
-        noise = GRAD_NOISE * train_rel["plain vs f32"]["grad"]
-        for what, to_f32 in (("attention", "kernel vs f32"),
-                             ("FFN", "ffn kernel vs f32")):
-            loss, grad = train_rel[what]["loss"], train_rel[what]["grad"]
-            grad_f32 = train_rel[to_f32]["grad"]
-            if loss > TRAIN_TOL or (grad > TRAIN_TOL and (
-                    grad > noise or grad_f32 > noise)):
-                raise AssertionError(f"{name}: kernel and plain {what} "
-                                     f"train paths differ: {train_rel}")
-        lk, lp = results["kernel"][0], results["plain"][0]
-        rel_loss = train_rel["attention"]["loss"]
-        rel_grad = {w: train_rel[w]["grad"] for w in train_rel}
-        del results
-        model.zero_grad(set_to_none=True)
-        for m, rate in rates.items():
-            m.rate = rate
-        set_attention_kernel(model, True)
-        set_ffn_train_kernel(model, True)
-        o = cfg.optim
-        optimizer = make_optimizer(
-            model, o.lr, entry.TRAIN_T_TOTAL, o.warmup, o.schedule, o.b1,
-            o.b2, o.eps, o.weight_decay, o.grad_clip,
-            trainable_mask(model, cfg), o.optim)
-        step = make_train_step(cfg, model, optimizer)
-        before = {n: p.detach().clone() for n, p in params}
-        losses = []
-        for _ in range(2):
-            reset_counts()
-            metrics = step(batch, generator)
-            torch.cuda.synchronize()
-            if counts() != want_train:
-                raise AssertionError(f"{name} train step launched "
-                                     f"{counts()}, expected {want_train}")
-            losses.append(metrics["total_loss"].item())
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"{name}: train losses {losses}")
-        moved, tiny, frozen = moved_or_tiny(model, optimizer, before)
-        log(f"variant {name}: eval launches FFN {ffn_n}, attention "
-            f"{attn_f}; {key} rel Frobenius vs plain {json.dumps(fwd_rel)}; "
-            f"train launches ({COUNT_NAMES}) {want_train}; kernel vs plain "
-            f"(dropout 0) loss {lk:.6f} vs {lp:.6f} (rel {rel_loss:.2e}), "
-            f"gradient vector rel {json.dumps(rel_grad)}; losses {losses}; "
-            f"{len(moved)} tensors moved, {len(tiny)} below f32 resolution, "
-            f"{len(frozen)} outside the optimizer bit-identical; "
-            f"{time.perf_counter() - t1:.1f} s")
-        set_ffn_train_kernel(model, False)
-        del model, optimizer, step, before, batch, params
-        gc.collect()
-        torch.cuda.empty_cache()
+        check_head_variant(name, cfg, variant_batch(cfg, TASK_BATCH, 11),
+                           *want)
     return time.perf_counter() - t0
 
 
+def check_head_variant(name, cfg, batch, attn_f, attn_b, ffn_n, ffn_f,
+                       ffn_b, match=0):
+    """Phase 9c's checks of one head model (``phase_task_variants``) on
+    ``batch``, with its expected launches: attention forward and backward
+    per train step, FFN per eval forward, FFN-train forward and backward
+    per train step, and the matcher's per train forward (``match``: 2
+    under the global matcher)."""
+    t1 = time.perf_counter()
+    model = init_weights(ShgVqaModel(cfg), seed=11).to("cuda").eval()
+    outs = {}
+    for mode, ffn, attn, want in (
+            ("plain", False, False, (0,) * 10),
+            ("FFN kernel", True, False,
+             (0, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0)),
+            ("attention kernel", True, True,
+             (attn_f, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0))):
+        set_ffn_kernel(model, ffn)
+        set_attention_kernel_eval(model, attn)
+        reset_counts()
+        with torch.inference_mode():
+            y = model(batch)
+        torch.cuda.synchronize()
+        if counts() != want:
+            raise AssertionError(f"{name} {mode} forward launched "
+                                 f"{counts()}, expected {want}")
+        key = "hg_logit" if "hg_logit" in y else "logit"
+        if not torch.isfinite(y[key]).all():
+            raise AssertionError(f"{name} {mode}: non-finite {key}")
+        outs[mode] = y[key].float()
+    set_ffn_kernel(model, True)
+    set_attention_kernel_eval(model, False)
+    fwd_rel = {m: ((o - outs["plain"]).norm()
+                   / outs["plain"].norm()).item()
+               for m, o in outs.items() if m != "plain"}
+    if max(fwd_rel.values()) > 5e-2:
+        raise AssertionError(f"{name}: {key} differs from the plain "
+                             f"path by {fwd_rel}")
+
+    rates = {m: m.rate for m in model.modules() if isinstance(m, Dropout)}
+    set_dropout_rate(model, 0.0)
+    model.train()
+    params = list(model.named_parameters())
+    generator = torch.Generator(device="cuda").manual_seed(11)
+    # (attention kernels, FFN train kernels), as phase 6: the attention
+    # kernels against the plain attention, then the FFN train kernels
+    # against the unfused FFN with the attention kernels on; the
+    # attention kernels twice (dQ is summed with atomics); and the
+    # plain path in f32 on the same weights, the yardstick of bf16
+    results = {}
+    for mode, attn, ffn in (("kernel", True, False),
+                            ("kernel again", True, False),
+                            ("plain", False, False),
+                            ("ffn kernel", True, True)):
+        set_attention_kernel(model, attn)
+        set_ffn_train_kernel(model, ffn)
+        results[mode] = grads_of(model, params, cfg, batch, generator)
+    ref = ShgVqaModel(cfg.replace(compute_dtype="float32"))
+    ref.load_state_dict(model.state_dict())
+    ref = ref.to("cuda").train()
+    set_dropout_rate(ref, 0.0)
+    set_attention_kernel(ref, False)
+    results["plain f32"] = grads_of(ref, list(ref.named_parameters()),
+                                    cfg, batch, generator)
+    del ref
+    want_train = (attn_f, attn_b, 0, ffn_f, ffn_b, 0, 0, 0, 0, match)
+    want_attn = (attn_f, attn_b) + (0,) * 7 + (match,)
+    want_plain = (0,) * 9 + (match,)
+    launched = {m: r[3] for m, r in results.items()}
+    if launched != {"kernel": want_attn, "kernel again": want_attn,
+                    "plain": want_plain, "ffn kernel": want_train,
+                    "plain f32": want_plain}:
+        raise AssertionError(f"{name} train forward and backward "
+                             f"launched {launched}, expected "
+                             f"{want_train} (both kernels)")
+    connected = {n for n, c in connected_param_mask(model, cfg).items()
+                 if c}
+    if any(r[2] != connected for r in results.values()):
+        raise AssertionError(f"{name}: the backward reaches other "
+                             "parameters than connected_param_mask's")
+    names = [n for n, _ in params if n in connected]
+    sizes = [p.numel() for n, p in params if n in connected]
+    train_rel = {}
+    for what, (a, b) in (("attention", ("kernel", "plain")),
+                         ("FFN", ("ffn kernel", "kernel")),
+                         ("rerun", ("kernel again", "kernel")),
+                         ("plain vs f32", ("plain", "plain f32")),
+                         ("kernel vs f32", ("kernel", "plain f32")),
+                         ("ffn kernel vs f32", ("ffn kernel",
+                                                "plain f32"))):
+        (la, ga, _, _), (lb, gb, _, _) = results[a], results[b]
+        # the tensors with the largest share of the squared difference,
+        # each with its own relative difference
+        parts = sorted(
+            (((x - y).square().sum().item(),
+              ((x - y).norm() / y.norm().clamp_min(1e-30)).item(), n)
+             for n, x, y in zip(names, ga.split(sizes),
+                                gb.split(sizes))), reverse=True)
+        total = max(sum(p[0] for p in parts), 1e-30)
+        train_rel[what] = dict(
+            loss=abs(la - lb) / abs(lb),
+            grad=((ga - gb).norm() / gb.norm()).item(),
+            grad_norm=abs(ga.norm() - gb.norm()).item() / gb.norm().item(),
+            worst_tensors=[(n, round(sq / total, 4), round(r, 4))
+                           for sq, r, n in parts[:3]])
+    log(f"variant {name} train kernel vs plain (dropout 0): "
+        f"{json.dumps(train_rel)}")
+    # the loss within TRAIN_TOL of the plain path; the gradient vector
+    # within TRAIN_TOL of it or, where bf16 itself moves the vector
+    # further (a few tensors' gradients are sums that cancel), within
+    # GRAD_NOISE x the plain bf16 path's distance to f32 of both the
+    # plain bf16 path and the f32 one
+    noise = GRAD_NOISE * train_rel["plain vs f32"]["grad"]
+    for what, to_f32 in (("attention", "kernel vs f32"),
+                         ("FFN", "ffn kernel vs f32")):
+        loss, grad = train_rel[what]["loss"], train_rel[what]["grad"]
+        grad_f32 = train_rel[to_f32]["grad"]
+        if loss > TRAIN_TOL or (grad > TRAIN_TOL and (
+                grad > noise or grad_f32 > noise)):
+            raise AssertionError(f"{name}: kernel and plain {what} "
+                                 f"train paths differ: {train_rel}")
+    lk, lp = results["kernel"][0], results["plain"][0]
+    rel_loss = train_rel["attention"]["loss"]
+    rel_grad = {w: train_rel[w]["grad"] for w in train_rel}
+    del results
+    model.zero_grad(set_to_none=True)
+    for m, rate in rates.items():
+        m.rate = rate
+    set_attention_kernel(model, True)
+    set_ffn_train_kernel(model, True)
+    o = cfg.optim
+    optimizer = make_optimizer(
+        model, o.lr, entry.TRAIN_T_TOTAL, o.warmup, o.schedule, o.b1,
+        o.b2, o.eps, o.weight_decay, o.grad_clip,
+        trainable_mask(model, cfg), o.optim)
+    step = make_train_step(cfg, model, optimizer)
+    before = {n: p.detach().clone() for n, p in params}
+    losses = []
+    for _ in range(2):
+        reset_counts()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        if counts() != want_train:
+            raise AssertionError(f"{name} train step launched "
+                                 f"{counts()}, expected {want_train}")
+        losses.append(metrics["total_loss"].item())
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: train losses {losses}")
+    moved, tiny, frozen = moved_or_tiny(model, optimizer, before)
+    log(f"variant {name}: eval launches FFN {ffn_n}, attention "
+        f"{attn_f}; {key} rel Frobenius vs plain {json.dumps(fwd_rel)}; "
+        f"train launches ({COUNT_NAMES}) {want_train}; kernel vs plain "
+        f"(dropout 0) loss {lk:.6f} vs {lp:.6f} (rel {rel_loss:.2e}), "
+        f"gradient vector rel {json.dumps(rel_grad)}; losses {losses}; "
+        f"{len(moved)} tensors moved, {len(tiny)} below f32 resolution, "
+        f"{len(frozen)} outside the optimizer bit-identical; "
+        f"{time.perf_counter() - t1:.1f} s")
+    set_ffn_train_kernel(model, False)
+    del model, optimizer, step, before, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
 def phase_tasks(tmp: str, files: dict):
     """Phase 9c: both ablation drivers, then the head-model variants.
     Returns the seconds of each part."""
@@ -3350,6 +3498,216 @@ def phase_tasks(tmp: str, files: dict):
     seconds["variants"] = phase_task_variants()
     seconds["phase"] = time.perf_counter() - t0
     log(f"phase 9c (AGQA ablations) seconds {json.dumps(seconds)}")
+    return seconds
+
+
+# phase 9d: per-choice STAR QA (README.md's STAR line with --noCaps
+# --qaArrangeType add_sep --outputAttn at --stepsPerLoop 2, B=8): 128
+# synthetic questions (32 Interaction: four steps, two 2-step chunks, so
+# one capture and one replay) and 16 valid (4 Interaction), one epoch
+PER_CHOICE_FLAGS = [("add_sep" if a == "add_sep_all" else a)
+                    for a in STAR_FLAGS] + ["--outputAttn"]
+PER_CHOICE_DATA = ["--syntheticData", "128", "--syntheticValid", "16",
+                   "--logFreq", "1", "--epochs", "1"]
+# launches (COUNT_NAMES) of a per-choice train step, a valid forward with
+# labels and a dumps batch (test items carry zero label grids, so their
+# dumps match globally too, as JAX's do); the eval modes of --test
+PER_CHOICE_TRAIN = (38, 34, 0, 0, 0, 0, 0, 0, 0, 2)
+PER_CHOICE_VALID = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2)
+PER_CHOICE_DUMPS = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2)
+PER_CHOICE_TEST_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
+                         (["--pallasAttention"],
+                          (38, 0, 18, 0, 0, 0, 0, 0, 0, 0)))
+# the head models of phase 9d: (task, arrangement, attention forward and
+# backward per train step, FFN per eval forward, FFN-train forward and
+# backward per train step); under 'hgvqa' the fusion head reads the pooled
+# output, so the LXRT x-layers' backward runs
+PER_CHOICE_VARIANTS = (("hgqa", "add_sep", 38, 34, 18, 18, 14),
+                       ("hgqa", "no_sep", 38, 34, 18, 18, 14),
+                       ("hgvqa", "add_sep", 38, 38, 18, 18, 18),
+                       ("hgvqa", "no_sep", 38, 38, 18, 18, 18))
+NUM_CHOICES = 4
+
+
+def per_choice_batch(cfg, bsz: int, seed: int, arrange: str):
+    """``variant_batch`` with four (question, choice) encodings a clip: the
+    question's ids, under add_sep a [SEP] (id 102), the choice's ids; the
+    masks cover each pair; 4-way targets."""
+    batch = variant_batch(cfg, bsz, seed)
+    rng = np.random.RandomState(seed + 1)
+    lt = cfg.data.max_seq_length
+    ids = batch["input_ids"].cpu().numpy()
+    qlen = 12
+    pairs = np.zeros((bsz, NUM_CHOICES, lt), np.int32)
+    masks = np.zeros((bsz, NUM_CHOICES, lt), np.int32)
+    for c in range(NUM_CHOICES):
+        tail = rng.randint(1000, cfg.encoder.vocab_size, (bsz, 6))
+        sep = [np.full((bsz, 1), 102)] if arrange == "add_sep" else []
+        row = np.concatenate([ids[:, :qlen]] + sep + [tail], axis=1)
+        pairs[:, c, :row.shape[1]] = row
+        masks[:, c, :row.shape[1]] = 1
+    batch["choice_input_ids"] = torch.as_tensor(pairs, device="cuda")
+    batch["choice_input_mask"] = torch.as_tensor(masks, device="cuda")
+    batch["choice_segment_ids"] = torch.zeros_like(batch["choice_input_ids"])
+    target = np.eye(NUM_CHOICES, dtype=np.float32)[rng.randint(
+        0, NUM_CHOICES, bsz)]
+    batch["target"] = torch.as_tensor(target, device="cuda")
+    return batch
+
+
+def per_choice_step_ms(model, cfg):
+    """Eager train steps, attention kernels on, in turns: the per-choice
+    STAR model ``model`` (the driver's LAST, its trunk frozen) at B=8 (32
+    language rows) and the flagship frozen-trunk step at B=32
+    (``entry.train_entry``); ms a step by events, each the mean of two
+    turns of 5 steps, and the per-choice step's split."""
+    o = cfg.optim
+    model.train()
+    optimizer = make_optimizer(
+        model, o.lr, entry.TRAIN_T_TOTAL, o.warmup, o.schedule, o.b1, o.b2,
+        o.eps, o.weight_decay, o.grad_clip, trainable_mask(model, cfg),
+        o.optim)
+    batch = per_choice_batch(cfg, STAR_BATCH, 17, "add_sep")
+    batch.pop("visual_feats")
+    batch["frames"] = entry.device_batch(cfg, STAR_BATCH, 17)["frames"]
+    generator = torch.Generator(device="cuda").manual_seed(17)
+    flag = entry.train_entry()
+    steps = {"per_choice_b8": (make_train_step(cfg, model, optimizer), batch,
+                               generator),
+             "flagship_b32": (make_train_step(flag.model.cfg, flag.model,
+                                              flag.optimizer), flag.batch,
+                              flag.generator)}
+    ms = {k: [] for k in steps}
+    for name in ("per_choice_b8", "flagship_b32", "flagship_b32",
+                 "per_choice_b8"):
+        step, b, g = steps[name]
+        ms[name].append(b["frames"].shape[0] * 1e3
+                        / train_clips_per_second(step, b, g))
+    out = {k: sum(v) / len(v) for k, v in ms.items()}
+    out["per_choice_split"] = train_split_ms(model, optimizer, batch,
+                                             generator)
+    log(f"train step ms, eager, attention kernels (per-choice B=8 vs the "
+        f"flagship frozen B=32, in turns): {json.dumps(ms)}; per-choice "
+        f"split {json.dumps(out['per_choice_split'])}")
+    del flag, steps, optimizer
+    return out
+
+
+def phase_per_choice(tmp: str, files: dict):
+    """Phase 9d: per-choice STAR QA at full width in bf16.  ``cli.star
+    .main`` at PER_CHOICE_FLAGS on PER_CHOICE_DATA, its trunk from
+    ``--backboneWeights``: the launch counts of every step run on the host
+    (the eager chunk and the capture), of the valid forward and of the
+    valid split's dumps, one capture and one replay, finite losses, LAST
+    reloaded bit-equal; ``--test`` from LAST with ``--outputAttn``, plain
+    and with ``--pallasAttention`` (oracle 1.0, ``by_qtype``, both predict
+    files, both dump files, the npz maps, no attention kernel in a dump);
+    then the head models of PER_CHOICE_VARIANTS through
+    ``check_head_variant`` on random trunk features at B=8.  Returns the
+    seconds of each part."""
+    t0 = time.perf_counter()
+    out, data = os.path.join(tmp, "pc"), os.path.join(tmp, "pc_data")
+    os.makedirs(data, exist_ok=True)
+    argv = PER_CHOICE_FLAGS + PER_CHOICE_DATA + [
+        "--output", out, "--dataDir", data, "--backboneWeights",
+        files["trunk"]]
+    saved, _Recorded.made = common.Trainer, []
+    common.Trainer = _Recorded
+    try:
+        with _Counted(sync=False) as counted:
+            result, stdout, seconds = run_main(argv, star.main)
+    finally:
+        common.Trainer = saved
+    trainer = _Recorded.made[-1]
+    chunks = trainer.chunks
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["total_loss"] for line in f]
+    if (result["steps"], len(losses)) != (4, 4) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"per-choice driver: {result['steps']} steps, "
+                             f"losses {losses}")
+    if chunks is None or (chunks.captures, chunks.replays) != (1, 1):
+        raise AssertionError("per-choice driver: not one capture and one "
+                             "replay")
+    if counted.train != [PER_CHOICE_TRAIN] * 4:
+        raise AssertionError(f"per-choice train steps launched "
+                             f"{counted.train}, expected 4 x "
+                             f"{PER_CHOICE_TRAIN}")
+    if counted.eval != [PER_CHOICE_VALID]:
+        raise AssertionError(f"per-choice valid forwards launched "
+                             f"{counted.eval}, expected {PER_CHOICE_VALID}")
+    dump_s = {"valid": check_dumps("per-choice valid dumps", counted, out, 4,
+                                   PER_CHOICE_DUMPS, HG_TOKENS, grids=True,
+                                   per_choice=True)}
+    cfg = trainer.model.cfg
+    if cfg.data.qa_arrange_type != "add_sep" or cfg.loss_hg_per_frame:
+        raise AssertionError("per-choice driver: not add_sep with the "
+                             "global matcher")
+    fresh = entry.build_model(cfg, "cuda", seed=1)
+    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
+        os.path.join(out, "LAST"))
+    trained = trainer.model.state_dict()
+    for name, value in fresh.state_dict().items():
+        if not torch.equal(value, trained[name]):
+            raise AssertionError(f"per-choice LAST reloads {name} "
+                                 "differently")
+    epoch_s = [float(x) for x in re.findall(
+        r"Epoch \d+: \d+ steps in ([\d.]+)s", stdout)]
+    del trained, chunks, trainer, _Recorded.made[:]
+    step_ms = per_choice_step_ms(fresh, cfg)
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"per-choice STAR driver: 4 steps (B=8 clips, 32 language rows), "
+        f"losses {losses}, 1 capture and 1 replay, launches ({COUNT_NAMES}) "
+        f"per train step run on the host {counted.train[0]}, per valid "
+        f"forward {counted.eval[0]}; epoch {epoch_s} s; history "
+        f"{result['history']}; LAST reloads bit-equal; {seconds:.1f} s")
+    for extra, want in PER_CHOICE_TEST_MODES:
+        test_out = os.path.join(tmp, "pc_test" + "".join(extra))
+        argv_test = [a if a != out else test_out for a in argv] + [
+            "--test", "test", "--load", os.path.join(out, "LAST")] + extra
+        with _Counted() as counted:
+            result, stdout, test_seconds = run_main(argv_test, star.main)
+        if "Oracle score: 1.0000" not in stdout:
+            raise AssertionError(f"per-choice --test {extra}: oracle score "
+                                 "not 1.0")
+        if not counted.eval or any(c != want for c in counted.eval):
+            raise AssertionError(f"per-choice --test {extra} forwards "
+                                 f"launched {counted.eval}, expected {want}")
+        if set(result["by_qtype"]) != {"Interaction", "Sequence",
+                                       "Prediction", "Feasibility"}:
+            raise AssertionError(f"per-choice --test by_qtype "
+                                 f"{result['by_qtype']}")
+        for name in ("predict.json", "predict_hg.json"):
+            with open(os.path.join(test_out, name)) as f:
+                if len(json.load(f)) != 4:
+                    raise AssertionError(f"per-choice {name} does not hold "
+                                         "4 answers")
+        dump_s["test" + "".join(extra)] = check_dumps(
+            f"per-choice --test --outputAttn {' '.join(extra)}", counted,
+            test_out, 4, PER_CHOICE_DUMPS, HG_TOKENS, grids=True,
+            per_choice=True)
+        log(f"per-choice --test {' '.join(extra)}: oracle 1.0, acc "
+            f"{result['acc']}, hg_acc {result['hg_acc']}, by_qtype "
+            f"{result['by_qtype']}, launches per eval forward "
+            f"{counted.eval[0]}, {test_seconds:.1f} s")
+    seconds = {"driver": time.perf_counter() - t0, "dumps": dump_s,
+               "step_ms": step_ms}
+    t1 = time.perf_counter()
+    base = entry.flagship_cfg()
+    for task, arrange, *want in PER_CHOICE_VARIANTS:
+        cfg = base.replace(task=task, num_answers=NUM_CHOICES,
+                           use_hg_mask=True, loss_hg_per_frame=False,
+                           data=dataclasses.replace(
+                               base.data, dataset="star",
+                               qa_arrange_type=arrange))
+        check_head_variant(f"per-choice {task} {arrange}", cfg,
+                           per_choice_batch(cfg, TASK_BATCH, 13, arrange),
+                           *want, match=2)
+    seconds["variants"] = time.perf_counter() - t1
+    seconds["phase"] = time.perf_counter() - t0
+    log(f"phase 9d (per-choice STAR) seconds {json.dumps(seconds)}")
     return seconds
 
 
@@ -3675,12 +4033,71 @@ def phase_plain_path_card_vs_cpu(case="hgqa"):
         raise AssertionError(f"card and CPU disagree by {worst}")
 
 
+def phase_per_choice_card_vs_cpu():
+    """A tiny f32 per-choice STAR model ('hgqa', add_sep, the global
+    matcher, the hg mask) on the card against the CPU: one forward from
+    frames (every output), then one dumps forward (``output_attentions``:
+    every probability map of the LXRT and the HG encoder, and the global
+    grids of ``matched_target_grid``)."""
+    cfg = tiny_test_config(task="hgqa", num_answers=NUM_CHOICES,
+                           use_hg_mask=True, loss_hg_per_frame=False,
+                           use_pallas_ffn=False)
+    cfg = cfg.replace(data=dataclasses.replace(
+        cfg.data, dataset="star", qa_arrange_type="add_sep"))
+    cpu = entry.build_model(cfg, "cpu", seed=4)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.RandomState(5)
+    d, e = cfg.data, cfg.encoder
+    batch = entry.example_batch(cfg, 2, 5, with_labels=True)
+    batch.pop("visual_mask")
+    batch["frames"] = rng.randint(0, 255, (2, e.visual_t + 8, d.image_size,
+                                           d.image_size, 3)).astype(np.uint8)
+    lt = d.max_seq_length
+    batch["choice_input_ids"] = rng.randint(1, e.vocab_size,
+                                            (2, NUM_CHOICES, lt))
+    batch["choice_input_mask"] = np.ones((2, NUM_CHOICES, lt), np.int32)
+    batch["choice_input_mask"][1, :, lt // 2:] = 0
+    batch["choice_segment_ids"] = np.zeros((2, NUM_CHOICES, lt), np.int32)
+    worst = {}
+    for attn in (False, True):
+        outs = []
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            with torch.inference_mode():
+                y = model(tb, output_attentions=attn)
+                if attn:
+                    y["rel_grid"] = matched_target_grid(
+                        y["rel_preds"], tb["rel_labels"], tb["rel_lengths"],
+                        False, d.num_situations)
+            outs.append(common._flatten_attentions(y))
+        want, got = outs
+        if want.keys() != got.keys():
+            raise AssertionError("per-choice card vs CPU: other outputs")
+        if attn and not any(".attentions.hgq." in k for k in want):
+            raise AssertionError("per-choice dumps forward: no HG maps")
+        if attn and not np.array_equal(want["attn.rel_grid"],
+                                       got["attn.rel_grid"]):
+            raise AssertionError("per-choice card vs CPU: global grids "
+                                 "differ")
+        worst["dumps" if attn else "forward"] = max(
+            float(np.abs(got[k] - want[k]).max() / max(np.abs(
+                want[k]).max(), 1e-30)) for k in want)
+        if attn and got["attn.logit"].shape != (2, NUM_CHOICES):
+            raise AssertionError("per-choice logits of shape "
+                                 f"{got['attn.logit'].shape}")
+    log(f"per-choice card vs CPU (tiny, f32, add_sep, global grids): max "
+        f"rel error {json.dumps(worst)} over every output and map")
+    if max(worst.values()) > 1e-4:
+        raise AssertionError(f"card and CPU disagree by {worst}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
                                            "tok_block", "out_ln_headsliced",
                                            "weights", "steps_per_loop",
-                                           "matcher", "star", "tasks"),
+                                           "matcher", "star", "tasks",
+                                           "per_choice"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -3766,6 +4183,12 @@ def main(argv=None) -> int:
             phase_plain_train_step_card_vs_cpu(name)
         log("AGQA ablations ok")
         return 0
+    if args.only == "per_choice":
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_per_choice(tmp, write_weight_files(tmp))
+        phase_per_choice_card_vs_cpu()
+        log("per-choice STAR ok")
+        return 0
     if args.only == "out_ln_headsliced":
         out_ln_rows, out_ln_err = phase_out_ln_kernel()
         log_out_ln_per_forward(out_ln_rows)
@@ -3817,11 +4240,14 @@ def main(argv=None) -> int:
         star_launches = phase_star_driver(tmp, files)
         clear_outputs(tmp, files["trunk"])
         phase_tasks(tmp, files)
+        clear_outputs(tmp, files["trunk"])
+        per_choice_s = phase_per_choice(tmp, files)
         weight_bytes = files["bytes"]
         del files
     for name in CARD_VS_CPU:
         phase_plain_path_card_vs_cpu(name)
         phase_plain_train_step_card_vs_cpu(name)
+    phase_per_choice_card_vs_cpu()
 
     bsz = BATCH_SIZE
     widest = max(FFN_SITES, key=lambda s: s[1] * rows[s[0] * bsz]["bound_ms"])
@@ -3952,6 +4378,12 @@ def main(argv=None) -> int:
             for b in MATCHER_BATCHES
             if all(matcher_rows[(n, b)][k] is not None
                    for n, *_ in MATCHER_SHAPES)))
+    log("hungarian_square large path (cost in global memory) at b"
+        f"{STAR_BATCH}: " + "; ".join(
+            f"n={n} " + json.dumps({k: v for k, v in row.items()
+                                    if k != "bound"})
+            for (kind, n), row in matcher_rows.items() if kind == "large"))
+    log(f"phase 9d seconds {json.dumps(per_choice_s)}")
     log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; train step device "
         f"memory GiB {json.dumps(train_memory)}; driver epochs {epoch_s} s")
     log(f"steps per loop (k=1 vs a {SPL_K}-step graph) train clips/s: "

@@ -25,22 +25,34 @@ and its test protocol reports ``acc``, ``hg_acc`` and the per-question-type
 Task 'q' (``cli/agqa_q.py``) builds the question-only model: no frame
 loader, no trunk, no ``--backboneWeights``.
 
+With ``--outputAttn`` the driver writes the reference's attention dumps
+(``_dump_attentions``) after ``--test``'s predictions and after training,
+from the valid split.
+
 It runs on the card unless the caller passes ``device="cpu"``.  What the
 port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: ``--outputAttn``, mesh and multi-host flags, ``--loadLXMERT(QA)``
-and the per-choice QA arrangements.
+item: mesh and multi-host flags and ``--loadLXMERT(QA)``.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import time
+import zipfile
 import zlib
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from shgvqa_tpu_torch.configs.cli import parse_reference_flags_with_extras
-from shgvqa_tpu_torch.configs.config import Config, check_ported
+from shgvqa_tpu_torch.configs.config import (
+    HG_TASKS,
+    PER_CHOICE,
+    Config,
+    check_ported,
+)
 from shgvqa_tpu_torch.data.agqa import (
     AGQAData,
     AGQAItemSource,
@@ -54,6 +66,7 @@ from shgvqa_tpu_torch.data.tokenization import (
     build_vocab_from_corpus,
 )
 from shgvqa_tpu_torch.entry import build_model, resolve_device
+from shgvqa_tpu_torch.losses.set_prediction import matched_target_grid
 from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.step import trainable_mask
 
@@ -137,6 +150,12 @@ def _check_driver_flags(cfg: Config, extras: dict, dataset: str) -> None:
         if extras.get(key):
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP queue A item 18)")
+    if dataset != "star" and cfg.data.qa_arrange_type in PER_CHOICE:
+        # AGQA items carry no choices; the JAX driver would train the
+        # plain head under a mask that freezes it (ROADMAP C)
+        raise ValueError(
+            f"--qaArrangeType {cfg.data.qa_arrange_type} is STAR's "
+            "per-choice QA: the AGQA drivers take add_sep_all or no_sep_all")
     check_ported(cfg, video=True, train=not cfg.data.test_split)
 
 
@@ -203,6 +222,9 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
         except (KeyError, TypeError):
             pass  # label-free test split
         q2a, hg_q2a = trainer.predict(prefetch(batcher.epoch(0), device=dev))
+        if cfg.output_attention:
+            results["attention_dumps"] = _dump_attentions(cfg, trainer,
+                                                          batcher, dev)
         results.update(report_test(cfg, data, q2a, hg_q2a))
         return results
 
@@ -263,6 +285,11 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
         evaluate if valid_batcher is not None else None,
     )
     results.update(summary)
+    if cfg.output_attention and valid_batcher is not None:
+        # the reference dumps its attention files from predict() on the
+        # valid split (star.py:540-547)
+        results["attention_dumps"] = _dump_attentions(cfg, trainer,
+                                                      valid_batcher, dev)
     return results
 
 
@@ -300,3 +327,143 @@ def report_test(cfg: Config, data, q2a, hg_q2a) -> dict:
     for k, v in out.items():
         print(f"{k}: {v}", flush=True)
     return out
+
+
+# which cross-stream attention the reference dumps per variant
+# (agqaHGQA.py:35-40 attn_idx: 2 = lang->visn cross, 4 = joint self)
+_ATTN_STREAM = {"cross": "xl", "old": "xl", "self": "vl", "cross_self": "vl"}
+
+
+def _host(x) -> np.ndarray:
+    """A tensor as a numpy array on the host, bf16 widened to f32."""
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return x.cpu().numpy()
+
+
+def _savez(path: str, **arrays) -> None:
+    """``np.savez_compressed``'s file (a deflated zip of ``<key>.npy``
+    members, ``np.load`` reads it) at deflate level 1: a dumps batch holds
+    ~0.3-1.2 GB of f32 maps, which zlib's default level 6 takes minutes
+    to write and hardly shrinks more."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED,
+                         compresslevel=1) as z:
+        for key, value in arrays.items():
+            with z.open(f"{key}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(value),
+                                          allow_pickle=False)
+
+
+def _flatten_attentions(attn) -> dict:
+    """The attentions tree as the npz's flat ``attn.<key>.<index>`` map."""
+    flat = {}
+
+    def add(prefix, obj):
+        if obj is None:
+            return
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                add(f"{prefix}.{k}", v)
+        elif isinstance(obj, list):
+            for i, v in enumerate(obj):
+                add(f"{prefix}.{i}", v)
+        else:
+            flat[prefix] = _host(obj)
+
+    add("attn", attn)
+    return flat
+
+
+def _dump_attentions(cfg: Config, trainer: Trainer, batcher: Batcher,
+                     device, max_batches: int = 4) -> dict:
+    """``--outputAttn``: the reference's per-question attention dumps from
+    predict, the port of the JAX ``_dump_attentions``:
+    ``{output}/val_attentions_cross_2.json`` (the answer head's entries,
+    with the Hungarian-matched rel/act grids where the batch has labels)
+    and ``{output}/hg_val_attentions_cross_2.json`` (the hg head's), plus
+    every map of the forward in ``{output}/attentions/batchNNN.npz``, for
+    the first ``max_batches`` batches.
+
+    Per question the "attention" is the CLS-query row of the LAST HG
+    cross step's stream of ``_ATTN_STREAM``, over heads.  The forward runs
+    every attention on the plain path (the kernels return no
+    probabilities); the FFN kernel and, for the global grids, the matcher
+    kernel run as they are set.  Maps in bf16 are written as f32, the npz
+    at deflate level 1 (``_savez``).
+
+    Two departures from the JAX driver (ROADMAP C): under per-choice QA
+    the HG cross encoder has B x C rows, and question i dumps row
+    ``i * C + c`` of the choice c its file's head answered, where JAX
+    takes row i (another clip's row); a model without ``hg_logit``
+    ('q', 'vqa') dumps its ``logit`` answers in the hg file, where JAX
+    raises ``KeyError``.  Returns {"questions", "batches", "seconds"}."""
+    start = time.perf_counter()
+    model = trainer.model
+    has_hg_labels = cfg.task in HG_TASKS and not cfg.gt_hg
+    per_choice = cfg.task != "q" and cfg.data.qa_arrange_type in PER_CHOICE
+    out_dir = os.path.join(cfg.output, "attentions")
+    os.makedirs(out_dir, exist_ok=True)
+    stream = _ATTN_STREAM[cfg.encoder.cross_attn_type]
+    results, hg_results = [], []
+    model.eval()
+    n_batches = 0
+    for bi, batch in enumerate(prefetch(batcher.epoch(0), device=device)):
+        if bi >= max_batches:
+            break
+        n_batches += 1
+        batch = dict(batch)
+        qids = batch.pop("ques_id")
+        n_valid = batch.pop("n_valid", len(qids))
+        with torch.inference_mode():
+            out = model(batch, output_attentions=True)
+            if has_hg_labels and "rel_preds" in out and "rel_labels" in batch:
+                # get_target_classes grids (agqaHGQA.py:548-559)
+                for kind in ("rel", "act"):
+                    out[f"{kind}_grid"] = matched_target_grid(
+                        out[f"{kind}_preds"], batch[f"{kind}_labels"],
+                        batch[f"{kind}_lengths"],
+                        per_frame=cfg.loss_hg_per_frame,
+                        num_situations=cfg.data.num_situations)
+        attn = out.get("attentions", {})
+        hgq_layers = attn.get("hgq") or []
+        cls_rows = None
+        if hgq_layers and hgq_layers[-1].get(stream) is not None:
+            # (rows, H, Lq, Lk) -> the CLS query's row over heads
+            cls_rows = _host(hgq_layers[-1][stream][:, :, 0, :])
+        host = {k: _host(out[k]) for k in ("logit", "hg_logit", "rel_grid",
+                                            "act_grid") if k in out}
+        label = host["logit"].argmax(-1)
+        hg_label = host.get("hg_logit", host["logit"]).argmax(-1)
+        # per choice the HG encoder's rows are (clip, choice)
+        stride = 1 if cls_rows is None else cls_rows.shape[0] // len(qids)
+
+        def row(i, choice):
+            if cls_rows is None:
+                return []
+            return cls_rows[i * stride + (choice if per_choice else 0)
+                            ].tolist()
+
+        for i, qid in enumerate(qids[:n_valid]):
+            entry = {"questionId": qid, "prediction": int(label[i]),
+                     "attention": row(i, int(label[i]))}
+            if "rel_grid" in host:
+                entry["act_gt"] = _host(batch["act_labels"][i]).tolist()
+                entry["act_pred"] = host["act_grid"][i].tolist()
+                entry["rel_gt"] = _host(batch["rel_labels"][i]).tolist()
+                entry["rel_pred"] = host["rel_grid"][i].tolist()
+            results.append(entry)
+            hg_results.append({"questionId": qid,
+                               "prediction": int(hg_label[i]),
+                               "attention": row(i, int(hg_label[i]))})
+        flat = _flatten_attentions(attn)
+        if flat:
+            _savez(os.path.join(out_dir, f"batch{bi:03d}.npz"),
+                   ques_ids=np.asarray(qids), **flat)
+    for name, payload in (("val_attentions_cross_2.json", results),
+                          ("hg_val_attentions_cross_2.json", hg_results)):
+        with open(os.path.join(cfg.output, name), "w") as f:
+            json.dump(payload, f)
+    print(f"attention dumps written to {cfg.output} "
+          f"({len(results)} questions; npz maps in {out_dir})", flush=True)
+    return {"questions": len(results), "batches": n_batches,
+            "seconds": time.perf_counter() - start}

@@ -269,6 +269,10 @@ def tiny_test_config(**overrides) -> Config:
 # the tasks whose model predicts a hypergraph
 HG_TASKS = ("hgqa", "vhga", "hgvqa")
 
+# STAR's per-choice QA arrangements (--qaArrangeType): one encoding per
+# (question, choice) pair, scored by the model's scalar choice head
+PER_CHOICE = ("add_sep", "no_sep")
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float64": torch.float64}
 
@@ -284,7 +288,6 @@ _UNPORTED = (
     ("encoder.shared_weights", False, "17 (--sharedWeights)"),
     ("encoder.patches", False, "17 (--patches)"),
     ("encoder.vit_init", False, "17 (--vitInit)"),
-    ("output_attention", False, "15 (--outputAttn)"),
 )
 
 # options only training reads
@@ -305,11 +308,6 @@ def check_ported(cfg: Config, video: bool = False, train: bool = False
 
     ``video=True`` also checks the frames path (backbone options);
     ``train=True`` the options only training reads."""
-    if cfg.data.qa_arrange_type in ("add_sep", "no_sep"):
-        raise NotImplementedError(
-            f"per-choice QA (--qaArrangeType {cfg.data.qa_arrange_type}) is "
-            "not ported yet (ROADMAP queue A item 15); the port supports "
-            "add_sep_all and no_sep_all")
     checks = (_UNPORTED + (_VIDEO_UNPORTED if video else ())
               + (_TRAIN_UNPORTED if train else ()))
     for path, want, item in checks:

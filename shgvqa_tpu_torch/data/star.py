@@ -4,9 +4,10 @@ rebuild of ``STARDataset``/``STARTorchDataset`` (``star_data.py:28-291``).
 Semantics preserved:
 - 4-way multiple choice: the QA string packs question + choices via
   QAInputArrange (``data_transforms.py:137-165``), all choices in one
-  string (``add_sep_all`` / ``no_sep_all``; the per-choice arrangements
-  are not ported yet, ROADMAP queue A item 15); answer target is the
-  choice index (``star_data.py:250-252``).
+  string (``add_sep_all`` / ``no_sep_all``), or per choice (``add_sep`` /
+  ``no_sep``: four encodings an item, each scored by the model's scalar
+  choice head); answer target is the choice index
+  (``star_data.py:250-252``).
 - question-type filtering: keep datums whose question_id contains --qType;
   during TRAINING, Prediction/Feasibility are augmented with
   Interaction/Sequence questions over videos from
@@ -30,7 +31,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from shgvqa_tpu_torch.configs.config import Config
+from shgvqa_tpu_torch.configs.config import PER_CHOICE, Config
 from shgvqa_tpu_torch.data import featurize
 from shgvqa_tpu_torch.data import synthetic as synth
 from shgvqa_tpu_torch.evalsuite.star import STAREvaluator
@@ -45,6 +46,10 @@ QA_ARRANGERS = {
         f" {k}: {v} [SEP]" for k, v in ch.items()),
     "no_sep_all": lambda q, ch: q + " " + " ".join(
         f" {k}: {v}" for k, v in ch.items()),
+    "add_sep": lambda q, ch: {
+        f"qa{k}": f"{q} [SEP] {k}: {v}" for k, v in ch.items()},
+    "no_sep": lambda q, ch: {
+        f"qa{k}": f"{q} {k}: {v}" for k, v in ch.items()},
 }
 
 
@@ -176,15 +181,29 @@ class STARItemSource:
         self.test_mode = test_mode
         self.frame_loader = frame_loader
         d = cfg.data
-        if d.qa_arrange_type not in QA_ARRANGERS:
-            raise NotImplementedError(
-                f"--qaArrangeType {d.qa_arrange_type} (per-choice QA) is not "
-                "ported yet (ROADMAP queue A item 15)")
         arrange = QA_ARRANGERS[d.qa_arrange_type]
-        texts = [arrange(datum["question"], self._choices(datum))
-                 for datum in data.datums]
+        self.per_choice = d.qa_arrange_type in PER_CHOICE
+        texts = []
+        choice_texts = []
+        for datum in data.datums:
+            qa = arrange(datum["question"], self._choices(datum))
+            if isinstance(qa, dict):
+                # per-choice arrangement: four encodings an item, the
+                # question alone as the primary text
+                choice_texts.append([qa[f"qa{i}"] for i in range(len(qa))])
+                texts.append(datum["question"])
+            else:
+                texts.append(qa)
         self.text = featurize.encode_questions(
             texts, tokenizer, d.max_seq_length)
+        self.choice_text = None
+        if self.per_choice and choice_texts:
+            n, c = len(choice_texts), len(choice_texts[0])
+            flat = [t for row in choice_texts for t in row]
+            enc = featurize.encode_questions(flat, tokenizer,
+                                             d.max_seq_length)
+            self.choice_text = {k: v.reshape(n, c, d.max_seq_length)
+                                for k, v in enc.items()}
 
     @staticmethod
     def _choices(datum: dict) -> Dict[str, str]:
@@ -229,6 +248,9 @@ class STARItemSource:
             "input_mask": self.text["input_mask"][i],
             "segment_ids": self.text["segment_ids"][i],
         }
+        if self.choice_text is not None:
+            for k in ("input_ids", "input_mask", "segment_ids"):
+                item[f"choice_{k}"] = self.choice_text[k][i]
         if cfg.task != "q":
             if self.frame_loader is not None:
                 fids = trim_keyframes(datum, d.clip_len)

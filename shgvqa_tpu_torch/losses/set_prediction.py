@@ -52,6 +52,30 @@ def matched_top1_accuracy(logits: torch.Tensor, targets: torch.Tensor,
                        0.0)
 
 
+def matched_target_grid(logits: torch.Tensor, labels: torch.Tensor,
+                        lengths: torch.Tensor, per_frame: bool,
+                        num_situations: int, background_idx: int = 0
+                        ) -> torch.Tensor:
+    """The reference's ``get_target_classes`` grid (``agqaHGQA.py:178-201``):
+    matched queries carry their Hungarian-assigned target class, all
+    others the background index, as (B, num_situations, Q / S), the layout
+    the attention dumps write.  logits (B, Q, C); labels and lengths as
+    ``hungarian_set_loss`` takes them.  Per frame through the subset DP,
+    globally through ``match_targets_global`` (on the card the matcher
+    kernel)."""
+    b, q, c = logits.shape
+    s = num_situations
+    if per_frame:
+        grid, _ = match_targets_per_frame(logits.reshape(b, s, q // s, c),
+                                          labels, lengths, background_idx)
+    else:
+        if labels.dim() == 3:
+            labels, lengths = compact_labels(labels, lengths)
+        grid, _ = match_targets_global(logits, labels, lengths,
+                                       background_idx)
+    return grid.reshape(b, s, -1)
+
+
 def hungarian_set_loss(logits: torch.Tensor, labels: torch.Tensor,
                        lengths: torch.Tensor, class_weights: torch.Tensor,
                        per_frame: bool, num_situations: int,

@@ -15,7 +15,10 @@
 
 Every attention goes through the port's ``SelfAttLayer`` / ``CrossAttLayer``
 and every FFN through ``FFN``, so the kernel switches reach every site.
-Masks are ADDITIVE (already extended) or None."""
+Masks are ADDITIVE (already extended) or None.  With ``return_probs`` a
+layer also returns its attention probabilities as the JAX layers key them:
+``{"xl", "xv"}`` (lang<-visn, visn<-lang) for ``CrossLayer``, ``{"vl"}``
+(the joint self-attention) for the other two."""
 
 from __future__ import annotations
 
@@ -44,7 +47,15 @@ class CrossLayer(nn.Module):
         self.visn_ffn = FFN(hidden_size, intermediate_size, dtype, use_kernel,
                             hidden_dropout)
 
-    def forward(self, lang, lang_mask, visn, visn_mask, g=None, step=0):
+    def forward(self, lang, lang_mask, visn, visn_mask, g=None, step=0,
+                return_probs: bool = False):
+        if return_probs:
+            lang_att, p_xl = self.visual_attention(lang, visn, visn_mask, g,
+                                                   True)
+            visn_att, p_xv = self.visual_attention(visn, lang, lang_mask, g,
+                                                   True)
+            return (self.lang_ffn(lang_att, g), self.visn_ffn(visn_att, g),
+                    {"xl": p_xl, "xv": p_xv})
         lang_att = self.visual_attention(lang, visn, visn_mask, g)
         visn_att = self.visual_attention(visn, lang, lang_mask, g)
         return self.lang_ffn(lang_att, g), self.visn_ffn(visn_att, g)
@@ -64,7 +75,8 @@ class SelfCrossLayer(nn.Module):
         self.vl_ffn = FFN(hidden_size, intermediate_size, dtype, use_kernel,
                           hidden_dropout)
 
-    def forward(self, lang, lang_mask, visn, visn_mask, g=None, step=0):
+    def forward(self, lang, lang_mask, visn, visn_mask, g=None, step=0,
+                return_probs: bool = False):
         if step == 0:
             joint = torch.cat([visn, lang], dim=1)
             joint_mask = _cat_masks(visn_mask, lang_mask, visn.shape[1],
@@ -72,7 +84,12 @@ class SelfCrossLayer(nn.Module):
         else:
             # later layers receive the already-joint sequence as `visn`
             joint, joint_mask = visn, visn_mask
-        out = self.vl_ffn(self.cross_att(joint, joint_mask, g), g)
+        att = self.cross_att(joint, joint_mask, g, return_probs)
+        if return_probs:
+            att, probs = att
+        out = self.vl_ffn(att, g)
+        if return_probs:
+            return out[:, -lang.shape[1]:], out, {"vl": probs}
         return out[:, -lang.shape[1]:], out
 
 
@@ -94,14 +111,20 @@ class CrossAndSelfLayer(nn.Module):
         self.vl_ffn = FFN(hidden_size, intermediate_size, dtype, use_kernel,
                           hidden_dropout)
 
-    def forward(self, lang, lang_mask, visn, visn_mask, g=None, step=0):
+    def forward(self, lang, lang_mask, visn, visn_mask, g=None, step=0,
+                return_probs: bool = False):
         lang_att = self.visual_attention(lang, visn, visn_mask, g)
         visn_att = self.visual_attention(visn, lang, lang_mask, g)
         joint = torch.cat([visn_att, lang_att], dim=1)
         joint_mask = _cat_masks(visn_mask, lang_mask, visn_att.shape[1],
                                 lang_att.shape[1])
-        out = self.vl_ffn(self.self_att_layer(joint, joint_mask, g), g)
+        att = self.self_att_layer(joint, joint_mask, g, return_probs)
+        if return_probs:
+            att, probs = att
+        out = self.vl_ffn(att, g)
         visn_len = visn.shape[1]
+        if return_probs:
+            return out[:, visn_len:], out[:, :visn_len], {"vl": probs}
         return out[:, visn_len:], out[:, :visn_len]
 
 

@@ -28,6 +28,7 @@ from shgvqa_tpu_torch.models.layers import (
     Dropout,
     LayerNorm,
     attention_core,
+    kernels_allowed,
 )
 
 
@@ -62,7 +63,7 @@ class TorchMHA(nn.Module):
         hd = d // h
         q, k, v = (self._project(query, 0), self._project(key, 1),
                    self._project(value, 2))
-        if self.headsliced and not self.training:
+        if self.headsliced and not self.training and kernels_allowed():
             return self.out_proj(headsliced_attention(q, k, v, attn_mask, h))
         out = attention_core(q.view(b, lq, h, hd).transpose(1, 2),
                              k.view(b, lk, h, hd).transpose(1, 2),

@@ -15,6 +15,9 @@
   ``Pooler(visn)`` under every other type, 'old' included.
 - ``LanguageEncoder`` is task 'q''s question-only model: embeddings,
   ``l_{i}`` and ``Pooler``.
+- With ``output_attentions`` (the attention dumps) the encoders also
+  return the probabilities of every layer as the JAX package does:
+  ``{"lang": [l_i], "visn": [r_i], "cross": [each x-step's dict]}``.
 """
 
 from __future__ import annotations
@@ -61,24 +64,44 @@ class TriStreamEncoder(nn.Module):
         self.joint = c.cross_attn_type == "self"
 
     def forward(self, lang_emb, lang_mask, visual_feats, visn_mask=None,
-                g=None):
+                g=None, output_attentions: bool = False):
         """lang_emb (B, Lt, D); lang_mask additive (B,1,1,Lt) or None;
         visual_feats (B, T, H, W, C).  Returns (lang, visn, lang_snapshot,
-        visn_snapshot)."""
+        visn_snapshot), and with ``output_attentions`` the attentions."""
+        attn = {"lang": [], "visn": [], "cross": []}
+
+        def run(layer, *args):
+            if not output_attentions:
+                return layer(*args)
+            *outs, probs = layer(*args, return_probs=True)
+            return outs[0] if len(outs) == 1 else tuple(outs), probs
+
         visn = self.visual_tokenizer(visual_feats, g)
         lang = lang_emb
         for name in self.l_names:
-            lang = getattr(self, name)(lang, lang_mask, g)
+            lang = run(getattr(self, name), lang, lang_mask, g)
+            if output_attentions:
+                lang, p = lang
+                attn["lang"].append(p)
         for name in self.r_names:
-            visn = getattr(self, name)(visn, visn_mask, g)
+            visn = run(getattr(self, name), visn, visn_mask, g)
+            if output_attentions:
+                visn, p = visn
+                attn["visn"].append(p)
         lang_snapshot, visn_snapshot = lang, visn
         for step, name in enumerate(self.x_names):
-            lang, visn = getattr(self, name)(lang, lang_mask, visn, visn_mask,
-                                             g, step)
+            out = run(getattr(self, name), lang, lang_mask, visn, visn_mask,
+                      g, step)
+            if output_attentions:
+                out, p = out
+                attn["cross"].append(p)
+            lang, visn = out
             if self.joint and step == 0:
                 visn_mask = _cat_masks(visn_mask, lang_mask,
                                        visn.shape[1] - lang.shape[1],
                                        lang.shape[1])
+        if output_attentions:
+            return lang, visn, lang_snapshot, visn_snapshot, attn
         return lang, visn, lang_snapshot, visn_snapshot
 
 
@@ -131,20 +154,22 @@ class LXRTModel(nn.Module):
         self.deaf = deaf
 
     def forward(self, input_ids, input_mask, segment_ids, visual_feats,
-                visual_mask=None, g=None):
+                visual_mask=None, g=None, output_attentions: bool = False):
         """visual_mask: {0,1} (B, Lv) over the visual tokens, or None.
         Returns (pooled, lang, visn, lang_snapshot, visn_snapshot,
-        lang_ext_mask)."""
+        lang_ext_mask), and with ``output_attentions`` the encoder's
+        attentions."""
         if self.deaf:
             input_mask = torch.zeros_like(input_mask)
         lang_ext = extend_mask(input_mask, self.dtype)
         visn_ext = (extend_mask(visual_mask, self.dtype)
                     if visual_mask is not None else None)
         emb = self.embeddings(input_ids, segment_ids, g)
-        lang, visn, lang_snap, visn_snap = self.encoder(
-            emb, lang_ext, visual_feats, visn_ext, g)
+        enc = self.encoder(emb, lang_ext, visual_feats, visn_ext, g,
+                           output_attentions)
+        lang, visn, lang_snap, visn_snap = enc[:4]
         # under 'self' / 'cross_self' the joint stream is `visn`: Pooler
         # takes its first token
         pooled = (self.pooler(visn, lang) if isinstance(self.pooler, Pooler2)
                   else self.pooler(visn))
-        return pooled, lang, visn, lang_snap, visn_snap, lang_ext
+        return (pooled, lang, visn, lang_snap, visn_snap, lang_ext) + enc[4:]

@@ -16,6 +16,8 @@ of ``shgvqa_tpu/models/hg.py``.
   With an ``hg_mask`` (``--useHGMask``: 1 on the slots that hold a label),
   a 1 for the CLS token is prepended and it becomes the additive -10000
   key mask, in the compute dtype, of every attention over the hg tokens.
+  With ``output_attentions`` it also returns each x-step's probabilities
+  (the cross layer's dict), as the JAX encoder's list.
 """
 
 from __future__ import annotations
@@ -97,10 +99,11 @@ class HGQCrossEncoder(nn.Module):
         self.cls_token.zero_()
 
     def forward(self, lang_feats, lang_ext_mask, hg_feats, g=None,
-                hg_mask=None):
+                hg_mask=None, output_attentions: bool = False):
         """lang_feats (B, Lt, D); lang_ext_mask additive (B,1,1,Lt);
         hg_feats (B, S*(A+R), D); hg_mask {0,1} (B, S, A+R) or (B,
-        S*(A+R)), or None.  Returns the pooled (B, D)."""
+        S*(A+R)), or None.  Returns the pooled (B, D), and with
+        ``output_attentions`` the list of each x-step's probabilities."""
         b, total, d = hg_feats.shape
         slots = self.num_max_act + self.num_max_rel
         type_tokens = torch.cat(
@@ -117,12 +120,16 @@ class HGQCrossEncoder(nn.Module):
                               hg_mask.reshape(b, -1)], dim=1)
             hg_ext = extend_mask(full, self.dtype)
         lang = lang_feats
+        attn = []
         for step in range(self.x_layers):
-            lang, hg = self.x_tied(lang, lang_ext_mask, hg, hg_ext, g, step)
+            out = self.x_tied(lang, lang_ext_mask, hg, hg_ext, g, step,
+                              output_attentions)
+            lang, hg = out[:2]
+            attn.extend(out[2:])
             if self.joint and step == 0:
                 hg_ext = _cat_masks(hg_ext, lang_ext_mask,
                                     hg.shape[1] - lang.shape[1],
                                     lang.shape[1])
-        if isinstance(self.pooler, Pooler2):
-            return self.pooler(hg, lang)
-        return self.pooler(hg)
+        pooled = (self.pooler(hg, lang) if isinstance(self.pooler, Pooler2)
+                  else self.pooler(hg))
+        return (pooled, attn) if output_attentions else pooled

@@ -24,7 +24,14 @@ Semantics kept from the JAX package:
   ``kernel_eval`` (``use_pallas_attention``, ``--pallasAttention``), the
   forward kernel at rate 0 outside training too, as the JAX ``Attention``
   does; otherwise the plain path (``attend``), which drops the
-  probabilities after their cast to the compute dtype;
+  probabilities after their cast to the compute dtype.  With
+  ``return_probs`` (the attention dumps, ``--outputAttn``) every site takes
+  the plain path whatever the switches say, since the kernels return no
+  probabilities, and gives (output, probabilities in the compute dtype),
+  as the JAX ``Attention(return_probs=True)`` does; ``SelfAttLayer``,
+  ``CrossAttLayer`` and ``BertLayer`` pass them on.  A dumps forward runs
+  under ``plain_attention()``, so the sites that return no probabilities
+  (the decoders') take the plain path too;
 - two switches the JAX package wires into no model, off by default and
   read outside training only: ``set_headsliced_kernel`` sends every
   attention site's projections as they are, (B, L, H*D), to
@@ -43,6 +50,7 @@ one seeded ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -168,26 +176,51 @@ def extend_mask(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return ((1.0 - m) * NEG_MASK)[:, None, None, :]
 
 
-def attend(q, k, v, mask, dtype, drop: Optional[Dropout] = None, g=None):
+def attend(q, k, v, mask, dtype, drop: Optional[Dropout] = None, g=None,
+           return_probs: bool = False):
     """Heads-first attention core, (B, H, Lq, hd) over (B, H, Lk, hd): f32
     scores scaled by 1/sqrt(hd), the additive mask added in f32, f32
     softmax, probabilities cast to ``dtype`` (then dropped by ``drop``) for
-    the product with v."""
+    the product with v.  With ``return_probs`` also the probabilities
+    before dropout, (B, H, Lq, Lk)."""
     scores = torch.matmul(q, k.transpose(-1, -2)).float()
     scores = scores / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    if drop is not None:
-        probs = drop(probs, g)
-    return torch.matmul(probs, v)
+    dropped = probs if drop is None else drop(probs, g)
+    out = torch.matmul(dropped, v)
+    return (out, probs) if return_probs else out
+
+
+_PLAIN = [0]
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every attention site inside takes the plain path, whatever its
+    switches say (the attention dumps' forward)."""
+    _PLAIN[0] += 1
+    try:
+        yield
+    finally:
+        _PLAIN[0] -= 1
+
+
+def kernels_allowed() -> bool:
+    """False inside ``plain_attention()``."""
+    return not _PLAIN[0]
 
 
 def attention_core(q, k, v, mask, dtype, drop: Dropout, kernel_train: bool,
-                   g=None, kernel_eval: bool = False):
+                   g=None, kernel_eval: bool = False,
+                   return_probs: bool = False):
     """The attention core of a site: the fused kernels in training with
     ``kernel_train``, the fused forward at rate 0 outside training with
-    ``kernel_eval``, else ``attend``.  Returns (B, H, Lq, hd)."""
+    ``kernel_eval``, else ``attend``.  Returns (B, H, Lq, hd); with
+    ``return_probs`` always ``attend``'s (output, probabilities)."""
+    if return_probs or not kernels_allowed():
+        return attend(q, k, v, mask, dtype, drop, g, return_probs)
     if drop.training and kernel_train:
         return fused_attention(q, k, v, mask, drop.rate, g)
     if not drop.training and kernel_eval:
@@ -327,19 +360,27 @@ class Attention(nn.Module):
         self.kernel_eval = False
         self.headsliced = False
 
-    def forward(self, hidden, context, mask=None, g=None):
+    def forward(self, hidden, context, mask=None, g=None,
+                return_probs: bool = False):
+        """(B, Lq, H*hd); with ``return_probs`` (output, probabilities
+        (B, H, Lq, Lk)) from the plain path."""
         b, lq, _ = hidden.shape
         lk = context.shape[1]
         h, hd = self.num_heads, self.head_dim
         q, k, v = (self.query(hidden), self.key(context),
                    self.value(context))
-        if self.headsliced and not self.training:
+        if (self.headsliced and not self.training and not return_probs
+                and kernels_allowed()):
             return headsliced_attention(q, k, v, mask, h)
         out = attention_core(q.view(b, lq, h, hd).transpose(1, 2),
                              k.view(b, lk, h, hd).transpose(1, 2),
                              v.view(b, lk, h, hd).transpose(1, 2), mask,
                              self.dtype, self.probs_dropout,
-                             self.kernel_train, g, self.kernel_eval)
+                             self.kernel_train, g, self.kernel_eval,
+                             return_probs)
+        if return_probs:
+            out, probs = out
+            return out.transpose(1, 2).reshape(b, lq, h * hd), probs
         return out.transpose(1, 2).reshape(b, lq, h * hd)
 
 
@@ -378,7 +419,10 @@ class SelfAttLayer(nn.Module):
                               attn_dropout, kernel_train)
         self.output = AttOutput(hidden_size, dtype, hidden_dropout)
 
-    def forward(self, x, mask=None, g=None):
+    def forward(self, x, mask=None, g=None, return_probs: bool = False):
+        if return_probs:
+            out, probs = self.self(x, x, mask, g, True)
+            return self.output(out, x, g), probs
         return self.output(self.self(x, x, mask, g), x, g)
 
 
@@ -393,7 +437,11 @@ class CrossAttLayer(nn.Module):
                              attn_dropout, kernel_train)
         self.output = AttOutput(hidden_size, dtype, hidden_dropout)
 
-    def forward(self, x, context, ctx_mask=None, g=None):
+    def forward(self, x, context, ctx_mask=None, g=None,
+                return_probs: bool = False):
+        if return_probs:
+            out, probs = self.att(x, context, ctx_mask, g, True)
+            return self.output(out, x, g), probs
         return self.output(self.att(x, context, ctx_mask, g), x, g)
 
 
@@ -445,7 +493,10 @@ class BertLayer(nn.Module):
         self.ffn = FFN(hidden_size, intermediate_size, dtype, use_kernel,
                        hidden_dropout)
 
-    def forward(self, x, mask=None, g=None):
+    def forward(self, x, mask=None, g=None, return_probs: bool = False):
+        if return_probs:
+            x, probs = self.attention(x, mask, g, True)
+            return self.ffn(x, g), probs
         return self.ffn(self.attention(x, mask, g), g)
 
 

@@ -26,6 +26,21 @@ The other tasks: 'q' is the question-only ``LanguageEncoder``
 follow ``encoder.cross_attn_type`` and ``tie_x_layers``
 (``models/encoder.py``, ``models/hg.py``).
 
+Per-choice QA (STAR's ``--qaArrangeType add_sep|no_sep``, every task but
+'q'): the batch's ``choice_input_ids`` / ``_mask`` / ``_segment_ids``
+(B, C, Lt) fold the choice axis into the batch on the language side and
+repeats the visual features (and ``visual_mask``) per choice before the
+LXRT, as JAX does; ``logit`` is ``choice_score_fc(pooled)`` as (B, C).  The
+hypergraph is decoded ONCE per clip, from choice 0's pre-cross snapshot;
+its tokens and ``hg_mask`` repeat per choice into the HG cross encoder, and
+``hg_logit`` is ``choice_score_fc(x_hg)`` (under 'hgvqa'
+``choice_score_fc2`` on concat(pooled, x_hg)) as (B, C).
+
+``forward(..., output_attentions=True)`` (``--outputAttn``) adds
+``attentions``: ``{"encoder": the LXRT's dict, "hgq": the HG encoder's
+list}``.  Every attention site then takes the plain path, whatever the
+kernel switches say, since the kernels return no probabilities.
+
 In training mode (``model.train()``) every dropout site drops, with masks
 drawn from the ``generator`` passed to ``forward`` (the device's default
 generator when None), the training attention sites run the fused kernels
@@ -54,6 +69,7 @@ from torch import nn
 
 from shgvqa_tpu_torch.configs.config import (
     HG_TASKS,
+    PER_CHOICE,
     Config,
     check_ported,
     torch_dtype,
@@ -72,6 +88,7 @@ from shgvqa_tpu_torch.models.hg import HGEmbeddings, HGQCrossEncoder
 from shgvqa_tpu_torch.models.layers import (
     Dense,
     MLPHead,
+    plain_attention,
     set_attention_kernel_eval,
     set_ffn_train_kernel,
 )
@@ -122,7 +139,7 @@ class ShgVqaModel(nn.Module):
             self.hgq_encoder = HGQCrossEncoder(
                 enc, num_max_act=data.num_act, num_max_rel=data.num_rel,
                 dtype=dt, use_kernel=kernel, kernel_train=kernel_train)
-            if cfg.task == "hgvqa":
+            if cfg.task == "hgvqa" and data.qa_arrange_type not in PER_CHOICE:
                 self.logit_fc2 = MLPHead(2 * d, cfg.num_answers, dtype=dt)
             for kind, slots in (("rel", data.num_rel), ("act", data.num_act)):
                 self.register_buffer(f"{kind}_seg", torch.as_tensor(
@@ -130,19 +147,34 @@ class ShgVqaModel(nn.Module):
                     persistent=False)
                 self.register_buffer(f"{kind}_mask", torch.as_tensor(
                     situation_causal_mask(s, slots)), persistent=False)
-        self.logit_fc = MLPHead(d, cfg.num_answers, dtype=dt)
+        # per-choice QA: each (question, choice) pair scored by a scalar
+        # head (the reference never wired its qa0..qa3 into a model); the
+        # answer heads, which no per-choice forward reads, are not built,
+        # as flax creates no parameters for them
+        if cfg.task != "q" and data.qa_arrange_type in PER_CHOICE:
+            self.choice_score_fc = MLPHead(d, 1, dtype=dt)
+            if cfg.task == "hgvqa":
+                self.choice_score_fc2 = MLPHead(2 * d, 1, dtype=dt)
+        else:
+            self.logit_fc = MLPHead(d, cfg.num_answers, dtype=dt)
         set_ffn_train_kernel(self, cfg.use_pallas_ffn_train)
         set_attention_kernel_eval(self, cfg.use_pallas_attention)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                output_attentions: bool = False) -> Dict[str, torch.Tensor]:
         """batch: input_ids, input_mask, segment_ids (B, Lt) ints;
-        visual_feats (B, T, H, W, C); optional visual_mask (B, Lv) {0,1}.
-        ``generator`` draws the dropout masks in training mode."""
-        if "choice_input_ids" in batch:
-            raise NotImplementedError(
-                "per-choice QA is not ported yet (ROADMAP queue A item 15)")
+        visual_feats (B, T, H, W, C); optional visual_mask (B, Lv) {0,1};
+        per choice also choice_input_ids, choice_input_mask,
+        choice_segment_ids (B, C, Lt).  ``generator`` draws the dropout
+        masks in training mode.  With ``output_attentions`` every attention
+        site runs the plain path (``layers.plain_attention``)."""
+        if output_attentions:
+            with plain_attention():
+                return self._forward(batch, generator, True)
+        return self._forward(batch, generator, False)
+
+    def _forward(self, batch, generator, output_attentions):
         cfg = self.cfg
         if self.training:
             check_ported(cfg, train=True)
@@ -152,19 +184,41 @@ class ShgVqaModel(nn.Module):
                 batch["input_ids"], batch["input_mask"],
                 batch.get("segment_ids"), g)
             return {"logit": self.logit_fc(pooled)}
-        pooled, lang, visn, lang_snap, visn_snap, lang_ext = self.lxrt(
-            batch["input_ids"], batch["input_mask"], batch.get("segment_ids"),
-            batch["visual_feats"], batch.get("visual_mask"), g)
-        logit = self.logit_fc(pooled)
+        per_choice = cfg.data.qa_arrange_type in PER_CHOICE
+        if per_choice and "choice_input_ids" not in batch:
+            raise ValueError(
+                f"--qaArrangeType {cfg.data.qa_arrange_type} builds the "
+                "per-choice heads only: a batch must carry choice_input_ids "
+                "(STAR items do)")
+        vfeats, vmask = batch["visual_feats"], batch.get("visual_mask")
+        if per_choice:
+            bsz, nch, lt = batch["choice_input_ids"].shape
+            ids, imask, seg = (batch[f"choice_{k}"].reshape(bsz * nch, lt)
+                               for k in ("input_ids", "input_mask",
+                                         "segment_ids"))
+            vfeats = vfeats.repeat_interleave(nch, dim=0)
+            if vmask is not None:
+                vmask = vmask.repeat_interleave(nch, dim=0)
+        else:
+            ids, imask = batch["input_ids"], batch["input_mask"]
+            seg = batch.get("segment_ids")
+        enc = self.lxrt(ids, imask, seg, vfeats, vmask, g, output_attentions)
+        pooled, lang, visn, lang_snap, visn_snap, lang_ext = enc[:6]
+        out = {"attentions": {"encoder": enc[6]}} if output_attentions else {}
+        out["logit"] = (self.choice_score_fc(pooled).reshape(bsz, nch)
+                        if per_choice else self.logit_fc(pooled))
         if cfg.task == "vqa":
-            return {"logit": logit}
+            return out
 
         memory = visn if cfg.after_cross_attn_feats else visn_snap
         lang_feats = lang if cfg.after_cross_attn_feats else lang_snap
+        if per_choice:
+            # the pre-cross visual snapshot is the same for a clip's
+            # choices: decode the hypergraph once a clip
+            memory = memory.reshape(bsz, nch, *memory.shape[1:])[:, 0]
         b = memory.shape[0]
         s, d = cfg.data.num_situations, cfg.encoder.hidden_size
         rel_seg, act_seg = self.rel_seg.expand(b, -1), self.act_seg.expand(b, -1)
-        out = {"logit": logit}
         if cfg.gt_hg and "rel_tgt_ids" in batch and "act_tgt_ids" in batch:
             rel_out = self.relation_query_embed(rel_seg, g,
                                                 batch["rel_tgt_ids"])
@@ -181,9 +235,23 @@ class ShgVqaModel(nn.Module):
         hg_in = torch.cat([act_out.reshape(b, s, -1, d),
                            rel_out.reshape(b, s, -1, d)], dim=2).reshape(b, -1, d)
         hg_mask = batch.get("hg_mask") if cfg.use_hg_mask else None
-        x_hg = self.hgq_encoder(lang_feats, lang_ext, hg_in, g, hg_mask)
-        out["hg_logit"] = (self.logit_fc2(torch.cat([pooled, x_hg], dim=-1))
-                           if cfg.task == "hgvqa" else self.logit_fc(x_hg))
+        if per_choice:
+            # the question<->hypergraph cross attention runs per choice
+            hg_in = hg_in.repeat_interleave(nch, dim=0)
+            if hg_mask is not None:
+                hg_mask = hg_mask.repeat_interleave(nch, dim=0)
+        x_hg = self.hgq_encoder(lang_feats, lang_ext, hg_in, g, hg_mask,
+                                output_attentions)
+        if output_attentions:
+            x_hg, out["attentions"]["hgq"] = x_hg
+        if per_choice:
+            head = (self.choice_score_fc2(torch.cat([pooled, x_hg], dim=-1))
+                    if cfg.task == "hgvqa" else self.choice_score_fc(x_hg))
+            out["hg_logit"] = head.reshape(bsz, nch)
+        else:
+            out["hg_logit"] = (
+                self.logit_fc2(torch.cat([pooled, x_hg], dim=-1))
+                if cfg.task == "hgvqa" else self.logit_fc(x_hg))
         return out
 
 
@@ -212,15 +280,15 @@ class VideoShgVqaModel(nn.Module):
         self.aug_path = "subbatch" if cfg.data.aug_subbatch else "select"
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                output_attentions: bool = False) -> Dict[str, torch.Tensor]:
         """``generator`` draws the augmentation and then the dropout masks
         in training mode."""
         if "frames" in batch:
             feats = self.encode_frames(batch["frames"], generator)
             batch = {k: v for k, v in batch.items() if k != "frames"}
             batch["visual_feats"] = feats
-        return self.head(batch, generator)
+        return self.head(batch, generator, output_attentions)
 
     def encode_frames(self, frames: torch.Tensor,
                       generator: Optional[torch.Generator] = None

@@ -11,8 +11,10 @@
   48 x 48 for the actions of the flagship, ``loss_hg_per_frame=False``) go
   to ``hungarian_square`` (:37-114), the shortest-augmenting-path solver:
   on the card the hand-written kernel of ``csrc/matcher.cu`` (one launch a
-  batch), on the CPU its plain version ``hungarian_square_reference``, the
-  JAX solver's fixed-trip arithmetic batched over a leading dimension.
+  batch; its shared-memory path up to ``shgvqa_hungarian_max_n()``, its
+  large path, cost in global memory, above it, so any n), on the CPU its
+  plain version ``hungarian_square_reference``, the JAX solver's
+  fixed-trip arithmetic batched over a leading dimension.
 
 ``torch.argmin`` and ``jnp.argmin`` both take the first minimum (as the
 kernel's reduction does), so ties resolve as in the JAX solvers and the
@@ -152,29 +154,61 @@ def _lib() -> ctypes.CDLL:
     lib.shgvqa_hungarian.restype = i32
     lib.shgvqa_hungarian_max_n.argtypes = []
     lib.shgvqa_hungarian_max_n.restype = i32
+    lib.shgvqa_hungarian_large.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    lib.shgvqa_hungarian_large.restype = i32
+    lib.shgvqa_hungarian_large_smem_max_n.argtypes = []
+    lib.shgvqa_hungarian_large_smem_max_n.restype = i32
+    lib.shgvqa_hungarian_large_stride.argtypes = [i32]
+    lib.shgvqa_hungarian_large_stride.restype = ctypes.c_size_t
     lib.shgvqa_matcher_error_string.argtypes = [i32]
     lib.shgvqa_matcher_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+# the kernel's paths (``_launch``'s ``path``): the cost in shared memory;
+# the cost in global memory with the state in shared memory, or in a
+# global workspace
+PATHS = ("shared", "large", "large_global")
+
+
+def _pick_path(lib, n: int) -> str:
+    """The path for n: shared memory while the (n+1)^2 cost fits a block,
+    else the large path, its state in shared memory while that fits."""
+    if n <= lib.shgvqa_hungarian_max_n():
+        return "shared"
+    if n <= lib.shgvqa_hungarian_large_smem_max_n():
+        return "large"
+    return "large_global"
+
+
+def _launch(cost: torch.Tensor, path: str = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One kernel launch on the current stream for cost (P, n, n) f32
     contiguous: (row_to_col (P, n) int64, steps (P,) int32, the search
-    steps each problem took)."""
+    steps each problem took).  ``path`` (one of ``PATHS``) is chosen by n
+    when None; a path given explicitly must take n (the card check runs
+    each)."""
     bsz, n = cost.shape[0], cost.shape[-1]
     lib = _lib()
     with torch.cuda.device(cost.device):
-        max_n = lib.shgvqa_hungarian_max_n()
-        if n > max_n:
-            raise ValueError(
-                f"hungarian_square: n={n} is above the kernel's limit "
-                f"n <= {max_n}: its (n+1)^2 f32 cost, u, p and way must fit "
-                "the shared memory one block may use")
+        path = path or _pick_path(lib, n)
         row_to_col = torch.empty(bsz, n, dtype=torch.long, device=cost.device)
         steps = torch.empty(bsz, dtype=torch.int32, device=cost.device)
-        err = lib.shgvqa_hungarian(cost.data_ptr(), row_to_col.data_ptr(),
-                                   steps.data_ptr(), bsz, n,
-                                   _stream(cost.device))
+        args = (cost.data_ptr(), row_to_col.data_ptr(), steps.data_ptr())
+        if path == "shared":
+            err = lib.shgvqa_hungarian(*args, bsz, n, _stream(cost.device))
+        elif path in ("large", "large_global"):
+            workspace = None
+            if path == "large_global":
+                workspace = torch.empty(
+                    bsz * lib.shgvqa_hungarian_large_stride(n),
+                    dtype=torch.uint8, device=cost.device)
+            err = lib.shgvqa_hungarian_large(
+                *args, None if workspace is None else workspace.data_ptr(),
+                bsz, n, _stream(cost.device))
+        else:
+            raise ValueError(f"hungarian_square: path {path!r} is not one "
+                             f"of {PATHS}")
     if err:
         raise RuntimeError(
             f"hungarian_square kernel launch failed: CUDA error {err} "

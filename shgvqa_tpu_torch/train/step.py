@@ -27,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from shgvqa_tpu_torch.configs.config import HG_TASKS, Config
+from shgvqa_tpu_torch.configs.config import HG_TASKS, PER_CHOICE, Config
 from shgvqa_tpu_torch.losses import (
     bce_vqa_loss,
     empty_weight,
@@ -91,6 +91,10 @@ def connected_param_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
       ``logit``, and so do the LXRT cross layers (``x_*``) unless
       ``after_cross_attn_feats`` feeds their output to the hg path;
     - 'hgvqa': ``logit_fc`` (the fusion head ``logit_fc2`` is supervised);
+    - per-choice QA (``qa_arrange_type`` add_sep / no_sep, every task but
+      'q'; the model builds no ``logit_fc`` / ``logit_fc2`` then): under
+      'hgvqa' ``choice_score_fc`` (the unsupervised ``logit``; the fusion
+      head ``choice_score_fc2`` is supervised);
     - GT-HG mode: the decoders and class heads, and under 'hgqa' / 'vhga'
       without ``after_cross_attn_feats`` the whole visual stream (the trunk,
       the tokenizer, the ``r_{i}``), whose only reader was the decoders;
@@ -109,6 +113,7 @@ def connected_param_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
     blind = logit_only and cfg.gt_hg and not after
     last_lang_ffn = (enc.cross_attn_type == "old" and not enc.tie_x_layers
                      and not after)
+    per_choice = task != "q" and cfg.data.qa_arrange_type in PER_CHOICE
 
     def lxrt_connected(rest) -> bool:
         if rest[0] == "pooler":
@@ -134,7 +139,8 @@ def connected_param_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
             return False
         if blind and "backbone" in keys:
             return False
-        return not (task == "hgvqa" and "logit_fc" in keys)
+        plain_head = "choice_score_fc" if per_choice else "logit_fc"
+        return not (task == "hgvqa" and plain_head in keys)
 
     return {n: connected(n) for n, _ in model.named_parameters()}
 

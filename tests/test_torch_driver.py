@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from shgvqa_tpu_torch.cli import agqa_hgqa, agqa_q, agqa_vqa, common
+from shgvqa_tpu_torch.cli import agqa_hgqa, agqa_q, agqa_vqa, common, star
 from shgvqa_tpu_torch.configs.config import check_ported, tiny_test_config
 from shgvqa_tpu_torch.entry import build_model, example_batch
 from shgvqa_tpu_torch.models import layers, shgvqa
@@ -195,12 +195,12 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
 @pytest.mark.parametrize("extra,match", [
     (["--multiGPU"], "item 14"),
     (["--loadLXMERT", "snap/x"], "item 18"),
-    (["--outputAttn"], "item 15"),
-    (["--qaArrangeType", "add_sep"], "item 15"),
+    (["--quantBackbone", "int8"], "item 16"),
+    (["--sharedWeights"], "item 17"),
     (["--remat"], "item 19"),
     (["--loadLXMERTQA", "snap/x"], "item 18"),
     (["--vitInit"], "item 17"),
-], ids=["multiGPU", "loadLXMERT", "outputAttn", "perChoice", "remat",
+], ids=["multiGPU", "loadLXMERT", "quantBackbone", "sharedWeights", "remat",
         "loadLXMERTQA", "vitInit"])
 def test_driver_refuses_unported_options(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -251,7 +251,9 @@ def test_driver_trains_two_steps_a_launch_as_single_steps(tmp_path,
 def test_driver_refuses_star_and_the_global_matcher(tmp_path):
     """STAR and the global matcher run now (``tests/test_torch_star.py``):
     both pass the CLI's flag checks; what STAR still refuses is its capsule
-    encoder (no ``--noCaps``, item 17) and per-choice QA (item 15)."""
+    encoder (no ``--noCaps``, item 17).  Per-choice QA and ``--outputAttn``
+    pass STAR's checks; the AGQA drivers refuse per-choice QA (AGQA items
+    have no choices)."""
     argv = [a for a in _argv(tmp_path) if a != "--LossHGPerFrame"]
     for dataset in ("agqa", "star"):
         cfg, extras = common.parse_reference_flags_with_extras(argv, dataset)
@@ -260,9 +262,14 @@ def test_driver_refuses_star_and_the_global_matcher(tmp_path):
     no_caps = [a for a in argv if a != "--noCaps"]
     with pytest.raises(NotImplementedError, match="item 17"):
         common.run_driver("star", no_caps, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        common.run_driver("star", argv + ["--qaArrangeType", "add_sep"],
-                          device="cpu")
+    for extra in (["--qaArrangeType", "add_sep"], ["--outputAttn"]):
+        cfg, extras = common.parse_reference_flags_with_extras(
+            argv + extra, "star")
+        common._check_driver_flags(cfg, extras, "star")
+    cfg, extras = common.parse_reference_flags_with_extras(
+        argv + ["--qaArrangeType", "add_sep"], "agqa")
+    with pytest.raises(ValueError, match="STAR's per-choice QA"):
+        common._check_driver_flags(cfg, extras, "agqa")
 
 
 def test_driver_refuses_a_present_pretrained_weight_file(tmp_path,
@@ -410,9 +417,102 @@ def test_ablation_driver_trains_reloads_and_tests(tmp_path, monkeypatch,
                                    ["--qaArrangeType", "no_sep"]],
                          ids=["outputAttn", "perChoice"])
 @pytest.mark.parametrize("task", sorted(ABLATIONS))
-def test_ablation_drivers_refuse_what_stays_item_15(tmp_path, task, extra):
+def test_ablation_drivers_refuse_what_stays_item_15(tmp_path, monkeypatch,
+                                                    task, extra):
+    """What item 15 ported runs for the ablation tasks: ``--outputAttn``
+    with the AGQA driver of the task (``--test``: the dump files, the hg
+    file from ``logit``, which is all a 'q' / 'vqa' model has, so the two
+    files agree); per-choice QA with the STAR driver (one epoch, finite
+    losses), while the AGQA driver refuses it (AGQA items have no
+    choices)."""
     module, flag = ABLATIONS[task][:2]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        module.main([flag, "--noCaps", "--syntheticData", "8", "--output",
-                     str(tmp_path),
-                     "--dataDir", str(tmp_path), *extra], device="cpu")
+    _shrink(monkeypatch)
+    argv = [flag, "--noCaps", "--tiny", "--syntheticData", "4",
+            "--syntheticValid", "4", "--batchSize", "2", "--imageSize",
+            "32", "--numSituations", "4", "--computeDtype", "float32",
+            "--dataDir", str(tmp_path), "--output", str(tmp_path / "out"),
+            *extra]
+    buf = io.StringIO()
+    if "--outputAttn" in extra:
+        with contextlib.redirect_stdout(buf):
+            result = module.main(argv + ["--test", "test"], device="cpu")
+        assert result["attention_dumps"]["questions"] == 4
+        got = json.loads((tmp_path / "out" /
+                          "val_attentions_cross_2.json").read_text())
+        hg = json.loads((tmp_path / "out" /
+                         "hg_val_attentions_cross_2.json").read_text())
+        assert len(got) == 4 and got == hg
+        assert all(r["attention"] == [] for r in got)
+        return
+    with pytest.raises(ValueError, match="STAR's per-choice QA"):
+        module.main(argv, device="cpu")
+    with contextlib.redirect_stdout(buf):
+        result = star.main(argv + ["--epochs", "1", "--qType", "Interaction",
+                                   "--syntheticData", "16"], device="cpu")
+    assert result["steps"] >= 1
+    records = [json.loads(x) for x in (tmp_path / "out" /
+                                       "metrics.jsonl").read_text()
+               .splitlines()]
+    assert records and all(np.isfinite(r["total_loss"]) for r in records)
+
+
+def test_star_driver_per_choice_with_attention_dumps(tmp_path, monkeypatch):
+    """The STAR driver with README.md's STAR flags, ``--noCaps
+    --qaArrangeType add_sep --outputAttn --stepsPerLoop 2``: one epoch
+    (one chunk of two steps) with the valid split's dumps, LAST reloaded
+    bit-equal, then ``--test`` from LAST (oracle 1.0, ``by_qtype``, both
+    predict files, both dump files with an entry a question, each
+    attention row as long as the HG token count, the global grids (S,
+    slots), the npz maps with the per-choice rows)."""
+    _shrink(monkeypatch)
+    argv = ["--taskHGQA", "--useHGMask", "--qType", "Interaction",
+            "--noCaps", "--qaArrangeType", "add_sep", "--outputAttn",
+            "--numSituations", "4", "--numRel", "4", "--numAct", "2",
+            "--imageSize", "32", "--computeDtype", "float32", "--lr",
+            "1e-3", "--logFreq", "1", "--batchSize", "2", "--dataDir",
+            str(tmp_path), "--syntheticData", "16", "--syntheticValid", "16"]
+    out = tmp_path / "train"
+
+    def run(*extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = star.main(argv + list(extra), device="cpu")
+        return result, buf.getvalue()
+
+    result, stdout = run("--epochs", "1", "--stepsPerLoop", "2", "--output",
+                         str(out))
+    assert result["steps"] == 2
+    assert result["attention_dumps"]["questions"] == 4
+    records = [json.loads(x) for x in
+               (out / "metrics.jsonl").read_text().splitlines()]
+    assert len(records) == 2 and all(np.isfinite(r["total_loss"])
+                                     for r in records)
+    saved = torch.load(out / "LAST", weights_only=True)["params"]
+    assert "head.choice_score_fc.fc1.weight" in saved
+    assert not any(k.startswith("head.logit_fc") for k in saved)
+    run("--epochs", "0", "--load", str(out / "LAST"), "--output",
+        str(tmp_path / "again"))
+    again = torch.load(tmp_path / "again" / "LAST", weights_only=True)
+    for k, v in saved.items():
+        assert torch.equal(v, again["params"][k]), k
+    test_out = tmp_path / "test"
+    result, stdout = run("--test", "test", "--load", str(out / "LAST"),
+                         "--output", str(test_out))
+    assert "Oracle score: 1.0000" in stdout
+    assert set(result["by_qtype"]) == {"Interaction", "Sequence",
+                                       "Prediction", "Feasibility"}
+    for name in ("predict.json", "predict_hg.json"):
+        assert len(json.loads((test_out / name).read_text())) == 4
+    hg_tokens = 1 + 4 * (2 + 4)
+    for name in ("val_attentions_cross_2.json",
+                 "hg_val_attentions_cross_2.json"):
+        entries = json.loads((test_out / name).read_text())
+        assert len(entries) == 4
+        for e in entries:
+            assert np.asarray(e["attention"]).shape == (4, hg_tokens)
+            assert 0 <= e["prediction"] < 4
+    valid = json.loads((out / "val_attentions_cross_2.json").read_text())
+    assert np.asarray(valid[0]["rel_pred"]).shape[0] == 4
+    maps = np.load(test_out / "attentions" / "batch000.npz")
+    assert maps["attn.hgq.1.xl"].shape[:2] == (2 * 4, 4)
+    assert maps["attn.encoder.lang.0"].shape[0] == 2 * 4

@@ -6,11 +6,16 @@ Globally: the plain ``hungarian_square`` (the plain version of the kernel
 random costs and on costs made of ties; its total cost against scipy's;
 early exit against the fixed trip counts; the global ``assign_padded``,
 ``match_targets_global`` and ``hungarian_set_loss`` in the driver layout
-against JAX's; the card path through a stand-in C entry, and its refusals
-(no fallback)."""
+against JAX's; the card path through a stand-in C entry, its dispatch
+above the shared-memory limit to the large path, and its refusals (no
+fallback); a numpy mirror of the large path (the column chunks, the
+lanes' scans, the butterfly, the state plan) against the plain solver at
+n = 239 and 480."""
 
 import contextlib
 import itertools
+import os
+import re
 from types import SimpleNamespace
 
 import jax
@@ -221,9 +226,13 @@ def test_problems_beyond_the_dp_raise():
 # -- the card path ------------------------------------------------------------
 
 @contextlib.contextmanager
-def _stand_in(monkeypatch, entry, max_n=238):
+def _stand_in(monkeypatch, entry, max_n=238, large=None, large_max_n=9684):
     monkeypatch.setattr(matcher, "_lib", lambda: SimpleNamespace(
         shgvqa_hungarian=entry, shgvqa_hungarian_max_n=lambda: max_n,
+        shgvqa_hungarian_large=large,
+        shgvqa_hungarian_large_smem_max_n=lambda: large_max_n,
+        shgvqa_hungarian_large_stride=lambda n: (24 * (n + 1) + 255)
+        // 256 * 256,
         shgvqa_matcher_error_string=lambda err: b"stand-in error"))
     monkeypatch.setattr(matcher, "_stream", lambda device: 0)
     monkeypatch.setattr(torch.cuda, "device",
@@ -255,14 +264,58 @@ def test_card_path_with_a_stand_in_entry(monkeypatch):
     assert matcher.hungarian_square.launches == before + 1
 
 
+def test_card_path_dispatches_above_the_shared_memory_limit(monkeypatch):
+    """Above ``shgvqa_hungarian_max_n()`` the wrapper never raises for
+    size: it calls the large entry, its state in shared memory (no
+    workspace) up to ``shgvqa_hungarian_large_smem_max_n()``, above it in a
+    workspace of ``stride(n)`` bytes a problem; each entry gets (P, n, n)
+    f32 and writes row_to_col and the steps, a launch counted each."""
+    costs = t(_costs("random", 30, 3, seed=4))
+    calls = []
+
+    def small(*args):
+        calls.append("shared")
+        return 0
+
+    def large(pc, pr, ps, pw, bsz, n, stream):
+        calls.append(("large", pw is None, bsz, n))
+        c = tensor_at(pc, (bsz, n, n), torch.float32).clone()
+        p, _, _, steps = matcher._augmenting_path_solve(c)
+        tensor_at(pr, (bsz, n), torch.long).copy_(matcher._row_to_col(p))
+        tensor_at(ps, (bsz,), torch.int32).copy_(steps)
+        if pw is not None:
+            stride = (24 * (n + 1) + 255) // 256 * 256
+            tensor_at(pw, (bsz * stride,), torch.uint8).fill_(7)
+        return 0
+
+    before = matcher.hungarian_square.launches
+    want = matcher.hungarian_square_reference(costs)
+    for max_n, large_max_n, expect in ((29, 9684, ("large", True, 3, 30)),
+                                       (29, 29, ("large", False, 3, 30)),
+                                       (30, 29, "shared")):
+        calls.clear()
+        with _stand_in(monkeypatch, small, max_n=max_n, large=large,
+                       large_max_n=large_max_n):
+            got, steps = matcher._launch(costs)
+        assert calls == [expect]
+        if expect != "shared":
+            assert torch.equal(got, want) and (steps >= 30).all()
+    assert matcher.hungarian_square.launches == before + 3
+    with _stand_in(monkeypatch, small, max_n=238, large=large):
+        calls.clear()
+        matcher._launch(costs, path="large_global")
+        matcher._launch(costs, path="shared")
+    assert calls == [("large", False, 3, 30), "shared"]
+
+
 def test_card_path_raises_and_never_falls_back(monkeypatch):
     costs = t(_costs("random", 30, 2, seed=1))
     with _stand_in(monkeypatch, lambda *args: 98):
         with pytest.raises(RuntimeError, match="CUDA error 98"):
             matcher._launch(costs)
-    with _stand_in(monkeypatch, lambda *args: 0, max_n=29):
-        with pytest.raises(ValueError, match="n <= 29"):
-            matcher._launch(costs)
+    with _stand_in(monkeypatch, lambda *args: 0):
+        with pytest.raises(ValueError, match="path 'global'"):
+            matcher._launch(costs, path="global")
 
     def no_build():
         raise RuntimeError("nvcc not found")
@@ -272,3 +325,116 @@ def test_card_path_raises_and_never_falls_back(monkeypatch):
         matcher._launch(costs)
     with pytest.raises(NotImplementedError, match="no kernel for meta"):
         matcher.hungarian_square(torch.empty(2, 30, 30, device="meta"))
+
+
+# -- the large path's plan, mirrored ------------------------------------------
+
+_CU = open(os.path.join(os.path.dirname(matcher.__file__), "..", "csrc",
+                        "matcher.cu")).read()
+WARP = int(re.search(r"constexpr int kWarp = (\d+);", _CU).group(1))
+STATE_WORDS = int(re.search(r"constexpr int kStateWords = (\d+);",
+                            _CU).group(1))
+KINF = np.float32(1e9)
+# an H100's opt-in shared memory a block (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+H100_OPTIN = 232448
+
+
+def large_path_plan(n, optin=H100_OPTIN):
+    """The wrapper's choice and the kernel's state block for n: 'shared'
+    while the (n+1)^2 cost, u, p and way fit, else 'large' with the
+    kStateWords x 4 bytes a column in shared memory, else 'large_global'
+    with a workspace of the state rounded up to 256 bytes a problem."""
+    m = n + 1
+    if 4 * m * (m + 1) + 8 * m <= optin and m <= WARP * 8:
+        return "shared", 0
+    state = 4 * STATE_WORDS * m
+    if state <= optin:
+        return "large", state
+    return "large_global", (state + 255) // 256 * 256
+
+
+def large_path_mirror(cost):
+    """The large path on one (n, n) f32 problem as the warp runs it:
+    column j in lane j % 32 as chunk j // 32; each lane's first minimum
+    over its chunks (strict <), then five xor-shuffle rounds keeping the
+    smaller value, on a tie the smaller index; the updates by delta x 1
+    and the early exit.  Returns (row_to_col, steps)."""
+    n = cost.shape[0]
+    m = n + 1
+    chunks = -(-m // WARP)
+    f32 = np.float32
+    u = np.zeros(m, f32)
+    v = np.zeros(m, f32)
+    p = np.zeros(m, np.int64)
+    way = np.zeros(m, np.int64)
+    cols = np.arange(chunks * WARP)
+    real = cols < m
+    steps = 0
+    for i in range(1, m):
+        p[0] = i
+        minv = np.full(m, KINF, f32)
+        used = np.zeros(m, bool)
+        j0 = 0
+        for _ in range(m):
+            used[j0] = True
+            i0 = p[j0]
+            row = np.concatenate([[f32(0)], cost[i0 - 1]]).astype(f32)
+            cur = (row - u[i0]).astype(f32) - v
+            better = (cur < minv) & ~used
+            minv = np.where(better, cur, minv).astype(f32)
+            way = np.where(better, j0, way)
+            masked = np.where(used | (np.arange(m) == 0), KINF, minv)
+            lanes = np.full(chunks * WARP, np.inf, f32)
+            lanes[:m] = masked
+            lanes = lanes.reshape(chunks, WARP)        # [chunk, lane]
+            k = np.argmin(lanes, axis=0)               # each lane's first min
+            best = lanes[k, np.arange(WARP)]
+            best_j = np.where(real.reshape(chunks, WARP)[k, np.arange(WARP)],
+                              k * WARP + np.arange(WARP), m)
+            best_j = np.where(np.isinf(best), m, best_j)
+            off = WARP // 2
+            while off:
+                o = np.arange(WARP) ^ off
+                other, other_j = best[o], best_j[o]
+                take = (other < best) | ((other == best) & (other_j < best_j))
+                best = np.where(take, other, best)
+                best_j = np.where(take, other_j, best_j)
+                off //= 2
+            assert (best == best[0]).all() and (best_j == best_j[0]).all()
+            delta = best[0]
+            rows = p[used]                             # distinct rows
+            u[rows] = (u[rows] + delta).astype(f32)
+            v = np.where(used, (v - delta).astype(f32), v)
+            minv = np.where(used, minv, (minv - delta).astype(f32))
+            j0 = int(best_j[0])
+            steps += 1
+            if p[j0] == 0:
+                break
+        while j0 != 0:
+            j1 = way[j0]
+            p[j0] = p[j1]
+            j0 = j1
+    row_to_col = np.zeros(n, np.int64)
+    row_to_col[p[1:] - 1] = np.arange(n)
+    return row_to_col, steps
+
+
+@pytest.mark.parametrize("n,kind", [(239, "random"), (480, "random"),
+                                    (239, "ties")])
+def test_large_path_mirror_is_the_plain_solver(n, kind):
+    """At n above the shared-memory path's limit the mirror of the large
+    path gives the plain solver's rows and search steps bit for bit, and
+    its total cost is scipy's (1e-5 relative)."""
+    assert large_path_plan(238)[0] == "shared"
+    assert large_path_plan(n) == ("large", 4 * STATE_WORDS * (n + 1))
+    assert large_path_plan(9684)[0] == "large"
+    assert large_path_plan(9685) == ("large_global",
+                                     (24 * 9686 + 255) // 256 * 256)
+    cost = _costs(kind, n, 1, seed=n)[0]
+    got, steps = large_path_mirror(cost)
+    p, _, _, want_steps = matcher._augmenting_path_solve(t(cost)[None])
+    np.testing.assert_array_equal(got, matcher._row_to_col(p)[0].numpy())
+    assert steps == int(want_steps[0])
+    r, c = linear_sum_assignment(cost)
+    total = cost[np.arange(n), got].sum(dtype=np.float64)
+    assert abs(total - cost[r, c].sum(dtype=np.float64)) <= 1e-5 * abs(total)

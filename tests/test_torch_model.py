@@ -221,24 +221,22 @@ def test_converter_round_trip_is_strict(hgqa):
 
 
 @pytest.mark.parametrize("override", [
-    dict(data="add_sep"), dict(data="no_sep"),
+    dict(backbone="slowfast_r101"), dict(backbone="mvit_B"),
     dict(encoder="shared_weights"), dict(encoder="patches"),
-    dict(encoder="capsules"), dict(output_attention=True),
+    dict(encoder="capsules"), dict(backbone="video_swin"),
     dict(encoder="vit_init"), dict(backbone="slowfast_r50"),
     dict(encoder="scan_layers"), dict(quant_backbone="int8"),
     dict(backbone="resnext101"), dict(backbone_chunks=2),
 ])
 def test_unported_options_raise(override):
-    """What the port does not build yet raises naming it: per-choice QA,
-    the capsule, patch and ViT encoders, shared weights, the scanned
-    stacks, --outputAttn, the other trunks and the int8 trunk.  (The tasks
-    and options of queue A item 15 build now: tests/test_torch_tasks.py.)"""
+    """What the port does not build yet raises naming it: the capsule,
+    patch and ViT encoders, shared weights, the scanned stacks, the other
+    trunks and the int8 trunk.  (The tasks and options of queue A item 15
+    build now: tests/test_torch_tasks.py, and per-choice QA and
+    --outputAttn: ``test_item_15_options_build``.)"""
     cfg = tiny_test_config(task="hgqa")
     kind = override.get("encoder")
-    if override.get("data"):
-        cfg = cfg.replace(data=dataclasses.replace(
-            cfg.data, qa_arrange_type=override["data"]))
-    elif kind is not None:
+    if kind is not None:
         field, value = {"capsules": ("no_caps", False)}.get(kind,
                                                             (kind, True))
         cfg = cfg.replace(encoder=dataclasses.replace(
@@ -247,6 +245,26 @@ def test_unported_options_raise(override):
         cfg = cfg.replace(**override)
     with pytest.raises(NotImplementedError, match="not ported"):
         VideoShgVqaModel(cfg)
+
+
+@pytest.mark.parametrize("override", [
+    dict(qa_arrange_type="add_sep"), dict(qa_arrange_type="no_sep"),
+    dict(output_attention=True)], ids=["add_sep", "no_sep", "outputAttn"])
+def test_item_15_options_build(override):
+    """Per-choice QA builds the choice head and no answer head;
+    ``--outputAttn`` builds the plain model (the dumps are a forward
+    option)."""
+    cfg = tiny_test_config(task="hgqa")
+    arrange = override.get("qa_arrange_type")
+    if arrange:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                   qa_arrange_type=arrange))
+    else:
+        cfg = cfg.replace(**override)
+    names = {n.split(".")[1] for n, _ in
+             VideoShgVqaModel(cfg).named_parameters() if n.startswith("head.")}
+    assert ("choice_score_fc" in names) == bool(arrange)
+    assert ("logit_fc" in names) != bool(arrange)
 
 
 def test_training_mode_raises():

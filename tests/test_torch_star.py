@@ -214,7 +214,8 @@ def test_helpers_match_jax():
     datums, _ = synthetic.make_star_data(n=24, seed=4)
     assert port_star.get_merged_data(datums) == jax_star.get_merged_data(
         datums)
-    assert set(port_star.QA_ARRANGERS) == {"add_sep_all", "no_sep_all"}
+    assert set(port_star.QA_ARRANGERS) == set(jax_star.QA_ARRANGERS) == {
+        "add_sep_all", "no_sep_all", "add_sep", "no_sep"}
     for name, fn in port_star.QA_ARRANGERS.items():
         assert fn("q?", {"0": "a", "1": "b"}) == jax_star.QA_ARRANGERS[name](
             "q?", {"0": "a", "1": "b"})
@@ -420,10 +421,7 @@ def test_star_driver_trains_and_tests_on_the_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,match", [
     ([], "item 17"),
-    (["--noCaps", "--qaArrangeType", "add_sep"], "item 15"),
-    (["--noCaps", "--qaArrangeType", "no_sep"], "item 15"),
-    (["--noCaps", "--outputAttn"], "item 15"),
-], ids=["capsules", "add_sep", "no_sep", "outputAttn"])
+], ids=["capsules"])
 def test_star_driver_refuses_what_is_not_ported(tmp_path, extra, match):
     argv = [a for a in FLAGS if a not in ("--noCaps", "--taskHGQA")] + extra
     if "--taskHGVQA" not in extra:
@@ -431,3 +429,36 @@ def test_star_driver_refuses_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         star.main(argv + ["--syntheticData", "8", "--output", str(tmp_path),
                           "--dataDir", str(tmp_path)], device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--qaArrangeType", "add_sep", "--taskHGVQA"],
+    ["--qaArrangeType", "no_sep"],
+    ["--outputAttn"],
+], ids=["add_sep", "no_sep", "outputAttn"])
+def test_star_driver_runs_what_item_15_ported(tmp_path, monkeypatch, extra):
+    """Per-choice QA ('hgvqa' with ``add_sep``, 'hgqa' with ``no_sep``) and
+    ``--outputAttn`` train an epoch through the STAR driver: finite
+    losses, (B, 4) answers into the STAR evaluator, and with
+    ``--outputAttn`` the valid split's dump files."""
+    _shrink(monkeypatch)
+    argv = [a for a in FLAGS if a not in ("--taskHGQA", "--qaArrangeType",
+                                          "add_sep_all")] + SMALL + extra
+    if "--taskHGVQA" not in extra:
+        argv.append("--taskHGQA")
+    out = tmp_path / "out"
+    result, _ = _main(argv + ["--batchSize", "2", "--epochs", "1",
+                              "--syntheticData", "16", "--syntheticValid",
+                              "4", "--output", str(out), "--dataDir",
+                              str(tmp_path)])
+    assert result["steps"] == 2 and len(result["history"]) == 1
+    records = [json.loads(x) for x in
+               (out / "metrics.jsonl").read_text().splitlines()]
+    assert all(np.isfinite(r["total_loss"]) for r in records)
+    dumped = (out / "val_attentions_cross_2.json").exists()
+    assert dumped == ("--outputAttn" in extra)
+    if dumped:
+        entries = json.loads((out / "val_attentions_cross_2.json")
+                             .read_text())
+        assert entries and all(e["attention"] and "rel_pred" in e
+                               for e in entries)
