@@ -123,18 +123,20 @@ it exits non-zero before printing any result.
    (``torch.cuda.max_memory_allocated``) and host syncs, the top kernels
    of a published step and of the trunk's backward alone, and the
    tokenizer convs' forward, input gradient and weight gradient alone;
-7b. steps per loop (``--stepsPerLoop``, ``train/graph.py``), on the two
-   train models of phase 6 at B=32 with the attention kernels, the FFN
-   train kernels and the block switch, (a) the trunk frozen, (b) the
-   published recipe: from one saved state (the optimizer restarted) and
-   generator seed, 8 single eager steps three times, then 8 steps as
-   4-step chunks (the first eager, the second captured into a CUDA graph
-   and replayed): every loss finite; in the per-step losses and in the
-   parameters, the median of the graph's distances to the eager runs at
-   most 2x the median distance between two eager runs (1e-6 relative
-   where eager repeats closer, bit-equal where it repeats bit-equal); its
-   generator state bit-equal; the launch counts while capturing 4x a
-   step's (38, 34, 0, 18, 14, 0, 6 or 0, 0, 0, 0); no host sync in a
+7b. steps per loop (``--stepsPerLoop``, ``train/graph.py``) at B=32 with
+   the attention kernels, the FFN train kernels and the block switch, (a)
+   the trunk frozen (phase 6's train model), (b) the published recipe (a
+   fresh one: phase 7's timed steps can leave the random one NaN): from
+   one saved state (the optimizer restarted) and
+   generator seed, 8 single eager steps six times, then four times 8
+   steps as 4-step chunks (the first eager, the second captured into a
+   CUDA graph and replayed): every loss finite; in the per-step losses
+   and in the parameters, the median of the graph runs' distances to the
+   eager runs at most 2x the median distance between two eager runs
+   (1e-6 relative where eager repeats closer, bit-equal where it repeats
+   bit-equal); their generator states bit-equal; the launch counts of
+   each capture 4x a step's (38, 34, 0, 18, 14, 0, 6 or 0, 0, 0, 0,
+   0); no host sync in a
    replayed chunk; then train clips/s at k=1 and k=4 in turns (frozen and
    published at B=32, frozen at B=8), each one's device busy share
    (torch.profiler tracing the card, 2 eager steps and one replay), peak
@@ -227,13 +229,46 @@ it exits non-zero before printing any result.
     32, with their device time and bound at B=32;
 10. the plain path, then two plain train steps, on the card against the
     CPU at tiny size in f32: the flagship task, 'q', 'vhga', 'hgvqa' and
-    the 'cross_self' layers;
-11. the card line, one ``{"kernels": [...]}`` line (ten kernels), and
+    the 'cross_self' layers (the int8 trunk's case runs in phase quant);
+quant. the int8 frozen trunk (``--quantBackbone int8``, after phase 9d,
+    the weight files written for its driver): the qconv kernel
+    (``csrc/qconv.cu``) bit-equal to ``qconv_reference`` on the operands
+    of every one of the flagship trunk's 23 conv cases (27 with their
+    epilogues) of a B=2 forward, at three ragged launches and with an
+    all-zero scale, two calls bit-equal; the int8 trunk's kernel path
+    bit-equal to its plain path at B=2; per trunk forward at B=2 and
+    B=32 the 52 launches' time (events median [min-max], device), the
+    plain version's, ``torch._int_mm`` on the 1x1 stride-1 convs and
+    cuDNN bf16 ``F.conv3d`` of the 52 convs (the yardstick) and the
+    bound (int8 operations over 1,979 TOP/s or the bytes the taps read
+    and write over 3.35 TB/s, per launch); at B=32 the trunk's device time
+    in int8, bf16 and bf16 with the block switch, the int8 trunk's device
+    time by stage (stem, quantize and pool, weight quantization and the
+    rest, qconv), the int8 features against bf16 (relative
+    Frobenius, max and mean error of max |ref|); ``entry.entry
+    (quant_backbone="int8")`` at B=2 (18 FFN + 52 qconv launches); the
+    flagship with the int8 trunk against bf16 at B=32 (hg_logit argmax
+    agreement, inference clips/s in turns, a forward's peak memory with
+    ``--backboneChunks`` 4 and 1, and a training forward's frames path
+    with rand_aug and aug_mix at 4 and 1 and augmented whole with the
+    trunk in 4 chunks); a frozen int8 train step at B=8 as
+    2-step chunks of the k-step graph (2 x (38, 34, 52) launches while
+    eager and while capturing, one capture, 0 host syncs in a replay);
+    the ``agqa_hgqa`` driver at the published flags + ``--quantBackbone
+    int8 --backboneChunks 2 --stepsPerLoop 2``, B=8, 32 synthetic clips,
+    the trunk from ``--backboneWeights``: per step 38 / 34 attention, 18 /
+    14 FFN train and 104 qconv launches, finite losses, the scales equal
+    to a calibration of the loaded trunk on the example batch, LAST
+    reloaded bit-equal with them, ``--test`` from it (18 FFN + 52 qconv
+    per forward, + 38 attention with ``--pallasAttention``; oracle 1.0);
+    phase 10's int8 case: a tiny f32 model, the card's kernel path
+    against the CPU's plain path at quant-step granularity;
+11. the card line, one ``{"kernels": [...]}`` line (eleven kernels), and
     last ``{"ok": true, "device": {...}}``.
 
-Launch counts are read as a tuple of ten: (attention forward, attention
+Launch counts are read as a tuple of eleven: (attention forward, attention
 backward, FFN, FFN train forward, FFN train backward, tokenizer conv,
-bottleneck, out_ln, head-sliced attention, matcher).
+bottleneck, out_ln, head-sliced attention, matcher, int8 conv).
 
 TF32 is switched off for f32 matmuls and convolutions (phase 10 compares
 f32 results).  ``bound_ms`` is max(operations / 989 TFLOP/s bf16, bytes /
@@ -247,7 +282,9 @@ weights`` phases 1-2, 8 and 9, ``--only steps_per_loop`` phases 1-2 and
 phases 1-2 and the matcher's checks of phase 3, ``--only star`` phases 1-2
 and 9b (the weight files written for its trunk), ``--only tasks`` phases
 1-2, the ablation shapes of phase 3, 9c (the weight files written for its
-trunk) and the ablations' cases of 10, and prints no result lines.
+trunk) and the ablations' cases of 10, ``--only quant`` phases 1-2 and
+phase quant (the weight files written for its driver), and prints no
+result lines.
 """
 
 from __future__ import annotations
@@ -259,6 +296,7 @@ import dataclasses
 import gc
 import importlib.util
 import io
+import itertools
 import json
 import math
 import os
@@ -292,11 +330,18 @@ from shgvqa_tpu_torch.bench import (
     train_split_ms,
 )
 from shgvqa_tpu_torch.configs.config import tiny_test_config, torch_dtype
-from shgvqa_tpu_torch.convert import to_jax_variables
+from shgvqa_tpu_torch.convert import is_quant_scale, to_jax_variables
 from shgvqa_tpu_torch.data.featurize import situation_causal_mask
 from shgvqa_tpu_torch.data import transforms
 from shgvqa_tpu_torch.data.transforms import augment_clips, sample_rand_augment
 from shgvqa_tpu_torch.kernels import _build, cond
+from shgvqa_tpu_torch.kernels import qconv as qconv_mod
+from shgvqa_tpu_torch.kernels.qconv import (
+    max_pool_i8,
+    qconv,
+    qconv_reference,
+    quant_sym,
+)
 from shgvqa_tpu_torch.kernels.bottleneck import (
     bottleneck_reference,
     fused_bottleneck,
@@ -331,7 +376,9 @@ from shgvqa_tpu_torch.kernels.tok_conv import (
 from shgvqa_tpu_torch.models.backbone import (
     Bottleneck3D,
     FrozenBatchNorm,
+    SlowR50,
     calibrate_frozen_bn,
+    calibrate_quant,
     set_block_kernel,
 )
 from shgvqa_tpu_torch.models.layers import (
@@ -431,9 +478,9 @@ DRIVER_FLAGS = ["--taskHGQA", "--noCaps", "--crossAttnType", "cross",
                 "--pallasFFNTrain"]
 # launches of a driver train step, and the eval modes of --test: (extra
 # flags, launches per eval forward)
-DRIVER_TRAIN_LAUNCHES = (38, 34, 0, 18, 14, 0, 0, 0, 0, 0)
-EVAL_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
-              (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0, 0)))
+DRIVER_TRAIN_LAUNCHES = (38, 34, 0, 18, 14, 0, 0, 0, 0, 0, 0)
+EVAL_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)),
+              (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)))
 # the weight files of phases 8 and 9: their model's seed (not the driver's
 # --seed, so an import that misses a tensor shows) and bert-base's depth
 WEIGHTS_SEED = 7
@@ -1861,12 +1908,12 @@ MODES = {
 
 # phase 4's forwards: (name, mode, launches per B=2 forward)
 MAIN_RUNS = (
-    ("FFN kernel", "kernel", (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
-    ("plain", "plain", (0,) * 10),
-    ("FFN + tok + block kernels", "tok_block", (0, 0, 18, 0, 0, 2, 6, 0, 0, 0)),
-    ("FFN + attention kernels", "attention", (38, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
+    ("FFN kernel", "kernel", (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)),
+    ("plain", "plain", (0,) * 11),
+    ("FFN + tok + block kernels", "tok_block", (0, 0, 18, 0, 0, 2, 6, 0, 0, 0, 0)),
+    ("FFN + attention kernels", "attention", (38, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("FFN + out_ln + headsliced", "out_ln_headsliced",
-     (0, 0, 18, 0, 0, 0, 0, 18, 38, 0)),
+     (0, 0, 18, 0, 0, 0, 0, 18, 38, 0, 0)),
 )
 
 
@@ -1931,7 +1978,7 @@ def phase_throughput(model):
 
 
 COUNT_NAMES = ("attention fwd, bwd, ffn, ffn train fwd, bwd, tok, block, "
-               "out_ln, headsliced, matcher")
+               "out_ln, headsliced, matcher, qconv")
 
 
 def reset_counts():
@@ -1945,17 +1992,19 @@ def reset_counts():
     fused_out_ln.launches = 0
     headsliced_attention.launches = 0
     hungarian_square.launches = 0
+    qconv.launches = 0
 
 
 def counts():
     """(attention forward, attention backward, FFN, FFN train forward, FFN
     train backward, tokenizer conv, bottleneck, out_ln, head-sliced
-    attention, matcher) launches since ``reset_counts``."""
+    attention, matcher, int8 conv) launches since ``reset_counts``."""
     return (fused_attention.launches, fused_attention.bwd_launches,
             fused_ffn.launches, fused_ffn_train.launches,
             fused_ffn_train.bwd_launches, fused_tok_conv.launches,
             fused_bottleneck.launches, fused_out_ln.launches,
-            headsliced_attention.launches, hungarian_square.launches)
+            headsliced_attention.launches, hungarian_square.launches,
+            qconv.launches)
 
 
 def grad_norm(params):
@@ -1993,7 +2042,7 @@ def phase_train_main_path():
             raise AssertionError(f"train step {i}: non-finite {values}")
         log(f"train step {i}: launches ({COUNT_NAMES}) "
             f"{step_counts[-1]}; {json.dumps(values)}")
-    if any(c != (38, 34, 0, 0, 0, 0, 6, 0, 0, 0) for c in step_counts):
+    if any(c != (38, 34, 0, 0, 0, 0, 6, 0, 0, 0, 0) for c in step_counts):
         raise AssertionError(f"train step launches {step_counts}, expected "
                              "38 attention forward, 34 backward, 0 FFN, 0 "
                              "tokenizer, 6 bottleneck")
@@ -2009,7 +2058,7 @@ def phase_train_main_path():
     preds = make_eval_step(cfg, model, with_hg_metrics=True)(eval_batch)
     torch.cuda.synchronize()
     eval_counts = counts()
-    if eval_counts != (0, 0, 18, 0, 0, 2, 6, 0, 0, 0):
+    if eval_counts != (0, 0, 18, 0, 0, 2, 6, 0, 0, 0, 0):
         raise AssertionError(f"eval step launches {eval_counts}, expected 0 "
                              "attention, 18 FFN, 2 tokenizer, 6 bottleneck")
     log(f"eval step b2: launches {eval_counts}; rel/act class acc "
@@ -2120,7 +2169,7 @@ def phase_train_published():
             raise AssertionError(f"published step {i}: non-finite {values}")
         log(f"published step {i}: launches ({COUNT_NAMES}) "
             f"{step_counts[-1]}; {json.dumps(values)}")
-    if any(c != (38, 34, 0, 0, 0, 0, 0, 0, 0, 0) for c in step_counts):
+    if any(c != (38, 34, 0, 0, 0, 0, 0, 0, 0, 0, 0) for c in step_counts):
         raise AssertionError(f"published step launches {step_counts}, "
                              "expected 38 attention forward, 34 backward, 0 "
                              "FFN, 0 tokenizer, 0 bottleneck")
@@ -2263,13 +2312,15 @@ SPL_K, SPL_STEPS = 4, 8
 # launches of one step of each recipe with the phase's switches on (the
 # attention kernels, the FFN train kernels, the block switch): a published
 # step's blocks run their convs under a gradient
-SPL_LAUNCHES = {"frozen": (38, 34, 0, 18, 14, 0, 6, 0, 0, 0),
-                "published": (38, 34, 0, 18, 14, 0, 0, 0, 0, 0)}
-# a graph run may differ from eager by no more than 2x eager's own spread
-# (medians: of the graph's distances to each eager run, and of the eager
-# runs' distances to each other), and by 1e-6 relative where eager repeats
-# to within that
-SPL_EAGER_RUNS, SPL_SPREAD, SPL_FLOOR = 3, 2.0, 1e-6
+SPL_LAUNCHES = {"frozen": (38, 34, 0, 18, 14, 0, 6, 0, 0, 0, 0),
+                "published": (38, 34, 0, 18, 14, 0, 0, 0, 0, 0, 0)}
+# the graph runs may differ from eager by no more than 2x eager's own spread
+# (medians: of each graph run's distances to each eager run, and of the
+# eager runs' distances to each other), and by 1e-6 relative where eager
+# repeats to within that.  The samples are many because the dQ atomics'
+# noise compounds step by step, and one graph run against three eager runs
+# lay beyond 2x by chance (loss 3.5e-4 against a spread of 1.3e-4)
+SPL_EAGER_RUNS, SPL_GRAPH_RUNS, SPL_SPREAD, SPL_FLOOR = 6, 4, 2.0, 1e-6
 
 
 def spl_batches(cfg, bsz, n):
@@ -2354,15 +2405,15 @@ def spl_distance(a, b):
 def spl_equivalence(name, model, optimizer, generator, bsz=BATCH_SIZE):
     """``SPL_STEPS`` steps from one saved state (the optimizer restarted)
     and generator seed: ``SPL_EAGER_RUNS`` times as single eager steps,
-    then as ``SPL_K``-step chunks through a graph; every loss finite.  The
-    attention backward sums dQ with atomics, so eager does not repeat its
-    bits.  In its per-step losses and in its parameters, the graph run's
-    median distance to the eager runs may be at most ``SPL_SPREAD`` x the
-    median distance between two eager runs, at least ``SPL_FLOOR``; where
-    eager repeats bit-equal the graph must too.  The graph run ends with
-    the generator's state of every eager run; the chunk that captures
-    launches ``SPL_K`` steps' kernels.  Returns the ``StepChunks`` with its
-    graph."""
+    then ``SPL_GRAPH_RUNS`` times as ``SPL_K``-step chunks through a graph
+    (a capture each); every loss finite.  The attention backward sums dQ
+    with atomics, so eager does not repeat its bits.  In their per-step
+    losses and in their parameters, the graph runs' median distance to the
+    eager runs may be at most ``SPL_SPREAD`` x the median distance between
+    two eager runs, at least ``SPL_FLOOR``; where eager repeats bit-equal
+    the graph must too.  Each graph run ends with the generator's state of
+    every eager run; each chunk that captures launches ``SPL_K`` steps'
+    kernels.  Returns the last ``StepChunks`` with its graph."""
     batches = spl_batches(model.cfg, bsz, SPL_STEPS)
     # the optimizer restarts, as after a weight import: the earlier phases'
     # steps on one batch at the schedule's peak leave the random model near
@@ -2378,20 +2429,31 @@ def spl_equivalence(name, model, optimizer, generator, bsz=BATCH_SIZE):
     for _ in range(SPL_EAGER_RUNS):
         spl_restore(model, optimizer, generator, start)
         eager.append(spl_eager(model, optimizer, generator, batches))
-    spl_restore(model, optimizer, generator, start)
-    graph_run, captured, chunks = spl_graph(model, optimizer, generator,
-                                            batches)
+    graphs, chunks = [], None
+    want = tuple(SPL_K * c for c in SPL_LAUNCHES[name])
+    for _ in range(SPL_GRAPH_RUNS):
+        del chunks
+        gc.collect()
+        spl_restore(model, optimizer, generator, start)
+        graph_run, captured, chunks = spl_graph(model, optimizer, generator,
+                                                batches)
+        graphs.append(graph_run)
+        log(f"steps per loop, {name}: launches while capturing "
+            f"({COUNT_NAMES}) {captured}")
+        if captured != want:
+            raise AssertionError(f"{name}: capture launched {captured}, "
+                                 f"expected {want}")
     spl_restore(model, optimizer, generator, start)
     del start, batches
     pairs = [spl_distance(eager[i], eager[j])
              for i in range(len(eager)) for j in range(i + 1, len(eager))]
-    gaps = [spl_distance(graph_run, e) for e in eager]
+    gaps = [spl_distance(g, e) for g in graphs for e in eager]
     log(f"steps per loop, {name} b{bsz}: {SPL_STEPS} steps, k={SPL_K}, "
         f"{time.perf_counter() - t0:.1f} s; "
         f"losses eager {[e[0].tolist() for e in eager]}, graph "
-        f"{graph_run[0].tolist()}; eager pairs (loss, parameters, generator "
-        f"equal) {pairs}; graph vs each eager run {gaps}")
-    if not all(torch.isfinite(run[0]).all() for run in eager + [graph_run]):
+        f"{[g[0].tolist() for g in graphs]}; eager pairs (loss, parameters, "
+        f"generator equal) {pairs}; each graph run vs each eager run {gaps}")
+    if not all(torch.isfinite(run[0]).all() for run in eager + graphs):
         raise AssertionError(f"{name}: a non-finite loss")
     if not all(g[2] for g in gaps + pairs):
         raise AssertionError(f"{name}: the generator's state after the "
@@ -2409,12 +2471,6 @@ def spl_equivalence(name, model, optimizer, generator, bsz=BATCH_SIZE):
             raise AssertionError(f"{name}: the graph's {what} differ by "
                                  f"{near} (median), eager's own spread "
                                  f"{spread} (median)")
-    want = tuple(SPL_K * c for c in SPL_LAUNCHES[name])
-    log(f"steps per loop, {name}: launches while capturing "
-        f"({COUNT_NAMES}) {captured}")
-    if captured != want:
-        raise AssertionError(f"{name}: capture launched {captured}, "
-                             f"expected {want}")
     return chunks
 
 
@@ -2776,7 +2832,7 @@ def run_main(argv, main=agqa_hgqa.main):
 
 # a dumps forward: the FFN kernel at its 18 sites and no attention kernel;
 # globally matched grids add the matcher's two problems
-DUMPS_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)
+DUMPS_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)
 # the HG cross encoder's tokens: CLS + 16 situations x (3 actions + 8
 # relations)
 HG_TOKENS = 1 + NUM_SITUATIONS * (3 + 8)
@@ -2938,7 +2994,7 @@ STAR_DATA = ["--syntheticData", "128", "--syntheticValid", "16",
 # launches of a STAR train step (the trunk frozen, the global matcher) and
 # of a valid forward with labels (its class accuracy matched globally);
 # the eval modes of --test (no labels: no matching)
-STAR_TRAIN_LAUNCHES = (38, 34, 0, 0, 0, 0, 0, 0, 0, 2)
+STAR_TRAIN_LAUNCHES = (38, 34, 0, 0, 0, 0, 0, 0, 0, 2, 0)
 # under the hg mask, a kernel path's output may differ from the masked plain
 # run by at most this share of the mask's effect on the plain path, and the
 # mask must move the kernel path by at least this share of that effect
@@ -2946,9 +3002,9 @@ STAR_TRAIN_LAUNCHES = (38, 34, 0, 0, 0, 0, 0, 0, 0, 2)
 # effect of ~2.5e-2 on an NVIDIA H100 80GB HBM3 at 700 W) and the whole
 # effect, where a kernel that dropped the mask lands
 MASK_SHARE = 0.5
-STAR_VALID_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2)
-STAR_TEST_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
-                   (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0, 0)))
+STAR_VALID_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2, 0)
+STAR_TEST_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)),
+                   (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)))
 
 
 def star_mask_kernels(trainer):
@@ -3148,11 +3204,11 @@ VQA_FLAGS = ["--taskVQA" if a == "--taskHGQA" else a for a in DRIVER_FLAGS]
 # (flags, launches per train step, per eval forward plain and with
 # --pallasAttention): q 5 language layers; vqa 5 + 5 + 2 x 2 cross sites
 TASK_DRIVERS = {
-    "q": (Q_FLAGS, (5, 5, 0, 0, 0, 0, 0, 0, 0, 0),
-          (0, 0, 5, 0, 0, 0, 0, 0, 0, 0), (5, 0, 5, 0, 0, 0, 0, 0, 0, 0)),
-    "vqa": (VQA_FLAGS, (14, 14, 0, 14, 14, 0, 0, 0, 0, 0),
-            (0, 0, 14, 0, 0, 0, 0, 0, 0, 0),
-            (14, 0, 14, 0, 0, 0, 0, 0, 0, 0)),
+    "q": (Q_FLAGS, (5, 5, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+          (0, 0, 5, 0, 0, 0, 0, 0, 0, 0, 0), (5, 0, 5, 0, 0, 0, 0, 0, 0, 0, 0)),
+    "vqa": (VQA_FLAGS, (14, 14, 0, 14, 14, 0, 0, 0, 0, 0, 0),
+            (0, 0, 14, 0, 0, 0, 0, 0, 0, 0, 0),
+            (14, 0, 14, 0, 0, 0, 0, 0, 0, 0, 0)),
 }
 # the head-model variants: (name, config, encoder and decoder overrides,
 # attention forward and backward launches per train step, FFN launches
@@ -3339,11 +3395,11 @@ def check_head_variant(name, cfg, batch, attn_f, attn_b, ffn_n, ffn_f,
     model = init_weights(ShgVqaModel(cfg), seed=11).to("cuda").eval()
     outs = {}
     for mode, ffn, attn, want in (
-            ("plain", False, False, (0,) * 10),
+            ("plain", False, False, (0,) * 11),
             ("FFN kernel", True, False,
-             (0, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0)),
+             (0, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0, 0)),
             ("attention kernel", True, True,
-             (attn_f, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0))):
+             (attn_f, 0, ffn_n, 0, 0, 0, 0, 0, 0, 0, 0))):
         set_ffn_kernel(model, ffn)
         set_attention_kernel_eval(model, attn)
         reset_counts()
@@ -3392,9 +3448,9 @@ def check_head_variant(name, cfg, batch, attn_f, attn_b, ffn_n, ffn_f,
     results["plain f32"] = grads_of(ref, list(ref.named_parameters()),
                                     cfg, batch, generator)
     del ref
-    want_train = (attn_f, attn_b, 0, ffn_f, ffn_b, 0, 0, 0, 0, match)
-    want_attn = (attn_f, attn_b) + (0,) * 7 + (match,)
-    want_plain = (0,) * 9 + (match,)
+    want_train = (attn_f, attn_b, 0, ffn_f, ffn_b, 0, 0, 0, 0, match, 0)
+    want_attn = (attn_f, attn_b) + (0,) * 7 + (match, 0)
+    want_plain = (0,) * 9 + (match, 0)
     launched = {m: r[3] for m, r in results.items()}
     if launched != {"kernel": want_attn, "kernel again": want_attn,
                     "plain": want_plain, "ffn kernel": want_train,
@@ -3512,12 +3568,12 @@ PER_CHOICE_DATA = ["--syntheticData", "128", "--syntheticValid", "16",
 # launches (COUNT_NAMES) of a per-choice train step, a valid forward with
 # labels and a dumps batch (test items carry zero label grids, so their
 # dumps match globally too, as JAX's do); the eval modes of --test
-PER_CHOICE_TRAIN = (38, 34, 0, 0, 0, 0, 0, 0, 0, 2)
-PER_CHOICE_VALID = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2)
-PER_CHOICE_DUMPS = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2)
-PER_CHOICE_TEST_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0)),
+PER_CHOICE_TRAIN = (38, 34, 0, 0, 0, 0, 0, 0, 0, 2, 0)
+PER_CHOICE_VALID = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2, 0)
+PER_CHOICE_DUMPS = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2, 0)
+PER_CHOICE_TEST_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)),
                          (["--pallasAttention"],
-                          (38, 0, 18, 0, 0, 0, 0, 0, 0, 0)))
+                          (38, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)))
 # the head models of phase 9d: (task, arrangement, attention forward and
 # backward per train step, FFN per eval forward, FFN-train forward and
 # backward per train step); under 'hgvqa' the fusion head reads the pooled
@@ -4091,13 +4147,680 @@ def phase_per_choice_card_vs_cpu():
         raise AssertionError(f"card and CPU disagree by {worst}")
 
 
+# ---------------------------------------------------------------------------
+# Phase quant: the int8 frozen trunk (--quantBackbone int8, csrc/qconv.cu)
+
+PEAK_INT8_OPS = 1979e12
+# qconv launches of one trunk forward: 16 blocks x 3 convs + 4 projections
+QCONV_PER_FORWARD = 52
+# the trunk's distinct (Ci, Co, kernel, stride, side) conv cases at 224^2
+QCONV_CASES = 23
+QUANT_DRIVER_BATCH = 8
+# a frozen int8 train step (the attention kernels at 38 / 34 sites) and
+# an eval forward, with the int8 trunk
+QUANT_STEP_LAUNCHES = (38, 34, 0, 0, 0, 0, 0, 0, 0, 0, QCONV_PER_FORWARD)
+QUANT_EVAL_MODES = (
+    ([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, QCONV_PER_FORWARD)),
+    (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0, 0,
+                             QCONV_PER_FORWARD)))
+QUANT_FLAGS = ["--quantBackbone", "int8"]
+# a driver step at --backboneChunks 2 with --pallasFFNTrain, and a valid
+# forward there (two chunks of the trunk each)
+QUANT_DRIVER_LAUNCHES = (38, 34, 0, 18, 14, 0, 0, 0, 0, 0,
+                         2 * QCONV_PER_FORWARD)
+QUANT_VALID_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 2 * QCONV_PER_FORWARD)
+
+
+@contextlib.contextmanager
+def qconv_calls(calls=None, plain=False):
+    """While open, every ``qconv`` kernel launch appends its operands (those
+    of ``qconv_reference``) to ``calls`` when given and, with ``plain``,
+    runs the plain version on the card in its place (not counted)."""
+    launch = qconv_mod._launch
+
+    def spy(*args):
+        if calls is not None:
+            calls.append(args)
+        return qconv_reference(*args) if plain else launch(*args)
+
+    qconv_mod._launch = spy
+    try:
+        yield
+    finally:
+        qconv_mod._launch = launch
+
+
+def qconv_case(args):
+    """(Ci, Co, kernel, stride, side, epilogue) of a launch's operands."""
+    x_q, w_k, _, _, stride, s_out, residual, _ = args
+    return (x_q.shape[-1], w_k.shape[0], tuple(w_k.shape[1:4]), stride,
+            x_q.shape[2], qconv_mod._mode(s_out, residual))
+
+
+def taps_read(size: int, k: int, stride: int) -> int:
+    """Input positions along a side of ``size`` that a conv of kernel k,
+    padding k // 2 and ``stride`` reads (a 1x1 conv of stride 2 one in
+    two)."""
+    n = qconv_mod.out_side(size, k, stride)
+    return len({o * stride + d - k // 2 for o in range(n)
+                for d in range(k)} & set(range(size)))
+
+
+def qconv_bound(args):
+    """(ms, bound_by) of one launch: 2 M N K int8 operations over 1,979
+    TOP/s, or the bytes (the input positions the taps read, the int8
+    weight, the output, the residual, scale and shift, each once) over
+    3.35 TB/s."""
+    x_q, w_k, scale, _, stride, s_out, residual, _ = args
+    b, t, h, w, ci = x_q.shape
+    co, k = w_k.shape[0], w_k[0].numel()
+    kt, kh, kw = w_k.shape[1:4]
+    m = (b * t * qconv_mod.out_side(h, kh, stride)
+         * qconv_mod.out_side(w, kw, stride))
+    x_bytes = (b * taps_read(t, kt, 1) * taps_read(h, kh, stride)
+               * taps_read(w, kw, stride) * ci)
+    nbytes = (x_bytes + w_k.numel() + 2 * co * scale.element_size()
+              + m * co * (scale.element_size() if s_out is None else 1)
+              + (0 if residual is None
+                 else residual.numel() * residual.element_size()))
+    t_ops, t_bytes = 2 * m * co * k / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def quant_trunks(bsz, seed=0):
+    """The flagship trunk in int8 and in bf16 on the same random weights
+    (``seed``), the BatchNorm statistics and then the int8 scales
+    calibrated on ``bsz`` random clips; returns (int8 trunk, bf16 trunk,
+    the normalized clips)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randint(0, 256, (bsz, 16, 224, 224, 3), dtype=torch.uint8,
+                           device="cuda", generator=g)
+    mean, std = transforms.NORM_STATS["slow_r50"]
+    x = transforms.normalize_clip(frames.to(torch.bfloat16) / 255.0, mean,
+                                  std)
+    trunks = []
+    for quant in (True, False):
+        trunk = SlowR50(torch.bfloat16, quant=quant)
+        if quant:
+            init_weights(trunk, seed)
+        else:
+            trunk.load_state_dict(trunks[0].state_dict())
+        trunks.append(trunk.to("cuda", memory_format=torch.channels_last_3d)
+                      .eval())
+        if quant:
+            calibrate_frozen_bn(trunks[0], x)
+            calibrate_quant(trunks[0], x)
+    return trunks[0], trunks[1], x
+
+
+def random_qconv_args(shape, co, kernel, stride, mode, dtype, seed):
+    """Random operands of one launch (int8 values in [-127, 127], the
+    scales from a seeded generator)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def i8(*s):
+        return torch.randint(-127, 128, s, dtype=torch.int8, device="cuda",
+                             generator=g)
+
+    b, t, h, w, ci = shape
+    out = (b, t, qconv_mod.out_side(h, kernel[1], stride),
+           qconv_mod.out_side(w, kernel[2], stride), co)
+    scale = (torch.rand(co, device="cuda", generator=g) * 1e-3).to(dtype)
+    shift = torch.randn(co, device="cuda", generator=g).to(dtype)
+    s_out = (None if mode == qconv_mod.MODE_DEQ
+             else torch.rand((), device="cuda", generator=g))
+    residual = s_res = None
+    if mode == qconv_mod.MODE_RES:
+        residual = torch.randn(out, device="cuda", generator=g).to(dtype)
+    elif mode == qconv_mod.MODE_RES_Q:
+        residual = i8(*out)
+        s_res = torch.rand((), device="cuda", generator=g) * 0.1
+    return (i8(*shape), i8(co, *kernel, ci), scale, shift, stride, s_out,
+            residual, s_res)
+
+
+# ragged launches: (x shape, Co, kernel, stride, epilogue, dtype)
+QCONV_RAGGED = (
+    ((1, 3, 9, 11, 64), 128, (1, 3, 3), 2, qconv_mod.MODE_QUANT,
+     torch.bfloat16),
+    ((2, 5, 7, 7, 192), 64, (3, 1, 1), 1, qconv_mod.MODE_RES_Q,
+     torch.bfloat16),
+    ((1, 2, 6, 6, 64), 64, (1, 1, 1), 2, qconv_mod.MODE_DEQ, torch.float32),
+)
+
+
+def check_qconv(tag, args):
+    """The kernel twice and the plain version on one launch's operands:
+    bit-equal.  Returns (the output, max |kernel - plain|)."""
+    want = qconv_reference(*args)
+    got = qconv_mod._launch(*args)
+    again = qconv_mod._launch(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"qconv {tag}: two calls differ")
+    if got.dtype != want.dtype:
+        raise AssertionError(f"qconv {tag}: kernel gives {got.dtype}, the "
+                             f"plain version {want.dtype}")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"qconv {tag}: kernel differs from the plain version at "
+            f"{int((diff > 0).sum())} of {diff.numel()} elements, max {err}")
+    return got, err
+
+
+def qconv_kernel_checks(calls):
+    """The kernel against its plain version, bit-equal, on the operands of
+    every distinct case of ``calls`` (a B=2 trunk forward's launches), at
+    the ragged launches and with an all-zero scale (its 1e-12 floor).
+    Returns the largest |kernel - plain| over all of them."""
+    cases = {}
+    for args in calls:
+        cases.setdefault(qconv_case(args), args)
+    # a conv_c and a projection of one shape are two cases
+    shapes = {case[:5] + (case[5] == qconv_mod.MODE_DEQ,) for case in cases}
+    if len(shapes) != QCONV_CASES:
+        raise AssertionError(f"the trunk's conv cases: {len(shapes)}, "
+                             f"expected {QCONV_CASES}")
+    errs = [check_qconv(case, args)[1] for case, args in cases.items()]
+    for i, (shape, co, kernel, stride, mode, dt) in enumerate(QCONV_RAGGED):
+        errs.append(check_qconv(f"ragged {shape} -> {co}", random_qconv_args(
+            shape, co, kernel, stride, mode, dt, seed=i))[1])
+    args = list(next(a for c, a in cases.items()
+                     if c[5] == qconv_mod.MODE_QUANT))
+    zero = torch.zeros((), device="cuda")
+    args[5] = zero
+    y, err = check_qconv("s_out = 0", args)
+    errs.append(err)
+    if not bool((y.abs() == 127).any()):
+        raise AssertionError("qconv with s_out = 0 does not saturate")
+    args[2] = (args[2] * 0).contiguous()           # scale 0: shift only
+    errs.append(check_qconv("scale 0, s_out = 0", args)[1])
+    log(f"qconv: bit-equal to qconv_reference at the trunk's "
+        f"{len(shapes)} conv cases ({len(cases)} with their epilogues) at "
+        f"B=2, {len(QCONV_RAGGED)} ragged launches and an all-zero scale "
+        f"(max |kernel - plain| {max(errs)}); two calls bit-equal")
+    return max(errs)
+
+
+def quant_times(calls, bsz):
+    """Per trunk forward at ``bsz`` (the 52 launches of ``calls``): the
+    kernel's time (events median [min-max] of 5 turns, device time by
+    torch.profiler, and the 52 launches as one CUDA graph's replay), the
+    plain version's (one turn), torch._int_mm on the
+    1x1 stride-1 convs (the same s32 product, no epilogue), cuDNN bf16
+    F.conv3d of the 52 convs (the yardstick), and the bound."""
+    def kernels():
+        for args in calls:
+            qconv_mod._launch(*args)
+
+    def plain():
+        for args in calls:
+            qconv_reference(*args)
+
+    mm_ops = []
+    conv_ops = []
+    for args in calls:
+        x_q, w_k, _, _, stride, *_ = args
+        kt, kh, kw = w_k.shape[1:4]
+        if (kt, kh, kw, stride) == (1, 1, 1, 1):
+            mm_ops.append((x_q.reshape(-1, x_q.shape[-1]),
+                           w_k.reshape(w_k.shape[0], -1).t()))
+        conv_ops.append((x_q.to(torch.bfloat16).permute(0, 4, 1, 2, 3),
+                         w_k.to(torch.bfloat16).permute(0, 4, 1, 2, 3),
+                         (1, stride, stride), (kt // 2, kh // 2, kw // 2)))
+
+    def int_mm():
+        for a, b in mm_ops:
+            torch._int_mm(a, b)
+
+    def cudnn():
+        for x, w, st, pad in conv_ops:
+            F.conv3d(x, w, None, st, pad)
+
+    row = spread("kernel_ms", kernels, iters=3)
+    row["kernel_device_ms"] = device_ms(kernels, calls=3)[1]
+    row["kernel_graph_ms"] = graph_ms(kernels)
+    row["plain_ms"] = time_ms(plain, iters=1, warmup=1)
+    row["int_mm_ms"] = time_ms(int_mm, iters=3)
+    row["int_mm_convs"] = len(mm_ops)
+    row["cudnn_bf16_ms"] = time_ms(cudnn, iters=3)
+    bounds = [qconv_bound(args) for args in calls]
+    row["bound_ms"] = sum(ms for ms, _ in bounds)
+    by_ops = sum(ms for ms, by in bounds if by == "operations")
+    row["bound_by"] = ("operations" if by_ops >= row["bound_ms"] / 2
+                       else "bytes")
+    row["launches"] = len(calls)
+    del conv_ops, mm_ops
+    log(f"qconv per trunk forward at b{bsz}: {json.dumps(row)}")
+    if bsz != 2:
+        # each launch alone (events, 3 calls), summed by case, beside its
+        # bound: where the kernel stands farthest from it
+        cases = {}
+        for args, (bound, by) in zip(calls, bounds):
+            ms = time_ms(lambda: qconv_mod._launch(*args), iters=3,
+                         warmup=1)
+            case = cases.setdefault(str(qconv_case(args)),
+                                    [0, 0.0, 0.0, by])
+            case[0] += 1
+            case[1] += ms
+            case[2] += bound
+        log(f"qconv b{bsz} by case (launches, ms, bound ms, bound by): "
+            + json.dumps(cases))
+    return row
+
+
+def graph_ms(fn, iters: int = 5) -> float:
+    """ms per call of ``fn()`` captured once as a CUDA graph and replayed
+    (CUDA events over ``iters`` replays): its kernels back to back without
+    the host's launch gaps, where a long session's profiler trace can lose
+    kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        fn()
+    ms = time_ms(graph.replay, iters=iters, warmup=1)
+    del graph
+    return ms
+
+
+def quant_stages(trunk, x):
+    """Device ms of the int8 trunk's forward on ``x`` outside the qconv
+    kernels, by stage, each a CUDA graph's replay (``graph_ms``): the stem
+    (bf16 conv, BN, ReLU), its quantize and the int8 pool, and the rest
+    (each launch's ``quant_weight``, scale fold and weight permute, and the
+    last dequantize: the forward with each kernel launch replaced by its
+    recorded output, less the first two)."""
+    outs = []
+    launch = qconv_mod._launch
+
+    def record(*args):
+        outs.append(launch(*args))
+        return outs[-1]
+
+    qconv_mod._launch = record
+    try:
+        trunk(x)
+        replay = itertools.cycle(outs)
+        qconv_mod._launch = lambda *args: next(replay)
+        outside = graph_ms(lambda: trunk(x))
+    finally:
+        qconv_mod._launch = launch
+    del outs, replay
+    h = x.to(trunk.dtype).permute(0, 4, 1, 2, 3)
+
+    def stem():
+        return torch.relu(trunk.stem_bn(trunk.stem_conv(h)))
+
+    stem_ms = graph_ms(stem)
+    y = stem()
+    pool_ms = graph_ms(lambda: max_pool_i8(
+        quant_sym(y, trunk.s_stem).permute(0, 2, 3, 4, 1)))
+    return {"outside qconv": outside, "stem": stem_ms,
+            "quantize + pool": pool_ms,
+            "weights, fold, dequantize": outside - stem_ms - pool_ms}
+
+
+def trunk_device_ms(trunk, x):
+    with torch.inference_mode():
+        return device_ms(lambda: trunk(x), calls=3)[1]
+
+
+def phase_quant_trunk(bsz):
+    """At ``bsz`` clips: the int8 trunk's launches captured (52), at B=2
+    the kernel checks and the kernel path bit-equal to the plain int8
+    path; the times of the 52 launches (``quant_times``); at B=32 the
+    trunk's device time in int8, in bf16 and in bf16 with the block
+    switch, and the int8 features against the bf16 ones.  Returns the
+    row of ``quant_times``."""
+    trunk_q, trunk_f, x = quant_trunks(bsz)
+    calls = []
+    with torch.inference_mode():
+        reset_counts()
+        with qconv_calls(calls):
+            feats = trunk_q(x)
+        torch.cuda.synchronize()
+        if qconv.launches != QCONV_PER_FORWARD:
+            raise AssertionError(f"an int8 trunk forward launched qconv "
+                                 f"{qconv.launches} times")
+        if bsz == 2:
+            err = qconv_kernel_checks(calls)
+            with qconv_calls(plain=True):
+                plain = trunk_q(x)
+            trunk_err = (feats.float() - plain.float()).abs().max().item()
+            if not torch.equal(feats, plain):
+                raise AssertionError("the int8 trunk's kernel path differs "
+                                     "from its plain path by up to "
+                                     f"{trunk_err}")
+            log("int8 trunk b2: the kernel path bit-equal to the plain int8 "
+                f"path, features {tuple(feats.shape)}")
+        row = quant_times(calls, bsz)
+        if bsz == 2:
+            row["max_abs_err"] = max(err, trunk_err)
+        del calls
+        if bsz != 2:
+            ref = trunk_f(x).float()
+            err = (feats.float() - ref).abs()
+            scale = ref.abs().max()
+            row["features"] = {
+                "rel_frobenius": ((feats.float() - ref).norm()
+                                  / ref.norm()).item(),
+                "max_err": (err.max() / scale).item(),
+                "mean_err": (err.mean() / scale).item()}
+            row["trunk_device_ms"] = {"int8": trunk_device_ms(trunk_q, x),
+                                      "bf16": trunk_device_ms(trunk_f, x)}
+            set_block_kernel(trunk_f, True)
+            row["trunk_device_ms"]["bf16 + block kernel"] = trunk_device_ms(
+                trunk_f, x)
+            set_block_kernel(trunk_f, False)
+            row["stages_device_ms"] = quant_stages(trunk_q, x)
+            row["stages_device_ms"]["qconv"] = row["kernel_graph_ms"]
+            top, busy = breakdown.top_kernels(lambda: trunk_q(x), top=40)
+            log(f"int8 trunk b{bsz}: {busy:.3f} device ms, top kernels "
+                + json.dumps(top))
+            log(f"int8 trunk b{bsz}: device ms by stage "
+                + json.dumps(row["stages_device_ms"]))
+            log(f"int8 trunk b{bsz}: features against bf16 "
+                f"{json.dumps(row['features'])}; trunk device ms "
+                f"{json.dumps(row['trunk_device_ms'])}")
+    del trunk_q, trunk_f, x, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def peak_gib(fn) -> float:
+    """Peak device memory allocated by ``fn()`` under inference mode above
+    what was allocated before it, GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def phase_quant_model(bsz=BATCH_SIZE):
+    """``entry.entry(quant_backbone="int8")`` at B=2 with the counts from 0
+    (18 FFN + 52 qconv); then at ``bsz`` the flagship with the int8 trunk
+    against the bf16 trunk on the same weights: hg_logit argmax agreement
+    (as ``tools/quant_numerics.py``), inference clips/s in turns, and the
+    int8 model's peak device memory in a forward with ``--backboneChunks
+    4`` against 1, and in a training forward's frames path with rand_aug
+    and aug_mix: chunks 4 against 1, and the batch augmented whole with the
+    trunk alone in 4 chunks.  Returns (the main path's launches, the
+    clips/s)."""
+    fn, (model, batch) = entry.entry(quant_backbone="int8")
+    reset_counts()
+    y = fn(model, batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    want = (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, QCONV_PER_FORWARD)
+    if launched != want or not torch.isfinite(y).all():
+        raise AssertionError(f"int8 main path launched {launched}, expected "
+                             f"{want}, or non-finite hg_logit")
+    log(f"main path (int8 trunk): hg_logit {tuple(y.shape)}, launches "
+        f"({COUNT_NAMES}) {launched}")
+    del fn, model, batch, y
+    model_q = entry.build_model(entry.trunk_cfg(entry.flagship_cfg(),
+                                                "int8"), "cuda")
+    batches = [entry.device_batch(model_q.cfg, bsz, seed)
+               for seed in (0, 1)]
+    calibrate_frozen_bn(model_q.backbone,
+                        model_q.normalize_frames(batches[0]["frames"]))
+    model_q.calibrate_quant(batches[0]["frames"])
+    model_f = entry.build_model(entry.flagship_cfg(), "cuda")
+    model_f.load_state_dict(model_q.state_dict())
+    with torch.inference_mode():
+        agree = [(model_q(b)["hg_logit"].argmax(-1)
+                  == model_f(b)["hg_logit"].argmax(-1)).float().mean().item()
+                 for b in batches]
+    runs = {"int8": [], "bf16": []}
+    for name in ("int8", "bf16", "bf16", "int8"):
+        runs[name].append(clips_per_second(
+            model_q if name == "int8" else model_f, batches))
+    base_cfg = model_q.cfg
+    peak = {}
+    for chunks in (1, 4):
+        model_q.cfg = base_cfg.replace(backbone_chunks=chunks)
+        peak[f"chunks {chunks}"] = peak_gib(lambda: model_q(batches[0]))
+    # a training forward's frames path (augment, normalize, trunk): the
+    # whole path in chunks, and the batch augmented whole with the trunk
+    # alone in 4 chunks
+    frames, g = batches[0]["frames"], torch.Generator(device="cuda")
+    model_q.train()
+    for aug in ("rand_aug", "aug_mix"):
+        for chunks in (1, 4):
+            model_q.cfg = base_cfg.replace(
+                backbone_chunks=chunks,
+                data=dataclasses.replace(base_cfg.data, augment_type=aug))
+            peak[f"train {aug}, chunks {chunks}"] = peak_gib(
+                lambda: model_q.encode_frames(frames, g.manual_seed(0)))
+        peak[f"train {aug}, augmented whole, trunk in 4 chunks"] = peak_gib(
+            lambda: torch.cat([model_q.backbone(c) for c in
+                               model_q.normalize_frames(
+                                   frames, g.manual_seed(0)).chunk(4)]))
+    model_q.eval()
+    model_q.cfg = base_cfg
+    log(f"int8 vs bf16 trunk, flagship b{bsz}: hg_logit argmax agreement "
+        f"{agree}; inference clips/s {json.dumps(runs)}; peak device memory "
+        f"above the resident GiB {json.dumps(peak)}")
+    del model_q, model_f, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched, {k: sum(v) / len(v) for k, v in runs.items()}
+
+
+def phase_quant_graph(bsz=QUANT_DRIVER_BATCH):
+    """A frozen int8 train step (``entry.train_entry(quant_backbone="int8")``,
+    the attention kernels) as 2-step chunks of the k-step graph: the eager
+    chunk and the capture launch 2 x (38, 34, 52 qconv) each, one capture,
+    finite losses, 0 host syncs in a replayed chunk."""
+    model, optimizer, generator, batch = entry.train_entry(
+        batch_size=bsz, quant_backbone="int8")
+    step = chunked_step(model, optimizer, generator, 2)
+    launched = []
+    for _ in range(2):           # the eager chunk, the capture and replay
+        reset_counts()
+        step(batch, generator)
+        launched.append(counts())
+    chunks = step.chunks
+    replays = [chunks.replays]
+    syncs = count_host_syncs(lambda: step(batch, generator))
+    replays.append(chunks.replays)
+    torch.cuda.synchronize()
+    losses = chunks.metrics["total_loss"].tolist()
+    want = tuple(2 * c for c in QUANT_STEP_LAUNCHES)
+    if launched != [want, want] or chunks.captures != 1 or replays != [
+            1, 2] or syncs["count"] or not all(map(math.isfinite, losses)):
+        raise AssertionError(
+            f"int8 train chunks: launches {launched} (expected 2 x {want}), "
+            f"{chunks.captures} captures, replays {replays}, host "
+            f"syncs {syncs}, losses {losses}")
+    log(f"int8 frozen train step b{bsz} in the 2-step graph: launches of the "
+        f"eager chunk and of the capture {launched[0]}, 1 capture, a "
+        f"replayed chunk's host syncs 0, losses {losses}")
+    del model, optimizer, generator, batch, step, chunks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def quant_example_frames(argv):
+    """The frames of the driver's example batch (the first of the train
+    split's epoch 0), rebuilt from its flags."""
+    cfg, extras = common.parse_reference_flags_with_extras(argv,
+                                                           dataset="agqa")
+    data = common.build_data(cfg, extras, cfg.data.train_split)
+    cfg = common.resolve_num_answers(cfg, data)
+    tokenizer = common.build_tokenizer(
+        cfg, extras, [x["question"] for x in data.datums])
+    src = common.build_item_source(cfg, extras, data, tokenizer)
+    batcher = common.Batcher(src, num_items=len(src),
+                             batch_size=cfg.optim.batch_size, shuffle=True,
+                             drop_last=True, seed=cfg.seed)
+    return torch.from_numpy(next(batcher.epoch(0))["frames"]).cuda()
+
+
+def phase_quant_driver(tmp: str, files: dict):
+    """The agqa_hgqa driver at the published flags + ``--quantBackbone int8
+    --backboneChunks 2 --pallasFFNTrain --stepsPerLoop 2``, the trunk from
+    ``--backboneWeights``, B=8 on 32 synthetic clips, one epoch: the
+    launches of each step run on the host (38 / 34 attention, 18 / 14 FFN
+    train, 104 qconv), finite losses, the scales equal to a calibration of
+    the loaded trunk on the example batch, LAST reloaded bit-equal with
+    its scales; ``--test`` from LAST (18 FFN + 52 qconv per forward, with
+    ``--pallasAttention`` + 38 attention; oracle 1.0)."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "quant")
+    base = DRIVER_FLAGS + QUANT_FLAGS + [
+        "--syntheticData", "32", "--syntheticValid", "8", "--batchSize",
+        str(QUANT_DRIVER_BATCH), "--logFreq", "1", "--epochs", "1",
+        "--dataDir", tmp, "--backboneWeights", files["trunk"]]
+    argv = base + ["--output", out, "--backboneChunks", "2",
+                   "--stepsPerLoop", "2"]
+    with _Counted(sync=False) as counted:
+        result, stdout, seconds = run_main(argv)
+    want, want_eval = QUANT_DRIVER_LAUNCHES, QUANT_VALID_LAUNCHES
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["total_loss"] for line in f]
+    if (counted.train != [want] * 4 or not counted.eval
+            or any(c != want_eval for c in counted.eval)
+            or len(losses) != 4 or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"int8 driver: train launches {counted.train} "
+                             f"(4 x {want}), eval {counted.eval}, losses "
+                             f"{losses}")
+    model = counted.model
+    trunk = model.backbone
+    fresh = entry.build_model(model.cfg, "cuda", seed=model.cfg.seed + 1)
+    Trainer(model.cfg, 1, fresh).load_backbone(files["trunk"])
+    if fresh.backbone.calibrated:
+        raise AssertionError("a trunk file set the int8 scales")
+    fresh.calibrate_quant(quant_example_frames(argv))
+    state = trunk.state_dict()
+    scales = [k for k in state if is_quant_scale(k)]
+    for k, v in fresh.backbone.state_dict().items():
+        if not torch.equal(v, state[k]):
+            raise AssertionError(f"int8 driver: {k} is not the loaded "
+                                 "trunk's calibration on the example batch")
+    fresh = entry.build_model(model.cfg, "cuda", seed=model.cfg.seed + 2)
+    Trainer(model.cfg, 1, fresh, trainable_mask(fresh, model.cfg)).load(
+        os.path.join(out, "LAST"))
+    trained = model.state_dict()
+    for k, v in fresh.state_dict().items():
+        if not torch.equal(v, trained[k]):
+            raise AssertionError(f"int8 LAST reloads {k} differently")
+    if not fresh.backbone.calibrated:
+        raise AssertionError("int8 LAST did not restore the scales")
+    del fresh, trained, model, trunk, state, counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"int8 driver: {result['steps']} steps, launches per train step "
+        f"({COUNT_NAMES}) {want}, per valid forward {want_eval}; losses "
+        f"{losses}; {len(scales)} scales = the loaded trunk's calibration on "
+        f"the example batch; LAST reloads bit-equal with them; "
+        f"{seconds:.1f} s")
+    test_s = []
+    for extra, want in QUANT_EVAL_MODES:
+        test_out = os.path.join(tmp, "quant_test" + "".join(extra))
+        argv_test = base + ["--output", test_out, "--test", "test", "--load",
+                            os.path.join(out, "LAST")] + extra
+        with _Counted() as counted:
+            _, stdout, seconds = run_main(argv_test)
+        if "Oracle score: 1.0000" not in stdout:
+            raise AssertionError(f"int8 --test {extra}: oracle not 1.0")
+        if not counted.eval or any(c != want for c in counted.eval):
+            raise AssertionError(f"int8 --test {extra} forwards launched "
+                                 f"{counted.eval}, expected {want}")
+        test_s.append(seconds)
+    log(f"int8 driver --test from LAST: oracle 1.0, launches per forward "
+        f"{[w for _, w in QUANT_EVAL_MODES]}; {test_s} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return want
+
+
+def phase_quant_card_vs_cpu():
+    """A tiny f32 hgqa model with the int8 trunk: the card (the qconv
+    kernel in f32) against the CPU (the plain int8 path), both from one set
+    of weights and scales calibrated on the CPU, held at quant-step
+    granularity (the stem's float conv may flip a rounding): correlation
+    > 0.999 and max |error| < 0.05 max |CPU| for the features, logit and
+    hg_logit (the JAX test's own criterion)."""
+    cfg = tiny_test_config(task="hgqa", quant_backbone="int8",
+                           freeze_backbone=True, use_pallas_ffn=False)
+    cpu = entry.build_model(cfg, "cpu", seed=6)
+    rng = np.random.RandomState(6)
+    d, e = cfg.data, cfg.encoder
+    batch = {
+        "input_ids": rng.randint(1, e.vocab_size, (2, d.max_seq_length)),
+        "input_mask": np.ones((2, d.max_seq_length), np.int32),
+        "segment_ids": np.zeros((2, d.max_seq_length), np.int32),
+        "frames": rng.randint(0, 255, (2, e.visual_t + 8, d.image_size,
+                                       d.image_size, 3)).astype(np.uint8),
+    }
+    frames = torch.as_tensor(batch["frames"])
+    calibrate_frozen_bn(cpu.backbone, cpu.normalize_frames(frames))
+    cpu.calibrate_quant(frames)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    worst = {}
+    reset_counts()
+    with torch.inference_mode():
+        outs = []
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            y = model(tb)
+            y["features"] = model.encode_frames(tb["frames"])
+            outs.append({k: y[k].double().cpu() for k in
+                         ("features", "logit", "hg_logit")})
+    if qconv.launches != 2 * QCONV_PER_FORWARD:
+        raise AssertionError(f"card forwards launched qconv {qconv.launches}")
+    want, got = outs
+    for k in want:
+        a, b = want[k].ravel(), got[k].ravel()
+        corr = float(np.corrcoef(a.numpy(), b.numpy())[0, 1])
+        err = ((a - b).abs().max() / a.abs().max().clamp_min(1e-6)).item()
+        worst[k] = {"corr": corr, "max_err": err,
+                    "equal": bool(torch.equal(a, b))}
+        if corr <= 0.999 or err >= 0.05:
+            raise AssertionError(f"int8 card vs CPU {k}: {worst[k]}")
+    log(f"int8 trunk card (kernel) vs CPU (plain), tiny, f32: "
+        f"{json.dumps(worst)}")
+
+
+def phase_quant(tmp=None, files=None):
+    """Phase quant (``--only quant``): the qconv kernel's checks and times
+    at B=2 and B=32, the int8 main path and model, the k-step graph, the
+    driver (the weight files written first when none are given) and the
+    tiny card vs CPU check.  Returns (the kernels line's entry fields: the
+    rows at B=32 and B=2 and the main path's launches), the clips/s."""
+    t0 = time.perf_counter()
+    rows = {b: phase_quant_trunk(b) for b in (2, BATCH_SIZE)}
+    launched, cps = phase_quant_model()
+    phase_quant_graph()
+    if files is None:
+        with tempfile.TemporaryDirectory() as own:
+            phase_quant_driver(own, write_weight_files(own))
+    else:
+        phase_quant_driver(tmp, files)
+    phase_quant_card_vs_cpu()
+    log(f"phase quant: {time.perf_counter() - t0:.1f} s")
+    return rows, launched, cps
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
                                            "tok_block", "out_ln_headsliced",
                                            "weights", "steps_per_loop",
                                            "matcher", "star", "tasks",
-                                           "per_choice"),
+                                           "per_choice", "quant"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -4189,6 +4912,10 @@ def main(argv=None) -> int:
         phase_per_choice_card_vs_cpu()
         log("per-choice STAR ok")
         return 0
+    if args.only == "quant":
+        phase_quant()
+        log("int8 trunk ok")
+        return 0
     if args.only == "out_ln_headsliced":
         out_ln_rows, out_ln_err = phase_out_ln_kernel()
         log_out_ln_per_forward(out_ln_rows)
@@ -4223,11 +4950,13 @@ def main(argv=None) -> int:
     train_cps.update(published_cps)
     spl_cps = phase_steps_per_loop(
         "frozen", (train_model, optimizer, generator, batch))
-    del train_model, optimizer, batch
+    del train_model, optimizer, batch, published
     gc.collect()
     torch.cuda.empty_cache()
-    spl_cps.update(phase_steps_per_loop("published", published[:4]))
-    del published
+    # a fresh published model, as --only steps_per_loop: phase 7's timed
+    # steps on one batch at the schedule's peak can leave the random one NaN
+    spl_cps.update(phase_steps_per_loop(
+        "published", entry.train_entry(published=True)))
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4242,6 +4971,8 @@ def main(argv=None) -> int:
         phase_tasks(tmp, files)
         clear_outputs(tmp, files["trunk"])
         per_choice_s = phase_per_choice(tmp, files)
+        clear_outputs(tmp, files["trunk"])
+        quant_rows, quant_launched, quant_cps = phase_quant(tmp, files)
         weight_bytes = files["bytes"]
         del files
     for name in CARD_VS_CPU:
@@ -4383,6 +5114,26 @@ def main(argv=None) -> int:
             f"n={n} " + json.dumps({k: v for k, v in row.items()
                                     if k != "bound"})
             for (kind, n), row in matcher_rows.items() if kind == "large"))
+    q32, q2 = quant_rows[bsz], quant_rows[2]
+    kernels.append({
+        "name": "qconv", "route": "cuda",
+        "source": "shgvqa_tpu_torch/csrc/qconv.cu",
+        "replaces": "shgvqa_tpu/models/backbone.py:167",
+        "launches": quant_launched[10], "max_abs_err": q2["max_abs_err"],
+        "ms": q32["kernel_ms"], "plain_ms": q32["plain_ms"],
+        "bound_ms": q32["bound_ms"], "bound_by": q32["bound_by"],
+        "library_ms": None,
+    })
+    log(f"qconv per trunk forward ({quant_launched[10]} launches; "
+        "port-only, replaces no Pallas kernel; no one library call computes "
+        "it: int_mm is torch._int_mm on the 1x1 stride-1 convs alone, the "
+        "yardstick cuDNN bf16 F.conv3d of the 52 convs; device: "
+        "torch.profiler; graph: one CUDA graph of the 52 launches): " + ", ".join(
+            f"{k} {row[k]} at b{b}" for b, row in ((bsz, q32), (2, q2))
+            for k in ("kernel_ms", "kernel_ms_range", "kernel_device_ms",
+                      "kernel_graph_ms", "plain_ms", "int_mm_ms",
+                      "cudnn_bf16_ms", "bound_ms"))
+        + f"; inference clips/s int8 vs bf16 trunk {json.dumps(quant_cps)}")
     log(f"phase 9d seconds {json.dumps(per_choice_s)}")
     log(f"train clips/s b{bsz}: {json.dumps(train_cps)}; train step device "
         f"memory GiB {json.dumps(train_memory)}; driver epochs {epoch_s} s")

@@ -20,7 +20,10 @@ checkpoints and the test protocol), whose ``--pallasFFNTrain`` runs the
 fused FFN train pair, forward and backward, as hand-written CUDA kernels
 (``csrc/ffn_train.cu``, wrapper ``kernels/ffn.py``); the ``agqa_vqa``,
 ``agqa_q`` and ``star`` drivers, and the AGQA ablations (tasks 'q',
-'vhga', 'hgvqa', the cross-layer variants of ``models/cross.py``).
+'vhga', 'hgvqa', the cross-layer variants of ``models/cross.py``); the
+int8 frozen trunk (``--quantBackbone int8``) on the hand-written int8
+convolution of ``csrc/qconv.cu`` (wrapper ``kernels/qconv.py``), and
+``--backboneChunks``.
 Options the port does not run yet raise ``NotImplementedError``
 (``configs/config.check_ported``).
 """

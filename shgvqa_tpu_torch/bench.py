@@ -4,6 +4,8 @@ flagship train step in clips/s.
 
     python -m shgvqa_tpu_torch.bench [--train [--frozen-trunk]
                                       [--steps-per-loop K]]
+                                     [--quant-backbone int8]
+                                     [--backbone-chunks N]
 
 Inference protocol: the inputs (two batches of 32 clips from different
 seeds) are staged on the card once, two forwards warm it up, then ten
@@ -29,6 +31,11 @@ second captured into a CUDA graph and replayed, then five replays timed on the
 host clock; ``host_syncs`` is one replayed chunk's, ``peak_gib`` and
 ``reserved_gib`` a replayed chunk's peak and the allocator's reserved
 memory after it.
+
+``--quant-backbone int8`` runs the int8 frozen trunk (``--quantBackbone
+int8``; with ``--train`` only under ``--frozen-trunk``), its scales
+calibrated on the first batch; ``--backbone-chunks N`` runs the frozen
+frames path in N micro-chunks (``--backboneChunks``).
 
 The line carries the card's name and power limit.  It needs a CUDA card:
 with none it raises.
@@ -57,6 +64,7 @@ from shgvqa_tpu_torch.entry import (
     flagship_cfg,
     resolve_device,
     train_entry,
+    trunk_cfg,
 )
 from shgvqa_tpu_torch.train.graph import StepChunks
 from shgvqa_tpu_torch.train.step import compute_losses, make_train_step
@@ -275,15 +283,28 @@ def main(argv=None) -> None:
     parser.add_argument("--steps-per-loop", type=int, default=1,
                         help="with --train: K steps a launch, as "
                              "--stepsPerLoop K trains (a K-step CUDA graph)")
+    parser.add_argument("--quant-backbone", default="", choices=("", "int8"),
+                        help="the int8 frozen trunk (--quantBackbone)")
+    parser.add_argument("--backbone-chunks", type=int, default=1,
+                        help="the frozen frames path in N micro-chunks "
+                             "(--backboneChunks)")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
+    trunk = dict(quant_backbone=args.quant_backbone,
+                 backbone_chunks=args.backbone_chunks)
+    if args.train and args.quant_backbone and not args.frozen_trunk:
+        parser.error("--quant-backbone trains with --frozen-trunk only (the "
+                     "int8 trunk is frozen)")
+    trunk_text = (f", {args.quant_backbone or 'bf16'} trunk"
+                  + (f" in {args.backbone_chunks} chunks"
+                     if args.backbone_chunks > 1 else ""))
     if args.train:
         published = not args.frozen_trunk
         model, optimizer, generator, batch = train_entry(
-            dev, BATCH_SIZE, published=published)
+            dev, BATCH_SIZE, published=published, **trunk)
         k = args.steps_per_loop
         recipe = ("trained trunk, rand_aug (the published recipe)"
-                  if published else "frozen trunk, no_aug")
+                  if published else "frozen trunk, no_aug") + trunk_text
         line = {
             "metric": f"clips/s (train step: uint8 frames->losses->BertAdam, "
                       f"HGQA b{BATCH_SIZE}, bf16, {recipe}, fused "
@@ -305,14 +326,16 @@ def main(argv=None) -> None:
             host_syncs=count_host_syncs(lambda: step(batch, generator)),
             **train_memory_gib(step, batch, generator))
     else:
-        cfg = flagship_cfg()
+        cfg = trunk_cfg(flagship_cfg(), **trunk)
         model = build_model(cfg, dev)
         batches = [device_batch(cfg, BATCH_SIZE, seed, dev)
                    for seed in (0, 1)]
+        if args.quant_backbone:
+            model.calibrate_quant(batches[0]["frames"])
         cps = clips_per_second(model, batches)
         line = {
             "metric": f"clips/s (uint8 frames->answer, HGQA b{BATCH_SIZE}, "
-                      "bf16 trunk, fused FFN kernel)",
+                      f"bf16{trunk_text}, fused FFN kernel)",
             "value": cps,
             "unit": "clips/s",
         }

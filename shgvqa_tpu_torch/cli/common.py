@@ -17,6 +17,13 @@ does.  ``--test`` loads only ``--load``.  ``--load`` reads the port's own
 checkpoints and reference ``.pth`` snapshots (``path/BEST`` with
 ``BEST.pth`` beside it).
 
+``--quantBackbone int8``: once the trunk's weights are final, a trunk
+whose scales no load carried is calibrated (``calibrate_quant``) on the
+first batch of the train split's epoch 0, the example batch the JAX driver
+inits on, or under ``--test`` on the first test batch.  The JAX driver
+calibrates at init, before ``--backboneWeights`` loads, so its scales are
+the random trunk's (ROADMAP C); the port's are the loaded trunk's.
+
 STAR passes each question's keyframes to the frame loader, scores the
 4-way answer index (BEST on the hg score, ``log.log`` under ``--output``),
 and its test protocol reports ``acc``, ``hg_acc`` and the per-question-type
@@ -185,6 +192,16 @@ def load_pretrained_weights(trainer: Trainer, cfg: Config,
                   "tools/fetch_bert_vocab.py notes)", flush=True)
 
 
+def calibrate_trunk(model, batcher: Batcher, device) -> None:
+    """An int8 trunk without scales: calibrate them on the first batch of
+    ``batcher``'s epoch 0 (the JAX ``_example_from``)."""
+    trunk = getattr(model, "backbone", None)
+    if trunk is None or not trunk.quant or trunk.calibrated:
+        return
+    frames = next(batcher.epoch(0))["frames"]
+    model.calibrate_quant(torch.from_numpy(frames).to(device))
+
+
 def run_driver(dataset: str, argv=None, device="cuda") -> dict:
     """Full train/valid/test orchestration on ``device``; returns a result
     summary."""
@@ -213,6 +230,7 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
                           model=model)
         if cfg.load:
             trainer.load(cfg.load, params_only=True)
+        calibrate_trunk(model, batcher, dev)
         # oracle sanity check: the metric plumbing must score 1.0 on the
         # ground truth when labels exist
         try:
@@ -262,6 +280,7 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
     load_pretrained_weights(trainer, cfg, extras)
     if cfg.load:
         trainer.load(cfg.load)
+    calibrate_trunk(model, train_batcher, dev)
 
     evaluator = valid_data.evaluator() if valid_data is not None else None
 

@@ -297,8 +297,6 @@ _TRAIN_UNPORTED = (
 
 _VIDEO_UNPORTED = (
     ("backbone", "slow_r50", "17 (other backbones)"),
-    ("quant_backbone", "", "16 (int8 frozen trunk)"),
-    ("backbone_chunks", 1, "16 (--backboneChunks)"),
 )
 
 

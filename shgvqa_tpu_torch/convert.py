@@ -10,13 +10,18 @@ its modules after the flax modules, so the map is a rename plus a transpose:
 - Conv ``kernel`` (kT, kH, kW, I, O) -> ``weight`` (O, I, kT, kH, kW);
 - LayerNorm / BatchNorm ``scale`` -> ``weight``; ``embedding`` -> ``weight``;
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
-- other leaves (CLS tokens, positions, type tokens) keep their names.
+- other leaves (CLS tokens, positions, type tokens) keep their names;
+- the int8 trunk's ``quant_stats`` (``backbone/s_stem``,
+  ``backbone/res_i/block_j/s_a|s_b|s_out``) keep their names and paths.
 
 With ``model`` given it raises on any key left over or missing and on any
-shape that differs, before ``load_state_dict`` would.
+shape that differs, before ``load_state_dict`` would; the int8 scales may
+be missing or left over, as the trunk's own load takes a state dict with
+or without them (``models/backbone.SlowR50``).
 
 ``to_jax_variables`` is its inverse: a port ``state_dict`` becomes the JAX
-package's ``{"params", "batch_stats"}`` trees of f32 numpy arrays.  The
+package's ``{"params", "batch_stats"}`` trees of f32 numpy arrays (and
+``quant_stats`` for an int8 trunk).  The
 weight importers (``utils/``) are ports of functions that merge into trees
 in the JAX layout; they work on its result and ``from_jax_variables``
 brings theirs back, so the port keeps one map between its names and the
@@ -42,6 +47,14 @@ _KEPT = {"bias", "cls_token", "pos_embedding", "act_token", "rel_token"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
 # flax nn.Dense called directly (no JAX ``Dense`` wrapper, so no Dense_0)
 _PLAIN_DENSE = {"in_proj"}
+# the int8 trunk's activation scales (the JAX ``quant_stats`` leaves)
+QUANT_STATS = ("s_stem", "s_a", "s_b", "s_out")
+_COLLECTIONS = ("params", "batch_stats", "quant_stats")
+
+
+def is_quant_scale(key: str) -> bool:
+    """Whether a state_dict key is one of the int8 trunk's scales."""
+    return key.rpartition(".")[2] in QUANT_STATS
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -55,6 +68,10 @@ def _leaves(tree: Mapping, prefix=()):
 def _convert_leaf(collection: str, path, value: np.ndarray):
     *mods, leaf = [p for p in path if p != "Dense_0"]
     value = np.array(value, dtype=np.float32)
+    if collection == "quant_stats":
+        if leaf not in QUANT_STATS:
+            raise KeyError(f"unknown quant_stats leaf {'/'.join(path)}")
+        return mods + [leaf], value
     if collection == "batch_stats":
         if leaf not in _STATS:
             raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
@@ -78,26 +95,31 @@ def from_jax_variables(variables: Mapping,
                        model: Optional[nn.Module] = None
                        ) -> Dict[str, torch.Tensor]:
     """Flax variables (nested dicts of numpy arrays) -> port state_dict."""
-    unknown = set(variables) - {"params", "batch_stats"}
+    unknown = set(variables) - set(_COLLECTIONS)
     if unknown:
         raise KeyError(f"unexpected variable collections {sorted(unknown)}")
     state = {}
-    for collection in ("params", "batch_stats"):
+    for collection in _COLLECTIONS:
         for path, value in _leaves(variables.get(collection, {})):
             names, value = _convert_leaf(collection, path, value)
             key = ".".join(names)
             if key in state:
                 raise KeyError(f"two JAX leaves map to {key}")
-            state[key] = torch.from_numpy(np.ascontiguousarray(value))
+            # ascontiguousarray makes a scalar (a quant_stats leaf) 1-d
+            state[key] = torch.from_numpy(
+                np.ascontiguousarray(value)).reshape(value.shape)
     if model is not None:
         want = model.state_dict()
-        missing = sorted(set(want) - set(state))
-        extra = sorted(set(state) - set(want))
+        missing = sorted(k for k in set(want) - set(state)
+                         if not is_quant_scale(k))
+        extra = sorted(k for k in set(state) - set(want)
+                       if not is_quant_scale(k))
         if missing or extra:
             raise KeyError(f"state_dict mismatch: missing {missing}, "
                            f"left over {extra}")
         bad = [f"{k}: {tuple(v.shape)} vs {tuple(want[k].shape)}"
-               for k, v in state.items() if v.shape != want[k].shape]
+               for k, v in state.items()
+               if k in want and v.shape != want[k].shape]
         if bad:
             raise ValueError(f"shape mismatch: {bad}")
     return state
@@ -107,6 +129,8 @@ def _jax_leaf(module: str, leaf: str, weight_rank: Optional[int]):
     """(path, collection, transpose) of the JAX leaf a port tensor came
     from."""
     mods = module.split(".") if module else []
+    if leaf in QUANT_STATS:
+        return mods + [leaf], "quant_stats", None
     if leaf in _STATS_BACK:
         return mods + [_STATS_BACK[leaf]], "batch_stats", None
     if leaf not in ("weight", "bias"):
@@ -135,10 +159,10 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]
     """Port state_dict -> flax variables (nested dicts of f32 numpy
     arrays, copies): the inverse of ``from_jax_variables``.  The
     ``batch_stats`` collection is present only when the model has
-    BatchNorm statistics."""
+    BatchNorm statistics, ``quant_stats`` only when it has int8 scales."""
     ranks = {key[:-len(".weight")]: value.dim()
              for key, value in state_dict.items() if key.endswith(".weight")}
-    variables: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    variables: Dict[str, dict] = {c: {} for c in _COLLECTIONS}
     for key, value in state_dict.items():
         module, _, leaf = key.rpartition(".")
         path, collection, perm = _jax_leaf(module, leaf, ranks.get(module))
@@ -151,6 +175,7 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]
         if path[-1] in node:
             raise KeyError(f"two port tensors map to {'/'.join(path)}")
         node[path[-1]] = array
-    if not variables["batch_stats"]:
-        del variables["batch_stats"]
+    for collection in _COLLECTIONS[1:]:
+        if not variables[collection]:
+            del variables[collection]
     return variables

@@ -486,16 +486,26 @@ def _augment(frames01, op, apply, sign, magnitude, eq_stride, path,
     return x
 
 
+# the JAX defaults of the draws: RandAugment's layers and apply
+# probability, AugMix's chains and their depth (``augment_draws`` too)
+RAND_AUG_LAYERS, RAND_AUG_PROB = 2, 0.5
+AUG_MIX_WIDTH, AUG_MIX_DEPTH = 3, 2
+
+
 def rand_augment_batch(frames01: torch.Tensor, generator: torch.Generator,
-                       num_layers: int = 2, magnitude: int = 9,
-                       prob: float = 0.5, eq_stride: int = 8,
-                       path: str = "subbatch") -> torch.Tensor:
+                       num_layers: int = RAND_AUG_LAYERS, magnitude: int = 9,
+                       prob: float = RAND_AUG_PROB, eq_stride: int = 8,
+                       path: str = "subbatch",
+                       draws: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> torch.Tensor:
     """Video-consistent RandAugment of (B, T, H, W, C) frames in [0, 1]:
-    per clip and layer one op draw from ``generator``."""
-    op, apply, sign = sample_rand_augment(frames01.shape[0], num_layers, prob,
-                                          generator, frames01.device)
-    return _augment(frames01, op, apply, sign, magnitude, eq_stride, path,
-                    prob)
+    per clip and layer one op draw from ``generator``, or the clips' rows
+    of ``draws`` (``augment_draws``)."""
+    if draws is None:
+        draws = dict(zip(("op", "apply", "sign"), sample_rand_augment(
+            frames01.shape[0], num_layers, prob, generator, frames01.device)))
+    return _augment(frames01, draws["op"], draws["apply"], draws["sign"],
+                    magnitude, eq_stride, path, prob)
 
 
 def _exponential(shape, generator, device) -> torch.Tensor:
@@ -516,19 +526,26 @@ def aug_mix_weights(b: int, width: int, generator: torch.Generator, device
 
 
 def aug_mix_batch(frames01: torch.Tensor, generator: torch.Generator,
-                  severity: int = 3, width: int = 3, depth: int = 2,
+                  severity: int = 3, width: int = AUG_MIX_WIDTH,
+                  depth: int = AUG_MIX_DEPTH,
                   eq_stride: int = 8, path: str = "subbatch",
-                  fold_chains: bool = True) -> torch.Tensor:
+                  fold_chains: bool = True,
+                  draws: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> torch.Tensor:
     """AugMix: ``width`` RandAugment chains of ``depth`` layers at
     ``severity`` (every layer applied) mixed with ``aug_mix_weights``,
-    then blended with the clean clip, all drawn per clip.
+    then blended with the clean clip, all drawn per clip from
+    ``generator``, or the clips' rows of ``draws`` (``augment_draws``).
     ``fold_chains`` runs the chains as one (width * B) batch, row w * B + i
     carrying chain w of clip i; the same bits as ``width`` calls on B
     clips."""
     b, dev, dt = frames01.shape[0], frames01.device, frames01.dtype
-    ws, m = aug_mix_weights(b, width, generator, dev)
-    op, apply, sign = sample_rand_augment(width * b, depth, 1.0, generator,
-                                          dev)
+    if draws is None:
+        draws = _aug_mix_draws(b, width, depth, generator, dev)
+    ws, m = draws["ws"], draws["m"]
+    # (B, width, depth) per clip -> row w * B + i
+    op, apply, sign = (draws[k].transpose(0, 1).reshape(width * b, depth)
+                       for k in ("op", "apply", "sign"))
     if fold_chains:
         tiled = frames01.repeat(width, 1, 1, 1, 1)
         chains = _augment(tiled, op, apply, sign, severity, eq_stride,
@@ -545,15 +562,46 @@ def aug_mix_batch(frames01: torch.Tensor, generator: torch.Generator,
     return (1.0 - mb) * frames01 + mb * mixed
 
 
+def _aug_mix_draws(b, width, depth, generator, device):
+    """AugMix's draws for b clips: the weights, then the chains' ops (drawn
+    as (width * B, depth), row w * B + i), each with the clips on dim 0."""
+    ws, m = aug_mix_weights(b, width, generator, device)
+    ops = sample_rand_augment(width * b, depth, 1.0, generator, device)
+    draws = {"ws": ws, "m": m}
+    for name, t in zip(("op", "apply", "sign"), ops):
+        draws[name] = t.view(width, b, depth).transpose(0, 1)
+    return draws
+
+
+def augment_draws(augment_type: str, b: int, generator: torch.Generator,
+                  device) -> Dict[str, torch.Tensor]:
+    """The draws ``augment_clips`` makes for a batch of b clips, from
+    ``generator`` in the same order, each a tensor with the clips on dim 0:
+    ``{k: v[i:j] for k, v in draws.items()}`` are clips i..j-1's, so a
+    batch augmented chunk by chunk gives the batch's bits (every op
+    computes each clip alone)."""
+    if augment_type == "aug_mix":
+        return _aug_mix_draws(b, AUG_MIX_WIDTH, AUG_MIX_DEPTH, generator,
+                              device)
+    if augment_type in ("rand_aug", "rand_aug_slowfast"):
+        return dict(zip(("op", "apply", "sign"), sample_rand_augment(
+            b, RAND_AUG_LAYERS, RAND_AUG_PROB, generator, device)))
+    raise ValueError(f"augment_type {augment_type!r} does not augment")
+
+
 def augment_clips(frames01: torch.Tensor, augment_type: str,
                   generator: torch.Generator, path: str = "subbatch",
-                  fold_chains: bool = True) -> torch.Tensor:
+                  fold_chains: bool = True,
+                  draws: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> torch.Tensor:
     """The training augmentation of ``augment_type`` (``AUGMENT_TYPES``)
     at the JAX defaults on ``path`` (``AUG_PATHS``): RandAugment for
-    'rand_aug' and 'rand_aug_slowfast', AugMix for 'aug_mix'."""
+    'rand_aug' and 'rand_aug_slowfast', AugMix for 'aug_mix'; drawn from
+    ``generator``, or given as the clips' rows of ``augment_draws``."""
     if augment_type == "aug_mix":
         return aug_mix_batch(frames01, generator, path=path,
-                             fold_chains=fold_chains)
+                             fold_chains=fold_chains, draws=draws)
     if augment_type in ("rand_aug", "rand_aug_slowfast"):
-        return rand_augment_batch(frames01, generator, path=path)
+        return rand_augment_batch(frames01, generator, path=path,
+                                  draws=draws)
     raise ValueError(f"augment_type {augment_type!r} does not augment")

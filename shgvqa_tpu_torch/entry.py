@@ -13,7 +13,10 @@ for the augmentation and the dropout masks and a labelled batch (the
 labels of ``__graft_entry__._example_batch(with_labels=True)``); the
 trunk frozen and no augmentation (the config's defaults), or with
 ``published=True`` the published AGQA recipe's trunk and augmentation
-(``published_train_cfg``).
+(``published_train_cfg``).  ``quant_backbone='int8'`` runs the frozen
+trunk in int8 (``trunk_cfg``), its scales calibrated on the batch after the
+BatchNorm statistics; ``backbone_chunks`` N runs the frozen frames path in
+N micro-chunks.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a CUDA device it raises.
@@ -91,6 +94,16 @@ def published_train_cfg() -> Config:
         cfg.data, augment_type="rand_aug"))
 
 
+def trunk_cfg(cfg: Config, quant_backbone: str = "",
+              backbone_chunks: int = 1) -> Config:
+    """``cfg`` with ``--quantBackbone`` and ``--backboneChunks``; the int8
+    trunk is frozen, as the CLI implies."""
+    return cfg.replace(quant_backbone=quant_backbone,
+                       backbone_chunks=backbone_chunks,
+                       freeze_backbone=(cfg.freeze_backbone
+                                        or bool(quant_backbone)))
+
+
 def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -129,14 +142,18 @@ def hg_logit_forward(model: VideoShgVqaModel,
         return model(batch)["hg_logit"]
 
 
-def entry(device="cuda", batch_size: int = 2, seed: int = 0
+def entry(device="cuda", batch_size: int = 2, seed: int = 0,
+          quant_backbone: str = "", backbone_chunks: int = 1
           ) -> Tuple[Callable, tuple]:
     """(fn, args): ``fn(*args)`` is the flagship uint8 frames -> hg_logit
-    forward with random weights from ``seed``."""
-    cfg = flagship_cfg()
+    forward with random weights from ``seed`` (with ``quant_backbone``
+    the int8 trunk, its scales calibrated on the batch)."""
+    cfg = trunk_cfg(flagship_cfg(), quant_backbone, backbone_chunks)
     model = build_model(cfg, device, seed)
-    return hg_logit_forward, (model, device_batch(cfg, batch_size, seed,
-                                                  device))
+    batch = device_batch(cfg, batch_size, seed, device)
+    if quant_backbone:
+        model.calibrate_quant(batch["frames"])
+    return hg_logit_forward, (model, batch)
 
 
 # schedule length of ``train_entry``'s optimizer: short enough that the
@@ -152,7 +169,8 @@ class TrainEntry(NamedTuple):
 
 
 def train_entry(device="cuda", batch_size: int = 32, seed: int = 0,
-                published: bool = False) -> TrainEntry:
+                published: bool = False, quant_backbone: str = "",
+                backbone_chunks: int = 1) -> TrainEntry:
     """The flagship train step's pieces at the published batch (32): the
     model with random weights from ``seed`` in training mode (the trunk's
     BatchNorm statistics calibrated on the batch's unaugmented frames, as a
@@ -162,14 +180,19 @@ def train_entry(device="cuda", batch_size: int = 32, seed: int = 0,
     seeded with ``seed`` on ``device`` for the augmentation and the dropout
     masks, and a labelled batch with uint8 frames.  The trunk is frozen and
     the frames unaugmented, or with ``published`` as the published recipe
-    trains (``published_train_cfg``).  Run a step with
+    trains (``published_train_cfg``); with ``quant_backbone`` the int8
+    trunk (frozen), its scales calibrated on the batch after the
+    statistics.  Run a step with
     ``train.step.make_train_step(model.cfg, model, optimizer)``."""
-    cfg = published_train_cfg() if published else flagship_cfg()
+    cfg = trunk_cfg(published_train_cfg() if published else flagship_cfg(),
+                    quant_backbone, backbone_chunks)
     model = build_model(cfg, device, seed)
     dev = resolve_device(device)
     batch = device_batch(cfg, batch_size, seed, dev, with_labels=True)
     calibrate_frozen_bn(model.backbone,
                         model.normalize_frames(batch["frames"]))
+    if quant_backbone:
+        model.calibrate_quant(batch["frames"])
     model.train()
     o = cfg.optim
     optimizer = make_optimizer(

@@ -53,7 +53,12 @@ under ``torch.no_grad()``, as the JAX package's ``stop_gradient`` and its
 two-launch trunk do; otherwise it trains in the graph.  Its BatchNorm
 always uses the stored statistics.  In training mode with an augmenting
 ``augment_type`` the frames are augmented on the device before they are
-normalized, with draws from the same generator.
+normalized, with draws from the same generator.  ``quant_backbone='int8'``
+(a frozen trunk only) runs the int8 trunk, whose scales
+``VideoShgVqaModel.calibrate_quant`` records; ``backbone_chunks`` N runs a
+frozen trunk's whole frames path (convert, augment, normalize, trunk) in N
+micro-chunks one after another when N divides the batch (else the batch
+runs whole, as in JAX), with the batch's augmentation drawn once.
 Every option the flagship does not use raises
 (``configs.config.check_ported``; training options are checked when the
 model runs in training mode).
@@ -79,9 +84,10 @@ from shgvqa_tpu_torch.data.transforms import (
     AUGMENT_TYPES,
     NORM_STATS,
     augment_clips,
+    augment_draws,
     normalize_clip,
 )
-from shgvqa_tpu_torch.models.backbone import make_backbone
+from shgvqa_tpu_torch.models.backbone import calibrate_quant, make_backbone
 from shgvqa_tpu_torch.models.decoder import HGDecoder
 from shgvqa_tpu_torch.models.encoder import LanguageEncoder, LXRTModel
 from shgvqa_tpu_torch.models.hg import HGEmbeddings, HGQCrossEncoder
@@ -266,9 +272,15 @@ class VideoShgVqaModel(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         check_ported(cfg, video=True)
+        if cfg.quant_backbone and not cfg.freeze_backbone:
+            raise ValueError(
+                "--quantBackbone requires a frozen trunk: the int8 forward "
+                "has zero gradient through round()")
         self.cfg = cfg
+        # the plain trunk keeps the registry's two-argument call
+        quant = {"quant": cfg.quant_backbone} if cfg.quant_backbone else {}
         self.backbone = make_backbone(cfg.backbone,
-                                      torch_dtype(cfg.compute_dtype))
+                                      torch_dtype(cfg.compute_dtype), **quant)
         # flax infers the tokenizer's input width and token count from the
         # trunk's output; here they follow from the trunk and image_size
         self.head = ShgVqaModel(cfg.replace(encoder=dataclasses.replace(
@@ -294,26 +306,57 @@ class VideoShgVqaModel(nn.Module):
                       generator: Optional[torch.Generator] = None
                       ) -> torch.Tensor:
         """(B, T, H, W, 3) uint8 frames -> (B, T, h, w, C) features.  A
-        frozen trunk records no graph; a trained one is in the graph."""
+        frozen trunk records no graph, and with ``backbone_chunks`` N
+        dividing B runs in N micro-chunks; a trained one is in the
+        graph."""
         if frames.dtype != torch.uint8:
             raise TypeError(f"frames must be uint8, got {frames.dtype}")
-        if self.cfg.freeze_backbone:
-            with torch.no_grad():
+        if not self.cfg.freeze_backbone:
+            return self.backbone(self.normalize_frames(frames, generator))
+        nc, b = self.cfg.backbone_chunks, frames.shape[0]
+        with torch.no_grad():
+            if nc <= 1 or b % nc:
                 return self.backbone(self.normalize_frames(frames, generator))
-        return self.backbone(self.normalize_frames(frames, generator))
+            draws = (augment_draws(self.cfg.data.augment_type, b, generator,
+                                   frames.device)
+                     if self._augments() else None)
+            size = b // nc
+            feats = []
+            for i in range(0, b, size):
+                rows = (None if draws is None else
+                        {k: v[i:i + size] for k, v in draws.items()})
+                feats.append(self.backbone(self.normalize_frames(
+                    frames[i:i + size], generator, rows)))
+            return torch.cat(feats)
+
+    def _augments(self) -> bool:
+        return (self.training
+                and self.cfg.data.augment_type in AUGMENT_TYPES)
 
     def normalize_frames(self, frames: torch.Tensor,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         draws: Optional[Dict[str, torch.Tensor]] = None
                          ) -> torch.Tensor:
         """The trunk's input: uint8 frames / 255 in the frames dtype, in
         training mode the augmentation of ``data.augment_type`` (draws from
-        ``generator``), then ``normalize_clip`` with the trunk's
-        ``NORM_STATS``."""
+        ``generator``, or these clips' rows of ``augment_draws``), then
+        ``normalize_clip`` with the trunk's ``NORM_STATS``."""
         data = self.cfg.data
         pix_dt = torch_dtype(data.aug_dtype or self.cfg.compute_dtype)
         mean, std = NORM_STATS[self.cfg.backbone]
         x = frames.to(pix_dt) / 255.0
-        if self.training and data.augment_type in AUGMENT_TYPES:
+        if self._augments():
             x = augment_clips(x, data.augment_type, generator,
-                              self.aug_path, data.aug_fold_chains)
+                              self.aug_path, data.aug_fold_chains, draws)
         return normalize_clip(x, mean, std)
+
+    def calibrate_quant(self, frames: torch.Tensor) -> None:
+        """The int8 trunk's scales from uint8 ``frames``, unaugmented, as
+        the JAX driver's ``init`` records them on its example batch
+        (``models/backbone.calibrate_quant``)."""
+        training = self.training
+        self.eval()
+        try:
+            calibrate_quant(self.backbone, self.normalize_frames(frames))
+        finally:
+            self.train(training)

@@ -4,7 +4,8 @@
 The trainer saves ``{output}/CURRENT`` every epoch, ``BEST`` when the
 validation score it selects on improves, and ``LAST`` at exit.  Each is one
 ``torch.save`` file of ``{"params", "opt_state", "step"}`` (the optimizer
-state included, so a run resumes where it stopped), written to a temporary
+state included, so a run resumes where it stopped; ``params`` is the
+model's state_dict, the int8 trunk's scales included), written to a temporary
 name and renamed, so a reader never sees a partial file.  ``restore``
 accepts a name or a path, as ``--load path/BEST`` does.  A reference
 ``.pth`` snapshot is not one of these files: ``Trainer.load`` sends it to

@@ -13,7 +13,10 @@
 - the weight imports of the JAX ``Trainer``: ``load_backbone`` (a
   converted slow_r50 trunk), ``load_bert_pretrained`` (bert-base into the
   language tower) and ``load_reference`` (a reference ``.pth``, which
-  ``load`` dispatches to); each ends by resetting the optimizer's state;
+  ``load`` dispatches to); each ends by resetting the optimizer's state.
+  None of these files carries the int8 trunk's scales, so each leaves an
+  int8 trunk uncalibrated (``models/backbone.SlowR50``); the port's own
+  checkpoints carry them, and load into a trunk with or without ``quant``;
 - the augmentation's draws and the dropout masks from one
   ``torch.Generator`` on the device, seeded from ``--seed`` at the start
   of ``train`` (the JAX ``PRNGKey(cfg.seed)``): one seed draws the same
@@ -282,8 +285,11 @@ class Trainer:
         t0 = time.perf_counter()
         sd = load_reference_checkpoint(path)
         # the head's config: its token count follows from the trunk
-        variables, report = reference_to_variables(
-            sd, to_jax_variables(self.model.state_dict()), self._head().cfg)
+        # the reference carries no int8 scales: the trunk's are not kept
+        template = to_jax_variables(self.model.state_dict())
+        template.pop("quant_stats", None)
+        variables, report = reference_to_variables(sd, template,
+                                                   self._head().cfg)
         state = from_jax_variables(variables, self.model)
         t1 = time.perf_counter()
         self.model.load_state_dict(state, strict=True)

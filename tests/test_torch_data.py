@@ -70,8 +70,8 @@ def test_parser_accepts_every_jax_flag():
 def test_unported_flags_still_raise():
     """The global matcher (no --LossHGPerFrame) and the options of queue A
     item 15 (per-choice QA and --outputAttn too) train now; an option only
-    training reads and the port does not run still raises in training, and
-    the scanned stacks and the int8 trunk raise."""
+    training reads and the port does not run still raises in training, the
+    scanned stacks raise, and the int8 trunk and --backboneChunks pass."""
     cfg = cli.parse_reference_flags(FLAGSHIP + ["--pallasFFNTrain"])
     assert not cfg.loss_hg_per_frame
     port_config.check_ported(cfg, video=True, train=True)
@@ -84,11 +84,11 @@ def test_unported_flags_still_raise():
     port_config.check_ported(cfg, video=True)       # inference: fine
     with pytest.raises(NotImplementedError, match="item 19"):
         port_config.check_ported(cfg, video=True, train=True)
-    for flags in (["--outputAttn"], ["--qaArrangeType", "add_sep"]):
+    for flags in (["--outputAttn"], ["--qaArrangeType", "add_sep"],
+                  ["--quantBackbone", "int8", "--backboneChunks", "2"]):
         port_config.check_ported(cli.parse_reference_flags(
             FLAGSHIP + flags), video=True, train=True)
-    for flags, item in ((["--quantBackbone", "int8"], "16"),
-                        (["--scanLayers"], "19")):
+    for flags, item in ((["--scanLayers"], "19"),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             port_config.check_ported(cli.parse_reference_flags(
                 FLAGSHIP + flags), video=True)

@@ -195,12 +195,12 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
 @pytest.mark.parametrize("extra,match", [
     (["--multiGPU"], "item 14"),
     (["--loadLXMERT", "snap/x"], "item 18"),
-    (["--quantBackbone", "int8"], "item 16"),
+    (["--scanLayers"], "item 19"),
     (["--sharedWeights"], "item 17"),
     (["--remat"], "item 19"),
     (["--loadLXMERTQA", "snap/x"], "item 18"),
     (["--vitInit"], "item 17"),
-], ids=["multiGPU", "loadLXMERT", "quantBackbone", "sharedWeights", "remat",
+], ids=["multiGPU", "loadLXMERT", "scanLayers", "sharedWeights", "remat",
         "loadLXMERTQA", "vitInit"])
 def test_driver_refuses_unported_options(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -23,7 +23,7 @@ from shgvqa_tpu_torch.models.backbone import SlowR50
 from shgvqa_tpu_torch.models import layers, shgvqa
 from shgvqa_tpu_torch.models.layers import init_weights
 from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel, VideoShgVqaModel
-from test_torch_common import TOY, close, jax_variables, load_port, t
+from test_torch_common import TOY, close, jax_variables, load_port, perturb, t
 
 TOL = 1e-4
 OUTPUTS = ("logit", "hg_logit", "rel_preds", "act_preds")
@@ -144,6 +144,47 @@ def test_video_model_with_pallas_attention_matches_jax(monkeypatch):
         close(got[key], want[key], TOL)
 
 
+def test_video_model_with_the_int8_trunk_matches_jax(monkeypatch):
+    """The JAX model's perturbed weights, its scales recalibrated on the
+    batch (an apply with ``mutable=["quant_stats"]``), carried to the port
+    with the scales: logit and hg_logit by the quant-step criterion."""
+    monkeypatch.setattr(
+        jax_backbone, "make_backbone",
+        lambda name, dtype, quant="": JaxSlowR50(dtype=dtype,
+                                                 quant=bool(quant), **TOY))
+    monkeypatch.setattr(
+        shgvqa, "make_backbone",
+        lambda name, dtype, quant="": SlowR50(dtype, quant=bool(quant),
+                                              **TOY))
+    over = dict(task="hgqa", freeze_backbone=True, quant_backbone="int8")
+    jmodel = JaxVideoModel(jax_tiny(**over))
+    batch = _batch(jax_tiny(), frames=True)
+    init = jax.device_get(jax.jit(
+        lambda b: jmodel.init(jax.random.PRNGKey(0), b,
+                              deterministic=True))(batch))
+    v = {k: jax.tree_util.tree_map(jnp.asarray, perturb(
+        init[k], np.random.RandomState(i)))
+        for i, k in enumerate(("params", "batch_stats"))}
+    v["quant_stats"] = jax.tree_util.tree_map(jnp.zeros_like,
+                                              init["quant_stats"])
+    calibrate = jax.jit(lambda v, b: jmodel.apply(
+        v, b, deterministic=True, mutable=["quant_stats"])[1])
+    v["quant_stats"] = calibrate(v, batch)["quant_stats"]
+    want = jax.jit(lambda v, b: jmodel.apply(v, b, deterministic=True))(
+        v, batch)
+    v = jax.device_get(v)
+    port = load_port(VideoShgVqaModel(tiny_test_config(**over)), v)
+    assert port.backbone.calibrated
+    with torch.inference_mode():
+        got = port({k: torch.as_tensor(a) for k, a in batch.items()})
+    for key in ("logit", "hg_logit"):
+        a = np.asarray(got[key], np.float64).ravel()
+        b = np.asarray(want[key], np.float64).ravel()
+        corr = np.corrcoef(a, b)[0, 1]
+        err = np.abs(a - b).max() / np.abs(b).max()
+        assert corr > 0.999 and err < 0.05, (key, corr, err)
+
+
 def test_attention_kernel_eval_routes_every_site(monkeypatch):
     """With ``use_pallas_attention`` every attention site outside training
     calls ``fused_attention`` (rate 0) in place of ``attend``, and
@@ -225,15 +266,17 @@ def test_converter_round_trip_is_strict(hgqa):
     dict(encoder="shared_weights"), dict(encoder="patches"),
     dict(encoder="capsules"), dict(backbone="video_swin"),
     dict(encoder="vit_init"), dict(backbone="slowfast_r50"),
-    dict(encoder="scan_layers"), dict(quant_backbone="int8"),
-    dict(backbone="resnext101"), dict(backbone_chunks=2),
+    dict(encoder="scan_layers"), dict(backbone="video_swin_impl"),
+    dict(backbone="resnext101"),
+    dict(backbone="resnext101", quant_backbone="int8", freeze_backbone=True),
 ])
 def test_unported_options_raise(override):
     """What the port does not build yet raises naming it: the capsule,
-    patch and ViT encoders, shared weights, the scanned stacks, the other
-    trunks and the int8 trunk.  (The tasks and options of queue A item 15
-    build now: tests/test_torch_tasks.py, and per-choice QA and
-    --outputAttn: ``test_item_15_options_build``.)"""
+    patch and ViT encoders, shared weights, the scanned stacks and the
+    other trunks, also under --quantBackbone int8.  (The tasks and options
+    of queue A item 15 build now: tests/test_torch_tasks.py, and
+    per-choice QA and --outputAttn: ``test_item_15_options_build``; the
+    int8 trunk and --backboneChunks: tests/test_torch_quant_backbone.py.)"""
     cfg = tiny_test_config(task="hgqa")
     kind = override.get("encoder")
     if kind is not None:

@@ -222,6 +222,26 @@ def test_one_seed_gives_the_same_bits(kind):
     assert not torch.equal(out[0], x)
 
 
+@pytest.mark.parametrize("kind,path", [
+    ("rand_aug", "subbatch"), ("rand_aug", "capacity"),
+    ("aug_mix", "subbatch"), ("aug_mix", "select")])
+def test_batch_draws_sliced_by_chunk_give_the_batch_bits(kind, path):
+    """``--backboneChunks``: the batch's draws (``augment_draws``), taken
+    once from the generator and sliced by clip, augment chunk after chunk
+    to the bits of the whole batch drawn from the same seed, and leave the
+    generator where ``augment_clips`` leaves it."""
+    x = t(_frames(13, smooth=True), torch.bfloat16)
+    g, again = (torch.Generator().manual_seed(3) for _ in range(2))
+    whole = tt.augment_clips(x, kind, g, path)
+    draws = tt.augment_draws(kind, B, again, "cpu")
+    assert torch.equal(g.get_state(), again.get_state())
+    parts = [tt.augment_clips(x[i:i + 2], kind, None, path,
+                              draws={k: v[i:i + 2] for k, v in draws.items()})
+             for i in range(0, B, 2)]
+    assert torch.equal(torch.cat(parts), whole)
+    assert not torch.equal(whole, x)
+
+
 # -- the fixed-capacity path ---------------------------------------------------
 
 @pytest.mark.parametrize("b", [2, 8, 16, 32, 96, 128])
