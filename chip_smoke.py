@@ -235,7 +235,8 @@ quant. the int8 frozen trunk (``--quantBackbone int8``, after phase 9d,
     (``csrc/qconv.cu``) bit-equal to ``qconv_reference`` on the operands
     of every one of the flagship trunk's 23 conv cases (27 with their
     epilogues) of a B=2 forward, at three ragged launches and with an
-    all-zero scale, two calls bit-equal; the int8 trunk's kernel path
+    all-zero scale, two calls bit-equal; its SASS with warpgroup MMA in
+    the s8 form (IGMMA) and no IMMA (mma.sync); the int8 trunk's kernel path
     bit-equal to its plain path at B=2; per trunk forward at B=2 and
     B=32 the 52 launches' time (events median [min-max], device), the
     plain version's, ``torch._int_mm`` on the 1x1 stride-1 convs and
@@ -639,16 +640,20 @@ def ffn_train_grads_vs_plain(tag, ops, y, dy, rate, keep):
 
 
 def kernel_name(mangled: str) -> str:
-    """The kernel's own name in a mangled symbol: the first length-prefixed
-    name ending in ``_kernel`` (the mangled symbol when it holds none)."""
+    """The kernel's own name in a mangled symbol: the innermost (last
+    starting) length-prefixed name ending in ``_kernel`` (the mangled symbol
+    when it holds none).  An anonymous namespace's mangled name holds a hash
+    of the source's path, whose digits can make an earlier, longer name
+    that ends at the same ``_kernel``."""
+    found = mangled
     for i in range(len(mangled)):
         digits = re.match(r"\d+", mangled[i:])
         if digits:
             start, n = i + digits.end(), int(digits.group())
             ident = mangled[start:start + n]
             if len(ident) == n and ident.endswith("_kernel"):
-                return ident
-    return mangled
+                found = ident
+    return found
 
 
 def ptxas_lines(name: str, text: str):
@@ -664,10 +669,12 @@ def ptxas_lines(name: str, text: str):
             yield f"ptxas {name} {func}: {line.strip()}"
 
 
-def sass_hgmma(name: str, kernels):
-    """The HGMMA (wgmma) instructions of each of ``kernels`` in
-    ``cuobjdump -sass`` of the built csrc/<name>.cu: {kernel: (count, the
-    first such line)}; raises if one of them has none."""
+def sass_hgmma(name: str, kernels, op: str = "HGMMA", forbid=()):
+    """The ``op`` instructions (warpgroup MMA: HGMMA for bf16 wgmma, IGMMA
+    for its s8 form) of each of ``kernels`` in ``cuobjdump -sass`` of the
+    built csrc/<name>.cu: {kernel: (count, the first such line)}; raises if
+    one of them has none, or has an instruction named in ``forbid`` (e.g.
+    IMMA, the mma.sync of the s8 tensor cores)."""
     lib = _build.build(name)[0][name]
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -677,12 +684,18 @@ def sass_hgmma(name: str, kernels):
         func = re.search(r"Function : (\S+)", line)
         if func:
             current = kernel_name(func.group(1))
-        elif current in kernels and "HGMMA" in line:
-            count, first = found.get(current, (0, " ".join(line.split())))
-            found[current] = (count + 1, first)
+        elif current in kernels:
+            for bad in forbid:
+                if re.search(rf"\b{bad}\b", line):
+                    raise AssertionError(
+                        f"cuobjdump -sass {lib.name}: {bad} in {current}: "
+                        + " ".join(line.split()))
+            if re.search(rf"\b{op}\b", line):
+                count, first = found.get(current, (0, " ".join(line.split())))
+                found[current] = (count + 1, first)
     missing = [k for k in kernels if k not in found]
     if missing:
-        raise AssertionError(f"cuobjdump -sass {lib.name}: no HGMMA "
+        raise AssertionError(f"cuobjdump -sass {lib.name}: no {op} "
                              f"instruction in {missing}")
     return found
 
@@ -4801,6 +4814,10 @@ def phase_quant(tmp=None, files=None):
     tiny card vs CPU check.  Returns (the kernels line's entry fields: the
     rows at B=32 and B=2 and the main path's launches), the clips/s."""
     t0 = time.perf_counter()
+    for kernel, (count, first) in sass_hgmma(
+            "qconv", ["qconv_kernel"], op="IGMMA", forbid=("IMMA",)).items():
+        log(f"sass qconv {kernel}: {count} IGMMA (wgmma .s8) instructions "
+            f"over its instances, no IMMA (mma.sync), e.g. `{first}`")
     rows = {b: phase_quant_trunk(b) for b in (2, BATCH_SIZE)}
     launched, cps = phase_quant_model()
     phase_quant_graph()

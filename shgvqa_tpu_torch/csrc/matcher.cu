@@ -14,20 +14,44 @@
 // What bounds it on the card: neither bytes (a 128 x 128 f32 cost is 64 KB)
 // nor operations, but the chain of dependent search steps: each step's
 // column j1 = argmin over the n + 1 columns decides the next step's row.  A
-// step is one reduction over n + 1 values; the problems of a batch run side
-// by side on their own SMs.
+// step is at least one reduction over n + 1 values (ceil(log2(n + 1))
+// dependent compares); the problems of a batch run side by side on their
+// own SMs.
 //
-// Design: one warp a problem (a block of 32 threads), so that a step's
-// argmin is a warp reduction of 5 shuffle rounds and no block barrier.
-// - Column j (1-indexed, column 0 the path sentinel) belongs to lane j % 32
-//   as its slot j / 32: v, minv and used live in that lane's registers.
+// It replaces the first design of this kernel, whose search step was one
+// long dependent chain of ~1,380 cycles on an H100: a warp barrier, p[j0] and then
+// u[p[j0]] from shared memory, an argmin of five butterfly rounds of two
+// shuffles (value and index) each, a shared read-modify-write of u[p[j]] for
+// every used column, a barrier and p[j0] again; and whose large path walked
+// the n / 32 column chunks of a cost row one after another with one warp
+// (~650 cycles a chunk).
+//
+// The shared path (n <= shgvqa_hungarian_max_n(), 238 on an H100): one warp
+// a problem.
 // - The (n+1)^2 f32 cost (row 0 and column 0 zero), u (by row), p (the row
 //   matched to each column) and way live in dynamic shared memory:
 //   4 (n + 1)(n + 4) bytes, 68,112 at n = 128.
-// - The argmin: each lane scans its slots in increasing j with a strict <,
-//   then the (value, index) pairs meet in a butterfly of shuffles where the
-//   smaller value, or on a tie the smaller index, wins: the first minimum,
-//   as jnp.argmin and torch.argmin take it.
+// - Column j (1-indexed, column 0 the path sentinel) belongs to lane j % 32
+//   as its slot j / 32, and the lane keeps the column's whole search state
+//   in registers: v, minv, used, p[j] and u[p[j]], the potential of the
+//   column's row.  So one pair of shuffles from column j0's lane gives the
+//   step's row i0 = p[j0] and u[i0], and the "free column" test p[j0] == 0
+//   is the same value.
+// - The potentials of the used columns' rows move in those registers, with
+//   the same __fadd_rn in the same order, so their bits are the plain
+//   version's; they are written back to shared u only where u is read
+//   again, once a row's search ends (the path walk and the next row read
+//   p and u from shared memory).  way[j] = j0 stays a shared store, off the
+//   chain.
+// - The argmin is two redux.sync reductions: the minimum of an
+//   order-preserving 32-bit key of each lane's candidate value (its first
+//   minimum over its slots, scanned in increasing j with a strict <), then
+//   the minimum column index over the lanes that hold that key: the first
+//   minimum, as jnp.argmin and torch.argmin take it.  The key maps -0.0 and
+//   +0.0 to one key (< treats them as equal) and keeps INF = 1e9 below the
+//   +inf that starts a lane without columns.  delta is read back from the
+//   key, so a -0.0 minimum becomes +0.0: the sign of a zero changes no
+//   comparison and no nonzero sum, so no decision of the solve.
 //
 // Numerics, bit for bit as the JAX solver and the plain version:
 // - INF = 1e9 marks used columns and column 0 in the argmin, as in JAX;
@@ -45,35 +69,62 @@
 //   masked (delta 0, used_f 0), so u, v, minv and way keep their values.
 //   The path walk likewise ends at the sentinel.
 //
-// Above the shared-memory limit (n > shgvqa_hungarian_max_n(): the
-// (n+1)^2 cost no longer fits a block, n = 239 on an H100) the large path
-// takes the problem, with the same warp, the same arithmetic and the same
-// order of visits and ties:
-// - the cost stays where the caller put it, in global memory, and each
-//   step reads row i0's n floats from it, 32 consecutive columns a load
-//   (the L2 holds a problem of n = 480, 0.9 MB);
-// - u, v, minv, p, way and used live in one state block of
-//   kStateWords * 4 bytes a column: in dynamic shared memory up to
-//   shgvqa_hungarian_large_smem_max_n() (n = 9,684 on an H100), in a
-//   global workspace the caller gives above it;
-// - the warp walks the columns in chunks of 32, column j in lane j % 32,
-//   so there is no fixed column cap; a lane scans its columns in
-//   increasing j with a strict <, and the butterfly keeps the smaller
-//   value, on a tie the smaller index: the first minimum again.
+// The large path (above shgvqa_hungarian_max_n(), any n): one block of up to
+// 32 warps a problem (a warp per 32 columns), the cost where the caller put
+// it, in global memory.
+// - Thread t owns a run of ceil((n + 1) / T) consecutive columns (T the
+//   block's threads; one column each up to n = 1,023), so a warp loads 32
+//   consecutive columns of the cost row a load and the loads of every chunk
+//   of row i0 are in flight at once (the L2 holds a problem of n = 480,
+//   0.9 MB), and lane order is column order.
+// - u, v, minv, p, way and used live in one state block of kStateWords * 4
+//   bytes a column: in dynamic shared memory up to
+//   shgvqa_hungarian_large_smem_max_n(), in a global workspace the caller
+//   gives above it; a column's v, minv, used and way are its owner's alone.
+// - A step's argmin: each thread's first minimum over its run; in each warp
+//   one redux.sync of the key and a ballot give the first lane that holds
+//   the least key, which is the warp's first minimum (lane order is column
+//   order); that lane's column, its row p[j] and u[p[j]] (read beside the
+//   reduction: a column that is not used keeps its row, and that row's u,
+//   for the whole search) go to shared memory; one block barrier; then
+//   every warp reduces the warps' candidates the same way, so the next row
+//   and its u arrive with the column.  The candidate buffers alternate
+//   between steps, so one barrier a step suffices.  The owner of a used
+//   column updates its row's u (rows are distinct).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxSlots = 8;            // n + 1 <= 256 columns
+constexpr int kMaxWarps = 32;           // the large path's block
 constexpr float kInf = 1e9f;            // the JAX solver's _INF
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ constexpr size_t smem_bytes(int m) {
   return sizeof(float) * static_cast<size_t>(m) * (m + 1) + 2 * sizeof(int) * static_cast<size_t>(m);
+}
+
+// An order-preserving unsigned key of a float (no NaN): a < b exactly when
+// key(a) < key(b); -0.0 and +0.0 share the key of +0.0.
+__device__ __forceinline__ uint32_t order_key(float x) {
+  const uint32_t b = __float_as_uint(__fadd_rn(x, 0.0f));   // -0.0 + 0.0 = +0.0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The first minimum over the warp of each lane's (value, column): the least
+// key, then the least column among the lanes that hold it.
+__device__ __forceinline__ void warp_argmin(uint32_t key, int col, uint32_t& kmin, int& jmin) {
+  kmin = __reduce_min_sync(kFull, key);
+  jmin = __reduce_min_sync(kFull, key == kmin ? col : INT_MAX);
 }
 
 template <int kSlots>
@@ -104,70 +155,85 @@ __global__ void __launch_bounds__(kWarp) hungarian_kernel(const float* __restric
   __syncwarp();
 
   for (int i = 1; i <= n; ++i) {
-    if (lane == 0) p[0] = i;
-    float minv[kSlots];
+    // the state of the lane's columns: p[j] (column 0: the row i being
+    // placed) and its row's u, then minv and used
+    int pj[kSlots];
+    float up[kSlots], minv[kSlots];
     bool used[kSlots];
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
+      const int j = lane + kWarp * k;
+      pj[k] = j == 0 ? i : (j < m ? p[j] : 0);
+      up[k] = u[pj[k]];
       minv[k] = kInf;
       used[k] = false;
     }
-    int j0 = 0;
-    __syncwarp();
+    int j0 = 0, i0 = i;
+    float ui0 = u[i];
+    // The step is branch-free over the slots (selects and a predicated
+    // store), so that the slots' work interleaves; a slot past the last
+    // column takes part as +inf, which never wins.
     for (int trip = 0; trip <= n; ++trip) {
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k)
-        if (lane + kWarp * k == j0) used[k] = true;
-      const int i0 = p[j0];
-      const float ui0 = u[i0];
+      // every slot's cost first: the stores to `way` below share the shared
+      // array with the cost, so a load after one could not start before it
       const float* row = cx + i0 * m;
+      float cij[kSlots];
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const int j = lane + kWarp * k;
+        used[k] = used[k] || j == j0;
+        cij[k] = j < m ? row[j] : 0.0f;
+      }
       float best = __int_as_float(0x7f800000);        // +inf: any column wins
       int best_j = m;
 #pragma unroll
       for (int k = 0; k < kSlots; ++k) {
         const int j = lane + kWarp * k;
-        if (j < m) {
-          const float cur = __fsub_rn(__fsub_rn(row[j], ui0), v[k]);
-          if (cur < minv[k] && !used[k]) {
-            minv[k] = cur;
-            way[j] = j0;
-          }
-          const float masked = (used[k] || j == 0) ? kInf : minv[k];
-          if (masked < best) {
-            best = masked;
-            best_j = j;
-          }
-        }
+        const float cur = __fsub_rn(__fsub_rn(cij[k], ui0), v[k]);
+        const bool better = j < m && !used[k] && cur < minv[k];
+        minv[k] = better ? cur : minv[k];
+        if (better) way[j] = j0;
+        const float masked =
+            j >= m ? __int_as_float(0x7f800000) : ((used[k] || j == 0) ? kInf : minv[k]);
+        best_j = masked < best ? j : best_j;
+        best = masked < best ? masked : best;
       }
+      uint32_t kmin;
+      int j1;
+      warp_argmin(order_key(best), best_j, kmin, j1);
+      const float delta = key_value(kmin);
 #pragma unroll
-      for (int offset = kWarp / 2; offset > 0; offset >>= 1) {
-        const float other = __shfl_xor_sync(kFull, best, offset);
-        const int other_j = __shfl_xor_sync(kFull, best_j, offset);
-        if (other < best || (other == best && other_j < best_j)) {
-          best = other;
-          best_j = other_j;
-        }
+      for (int k = 0; k < kSlots; ++k) {   // (a slot past the last column is never used)
+        up[k] = used[k] ? __fadd_rn(up[k], delta) : up[k];
+        v[k] = used[k] ? __fsub_rn(v[k], delta) : v[k];
+        minv[k] = used[k] ? minv[k] : __fsub_rn(minv[k], delta);
       }
-      const float delta = best;
+      j0 = j1;
+      ++steps;
+      // column j0's row and that row's u, from the column's lane
+      const int k0 = j0 / kWarp;
+      int pk = 0;
+      float uk = 0.0f;
 #pragma unroll
       for (int k = 0; k < kSlots; ++k) {
-        const int j = lane + kWarp * k;
-        if (j < m) {
-          if (used[k]) {
-            u[p[j]] = __fadd_rn(u[p[j]], delta);
-            v[k] = __fsub_rn(v[k], delta);
-          } else {
-            minv[k] = __fsub_rn(minv[k], delta);
-          }
+        if (k == k0) {
+          pk = pj[k];
+          uk = up[k];
         }
       }
-      j0 = best_j;
-      ++steps;
-      __syncwarp();
-      if (p[j0] == 0) break;                            // a free column: done
+      i0 = __shfl_sync(kFull, pk, j0 % kWarp);
+      ui0 = __shfl_sync(kFull, uk, j0 % kWarp);
+      if (i0 == 0) break;                               // a free column: done
     }
-    // the augmenting path: walk `way` back to the sentinel
+    // the rows of the used columns have moved their u: write it back, then
+    // walk the augmenting path along `way` to the sentinel
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (used[k]) u[pj[k]] = up[k];
+    }
+    __syncwarp();
     if (lane == 0) {
+      p[0] = i;
       for (int trip = 0; trip <= n && j0 != 0; ++trip) {
         const int j1 = way[j0];
         p[j0] = p[j1];
@@ -181,90 +247,115 @@ __global__ void __launch_bounds__(kWarp) hungarian_kernel(const float* __restric
   if (lane == 0) steps_out[blockIdx.x] = steps;
 }
 
+// The warp's first minimum when lane order is column order (each lane's
+// columns follow the previous lane's): the least key, then the first lane
+// that holds it.
+__device__ __forceinline__ int first_lane_min(uint32_t key, uint32_t& kmin) {
+  kmin = __reduce_min_sync(kFull, key);
+  return __ffs(__ballot_sync(kFull, key == kmin)) - 1;
+}
+
 // the large path's state: u, v, minv (f32) and p, way, used (i32) a column
 constexpr int kStateWords = 6;
+// and, in shared memory, each warp's first minimum: 2 steps x kMaxWarps x
+// (key, column, p[column], u[p[column]])
+constexpr int kCandidateBytes = 2 * kMaxWarps * 4 * 4;
 
 __host__ __device__ constexpr size_t large_state_bytes(int m) {
   return sizeof(float) * kStateWords * static_cast<size_t>(m);
 }
 
-__global__ void __launch_bounds__(kWarp) hungarian_large_kernel(
+// Warps of the large path's block for n: one per 32 columns, at most
+// kMaxWarps.
+__host__ __device__ constexpr int large_warps(int n) {
+  return (n + kWarp) / kWarp < kMaxWarps ? (n + kWarp) / kWarp : kMaxWarps;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * kWarp) hungarian_large_kernel(
     const float* __restrict__ cost, int64_t* __restrict__ row_to_col,
     int32_t* __restrict__ steps_out, int n, char* workspace, size_t stride) {
   extern __shared__ float smem[];
   const int m = n + 1;
+  const int threads = blockDim.x, warps = threads / kWarp;
+  const int t = threadIdx.x, lane = t % kWarp, warp = t / kWarp;
+  // thread t owns columns first..first + per - 1: lane order is column order
+  const int per = (m + threads - 1) / threads, first = t * per;
+  const int last = min(first + per, m);
+  // the warps' candidates, then (without a workspace) the state
+  uint32_t* cand = reinterpret_cast<uint32_t*>(smem);   // [2][kMaxWarps][4]
+  float* state = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + kCandidateBytes);
   // six disjoint arrays of the state block
   float* __restrict__ u =
-      workspace != nullptr ? reinterpret_cast<float*>(workspace + stride * blockIdx.x) : smem;
+      workspace != nullptr ? reinterpret_cast<float*>(workspace + stride * blockIdx.x) : state;
   float* __restrict__ v = u + m;
   float* __restrict__ minv = v + m;
   int* __restrict__ p = reinterpret_cast<int*>(minv + m);
   int* __restrict__ way = p + m;
   int* __restrict__ used = way + m;
-  const int lane = threadIdx.x;
   const float* c = cost + static_cast<size_t>(blockIdx.x) * n * n;
-  for (int j = lane; j < m; j += kWarp) {
+  for (int j = t; j < m; j += threads) {
     u[j] = 0.0f;
     v[j] = 0.0f;
     p[j] = 0;
     way[j] = 0;
   }
-  int steps = 0;
-  __threadfence_block();
-  __syncwarp();
+  int steps = 0, parity = 0;
+  __syncthreads();
 
   for (int i = 1; i <= n; ++i) {
-    if (lane == 0) p[0] = i;
-    for (int j = lane; j < m; j += kWarp) {
+    // (each thread its own columns, so no barrier)
+    for (int j = first; j < last; ++j) {
       minv[j] = kInf;
-      used[j] = 0;
+      used[j] = j == 0;                                // column 0 is j0 of the first step
+      if (j == 0) p[0] = i;
     }
-    int j0 = 0;
-    __threadfence_block();
-    __syncwarp();
+    int j0 = 0, i0 = i;
+    float ui0 = u[i];
     for (int trip = 0; trip <= n; ++trip) {
-      if (lane == (j0 & (kWarp - 1))) used[j0] = 1;   // column j0's lane
-      const int i0 = p[j0];
-      const float ui0 = u[i0];
       const float* row = c + static_cast<size_t>(i0 - 1) * n - 1;   // row[j], j >= 1
       float best = __int_as_float(0x7f800000);        // +inf: any column wins
       int best_j = m;
-#pragma unroll 4
-      for (int jb = 0; jb < m; jb += kWarp) {
-        const int j = jb + lane;
-        if (j < m) {
-          const bool uj = used[j] != 0;
-          float mv = minv[j];
-          // loaded whether or not the column is used, so that the
-          // unrolled chunks' loads are in flight together
-          const float cij = j == 0 ? 0.0f : __ldg(row + j);
-          if (!uj) {
-            const float cur = __fsub_rn(__fsub_rn(cij, ui0), v[j]);
-            if (cur < mv) {
-              mv = cur;
-              minv[j] = cur;
-              way[j] = j0;
-            }
-          }
-          const float masked = (uj || j == 0) ? kInf : mv;
-          if (masked < best) {
-            best = masked;
-            best_j = j;
-          }
+      // branch-free over the columns, as the shared path
+      for (int j = first; j < last; ++j) {
+        const bool uj = used[j] != 0;
+        const float cij = j == 0 ? 0.0f : __ldg(row + j);
+        const float cur = __fsub_rn(__fsub_rn(cij, ui0), v[j]);
+        const bool better = !uj && cur < minv[j];
+        const float mv = better ? cur : minv[j];
+        if (better) {
+          minv[j] = cur;
+          way[j] = j0;
         }
+        const float masked = (uj || j == 0) ? kInf : mv;
+        best_j = masked < best ? j : best_j;
+        best = masked < best ? masked : best;
       }
-#pragma unroll
-      for (int offset = kWarp / 2; offset > 0; offset >>= 1) {
-        const float other = __shfl_xor_sync(kFull, best, offset);
-        const int other_j = __shfl_xor_sync(kFull, best_j, offset);
-        if (other < best || (other == best && other_j < best_j)) {
-          best = other;
-          best_j = other_j;
-        }
+      // the candidate column's row and that row's u (constant through the
+      // search while the column is not used), beside the reduction
+      const int pc = best_j < m ? p[best_j] : 0;
+      const float uc = u[pc];
+      uint32_t kmin;
+      int win = first_lane_min(order_key(best), kmin);
+      uint32_t* slot = cand + parity * 4 * kMaxWarps;
+      const int jw = __shfl_sync(kFull, best_j, win);
+      const int pw = __shfl_sync(kFull, pc, win);
+      const float uw = __shfl_sync(kFull, uc, win);
+      if (lane == 0) {
+        slot[4 * warp] = kmin;
+        slot[4 * warp + 1] = static_cast<uint32_t>(jw);
+        slot[4 * warp + 2] = static_cast<uint32_t>(pw);
+        slot[4 * warp + 3] = __float_as_uint(uw);
       }
-      const float delta = best;
-#pragma unroll 4
-      for (int j = lane; j < m; j += kWarp) {
+      __syncthreads();
+      // the warps' first minima, in column order too, reduced by every warp
+      const uint32_t* mine = slot + 4 * (lane < warps ? lane : 0);
+      win = first_lane_min(lane < warps ? mine[0] : 0xffffffffu, kmin);
+      const int j1 = __shfl_sync(kFull, static_cast<int>(mine[1]), win);
+      i0 = __shfl_sync(kFull, static_cast<int>(mine[2]), win);
+      ui0 = __shfl_sync(kFull, __uint_as_float(mine[3]), win);
+      parity ^= 1;
+      const float delta = key_value(kmin);
+      for (int j = first; j < last; ++j) {
         if (used[j]) {
           u[p[j]] = __fadd_rn(u[p[j]], delta);
           v[j] = __fsub_rn(v[j], delta);
@@ -272,25 +363,24 @@ __global__ void __launch_bounds__(kWarp) hungarian_large_kernel(
           minv[j] = __fsub_rn(minv[j], delta);
         }
       }
-      j0 = best_j;
+      j0 = j1;
       ++steps;
-      __threadfence_block();
-      __syncwarp();
-      if (p[j0] == 0) break;                            // a free column: done
+      if (i0 == 0) break;                               // a free column: done
+      if (j0 >= first && j0 < last) used[j0] = 1;       // its owner marks it
     }
-    if (lane == 0) {
+    __syncthreads();   // every update of u and way before the path walk
+    if (t == 0) {
       for (int trip = 0; trip <= n && j0 != 0; ++trip) {
         const int j1 = way[j0];
         p[j0] = p[j1];
         j0 = j1;
       }
     }
-    __threadfence_block();
-    __syncwarp();
+    __syncthreads();
   }
   int64_t* out = row_to_col + static_cast<size_t>(blockIdx.x) * n;
-  for (int j = 1 + lane; j < m; j += kWarp) out[p[j] - 1] = j - 1;
-  if (lane == 0) steps_out[blockIdx.x] = steps;
+  for (int j = 1 + t; j < m; j += threads) out[p[j] - 1] = j - 1;
+  if (t == 0) steps_out[blockIdx.x] = steps;
 }
 
 int optin_smem() {
@@ -353,12 +443,12 @@ int shgvqa_hungarian(const float* cost, int64_t* row_to_col, int32_t* steps, int
 }
 
 // The largest n whose large-path state fits the shared memory a block may
-// opt into; above it the state needs a global workspace.  0 when the device
-// cannot be queried.
+// opt into beside the warps' candidates; above it the state needs a global
+// workspace.  0 when the device cannot be queried.
 int shgvqa_hungarian_large_smem_max_n(void) {
   const int optin = optin_smem();
-  if (optin == 0) return 0;
-  return static_cast<int>(optin / large_state_bytes(1)) - 1;
+  if (optin <= kCandidateBytes) return 0;
+  return static_cast<int>((optin - kCandidateBytes) / large_state_bytes(1)) - 1;
 }
 
 // Bytes of one problem's state block in a workspace: kStateWords * 4 bytes
@@ -367,26 +457,26 @@ size_t shgvqa_hungarian_large_stride(int n) {
   return (large_state_bytes(n + 1) + 255) / 256 * 256;
 }
 
-// The large path on `stream`, for any n >= 1: cost as shgvqa_hungarian.
-// With workspace == NULL the state lives in shared memory (n <=
+// The large path on `stream`, for any n >= 1: cost as shgvqa_hungarian; a
+// block of min(32, ceil((n + 1) / 32)) warps a problem.  With workspace ==
+// NULL the state lives in shared memory (n <=
 // shgvqa_hungarian_large_smem_max_n()); else in the workspace, batch blocks
 // of shgvqa_hungarian_large_stride(n) bytes.  Returns cudaGetLastError().
 int shgvqa_hungarian_large(const float* cost, int64_t* row_to_col, int32_t* steps, void* workspace,
                            int batch, int n, void* stream) {
   if (batch <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  size_t bytes = 0;
+  size_t bytes = kCandidateBytes;
   if (workspace == nullptr) {
-    bytes = large_state_bytes(n + 1);
+    bytes += large_state_bytes(n + 1);
     if (bytes > static_cast<size_t>(optin_smem())) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(hungarian_large_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  hungarian_large_kernel<<<batch, kWarp, bytes, s>>>(cost, row_to_col, steps, n,
-                                                    static_cast<char*>(workspace),
-                                                    shgvqa_hungarian_large_stride(n));
+  cudaError_t err = cudaFuncSetAttribute(hungarian_large_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hungarian_large_kernel<<<batch, large_warps(n) * kWarp, bytes, s>>>(
+      cost, row_to_col, steps, n, static_cast<char*>(workspace), shgvqa_hungarian_large_stride(n));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,8 @@ No PyTorch or library call computes it (``F.conv3d`` takes no int8 on
 CUDA and ``torch._int_mm`` is a plain GEMM without the padding, the taps or
 the epilogue), so the port has the hand-written CUDA C++ kernel of
 ``csrc/qconv.cu`` (sm_90a, built by ``kernels/_build.py`` and bound with
-``ctypes``), an implicit GEMM on ``mma.sync`` s8 tensor cores.
+``ctypes``): a persistent implicit GEMM on wgmma .s8 fed by TMA (im2col
+mode for the taps and stride 2), bit-equal to the plain version.
 
 - ``quant_sym``, ``quant_weight`` and ``max_pool_i8`` are the JAX
   package's helpers, bit for bit.
@@ -54,8 +55,8 @@ EPS = 1e-12
 # the conv kernels of the slow_r50 bottleneck (kT, kH, kW): conv_a of res_2
 # and res_3, of res_4 and res_5, conv_b; conv_c and the projection are 1x1x1
 KERNELS = ((1, 1, 1), (3, 1, 1), (1, 3, 3))
-# channels of one K step (csrc/qconv.cu kBK): every channel count is a
-# multiple of it
+# csrc/qconv.cu kChannelMultiple (its narrower K step): every channel count
+# is a multiple of it
 CHANNEL_MULTIPLE = 64
 # csrc/qconv.cu's epilogues (kMode) and dtypes
 MODE_QUANT, MODE_DEQ, MODE_RES, MODE_RES_Q = 0, 1, 2, 3

@@ -226,7 +226,7 @@ def test_problems_beyond_the_dp_raise():
 # -- the card path ------------------------------------------------------------
 
 @contextlib.contextmanager
-def _stand_in(monkeypatch, entry, max_n=238, large=None, large_max_n=9684):
+def _stand_in(monkeypatch, entry, max_n=238, large=None, large_max_n=9641):
     monkeypatch.setattr(matcher, "_lib", lambda: SimpleNamespace(
         shgvqa_hungarian=entry, shgvqa_hungarian_max_n=lambda: max_n,
         shgvqa_hungarian_large=large,
@@ -290,7 +290,7 @@ def test_card_path_dispatches_above_the_shared_memory_limit(monkeypatch):
 
     before = matcher.hungarian_square.launches
     want = matcher.hungarian_square_reference(costs)
-    for max_n, large_max_n, expect in ((29, 9684, ("large", True, 3, 30)),
+    for max_n, large_max_n, expect in ((29, 9641, ("large", True, 3, 30)),
                                        (29, 29, ("large", False, 3, 30)),
                                        (30, 29, "shared")):
         calls.clear()
@@ -327,89 +327,235 @@ def test_card_path_raises_and_never_falls_back(monkeypatch):
         matcher.hungarian_square(torch.empty(2, 30, 30, device="meta"))
 
 
-# -- the large path's plan, mirrored ------------------------------------------
+# -- mirrors of csrc/matcher.cu ------------------------------------------------
 
 _CU = open(os.path.join(os.path.dirname(matcher.__file__), "..", "csrc",
                         "matcher.cu")).read()
-WARP = int(re.search(r"constexpr int kWarp = (\d+);", _CU).group(1))
-STATE_WORDS = int(re.search(r"constexpr int kStateWords = (\d+);",
-                            _CU).group(1))
+
+
+def _cu_constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
+
+
+WARP = _cu_constant("kWarp")
+MAX_SLOTS = _cu_constant("kMaxSlots")
+MAX_WARPS = _cu_constant("kMaxWarps")
+STATE_WORDS = _cu_constant("kStateWords")
+CANDIDATE_BYTES = 2 * MAX_WARPS * 4 * 4          # kCandidateBytes
 KINF = np.float32(1e9)
+F32_INF = np.float32(np.inf)
 # an H100's opt-in shared memory a block (cudaDevAttrMaxSharedMemoryPerBlockOptin)
 H100_OPTIN = 232448
 
 
-def large_path_plan(n, optin=H100_OPTIN):
-    """The wrapper's choice and the kernel's state block for n: 'shared'
-    while the (n+1)^2 cost, u, p and way fit, else 'large' with the
-    kStateWords x 4 bytes a column in shared memory, else 'large_global'
-    with a workspace of the state rounded up to 256 bytes a problem."""
+def order_key(x):
+    """csrc/matcher.cu order_key: -0.0 + 0.0 = +0.0, then the sign-flipped
+    bits: a < b exactly when key(a) < key(b)."""
+    bits = (np.asarray(x, np.float32) + np.float32(0.0)).view(np.uint32)
+    return np.where(bits & 0x80000000, ~bits, bits | 0x80000000).astype(
+        np.uint32)
+
+
+def key_value(k):
+    k = np.asarray(k, np.uint32)
+    return np.where(k & 0x80000000, k & 0x7FFFFFFF, ~k).astype(
+        np.uint32).view(np.float32)
+
+
+def test_argmin_key_orders_like_the_float_compare():
+    """The key keeps the order of < (so the first minimum of the keys is the
+    first minimum of the values), maps -0.0 and +0.0 to one key, keeps
+    INF = 1e9 under the +inf of a lane without columns, and reads back the
+    value (a -0.0 minimum as +0.0)."""
+    rng = np.random.RandomState(0)
+    vals = np.concatenate([
+        rng.randn(2000).astype(np.float32) * 10 ** rng.uniform(-30, 30, 2000),
+        np.float32([0.0, -0.0, KINF, -KINF, F32_INF, -F32_INF, 1e-45,
+                    -1e-45, 3.4e38, -3.4e38, 0.5, 0.5])]).astype(np.float32)
+    a, b = np.meshgrid(vals, vals)
+    np.testing.assert_array_equal(order_key(a) < order_key(b), a < b)
+    np.testing.assert_array_equal(order_key(a) == order_key(b), a == b)
+    assert order_key(np.float32(-0.0)) == order_key(np.float32(0.0))
+    assert order_key(KINF) < order_key(F32_INF)
+    back = key_value(order_key(vals))
+    np.testing.assert_array_equal(back.view(np.uint32), np.where(
+        vals == 0, np.float32(0.0), vals).view(np.uint32))
+
+
+def shared_path_mirror(cost):
+    """The shared path on one (n, n) f32 problem as the warp runs it, with
+    numpy arrays [lane, slot] for the registers: column j in lane j % 32 as
+    its slot j // 32, each column's v, minv, used, p[j] and u[p[j]] held by
+    its lane; a step branch-free over the slots; each lane's first minimum
+    over its slots (a strict <), then the two reductions (the least key,
+    the least column among the lanes that hold it) and delta read back from
+    the key; the used columns' rows' u moved in the registers and written
+    back to u (by row) when the row's search ends, then the path walk on p
+    and way.  Returns (row_to_col, steps, u by row, v by column)."""
+    n = cost.shape[0]
     m = n + 1
-    if 4 * m * (m + 1) + 8 * m <= optin and m <= WARP * 8:
-        return "shared", 0
+    slots = -(-m // WARP)
+    assert slots <= MAX_SLOTS
+    f32 = np.float32
+    cx = np.zeros((m, m), f32)
+    cx[1:, 1:] = cost
+    u = np.zeros(m, f32)
+    p = np.zeros(m, np.int64)
+    way = np.zeros(m, np.int64)
+    cols = np.arange(WARP)[:, None] + WARP * np.arange(slots)[None, :]
+    live = cols < m
+    safe = np.minimum(cols, m - 1)
+    v = np.zeros((WARP, slots), f32)
+    lanes = np.arange(WARP)
+    steps = 0
+    for i in range(1, m):
+        pj = np.where(cols == 0, i, np.where(live, p[safe], 0))
+        up = u[pj]
+        minv = np.full((WARP, slots), KINF, f32)
+        used = np.zeros((WARP, slots), bool)
+        j0, i0, ui0 = 0, i, u[i]
+        for _ in range(m):
+            used |= cols == j0
+            cij = np.where(live, cx[i0, safe], f32(0))
+            cur = (cij - ui0).astype(f32) - v
+            better = live & ~used & (cur < minv)
+            minv = np.where(better, cur, minv)
+            way[cols[better]] = j0
+            masked = np.where(~live, F32_INF,
+                              np.where(used | (cols == 0), KINF, minv))
+            k = np.argmin(masked, axis=1)            # each lane's first minimum
+            best = masked[lanes, k]
+            best_j = np.where(best == F32_INF, m, cols[lanes, k])
+            key = order_key(best)
+            kmin = key.min()
+            j1 = int(np.where(key == kmin, best_j, np.iinfo(np.int32).max)
+                     .min())
+            delta = key_value(kmin)
+            up = np.where(used, (up + delta).astype(f32), up)
+            v = np.where(used, (v - delta).astype(f32), v)
+            minv = np.where(used, minv, (minv - delta).astype(f32))
+            j0 = j1
+            steps += 1
+            i0, ui0 = int(pj[j0 % WARP, j0 // WARP]), up[j0 % WARP, j0 // WARP]
+            if i0 == 0:
+                break
+        u[pj[used]] = up[used]                       # the deferred write-back
+        p[0] = i
+        while j0 != 0:
+            j1 = way[j0]
+            p[j0] = p[j1]
+            j0 = j1
+    row_to_col = np.zeros(n, np.int64)
+    row_to_col[p[1:] - 1] = np.arange(n)
+    v_col = np.zeros(m, f32)
+    v_col[cols[live]] = v[live]
+    return row_to_col, steps, u, v_col
+
+
+def _zero_targets(n, batch):
+    """Clips without targets: every column padded to the constant 0."""
+    return np.zeros((batch, n, n), np.float32)
+
+
+@pytest.mark.parametrize("n,kind", [(48, "random"), (48, "ties"),
+                                    (48, "zero"), (128, "random"),
+                                    (128, "ties"), (128, "zero"),
+                                    (238, "random"), (238, "ties"),
+                                    (100, "zero")])
+def test_shared_path_mirror_is_the_plain_solver_step_for_step(n, kind):
+    """The register-state search (column state in the lanes' registers, u
+    written back when a row's search ends, the two-reduction argmin) gives
+    the plain solver's rows, search steps and potentials bit for bit (the
+    u of every row, the v of every column; a zero's sign aside), at the
+    relations' n = 128, the actions' 48 and the path's limit 238, on random,
+    tie-heavy and zero-target costs (those take n (n + 1) / 2 steps, so the
+    largest is 100)."""
+    cost = (_zero_targets(n, 1) if kind == "zero"
+            else _costs(kind, n, 1, seed=n))[0]
+    got, steps, u, v = shared_path_mirror(cost)
+    p, want_u, want_v, want_steps = matcher._augmenting_path_solve(
+        t(cost)[None])
+    np.testing.assert_array_equal(got, matcher._row_to_col(p)[0].numpy())
+    assert steps == int(want_steps[0])
+    np.testing.assert_array_equal(u, want_u[0].numpy())
+    np.testing.assert_array_equal(v, want_v[0].numpy())
+    if kind == "zero":
+        assert steps == n * (n + 1) // 2
+
+
+def large_path_plan(n, optin=H100_OPTIN):
+    """The wrapper's choice and the large path's state block for n: 'shared'
+    while the (n+1)^2 cost, u, p and way fit, else 'large' with the
+    kStateWords x 4 bytes a column in shared memory beside the warps'
+    candidates, else 'large_global' with a workspace of the state rounded
+    up to 256 bytes a problem; and the block's warps."""
+    m = n + 1
+    warps = min(MAX_WARPS, -(-m // WARP))
+    if 4 * m * (m + 1) + 8 * m <= optin and m <= WARP * MAX_SLOTS:
+        return "shared", 0, 1
     state = 4 * STATE_WORDS * m
-    if state <= optin:
-        return "large", state
-    return "large_global", (state + 255) // 256 * 256
+    if CANDIDATE_BYTES + state <= optin:
+        return "large", state, warps
+    return "large_global", (state + 255) // 256 * 256, warps
 
 
 def large_path_mirror(cost):
-    """The large path on one (n, n) f32 problem as the warp runs it:
-    column j in lane j % 32 as chunk j // 32; each lane's first minimum
-    over its chunks (strict <), then five xor-shuffle rounds keeping the
-    smaller value, on a tie the smaller index; the updates by delta x 1
-    and the early exit.  Returns (row_to_col, steps)."""
+    """The large path on one (n, n) f32 problem as the block runs it: W =
+    min(32, ceil((n + 1) / 32)) warps, thread t owning the run of columns
+    t * per .. t * per + per - 1 (lane order is column order); each
+    thread's first minimum over its run (strict <) and its column's p and
+    u; each warp's first lane with the least key; then the warps' (key,
+    column, p, u) reduced the same way.  Returns (row_to_col, steps)."""
     n = cost.shape[0]
     m = n + 1
-    chunks = -(-m // WARP)
+    warps = min(MAX_WARPS, -(-m // WARP))
+    threads = warps * WARP
+    per = -(-m // threads)
     f32 = np.float32
     u = np.zeros(m, f32)
     v = np.zeros(m, f32)
     p = np.zeros(m, np.int64)
     way = np.zeros(m, np.int64)
-    cols = np.arange(chunks * WARP)
-    real = cols < m
+    cols = np.arange(threads * per).reshape(threads, per)
+    live = cols < m
+    safe = np.minimum(cols, m - 1)
     steps = 0
     for i in range(1, m):
-        p[0] = i
         minv = np.full(m, KINF, f32)
-        used = np.zeros(m, bool)
-        j0 = 0
+        used = np.arange(m) == 0
+        p[0] = i
+        j0, i0, ui0 = 0, i, u[i]
         for _ in range(m):
-            used[j0] = True
-            i0 = p[j0]
             row = np.concatenate([[f32(0)], cost[i0 - 1]]).astype(f32)
-            cur = (row - u[i0]).astype(f32) - v
-            better = (cur < minv) & ~used
-            minv = np.where(better, cur, minv).astype(f32)
+            cur = (row - ui0).astype(f32) - v
+            better = ~used & (cur < minv)
+            minv = np.where(better, cur, minv)
             way = np.where(better, j0, way)
             masked = np.where(used | (np.arange(m) == 0), KINF, minv)
-            lanes = np.full(chunks * WARP, np.inf, f32)
-            lanes[:m] = masked
-            lanes = lanes.reshape(chunks, WARP)        # [chunk, lane]
-            k = np.argmin(lanes, axis=0)               # each lane's first min
-            best = lanes[k, np.arange(WARP)]
-            best_j = np.where(real.reshape(chunks, WARP)[k, np.arange(WARP)],
-                              k * WARP + np.arange(WARP), m)
-            best_j = np.where(np.isinf(best), m, best_j)
-            off = WARP // 2
-            while off:
-                o = np.arange(WARP) ^ off
-                other, other_j = best[o], best_j[o]
-                take = (other < best) | ((other == best) & (other_j < best_j))
-                best = np.where(take, other, best)
-                best_j = np.where(take, other_j, best_j)
-                off //= 2
-            assert (best == best[0]).all() and (best_j == best_j[0]).all()
-            delta = best[0]
-            rows = p[used]                             # distinct rows
+            run = np.where(live, masked[safe], F32_INF)        # [thread, per]
+            k = np.argmin(run, axis=1)
+            best = run[np.arange(threads), k]
+            best_j = np.where(best == F32_INF, m, cols[np.arange(threads), k])
+            pc = np.where(best_j < m, p[np.minimum(best_j, m - 1)], 0)
+            uc = u[pc]
+            key = order_key(best).reshape(warps, WARP)
+            kw = key.min(axis=1)
+            win = np.argmax(key == kw[:, None], axis=1)        # the first lane
+            flat = np.arange(warps) * WARP + win
+            jw, pw, uw = best_j[flat], pc[flat], uc[flat]
+            kmin = kw.min()
+            w = int(np.argmax(kw == kmin))                       # the first warp
+            j1, i0, ui0 = int(jw[w]), int(pw[w]), uw[w]
+            delta = key_value(kmin)
+            rows = p[used]
             u[rows] = (u[rows] + delta).astype(f32)
             v = np.where(used, (v - delta).astype(f32), v)
             minv = np.where(used, minv, (minv - delta).astype(f32))
-            j0 = int(best_j[0])
+            j0 = j1
             steps += 1
-            if p[j0] == 0:
+            if i0 == 0:
                 break
+            used[j0] = True
         while j0 != 0:
             j1 = way[j0]
             p[j0] = p[j1]
@@ -422,14 +568,17 @@ def large_path_mirror(cost):
 @pytest.mark.parametrize("n,kind", [(239, "random"), (480, "random"),
                                     (239, "ties")])
 def test_large_path_mirror_is_the_plain_solver(n, kind):
-    """At n above the shared-memory path's limit the mirror of the large
-    path gives the plain solver's rows and search steps bit for bit, and
-    its total cost is scipy's (1e-5 relative)."""
+    """Above the shared-memory path's limit the mirror of the multi-warp
+    large path gives the plain solver's rows and search steps bit for bit,
+    and its total cost is scipy's (1e-5 relative); the wrapper's plan: the
+    shared path to 238, the state in shared memory beside the warps'
+    candidates to 9,641, a workspace above."""
     assert large_path_plan(238)[0] == "shared"
-    assert large_path_plan(n) == ("large", 4 * STATE_WORDS * (n + 1))
-    assert large_path_plan(9684)[0] == "large"
-    assert large_path_plan(9685) == ("large_global",
-                                     (24 * 9686 + 255) // 256 * 256)
+    assert large_path_plan(n) == ("large", 4 * STATE_WORDS * (n + 1),
+                                  min(32, -(-(n + 1) // 32)))
+    assert large_path_plan(9641)[0] == "large"
+    assert large_path_plan(9642) == ("large_global",
+                                     (24 * 9643 + 255) // 256 * 256, 32)
     cost = _costs(kind, n, 1, seed=n)[0]
     got, steps = large_path_mirror(cost)
     p, _, _, want_steps = matcher._augmenting_path_solve(t(cost)[None])
