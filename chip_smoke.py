@@ -25,7 +25,10 @@ it exits non-zero before printing any result.
      B=2 and B=32: the forward and dQ, dK, dV at rate 0, and at the site's
      dropout rate with the kernels' own keep mask given to the plain
      version; the realised keep rate, and at one site per batch size the
-     card's keep mask bit-equal to ``keep_mask_reference``; the largest
+     card's keep mask bit-equal to ``keep_mask_reference``, also at a
+     data-parallel rank's group offset (rank 1 of 2) with the forward
+     called as that rank against the plain version given that mask; the
+     largest
      difference between two backward calls on the same inputs (dQ is
      summed with atomics); the kernels and SDPA with the same additive
      mask (timed only) each at rate 0 and at the site's rate, forward and
@@ -34,8 +37,12 @@ it exits non-zero before printing any result.
      at every FFN site's shape of the train step (M = B * L, L in 40, 177,
      393) at B=2 and B=32: y and every gradient against autograd of the
      plain version at rate 0, and at rate 0.1 with the kernels' own keep
-     mask given to the plain version; the realised keep rate; two forward
-     calls on the same inputs bit-equal at each rate, the forward's h
+     mask given to the plain version; the realised keep rate; at the
+     smallest shape the keep mask bit-equal to ``keep_mask_reference`` at
+     row offset 0 and at a data-parallel rank's (rank 1 of 2), the kernels
+     called as that rank against the plain version given that mask; two
+     forward calls on the same inputs bit-equal at each rate, the
+     forward's h
      bit-equal to the backward's recompute, and two backward calls
      bit-equal in all six outputs; the times of the kernels, of the
      weight-gradient products after the backward kernels, of the plain
@@ -138,7 +145,7 @@ it exits non-zero before printing any result.
    each capture 4x a step's (38, 34, 0, 18, 14, 0, 6 or 0, 0, 0, 0,
    0); no host sync in a
    replayed chunk; then train clips/s at k=1 and k=4 in turns (frozen and
-   published at B=32, frozen at B=8), each one's device busy share
+   published at B=32), each one's device busy share
    (torch.profiler tracing the card, 2 eager steps and one replay), peak
    and reserved memory and host syncs, and the
    published augmentation's device ms on the sub-batch path, the select
@@ -147,12 +154,14 @@ it exits non-zero before printing any result.
    nodes) and replayed on draws under every capacity and on draws over
    them, each bit-equal to the select tree, with the replay's ms.  After
    phase 9, the driver at the published
-   flags with ``--pallasFFNTrain --stepsPerLoop 2`` on 96 synthetic clips
-   at B=32 for two epochs (3 steps each: a chunk and a single step):
+   flags with ``--pallasFFNTrain --stepsPerLoop 2 --multiGPU`` (on one
+   card a process group of one on NCCL: phase ddp (a)) on 96 synthetic
+   clips at B=32 for two epochs (3 steps each: a chunk and a single step):
    finite losses at 6 steps, one capture and one replay, 6 steps'
-   training launches, the reserved memory after the eager chunk and after
-   the capture and replay, LAST reloaded bit-equal, ``--test`` from it
-   with oracle 1.0;
+   training launches and two eval forwards', 5 all-reduces a step and 4
+   an eval forward, 10 inside the captured chunk, the reserved memory
+   after the eager chunk and after the capture and replay, LAST reloaded
+   bit-equal, ``--test --multiGPU`` from it with oracle 1.0;
 8. the driver: ``cli.agqa_hgqa.main`` at the published flags (no
    ``--freezeBackbone``, ``--augmentType rand_aug``) with
    ``--pallasFFNTrain`` at B=32 on synthetic data under a temporary
@@ -195,9 +204,10 @@ it exits non-zero before printing any result.
     with an hg mask that is not a prefix and with the mask all ones,
     ``--pallasAttention`` and the head-sliced switch against the plain
     path (hg_logit) and the training kernels against the plain attention
-    (loss and gradients, dropout 0), each nearer the masked plain run than
-    the unmasked one, moved by the mask, and hg_logit and the loss within
-    half the mask's effect of the masked plain run;
+    (the training forward's hg_logit and the gradients, dropout 0, on one
+    matching), each nearer the masked plain run than the unmasked one,
+    moved by the mask, and every hg_logit within half the mask's effect
+    of the masked plain run; the loss within 5e-2;
     ``--test`` from LAST (oracle 1.0, ``by_qtype``, both predict files),
     plain and with ``--pallasAttention``;
 9c. the AGQA ablations, after STAR: ``cli.agqa_q.main`` (``--taskQ
@@ -230,6 +240,7 @@ it exits non-zero before printing any result.
 10. the plain path, then two plain train steps, on the card against the
     CPU at tiny size in f32: the flagship task, 'q', 'vhga', 'hgvqa' and
     the 'cross_self' layers (the int8 trunk's case runs in phase quant);
+    it runs inside phase ddp, while (b)'s ranks start;
 quant. the int8 frozen trunk (``--quantBackbone int8``, after phase 9d,
     the weight files written for its driver): the qconv kernel
     (``csrc/qconv.cu``) bit-equal to ``qconv_reference`` on the operands
@@ -264,8 +275,21 @@ quant. the int8 frozen trunk (``--quantBackbone int8``, after phase 9d,
     per forward, + 38 attention with ``--pallasAttention``; oracle 1.0);
     phase 10's int8 case: a tiny f32 model, the card's kernel path
     against the CPU's plain path at quant-step granularity;
-11. the card line, one ``{"kernels": [...]}`` line (eleven kernels), and
-    last ``{"ok": true, "device": {...}}``.
+ddp. data parallelism (``parallel/``), after quant; NCCL refuses two
+    ranks on one device, so: (a) the frozen flagship at B=8, 4 steps as
+    2-step chunks of the k-step graph, three runs under an NCCL group of
+    one and three without (the normalizers' and the gradient sum's
+    all-reduces captured), held by phase 7b's spread rule, then the
+    all-reduce's ms and B=8 clips/s with and without the group in turns
+    (readings); (a)'s driver run is phase 7b's; (b) two gloo ranks on
+    the one card (spawned processes, ``ddp_rank``) against one process:
+    frozen-trunk steps of the flagship at B=16 global, dropout 0.1, 38 /
+    34 attention launches and 5 all-reduces a step in each rank, the
+    ranks' parameters bit-equal after two steps, the loss and gradient
+    norm within 5e-2 of one process's, a merged ``predict`` covering the
+    16 questions once, hg_logit within 5e-2 of one process's forward;
+11. the card line, one ``{"kernels": [...]}`` line (eleven kernels), the
+    phases' seconds, and last ``{"ok": true, "device": {...}}``.
 
 Launch counts are read as a tuple of eleven: (attention forward, attention
 backward, FFN, FFN train forward, FFN train backward, tokenizer conv,
@@ -284,8 +308,9 @@ phases 1-2 and the matcher's checks of phase 3, ``--only star`` phases 1-2
 and 9b (the weight files written for its trunk), ``--only tasks`` phases
 1-2, the ablation shapes of phase 3, 9c (the weight files written for its
 trunk) and the ablations' cases of 10, ``--only quant`` phases 1-2 and
-phase quant (the weight files written for its driver), and prints no
-result lines.
+phase quant (the weight files written for its driver), ``--only ddp``
+phases 1-2, 7b's driver (the weight files written for it) and ddp, and
+prints no result lines.
 """
 
 from __future__ import annotations
@@ -303,6 +328,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -363,6 +389,7 @@ from shgvqa_tpu_torch.kernels.ffn import (
     fused_ffn_train,
     fused_out_ln,
     keep_mask as ffn_keep_mask,
+    keep_mask_reference as ffn_keep_mask_reference,
     out_ln_reference,
 )
 from shgvqa_tpu_torch.kernels.headsliced import (
@@ -395,7 +422,9 @@ from shgvqa_tpu_torch.models.layers import (
     set_headsliced_kernel,
     set_out_ln_kernel,
 )
+from shgvqa_tpu_torch.losses import set_prediction
 from shgvqa_tpu_torch.losses.set_prediction import matched_target_grid
+from shgvqa_tpu_torch.parallel import distributed, mesh
 from shgvqa_tpu_torch.models.cross import _cat_masks
 from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
@@ -443,6 +472,9 @@ ATTN_TOL, ATTN_GRAD_TOL = 2e-2, 3e-2
 # train step, kernel vs plain attention at dropout 0: relative difference of
 # the loss and of the gradients' global norm (bf16 through ~40 layers)
 TRAIN_TOL = 5e-2
+# hg_logit of a kernel path against the plain path, relative Frobenius
+# (phase 4's limit; also the data-parallel predict's, phase ddp)
+TOL_HG = 5e-2
 # FFN sites of one flagship train step: (rows per clip, forward launches,
 # backward launches).  The LXRT x-layers' FFNs (2 language, 2 visual) feed
 # only the unsupervised `logit`, so their backward never runs.
@@ -490,6 +522,17 @@ BERT_LAYERS = 12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_SECONDS: dict = {}
+_LAP = [time.perf_counter()]
+
+def lap(name: str) -> None:
+    """The seconds since the last lap (or the script's start) as phase
+    ``name``'s, in ``PHASE_SECONDS``."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = round(now - _LAP[0], 1)
+    _LAP[0] = now
 
 
 def spread(name, fn, **kw):
@@ -700,6 +743,42 @@ def sass_hgmma(name: str, kernels, op: str = "HGMMA", forbid=()):
     return found
 
 
+def check_ffn_offset(tag, ops, dy, seed, keep, rate):
+    """The FFN train kernels' keep mask (``keep``, drawn from ``seed`` at row
+    offset 0) bit-equal to ``ffn_keep_mask_reference``; at a data-parallel
+    rank's row offset (rank 1 of 2: the first global row M) the card's mask
+    bit-equal to the reference there and to those rows of the global
+    call's mask; the forward and backward kernels, called as that rank,
+    against the plain version given that mask."""
+    m = ops[0].shape[0]
+    row0 = OFFSET_RANK * m
+    ref0 = ffn_keep_mask_reference(seed, m, D, rate)
+    got = ffn_keep_mask(seed, m, D, rate, row0=row0)
+    whole = ffn_keep_mask(seed, OFFSET_WORLD * m, D, rate)
+    if not (torch.equal(keep.cpu(), ref0)
+            and torch.equal(got.cpu(), ffn_keep_mask_reference(
+                seed, m, D, rate, row0=row0))
+            and torch.equal(got, whole[row0:row0 + m])):
+        raise AssertionError(f"{tag}: keep_mask differs from "
+                             "keep_mask_reference at row offset 0 or "
+                             f"{row0}, or from the global mask's rows")
+    with as_rank(OFFSET_RANK, OFFSET_WORLD):
+        g = torch.Generator(device="cuda").manual_seed(19)
+        state = g.get_state()
+        y = fused_ffn_train(*ops, rate, g)
+    g.set_state(state)
+    keep = ffn_keep_mask(draw_seed(g, ops[0].device), m, D, rate, row0=row0)
+    e = check_close(f"{tag} rate {rate} at row offset {row0}", y,
+                    ffn_train_reference(*ops, rate, keep))
+    ge, _ = ffn_train_grads_vs_plain(f"{tag} rate {rate} at row offset "
+                                     f"{row0}", ops, y, dy, rate, keep)
+    log(f"{tag} keep_mask rate {rate}: bit-equal to keep_mask_reference at "
+        f"row offset 0 and {row0} (rank {OFFSET_RANK} of {OFFSET_WORLD}) "
+        f"and to the global call's rows; the kernels as that rank against "
+        f"the plain version with that mask: forward {e:.3e}, gradients "
+        f"{ge:.3e}")
+
+
 def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
     """Both FFN train kernels against the plain version at every main-path
     shape (M = B * L for L in 40, 177, 393): y and every gradient at rate 0,
@@ -754,6 +833,10 @@ def phase_ffn_train_kernels(batch_sizes=(2, BATCH_SIZE)):
                              ffn_train_reference(*ops, rate, keep))
             g1, r1 = ffn_train_grads_vs_plain(f"{tag} rate {rate}", ops, y1,
                                               dy, rate, keep)
+            if m == FFN_TRAIN_SITES[0][0] * batch_sizes[0]:
+                gen.set_state(state)
+                check_ffn_offset(tag, ops, dy, draw_seed(gen, ops[0].device),
+                                 keep, rate)
             max_err["fwd"] = max(max_err["fwd"], e0, e1)
             max_err["bwd"] = max(max_err["bwd"], g0, g1)
 
@@ -992,6 +1075,58 @@ def device_ms(fn, own=(), calls: int = 10, tries: int = 3):
     return None, None, None
 
 
+# a data-parallel rank's dropout offset in phase 3's checks: rank 1 of 2,
+# its first global row the local batch's size
+OFFSET_RANK, OFFSET_WORLD = 1, 2
+
+
+@contextlib.contextmanager
+def as_rank(rank: int, world: int):
+    """The wrappers see this process as ``rank`` of ``world`` (the draws'
+    offsets only; no process group)."""
+    saved = distributed.rank, distributed.world_size
+    distributed.rank, distributed.world_size = (lambda: rank), (lambda: world)
+    try:
+        yield
+    finally:
+        distributed.rank, distributed.world_size = saved
+
+
+def check_attention_offset(tag, q, k, v, mask, seed, rate):
+    """At a data-parallel rank's group offset (rank 1 of 2: the first
+    global row B, times H): the card's keep mask bit-equal to
+    ``keep_mask_reference`` at that offset and to those groups of the
+    global call's mask, and the forward kernel, called as that rank, within
+    ATTN_TOL of the plain version given that mask."""
+    b, _, lq, _ = q.shape
+    lk = k.shape[2]
+    group0 = OFFSET_RANK * b * H
+    got = keep_mask(seed, b * H, lq, lk, rate, group0=group0)
+    want = keep_mask_reference(seed, b * H, lq, lk, rate, group0=group0)
+    whole = keep_mask(seed, OFFSET_WORLD * b * H, lq, lk, rate)
+    if not (torch.equal(got.cpu(), want)
+            and torch.equal(got, whole[group0:group0 + b * H])):
+        raise AssertionError(f"{tag}: keep_mask at group offset {group0} "
+                             "differs from keep_mask_reference or from the "
+                             "global mask's groups")
+    with as_rank(OFFSET_RANK, OFFSET_WORLD):
+        g = torch.Generator(device="cuda").manual_seed(17)
+        state = g.get_state()
+        out = fused_attention(q, k, v, mask, rate, g)
+    g.set_state(state)
+    seed2 = draw_seed(g, q.device)
+    keep = keep_mask(seed2, b * H, lq, lk, rate, group0=group0)
+    _, err = rel_max_err(f"{tag} at group offset {group0}", out,
+                         attention_reference(q, k, v, mask, rate,
+                                             keep.view(b, H, lq, lk)),
+                         ATTN_TOL)
+    log(f"attention keep_mask {tag} rate {rate} at group offset {group0} "
+        f"(rank {OFFSET_RANK} of {OFFSET_WORLD}): bit-equal to "
+        f"keep_mask_reference and to the global call's groups; the forward "
+        f"as that rank within {ATTN_TOL} of the plain version with that "
+        f"mask (rel max err {err:.3e})")
+
+
 # the site whose card keep mask is held bit-equal to keep_mask_reference,
 # per batch size
 KEEP_CHECK_SITES = {2: "visual self", BATCH_SIZE: "rel decoder self"}
@@ -1035,6 +1170,7 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
                                          "keep_mask_reference")
                 log(f"attention keep_mask {tag} rate {rate}: bit-equal to "
                     f"keep_mask_reference ({keep.numel()} elements)")
+                check_attention_offset(tag, q, k, v, mask, seed, rate)
             out, do, leaves, (e1, r1), (e2, r2) = fwd_and_grads(
                 q, k, v, mask, rate, g, keep, tag)
             # two backward calls on the same inputs: dQ sums with atomics
@@ -1084,13 +1220,11 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
             fwd_own = ("attn_fwd_kernel",)
             bwd_own = ("attn_bwd_prep_kernel", "attn_bwd_kernel",
                        "attn_bwd_dq_kernel")
-            for key_ms, own in (("kernel0_ms", fwd_own),
-                                ("kernel_ms", fwd_own),
-                                ("bwd_kernel0_ms", bwd_own),
+            # device time at the site's rate only (a profiler session costs
+            # the script far more than the calls it traces)
+            for key_ms, own in (("kernel_ms", fwd_own),
                                 ("bwd_kernel_ms", bwd_own),
-                                ("library0_ms", ()), ("library_ms", ()),
-                                ("bwd_library0_ms", ()),
-                                ("bwd_library_ms", ())):
+                                ("library_ms", ()), ("bwd_library_ms", ())):
                 mine, total, _ = device_ms(fns[key_ms], own)
                 if own:
                     timed[key_ms.replace("_ms", "_device_ms")] = mine
@@ -1143,14 +1277,12 @@ def per_step_text(rows, bsz, key, backward=False):
 
 
 # per train step keys of the attention rows: kernel and SDPA at rate 0 and
-# at the site's rate (timed), the plain version, the bound, the kernels'
-# device time per call (profiler), and every kernel's in the kernels' call
-# and in SDPA's
+# at the site's rate (timed), the plain version, the bound, and at the
+# site's rate the kernels' device time per call (profiler) and every
+# kernel's in the kernels' call and in SDPA's
 ATTN_STEP_KEYS = ("kernel0_ms", "kernel_ms", "library0_ms", "library_ms",
-                  "plain_ms", "bound_ms", "kernel0_device_ms",
-                  "kernel_device_ms", "kernel0_device_all_ms",
-                  "kernel_device_all_ms", "library0_device_all_ms",
-                  "library_device_all_ms")
+                  "plain_ms", "bound_ms", "kernel_device_ms",
+                  "kernel_device_all_ms", "library_device_all_ms")
 
 
 def attention_entries(rows, max_err, launches=None, bsz=BATCH_SIZE):
@@ -1680,6 +1812,13 @@ DEPENDENT_CYCLES = 4
 # version minutes)
 MATCHER_LARGE = (("limit + 1", None, None, None), ("480", 480, 60, 8),
                  ("1024", 1024, None, None))
+# at B=32 the first STAR_BATCH problems of each launch are held bit-equal
+# to the plain version on the host (B=8 holds all of its own, of the same
+# shapes); the large path's problems so held, of the B=8 each launch (and
+# its timing) solves: the host's plain version takes seconds a problem at
+# n = 480 and 1024.  Every problem of every launch is held to scipy's
+# total cost and checked to be a permutation
+MATCHER_LARGE_HELD = 2
 
 
 def max_sm_clock_hz() -> float:
@@ -1732,32 +1871,50 @@ def matcher_bound(bsz, n, steps, clock_hz):
         f"{clock_hz / 1e6:.0f} MHz)")
 
 
-def check_matcher(tag, cost, time_plain=False, paths=(None,)):
+def check_matcher(tag, cost, time_plain=False, paths=(None,), held=None):
     """Kernel against the plain version on the host's copy of ``cost`` (the
     CPU runs the card's f32 operations in the same order, and the CPU tests
     hold it to the JAX solver): row_to_col and the search steps bit-equal,
-    the total cost against scipy's within MATCHER_COST_TOL.  With
-    ``time_plain`` also the plain version on the card, bit-equal to the
-    host's, and its ms (one turn: it reads the host at every search step).
-    Returns the kernel's steps, max |row_to_col - plain| and the plain
-    version's ms on the card (None without ``time_plain``).  Each of
-    ``paths`` (None: the wrapper's choice, or one of ``matcher.PATHS``) is
-    held to the same plain run."""
+    with ``held`` on the first ``held`` problems of the kernel's launch on
+    all of ``cost`` (the host's plain version takes seconds a problem at
+    the large path's n); every problem of every launch a permutation at
+    scipy's total cost within MATCHER_COST_TOL.  With ``time_plain`` also
+    the plain version on the card, bit-equal to the host's, and its ms (one
+    turn: it reads the host at every search step).  Returns the kernel's
+    steps, max |row_to_col - plain| and the plain version's ms on the card
+    (None without ``time_plain``).  Each of ``paths`` (None: the wrapper's
+    choice, or one of ``matcher.PATHS``) is held to the same plain run."""
     host = cost.cpu()
-    p, _, _, plain_steps = matcher._augmenting_path_solve(host)
+    p, _, _, plain_steps = matcher._augmenting_path_solve(host[:held])
     plain = matcher._row_to_col(p)
+    c = host.numpy()
+    best = []
+    for ci in c:
+        ri, cj = linear_sum_assignment(ci)
+        best.append(float(ci[ri, cj].sum()))
+    n = c.shape[-1]
     for path in paths:
         rows, steps = matcher._launch(cost, path)
-        got = rows.cpu()
+        every = rows.cpu()
+        got = every[:held]
         err = int((got - plain).abs().max())
         if err:
             raise AssertionError(
                 f"matcher {tag} ({path or 'auto'}): row_to_col differs from "
                 f"the plain version in {int((got != plain).sum())} places")
-        if not torch.equal(steps.cpu().long(), plain_steps):
+        if not torch.equal(steps[:held].cpu().long(), plain_steps):
             raise AssertionError(f"matcher {tag} ({path or 'auto'}): search "
                                  f"steps {steps.tolist()}, plain "
                                  f"{plain_steps.tolist()}")
+        for i, (ci, row) in enumerate(zip(c, every.numpy())):
+            if not np.array_equal(np.sort(row), np.arange(n)):
+                raise AssertionError(f"matcher {tag} ({path or 'auto'}): "
+                                     f"problem {i} is not a permutation")
+            ours = float(ci[np.arange(n), row].sum())
+            if abs(ours - best[i]) > MATCHER_COST_TOL:
+                raise AssertionError(
+                    f"matcher {tag} ({path or 'auto'}): problem {i}'s total "
+                    f"cost {ours}, scipy's {best[i]}")
     plain_ms = None
     if time_plain:
         torch.cuda.synchronize()
@@ -1768,20 +1925,13 @@ def check_matcher(tag, cost, time_plain=False, paths=(None,)):
         if not torch.equal(on_card.cpu(), plain):
             raise AssertionError(f"matcher {tag}: the plain version on the "
                                  "card differs from the host's")
-    c, r = host.numpy(), got.numpy()
-    for ci, row in zip(c, r):
-        ri, cj = linear_sum_assignment(ci)
-        ours, best = float(ci[np.arange(len(row)), row].sum()), float(
-            ci[ri, cj].sum())
-        if abs(ours - best) > MATCHER_COST_TOL:
-            raise AssertionError(f"matcher {tag}: total cost {ours}, "
-                                 f"scipy's {best}")
     return steps, err, plain_ms
 
 
 def phase_matcher_kernel():
     """The global matcher's kernel (``csrc/matcher.cu``) against its plain
-    version at (B, 128, 128) and (B, 48, 48), B = 32 and 8, plus a batch
+    version at (B, 128, 128) and (B, 48, 48), B = 32 (the launch's first 8
+    problems held bit-equal, all 32 at scipy's cost) and 8, plus a batch
     made of ties and one with zero targets: row_to_col and steps bit-equal,
     scipy's total cost; the kernel's time by events and its device time,
     the plain version's on the card at the STAR step's B=8 (one turn),
@@ -1789,9 +1939,10 @@ def phase_matcher_kernel():
     route, ``lxrt/matcher.py:76-80``) as the yardstick, and the bound.  At
     the shared-memory path's largest n one problem launches and agrees.
     Above it the large path (cost in global memory): n = limit + 1, 480
-    and 1024 at B=8, each bit-equal and at scipy's cost, also with its
-    state in a workspace, the last two timed (events, device time, bound,
-    scipy); the large path forced at the B=8 problems of 128 and 48 too.
+    and 1024 at B=8, the first ``MATCHER_LARGE_HELD`` problems of each
+    launch bit-equal, all 8 at scipy's cost, also with its state in a
+    workspace, the last two timed (events, device time, bound, scipy); the
+    large path forced at the B=8 problems of 128 and 48 too.
     Returns
     the rows (the large path's under ("large", n)) and max |row_to_col -
     plain| over every case."""
@@ -1804,7 +1955,8 @@ def phase_matcher_kernel():
             # at the STAR batch the large path, forced, on the same costs
             steps, err, plain_ms = check_matcher(
                 f"{name} b{bsz}", cost, time_plain=bsz == STAR_BATCH,
-                paths=(None, "large") if bsz == STAR_BATCH else (None,))
+                paths=(None, "large") if bsz == STAR_BATCH else (None,),
+                held=None if bsz == STAR_BATCH else STAR_BATCH)
             max_err = max(max_err, err)
             row = {"steps_max": int(steps.max()), "steps_sum":
                    int(steps.sum()), "plain_ms": plain_ms}
@@ -1852,7 +2004,8 @@ def phase_matcher_kernel():
             raise AssertionError(f"matcher n={n}: the wrapper picks "
                                  f"{matcher._pick_path(lib, n)}")
         steps, err, _ = check_matcher(f"n={n} b{bsz}", cost,
-                                      paths=(None, "large_global"))
+                                      paths=(None, "large_global"),
+                                      held=MATCHER_LARGE_HELD)
         max_err = max(max_err, err)
         row = {"n": n, "steps_max": int(steps.max()),
                "steps_sum": int(steps.sum())}
@@ -2269,7 +2422,7 @@ def phase_train_published_throughput(frozen, published):
     runs = {"frozen": [], "published": []}
     for name in ("frozen", "published", "published", "frozen"):
         step, b, g = steps[name]
-        runs[name].append(train_clips_per_second(step, b, g))
+        runs[name].append(train_clips_per_second(step, b, g, **TRAIN_TURN))
     model, optimizer, generator, batch = published
     split = train_split_ms(model, optimizer, batch, generator)
     memory = {name: train_memory_gib(*steps[name]) for name in steps}
@@ -2291,6 +2444,11 @@ def phase_train_published_throughput(frozen, published):
             sum(v) / len(v) for k, v in runs.items()}, memory
 
 
+# a turn of the train steps' clips/s readings (phases 7 and 9d): one
+# warm-up step, then three timed (readings in turns, not checks)
+TRAIN_TURN = dict(iters=3, warmup=1)
+
+
 def phase_train_throughput(model, optimizer, generator, batch):
     """Train clips/s at B=32: kernel and plain attention in turns (unfused
     FFN), then the FFN train kernels and the unfused FFN in turns
@@ -2300,13 +2458,15 @@ def phase_train_throughput(model, optimizer, generator, batch):
     runs = {"kernel": [], "plain": []}
     for name in ("kernel", "plain", "plain", "kernel"):
         set_attention_kernel(model, name == "kernel")
-        runs[name].append(train_clips_per_second(step, batch, generator))
+        runs[name].append(train_clips_per_second(step, batch, generator,
+                                                 **TRAIN_TURN))
     set_attention_kernel(model, True)
     split = train_split_ms(model, optimizer, batch, generator)
     ffn_runs = {"ffn_kernel": [], "ffn_plain": []}
     for name in ("ffn_kernel", "ffn_plain", "ffn_plain", "ffn_kernel"):
         set_ffn_train_kernel(model, name == "ffn_kernel")
-        ffn_runs[name].append(train_clips_per_second(step, batch, generator))
+        ffn_runs[name].append(train_clips_per_second(step, batch, generator,
+                                                     **TRAIN_TURN))
     set_ffn_train_kernel(model, True)
     ffn_split = train_split_ms(model, optimizer, batch, generator)
     set_ffn_train_kernel(model, False)
@@ -2657,8 +2817,8 @@ def phase_steps_per_loop(name, recipe):
     the block switch, for ``name`` "frozen" (the trunk frozen) or
     "published" (the published recipe): the graph against eager steps
     (``spl_equivalence``), then clips/s at k=1 and k=``SPL_K`` in turns
-    (``spl_throughput``), frozen also at B=8, published also the
-    augmentation's two paths (``spl_augment_ms``).  ``recipe`` is (model,
+    (``spl_throughput``), published also the augmentation's two paths
+    (``spl_augment_ms``).  ``recipe`` is (model,
     optimizer, generator, batch); the switches are off again after."""
     model, optimizer, generator, batch = recipe
     out = {}
@@ -2670,11 +2830,7 @@ def phase_steps_per_loop(name, recipe):
         out[f"{name} b{batch['frames'].shape[0]}"] = spl_throughput(
             name, model, optimizer, generator, batch, chunks)
         del chunks
-        if name == "frozen":
-            small = entry.device_batch(model.cfg, 8, 0, with_labels=True)
-            out[f"{name} b8"] = spl_throughput(name, model, optimizer,
-                                               generator, small)
-        else:
+        if name == "published":
             out["augment ms"] = spl_augment_ms(model, batch)
     finally:
         set_block_kernel(model, False)
@@ -2693,15 +2849,31 @@ class _Recorded(loop.Trainer):
         _Recorded.made.append(self)
 
 
+# the driver of phase 7b runs as data parallelism's NCCL group of one
+# (--multiGPU on one card, phase ddp (a)): 2 epochs of 96 clips at B=32 (a
+# 2-step chunk and a single step each), 8 valid clips (one eval forward an
+# epoch, AGQA's eval batch a quarter of the train batch)
+SPL_DRIVER_STEPS, SPL_DRIVER_EVALS = 6, 2
+# all-reduces of a train step (per-frame matching: each set loss's
+# normalizer and its accuracy's counts, then one flat buffer of the
+# gradients and the metrics' shares) and of a valid forward with labels
+# (its class accuracy: the set losses' four)
+DDP_STEP_ALL_REDUCES, DDP_EVAL_ALL_REDUCES = 5, 4
+
+
 def phase_driver_steps_per_loop(tmp: str, files: dict):
     """The driver at the published flags with ``--pallasFFNTrain
-    --stepsPerLoop 2`` on 96 synthetic clips at B=32 (3 steps an epoch: a
-    chunk of 2 and a single step), its trunk from ``--backboneWeights``,
-    two epochs: finite losses at 6 steps, one capture and one replay, the
-    launches of 6 steps run on the host (the eager chunk, the capture and
-    two single steps), the reserved device memory after each chunk (the
-    eager one; the capture, which empties the allocator's cache, and its
-    replay); LAST reloaded bit-equal; ``--test`` from it (oracle 1.0)."""
+    --stepsPerLoop 2 --multiGPU`` on 96 synthetic clips at B=32 (3 steps an
+    epoch: a chunk of 2 and a single step), its trunk from
+    ``--backboneWeights``, two epochs, on one card: a process group of one
+    on NCCL (phase ddp (a)); finite losses at 6 steps, one capture and one
+    replay, the launches of 6 steps run on the host (the eager chunk, the
+    capture and two single steps), ``DDP_STEP_ALL_REDUCES`` all-reduces a
+    step and ``DDP_EVAL_ALL_REDUCES`` an eval forward, 2 steps' all-reduces
+    inside the captured chunk, the reserved device memory after each chunk
+    (the eager one; the capture, which empties the allocator's cache, and
+    its replay); LAST reloaded bit-equal; ``--test --multiGPU`` from it
+    (oracle 1.0, the NCCL group)."""
     t0 = time.perf_counter()
     out, data = os.path.join(tmp, "spl"), os.path.join(tmp, "spl_data")
     os.makedirs(data, exist_ok=True)
@@ -2709,10 +2881,11 @@ def phase_driver_steps_per_loop(tmp: str, files: dict):
         "--syntheticData", "96", "--syntheticValid", "8", "--batchSize",
         str(BATCH_SIZE), "--logFreq", "1", "--output", out, "--dataDir",
         data, "--epochs", "2", "--stepsPerLoop", "2", "--backboneWeights",
-        files["trunk"]]
+        files["trunk"], "--multiGPU"]
     saved, _Recorded.made = common.Trainer, []
     common.Trainer = _Recorded
-    run, reserved = StepChunks.run, []
+    run, capture, reserved, in_graph = StepChunks.run, StepChunks._capture, \
+        [], []
 
     def recorded(chunks, batches):
         out = run(chunks, batches)
@@ -2720,30 +2893,52 @@ def phase_driver_steps_per_loop(tmp: str, files: dict):
         reserved.append(torch.cuda.memory_reserved() / 2 ** 30)
         return out
 
-    StepChunks.run = recorded
+    def counted_capture(chunks):
+        before = distributed.all_reduce_sum_.launches
+        capture(chunks)
+        in_graph.append(distributed.all_reduce_sum_.launches - before)
+
+    StepChunks.run, StepChunks._capture = recorded, counted_capture
     torch.cuda.reset_peak_memory_stats()
     try:
         reset_counts()
+        before = distributed.all_reduce_sum_.launches
         result, _, seconds = run_main(argv)
         launched = counts()
+        reduces = distributed.all_reduce_sum_.launches - before
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
-        common.Trainer, StepChunks.run = saved, run
+        common.Trainer, StepChunks.run, StepChunks._capture = (saved, run,
+                                                               capture)
     trainer = _Recorded.made[-1]
     with open(os.path.join(out, "metrics.jsonl")) as f:
         losses = [json.loads(line)["total_loss"] for line in f]
     chunks = trainer.chunks
-    if (result["steps"], len(losses)) != (6, 6) or not all(
+    steps = SPL_DRIVER_STEPS
+    if result.get("process_group") != {"backend": "nccl", "world": 1,
+                                       "rank": 0}:
+        raise AssertionError(f"driver --multiGPU on one card: process group "
+                             f"{result.get('process_group')}")
+    if (result["steps"], len(losses)) != (steps, steps) or not all(
             math.isfinite(v) for v in losses):
         raise AssertionError(f"driver at --stepsPerLoop 2: {result['steps']} "
                              f"steps, losses {losses}")
     if chunks is None or (chunks.captures, chunks.replays) != (1, 1):
         raise AssertionError("driver at --stepsPerLoop 2: not one capture "
                              "and one replay")
-    want = tuple(6 * c for c in DRIVER_TRAIN_LAUNCHES)
-    if [launched[i] for i in (0, 1, 3, 4)] != [want[i] for i in (0, 1, 3, 4)]:
+    want = tuple(steps * t + SPL_DRIVER_EVALS * e for t, e in
+                 zip(DRIVER_TRAIN_LAUNCHES, EVAL_MODES[0][1]))
+    if launched != want:
         raise AssertionError(f"driver at --stepsPerLoop 2 launched "
-                             f"{launched}, expected {want} in training")
+                             f"{launched}, expected {want} ({steps} steps, "
+                             f"{SPL_DRIVER_EVALS} eval forwards)")
+    want_reduces = (steps * DDP_STEP_ALL_REDUCES
+                    + SPL_DRIVER_EVALS * DDP_EVAL_ALL_REDUCES)
+    if reduces != want_reduces or in_graph != [2 * DDP_STEP_ALL_REDUCES]:
+        raise AssertionError(f"driver --multiGPU: {reduces} all-reduces "
+                             f"(expected {want_reduces}), {in_graph} while "
+                             f"capturing (expected "
+                             f"{[2 * DDP_STEP_ALL_REDUCES]})")
     cfg = trainer.model.cfg
     fresh = entry.build_model(cfg, "cuda", seed=1)
     Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
@@ -2758,18 +2953,21 @@ def phase_driver_steps_per_loop(tmp: str, files: dict):
     test_out = os.path.join(tmp, "spl_test")
     argv_test = [a if a != out else test_out for a in argv] + [
         "--test", "test", "--load", os.path.join(out, "LAST")]
-    _, stdout, test_seconds = run_main(argv_test)
-    if "Oracle score: 1.0000" not in stdout:
-        raise AssertionError("--test from the --stepsPerLoop 2 LAST: oracle "
-                             "score not 1.0")
-    log(f"driver --stepsPerLoop 2: 6 steps, losses {losses}, 1 capture and "
-        f"1 replay, launches ({COUNT_NAMES}) {launched} (6 steps on the "
-        f"host, eval forwards' FFN included), reserved GiB after the eager "
-        f"chunk and after the capture and replay {reserved}, peak allocated "
-        f"GiB {peak}, LAST reloads "
-        f"bit-equal, "
-        f"--test oracle 1.0; {seconds:.1f} s and {test_seconds:.1f} s, "
-        f"{time.perf_counter() - t0:.1f} s in all")
+    test, stdout, test_seconds = run_main(argv_test)
+    if "Oracle score: 1.0000" not in stdout or test.get(
+            "process_group", {}).get("backend") != "nccl":
+        raise AssertionError("--test --multiGPU from the --stepsPerLoop 2 "
+                             "LAST: oracle score not 1.0, or no NCCL group")
+    log(f"driver --stepsPerLoop 2 --multiGPU: process group "
+        f"{json.dumps(result['process_group'])}; {steps} steps, losses "
+        f"{losses}, 1 capture and 1 replay, launches ({COUNT_NAMES}) "
+        f"{launched} ({steps} steps on the host and {SPL_DRIVER_EVALS} eval "
+        f"forwards), all-reduces {reduces} ({DDP_STEP_ALL_REDUCES} a step, "
+        f"{DDP_EVAL_ALL_REDUCES} an eval forward), {in_graph[0]} in the "
+        f"captured chunk; reserved GiB after the eager chunk and after the "
+        f"capture and replay {reserved}, peak allocated GiB {peak}, LAST "
+        f"reloads bit-equal, --test --multiGPU oracle 1.0; {seconds:.1f} s "
+        f"and {test_seconds:.1f} s, {time.perf_counter() - t0:.1f} s in all")
     return losses
 
 
@@ -3020,6 +3218,34 @@ STAR_TEST_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)),
                    (["--pallasAttention"], (38, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)))
 
 
+@contextlib.contextmanager
+def matchings(replay=None):
+    """While it lasts, the set losses' matchings (``set_prediction``'s
+    ``match_targets_global`` and ``match_targets_per_frame``) are recorded,
+    in call order, into the list it yields; given ``replay`` (such a list),
+    each call returns the recorded result of its place instead."""
+    saved = (set_prediction.match_targets_global,
+             set_prediction.match_targets_per_frame)
+    got = []
+
+    def wrap(real):
+        def match(*args, **kwargs):
+            if replay is not None:
+                got.append(replay[len(got)])
+            else:
+                got.append(tuple(t.clone() for t in real(*args, **kwargs)))
+            return got[-1]
+        return match
+
+    set_prediction.match_targets_global = wrap(saved[0])
+    set_prediction.match_targets_per_frame = wrap(saved[1])
+    try:
+        yield got
+    finally:
+        (set_prediction.match_targets_global,
+         set_prediction.match_targets_per_frame) = saved
+
+
 def star_mask_kernels(trainer):
     """The attention paths under ``--useHGMask`` with an hg mask that is not
     a prefix, on the STAR driver's model (its calibrated trunk) at B=8:
@@ -3035,7 +3261,10 @@ def star_mask_kernels(trainer):
     plain run.  The gradients are not held to that share: through the
     bf16 backward their distance to plain is about half the effect.  A
     kernel that dropped the mask would not move
-    with it and would land a whole effect away."""
+    with it and would land a whole effect away.  Each train run matches
+    its own set predictions; a reading (no limit) gives the masked kernel
+    run's loss on the masked plain run's matching, the loss terms, and the
+    slots the two runs' own matchings assign differently."""
     model, cfg = trainer.model, trainer.model.cfg
     batch = entry.device_batch(cfg, 8, 5, with_labels=True)
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -3064,19 +3293,25 @@ def star_mask_kernels(trainer):
     rates = {m: m.rate for m in model.modules() if isinstance(m, Dropout)}
     set_dropout_rate(model, 0.0)
     model.train()
-    train = {}
+    train, terms, matched = {}, {}, {}
     for name, attn in (("kernel", True), ("plain", False)):
         set_attention_kernel(model, attn)
         for masked, b in inputs.items():
             trainer.optimizer.zero_grad()
-            loss, _ = compute_losses(cfg, model(b, g), b)
+            with matchings() as matched[(name, masked)]:
+                loss, metrics = compute_losses(cfg, model(b, g), b)
             loss.backward()
             train[(name, masked)] = (
                 loss.detach().float().reshape(1), torch.cat(
                     [p.grad.float().flatten() for p in trainer.optimizer.params
                      if p.grad is not None]))
+            terms[(name, masked)] = [
+                round(float(metrics[k]), 6)
+                for k in ("hgqa_loss", "rel_loss", "act_loss")]
     trainer.optimizer.zero_grad()
     set_attention_kernel(model, True)
+    with matchings(matched[("plain", True)]):
+        forced = compute_losses(cfg, model(batch, g), batch)[0].detach()
     for m, rate in rates.items():
         m.rate = rate
     model.eval()
@@ -3104,10 +3339,20 @@ def star_mask_kernels(trainer):
         if (effect == 0.0 or near > limit or near >= far
                 or own < MASK_SHARE * effect):
             faults.append(tag)
+    differ = [f"{int((k[0] != p[0]).sum())} of {k[0].numel()}" for k, p in
+              zip(matched[("kernel", True)], matched[("plain", True)])]
     log(f"STAR hg mask (not a prefix, b8), kernel paths vs the plain path "
         f"(relative Frobenius; limits: {MASK_SHARE} x the effect for "
         f"hg_logit and the loss, {TRAIN_TOL}; the kernel's own effect at "
         f"least {MASK_SHARE} x plain's): " + "; ".join(report))
+    forced = rel(forced.float().reshape(1), train[("plain", True)][0])
+    log(f"STAR hg mask, train loss readings (no limit): the masked kernel "
+        f"run on the masked plain run's matching {forced:.3e} from the "
+        f"masked plain run; the two runs' own matchings assign "
+        f"{', '.join(differ)} (relation, action) target slots differently; "
+        f"(hg, relation, action) loss terms "
+        + json.dumps({f"{n} {'masked' if m else 'ones'}": v
+                      for (n, m), v in terms.items()}))
     if faults:
         raise AssertionError(f"STAR hg mask: {faults} not held to the "
                              "masked plain run")
@@ -3571,11 +3816,11 @@ def phase_tasks(tmp: str, files: dict):
 
 
 # phase 9d: per-choice STAR QA (README.md's STAR line with --noCaps
-# --qaArrangeType add_sep --outputAttn at --stepsPerLoop 2, B=8): 128
+# --qaArrangeType add_sep at --stepsPerLoop 2, B=8): 128
 # synthetic questions (32 Interaction: four steps, two 2-step chunks, so
 # one capture and one replay) and 16 valid (4 Interaction), one epoch
 PER_CHOICE_FLAGS = [("add_sep" if a == "add_sep_all" else a)
-                    for a in STAR_FLAGS] + ["--outputAttn"]
+                    for a in STAR_FLAGS]
 PER_CHOICE_DATA = ["--syntheticData", "128", "--syntheticValid", "16",
                    "--logFreq", "1", "--epochs", "1"]
 # launches (COUNT_NAMES) of a per-choice train step, a valid forward with
@@ -3584,8 +3829,13 @@ PER_CHOICE_DATA = ["--syntheticData", "128", "--syntheticValid", "16",
 PER_CHOICE_TRAIN = (38, 34, 0, 0, 0, 0, 0, 0, 0, 2, 0)
 PER_CHOICE_VALID = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2, 0)
 PER_CHOICE_DUMPS = (0, 0, 18, 0, 0, 0, 0, 0, 0, 2, 0)
+# (--test's extra flags, launches per eval forward); the dumps run once,
+# with --pallasAttention on, where they must still launch no attention
+# kernel, at an eval batch of 4 clips (a dump writes every map of the
+# padded batch: 16 HG rows, not 32)
 PER_CHOICE_TEST_MODES = (([], (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)),
-                         (["--pallasAttention"],
+                         (["--pallasAttention", "--outputAttn",
+                           "--batchSize", "4"],
                           (38, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)))
 # the head models of phase 9d: (task, arrangement, attention forward and
 # backward per train step, FFN per eval forward, FFN-train forward and
@@ -3628,8 +3878,8 @@ def per_choice_step_ms(model, cfg):
     """Eager train steps, attention kernels on, in turns: the per-choice
     STAR model ``model`` (the driver's LAST, its trunk frozen) at B=8 (32
     language rows) and the flagship frozen-trunk step at B=32
-    (``entry.train_entry``); ms a step by events, each the mean of two
-    turns of 5 steps, and the per-choice step's split."""
+    (``entry.train_entry``); ms a step, each the mean of two turns of
+    ``TRAIN_TURN`` steps, and the per-choice step's split."""
     o = cfg.optim
     model.train()
     optimizer = make_optimizer(
@@ -3651,7 +3901,7 @@ def per_choice_step_ms(model, cfg):
                  "per_choice_b8"):
         step, b, g = steps[name]
         ms[name].append(b["frames"].shape[0] * 1e3
-                        / train_clips_per_second(step, b, g))
+                        / train_clips_per_second(step, b, g, **TRAIN_TURN))
     out = {k: sum(v) / len(v) for k, v in ms.items()}
     out["per_choice_split"] = train_split_ms(model, optimizer, batch,
                                              generator)
@@ -3666,11 +3916,11 @@ def phase_per_choice(tmp: str, files: dict):
     """Phase 9d: per-choice STAR QA at full width in bf16.  ``cli.star
     .main`` at PER_CHOICE_FLAGS on PER_CHOICE_DATA, its trunk from
     ``--backboneWeights``: the launch counts of every step run on the host
-    (the eager chunk and the capture), of the valid forward and of the
-    valid split's dumps, one capture and one replay, finite losses, LAST
-    reloaded bit-equal; ``--test`` from LAST with ``--outputAttn``, plain
-    and with ``--pallasAttention`` (oracle 1.0, ``by_qtype``, both predict
-    files, both dump files, the npz maps, no attention kernel in a dump);
+    (the eager chunk and the capture) and of the valid forward, one
+    capture and one replay, finite losses, LAST reloaded bit-equal;
+    ``--test`` from LAST, plain and with ``--pallasAttention
+    --outputAttn`` (oracle 1.0, ``by_qtype``, both predict files; of the
+    dumps both files, the npz maps, no attention kernel in a dump);
     then the head models of PER_CHOICE_VARIANTS through
     ``check_head_variant`` on random trunk features at B=8.  Returns the
     seconds of each part."""
@@ -3705,9 +3955,7 @@ def phase_per_choice(tmp: str, files: dict):
     if counted.eval != [PER_CHOICE_VALID]:
         raise AssertionError(f"per-choice valid forwards launched "
                              f"{counted.eval}, expected {PER_CHOICE_VALID}")
-    dump_s = {"valid": check_dumps("per-choice valid dumps", counted, out, 4,
-                                   PER_CHOICE_DUMPS, HG_TOKENS, grids=True,
-                                   per_choice=True)}
+    dump_s = {}
     cfg = trainer.model.cfg
     if cfg.data.qa_arrange_type != "add_sep" or cfg.loss_hg_per_frame:
         raise AssertionError("per-choice driver: not add_sep with the "
@@ -3753,10 +4001,10 @@ def phase_per_choice(tmp: str, files: dict):
                 if len(json.load(f)) != 4:
                     raise AssertionError(f"per-choice {name} does not hold "
                                          "4 answers")
-        dump_s["test" + "".join(extra)] = check_dumps(
-            f"per-choice --test --outputAttn {' '.join(extra)}", counted,
-            test_out, 4, PER_CHOICE_DUMPS, HG_TOKENS, grids=True,
-            per_choice=True)
+        if "--outputAttn" in extra:
+            dump_s["test" + "".join(extra)] = check_dumps(
+                f"per-choice --test {' '.join(extra)}", counted, test_out, 4,
+                PER_CHOICE_DUMPS, HG_TOKENS, grids=True, per_choice=True)
         log(f"per-choice --test {' '.join(extra)}: oracle 1.0, acc "
             f"{result['acc']}, hg_acc {result['hg_acc']}, by_qtype "
             f"{result['by_qtype']}, launches per eval forward "
@@ -4831,13 +5079,324 @@ def phase_quant(tmp=None, files=None):
     return rows, launched, cps
 
 
+# ---------------------------------------------------------------------------
+# Phase ddp: data parallelism (``parallel/``, ``--multiGPU``, the SHGVQA_*
+# launch).  The card host has one H100 and NCCL refuses two ranks on one
+# device: (a) runs NCCL with one rank (its driver run is phase 7b's,
+# ``phase_driver_steps_per_loop``), (b) gloo with two ranks on the card.
+
+# (a) the frozen flagship's steps at B=8 as 2-step chunks of the graph (chunk 1 eager,
+# chunk 2 captured and replayed) with the NCCL group of one and without any,
+# each way DDP_RUNS times from one state, held by phase 7b's spread rule
+DDP_BATCH, DDP_STEPS, DDP_RUNS, DDP_K = 8, 4, 3, 2
+# (b) gloo, two ranks on the one card: frozen-trunk steps of the flagship
+# in bf16 at dropout 0.1, B=16 global, 8 a rank
+DDP_GLOO_WORLD, DDP_GLOO_BATCH, DDP_GLOO_STEPS = 2, 16, 2
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_graph_runs(model, optimizer, generator, batches, start, runs):
+    """``runs`` runs of ``DDP_STEPS`` steps from ``start`` as
+    ``DDP_K``-step chunks (chunk 1 eager, chunk 2 captured and replayed):
+    [(losses, parameters, generator state)].  The train step sums over the
+    ranks if a process group runs when it is made."""
+    out = []
+    for _ in range(runs):
+        spl_restore(model, optimizer, generator, start)
+        chunks = StepChunks(model, make_train_step(model.cfg, model,
+                                                   optimizer),
+                            optimizer, generator, DDP_K)
+        losses = [chunks.run(batches[i:i + DDP_K])["total_loss"].clone()
+                  for i in range(0, DDP_STEPS, DDP_K)]
+        torch.cuda.synchronize()
+        if (chunks.captures, chunks.replays) != (1, 1):
+            raise AssertionError("ddp graph run: not one capture and one "
+                                 "replay")
+        out.append((torch.cat(losses).cpu(),
+                    [p.detach().clone() for p in optimizer.params],
+                    generator.get_state()))
+        del chunks
+        gc.collect()
+    return out
+
+
+def phase_ddp_steps():
+    """(a) at step level: the frozen flagship at B=8, ``DDP_STEPS`` steps
+    as ``DDP_K``-step chunks in the graph, ``DDP_RUNS`` times without a
+    process group and ``DDP_RUNS`` times under an NCCL group of one (the
+    gradient sum and the normalizers' all-reduces captured): in the
+    per-step losses and in the parameters, the median distance of the
+    group's runs to the plain runs at most ``SPL_SPREAD`` x the median
+    distance between two plain runs (floor ``SPL_FLOOR``), every loss
+    finite, the generator states equal.  Then the readings, in turns: a
+    replayed chunk with and without the group (train clips/s), and one
+    all-reduce of the flat buffer of the trainable parameters (ms, CUDA
+    events).  Returns the readings."""
+    t0 = time.perf_counter()
+    model, optimizer, generator, _ = entry.train_entry(batch_size=DDP_BATCH)
+    batches = spl_batches(model.cfg, DDP_BATCH, DDP_STEPS)
+    generator.manual_seed(11)
+    start = spl_state(model, optimizer, generator)
+    plain = ddp_graph_runs(model, optimizer, generator, batches, start,
+                           DDP_RUNS)
+    plain_step = StepChunks(model, make_train_step(model.cfg, model,
+                                                   optimizer),
+                            optimizer, generator, DDP_K)
+    distributed.maybe_initialize_distributed(f"127.0.0.1:{free_port()}", 1,
+                                             0, device="cuda")
+    try:
+        if distributed.backend() != "nccl":
+            raise AssertionError(f"ddp: backend {distributed.backend()}")
+        grouped = ddp_graph_runs(model, optimizer, generator, batches, start,
+                                 DDP_RUNS)
+        pairs = [spl_distance(plain[i], plain[j]) for i in range(DDP_RUNS)
+                 for j in range(i + 1, DDP_RUNS)]
+        gaps = [spl_distance(g, p) for g in grouped for p in plain]
+        if not all(torch.isfinite(r[0]).all() for r in plain + grouped):
+            raise AssertionError("ddp: a non-finite loss")
+        if not all(x[2] for x in pairs + gaps):
+            raise AssertionError("ddp: the generator's state differs")
+        for i, what in enumerate(("loss", "parameters")):
+            spread_ = statistics.median(p[i] for p in pairs)
+            near = statistics.median(g[i] for g in gaps)
+            log(f"ddp (a) steps with an NCCL group of one vs none, {what}: "
+                f"median group-plain {near}, median plain-plain {spread_}")
+            if near > max(SPL_SPREAD * spread_, SPL_FLOOR):
+                raise AssertionError(f"ddp: the group's {what} differ by "
+                                     f"{near} (median), the plain runs' own "
+                                     f"spread {spread_} (median)")
+        # readings: a replayed chunk with and without the group, in turns
+        spl_restore(model, optimizer, generator, start)
+        group_step = StepChunks(model, make_train_step(model.cfg, model,
+                                                       optimizer),
+                                optimizer, generator, DDP_K)
+        for chunks in (plain_step, group_step):      # eager, then capture
+            chunks.run(batches[:DDP_K])
+            chunks.run(batches[:DDP_K])
+        cps = {"without": [], "with the all-reduce": []}
+        for name, chunks in (("without", plain_step),
+                             ("with the all-reduce", group_step),
+                             ("with the all-reduce", group_step),
+                             ("without", plain_step)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(3):
+                chunks.run(batches[:DDP_K])
+            torch.cuda.synchronize()
+            cps[name].append(3 * DDP_K * DDP_BATCH
+                             / (time.perf_counter() - t1))
+        n = sum(p.numel() for p in optimizer.params) + 8
+        flat = torch.zeros(n, device="cuda")
+        reduce_ms = time_ms(lambda: distributed.all_reduce_sum_(flat))
+    finally:
+        distributed.shutdown()
+    readings = {"train_clips_per_s_b8_k2": cps,
+                "all_reduce_ms_a_step": reduce_ms,
+                "all_reduce_bytes": n * 4}
+    log(f"ddp (a) readings (no limit): {json.dumps(readings)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del plain_step, group_step, model, optimizer, plain, grouped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def ddp_rank(rank: int, world: int, port: int, out: str) -> None:
+    """(b) one rank, in its own process, of a gloo group on the one card:
+    the flagship's ``train_entry`` at B=16 (every rank builds the same
+    global batch, so the trunk's statistics calibrate alike), this rank's
+    8 rows; a ``Trainer.predict`` merged over the ranks and this rank's
+    hg_logit, before any step; then ``DDP_GLOO_STEPS`` eager frozen-trunk
+    steps at dropout 0.1 with the launch counts and all-reduces of each,
+    the global loss and gradient norm, and a digest of the parameters
+    after.  Writes ``{out}/rank{rank}.pt``."""
+    import hashlib
+
+    distributed.maybe_initialize_distributed(
+        f"127.0.0.1:{port}", world, rank, device="cuda", backend="gloo")
+    try:
+        model, optimizer, generator, batch = entry.train_entry(
+            batch_size=DDP_GLOO_BATCH)
+        set_dropout_rate(model, 0.1)
+        cfg = model.cfg.replace(output=os.path.join(out, f"out{rank}"))
+        local = {k: mesh.local_rows(v) for k, v in batch.items()}
+        qids = mesh.local_rows([f"q{i}" for i in range(DDP_GLOO_BATCH)])
+        trainer = Trainer(cfg, 1, model)
+        with torch.inference_mode():
+            model.eval()
+            hg_logit = model(local)["hg_logit"].float().cpu()
+        q2a, hg_q2a = trainer.predict([dict(local, ques_id=qids,
+                                            n_valid=len(qids))])
+        del trainer
+        model.train()
+        step = make_train_step(cfg, model, optimizer)
+        rows = []
+        for _ in range(DDP_GLOO_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            before = distributed.all_reduce_sum_.launches
+            metrics = step(local, generator)
+            torch.cuda.synchronize()
+            rows.append({"launches": counts(),
+                         "all_reduces": distributed.all_reduce_sum_.launches
+                         - before,
+                         "loss": metrics["total_loss"].item(),
+                         "grad_norm": metrics["grad_norm"].item()})
+        flat = torch.cat([p.detach().float().flatten()
+                          for p in optimizer.params]).cpu().numpy()
+        torch.save({"hg_logit": hg_logit, "q2a": q2a, "hg_q2a": hg_q2a,
+                    "steps": rows, "digest":
+                    hashlib.sha256(flat.tobytes()).hexdigest()},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def start_ddp_gloo():
+    """(b)'s ranks, started: ``DDP_GLOO_WORLD`` processes, each
+    ``ddp_rank`` on the one card.  Returns (their output directory, the
+    processes) for ``phase_ddp_gloo``; they spend their first seconds
+    importing and building on the host, which the caller may overlap."""
+    out = tempfile.TemporaryDirectory()
+    port = free_port()
+    code = ("import sys, chip_smoke; chip_smoke.ddp_rank("
+            "*map(int, sys.argv[1:4]), sys.argv[4])")
+    root = str(Path(__file__).resolve().parent)
+    procs = []
+    for r in range(DDP_GLOO_WORLD):
+        # each rank's output to a file: a pipe nobody reads meanwhile fills
+        with open(os.path.join(out.name, f"rank{r}.log"), "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(r), str(DDP_GLOO_WORLD),
+                 str(port), out.name], cwd=root, stdout=f,
+                stderr=subprocess.STDOUT))
+    return out, procs
+
+
+def phase_ddp_gloo(gloo):
+    """(b) Two ranks on the one card over gloo (``gloo``: the output
+    directory and processes of ``start_ddp_gloo``), against one process
+    here on the global batch: every
+    rank's exit code 0; per step 38 / 34 attention launches and
+    ``DDP_STEP_ALL_REDUCES`` all-reduces in each rank; the parameters
+    after the steps bit-equal across the ranks (digest); each step's loss
+    and gradient norm within TRAIN_TOL (phase 6's) of one process's at
+    B=16 (the masks are the global batch's rows, so this holds the
+    kernels' offsets too; dQ's atomics keep eager runs from repeating
+    bit-equal); the merged predict covers each of the 16 questions once,
+    the ranks' maps alike, and their hg_logit rows within TOL_HG (phase
+    4's) of one process's forward."""
+    t0 = time.perf_counter()
+    out, procs = gloo
+    with out:
+        try:
+            # one process on the global batch meanwhile
+            model, optimizer, generator, batch = entry.train_entry(
+                batch_size=DDP_GLOO_BATCH)
+            set_dropout_rate(model, 0.1)
+            with torch.inference_mode():
+                model.eval()
+                want_hg = model(batch)["hg_logit"].float().cpu()
+            model.train()
+            step = make_train_step(model.cfg, model, optimizer)
+            want = []
+            for _ in range(DDP_GLOO_STEPS):
+                metrics = step(batch, generator)
+                want.append((metrics["total_loss"].item(),
+                             metrics["grad_norm"].item()))
+            del model, optimizer, batch, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            with open(os.path.join(out.name, f"rank{r}.log")) as f:
+                for line in f.read().splitlines()[-20:]:
+                    log(f"  | rank {r}: {line}")
+            if p.returncode:
+                raise AssertionError(f"ddp (b): rank {r} exited "
+                                     f"{p.returncode}")
+        ranks = [torch.load(os.path.join(out.name, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(DDP_GLOO_WORLD)]
+    for r, res in enumerate(ranks):
+        for i, row in enumerate(res["steps"]):
+            if (row["launches"][:2] != DRIVER_TRAIN_LAUNCHES[:2]
+                    or row["all_reduces"] != DDP_STEP_ALL_REDUCES):
+                raise AssertionError(f"ddp (b) rank {r} step {i}: launches "
+                                     f"{row['launches']}, all-reduces "
+                                     f"{row['all_reduces']}")
+            for what, got, ref in (("loss", row["loss"], want[i][0]),
+                                   ("grad norm", row["grad_norm"],
+                                    want[i][1])):
+                if not abs(got - ref) <= TRAIN_TOL * abs(ref):
+                    raise AssertionError(f"ddp (b) rank {r} step {i}: {what} "
+                                         f"{got}, one process {ref}")
+    if len({res["digest"] for res in ranks}) != 1:
+        raise AssertionError("ddp (b): the ranks' parameters differ after "
+                             "the steps")
+    qids = {f"q{i}" for i in range(DDP_GLOO_BATCH)}
+    for res in ranks:
+        if (set(res["q2a"]) != qids or set(res["hg_q2a"]) != qids
+                or res["q2a"] != ranks[0]["q2a"]):
+            raise AssertionError("ddp (b): the merged predict does not cover "
+                                 "every question once")
+    got_hg = torch.cat([res["hg_logit"] for res in ranks])
+    hg_err = ((got_hg - want_hg).norm() / want_hg.norm()).item()
+    if hg_err > TOL_HG:
+        raise AssertionError(f"ddp (b): hg_logit {hg_err} from one process")
+    log(f"ddp (b) gloo, {DDP_GLOO_WORLD} ranks on one card, B="
+        f"{DDP_GLOO_BATCH} global: per step and rank launches "
+        f"{[[row['launches'] for row in res['steps']] for res in ranks]}, "
+        f"all-reduces {[[row['all_reduces'] for row in res['steps']] for res in ranks]}; "
+        f"loss, grad norm {[[(row['loss'], row['grad_norm']) for row in res['steps']] for res in ranks]} "
+        f"against one process {want}; parameters bit-equal across ranks; "
+        f"the merged predict {len(qids)} questions once each; hg_logit rel "
+        f"Frobenius {hg_err:.3e} from one process; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return time.perf_counter() - t0
+
+
+def phase_ddp(overlap=None):
+    """Phase ddp: (a) at step level (its readings first, the card to
+    itself), then (b), whose ranks build on the host while ``overlap()``
+    runs (phase 10 in the full run: checks, no timing); returns the
+    readings.  (a)'s driver run is phase 7b's
+    (``phase_driver_steps_per_loop``)."""
+    t0 = time.perf_counter()
+    readings = phase_ddp_steps()
+    gloo = start_ddp_gloo()
+    try:
+        if overlap is not None:
+            overlap()
+    except BaseException:
+        for p in gloo[1]:
+            p.kill()
+            p.wait()
+        gloo[0].cleanup()
+        raise
+    phase_ddp_gloo(gloo)
+    log(f"phase ddp: {time.perf_counter() - t0:.1f} s")
+    return readings
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
                                            "tok_block", "out_ln_headsliced",
                                            "weights", "steps_per_loop",
                                            "matcher", "star", "tasks",
-                                           "per_choice", "quant"),
+                                           "per_choice", "quant", "ddp"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -4852,6 +5411,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs, build_logs = _build.build()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    lap("1, 2 build")
     for name, text in build_logs.items():
         for line in ptxas_lines(name, text):
             log(f"  {line}")
@@ -4933,6 +5493,12 @@ def main(argv=None) -> int:
         phase_quant()
         log("int8 trunk ok")
         return 0
+    if args.only == "ddp":
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_driver_steps_per_loop(tmp, write_weight_files(tmp))
+        log(f"data parallelism ok; readings {json.dumps(phase_ddp())} "
+            f"({card})")
+        return 0
     if args.only == "out_ln_headsliced":
         out_ln_rows, out_ln_err = phase_out_ln_kernel()
         log_out_ln_per_forward(out_ln_rows)
@@ -4943,19 +5509,27 @@ def main(argv=None) -> int:
         return 0
 
     rows, max_err = phase_ffn_kernel()
+    lap("3 ffn")
     attn_rows, attn_err = phase_attention_kernels()
+    lap("3 attention")
     phase_ablation_attention()
+    lap("3 ablation attention")
     train_rows, train_err = phase_ffn_train_kernels()
+    lap("3 ffn_train")
     tok_rows, tok_err = phase_tok_kernel()
     block_rows, block_err = phase_block_kernel()
+    lap("3 tok, block")
     out_ln_rows, out_ln_err = phase_out_ln_kernel()
     hs_rows, hs_err = phase_headsliced_kernel()
     phase_headsliced_ab()
+    lap("3 out_ln, headsliced")
     matcher_rows, matcher_err = phase_matcher_kernel()
+    lap("3 matcher")
     model, main_launches = phase_main_path()
     launches = main_launches["FFN + tok + block kernels"]
     olhs_launches = main_launches["FFN + out_ln + headsliced"]
     cps = phase_throughput(model)
+    lap("4, 5")
     del model
     train_model, optimizer, generator, batch, _ = phase_train_main_path()
     published = phase_train_published()
@@ -4965,6 +5539,7 @@ def main(argv=None) -> int:
     published_cps, train_memory = phase_train_published_throughput(
         (train_model, optimizer, generator, batch), published[:4])
     train_cps.update(published_cps)
+    lap("6, 7")
     spl_cps = phase_steps_per_loop(
         "frozen", (train_model, optimizer, generator, batch))
     del train_model, optimizer, batch, published
@@ -4974,28 +5549,40 @@ def main(argv=None) -> int:
     # steps on one batch at the schedule's peak can leave the random one NaN
     spl_cps.update(phase_steps_per_loop(
         "published", entry.train_entry(published=True)))
+    lap("7b")
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         files = write_weight_files(tmp)
+        lap("9 weight files")
         driver_counts, epoch_s = phase_driver(tmp, files)
         imports = phase_weights_import(tmp, files)
+        lap("8, 9")
         clear_outputs(tmp, files["trunk"])
         phase_driver_steps_per_loop(tmp, files)
+        lap("7b driver, ddp (a) driver")
         clear_outputs(tmp, files["trunk"])
         star_launches = phase_star_driver(tmp, files)
+        lap("9b")
         clear_outputs(tmp, files["trunk"])
         phase_tasks(tmp, files)
+        lap("9c")
         clear_outputs(tmp, files["trunk"])
         per_choice_s = phase_per_choice(tmp, files)
+        lap("9d")
         clear_outputs(tmp, files["trunk"])
         quant_rows, quant_launched, quant_cps = phase_quant(tmp, files)
+        lap("quant")
         weight_bytes = files["bytes"]
         del files
-    for name in CARD_VS_CPU:
-        phase_plain_path_card_vs_cpu(name)
-        phase_plain_train_step_card_vs_cpu(name)
-    phase_per_choice_card_vs_cpu()
+    def phase_10():
+        for name in CARD_VS_CPU:
+            phase_plain_path_card_vs_cpu(name)
+            phase_plain_train_step_card_vs_cpu(name)
+        phase_per_choice_card_vs_cpu()
+
+    ddp_readings = phase_ddp(phase_10)
+    lap("10, ddp")
 
     bsz = BATCH_SIZE
     widest = max(FFN_SITES, key=lambda s: s[1] * rows[s[0] * bsz]["bound_ms"])
@@ -5158,6 +5745,10 @@ def main(argv=None) -> int:
         f"{json.dumps(spl_cps)}")
     log(f"weight import: BEST.pth {weight_bytes['reference']} bytes, "
         f"{json.dumps(imports)} ({card})")
+    log(f"data parallelism (phase ddp; no limit): {json.dumps(ddp_readings)} "
+        f"({card})")
+    log(f"phase seconds {json.dumps(PHASE_SECONDS)}, "
+        f"{sum(PHASE_SECONDS.values()):.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

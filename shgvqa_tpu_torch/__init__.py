@@ -23,7 +23,9 @@ fused FFN train pair, forward and backward, as hand-written CUDA kernels
 'vhga', 'hgvqa', the cross-layer variants of ``models/cross.py``); the
 int8 frozen trunk (``--quantBackbone int8``) on the hand-written int8
 convolution of ``csrc/qconv.cu`` (wrapper ``kernels/qconv.py``), and
-``--backboneChunks``.
+``--backboneChunks``; data parallelism over GPUs and hosts (``parallel/``:
+``--multiGPU``, ``--dataParallel``, the ``SHGVQA_*`` launch), a run on N
+ranks being the one-GPU step on the global batch with its rows split.
 Options the port does not run yet raise ``NotImplementedError``
 (``configs/config.check_ported``).
 """

@@ -36,19 +36,43 @@ With ``--outputAttn`` the driver writes the reference's attention dumps
 (``_dump_attentions``) after ``--test``'s predictions and after training,
 from the valid split.
 
+Data parallelism (``parallel/``), the JAX driver's policy decision for
+decision (``build_driver_mesh``): no flag runs one process; ``--multiGPU``
+every visible GPU, ``--dataParallel N`` N of them; a train batch the
+ranks cannot share is a ``SystemExit``; the eval batch is rounded up to a
+multiple of the ranks; a layout larger than the visible devices prints a
+message and runs on one.  One process started with ``--multiGPU`` (or
+``--dataParallel N``) on N > 1 visible GPUs spawns N ranks on a local
+rendezvous and returns rank 0's result; on one visible GPU it runs a
+process group of one (the JAX driver runs no mesh there).  Under the
+``SHGVQA_COORDINATOR`` / ``SHGVQA_NUM_PROCESSES`` / ``SHGVQA_PROCESS_ID``
+variables every process is one rank (across hosts too): the data-parallel
+extent must be a multiple of the processes, each rank builds only its rows
+of every batch (``Batcher(host_shard=...)``), rank 0 writes the
+checkpoints and ranks but 0 log into ``{output}/proc<i>``.  The int8
+trunk's scales are calibrated by rank 0 on the global first batch and
+broadcast.  ``--test`` scores each rank's rows and merges the maps before
+the metrics and the predict files; ``--outputAttn`` dumps are written by
+every rank, of its own rows, into its own output directory.
+
 It runs on the card unless the caller passes ``device="cpu"``.  What the
 port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: mesh and multi-host flags and ``--loadLXMERT(QA)``.
+item: ``--modelParallel > 1`` and ``--loadLXMERT(QA)``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import pickle
+import socket
+import sys
+import tempfile
 import time
 import zipfile
 import zlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +82,7 @@ from shgvqa_tpu_torch.configs.config import (
     HG_TASKS,
     PER_CHOICE,
     Config,
+    MeshConfig,
     check_ported,
 )
 from shgvqa_tpu_torch.data.agqa import (
@@ -74,6 +99,8 @@ from shgvqa_tpu_torch.data.tokenization import (
 )
 from shgvqa_tpu_torch.entry import build_model, resolve_device
 from shgvqa_tpu_torch.losses.set_prediction import matched_target_grid
+from shgvqa_tpu_torch.parallel import distributed
+from shgvqa_tpu_torch.parallel.mesh import TENSOR_PARALLEL, Mesh, make_mesh
 from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.step import trainable_mask
 
@@ -92,11 +119,22 @@ def build_tokenizer(cfg: Config, extras: dict, corpus) -> BertTokenizer:
                 "Pass --buildVocab to opt into a corpus-built whole-word "
                 "vocab (non-parity), or --syntheticData N for smoke runs.")
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        print(f"vocab {path} not found; building whole-word vocab from "
-              f"the split corpus ({len(corpus)} texts)", flush=True)
-        tmp = f"{path}.tmp.{os.getpid()}"
-        build_vocab_from_corpus(corpus, tmp)
-        os.replace(tmp, path)   # atomic: readers never see a partial file
+        if distributed.rank() != 0:
+            # one writer: rank 0 builds the (identical) vocab; wait for its
+            # atomic rename instead of racing it
+            for _ in range(600):
+                if os.path.isfile(path):
+                    break
+                time.sleep(0.1)
+            else:
+                raise SystemExit(
+                    f"timed out waiting for process 0 to build {path}")
+        else:
+            print(f"vocab {path} not found; building whole-word vocab "
+                  f"from the split corpus ({len(corpus)} texts)", flush=True)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            build_vocab_from_corpus(corpus, tmp)
+            os.replace(tmp, path)   # atomic: readers never see a partial file
     return BertTokenizer(path)
 
 
@@ -147,11 +185,8 @@ def resolve_num_answers(cfg: Config, data) -> Config:
 
 
 def _check_driver_flags(cfg: Config, extras: dict, dataset: str) -> None:
-    if (extras.get("multi_gpu") or cfg.mesh.model_parallel > 1
-            or cfg.mesh.data_parallel not in (-1, 1)):
-        raise NotImplementedError(
-            "--multiGPU / --dataParallel / --modelParallel are not ported "
-            "yet (ROADMAP queue A item 14)")
+    if cfg.mesh.model_parallel > 1:
+        raise NotImplementedError(TENSOR_PARALLEL)
     for flag, key in (("--loadLXMERT", "load_lxmert"),
                       ("--loadLXMERTQA", "load_lxmert_qa")):
         if extras.get(key):
@@ -194,25 +229,160 @@ def load_pretrained_weights(trainer: Trainer, cfg: Config,
 
 def calibrate_trunk(model, batcher: Batcher, device) -> None:
     """An int8 trunk without scales: calibrate them on the first batch of
-    ``batcher``'s epoch 0 (the JAX ``_example_from``)."""
+    ``batcher``'s epoch 0 (the JAX ``_example_from``).  In a data-parallel
+    run rank 0 calibrates on the global batch and broadcasts the scales,
+    so every rank holds the scales one process computes."""
     trunk = getattr(model, "backbone", None)
     if trunk is None or not trunk.quant or trunk.calibrated:
         return
-    frames = next(batcher.epoch(0))["frames"]
-    model.calibrate_quant(torch.from_numpy(frames).to(device))
+    if distributed.rank() == 0:
+        frames = next(batcher.epoch(0, sharded=False))["frames"]
+        model.calibrate_quant(torch.from_numpy(frames).to(device))
+    distributed.broadcast_module_(trunk)
+    trunk.calibrated = True
+
+
+def build_driver_mesh(cfg: Config, extras: dict, n_devices: int
+                      ) -> Tuple[Optional[Mesh], Config]:
+    """``--multiGPU`` / ``--dataParallel`` / ``--modelParallel`` over
+    ``n_devices`` devices -> (the layout or None, cfg): the JAX
+    ``build_driver_mesh``'s decisions.  cfg may change: the eval batch is
+    rounded up to a multiple of dp (trailing batches are padded and masked
+    by ``n_valid``), and a layout that does not fit the devices resets the
+    mesh config.  ``--modelParallel > 1`` raises in ``make_mesh``."""
+    mcfg = cfg.mesh
+    requested = (extras.get("multi_gpu") or mcfg.model_parallel > 1
+                 or mcfg.data_parallel not in (-1, 1))
+    if not requested:
+        return None, cfg
+    n = n_devices
+    mp = max(1, mcfg.model_parallel)
+    dp = mcfg.data_parallel if mcfg.data_parallel != -1 else max(1, n // mp)
+    if dp * mp > n or dp < 1:
+        print(f"requested mesh dp{dp} x mp{mp} needs {dp * mp} device(s) "
+              f"but only {n} visible; running single-device", flush=True)
+        return None, cfg.replace(mesh=MeshConfig())
+    if dp * mp == 1:
+        return None, cfg.replace(mesh=MeshConfig())
+    if cfg.optim.batch_size % dp:
+        raise SystemExit(
+            f"--batchSize {cfg.optim.batch_size} is not divisible by the "
+            f"data-parallel extent {dp}; pick a multiple (the reference's "
+            "DataParallel scatter has the same constraint)")
+    mesh = make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp),
+                     dp * mp)
+    ebs = cfg.optim.eval_batch_size
+    if ebs % dp:
+        new_ebs = distributed.pad_to_multiple(ebs, dp)
+        print(f"eval batch {ebs} -> {new_ebs} (rounded up to the dp={dp} "
+              "mesh; trailing batches are padded and masked by n_valid)",
+              flush=True)
+        cfg = cfg.replace(optim=dataclasses.replace(
+            cfg.optim, eval_batch_size=new_ebs))
+    cfg = cfg.replace(mesh=dataclasses.replace(
+        cfg.mesh, data_parallel=dp, model_parallel=mp))
+    print(f"mesh: dp{dp} x mp{mp} over {dp * mp} devices", flush=True)
+    return mesh, cfg
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(index: int, dataset: str, argv, device, address: str,
+                  n: int, result_path: str) -> None:
+    """One rank of ``spawn_ranks``: the driver under the ``SHGVQA_*``
+    variables on GPU ``index``; rank 0 pickles its result to
+    ``result_path``."""
+    os.environ.update({
+        distributed.ENV_COORDINATOR: address,
+        distributed.ENV_NUM_PROCESSES: str(n),
+        distributed.ENV_PROCESS_ID: str(index),
+        distributed.ENV_LOCAL_RANK: str(index)})
+    result = run_driver(dataset, argv, device)
+    if index == 0:
+        with open(result_path, "wb") as f:
+            pickle.dump(result, f)
+
+
+def spawn_ranks(dataset: str, argv, device, n: int) -> dict:
+    """``n`` processes, one a GPU, each a rank of one run on a local
+    rendezvous; a rank that fails fails the run (its error is raised here,
+    the other ranks are stopped).  Returns rank 0's result."""
+    import torch.multiprocessing as mp
+
+    print(f"--multiGPU: spawning {n} ranks, one a GPU", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        result_path = os.path.join(tmp, "rank0.pkl")
+        mp.start_processes(_spawned_rank, args=(
+            dataset, argv, device, f"127.0.0.1:{_free_port()}", n,
+            result_path), nprocs=n, join=True, start_method="spawn")
+        with open(result_path, "rb") as f:
+            return pickle.load(f)
 
 
 def run_driver(dataset: str, argv=None, device="cuda") -> dict:
     """Full train/valid/test orchestration on ``device``; returns a result
-    summary."""
+    summary.  Starts the ranks of a data-parallel run first (see the
+    module's docstring)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg, extras = parse_reference_flags_with_extras(argv, dataset=dataset)
     _check_driver_flags(cfg, extras, dataset)
     dev = resolve_device(device)
+    if distributed.maybe_initialize_distributed(device=dev):
+        started = True
+        if dev.type == "cuda":
+            dev = distributed.local_device()
+    else:
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        mesh, _ = build_driver_mesh(cfg, extras, n)
+        if mesh is not None:
+            return spawn_ranks(dataset, argv, device, mesh.data)
+        # --multiGPU on one device: a process group of one
+        started = bool(extras.get("multi_gpu")) and n == 1
+        if started:
+            distributed.maybe_initialize_distributed(
+                f"127.0.0.1:{_free_port()}", 1, 0, device=dev)
+    try:
+        return _run_rank(dataset, cfg, extras, dev)
+    finally:
+        if started:
+            distributed.shutdown()
+
+
+def _run_rank(dataset: str, cfg: Config, extras: dict, dev) -> dict:
+    """The driver's work in one process: one rank of a data-parallel run
+    when a process group runs."""
     name = (f"cuda ({torch.cuda.get_device_name(dev)})"
             if dev.type == "cuda" else str(dev))
-    print(f"shgvqa_tpu_torch {dataset} driver: task={cfg.task} device={name}",
-          flush=True)
+    world, rank = distributed.world_size(), distributed.rank()
+    mesh, cfg = build_driver_mesh(cfg, extras, world)
+    print(f"shgvqa_tpu_torch {dataset} driver: task={cfg.task} device={name}"
+          + (f" processes={world} ({distributed.backend()})"
+             if distributed.is_active() else ""), flush=True)
     results: dict = {"task": cfg.task}
+    if distributed.is_active():
+        results["process_group"] = {"backend": distributed.backend(),
+                                     "world": world, "rank": rank}
+    host_shard, checkpoint_dir = None, cfg.output
+    if world > 1:
+        if mesh is None:
+            raise SystemExit(
+                "multi-process runs need a data-parallel layout: pass "
+                "--multiGPU (or --dataParallel) so the batch shards over "
+                "the ranks")
+        if cfg.mesh.data_parallel % world:
+            raise SystemExit(
+                f"data-parallel extent {cfg.mesh.data_parallel} not "
+                f"divisible by {world} processes -- the batch rows cannot "
+                "be fed in equal per-process shards")
+        host_shard = (rank, world)
+        if rank != 0:
+            # one writer per artifact: rank 0 writes the checkpoints; the
+            # other ranks' logs, metrics and dumps go to their own subdir
+            cfg = cfg.replace(output=os.path.join(cfg.output, f"proc{rank}"))
     test_split = cfg.data.test_split
 
     if test_split:
@@ -224,10 +394,11 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
         batcher = Batcher(src, num_items=len(src),
                           batch_size=cfg.optim.eval_batch_size,
                           shuffle=False, seed=cfg.seed,
-                          drop_last=cfg.data.parity_eval)
+                          drop_last=cfg.data.parity_eval,
+                          host_shard=host_shard)
         model = build_model(cfg, dev, seed=cfg.seed)
         trainer = Trainer(cfg, steps_per_epoch=max(1, len(batcher)),
-                          model=model)
+                          model=model, checkpoint_dir=checkpoint_dir)
         if cfg.load:
             trainer.load(cfg.load, params_only=True)
         calibrate_trunk(model, batcher, dev)
@@ -254,7 +425,7 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
     train_batcher = Batcher(
         train_src, num_items=len(train_src),
         batch_size=cfg.optim.batch_size, shuffle=True, drop_last=True,
-        seed=cfg.seed)
+        seed=cfg.seed, host_shard=host_shard)
     if len(train_batcher) == 0:
         raise SystemExit(
             f"train split has {len(train_src)} item(s) after filters "
@@ -270,13 +441,15 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
         valid_batcher = Batcher(
             valid_src, num_items=len(valid_src),
             batch_size=cfg.optim.eval_batch_size, shuffle=False,
-            seed=cfg.seed, drop_last=cfg.data.parity_eval)
+            seed=cfg.seed, drop_last=cfg.data.parity_eval,
+            host_shard=host_shard)
 
     model = build_model(cfg, dev, seed=cfg.seed)
     # the optimizer skips what the loss does not reach (e.g. the LXRT
     # x-layers and pooler under hgqa) and what the freeze options freeze
     trainer = Trainer(cfg, steps_per_epoch=max(1, len(train_batcher)),
-                      model=model, trainable_mask=trainable_mask(model, cfg))
+                      model=model, trainable_mask=trainable_mask(model, cfg),
+                      checkpoint_dir=checkpoint_dir)
     load_pretrained_weights(trainer, cfg, extras)
     if cfg.load:
         trainer.load(cfg.load)

@@ -131,10 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     # parallelism / workers
     # --multiGPU: the reference wraps the model in nn.DataParallel
-    # (agqaHGQA.py:124-129, README.md:159); here it builds a data-parallel
-    # jax.sharding.Mesh over every visible device (cli/common.py
-    # build_driver_mesh).  --dataParallel/--modelParallel pick an explicit
-    # dp x tp layout (tensor parallelism has no reference counterpart).
+    # (agqaHGQA.py:124-129, README.md:159); here it runs one data-parallel
+    # rank a visible GPU (cli/common.py build_driver_mesh, parallel/).
+    # --dataParallel/--modelParallel pick an explicit dp x tp layout
+    # (tensor parallelism has no reference counterpart and is not ported).
     p.add_argument("--multiGPU", action="store_true")
     p.add_argument("--numWorkers", dest="num_workers", type=int, default=8)
 

@@ -25,9 +25,12 @@
 // Dropout: keep (row, col) where bits >= threshold, threshold =
 // round(rate * 2^32) (the TPU kernel's), bits = word col % 4 of
 // Philox4x32-10 keyed on the call's 64-bit seed (read from device memory)
-// with the counter (col / 4, row, 0, 0).  The counter depends on the
+// with the counter (col / 4, row0 + row, 0, 0).  The counter depends on the
 // absolute row and column only, so the forward's and the backward's row
-// passes and shgvqa_ffn_train_keep_mask draw one mask.
+// passes and shgvqa_ffn_train_keep_mask draw one mask.  row0, the caller's
+// row offset, is 0 in one process; a data-parallel rank passes its first
+// row of the global batch's rows, so each rank draws its rows of the global
+// mask.
 // (The TPU kernel seeds per program id, with 128-row programs forward and
 // 64-row programs backward, so its backward regenerates another mask.)
 //
@@ -123,6 +126,7 @@ struct Drop {
   uint32_t threshold;
   float inv_keep;
   int on;
+  int row0;                            // the counter's row offset
 };
 
 __device__ __forceinline__ uint2 drop_key(const Drop& p) {
@@ -252,7 +256,7 @@ __global__ void __launch_bounds__(kRowThreads) ffn_fwd_rows_kernel(const Params 
       v[i][1] = o4.y;
       v[i][2] = o4.z;
       v[i][3] = o4.w;
-      const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, row, c) : 0xFu;
+      const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, p.drop.row0 + row, c) : 0xFu;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (p.drop.on) v[i][j] = (keep >> j) & 1u ? v[i][j] * p.drop.inv_keep : 0.0f;
@@ -311,7 +315,7 @@ __global__ void __launch_bounds__(kRowThreads) ffn_bwd_rows_kernel(const Params 
     for (int c = lane * 4; c < d; c += 128) {
       const float4 o4 = *reinterpret_cast<const float4*>(orow + c);
       float v[4] = {o4.x, o4.y, o4.z, o4.w};
-      const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, row, c) : 0xFu;
+      const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, p.drop.row0 + row, c) : 0xFu;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (p.drop.on) v[j] = (keep >> j) & 1u ? v[j] * p.drop.inv_keep : 0.0f;
@@ -344,7 +348,7 @@ __global__ void __launch_bounds__(kRowThreads) ffn_bwd_rows_kernel(const Params 
     const float m1 = warp_sum(s1) * inv_d, m2 = warp_sum(s2) * inv_d;
     bf16* dorow = p.dout + static_cast<size_t>(row) * d;
     for (int c = lane * 4; c < d; c += 128) {
-      const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, row, c) : 0xFu;
+      const uint32_t keep = p.drop.on ? keep4(key, p.drop.threshold, p.drop.row0 + row, c) : 0xFu;
       float dr[4], dv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -513,11 +517,11 @@ sum_partials_kernel(const float* __restrict__ part, int tiles, int cols, float* 
 }
 
 __global__ void keep_mask_kernel(const long long* __restrict__ seed, uint8_t* __restrict__ out,
-                                 int d, uint32_t threshold) {
+                                 int d, uint32_t threshold, int row0) {
   const uint2 key = make_uint2(static_cast<uint32_t>(seed[0]), static_cast<uint32_t>(seed[1]));
   const int row = blockIdx.x;
   for (int c = threadIdx.x * 4; c < d; c += blockDim.x * 4) {
-    const uint32_t keep = keep4(key, threshold, row, c);
+    const uint32_t keep = keep4(key, threshold, row0 + row, c);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (c + j < d) out[static_cast<size_t>(row) * d + c + j] = (keep >> j) & 1u;
@@ -528,7 +532,7 @@ __global__ void keep_mask_kernel(const long long* __restrict__ seed, uint8_t* __
 // The fields both chains read; the rest null.
 Params chain_params(const void* x, const void* b1, const void* b2, const void* gamma, void* h,
                     void* o, int m, int d, int f, float eps, const void* seed,
-                    unsigned threshold, float inv_keep, int dropout) {
+                    unsigned threshold, float inv_keep, int dropout, int row0) {
   Params p{};
   p.x = static_cast<const bf16*>(x);
   p.b1 = static_cast<const float*>(b1);
@@ -540,7 +544,7 @@ Params chain_params(const void* x, const void* b1, const void* b2, const void* g
   p.d = d;
   p.f = f;
   p.eps = eps;
-  p.drop = Drop{static_cast<const long long*>(seed), threshold, inv_keep, dropout};
+  p.drop = Drop{static_cast<const long long*>(seed), threshold, inv_keep, dropout, row0};
   return p;
 }
 
@@ -559,21 +563,22 @@ int shgvqa_ffn_train_bwd_rows() { return kRowTile; }
 // Forward on `stream` (three launches); returns cudaGetLastError() (0 =
 // launched).  x, y (m, d) bf16; w1t (f, d), w2t (d, f) bf16; b1 (f), b2,
 // gamma, beta (d) f32; the dropout: seed (2 int64 on the device, read when
-// dropout != 0), threshold and 1 / (1 - rate); scratch h (m, f) bf16 and o
+// dropout != 0), threshold, 1 / (1 - rate) and the counter's row offset
+// row0; scratch h (m, f) bf16 and o
 // (m, d) f32.  d is a multiple of 64 (<= 768), f a multiple of 128; every
 // pointer 16-byte aligned.
 int shgvqa_ffn_train_fwd_bf16(const void* x, const void* w1t, const void* b1, const void* w2t,
                               const void* b2, const void* gamma, const void* beta,
                               const void* seed, void* y, void* h, void* o, int m, int d, int f,
                               float eps, unsigned threshold, float inv_keep, int dropout,
-                              void* stream) {
+                              int row0, void* stream) {
   if (m < 0 || d <= 0 || f <= 0 || d % kNarrowN != 0 || f % kWideN != 0 || d > kMaxD ||
       (dropout && seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m == 0) return static_cast<int>(cudaSuccess);
   Params p = chain_params(x, b1, b2, gamma, h, o, m, d, f, eps, seed, threshold, inv_keep,
-                          dropout);
+                          dropout, row0);
   p.beta = static_cast<const float*>(beta);
   p.y = static_cast<bf16*>(y);
   return static_cast<int>(launch_fwd(p, static_cast<const bf16*>(w1t),
@@ -591,7 +596,8 @@ int shgvqa_ffn_train_bwd_bf16(const void* x, const void* w1t, const void* b1, co
                               const void* b2, const void* gamma, const void* seed,
                               const void* dy, void* dx, void* du, void* dout, void* h, void* gd,
                               void* dr, void* part, void* dgb, int m, int d, int f, float eps,
-                              unsigned threshold, float inv_keep, int dropout, void* stream) {
+                              unsigned threshold, float inv_keep, int dropout, int row0,
+                              void* stream) {
   if (m < 0 || d <= 0 || f <= 0 || d % kNarrowN != 0 || f % kWideN != 0 || d > kMaxD ||
       (dropout && seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -600,7 +606,7 @@ int shgvqa_ffn_train_bwd_bf16(const void* x, const void* w1t, const void* b1, co
   const int tiles = ceil_div(m, kRowTile);
   if (m > 0) {
     Params p = chain_params(x, b1, b2, gamma, h, dr, m, d, f, eps, seed, threshold, inv_keep,
-                            dropout);
+                            dropout, row0);
     p.dy = static_cast<const bf16*>(dy);
     p.dx = static_cast<bf16*>(dx);
     p.du = static_cast<bf16*>(du);
@@ -616,15 +622,15 @@ int shgvqa_ffn_train_bwd_bf16(const void* x, const void* w1t, const void* b1, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// The keep mask (m, d) uint8 that a call with this seed and threshold
-// draws; for holding the kernels to their plain version.
+// The keep mask (m, d) uint8 that a call with this seed, threshold and
+// row offset draws; for holding the kernels to their plain version.
 int shgvqa_ffn_train_keep_mask(const void* seed, void* out, int m, int d, unsigned threshold,
-                               void* stream) {
+                               int row0, void* stream) {
   if (m <= 0 || d <= 0 || d % 4 != 0 || seed == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   keep_mask_kernel<<<m, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(seed), static_cast<uint8_t*>(out), d, threshold);
+      static_cast<const long long*>(seed), static_cast<uint8_t*>(out), d, threshold, row0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,6 +6,11 @@ Per-item featurization is numpy (questions tokenized once up front), and
 JAX package's: the same shuffle order per (seed, epoch), the same static
 shapes.  The last partial batch is padded with repeats of its last item up
 to ``batch_size`` and carries ``n_valid`` so evaluation drops the pad rows.
+With ``host_shard=(index, count)`` (a data-parallel run's rank and world
+size) the shuffle order and the batch boundaries stay global, the trailing
+batch is padded globally, and the rank builds only its rows of each batch
+(``parallel/distributed.process_batch_slice``), with its own ``n_valid``:
+the rows of the JAX ``Batcher(host_shard=...)``.
 
 ``prefetch`` runs the upstream iterator in a thread that keeps ``depth``
 batches ready; given a CUDA ``device`` the thread also stages every array on
@@ -22,6 +27,8 @@ from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+from shgvqa_tpu_torch.parallel.distributed import process_batch_slice
 
 
 def stack_items(items: List[Dict], pad_to: Optional[int] = None) -> Dict:
@@ -50,23 +57,26 @@ class Batcher:
                  batch_size: int = 8, shuffle: bool = True,
                  drop_last: bool = False, seed: int = 9595,
                  host_shard: Optional[tuple] = None):
-        if host_shard is not None:
-            raise NotImplementedError(
-                "host-sharded batching (multi-host runs) is not ported yet "
-                "(ROADMAP queue A item 14)")
         self._get = items.__getitem__
         self.num_items = num_items if num_items is not None else len(items)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.host_shard = host_shard
+        if host_shard is not None and batch_size % host_shard[1]:
+            raise ValueError(f"batch size {batch_size} not divisible by "
+                             f"{host_shard[1]} processes")
 
     def __len__(self) -> int:
         if self.drop_last:
             return self.num_items // self.batch_size
         return -(-self.num_items // self.batch_size)
 
-    def epoch(self, epoch: int = 0) -> Iterator[Dict]:
+    def epoch(self, epoch: int = 0, sharded: bool = True) -> Iterator[Dict]:
+        """The batches of ``epoch``; with ``sharded`` off a host-sharded
+        batcher yields the global batches (the int8 trunk's calibration
+        batch)."""
         order = np.arange(self.num_items)
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
@@ -75,7 +85,22 @@ class Batcher:
             chunk = order[start : start + bs]
             if len(chunk) < bs and self.drop_last:
                 return
-            yield stack_items([self._get(int(i)) for i in chunk], pad_to=bs)
+            if self.host_shard is None or not sharded:
+                yield stack_items([self._get(int(i)) for i in chunk],
+                                  pad_to=bs)
+                continue
+            idx, cnt = self.host_shard
+            n = len(chunk)
+            if n < bs:
+                # global padding (repeats of the last valid item) before
+                # the slice: the padded global batch is the one-process one
+                chunk = np.concatenate(
+                    [chunk, np.full(bs - n, chunk[-1], chunk.dtype)])
+            sl = process_batch_slice(bs, index=idx, count=cnt)
+            batch = stack_items([self._get(int(i)) for i in chunk[sl]])
+            per = bs // cnt
+            batch["n_valid"] = int(np.clip(n - idx * per, 0, per))
+            yield batch
 
 
 def _to_device(batch: Dict, device: torch.device,

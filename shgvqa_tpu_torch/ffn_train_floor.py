@@ -134,7 +134,7 @@ def _backward(lib, x, w1t, b1, w2t, b2, gamma, dy, stream):
     err = lib.shgvqa_ffn_train_bwd_bf16(
         x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
         b2.data_ptr(), gamma.data_ptr(), None, dy.data_ptr(),
-        *(t.data_ptr() for t in buf.values()), m, d, f, 1e-12, 0, 1.0, 0,
+        *(t.data_ptr() for t in buf.values()), m, d, f, 1e-12, 0, 1.0, 0, 0,
         stream)
     if err:
         raise RuntimeError(f"backward launch failed: CUDA error {err}")
@@ -148,7 +148,7 @@ def _forward(lib, x, w1t, b1, w2t, b2, gamma, beta, stream):
     err = lib.shgvqa_ffn_train_fwd_bf16(
         x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
         b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), None,
-        *(t.data_ptr() for t in buf.values()), m, d, f, 1e-12, 0, 1.0, 0,
+        *(t.data_ptr() for t in buf.values()), m, d, f, 1e-12, 0, 1.0, 0, 0,
         stream)
     if err:
         raise RuntimeError(f"forward launch failed: CUDA error {err}")

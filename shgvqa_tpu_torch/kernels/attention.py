@@ -39,7 +39,11 @@ on the tensors' device and stays there, so a call costs the host no sync.
 One Philox call decides queries {q, q + 8} x keys {k, k + 8}
 (``keep_counter``), a 2 x 2 block that one lane of the kernels' m16n8k16
 tiles owns whether the rows of the tile are queries (forward) or keys
-(backward).
+(backward).  The counter's third word is the (batch, head) group plus a
+group offset: in a data-parallel run the rank's first global batch row
+times H (``parallel/mesh.global_rows``), so every rank draws its rows of
+the global batch's mask from the same seed; the CPU path draws the global
+batch's mask from the generator and keeps the rank's rows.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from typing import Optional, Tuple
 import torch
 
 from shgvqa_tpu_torch.kernels import _build
+from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 HEAD_DIM = 64
 
@@ -167,10 +172,11 @@ def philox4x32(counter, key):
 
 
 def keep_mask_reference(seed_words, groups: int, lq: int, lk: int,
-                        rate: float) -> torch.Tensor:
+                        rate: float, group0: int = 0) -> torch.Tensor:
     """Plain version of ``keep_mask``: the bool (groups, Lq, Lk) keep mask
-    of the seed's two words (a tensor or a sequence of ints), Philox4x32-10
-    under the kernels' counter layout, in int64 on the CPU."""
+    of the seed's two words (a tensor or a sequence of ints) for groups
+    ``group0`` .. ``group0 + groups - 1``, Philox4x32-10 under the kernels'
+    counter layout, in int64 on the CPU."""
     if isinstance(seed_words, torch.Tensor):
         seed_words = seed_words.cpu().tolist()
     key = [int(w) & _MASK32 for w in seed_words]
@@ -181,7 +187,7 @@ def keep_mask_reference(seed_words, groups: int, lq: int, lk: int,
     words = torch.stack(torch.broadcast_tensors(*philox4x32((
         torch.arange(calls_q)[None, :, None],
         torch.arange(calls_k)[None, None, :],
-        torch.arange(groups)[:, None, None],
+        torch.arange(group0, group0 + groups)[:, None, None],
         torch.zeros(1, 1, 1, dtype=torch.int64)), key)), -1)
     bits = words[:, cq, ck, word]
     return bits >= _threshold(rate)
@@ -195,12 +201,12 @@ def _lib() -> ctypes.CDLL:
                           ctypes.c_float)
     lib.shgvqa_attention_fwd_bf16.argtypes = (
         [ptr] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 4
-        + [f32, u32, f32, i32, ptr])
+        + [f32, u32, f32, i32, i32, ptr])
     lib.shgvqa_attention_bwd_bf16.argtypes = (
         [ptr] * 14 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 4
-        + [f32, u32, f32, i32, ptr])
+        + [f32, u32, f32, i32, i32, ptr])
     lib.shgvqa_attention_keep_mask.argtypes = [ptr, ptr, i32, i32, i32, u32,
-                                               ptr]
+                                               i32, ptr]
     for fn in (lib.shgvqa_attention_fwd_bf16, lib.shgvqa_attention_bwd_bf16,
                lib.shgvqa_attention_keep_mask):
         fn.restype = i32
@@ -256,7 +262,7 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(q, k, v, key, pane, seed, rate):
+def _launch_fwd(q, k, v, key, pane, seed, rate, group0=0):
     b, h, lq, _ = q.shape
     lk = k.shape[2]
     o = _blhd(b, h, lq, q)
@@ -266,14 +272,14 @@ def _launch_fwd(q, k, v, key, pane, seed, rate):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key),
             _mask_ptr(pane), _mask_ptr(seed), o.data_ptr(), lse.data_ptr(),
             _strides(q, k, v, o), b, h, lq, lk, 1.0 / math.sqrt(HEAD_DIM),
-            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0), group0,
             _stream(q.device))
     _raise_on(err, "fused_attention forward")
     fused_attention.launches += 1
     return o, lse
 
 
-def _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do):
+def _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do, group0=0):
     b, h, lq, _ = q.shape
     lk = k.shape[2]
     do = _operand("do", do, tuple(o.shape), q.device)
@@ -289,7 +295,7 @@ def _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do):
             dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv), b, h, lq,
             lk, 1.0 / math.sqrt(HEAD_DIM), _threshold(rate),
-            1.0 / (1.0 - rate), int(rate > 0.0), _stream(q.device))
+            1.0 / (1.0 - rate), int(rate > 0.0), group0, _stream(q.device))
     _raise_on(err, "fused_attention backward")
     fused_attention.bwd_launches += 1
     return dq, dk, dv
@@ -300,18 +306,18 @@ class _FusedAttention(torch.autograd.Function):
     from the saved seed and recompute P from the saved logsumexp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key, pane, seed, rate):
-        o, lse = _launch_fwd(q, k, v, key, pane, seed, rate)
+    def forward(ctx, q, k, v, key, pane, seed, rate, group0):
+        o, lse = _launch_fwd(q, k, v, key, pane, seed, rate, group0)
         ctx.save_for_backward(q, k, v, key, pane, seed, o, lse)
-        ctx.rate = rate
+        ctx.rate, ctx.group0 = rate, group0
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, key, pane, seed, o, lse = ctx.saved_tensors
         dq, dk, dv = _launch_bwd(q, k, v, key, pane, seed, ctx.rate, o, lse,
-                                 do)
-        return dq, dk, dv, None, None, None, None
+                                 do, ctx.group0)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def draw_seed(generator: Optional[torch.Generator],
@@ -330,8 +336,9 @@ def fused_attention(q, k, v, mask=None, dropout_rate: float = 0.0,
     (B, H, Lq, Lk) as a (B, 1, 1, Lk) key mask or an (Lq, Lk) pane, or None.
     Returns (B, H, Lq, D) in q's dtype.  Differentiable; with
     ``dropout_rate`` > 0 the probabilities are dropped with a mask drawn
-    from ``generator`` and the backward uses the same mask.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernels or
+    from ``generator`` and the backward uses the same mask (in a
+    data-parallel run the rank's rows of the global batch's mask).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernels or
     raises."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -339,10 +346,12 @@ def fused_attention(q, k, v, mask=None, dropout_rate: float = 0.0,
     rate = float(dropout_rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    first, total = global_rows(b)
     if q.device.type == "cpu":
         keep = None
         if rate > 0.0:
-            keep = torch.rand((b, h, lq, lk), generator=generator) >= rate
+            keep = torch.rand((total, h, lq, lk),
+                              generator=generator)[first:first + b] >= rate
         return attention_reference(q, k, v, mask, rate, keep)
     if q.device.type != "cuda":
         raise NotImplementedError(f"fused_attention has no kernel for "
@@ -357,7 +366,7 @@ def fused_attention(q, k, v, mask=None, dropout_rate: float = 0.0,
     key = None if key is None else key.to(dev)
     pane = None if pane is None else pane.to(dev)
     seed = draw_seed(generator, dev) if rate > 0.0 else None
-    return _FusedAttention.apply(q, k, v, key, pane, seed, rate)
+    return _FusedAttention.apply(q, k, v, key, pane, seed, rate, first * h)
 
 
 fused_attention.launches = 0
@@ -365,15 +374,16 @@ fused_attention.bwd_launches = 0
 
 
 def keep_mask(seed: torch.Tensor, groups: int, lq: int, lk: int,
-              rate: float) -> torch.Tensor:
+              rate: float, group0: int = 0) -> torch.Tensor:
     """The bool (groups, Lq, Lk) keep mask the kernels draw from ``seed``
-    (a CUDA int64 tensor of 2 words) at ``rate``; card only."""
+    (a CUDA int64 tensor of 2 words) at ``rate`` for groups ``group0`` ..
+    ``group0 + groups - 1``; card only."""
     if seed.device.type != "cuda":
         raise NotImplementedError("keep_mask runs on the card only")
     out = torch.empty(groups, lq, lk, dtype=torch.uint8, device=seed.device)
     with torch.cuda.device(seed.device):
         err = _lib().shgvqa_attention_keep_mask(
             seed.data_ptr(), out.data_ptr(), groups, lq, lk,
-            _threshold(rate), _stream(seed.device))
+            _threshold(rate), group0, _stream(seed.device))
     _raise_on(err, "keep_mask")
     return out.bool()

@@ -42,7 +42,13 @@ and LayerNorm around them.  ``ffn_train.cu`` describes the design.
   ``.bwd_launches`` count the wrapper calls that launch (one each).
 - ``keep_mask`` (card only) writes the keep mask the train kernels draw
   for a seed: one mask for the forward and the backward, whatever their
-  tile heights, because it is keyed on (seed, row, column).
+  tile heights, because it is keyed on (seed, row, column);
+  ``keep_mask_reference`` is its plain version (Philox4x32-10 in int64).
+  The row is the row offset plus the row of the call: in a data-parallel
+  run the rank's first row of the global batch's B x L rows
+  (``parallel/mesh.global_rows``), so each rank draws its rows of the
+  global mask; the CPU path draws the global batch's mask from the
+  generator and keeps the rank's rows.
 
 Weights come in ``nn.Linear`` layout: ``w1t`` is (F, D), ``w2t`` is (D, F).
 
@@ -72,11 +78,14 @@ import torch
 
 from shgvqa_tpu_torch.kernels import _build
 from shgvqa_tpu_torch.kernels.attention import (
+    _MASK32,
     _mask_ptr,
     _stream,
     _threshold,
     draw_seed,
+    philox4x32,
 )
+from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 
 def _phi(u):
@@ -249,10 +258,11 @@ def declare_train(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
     lib.shgvqa_ffn_train_fwd_bf16.argtypes = (
-        [ptr] * 11 + [i32] * 3 + [f32, u32, f32, i32, ptr])
+        [ptr] * 11 + [i32] * 3 + [f32, u32, f32, i32, i32, ptr])
     lib.shgvqa_ffn_train_bwd_bf16.argtypes = (
-        [ptr] * 16 + [i32] * 3 + [f32, u32, f32, i32, ptr])
-    lib.shgvqa_ffn_train_keep_mask.argtypes = [ptr, ptr, i32, i32, u32, ptr]
+        [ptr] * 16 + [i32] * 3 + [f32, u32, f32, i32, i32, ptr])
+    lib.shgvqa_ffn_train_keep_mask.argtypes = [ptr, ptr, i32, i32, u32, i32,
+                                               ptr]
     for fn in (lib.shgvqa_ffn_train_fwd_bf16, lib.shgvqa_ffn_train_bwd_bf16,
                lib.shgvqa_ffn_train_keep_mask, lib.shgvqa_ffn_train_max_d,
                lib.shgvqa_ffn_train_bwd_rows):
@@ -310,11 +320,11 @@ def _fwd_buffers(m, d, f, device):
 
 
 def _run_fwd_chain(what, x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
-                   buffers=None):
+                   buffers=None, row0=0):
     """One call of the forward's chain of kernels (one ctypes call, three
     launches) on the current stream for the wrapper ``what``: y.
     ``buffers`` (``_fwd_buffers``, made here when None) receives y, h and
-    o + b2."""
+    o + b2; ``row0`` is the dropout counter's row offset."""
     m, d, f = _check_train(x2, w1t, b1, w2t, b2, gamma, beta, what)
     buf = _fwd_buffers(m, d, f, x2.device) if buffers is None else buffers
     with torch.cuda.device(x2.device):
@@ -322,17 +332,17 @@ def _run_fwd_chain(what, x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
             x2.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
             b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _mask_ptr(seed),
             *(t.data_ptr() for t in buf.values()), m, d, f, float(eps),
-            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0), row0,
             _stream(x2.device))
     _raise_on(err, f"{what} forward")
     return buf["y"]
 
 
 def _launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
-                      buffers=None):
+                      buffers=None, row0=0):
     """``_run_fwd_chain`` for ``fused_ffn_train``: y."""
     y = _run_fwd_chain("fused_ffn_train", x2, w1t, b1, w2t, b2, gamma, beta,
-                       seed, rate, eps, buffers)
+                       seed, rate, eps, buffers, row0)
     fused_ffn_train.launches += 1
     return y
 
@@ -350,7 +360,8 @@ def _bwd_buffers(m, d, f, rows, device):
             for name, shape, dtype in shapes}
 
 
-def _launch_train_bwd(x2, w1t, b1, w2t, b2, gamma, seed, rate, eps, dy):
+def _launch_train_bwd(x2, w1t, b1, w2t, b2, gamma, seed, rate, eps, dy,
+                      row0=0):
     """One call of the backward's chain of kernels (one ctypes call, six
     launches): (dx, du, do, h, dgamma, dbeta)."""
     m, d, f = _check_train(x2, w1t, b1, w2t, b2, gamma)
@@ -363,7 +374,7 @@ def _launch_train_bwd(x2, w1t, b1, w2t, b2, gamma, seed, rate, eps, dy):
             x2.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
             b2.data_ptr(), gamma.data_ptr(), _mask_ptr(seed), dy.data_ptr(),
             *(t.data_ptr() for t in buf.values()), m, d, f, float(eps),
-            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0), row0,
             _stream(x2.device))
     _raise_on(err, "fused_ffn_train backward")
     fused_ffn_train.bwd_launches += 1
@@ -377,19 +388,22 @@ class _FusedFFNTrain(torch.autograd.Function):
     products."""
 
     @staticmethod
-    def forward(ctx, x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps):
+    def forward(ctx, x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
+                row0):
         ctx.save_for_backward(x2, w1t, b1, w2t, b2, gamma, seed)
-        ctx.rate, ctx.eps = rate, eps
+        ctx.rate, ctx.eps, ctx.row0 = rate, eps, row0
         return _launch_train_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed,
-                                 rate, eps)
+                                 rate, eps, row0=row0)
 
     @staticmethod
     def backward(ctx, dy):
         x2, w1t, b1, w2t, b2, gamma, seed = ctx.saved_tensors
         dx, du, do, h, dgamma, dbeta = _launch_train_bwd(
-            x2, w1t, b1, w2t, b2, gamma, seed, ctx.rate, ctx.eps, dy)
+            x2, w1t, b1, w2t, b2, gamma, seed, ctx.rate, ctx.eps, dy,
+            ctx.row0)
         dw1t, db1, dw2t, db2 = _weight_grads(x2, du, do, h)
-        return (dx, dw1t, db1, dw2t, db2, dgamma, dbeta, None, None, None)
+        return (dx, dw1t, db1, dw2t, db2, dgamma, dbeta, None, None, None,
+                None)
 
 
 def fused_ffn_train(x, w1t, b1, w2t, b2, gamma, beta, dropout_rate: float,
@@ -399,7 +413,8 @@ def fused_ffn_train(x, w1t, b1, w2t, b2, gamma, beta, dropout_rate: float,
     x's dtype here; b1, b2, gamma, beta are read in f32.  Returns (..., D)
     in x's dtype, differentiable in every input.  With ``dropout_rate`` > 0
     the output dense is dropped with a mask drawn from ``generator`` (the
-    device's default one when None) and the backward uses the same mask.  A
+    device's default one when None) and the backward uses the same mask (in
+    a data-parallel run the rank's rows of the global batch's mask).  A
     CPU tensor takes the plain version; a CUDA tensor launches the kernels
     or raises."""
     rate = float(dropout_rate)
@@ -407,17 +422,19 @@ def fused_ffn_train(x, w1t, b1, w2t, b2, gamma, beta, dropout_rate: float,
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
+    first, total = global_rows(x2.shape[0])
     args = (x2, w1t.to(x.dtype), b1.float(), w2t.to(x.dtype), b2.float(),
             gamma.float(), beta.float())
     if x.device.type == "cpu":
         keep = None
         if rate > 0.0:
-            keep = torch.rand(x2.shape, generator=generator) >= rate
+            keep = torch.rand((total, d), generator=generator)[
+                first:first + x2.shape[0]] >= rate
         y = ffn_train_reference(*args, rate, keep, eps)
     elif x.device.type == "cuda":
         seed = draw_seed(generator, x.device) if rate > 0.0 else None
         y = _FusedFFNTrain.apply(*(a.contiguous() for a in args), seed, rate,
-                                 float(eps))
+                                 float(eps), first)
     else:
         raise NotImplementedError(f"fused_ffn_train has no kernel for "
                                   f"{x.device}")
@@ -428,18 +445,37 @@ fused_ffn_train.launches = 0
 fused_ffn_train.bwd_launches = 0
 
 
-def keep_mask(seed: torch.Tensor, m: int, d: int, rate: float) -> torch.Tensor:
+def keep_mask(seed: torch.Tensor, m: int, d: int, rate: float,
+              row0: int = 0) -> torch.Tensor:
     """The bool (M, D) keep mask the train kernels draw from ``seed`` (a
-    CUDA int64 tensor of 2 words) at ``rate``; card only."""
+    CUDA int64 tensor of 2 words) at ``rate`` for rows ``row0`` ..
+    ``row0 + M - 1``; card only."""
     if seed.device.type != "cuda":
         raise NotImplementedError("keep_mask runs on the card only")
     out = torch.empty(m, d, dtype=torch.uint8, device=seed.device)
     with torch.cuda.device(seed.device):
         err = _train_lib().shgvqa_ffn_train_keep_mask(
-            seed.data_ptr(), out.data_ptr(), m, d, _threshold(rate),
+            seed.data_ptr(), out.data_ptr(), m, d, _threshold(rate), row0,
             _stream(seed.device))
     _raise_on(err, "fused_ffn_train keep_mask")
     return out.bool()
+
+
+def keep_mask_reference(seed_words, m: int, d: int, rate: float,
+                        row0: int = 0) -> torch.Tensor:
+    """Plain version of ``keep_mask``: the bool (M, D) keep mask of the
+    seed's two words (a tensor or a sequence of ints) for rows ``row0`` ..
+    ``row0 + M - 1``: keep (row, col) where word col % 4 of Philox4x32-10
+    at counter (col / 4, row, 0, 0) is at least the threshold, in int64 on
+    the CPU."""
+    if isinstance(seed_words, torch.Tensor):
+        seed_words = seed_words.cpu().tolist()
+    key = [int(w) & _MASK32 for w in seed_words]
+    zero = torch.zeros(1, 1, dtype=torch.int64)
+    words = torch.stack(torch.broadcast_tensors(*philox4x32((
+        torch.arange((d + 3) // 4)[None, :],
+        torch.arange(row0, row0 + m)[:, None], zero, zero), key)), -1)
+    return words.reshape(m, -1)[:, :d] >= _threshold(rate)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,11 @@
   targets; globally all Q queries of a clip match all its targets, the
   driver layout's (B, S, K) labels compacted on the device first
   (``ops.matcher.compact_labels``), with no host read.
+
+In a data-parallel run (``parallel/``) the normalizer and the accuracy's
+counts are sums over the global batch (``distributed.global_sum``, one
+all-reduce each), as JAX's SPMD step takes them: each rank's loss is its
+share of the global loss, and the shares add up to it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from shgvqa_tpu_torch.ops.matcher import (
     match_targets_global,
     match_targets_per_frame,
 )
+from shgvqa_tpu_torch.parallel.distributed import global_sum
 
 
 def empty_weight(num_classes_with_bg: int, eos_coef: float,
@@ -36,20 +42,21 @@ def empty_weight(num_classes_with_bg: int, eos_coef: float,
 
 def weighted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                            class_weights: torch.Tensor) -> torch.Tensor:
-    """sum_i w[y_i] * nll_i / sum_i w[y_i]; logits (..., C), targets (...)."""
+    """sum_i w[y_i] * nll_i / sum_i w[y_i]; logits (..., C), targets (...);
+    the denominator summed over the global batch."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     w = class_weights[targets.long()]
-    return (w * nll).sum() / torch.clamp(w.sum(), min=1e-12)
+    return (w * nll).sum() / torch.clamp(global_sum(w.sum()), min=1e-12)
 
 
 def matched_top1_accuracy(logits: torch.Tensor, targets: torch.Tensor,
                           matched: torch.Tensor) -> torch.Tensor:
-    """Top-1 accuracy (in %) over matched slots, 0 if none matched."""
+    """Top-1 accuracy (in %) over matched slots of the global batch, 0 if
+    none matched."""
     correct = (torch.argmax(logits, dim=-1) == targets) & matched
-    n = matched.sum()
-    return torch.where(n > 0, 100.0 * correct.sum() / torch.clamp(n, min=1),
-                       0.0)
+    hits, n = global_sum(torch.stack((correct.sum(), matched.sum())))
+    return torch.where(n > 0, 100.0 * hits / torch.clamp(n, min=1), 0.0)
 
 
 def matched_target_grid(logits: torch.Tensor, labels: torch.Tensor,

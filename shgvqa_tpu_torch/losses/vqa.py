@@ -4,11 +4,17 @@
   elementwise mean scaled by the answer-space size;
 - MCE (``--mceLoss``): ``nn.CrossEntropyLoss(ignore_index=-1)`` on answer
   indices.
+
+In a data-parallel run each rank's loss is its share of the global batch's:
+the BCE mean over the rank's rows divided by the world size (the ranks hold
+equal rows), the MCE sum divided by the global count of kept rows.
 """
 
 from __future__ import annotations
 
 import torch
+
+from shgvqa_tpu_torch.parallel.distributed import global_sum, world_size
 
 
 def bce_vqa_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -17,7 +23,8 @@ def bce_vqa_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     targets = targets.float()
     per_elem = (torch.clamp(logits, min=0.0) - logits * targets
                 + torch.log1p(torch.exp(-logits.abs())))
-    return per_elem.mean() * logits.shape[-1]
+    loss = per_elem.mean() * logits.shape[-1]
+    return loss if world_size() == 1 else loss / world_size()
 
 
 def mce_vqa_loss(logits: torch.Tensor, answer_idx: torch.Tensor
@@ -29,4 +36,4 @@ def mce_vqa_loss(logits: torch.Tensor, answer_idx: torch.Tensor
     idx = answer_idx.clamp(min=0).long()
     nll = -torch.gather(logp, -1, idx[:, None])[:, 0]
     nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / global_sum(valid.sum()).clamp(min=1)

@@ -58,7 +58,10 @@ normalized, with draws from the same generator.  ``quant_backbone='int8'``
 ``VideoShgVqaModel.calibrate_quant`` records; ``backbone_chunks`` N runs a
 frozen trunk's whole frames path (convert, augment, normalize, trunk) in N
 micro-chunks one after another when N divides the batch (else the batch
-runs whole, as in JAX), with the batch's augmentation drawn once.
+runs whole, as in JAX), with the batch's augmentation drawn once.  In a
+data-parallel run the augmentation is drawn for the global batch and each
+rank augments its clips with their rows of the draws
+(``parallel/mesh.global_rows``).
 Every option the flagship does not use raises
 (``configs.config.check_ported``; training options are checked when the
 model runs in training mode).
@@ -98,6 +101,7 @@ from shgvqa_tpu_torch.models.layers import (
     set_attention_kernel_eval,
     set_ffn_train_kernel,
 )
+from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 
 class ShgVqaModel(nn.Module):
@@ -311,15 +315,16 @@ class VideoShgVqaModel(nn.Module):
         graph."""
         if frames.dtype != torch.uint8:
             raise TypeError(f"frames must be uint8, got {frames.dtype}")
-        if not self.cfg.freeze_backbone:
-            return self.backbone(self.normalize_frames(frames, generator))
         nc, b = self.cfg.backbone_chunks, frames.shape[0]
+        if not self.cfg.freeze_backbone:
+            return self.backbone(self.normalize_frames(
+                frames, generator, self._draws(b, generator, frames.device)))
         with torch.no_grad():
             if nc <= 1 or b % nc:
-                return self.backbone(self.normalize_frames(frames, generator))
-            draws = (augment_draws(self.cfg.data.augment_type, b, generator,
-                                   frames.device)
-                     if self._augments() else None)
+                return self.backbone(self.normalize_frames(
+                    frames, generator,
+                    self._draws(b, generator, frames.device)))
+            draws = self._draws(b, generator, frames.device, whole=True)
             size = b // nc
             feats = []
             for i in range(0, b, size):
@@ -332,6 +337,20 @@ class VideoShgVqaModel(nn.Module):
     def _augments(self) -> bool:
         return (self.training
                 and self.cfg.data.augment_type in AUGMENT_TYPES)
+
+    def _draws(self, b: int, generator, device, whole: bool = False):
+        """The augmentation's draws for this rank's ``b`` clips: the global
+        batch's ``augment_draws``, the rank's rows of them.  None where the
+        frames are not augmented, and in one process unless ``whole`` (the
+        augmentation then draws them itself, in the same order)."""
+        if not self._augments():
+            return None
+        first, total = global_rows(b)
+        if total == b and not whole:
+            return None
+        draws = augment_draws(self.cfg.data.augment_type, total, generator,
+                              device)
+        return {k: v[first:first + b] for k, v in draws.items()}
 
     def normalize_frames(self, frames: torch.Tensor,
                          generator: Optional[torch.Generator] = None,

@@ -11,6 +11,10 @@ accepts a name or a path, as ``--load path/BEST`` does.  A reference
 ``.pth`` snapshot is not one of these files: ``Trainer.load`` sends it to
 ``Trainer.load_reference`` (``utils/ref_import.py``).  The JAX package's
 orbax checkpoints (directories) are not read: restoring one raises.
+
+In a data-parallel run the state is replicated: rank 0 writes each file,
+and every rank waits at a barrier until it is in place, so all ranks then
+read the same CURRENT, BEST and LAST.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import os
 from typing import Any
 
 import torch
+
+from shgvqa_tpu_torch.parallel import distributed
 
 CHECKPOINT_NAMES = ("CURRENT", "BEST", "LAST")
 
@@ -32,10 +38,12 @@ class CheckpointManager:
         return os.path.join(self.output_dir, name)
 
     def save(self, name: str, state: Any) -> None:
-        path = self.path(name)
-        tmp = f"{path}.tmp.{os.getpid()}"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
+        if distributed.rank() == 0:
+            path = self.path(name)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+        distributed.barrier()
 
     def restore(self, name_or_path: str, map_location=None) -> Any:
         path = (self.path(name_or_path) if name_or_path in CHECKPOINT_NAMES

@@ -43,6 +43,12 @@ place (``Trainer.load``, ``_reset_opt`` and the imports), and a chunk that
 finds a parameter or moment at another address captures again.  The
 kernels' launch counters tick when a wrapper runs: k steps' launches
 while capturing, none at a replay.
+
+In a data-parallel run the step's all-reduces (the losses' normalizers and
+the gradient sum, ``train/step.py``) are captured with it: NCCL's
+collectives can be captured once the communicator is up, which the eager
+first chunk does.  Gloo's cannot (it copies CUDA tensors through the
+host), so a gloo process group on a CUDA device refuses k > 1.
 """
 
 from __future__ import annotations
@@ -54,6 +60,18 @@ import torch
 from torch import nn
 
 from shgvqa_tpu_torch.kernels import cond
+from shgvqa_tpu_torch.parallel import distributed
+
+
+def check_capturable(device: torch.device) -> None:
+    """Raise where the step's collectives cannot be captured in a CUDA
+    graph: a gloo process group on a CUDA device."""
+    if (torch.device(device).type == "cuda" and distributed.is_active()
+            and distributed.backend() == "gloo"):
+        raise RuntimeError(
+            "--stepsPerLoop > 1 captures the train step's all-reduces in a "
+            "CUDA graph, which gloo cannot do: run the ranks on NCCL, or "
+            "take single steps (--stepsPerLoop 1)")
 
 
 @contextlib.contextmanager
@@ -80,10 +98,11 @@ class StepChunks:
 
     def __init__(self, model: nn.Module, train_step: Callable, optimizer,
                  generator: torch.Generator, k: int):
+        self.device = optimizer.params[0].device
+        check_capturable(self.device)
         self.model, self.train_step = model, train_step
         self.optimizer = optimizer
         self.generator, self.k = generator, k
-        self.device = optimizer.params[0].device
         self.lrs = torch.zeros(k, dtype=torch.float32, device=self.device)
         self.slots: Optional[List[Dict[str, torch.Tensor]]] = None
         self.metrics: Optional[Dict[str, torch.Tensor]] = None

@@ -34,6 +34,16 @@ needs the flat state that only BertAdam has.  The TPU's flat optimizer state is
 not carried over.  A frozen trunk runs without an autograd graph
 (``VideoShgVqaModel.encode_frames``), which is what the JAX two-launch
 trunk does; a trained one is in the step's autograd graph.
+
+Data parallelism (``parallel/``): every rank runs this same loop on its
+rows of the same global batches.  The parameters and buffers are
+broadcast from rank 0 when the trainer is made and after every load, so
+all ranks start from one state; the step sums the gradients over the ranks
+(``train/step.GradientSum``), so the state stays replicated.  Rank 0 writes
+the checkpoints into ``checkpoint_dir`` (the shared output; ranks but 0 log
+into their own ``cfg.output``), ``predict`` merges the ranks' question-id
+maps (``distributed.allgather_object``), and the merged scores make every
+rank stop early together.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from torch import nn
 
 from shgvqa_tpu_torch.configs.config import HG_TASKS, Config, check_ported
 from shgvqa_tpu_torch.convert import from_jax_variables, to_jax_variables
+from shgvqa_tpu_torch.parallel import distributed
 from shgvqa_tpu_torch.train.checkpoint import (
     CHECKPOINT_NAMES,
     CheckpointManager,
@@ -68,10 +79,12 @@ from shgvqa_tpu_torch.utils.torch_import import (
 class Trainer:
     """Trains and evaluates ``model`` (already on its device) under
     ``cfg``; ``trainable_mask`` (parameter name -> bool, all when None)
-    picks the parameters the optimizer updates."""
+    picks the parameters the optimizer updates; the checkpoints live in
+    ``checkpoint_dir`` (``cfg.output`` when None)."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int, model: nn.Module,
-                 trainable_mask: Optional[Dict[str, bool]] = None):
+                 trainable_mask: Optional[Dict[str, bool]] = None,
+                 checkpoint_dir: Optional[str] = None):
         self.cfg = cfg
         self.model = model
         self.device = next(model.parameters()).device
@@ -82,7 +95,8 @@ class Trainer:
             trainable_mask, o.optim)
         self.step = 0
         self.chunks: Optional[StepChunks] = None
-        self.ckpt = CheckpointManager(cfg.output)
+        self.ckpt = CheckpointManager(checkpoint_dir or cfg.output)
+        distributed.broadcast_module_(model)
         self.metrics = MetricWriter(cfg.output)
         self.profiler = Profiler(cfg.output, enabled=cfg.profile)
         self._train_step = make_train_step(cfg, model, self.optimizer)
@@ -194,7 +208,10 @@ class Trainer:
         accuracy from the same forward (mean over batches, pad rows
         included, as in JAX), or None when the batches carry no HG labels.
         Pad rows (past ``n_valid``) get no answer.  The answers come back
-        to the host once, after every batch was enqueued."""
+        to the host once, after every batch was enqueued.  In a
+        data-parallel run each rank scores its rows and the maps are merged
+        over the ranks; the class accuracy is already the global batch's
+        (``losses/set_prediction.py``)."""
         eval_fn = self._eval_step_hg if return_hg_metrics else self._eval_step
         pending = []
         for batch in batches:
@@ -222,6 +239,12 @@ class Trainer:
                     quesid2ans[qid] = int(answers[offset + i])
                     hg_quesid2ans[qid] = int(hg_answers[offset + i])
                 offset += int(preds["answer"].shape[0])
+        if distributed.world_size() > 1:
+            # each rank scored its rows: merge the maps over the ranks
+            for part, hg_part in distributed.allgather_object(
+                    (quesid2ans, hg_quesid2ans)):
+                quesid2ans.update(part)
+                hg_quesid2ans.update(hg_part)
         if return_hg_metrics:
             return quesid2ans, hg_quesid2ans, hg_acc
         return quesid2ans, hg_quesid2ans
@@ -235,7 +258,10 @@ class Trainer:
     def _reset_opt(self) -> None:
         """Zero the optimizer's state and its step count: after a weight
         import, as the JAX ``_reset_opt`` rebuilds it (the reference never
-        checkpoints its moments)."""
+        checkpoints its moments).  In a data-parallel run rank 0's
+        parameters and buffers are broadcast first: every rank holds the
+        imported weights."""
+        distributed.broadcast_module_(self.model)
         with torch.no_grad():
             for t in self.optimizer.m + self.optimizer.v:
                 t.zero_()
@@ -325,6 +351,7 @@ class Trainer:
             return
         state = self.ckpt.restore(name_or_path, map_location=self.device)
         self.model.load_state_dict(state["params"], strict=True)
+        distributed.broadcast_module_(self.model)
         self.step = int(state["step"])
         if params_only:
             return

@@ -18,6 +18,14 @@ its fixed-capacity path, which ``train/graph.py`` runs, reads nothing
 under a capture; the global matcher's kernel reads nothing either).  The
 caller's ``torch.Generator`` takes the place of the JAX step's ``dropout``
 and ``augment`` keys.
+
+In a data-parallel run (``parallel/``) each rank's loss is its share of the
+global batch's (the losses' normalizers are global sums), and between the
+backward and the optimizer ``GradientSum`` sums the gradients of the
+trainable parameters over the ranks in one all-reduce of one flat buffer
+(the backward accumulates into it in place), with the metrics' shares at
+its end: every rank then clips and updates the
+same summed gradients, and logs the global metrics.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from shgvqa_tpu_torch.losses import (
     hungarian_set_loss,
     mce_vqa_loss,
 )
+from shgvqa_tpu_torch.parallel import distributed
 
 
 def _set_losses(cfg: Config, outputs, batch):
@@ -63,9 +72,13 @@ def compute_losses(cfg: Config, outputs: Dict[str, torch.Tensor],
         return loss, metrics
     total = hgqa_loss = bce_vqa_loss(outputs["hg_logit"], batch["target"])
     metrics["hgqa_loss"] = hgqa_loss
+    # the rank's share of the global batch's accuracy
     metrics["hg_train_acc"] = (
         torch.argmax(outputs["hg_logit"], dim=-1)
         == torch.argmax(batch["target"], dim=-1)).float().mean()
+    if distributed.world_size() > 1:
+        metrics["hg_train_acc"] = (metrics["hg_train_acc"]
+                                   / distributed.world_size())
     if not cfg.gt_hg:
         rel, act = _set_losses(cfg, outputs, batch)
         total = hgqa_loss + rel["loss_ce"] + act["loss_ce"]
@@ -175,11 +188,63 @@ def trainable_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
     return mask
 
 
+# metrics that the losses already take over the global batch; every other
+# metric of ``compute_losses`` is the rank's share
+GLOBAL_METRICS = ("rel_class_error", "act_class_error")
+
+
+class GradientSum:
+    """Sums ``params``' gradients and the metrics' shares over the ranks in
+    one flat f32 buffer, made once (a CUDA graph replays it at one
+    address).  ``zero_grad`` zeroes the buffer and points each parameter's
+    ``grad`` at its view of it, so the backward accumulates into the buffer
+    in place (a parameter it does not reach keeps zeros, as None reads);
+    the call then writes the metrics' shares at its end and all-reduces
+    it."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.n = sum(p.numel() for p in self.params)
+        self.flat: Optional[torch.Tensor] = None
+        self.views = []
+
+    @staticmethod
+    def _names(metrics: Dict[str, torch.Tensor]):
+        return [k for k in metrics if k not in GLOBAL_METRICS]
+
+    def zero_grad(self, metrics: Dict[str, torch.Tensor]) -> None:
+        size = self.n + len(self._names(metrics))
+        if self.flat is None or self.flat.numel() != size:
+            self.flat = torch.empty(size, dtype=torch.float32,
+                                    device=self.params[0].device)
+            offsets = [0]
+            for p in self.params:
+                offsets.append(offsets[-1] + p.numel())
+            self.views = [self.flat[a:b].view_as(p) for a, b, p in
+                          zip(offsets, offsets[1:], self.params)]
+        self.flat.zero_()
+        for p, view in zip(self.params, self.views):
+            p.grad = view
+
+    def __call__(self, metrics: Dict[str, torch.Tensor]) -> None:
+        names = self._names(metrics)
+        with torch.no_grad():
+            self.flat[self.n:].copy_(torch.stack(
+                [metrics[k].detach().float() for k in names]))
+            distributed.all_reduce_sum_(self.flat)
+            summed = self.flat[self.n:].clone()
+        for i, k in enumerate(names):
+            metrics[k] = summed[i]
+
+
 def make_train_step(cfg: Config, model: nn.Module, optimizer):
     """train_step(batch, generator, lr=None) -> metrics: one forward in
     training mode, the losses, the backward and one optimizer update, in
     place.  ``lr`` (BertAdam only) is the step's learning rate as a device
-    scalar (``BertAdam.step``)."""
+    scalar (``BertAdam.step``).  Under a process group the gradients and
+    metrics are summed over the ranks before the update (``GradientSum``)."""
+    reduce = (GradientSum(optimizer.params) if distributed.is_active()
+              else None)
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: torch.Generator = None,
@@ -188,8 +253,13 @@ def make_train_step(cfg: Config, model: nn.Module, optimizer):
         model.train()
         outputs = model(batch, generator)
         loss, metrics = compute_losses(cfg, outputs, batch)
-        optimizer.zero_grad()
+        if reduce is None:
+            optimizer.zero_grad()
+        else:
+            reduce.zero_grad(metrics)
         loss.backward()
+        if reduce is not None:
+            reduce(metrics)
         metrics["grad_norm"] = (optimizer.step() if lr is None
                                 else optimizer.step(lr))
         return metrics

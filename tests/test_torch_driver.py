@@ -193,7 +193,9 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--multiGPU"], "item 14"),
+    # data parallelism runs (tests/test_torch_data_parallel.py); the
+    # tensor-parallel split of the mesh is what stays refused
+    (["--multiGPU", "--modelParallel", "2"], "position 11"),
     (["--loadLXMERT", "snap/x"], "item 18"),
     (["--scanLayers"], "item 19"),
     (["--sharedWeights"], "item 17"),

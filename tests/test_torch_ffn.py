@@ -175,7 +175,7 @@ def test_card_path_runs_the_train_forward_chain_at_rate_0(monkeypatch):
     assert len(calls) == 1
     c_args = calls[0]
     assert c_args[:8] == tuple(a.data_ptr() for a in args) + (None,)
-    assert c_args[11:] == (m, d, f, 1e-6, 0, 1.0, 0, 0)
+    assert c_args[11:] == (m, d, f, 1e-6, 0, 1.0, 0, 0, 0)   # row0 0
     assert torch.equal(y, fill["y"])
     assert (ffn.fused_ffn.launches, ffn.fused_ffn_train.launches,
             ffn.fused_ffn_train.bwd_launches) == (before[0] + 1, *before[1:])

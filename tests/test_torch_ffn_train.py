@@ -199,14 +199,15 @@ def test_autograd_function_wiring_with_plain_launches(monkeypatch):
     plain version."""
     calls = []
 
-    def fake_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps):
-        calls.append(("fwd", seed))
+    def fake_fwd(x2, w1t, b1, w2t, b2, gamma, beta, seed, rate, eps,
+                 row0=0):
+        calls.append(("fwd", seed, row0))
         keep = _mask_of(seed, *x2.shape, rate)
         return ffn_train_reference(x2, w1t, b1, w2t, b2, gamma, beta, rate,
                                    keep, eps)
 
-    def fake_bwd(x2, w1t, b1, w2t, b2, gamma, seed, rate, eps, dy):
-        calls.append(("bwd", seed))
+    def fake_bwd(x2, w1t, b1, w2t, b2, gamma, seed, rate, eps, dy, row0=0):
+        calls.append(("bwd", seed, row0))
         keep = _mask_of(seed, *x2.shape, rate)
         return ffn._backward_spills(x2, w1t, b1, w2t, b2, gamma, rate, keep,
                                     dy, eps)
@@ -218,10 +219,11 @@ def test_autograd_function_wiring_with_plain_launches(monkeypatch):
     seed = torch.tensor([11, 12])
     args = _torch_args(a, torch.float32, grad=True)
     dy = t(np.random.RandomState(7).randn(24, 32).astype(np.float32))
-    y = ffn._FusedFFNTrain.apply(*args, seed, rate, 1e-12)
+    y = ffn._FusedFFNTrain.apply(*args, seed, rate, 1e-12, 48)
     got = torch.autograd.grad(y, args, dy)
-    assert [c for c, _ in calls] == ["fwd", "bwd"]
+    assert [c for c, _, _ in calls] == ["fwd", "bwd"]
     assert calls[0][1] is calls[1][1]
+    assert calls[0][2] == calls[1][2] == 48    # the row offset too
     ref = [x.detach().clone().requires_grad_(True) for x in args]
     want = torch.autograd.grad(
         ffn_train_reference(*ref, rate, _mask_of(seed, 24, 32, rate)), ref,
