@@ -130,11 +130,11 @@ it exits non-zero before printing any result.
    (``torch.cuda.max_memory_allocated``) and host syncs, the top kernels
    of a published step and of the trunk's backward alone, and the
    tokenizer convs' forward, input gradient and weight gradient alone;
-7b. steps per loop (``--stepsPerLoop``, ``train/graph.py``) at B=32 with
-   the attention kernels, the FFN train kernels and the block switch, (a)
+7b. steps per loop (``--stepsPerLoop``, ``train/graph.py``) with the
+   attention kernels, the FFN train kernels and the block switch, (a)
    the trunk frozen (phase 6's train model), (b) the published recipe (a
-   fresh one: phase 7's timed steps can leave the random one NaN): from
-   one saved state (the optimizer restarted) and
+   fresh one: phase 7's timed steps can leave the random one NaN): at B=8,
+   from one saved state (the optimizer restarted) and
    generator seed, 8 single eager steps six times, then four times 8
    steps as 4-step chunks (the first eager, the second captured into a
    CUDA graph and replayed): every loss finite; in the per-step losses
@@ -237,6 +237,26 @@ it exits non-zero before printing any result.
     tokens) under their joint key row and the deaf language mask (every
     key masked) at the language, LXRT-cross and HG-cross shapes, B=8 and
     32, with their device time and bound at B=32;
+caps. the capsule encoder, after phase quant: ``cli.star.main`` at
+    README.md's STAR flags as printed (no ``--noCaps``: 16 frames, 785
+    visual tokens, 32 capsules of 4 x 4 by EM routing, no x-layers) with
+    ``--stepsPerLoop 2`` at B=8 on 128 synthetic questions (32
+    Interaction) and 16 valid for one epoch, the trunk from
+    ``--backboneWeights``: the launches of every train step run on the
+    host (34 attention forwards, 34 backwards, 2 matcher) and of the valid
+    forward (14 FFN, 2 matcher), one capture and one replay, finite
+    losses, LAST reloaded bit-equal, ``--test`` from it (oracle 1.0; 14
+    FFN, or 34 attention + 14 FFN with ``--pallasAttention``, a forward);
+    readings with no limit: EM routing's device ms forward and backward at
+    STAR's B=8 and AGQA's B=32, the peak memory of a capsule STAR B=8 and
+    AGQA B=32 step, capsule STAR against no-caps STAR in B=8 clips/s, in
+    turns; then the head models of capsules, capsules with
+    ``--crossAttn``, ``--sharedWeights`` and ``--vitInit`` at flagship
+    widths in bf16, B=8, through phase 9c's checks.  Phase 3 also holds
+    both attention kernels to the plain version at the capsule encoder's
+    shapes: 785 x 785 under a key row, the decoders' 128 x 785 and 48 x
+    785 and ``--crossAttn``'s 40 x 785 and 785 x 40, B=8 and 32, with
+    their device time and bound at B=32;
 10. the plain path, then two plain train steps, on the card against the
     CPU at tiny size in f32: the flagship task, 'q', 'vhga', 'hgvqa' and
     the 'cross_self' layers (the int8 trunk's case runs in phase quant);
@@ -309,8 +329,9 @@ and 9b (the weight files written for its trunk), ``--only tasks`` phases
 1-2, the ablation shapes of phase 3, 9c (the weight files written for its
 trunk) and the ablations' cases of 10, ``--only quant`` phases 1-2 and
 phase quant (the weight files written for its driver), ``--only ddp``
-phases 1-2, 7b's driver (the weight files written for it) and ddp, and
-prints no result lines.
+phases 1-2, 7b's driver (the weight files written for it) and ddp,
+``--only caps`` phases 1-2 and caps (the weight files written for its
+trunk) with phase 3's capsule shapes, and prints no result lines.
 """
 
 from __future__ import annotations
@@ -1335,11 +1356,29 @@ ABLATION_ATTN_SITES = (
 ABLATION_ATTN_BATCHES = (8, BATCH_SIZE)
 
 
+# attention shapes only the capsule encoder gives (phase 3, phase caps):
+# every trunk frame is a token, 1 + 16 x 7 x 7 = 785 visual tokens: the
+# r-layers' self-attention, the decoders' cross-attention over that memory
+# (no mask), and with --crossAttn the LXRT cross layers both ways.  Under
+# --sharedWeights the l-layers attend over 40 and 393 tokens, the
+# flagship's shapes
+CAPS_ATTN_SITES = (
+    ("capsule visual self", 785, 785, "key", 0.1),
+    ("capsule rel decoder cross", 128, 785, "none", 0.15),
+    ("capsule act decoder cross", 48, 785, "none", 0.15),
+    ("capsule --crossAttn lang<-visn", 40, 785, "key", 0.1),
+    ("capsule --crossAttn visn<-lang", 785, 40, "key", 0.1),
+)
+
+
 def ablation_attention_operands(b, lq, lk, kind, seed):
     """bf16 q, k, v as ``attention_operands`` makes them and the site's
-    additive mask: the joint key row of ``_cat_masks`` (the first side
-    unmasked, the question's last 8 keys masked in every other clip) or
-    every key at -10000 (the deaf language mask)."""
+    additive mask: a key row or none as there, the joint key row of
+    ``_cat_masks`` (the first side unmasked, the question's last 8 keys
+    masked in every other clip) or every key at -10000 (the deaf language
+    mask)."""
+    if kind in ("key", "none"):
+        return attention_operands(b, lq, lk, kind, seed)
     q, k, v, _ = attention_operands(b, lq, lk, "none", seed)
     if kind == "joint":
         lang = torch.ones(b, 40, device="cuda")
@@ -1351,21 +1390,24 @@ def ablation_attention_operands(b, lq, lk, kind, seed):
     return q, k, v, mask
 
 
-def phase_ablation_attention():
-    """Both attention kernels at the ablations' new shapes and masks, B=8
-    and 32, against the plain version: the forward and dQ, dK, dV at rate
-    0 and at the site's rate with the kernels' own keep mask; the mask
-    must decompose to a key row; at B=32 the kernels' device time per call
-    (torch.profiler) beside the bound.  Returns the rows."""
+def phase_ablation_attention(sites=ABLATION_ATTN_SITES, what="ablation"):
+    """Both attention kernels at the ablations' (or the capsule encoder's,
+    ``CAPS_ATTN_SITES``) new shapes and masks, B=8 and 32, against the
+    plain version: the forward and dQ, dK, dV at rate 0 and at the site's
+    rate with the kernels' own keep mask; the mask must decompose to a key
+    row (or be none, as the site's); at B=32 the kernels' device time per
+    call (torch.profiler) beside the bound.  Returns the rows."""
     t0 = time.perf_counter()
     rows = {}
     for bsz in ABLATION_ATTN_BATCHES:
-        for i, (name, lq, lk, kind, rate) in enumerate(ABLATION_ATTN_SITES):
+        for i, (name, lq, lk, kind, rate) in enumerate(sites):
             q, k, v, mask = ablation_attention_operands(bsz, lq, lk, kind,
                                                         300 + i)
             key, pane = decompose_mask(mask, bsz, H, lq, lk)
-            if key is None or pane is not None:
-                raise AssertionError(f"{name}: the mask is not a key row")
+            if (key is None) != (kind == "none") or pane is not None:
+                raise AssertionError(f"{name}: the mask is not a "
+                                     + ("key row" if kind != "none"
+                                        else "none"))
             tag = f"{name} b{bsz} ({lq}, {lk})"
             _, _, _, (e0, r0), (e1, r1) = fwd_and_grads(
                 q, k, v, mask, 0.0, None, None, tag)
@@ -1396,9 +1438,9 @@ def phase_ablation_attention():
                            bound_by=bound_by, bwd_kernel_device_ms=bwd_ms,
                            bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by)
             rows[(name, bsz)] = row
-            log(f"fused_attention (ablation shape) {json.dumps(row)}")
+            log(f"fused_attention ({what} shape) {json.dumps(row)}")
             del q, k, v, mask, out, do, leaves
-    log(f"ablation attention shapes ok: {time.perf_counter() - t0:.1f} s")
+    log(f"{what} attention shapes ok: {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -2494,6 +2536,9 @@ SPL_LAUNCHES = {"frozen": (38, 34, 0, 18, 14, 0, 6, 0, 0, 0, 0),
 # noise compounds step by step, and one graph run against three eager runs
 # lay beyond 2x by chance (loss 3.5e-4 against a spread of 1.3e-4)
 SPL_EAGER_RUNS, SPL_GRAPH_RUNS, SPL_SPREAD, SPL_FLOOR = 6, 4, 2.0, 1e-6
+# the equivalence runs' batch: the same graph and steps as at B=32, each
+# run's steps a quarter of the time (the clips/s readings stay at B=32)
+SPL_EQ_BATCH = 8
 
 
 def spl_batches(cfg, bsz, n):
@@ -2575,7 +2620,7 @@ def spl_distance(a, b):
     return loss, (num / den).sqrt().item(), torch.equal(ga, gb)
 
 
-def spl_equivalence(name, model, optimizer, generator, bsz=BATCH_SIZE):
+def spl_equivalence(name, model, optimizer, generator, bsz=SPL_EQ_BATCH):
     """``SPL_STEPS`` steps from one saved state (the optimizer restarted)
     and generator seed: ``SPL_EAGER_RUNS`` times as single eager steps,
     then ``SPL_GRAPH_RUNS`` times as ``SPL_K``-step chunks through a graph
@@ -2813,12 +2858,12 @@ def spl_augment_graph(x, layers=2, prob=0.5):
 
 def phase_steps_per_loop(name, recipe):
     """``--stepsPerLoop``'s k-step CUDA graph (``train/graph.py``) on the
-    flagship at B=32 with the attention kernels, the FFN train kernels and
-    the block switch, for ``name`` "frozen" (the trunk frozen) or
-    "published" (the published recipe): the graph against eager steps
-    (``spl_equivalence``), then clips/s at k=1 and k=``SPL_K`` in turns
-    (``spl_throughput``), published also the augmentation's two paths
-    (``spl_augment_ms``).  ``recipe`` is (model,
+    flagship with the attention kernels, the FFN train kernels and the
+    block switch, for ``name`` "frozen" (the trunk frozen) or "published"
+    (the published recipe): the graph against eager steps at B=8
+    (``spl_equivalence``), then clips/s at k=1 and k=``SPL_K`` in turns at
+    B=32 (``spl_throughput``, its own capture), published also the
+    augmentation's two paths (``spl_augment_ms``).  ``recipe`` is (model,
     optimizer, generator, batch); the switches are off again after."""
     model, optimizer, generator, batch = recipe
     out = {}
@@ -2826,10 +2871,9 @@ def phase_steps_per_loop(name, recipe):
     set_block_kernel(model, True)
     set_ffn_train_kernel(model, True)
     try:
-        chunks = spl_equivalence(name, model, optimizer, generator)
+        spl_equivalence(name, model, optimizer, generator)
         out[f"{name} b{batch['frames'].shape[0]}"] = spl_throughput(
-            name, model, optimizer, generator, batch, chunks)
-        del chunks
+            name, model, optimizer, generator, batch)
         if name == "published":
             out["augment ms"] = spl_augment_ms(model, batch)
     finally:
@@ -2939,15 +2983,8 @@ def phase_driver_steps_per_loop(tmp: str, files: dict):
                              f"(expected {want_reduces}), {in_graph} while "
                              f"capturing (expected "
                              f"{[2 * DDP_STEP_ALL_REDUCES]})")
-    cfg = trainer.model.cfg
-    fresh = entry.build_model(cfg, "cuda", seed=1)
-    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
-        os.path.join(out, "LAST"))
-    trained = trainer.model.state_dict()
-    for name, value in fresh.state_dict().items():
-        if not torch.equal(value, trained[name]):
-            raise AssertionError(f"LAST reloads {name} differently")
-    del fresh, trained, trainer, chunks, _Recorded.made[:]
+    reload_bit_equal(trainer.model, os.path.join(out, "LAST"), "")
+    del trainer, chunks, _Recorded.made[:]
     gc.collect()
     torch.cuda.empty_cache()
     test_out = os.path.join(tmp, "spl_test")
@@ -2969,6 +3006,21 @@ def phase_driver_steps_per_loop(tmp: str, files: dict):
         f"reloads bit-equal, --test --multiGPU oracle 1.0; {seconds:.1f} s "
         f"and {test_seconds:.1f} s, {time.perf_counter() - t0:.1f} s in all")
     return losses
+
+
+def reload_bit_equal(model, path: str, tag: str):
+    """A fresh model of ``model``'s config, built with other random weights,
+    loads the checkpoint at ``path`` through ``Trainer.load``; every tensor
+    of its state must equal ``model``'s bit for bit.  Returns the fresh
+    model."""
+    cfg = model.cfg
+    fresh = entry.build_model(cfg, "cuda", seed=cfg.seed + 1)
+    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(path)
+    trained = model.state_dict()
+    for name, value in fresh.state_dict().items():
+        if not torch.equal(value, trained[name]):
+            raise AssertionError(f"{tag}LAST reloads {name} differently")
+    return fresh
 
 
 class _Counted:
@@ -3092,15 +3144,8 @@ def phase_driver(tmp: str, files: dict):
 
     train_counts = counted.train
     # LAST reloads bit-equal into a fresh model
-    model, cfg = counted.model, counted.model.cfg
-    fresh = entry.build_model(cfg, "cuda", seed=cfg.seed + 1)
-    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
-        os.path.join(out, "LAST"))
-    trained = model.state_dict()
-    for name, value in fresh.state_dict().items():
-        if not torch.equal(value, trained[name]):
-            raise AssertionError(f"LAST reloads {name} differently")
-    del fresh, trained, model, counted
+    reload_bit_equal(counted.model, os.path.join(out, "LAST"), "")
+    del counted
     gc.collect()
     torch.cuda.empty_cache()
     log("driver: LAST reloads bit-equal")
@@ -3373,13 +3418,15 @@ def phase_star_driver(tmp: str, files: dict):
     os.makedirs(data, exist_ok=True)
     argv = STAR_FLAGS + STAR_DATA + ["--output", out, "--dataDir", data,
                                      "--backboneWeights", files["trunk"]]
-    saved, _Recorded.made = common.Trainer, []
+    saved = common.Trainer, common.build_model
+    _Recorded.made = []
     common.Trainer = _Recorded
+    common.build_model = lambda cfg, dev, seed=0: host_init_model(cfg, seed)
     try:
         with _Counted(sync=False) as counted:
             result, stdout, seconds = run_main(argv, star.main)
     finally:
-        common.Trainer = saved
+        common.Trainer, common.build_model = saved
     trainer = _Recorded.made[-1]
     chunks = trainer.chunks
     with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -3406,14 +3453,8 @@ def phase_star_driver(tmp: str, files: dict):
     if cfg.loss_hg_per_frame or not cfg.use_hg_mask:
         raise AssertionError("STAR driver: not the global matcher with the "
                              "hg mask")
-    fresh = entry.build_model(cfg, "cuda", seed=1)
-    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
-        os.path.join(out, "LAST"))
-    trained = trainer.model.state_dict()
-    for name, value in fresh.state_dict().items():
-        if not torch.equal(value, trained[name]):
-            raise AssertionError(f"STAR LAST reloads {name} differently")
-    del fresh, trained, chunks
+    reload_bit_equal(trainer.model, os.path.join(out, "LAST"), "STAR ")
+    del chunks
     star_mask_kernels(trainer)
     del trainer, _Recorded.made[:]
     gc.collect()
@@ -3542,15 +3583,8 @@ def phase_task_driver(tmp: str, files: dict, name: str):
     if counted.eval != [eval_want] * 8:
         raise AssertionError(f"{name} valid forwards launched "
                              f"{counted.eval}, expected 8 x {eval_want}")
-    cfg = trainer.model.cfg
-    fresh = entry.build_model(cfg, "cuda", seed=cfg.seed + 1)
-    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
-        os.path.join(out, "LAST"))
-    trained = trainer.model.state_dict()
-    for key, value in fresh.state_dict().items():
-        if not torch.equal(value, trained[key]):
-            raise AssertionError(f"{name} LAST reloads {key} differently")
-    del fresh, trained, trainer, chunks, _Recorded.made[:]
+    reload_bit_equal(trainer.model, os.path.join(out, "LAST"), f"{name} ")
+    del trainer, chunks, _Recorded.made[:]
     gc.collect()
     torch.cuda.empty_cache()
     log(f"{name} driver: 4 steps, losses {losses}, launches "
@@ -3583,14 +3617,15 @@ def phase_task_driver(tmp: str, files: dict, name: str):
 
 def variant_batch(cfg, bsz: int, seed: int):
     """A labelled featurized batch of the flagship head on the card: random
-    trunk features (B, 16, 7, 7, 2048) in place of frames, a padded
-    question in every other clip, and under GT-HG the label ids."""
+    trunk features (B, 16, 7, 7, 2048 or, under --patches, 8 frames of 3072
+    patch values) in place of frames, a padded question in every other
+    clip, and under GT-HG the label ids."""
     batch = entry.example_batch(cfg, bsz, seed, with_labels=True)
     del batch["frames"]
     e = cfg.encoder
     batch["input_mask"][1::2, cfg.data.max_seq_length - 8:] = 0
     batch["visual_feats"] = np.random.RandomState(seed).randn(
-        bsz, e.visual_t + 8, e.visual_hw, e.visual_hw, e.visual_feat_dim
+        bsz, e.frames_t, e.visual_hw, e.visual_hw, e.visual_feat_dim
     ).astype(np.float32)
     if cfg.gt_hg:
         batch["rel_tgt_ids"] = batch["rel_labels"].reshape(bsz, -1)
@@ -3650,7 +3685,7 @@ def check_head_variant(name, cfg, batch, attn_f, attn_b, ffn_n, ffn_f,
     per train step, and the matcher's per train forward (``match``: 2
     under the global matcher)."""
     t1 = time.perf_counter()
-    model = init_weights(ShgVqaModel(cfg), seed=11).to("cuda").eval()
+    model = init_weights(ShgVqaModel(cfg).to("cuda"), seed=11).eval()
     outs = {}
     for mode, ffn, attn, want in (
             ("plain", False, False, (0,) * 11),
@@ -3698,9 +3733,9 @@ def check_head_variant(name, cfg, batch, attn_f, attn_b, ffn_n, ffn_f,
         set_attention_kernel(model, attn)
         set_ffn_train_kernel(model, ffn)
         results[mode] = grads_of(model, params, cfg, batch, generator)
-    ref = ShgVqaModel(cfg.replace(compute_dtype="float32"))
+    ref = ShgVqaModel(cfg.replace(compute_dtype="float32")).to("cuda")
     ref.load_state_dict(model.state_dict())
-    ref = ref.to("cuda").train()
+    ref.train()
     set_dropout_rate(ref, 0.0)
     set_attention_kernel(ref, False)
     results["plain f32"] = grads_of(ref, list(ref.named_parameters()),
@@ -3960,17 +3995,11 @@ def phase_per_choice(tmp: str, files: dict):
     if cfg.data.qa_arrange_type != "add_sep" or cfg.loss_hg_per_frame:
         raise AssertionError("per-choice driver: not add_sep with the "
                              "global matcher")
-    fresh = entry.build_model(cfg, "cuda", seed=1)
-    Trainer(cfg, 1, fresh, trainable_mask(fresh, cfg)).load(
-        os.path.join(out, "LAST"))
-    trained = trainer.model.state_dict()
-    for name, value in fresh.state_dict().items():
-        if not torch.equal(value, trained[name]):
-            raise AssertionError(f"per-choice LAST reloads {name} "
-                                 "differently")
+    fresh = reload_bit_equal(trainer.model, os.path.join(out, "LAST"),
+                             "per-choice ")
     epoch_s = [float(x) for x in re.findall(
         r"Epoch \d+: \d+ steps in ([\d.]+)s", stdout)]
-    del trained, chunks, trainer, _Recorded.made[:]
+    del chunks, trainer, _Recorded.made[:]
     step_ms = per_choice_step_ms(fresh, cfg)
     del fresh
     gc.collect()
@@ -4057,6 +4086,16 @@ def weight_file_writers():
     return module
 
 
+def host_init_model(cfg, seed: int):
+    """``entry.build_model(cfg, "cuda", seed)`` with the random init drawn
+    by the host's generator (``entry.build_model(cfg, "cpu", seed)``), then
+    moved to the card: the weights the trunk file and phase 9b's driver
+    model are made of, the inputs phase 9b's hg-mask check (PERF.md §7,
+    open) has been run on, whatever the card's own generator draws."""
+    return entry.channels_last_convs(
+        entry.build_model(cfg, "cpu", seed).to("cuda"))
+
+
 def write_weight_files(tmp: str) -> dict:
     """The files a user of the published recipe has, written from one
     flagship model (seed ``WEIGHTS_SEED``, its trunk's BatchNorm statistics
@@ -4074,7 +4113,7 @@ def write_weight_files(tmp: str) -> dict:
         driver_argv(tmp, os.path.join(tmp, "own")), dataset="agqa")
     cfg = common.resolve_num_answers(cfg, common.build_data(
         cfg, extras, cfg.data.train_split))
-    model = entry.build_model(cfg, "cuda", seed=WEIGHTS_SEED)
+    model = host_init_model(cfg, WEIGHTS_SEED)
     frames = entry.device_batch(cfg, BATCH_SIZE, WEIGHTS_SEED)["frames"]
     calibrate_frozen_bn(model.backbone, model.normalize_frames(frames))
     v = to_jax_variables(model.state_dict())
@@ -4406,6 +4445,260 @@ def phase_per_choice_card_vs_cpu():
         f"rel error {json.dumps(worst)} over every output and map")
     if max(worst.values()) > 1e-4:
         raise AssertionError(f"card and CPU disagree by {worst}")
+
+
+# ---------------------------------------------------------------------------
+# Phase caps: the capsule encoder (README.md's STAR command as printed, no
+# --noCaps), --sharedWeights and --vitInit at full width
+
+# README.md's STAR line as printed (the capsule encoder: 16 frames, 785
+# visual tokens, no x-layers) at --stepsPerLoop 2
+CAPS_STAR_FLAGS = [a for a in STAR_FLAGS if a != "--noCaps"]
+# 128 synthetic questions (32 Interaction: four B=8 steps, two 2-step
+# chunks, so one capture and one replay), 16 valid, one epoch
+CAPS_STAR_DATA = ["--syntheticData", "128", "--syntheticValid", "16",
+                  "--logFreq", "1", "--epochs", "1"]
+# a capsule STAR train step: 5 language + 5 visual (785 tokens) + 2 x 2
+# HG cross + 20 decoder attention sites, each with a backward (there are
+# no x-layers), and the global matcher's 2; a valid forward: 14 FFN (5 + 2
+# language, 5 visual, 2 HG) and the matcher's 2; --test's eval modes
+CAPS_STAR_TRAIN = (34, 34, 0, 0, 0, 0, 0, 0, 0, 2, 0)
+CAPS_STAR_VALID = (0, 0, 14, 0, 0, 0, 0, 0, 0, 2, 0)
+CAPS_STAR_TEST_MODES = (
+    ([], (0, 0, 14, 0, 0, 0, 0, 0, 0, 0, 0)),
+    (["--pallasAttention"], (34, 0, 14, 0, 0, 0, 0, 0, 0, 0, 0)))
+# the head models at flagship widths (phase 9c's checks,
+# ``check_head_variant``): (name, encoder overrides, attention forward and
+# backward launches per train step, FFN per eval forward, FFN-train
+# forward and backward per train step).  Capsules: the STAR step's
+# sites; with --crossAttn the x-layers (4 attention, 4 FFN sites), whose
+# backward never runs under hgqa; --sharedWeights: the flagship's sites,
+# the l-layers called by both streams; --vitInit: the 5 ViT r-layers run
+# no kernel
+CAPS_VARIANTS = (
+    ("capsules", dict(no_caps=False, visual_t=16), 34, 34, 14, 14, 14),
+    ("capsules --crossAttn", dict(no_caps=False, visual_t=16,
+                                  caps_cross_attn=True), 38, 34, 18, 18, 14),
+    ("--sharedWeights", dict(shared_weights=True), 38, 34, 18, 18, 14),
+    ("--vitInit", dict(vit_init=True), 33, 29, 13, 13, 9),
+)
+
+
+def caps_flagship_cfg():
+    """The flagship with the capsule encoder, as the CLI sets it without
+    --noCaps: every one of the 16 frames is a token."""
+    base = entry.flagship_cfg()
+    return base.replace(encoder=dataclasses.replace(
+        base.encoder, no_caps=False, visual_t=base.data.clip_len))
+
+
+def caps_train_parts(cfg, bsz: int, seed: int, model=None):
+    """(model, step, batch, generator) of an eager frozen-trunk train step
+    of ``cfg`` at ``bsz`` with the attention kernels (the model built and
+    its trunk's BatchNorm statistics calibrated on the batch, unless
+    given)."""
+    batch = entry.device_batch(cfg, bsz, seed, with_labels=True)
+    if model is None:
+        model = entry.build_model(cfg, "cuda", seed)
+        calibrate_frozen_bn(model.backbone,
+                            model.normalize_frames(batch["frames"]))
+    model.train()
+    o = cfg.optim
+    optimizer = make_optimizer(
+        model, o.lr, entry.TRAIN_T_TOTAL, o.warmup, o.schedule, o.b1, o.b2,
+        o.eps, o.weight_decay, o.grad_clip, trainable_mask(model, cfg),
+        o.optim)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    return model, make_train_step(cfg, model, optimizer), batch, generator
+
+
+def caps_routing_ms(model, bsz: int, seed: int):
+    """EM routing's device ms (torch.profiler, every kernel of the call) a
+    forward and a backward (the gradients of the poses, the activations
+    and the routing's parameters), on the primary capsules of random bf16
+    trunk features of ``bsz`` clips."""
+    tok = model.head.lxrt.encoder.caps_tokenizer
+    e = model.head.cfg.encoder
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    feats = torch.randn(bsz, e.visual_t, e.visual_hw, e.visual_hw,
+                        e.visual_feat_dim, generator=g, device="cuda")
+    with torch.no_grad():
+        poses, acts = tok.primary_caps(tok.visn_fc(feats))
+    n = bsz * e.visual_t * e.visual_hw * e.visual_hw
+    poses = poses.reshape(n, e.num_prim_caps, -1).requires_grad_(True)
+    acts = acts.reshape(n, e.num_prim_caps).requires_grad_(True)
+    routing = tok.conv_caps
+    with torch.no_grad():
+        fwd = device_ms(lambda: routing(poses, acts), calls=5)[1]
+    outs = routing(poses, acts)
+    cot = tuple(torch.randn_like(o) for o in outs)
+    leaves = (poses, acts) + tuple(routing.parameters())
+    bwd = device_ms(lambda: torch.autograd.grad(outs, leaves, cot,
+                                                retain_graph=True),
+                    calls=5)[1]
+    del outs, cot, leaves, poses, acts, feats
+    return {"positions": n, "fwd_ms": fwd, "bwd_ms": bwd}
+
+
+def caps_readings(star_model, star_cfg):
+    """Readings, no limit: EM routing's device ms at STAR's B=8 and AGQA's
+    B=32; the peak memory of a capsule STAR B=8 step (the driver's model)
+    and of a capsule AGQA B=32 step (the flagship with the capsule
+    encoder); capsule STAR against phase 9b's no-caps STAR (the same
+    trunk) in clips/s at B=8, eager steps with the attention kernels, in
+    turns."""
+    out = {"routing_star_b8": caps_routing_ms(star_model, STAR_BATCH, 21)}
+    nocaps_cfg = star_cfg.replace(encoder=dataclasses.replace(
+        star_cfg.encoder, no_caps=True,
+        visual_t=star_cfg.data.clip_len - 8))
+    nocaps = entry.build_model(nocaps_cfg, "cuda", seed=21)
+    nocaps.backbone.load_state_dict(star_model.backbone.state_dict())
+    steps = {"capsules": caps_train_parts(star_cfg, STAR_BATCH, 21,
+                                          star_model),
+             "no_caps": caps_train_parts(nocaps_cfg, STAR_BATCH, 21,
+                                         nocaps)}
+    cps = {k: [] for k in steps}
+    for name in ("capsules", "no_caps", "no_caps", "capsules"):
+        _, step, batch, g = steps[name]
+        cps[name].append(train_clips_per_second(step, batch, g,
+                                                **TRAIN_TURN))
+    out["star_b8_clips_per_s"] = cps
+    out["star_b8_memory"] = {k: train_memory_gib(*v[1:])
+                             for k, v in steps.items()}
+    del steps, nocaps
+    gc.collect()
+    torch.cuda.empty_cache()
+    agqa = caps_flagship_cfg()
+    model, step, batch, g = caps_train_parts(agqa, BATCH_SIZE, 22)
+    step(batch, g)
+    out["agqa_b32_memory"] = train_memory_gib(step, batch, g)
+    out["routing_agqa_b32"] = caps_routing_ms(model, BATCH_SIZE, 22)
+    del model, step, batch, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_caps_driver(tmp: str, files: dict):
+    """``cli.star.main`` at README.md's STAR flags as printed (the capsule
+    encoder) with ``--stepsPerLoop 2`` at B=8 on synthetic STAR, its trunk
+    from ``--backboneWeights``, one epoch of four steps: the launch counts
+    of every step run on the host (the eager chunk and the capture) and of
+    the valid forward, one capture and one replay, finite losses, the
+    capsule encoder's geometry, LAST reloaded bit-equal; ``--test`` from
+    LAST (oracle 1.0, ``by_qtype``, both predict files), plain and with
+    ``--pallasAttention``.  Returns (the reloaded model, its config, the
+    driver's seconds)."""
+    out, data = os.path.join(tmp, "caps"), os.path.join(tmp, "caps_data")
+    os.makedirs(data, exist_ok=True)
+    argv = CAPS_STAR_FLAGS + CAPS_STAR_DATA + [
+        "--output", out, "--dataDir", data, "--backboneWeights",
+        files["trunk"]]
+    saved, _Recorded.made = common.Trainer, []
+    common.Trainer = _Recorded
+    try:
+        with _Counted(sync=False) as counted:
+            result, stdout, seconds = run_main(argv, star.main)
+    finally:
+        common.Trainer = saved
+    trainer = _Recorded.made[-1]
+    chunks = trainer.chunks
+    cfg = trainer.model.cfg
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["total_loss"] for line in f]
+    e = cfg.encoder
+    enc = trainer.model.head.lxrt.encoder
+    if (e.no_caps or e.caps_cross_attn or e.visual_seq_length != 785
+            or enc.x_names or enc.caps_tokenizer.caps_dim != 544):
+        raise AssertionError("the STAR driver at README.md's flags did not "
+                             "build the capsule encoder of 785 tokens")
+    if f"Loaded pretrained backbone from {files['trunk']}" not in stdout:
+        raise AssertionError("capsule STAR: --backboneWeights not loaded")
+    if (result["steps"], len(losses)) != (4, 4) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"capsule STAR driver: {result['steps']} "
+                             f"steps, losses {losses}")
+    if chunks is None or (chunks.captures, chunks.replays) != (1, 1):
+        raise AssertionError("capsule STAR driver: not one capture and one "
+                             "replay")
+    if counted.train != [CAPS_STAR_TRAIN] * 4:
+        raise AssertionError(f"capsule STAR train steps launched "
+                             f"{counted.train}, expected 4 x "
+                             f"{CAPS_STAR_TRAIN}")
+    if counted.eval != [CAPS_STAR_VALID]:
+        raise AssertionError(f"capsule STAR valid forwards launched "
+                             f"{counted.eval}, expected {CAPS_STAR_VALID}")
+    fresh = reload_bit_equal(trainer.model, os.path.join(out, "LAST"),
+                             "capsule STAR ")
+    del chunks, trainer, enc, _Recorded.made[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"capsule STAR driver (README.md's flags as printed + "
+        f"--stepsPerLoop 2): 4 steps, losses {losses}, 1 capture and 1 "
+        f"replay, launches ({COUNT_NAMES}) per train step run on the host "
+        f"{counted.train[0]}, per valid forward {counted.eval[0]}; history "
+        f"{result['history']}; LAST reloads bit-equal; {seconds:.1f} s")
+    for extra, want in CAPS_STAR_TEST_MODES:
+        test_out = os.path.join(tmp, "caps_test" + "".join(extra))
+        argv_test = [a if a != out else test_out for a in argv] + [
+            "--test", "test", "--load", os.path.join(out, "LAST")] + extra
+        with _Counted() as counted:
+            result, stdout, test_seconds = run_main(argv_test, star.main)
+        if "Oracle score: 1.0000" not in stdout:
+            raise AssertionError(f"capsule STAR --test {extra}: oracle "
+                                 "score not 1.0")
+        if not counted.eval or any(c != want for c in counted.eval):
+            raise AssertionError(f"capsule STAR --test {extra} forwards "
+                                 f"launched {counted.eval}, expected {want}")
+        if set(result["by_qtype"]) != {"Interaction", "Sequence",
+                                       "Prediction", "Feasibility"}:
+            raise AssertionError(f"capsule STAR --test by_qtype "
+                                 f"{result['by_qtype']}")
+        for name in ("predict.json", "predict_hg.json"):
+            with open(os.path.join(test_out, name)) as f:
+                if len(json.load(f)) != 4:
+                    raise AssertionError(f"capsule STAR {name} does not "
+                                         "hold 4 answers")
+        log(f"capsule STAR --test {' '.join(extra)}: oracle 1.0, acc "
+            f"{result['acc']}, hg_acc {result['hg_acc']}, launches per eval "
+            f"forward {counted.eval[0]}, {test_seconds:.1f} s")
+    return fresh, cfg, seconds
+
+
+def phase_caps(tmp: str, files: dict):
+    """Phase caps: (a) the capsule STAR driver (``phase_caps_driver``);
+    (b) the head models of CAPS_VARIANTS at flagship widths in bf16 on
+    random trunk features at B=8, through phase 9c's
+    ``check_head_variant`` (hg_logit of the FFN kernel and of
+    --pallasAttention within 5e-2 of the plain path; at dropout 0 the
+    attention and FFN-train kernels against plain in the loss and the
+    whole gradient vector; exact launch counts; the backward reaches
+    exactly ``connected_param_mask``); (c) readings with no limit
+    (``caps_readings``).  The attention kernels at the capsule encoder's
+    shapes run in phase 3 (``CAPS_ATTN_SITES``).  Returns the seconds of
+    each part and the readings."""
+    t0 = time.perf_counter()
+    seconds = {}
+    model, cfg, seconds["driver_run"] = phase_caps_driver(tmp, files)
+    seconds["driver"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    readings = caps_readings(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["readings"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    base = entry.flagship_cfg()
+    for name, enc, *want in CAPS_VARIANTS:
+        vcfg = base.replace(encoder=dataclasses.replace(base.encoder, **enc))
+        check_head_variant(name, vcfg, variant_batch(vcfg, TASK_BATCH, 23),
+                           *want)
+    seconds["variants"] = time.perf_counter() - t1
+    seconds["phase"] = time.perf_counter() - t0
+    log(f"capsule readings (no limit; {card_name_and_power_limit()}): "
+        f"{json.dumps(readings)}")
+    log(f"phase caps seconds {json.dumps(seconds)}")
+    return seconds, readings
 
 
 # ---------------------------------------------------------------------------
@@ -5396,7 +5689,8 @@ def main(argv=None) -> int:
                                            "tok_block", "out_ln_headsliced",
                                            "weights", "steps_per_loop",
                                            "matcher", "star", "tasks",
-                                           "per_choice", "quant", "ddp"),
+                                           "per_choice", "quant", "ddp",
+                                           "caps"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -5493,6 +5787,12 @@ def main(argv=None) -> int:
         phase_quant()
         log("int8 trunk ok")
         return 0
+    if args.only == "caps":
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_caps(tmp, write_weight_files(tmp))
+        phase_ablation_attention(CAPS_ATTN_SITES, "capsule")
+        log("capsule encoder ok")
+        return 0
     if args.only == "ddp":
         with tempfile.TemporaryDirectory() as tmp:
             phase_driver_steps_per_loop(tmp, write_weight_files(tmp))
@@ -5514,6 +5814,8 @@ def main(argv=None) -> int:
     lap("3 attention")
     phase_ablation_attention()
     lap("3 ablation attention")
+    phase_ablation_attention(CAPS_ATTN_SITES, "capsule")
+    lap("3 capsule attention")
     train_rows, train_err = phase_ffn_train_kernels()
     lap("3 ffn_train")
     tok_rows, tok_err = phase_tok_kernel()
@@ -5573,6 +5875,9 @@ def main(argv=None) -> int:
         clear_outputs(tmp, files["trunk"])
         quant_rows, quant_launched, quant_cps = phase_quant(tmp, files)
         lap("quant")
+        clear_outputs(tmp, files["trunk"])
+        phase_caps(tmp, files)
+        lap("caps")
         weight_bytes = files["bytes"]
         del files
     def phase_10():

@@ -204,10 +204,12 @@ def _check_driver_flags(cfg: Config, extras: dict, dataset: str) -> None:
 def load_pretrained_weights(trainer: Trainer, cfg: Config,
                             extras: dict) -> None:
     """The pretrained files the JAX driver loads before ``--load``: the
-    trunk (not for task 'q', which has none), then bert-base unless
-    ``--fromScratch``; a missing file is reported as the JAX driver
-    reports it."""
-    if cfg.task != "q":
+    trunk (not for task 'q', nor under ``--patches``: no trunk), the ViT
+    r-layers under ``--vitInit`` (``--vitWeights``, else
+    ``{dataDir}/vit_base_patch32_224.bin``, from ``--startIndex``), then
+    bert-base unless ``--fromScratch``; a missing file is reported as the
+    JAX driver reports it."""
+    if cfg.task != "q" and not cfg.encoder.patches:
         bbw = extras.get("backbone_weights") or os.path.join(
             cfg.data.data_dir, f"{cfg.backbone}_flax.msgpack")
         if os.path.isfile(bbw):
@@ -216,6 +218,14 @@ def load_pretrained_weights(trainer: Trainer, cfg: Config,
             print(f"no pretrained backbone at {bbw}; backbone stays at "
                   "random init (convert via tools/convert_slow_r50.py)",
                   flush=True)
+    if cfg.task != "q" and cfg.encoder.vit_init:
+        vw = extras.get("vit_weights") or os.path.join(
+            cfg.data.data_dir, "vit_base_patch32_224.bin")
+        if os.path.isfile(vw):
+            trainer.load_vit_layers(vw, extras.get("start_index", 7))
+        else:
+            print(f"no ViT weights at {vw}; --vitInit r_layers stay at "
+                  "random init (provide --vitWeights)", flush=True)
     if not cfg.from_scratch:
         bw = extras.get("bert_weights") or os.path.join(
             cfg.data.data_dir, "pytorch_model.bin")

@@ -58,6 +58,14 @@ class EncoderConfig:
         return self.visual_t * self.visual_hw * self.visual_hw + 1
 
     @property
+    def frames_t(self) -> int:
+        """Frames of the trunk's input (and features): the conv tokenizer's
+        two kernel-5 convs take 8 off, the capsule and patch tokenizers
+        keep ``visual_t``."""
+        return self.visual_t + 8 if self.no_caps and not self.patches \
+            else self.visual_t
+
+    @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
@@ -284,10 +292,6 @@ def torch_dtype(name: str) -> torch.dtype:
 # (field path, value the port supports, ROADMAP queue-A item that ports it)
 _UNPORTED = (
     ("encoder.scan_layers", False, "19 (scan stacks)"),
-    ("encoder.no_caps", True, "17 (capsules)"),
-    ("encoder.shared_weights", False, "17 (--sharedWeights)"),
-    ("encoder.patches", False, "17 (--patches)"),
-    ("encoder.vit_init", False, "17 (--vitInit)"),
 )
 
 # options only training reads

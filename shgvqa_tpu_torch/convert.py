@@ -10,7 +10,8 @@ its modules after the flax modules, so the map is a rename plus a transpose:
 - Conv ``kernel`` (kT, kH, kW, I, O) -> ``weight`` (O, I, kT, kH, kW);
 - LayerNorm / BatchNorm ``scale`` -> ``weight``; ``embedding`` -> ``weight``;
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
-- other leaves (CLS tokens, positions, type tokens) keep their names;
+- other leaves (CLS tokens, positions, type tokens, EM routing's ``w``,
+  ``beta_u`` and ``beta_a``) keep their names;
 - the int8 trunk's ``quant_stats`` (``backbone/s_stem``,
   ``backbone/res_i/block_j/s_a|s_b|s_out``) keep their names and paths.
 
@@ -28,13 +29,16 @@ brings theirs back, so the port keeps one map between its names and the
 JAX names.  Which JAX leaf a ``weight`` or ``bias`` came from follows from
 the module's name and the rank of its ``weight``: rank 5 a Conv ``kernel``;
 rank 2 an ``embedding`` under a ``*_embeddings`` table, a plain flax
-``nn.Dense`` ``kernel`` under ``in_proj`` (the decoder's packed projection)
-and otherwise a ``Dense_0/kernel`` of the JAX ``Dense`` wrapper (its bias in
-``Dense_0`` too); rank 1 a LayerNorm or BatchNorm ``scale``.
+``nn.Dense`` ``kernel`` under ``in_proj`` (the decoder's packed projection),
+``linear_encoding`` (the patch tokenizer) and directly under an ``r_{i}``
+(a ViT block's ``qkv``, ``proj``, ``fc1``, ``fc2``), and otherwise a
+``Dense_0/kernel`` of the JAX ``Dense`` wrapper (its bias in ``Dense_0``
+too); rank 1 a LayerNorm or BatchNorm ``scale``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -43,10 +47,18 @@ from torch import nn
 
 _RENAMED = {"scale": "weight", "embedding": "weight"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
-_KEPT = {"bias", "cls_token", "pos_embedding", "act_token", "rel_token"}
+_KEPT = {"bias", "cls_token", "pos_embedding", "act_token", "rel_token",
+         "w", "beta_u", "beta_a"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
-# flax nn.Dense called directly (no JAX ``Dense`` wrapper, so no Dense_0)
-_PLAIN_DENSE = {"in_proj"}
+# flax nn.Dense called directly (no JAX ``Dense`` wrapper, so no Dense_0):
+# by name, or any dense layer right under an r-layer (a ViT block's)
+_PLAIN_DENSE = {"in_proj", "linear_encoding"}
+_VIT_BLOCK = re.compile(r"r_\d+")
+
+
+def _plain_dense(mods) -> bool:
+    return mods[-1] in _PLAIN_DENSE or (
+        len(mods) > 1 and _VIT_BLOCK.fullmatch(mods[-2]) is not None)
 # the int8 trunk's activation scales (the JAX ``quant_stats`` leaves)
 QUANT_STATS = ("s_stem", "s_a", "s_b", "s_out")
 _COLLECTIONS = ("params", "batch_stats", "quant_stats")
@@ -140,7 +152,7 @@ def _jax_leaf(module: str, leaf: str, weight_rank: Optional[int]):
     if weight_rank == 2 and mods[-1].endswith("_embeddings"):
         return mods + ["embedding"], "params", None
     if weight_rank == 2:
-        if mods[-1] not in _PLAIN_DENSE:
+        if not _plain_dense(mods):
             mods = mods + ["Dense_0"]
         if leaf == "bias":
             return mods + ["bias"], "params", None

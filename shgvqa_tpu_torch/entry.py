@@ -25,6 +25,7 @@ Every entry point runs on the card unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -116,13 +117,26 @@ def resolve_device(device="cuda") -> torch.device:
 def build_model(cfg: Config, device="cuda", seed: int = 0) -> torch.nn.Module:
     """A ``VideoShgVqaModel`` (task 'q': the question-only ``ShgVqaModel``,
     as the JAX driver's ``make_model``) with seeded random weights, in eval
-    mode, on ``device`` (channels-last 3-D convs on the card)."""
+    mode, on ``device``.  The weights are drawn on the device
+    (``init_weights``: on the card in milliseconds, where the CPU's
+    generator takes seconds for the flagship's 334M values).  On the card
+    every 5-D weight is channels-last 3-D (``Module.to(memory_format=...)``
+    would refuse the capsule routing's 4-D transform matrices)."""
     dev = resolve_device(device)
     cls = ShgVqaModel if cfg.task == "q" else VideoShgVqaModel
-    model = init_weights(cls(cfg), seed).eval()
-    if dev.type == "cuda":
-        return model.to(device=dev, memory_format=torch.channels_last_3d)
-    return model.to(dev)
+    model = init_weights(cls(cfg).to(dev), seed).eval()
+    return channels_last_convs(model) if dev.type == "cuda" else model
+
+
+def channels_last_convs(model: torch.nn.Module) -> torch.nn.Module:
+    """Every 5-D parameter and buffer of ``model`` in channels-last 3-D
+    layout (the trunk's and the tokenizer's convs run on it), in place."""
+    with torch.no_grad():
+        for t in itertools.chain(model.parameters(), model.buffers()):
+            if t.dim() == 5:
+                t.data = t.data.contiguous(
+                    memory_format=torch.channels_last_3d)
+    return model
 
 
 def device_batch(cfg: Config, batch_size: int = 2, seed: int = 0,

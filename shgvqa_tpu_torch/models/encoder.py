@@ -1,6 +1,6 @@
 """Tri-stream LXMERT-style encoder: the port of ``TriStreamEncoder``,
 ``LanguageEncoder`` and ``LXRTModel`` in ``shgvqa_tpu/models/encoder.py``
-(no-caps, unscanned path).
+(unscanned path).
 
 - ``l_{i}`` layers on text, ``r_{i}`` layers on the visual tokens, then the
   cross-modal layers of ``cross_attn_type`` (``models/cross.py``):
@@ -18,6 +18,22 @@
 - With ``output_attentions`` (the attention dumps) the encoders also
   return the probabilities of every layer as the JAX package does:
   ``{"lang": [l_i], "visn": [r_i], "cross": [each x-step's dict]}``.
+
+The visual encoder's options:
+- ``no_caps`` off (STAR's README command): the capsule tokenizer
+  (``models/capsules.py``, 1 + T*H*W tokens of ``caps_dim``), then with
+  ``caps_mask_features`` the language-conditioned mask on the embedded
+  language CLS (``lang_emb[:, 0]``), then ``caps_proj`` to the hidden
+  width.  On this path the cross layers exist only with
+  ``caps_cross_attn`` (``--crossAttn``); without it there are none, and
+  the streams meet only through the capsule mask;
+- ``shared_weights`` (``--sharedWeights``): no ``r_{i}``; the visual
+  tokens run through the language layers, one set of weights for both
+  streams (it wins over ``vit_init``, as in the reference);
+- ``vit_init`` (``--vitInit``): the ``r_{i}`` are ``models/vit.ViTBlock``,
+  called without a mask;
+- ``patches`` (``--patches``): the tokenizer's linear patch branch
+  (``models/visual.py``).
 """
 
 from __future__ import annotations
@@ -26,15 +42,21 @@ import torch
 from torch import nn
 
 from shgvqa_tpu_torch.configs.config import EncoderConfig
+from shgvqa_tpu_torch.models.capsules import (
+    CapsuleVisualTokenizer,
+    LanguageCapsuleMask,
+)
 from shgvqa_tpu_torch.models.cross import CROSS_LAYER_TYPES, _cat_masks
 from shgvqa_tpu_torch.models.layers import (
     BertEmbeddings,
     BertLayer,
+    Dense,
     Pooler,
     Pooler2,
     extend_mask,
 )
 from shgvqa_tpu_torch.models.visual import VisualTokenizer
+from shgvqa_tpu_torch.models.vit import ViTBlock
 
 
 class TriStreamEncoder(nn.Module):
@@ -49,16 +71,39 @@ class TriStreamEncoder(nn.Module):
                   dtype=dtype, use_kernel=use_kernel,
                   attn_dropout=c.attention_dropout,
                   hidden_dropout=c.hidden_dropout, kernel_train=kernel_train)
-        self.visual_tokenizer = VisualTokenizer(
-            c.visual_feat_dim, c.hidden_size, c.visual_seq_length, dtype,
-            c.hidden_dropout)
+        self.caps = not c.no_caps
+        if self.caps:
+            self.caps_tokenizer = CapsuleVisualTokenizer(
+                c.visual_feat_dim, c.hidden_size, c.visual_seq_length,
+                c.num_prim_caps, c.num_vis_caps, c.pose_dim,
+                c.hidden_dropout, dtype)
+            self.caps_proj = Dense(self.caps_tokenizer.caps_dim,
+                                   c.hidden_size, dtype)
+            self.caps_mask = (LanguageCapsuleMask(
+                c.hidden_size, c.num_vis_caps, c.caps_skip_connection, dtype)
+                if c.caps_mask_features else None)
+        else:
+            self.visual_tokenizer = VisualTokenizer(
+                c.visual_feat_dim, c.hidden_size, c.visual_seq_length, dtype,
+                c.hidden_dropout, c.patches)
         self.l_names = [f"l_{i}" for i in range(c.l_layers)]
-        self.r_names = [f"r_{i}" for i in range(c.r_layers)]
-        for name in self.l_names + self.r_names:
+        for name in self.l_names:
             setattr(self, name, BertLayer(**kw))
+        # --sharedWeights: the visual stream runs through the l-layers
+        self.r_names = ([] if c.shared_weights
+                        else [f"r_{i}" for i in range(c.r_layers)])
+        for name in self.r_names:
+            setattr(self, name, ViTBlock(
+                c.hidden_size, c.num_heads, c.head_dim,
+                c.intermediate_size // c.hidden_size, dtype)
+                if c.vit_init else BertLayer(**kw))
+        self.visn_names = self.l_names if c.shared_weights else self.r_names
         x_cls = CROSS_LAYER_TYPES[c.cross_attn_type]
-        self.x_names = (["x_tied"] * c.x_layers if c.tie_x_layers
-                        else [f"x_{i}" for i in range(c.x_layers)])
+        if self.caps and not c.caps_cross_attn:
+            self.x_names = []
+        else:
+            self.x_names = (["x_tied"] * c.x_layers if c.tie_x_layers
+                            else [f"x_{i}" for i in range(c.x_layers)])
         for name in dict.fromkeys(self.x_names):
             setattr(self, name, x_cls(**kw))
         self.joint = c.cross_attn_type == "self"
@@ -76,14 +121,20 @@ class TriStreamEncoder(nn.Module):
             *outs, probs = layer(*args, return_probs=True)
             return outs[0] if len(outs) == 1 else tuple(outs), probs
 
-        visn = self.visual_tokenizer(visual_feats, g)
+        if self.caps:
+            caps = self.caps_tokenizer(visual_feats, g)
+            if self.caps_mask is not None:
+                caps = self.caps_mask(caps, lang_emb[:, 0])
+            visn = self.caps_proj(caps)
+        else:
+            visn = self.visual_tokenizer(visual_feats, g)
         lang = lang_emb
         for name in self.l_names:
             lang = run(getattr(self, name), lang, lang_mask, g)
             if output_attentions:
                 lang, p = lang
                 attn["lang"].append(p)
-        for name in self.r_names:
+        for name in self.visn_names:
             visn = run(getattr(self, name), visn, visn_mask, g)
             if output_attentions:
                 visn, p = visn

@@ -45,7 +45,7 @@ Semantics kept from the JAX package:
 Parameter names follow the flax names with ``kernel``/``scale``/
 ``embedding`` renamed to ``weight`` (``convert.py`` maps one onto the other).
 Parameters are allocated empty; ``init_weights`` fills a whole model from
-one seeded ``torch.Generator``.
+one seeded ``torch.Generator`` on the model's device.
 """
 
 from __future__ import annotations
@@ -157,11 +157,15 @@ def trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator):
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Initialize every parameter and buffer of ``model`` from one seeded
-    CPU generator, module by module in registration order: normal(0.02)
-    for dense layers and embeddings, xavier-uniform for packed ``in_proj``,
-    he-normal for the trunk's convs, zeros for biases and CLS tokens,
-    ones/zeros for norms, (0, 1, 1, 0) for frozen BatchNorm."""
-    g = torch.Generator().manual_seed(seed)
+    generator on the model's device (the CPU's for a model on the CPU; on
+    a card its own generator, so one seed draws other values there), module
+    by module in registration order: normal(0.02) for dense layers and
+    embeddings, xavier-uniform for packed ``in_proj``, he-normal for the
+    trunk's convs, zeros for biases and CLS tokens, ones/zeros for norms,
+    (0, 1, 1, 0) for frozen BatchNorm."""
+    first = next(model.parameters(), None)
+    g = torch.Generator(device=first.device if first is not None
+                        else "cpu").manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if hasattr(m, "init_params"):

@@ -62,7 +62,7 @@ runs whole, as in JAX), with the batch's augmentation drawn once.  In a
 data-parallel run the augmentation is drawn for the global batch and each
 rank augments its clips with their rows of the draws
 (``parallel/mesh.global_rows``).
-Every option the flagship does not use raises
+Every option the port does not run yet raises
 (``configs.config.check_ported``; training options are checked when the
 model runs in training mode).
 """
@@ -101,6 +101,7 @@ from shgvqa_tpu_torch.models.layers import (
     set_attention_kernel_eval,
     set_ffn_train_kernel,
 )
+from shgvqa_tpu_torch.models.visual import patchify_clip
 from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 
@@ -269,27 +270,43 @@ class VideoShgVqaModel(nn.Module):
     """Frames -> answer: uint8 frames / 255 in the frames dtype, in training
     the augmentation of ``data.augment_type``, then ``normalize_clip`` with
     the trunk's ``NORM_STATS``, the slow_r50 trunk (frozen or trained, by
-    ``freeze_backbone``), and the ``ShgVqaModel`` head.
+    ``freeze_backbone``), and the ``ShgVqaModel`` head.  Under
+    ``encoder.patches`` no trunk is built (``backbone`` is None): the
+    normalized frames are patchified (``models/visual.patchify_clip``).
 
-    Frames are (B, visual_t + 8, image_size, image_size, 3)."""
+    Frames are (B, ``encoder.frames_t``, image_size, image_size, 3) on the
+    trunk's paths: the conv tokenizer's two kernel-5 convs take 8 frames
+    off, the capsule tokenizer keeps every frame (the CLI sets
+    ``visual_t`` from ``--clipLEN`` so).  Under ``patches`` any number of
+    frames is subsampled to ``visual_t``."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         check_ported(cfg, video=True)
-        if cfg.quant_backbone and not cfg.freeze_backbone:
-            raise ValueError(
-                "--quantBackbone requires a frozen trunk: the int8 forward "
-                "has zero gradient through round()")
         self.cfg = cfg
-        # the plain trunk keeps the registry's two-argument call
-        quant = {"quant": cfg.quant_backbone} if cfg.quant_backbone else {}
-        self.backbone = make_backbone(cfg.backbone,
-                                      torch_dtype(cfg.compute_dtype), **quant)
-        # flax infers the tokenizer's input width and token count from the
-        # trunk's output; here they follow from the trunk and image_size
-        self.head = ShgVqaModel(cfg.replace(encoder=dataclasses.replace(
-            cfg.encoder, visual_feat_dim=self.backbone.out_channels,
-            visual_hw=self.backbone.spatial_out(cfg.data.image_size))))
+        enc = cfg.encoder
+        if enc.patches:
+            # the tokenizer's input width is a patch's pixels
+            self.backbone = None
+            patch = cfg.data.image_size // enc.visual_hw
+            enc = dataclasses.replace(enc, visual_feat_dim=patch * patch * 3)
+        else:
+            if cfg.quant_backbone and not cfg.freeze_backbone:
+                raise ValueError(
+                    "--quantBackbone requires a frozen trunk: the int8 "
+                    "forward has zero gradient through round()")
+            # the plain trunk keeps the registry's two-argument call
+            quant = ({"quant": cfg.quant_backbone} if cfg.quant_backbone
+                     else {})
+            self.backbone = make_backbone(
+                cfg.backbone, torch_dtype(cfg.compute_dtype), **quant)
+            # flax infers the tokenizer's input width and token count from
+            # the trunk's output; here they follow from the trunk and
+            # image_size
+            enc = dataclasses.replace(
+                enc, visual_feat_dim=self.backbone.out_channels,
+                visual_hw=self.backbone.spatial_out(cfg.data.image_size))
+        self.head = ShgVqaModel(cfg.replace(encoder=enc))
         # the training augmentation's path (data/transforms.AUG_PATHS): a
         # CUDA graph of the train step switches it to "capacity", which
         # reads nothing on the host (train/graph.fixed_capacity)
@@ -312,10 +329,15 @@ class VideoShgVqaModel(nn.Module):
         """(B, T, H, W, 3) uint8 frames -> (B, T, h, w, C) features.  A
         frozen trunk records no graph, and with ``backbone_chunks`` N
         dividing B runs in N micro-chunks; a trained one is in the
-        graph."""
+        graph.  Under ``patches``: the patchified normalized frames."""
         if frames.dtype != torch.uint8:
             raise TypeError(f"frames must be uint8, got {frames.dtype}")
         nc, b = self.cfg.backbone_chunks, frames.shape[0]
+        if self.backbone is None:
+            enc = self.cfg.encoder
+            return patchify_clip(self.normalize_frames(
+                frames, generator, self._draws(b, generator, frames.device)),
+                enc.visual_t, enc.visual_hw)
         if not self.cfg.freeze_backbone:
             return self.backbone(self.normalize_frames(
                 frames, generator, self._draws(b, generator, frames.device)))

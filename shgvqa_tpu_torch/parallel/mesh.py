@@ -39,7 +39,7 @@ import torch
 from shgvqa_tpu_torch.parallel import distributed
 
 TENSOR_PARALLEL = ("tensor parallelism (--modelParallel > 1) is not ported "
-                   "yet (ROADMAP queue A position 11, item 14 (rest))")
+                   "yet (ROADMAP queue A position 17, item 14 (rest))")
 
 
 class Mesh(NamedTuple):

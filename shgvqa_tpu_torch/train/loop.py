@@ -12,8 +12,10 @@
   steps_per_epoch``;
 - the weight imports of the JAX ``Trainer``: ``load_backbone`` (a
   converted slow_r50 trunk), ``load_bert_pretrained`` (bert-base into the
-  language tower) and ``load_reference`` (a reference ``.pth``, which
-  ``load`` dispatches to); each ends by resetting the optimizer's state.
+  language tower), ``load_vit_layers`` (``--vitInit``: timm ViT-B/32
+  blocks into the ViT r-layers) and ``load_reference`` (a reference
+  ``.pth``, which ``load`` dispatches to); each ends by resetting the
+  optimizer's state.
   None of these files carries the int8 trunk's scales, so each leaves an
   int8 trunk uncalibrated (``models/backbone.SlowR50``); the port's own
   checkpoints carry them, and load into a trunk with or without ``quant``;
@@ -74,6 +76,7 @@ from shgvqa_tpu_torch.utils.ref_import import (
 from shgvqa_tpu_torch.utils.torch_import import (
     bert_to_lxrt_params,
     load_torch_state_dict,
+    vit_to_r_layers,
 )
 
 class Trainer:
@@ -302,6 +305,32 @@ class Trainer:
             f"{len(report['loaded'])} tensors"
             + (f"; skipped {len(report['skipped'])}"
                if report["skipped"] else ""))
+        self._reset_opt()
+
+    def load_vit_layers(self, path: str, start_index: int = 7) -> None:
+        """``--vitInit``: the visual stream's ViT r-layers from a timm
+        ViT-B/32 state_dict's ``blocks[start_index:start_index + r]``
+        (``utils/torch_import.vit_to_r_layers``).  Raises unless the model
+        was built with ``encoder.vit_init`` (its r-layers ViT blocks)."""
+        head = self._head()
+        if not hasattr(head, "lxrt"):
+            raise ValueError("model has no visual stream (task 'q')")
+        enc = head.lxrt.encoder
+        n = len(enc.r_names)
+        if n == 0:
+            raise ValueError("model has no r_layers to initialize")
+        if not hasattr(getattr(enc, enc.r_names[0]), "qkv"):
+            raise ValueError(
+                "r_layers are BertLayers, not ViT blocks: build the model "
+                "with encoder.vit_init=True (--vitInit) before loading")
+        sub = vit_to_r_layers(load_torch_state_dict(path), n, start_index)
+        for name, tree in sub.items():
+            block = getattr(enc, name)
+            block.load_state_dict(
+                from_jax_variables({"params": tree}, block), strict=True)
+        self.metrics.log(
+            f"Loaded {n} ViT blocks [{start_index}:{start_index + n}] "
+            f"from {path} into 'lxrt/encoder/r_*'")
         self._reset_opt()
 
     def load_reference(self, path: str) -> None:

@@ -93,6 +93,10 @@ def compute_losses(cfg: Config, outputs: Dict[str, torch.Tensor],
 # GT-HG mode embeds the labels: the decoders and class heads are built but
 # bypassed
 _GT_HG_DEAD = ("rel_decoder", "action_decoder", "class_embed", "action_embed")
+# the encoder's modules that read the visual features and feed only the
+# visual stream (besides its r-layers)
+VISUAL_STREAM = ("visual_tokenizer", "caps_tokenizer", "caps_mask",
+                 "caps_proj")
 
 
 def connected_param_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
@@ -110,7 +114,10 @@ def connected_param_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
       head ``choice_score_fc2`` is supervised);
     - GT-HG mode: the decoders and class heads, and under 'hgqa' / 'vhga'
       without ``after_cross_attn_feats`` the whole visual stream (the trunk,
-      the tokenizer, the ``r_{i}``), whose only reader was the decoders;
+      the tokenizer or the capsule tokenizer, mask and projection, the
+      ``r_{i}``), whose only reader was the decoders (under
+      ``--sharedWeights`` the language stream still trains the shared
+      ``l_{i}``);
     - under 'old' with untied x-layers, the last one's ``lang_ffn``: the
       single-CLS pooler reads the visual stream only, and without
       ``after_cross_attn_feats`` nothing else reads the language one.
@@ -138,7 +145,7 @@ def connected_param_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
                 return False
             return not (last_lang_ffn and rest[1] == f"x_{enc.x_layers - 1}"
                         and rest[2] == "lang_ffn")
-        return not (blind and (rest[1] == "visual_tokenizer"
+        return not (blind and (rest[1] in VISUAL_STREAM
                                or rest[1].startswith("r_")))
 
     def connected(name: str) -> bool:

@@ -1,5 +1,5 @@
-"""Pretrained BERT weights into the port's language tower: the port of
-``shgvqa_tpu/utils/torch_import.py`` (its BERT half).
+"""Pretrained BERT and ViT weights into the port's encoder: the port of
+``shgvqa_tpu/utils/torch_import.py``.
 
 The reference's default path (no ``--fromScratch``) loads bert-base-uncased
 into its LXRT model by name (``BertPreTrainedModel.from_pretrained``): the
@@ -11,10 +11,14 @@ where the model's pooler has a ``dense`` (the cross pooler's ``dense2``
 never matches, so bert's pooler lands in ``skipped``).  The visual stream,
 the cross layers and the tokenizer keep their init.
 
+``--vitInit``: ``vit_to_r_layers`` takes a timm ``vit_base_patch32_224``
+state_dict's ``blocks[start_index:start_index + n]`` as the n ViT r-layers
+(``models/vit.ViTBlock``), as the reference's ``load_vit_layers`` does
+(``--startIndex`` 7 by default: five r-layers get the last five blocks).
+
 The functions work on trees in the JAX layout (``convert.to_jax_variables``
 of the port's ``state_dict``; ``convert.from_jax_variables`` brings the
-result back).  The ViT half (``vit_block_params``, ``vit_to_r_layers``)
-comes with ``--vitInit`` (ROADMAP queue A item 17).
+result back).
 """
 
 from __future__ import annotations
@@ -159,3 +163,34 @@ def bert_to_lxrt_params(
 
     _merge(params, src, "", loaded, skipped)
     return params, {"loaded": loaded, "skipped": skipped}
+
+
+def vit_block_params(sd: Dict[str, np.ndarray], prefix: str
+                     ) -> Dict[str, Any]:
+    """One timm ViT ``blocks.{i}`` state_dict slice -> a ViTBlock tree
+    (norm1 / qkv / proj / norm2 / fc1 / fc2, plain dense layers: no
+    ``Dense_0``; torch Linear weights transposed)."""
+    def dense(name):
+        return {"kernel": sd[f"{prefix}.{name}.weight"].T,
+                "bias": sd[f"{prefix}.{name}.bias"]}
+
+    return {"norm1": _ln(sd, f"{prefix}.norm1"), "qkv": dense("attn.qkv"),
+            "proj": dense("attn.proj"), "norm2": _ln(sd, f"{prefix}.norm2"),
+            "fc1": dense("mlp.fc1"), "fc2": dense("mlp.fc2")}
+
+
+def vit_to_r_layers(sd: Dict[str, np.ndarray], num_layers: int,
+                    start_index: int = 0) -> Dict[str, Any]:
+    """A timm ViT state_dict -> {"r_0": ..., "r_{n-1}"} ViTBlock trees from
+    ``blocks[start_index:start_index + num_layers]``; raises where the
+    checkpoint has fewer blocks (the reference's assert)."""
+    n_avail = 0
+    while f"blocks.{n_avail}.norm1.weight" in sd:
+        n_avail += 1
+    if num_layers + start_index > n_avail:
+        raise ValueError(
+            f"cannot take {num_layers} blocks from index {start_index}: "
+            f"checkpoint has {n_avail} (reference assert, "
+            f"modeling_capsbert.py:1383-1385)")
+    return {f"r_{i}": vit_block_params(sd, f"blocks.{start_index + i}")
+            for i in range(num_layers)}

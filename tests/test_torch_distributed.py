@@ -98,13 +98,13 @@ def test_build_driver_mesh_decides_as_jax(mesh_kw, extras, batch,
 
 
 def test_tensor_parallelism_is_refused_with_its_roadmap_position(tmp_path):
-    with pytest.raises(NotImplementedError, match="position 11"):
+    with pytest.raises(NotImplementedError, match="position 17"):
         mesh.make_mesh(port_config.MeshConfig(data_parallel=2,
                                               model_parallel=2), 4)
     cfg = _cfgs(port_config, {"data_parallel": 2, "model_parallel": 2}, 4, 4)
-    with pytest.raises(NotImplementedError, match="position 11"):
+    with pytest.raises(NotImplementedError, match="position 17"):
         common.build_driver_mesh(cfg, {}, 8)
-    with pytest.raises(NotImplementedError, match="position 11"):
+    with pytest.raises(NotImplementedError, match="position 17"):
         agqa_hgqa.main(["--taskHGQA", "--modelParallel", "2", "--output",
                         str(tmp_path)], device="cpu")
     assert mesh.make_mesh(port_config.MeshConfig(), 4) == mesh.Mesh(4, 1)

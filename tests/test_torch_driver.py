@@ -195,18 +195,74 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
 @pytest.mark.parametrize("extra,match", [
     # data parallelism runs (tests/test_torch_data_parallel.py); the
     # tensor-parallel split of the mesh is what stays refused
-    (["--multiGPU", "--modelParallel", "2"], "position 11"),
+    (["--multiGPU", "--modelParallel", "2"], "position 17"),
     (["--loadLXMERT", "snap/x"], "item 18"),
     (["--scanLayers"], "item 19"),
-    (["--sharedWeights"], "item 17"),
     (["--remat"], "item 19"),
     (["--loadLXMERTQA", "snap/x"], "item 18"),
-    (["--vitInit"], "item 17"),
-], ids=["multiGPU", "loadLXMERT", "scanLayers", "sharedWeights", "remat",
-        "loadLXMERTQA", "vitInit"])
+], ids=["multiGPU", "loadLXMERT", "scanLayers", "remat", "loadLXMERTQA"])
 def test_driver_refuses_unported_options(tmp_path, extra, match):
+    """What the driver still refuses (--sharedWeights and --vitInit run:
+    ``test_driver_trains_the_encoder_options``)."""
     with pytest.raises(NotImplementedError, match=match):
         agqa_hgqa.main(_argv(tmp_path, *extra), device="cpu")
+
+
+def _timm_vit(path, blocks, d=32, mlp=64):
+    """A random timm ViT state_dict of ``blocks`` blocks at ``path``."""
+    g = torch.Generator().manual_seed(0)
+    sd = {}
+    for i in range(blocks):
+        for name, shape in (("norm1", (d,)), ("attn.qkv", (3 * d, d)),
+                            ("attn.proj", (d, d)), ("norm2", (d,)),
+                            ("mlp.fc1", (mlp, d)), ("mlp.fc2", (d, mlp))):
+            sd[f"blocks.{i}.{name}.weight"] = 0.1 * torch.randn(
+                shape, generator=g)
+            sd[f"blocks.{i}.{name}.bias"] = 0.1 * torch.randn(
+                shape[0], generator=g)
+    torch.save(sd, path)
+    return sd
+
+
+@pytest.mark.parametrize("extra", [
+    ["--sharedWeights"], ["--vitInit", "--startIndex", "1"],
+    ["--crossAttn"], ["--patches"]],
+    ids=["sharedWeights", "vitInit", "capsules_crossAttn", "patches"])
+def test_driver_trains_the_encoder_options(tmp_path, monkeypatch, extra):
+    """The encoder options of queue A item 17 through the AGQA driver at
+    the flagship flags: an epoch of 4 steps, finite losses, LAST.
+    --vitInit loads r_0..r_4 from blocks 1-5 of ``--vitWeights``'s file
+    (5 r-layers); the capsule encoder (no --noCaps) with --crossAttn keeps
+    every frame (16 + 1 tokens at 32 x 32) and has x-layers; --patches
+    builds no trunk and looks for no trunk file."""
+    _shrink(monkeypatch)
+    flags = [a for a in FLAGS if a != "--noCaps" or "--crossAttn" not in extra]
+    out = tmp_path / "out"
+    if "--vitInit" in extra:
+        sd = _timm_vit(tmp_path / "vit.bin", 6)
+        extra = extra + ["--vitWeights", str(tmp_path / "vit.bin")]
+    result, stdout = _main(flags + extra + [
+        "--tiny", "--syntheticData", "8", "--batchSize", "2", "--epochs",
+        "1", "--output", str(out), "--dataDir", str(tmp_path)])
+    assert result["steps"] == 4
+    records = [json.loads(x) for x in
+               (out / "metrics.jsonl").read_text().splitlines()]
+    assert all(np.isfinite(r["total_loss"]) for r in records)
+    last = torch.load(out / "LAST", weights_only=True)["params"]
+    enc = "head.lxrt.encoder."
+    assert ("no pretrained backbone at" in stdout) == ("--patches"
+                                                       not in extra)
+    assert any(k.startswith("backbone.") for k in last) == (
+        "--patches" not in extra)
+    if "--sharedWeights" in extra:
+        assert not any(k.startswith(enc + "r_") for k in last)
+    if "--vitInit" in extra:
+        assert "Loaded 5 ViT blocks [1:6]" in (out / "log.log").read_text()
+        assert last[enc + "r_4.norm1.weight"].shape == sd[
+            "blocks.5.norm1.weight"].shape
+    if "--crossAttn" in extra:
+        assert last[enc + "caps_tokenizer.pos_embedding"].shape == (17, 544)
+        assert any(k.startswith(enc + "x_tied.") for k in last)
 
 
 @pytest.mark.parametrize("aug", ["no_aug", "no_aug_slowfast", "rand_aug",
@@ -252,18 +308,19 @@ def test_driver_trains_two_steps_a_launch_as_single_steps(tmp_path,
 
 def test_driver_refuses_star_and_the_global_matcher(tmp_path):
     """STAR and the global matcher run now (``tests/test_torch_star.py``):
-    both pass the CLI's flag checks; what STAR still refuses is its capsule
-    encoder (no ``--noCaps``, item 17).  Per-choice QA and ``--outputAttn``
-    pass STAR's checks; the AGQA drivers refuse per-choice QA (AGQA items
-    have no choices)."""
+    both pass the CLI's flag checks, and so does STAR's capsule encoder
+    (no ``--noCaps``: tests/test_torch_capsules.py runs it).  Per-choice
+    QA and ``--outputAttn`` pass STAR's checks; the AGQA drivers refuse
+    per-choice QA (AGQA items have no choices)."""
     argv = [a for a in _argv(tmp_path) if a != "--LossHGPerFrame"]
     for dataset in ("agqa", "star"):
         cfg, extras = common.parse_reference_flags_with_extras(argv, dataset)
         assert not cfg.loss_hg_per_frame
         common._check_driver_flags(cfg, extras, dataset)
     no_caps = [a for a in argv if a != "--noCaps"]
-    with pytest.raises(NotImplementedError, match="item 17"):
-        common.run_driver("star", no_caps, device="cpu")
+    cfg, extras = common.parse_reference_flags_with_extras(no_caps, "star")
+    assert not cfg.encoder.no_caps and cfg.encoder.visual_t == 16
+    common._check_driver_flags(cfg, extras, "star")
     for extra in (["--qaArrangeType", "add_sep"], ["--outputAttn"]):
         cfg, extras = common.parse_reference_flags_with_extras(
             argv + extra, "star")

@@ -263,31 +263,65 @@ def test_converter_round_trip_is_strict(hgqa):
 
 @pytest.mark.parametrize("override", [
     dict(backbone="slowfast_r101"), dict(backbone="mvit_B"),
-    dict(encoder="shared_weights"), dict(encoder="patches"),
-    dict(encoder="capsules"), dict(backbone="video_swin"),
-    dict(encoder="vit_init"), dict(backbone="slowfast_r50"),
+    dict(backbone="video_swin"), dict(backbone="slowfast_r50"),
     dict(encoder="scan_layers"), dict(backbone="video_swin_impl"),
     dict(backbone="resnext101"),
     dict(backbone="resnext101", quant_backbone="int8", freeze_backbone=True),
 ])
 def test_unported_options_raise(override):
-    """What the port does not build yet raises naming it: the capsule,
-    patch and ViT encoders, shared weights, the scanned stacks and the
-    other trunks, also under --quantBackbone int8.  (The tasks and options
-    of queue A item 15 build now: tests/test_torch_tasks.py, and
-    per-choice QA and --outputAttn: ``test_item_15_options_build``; the
-    int8 trunk and --backboneChunks: tests/test_torch_quant_backbone.py.)"""
+    """What the port does not build yet raises naming it: the scanned
+    stacks and the other trunks, also under --quantBackbone int8.  (The
+    tasks and options of queue A item 15 build now:
+    tests/test_torch_tasks.py, and per-choice QA and --outputAttn:
+    ``test_item_15_options_build``; the int8 trunk and --backboneChunks:
+    tests/test_torch_quant_backbone.py; the capsule, patch and ViT
+    encoders and shared weights: ``test_item_17_encoder_options_build``
+    and tests/test_torch_encoder_options.py.)"""
     cfg = tiny_test_config(task="hgqa")
-    kind = override.get("encoder")
-    if kind is not None:
-        field, value = {"capsules": ("no_caps", False)}.get(kind,
-                                                            (kind, True))
+    if "encoder" in override:
         cfg = cfg.replace(encoder=dataclasses.replace(
-            cfg.encoder, **{field: value}))
+            cfg.encoder, **{override["encoder"]: True}))
     else:
         cfg = cfg.replace(**override)
     with pytest.raises(NotImplementedError, match="not ported"):
         VideoShgVqaModel(cfg)
+
+
+@pytest.mark.parametrize("field,value,present,absent", [
+    ("shared_weights", True, {"l_0", "visual_tokenizer"},
+     {"r_0", "caps_tokenizer"}),
+    ("patches", True, {"visual_tokenizer", "r_0"}, {"caps_tokenizer"}),
+    ("no_caps", False, {"caps_tokenizer", "caps_mask", "caps_proj", "r_0"},
+     {"visual_tokenizer", "x_tied"}),
+    ("vit_init", True, {"r_0", "visual_tokenizer"}, {"caps_tokenizer"}),
+], ids=["shared_weights", "patches", "capsules", "vit_init"])
+def test_item_17_encoder_options_build(field, value, present, absent):
+    """The encoder options of queue A item 17 build the video model: the
+    capsule tokenizer, mask and projection and no x-layers (no
+    --crossAttn); one layer stack under shared weights; the patch path
+    without a trunk; ViT r-layers.  A forward in eval mode gives the
+    model's outputs (tests/test_torch_encoder_options.py holds them to
+    JAX)."""
+    cfg = tiny_test_config(task="hgqa")
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                  **{field: value}))
+    model = VideoShgVqaModel(cfg)
+    init_weights(model.head, 0)
+    enc = dict(model.head.lxrt.encoder.named_children())
+    assert present <= set(enc) and not absent & set(enc)
+    assert (model.backbone is None) == (field == "patches")
+    if field == "vit_init":
+        assert hasattr(enc["r_0"], "qkv")
+    batch = _torch_batch(_batch(jax_tiny(), frames=True))
+    batch.pop("frames")
+    e = model.head.cfg.encoder
+    batch["visual_feats"] = torch.randn(2, e.frames_t, e.visual_hw,
+                                        e.visual_hw, e.visual_feat_dim)
+    batch["visual_mask"] = torch.ones(2, e.visual_seq_length)
+    with torch.inference_mode():
+        out = model.head(batch)
+    assert set(out) == set(OUTPUTS)
+    assert all(torch.isfinite(v).all() for v in out.values())
 
 
 @pytest.mark.parametrize("override", [

@@ -9,7 +9,8 @@ against the JAX ``make_train_step`` (the rule of
 ``test_torch_train_step.py``); ``cli.star.main(..., device="cpu")`` for two
 epochs of two steps at ``--stepsPerLoop 2`` on synthetic STAR, then
 ``--test`` from LAST (oracle 1.0, ``by_qtype``, both predict files); and
-what the STAR driver still refuses."""
+what the STAR driver still refuses (its capsule encoder runs:
+tests/test_torch_capsules.py)."""
 
 import contextlib
 import dataclasses
@@ -56,7 +57,8 @@ STEPS, LR, T_TOTAL = 3, 1e-3, 10
 # the forward's and the train step's tolerances (test_torch_model.py,
 # test_torch_train_step.py)
 TOL, LOSS_TOL, UPDATE_TOL, NOISE = 1e-4, 1e-4, 1e-4, 1e-5
-# README.md's STAR line, with --noCaps (the capsule encoder is not ported)
+# README.md's STAR line with --noCaps (the no-caps STAR path; README.md as
+# printed, the capsule encoder, runs in tests/test_torch_capsules.py)
 FLAGS = ["--taskHGQA", "--useHGMask", "--qType", "Interaction",
          "--qaArrangeType", "add_sep_all", "--noCaps"]
 # the test's sizes under those flags
@@ -420,9 +422,12 @@ def test_star_driver_trains_and_tests_on_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ([], "item 17"),
-], ids=["capsules"])
+    (["--scanLayers"], "item 19"),
+    (["--loadLXMERTQA", "snap/x"], "item 18"),
+], ids=["scanLayers", "loadLXMERTQA"])
 def test_star_driver_refuses_what_is_not_ported(tmp_path, extra, match):
+    """What the STAR driver still refuses, on its capsule encoder (no
+    ``--noCaps``, which runs: tests/test_torch_capsules.py)."""
     argv = [a for a in FLAGS if a not in ("--noCaps", "--taskHGQA")] + extra
     if "--taskHGVQA" not in extra:
         argv.append("--taskHGQA")
