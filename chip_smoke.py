@@ -14,7 +14,7 @@ it exits non-zero before printing any result.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with its time, the plain version's
    time and the bound.  Every kernel, library and yardstick time is the
-   median [min-max] of 5 turns of 20 calls (CUDA events); a plain version
+   median [min-max] of 3 turns of 20 calls (CUDA events); a plain version
    is timed in one turn:
    - the FFN forward (the FFN-train forward's chain of
      ``csrc/ffn_train.cu`` at rate 0; and its autograd backward at a small
@@ -257,6 +257,27 @@ caps. the capsule encoder, after phase quant: ``cli.star.main`` at
     shapes: 785 x 785 under a key row, the decoders' 128 x 785 and 48 x
     785 and ``--crossAttn``'s 40 x 785 and 785 x 40, B=8 and 32, with
     their device time and bound at B=32;
+trunks. the other video trunks, after phase caps: (a) resnext101 and
+    slowfast_r50/r101 on 16 frames, mvit_B and video_swin_impl on 32 (they
+    halve time), at full width in bf16, frozen, B=2: the features' shape
+    (the trunk's steps, side and channels) and finite values; the same
+    topologies at TOY widths in f32, card against CPU within 1e-4 x max
+    |CPU|; readings with no limit: device ms a forward at B=8 and its peak
+    memory; (b) the tokenizer conv at slowfast's (B, 16, 8, 8, 2304) and
+    (B, 12, 8, 8, 768) and the bottleneck at slowfast's slow res_2 and
+    res_3 blocks (4 frames a clip), B=8 and 2, against their plain
+    versions as in phase 3, with device time and bound; a slowfast_r50
+    trunk with the block switch: 5 bottleneck launches a forward, its
+    features within 2e-2 x max |ref| of the switch off; (c) ``agqa_hgqa
+    --test --backbone slowfast_r50`` on PNG frames of 480 x 360 on disk
+    (16 questions, eval B=8) under the default ``--frameLoader auto``: its
+    weights a checkpoint whose trunk came through
+    ``utils/convert_slowfast``'s CLI; every clip through the native
+    decoder where it builds on the host (else PIL with JAX's notice, as
+    JAX's rule takes), 18 FFN launches an eval forward, oracle 1.0;
+    readings: the loader's clips/s beside the forward's; (d) ``--patches``: the
+    flagship head on patches at B=8 through phase 9c's checks (38 / 34
+    attention, 18 FFN, 18 / 14 FFN-train launches);
 10. the plain path, then two plain train steps, on the card against the
     CPU at tiny size in f32: the flagship task, 'q', 'vhga', 'hgvqa' and
     the 'cross_self' layers (the int8 trunk's case runs in phase quant);
@@ -331,7 +352,8 @@ trunk) and the ablations' cases of 10, ``--only quant`` phases 1-2 and
 phase quant (the weight files written for its driver), ``--only ddp``
 phases 1-2, 7b's driver (the weight files written for it) and ddp,
 ``--only caps`` phases 1-2 and caps (the weight files written for its
-trunk) with phase 3's capsule shapes, and prints no result lines.
+trunk) with phase 3's capsule shapes, ``--only trunks`` phases 1-2 and
+trunks, and prints no result lines.
 """
 
 from __future__ import annotations
@@ -356,6 +378,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -377,10 +400,14 @@ from shgvqa_tpu_torch.bench import (
     train_memory_gib,
     train_split_ms,
 )
-from shgvqa_tpu_torch.configs.config import tiny_test_config, torch_dtype
+from shgvqa_tpu_torch.configs.config import (
+    tiny_test_config,
+    torch_dtype,
+    trunk_steps,
+)
 from shgvqa_tpu_torch.convert import is_quant_scale, to_jax_variables
 from shgvqa_tpu_torch.data.featurize import situation_causal_mask
-from shgvqa_tpu_torch.data import transforms
+from shgvqa_tpu_torch.data import native_loader, synthetic, transforms
 from shgvqa_tpu_torch.data.transforms import augment_clips, sample_rand_augment
 from shgvqa_tpu_torch.kernels import _build, cond
 from shgvqa_tpu_torch.kernels import qconv as qconv_mod
@@ -422,12 +449,17 @@ from shgvqa_tpu_torch.kernels.tok_conv import (
     tile_plan as tok_conv_plan,
     tok_conv_reference,
 )
+from shgvqa_tpu_torch.models import backbones_extra
+from shgvqa_tpu_torch.models import mvit as mvit_mod
+from shgvqa_tpu_torch.models import video_swin as video_swin_mod
 from shgvqa_tpu_torch.models.backbone import (
+    GEOMETRY_TRUNKS,
     Bottleneck3D,
     FrozenBatchNorm,
     SlowR50,
     calibrate_frozen_bn,
     calibrate_quant,
+    make_backbone,
     set_block_kernel,
 )
 from shgvqa_tpu_torch.models.layers import (
@@ -462,7 +494,7 @@ from shgvqa_tpu_torch.train.step import (
     make_train_step,
     trainable_mask,
 )
-from shgvqa_tpu_torch.utils import convert_slow_r50
+from shgvqa_tpu_torch.utils import convert_slow_r50, convert_slowfast
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -541,6 +573,10 @@ WEIGHTS_SEED = 7
 BERT_LAYERS = 12
 
 
+# turns of each event-timed reading (``spread``)
+TIMING_TURNS = 3
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -557,7 +593,9 @@ def lap(name: str) -> None:
 
 
 def spread(name, fn, **kw):
-    """{name: median ms, name + "_range": [min, max]} of ``time_spread``."""
+    """{name: median ms, name + "_range": [min, max]} of ``time_spread``,
+    ``TIMING_TURNS`` turns unless ``turns`` is given."""
+    kw.setdefault("turns", TIMING_TURNS)
     med, (lo, hi) = time_spread(fn, **kw)
     return {name: med, name + "_range": [lo, hi]}
 
@@ -1159,7 +1197,7 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
     the kernels' own keep mask fed to the plain version; the realised keep
     rate, and the card's keep mask bit-equal to keep_mask_reference at one
     site per batch size; the largest difference between two backward calls
-    on the same inputs; the times (median [min-max] over 5 turns) of the
+    on the same inputs; the times (median [min-max] over 3 turns) of the
     kernels and of SDPA, each at rate 0 and at the site's rate, of SDPA's
     forward and backward in one call, of the plain version (one turn), and
     the kernels' device time per call from torch.profiler."""
@@ -1477,48 +1515,58 @@ def phase_tok_kernel(batch_sizes=(2, BATCH_SIZE)):
             log(f"{tag}: max |err| {err}")
         for bsz in batch_sizes:
             for site, t_len, ci in TOK_SITES:
-                g = torch.Generator(device="cuda").manual_seed(bsz * 10 + ci)
-
-                def randn(*shape):
-                    return torch.randn(*shape, generator=g, device="cuda")
-
-                x = randn(bsz, t_len, TOK_HW, TOK_HW, ci).to(torch.bfloat16)
-                w32 = (0.02 * randn(D, ci, TOK_KT, 3, 3)).contiguous(
-                    memory_format=torch.channels_last_3d)
-                b = 0.02 * randn(D)
-                w = w32.to(torch.bfloat16)
-                tag = f"fused_tok_conv {site} b{bsz}"
-                y = fused_tok_conv(x, w, b)
-                err, rel = rel_max_err(tag, y, tok_conv_reference(x, w, b),
-                                       TOK_BLOCK_TOL)
-                if not torch.equal(y, fused_tok_conv(x, w, b)):
-                    raise AssertionError(f"{tag}: two calls on the same "
-                                         "inputs differ")
-                del y
-                max_err = max(max_err, err)
-                xv = x.permute(0, 4, 1, 2, 3)
-                m = bsz * (t_len - TOK_KT + 1) * TOK_HW * TOK_HW
-                k = TOK_KT * 9 * ci
-                bound, bound_by = bound_ms(
-                    2 * m * D * k, (x.numel() + w.numel() + m * D) * 2 + 4 * D)
-                sms = torch.cuda.get_device_properties(0).multi_processor_count
-                conv, every, _ = device_ms(lambda: fused_tok_conv(x, w, b),
-                                           ("tok_conv_kernel",))
-                rows[(site, bsz)] = dict(
-                    site=site, B=bsz, M=m, N=D, K=k, max_abs_err=err,
-                    rel_err=rel, rerun_bit_equal=True,
-                    plan=tok_conv_plan(m, D, k, sms),
-                    bound_ms=bound, bound_by=bound_by,
-                    **spread("kernel_ms", lambda: fused_tok_conv(x, w, b)),
-                    kernel_device_ms=every, conv_device_ms=conv,
-                    **spread("cast_ms", lambda: w32.to(torch.bfloat16)),
-                    plain_ms=time_ms(lambda: tok_conv_reference(x, w, b),
-                                     iters=5, warmup=1),
-                    **spread("yardstick_ms", lambda: gelu(F.conv3d(
-                        xv, w, b.to(torch.bfloat16), padding=(0, 1, 1))),
-                        iters=5, warmup=1))
-                log(f"fused_tok_conv {json.dumps(rows[(site, bsz)])}")
+                rows[(site, bsz)] = tok_row(site, bsz, t_len, TOK_HW, ci)
+                max_err = max(max_err, rows[(site, bsz)]["max_abs_err"])
     return rows, max_err
+
+
+def tok_row(site, bsz, t_len, hw, ci, seed=None):
+    """One tokenizer conv site (B, t_len, hw, hw, Ci) -> Co = 768, kernel
+    (5, 3, 3), bf16: the kernel against tok_conv_reference (TOK_BLOCK_TOL),
+    two calls bit-equal, and its times (``phase_tok_kernel``)."""
+    g = torch.Generator(device="cuda").manual_seed(
+        bsz * 10 + ci if seed is None else seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    with torch.inference_mode():
+        x = randn(bsz, t_len, hw, hw, ci).to(torch.bfloat16)
+        w32 = (0.02 * randn(D, ci, TOK_KT, 3, 3)).contiguous(
+            memory_format=torch.channels_last_3d)
+        b = 0.02 * randn(D)
+        w = w32.to(torch.bfloat16)
+        tag = f"fused_tok_conv {site} b{bsz}"
+        y = fused_tok_conv(x, w, b)
+        err, rel = rel_max_err(tag, y, tok_conv_reference(x, w, b),
+                               TOK_BLOCK_TOL)
+        if not torch.equal(y, fused_tok_conv(x, w, b)):
+            raise AssertionError(f"{tag}: two calls on the same inputs "
+                                 "differ")
+        del y
+        xv = x.permute(0, 4, 1, 2, 3)
+        m = bsz * (t_len - TOK_KT + 1) * hw * hw
+        k = TOK_KT * 9 * ci
+        bound, bound_by = bound_ms(
+            2 * m * D * k, (x.numel() + w.numel() + m * D) * 2 + 4 * D)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        conv, every, _ = device_ms(lambda: fused_tok_conv(x, w, b),
+                                   ("tok_conv_kernel",))
+        row = dict(
+            site=site, B=bsz, T=t_len, H=hw, M=m, N=D, K=k, max_abs_err=err,
+            rel_err=rel, rerun_bit_equal=True,
+            plan=tok_conv_plan(m, D, k, sms),
+            bound_ms=bound, bound_by=bound_by,
+            **spread("kernel_ms", lambda: fused_tok_conv(x, w, b)),
+            kernel_device_ms=every, conv_device_ms=conv,
+            **spread("cast_ms", lambda: w32.to(torch.bfloat16)),
+            plain_ms=time_ms(lambda: tok_conv_reference(x, w, b),
+                             iters=5, warmup=1),
+            **spread("yardstick_ms", lambda: gelu(F.conv3d(
+                xv, w, b.to(torch.bfloat16), padding=(0, 1, 1))),
+                iters=5, warmup=1))
+    log(f"fused_tok_conv {json.dumps(row)}")
+    return row
 
 
 def log_tok_per_forward(rows, launches=2):
@@ -1579,39 +1627,44 @@ def phase_block_kernel(batch_sizes=(2, BATCH_SIZE)):
                 f"max |err| {err}")
         for bsz in batch_sizes:
             for site, hw, ci, cm, co, proj, _ in BLOCK_SITES:
-                block = random_block(ci, cm, co, seed=ci + cm)
-                ops = block.kernel_operands()
-                g = torch.Generator(device="cuda").manual_seed(bsz + ci)
-                n = 16 * bsz
-                x = torch.relu(torch.randn(n, hw, hw, ci, generator=g,
-                                           device="cuda")).to(torch.bfloat16)
-                xv = x.view(bsz, 16, hw, hw, ci).permute(0, 4, 1, 2, 3)
-                tag = f"fused_bottleneck {site} b{bsz}"
-                err, rel = rel_max_err(tag, fused_bottleneck(x, *ops),
-                                       bottleneck_reference(x, *ops),
-                                       TOK_BLOCK_TOL)
-                max_err = max(max_err, err)
-                macs = ci * cm + 9 * cm * cm + cm * co + (ci * co if proj
-                                                          else 0)
-                positions = n * hw * hw
-                bound, bound_by = bound_ms(
-                    2 * positions * macs,
-                    positions * (ci + co) * 2 + macs * 2 + (4 * cm + 4 * co) * 2)
-                rows[(site, bsz)] = dict(
-                    site=site, B=bsz, frames=n, H=hw, Ci=ci, Cm=cm, Co=co,
-                    proj=proj, max_abs_err=err, rel_err=rel, bound_ms=bound,
-                    bound_by=bound_by,
-                    **spread("kernel_ms", lambda: fused_bottleneck(x, *ops)),
-                    kernel_device_ms=device_ms(
-                        lambda: fused_bottleneck(x, *ops),
-                        ("bottleneck_kernel",))[0],
-                    plain_ms=time_ms(lambda: bottleneck_reference(x, *ops),
-                                     iters=5, warmup=1),
-                    **spread("yardstick_ms", lambda: block(xv), iters=5,
-                             warmup=1))
-                log(f"fused_bottleneck {json.dumps(rows[(site, bsz)])}")
-                del block, x, xv
+                rows[(site, bsz)] = block_row(site, bsz, 16 * bsz, hw, ci,
+                                              cm, co, proj)
+                max_err = max(max_err, rows[(site, bsz)]["max_abs_err"])
     return rows, max_err
+
+
+def block_row(site, bsz, n, hw, ci, cm, co, proj):
+    """One bottleneck site, ``n`` frames of (hw, hw, Ci) from B = ``bsz``
+    clips, bf16: the kernel against bottleneck_reference (TOK_BLOCK_TOL)
+    and its times (``phase_block_kernel``)."""
+    block = random_block(ci, cm, co, seed=ci + cm)
+    ops = block.kernel_operands()
+    g = torch.Generator(device="cuda").manual_seed(bsz + ci)
+    with torch.inference_mode():
+        x = torch.relu(torch.randn(n, hw, hw, ci, generator=g,
+                                   device="cuda")).to(torch.bfloat16)
+        xv = x.view(bsz, n // bsz, hw, hw, ci).permute(0, 4, 1, 2, 3)
+        tag = f"fused_bottleneck {site} b{bsz}"
+        err, rel = rel_max_err(tag, fused_bottleneck(x, *ops),
+                               bottleneck_reference(x, *ops), TOK_BLOCK_TOL)
+        macs = ci * cm + 9 * cm * cm + cm * co + (ci * co if proj else 0)
+        positions = n * hw * hw
+        bound, bound_by = bound_ms(
+            2 * positions * macs,
+            positions * (ci + co) * 2 + macs * 2 + (4 * cm + 4 * co) * 2)
+        row = dict(
+            site=site, B=bsz, frames=n, H=hw, Ci=ci, Cm=cm, Co=co,
+            proj=proj, max_abs_err=err, rel_err=rel, bound_ms=bound,
+            bound_by=bound_by,
+            **spread("kernel_ms", lambda: fused_bottleneck(x, *ops)),
+            kernel_device_ms=device_ms(
+                lambda: fused_bottleneck(x, *ops),
+                ("bottleneck_kernel",))[0],
+            plain_ms=time_ms(lambda: bottleneck_reference(x, *ops),
+                             iters=5, warmup=1),
+            **spread("yardstick_ms", lambda: block(xv), iters=5, warmup=1))
+    log(f"fused_bottleneck {json.dumps(row)}")
+    return row
 
 
 def per_forward_tok(rows, bsz, key):
@@ -1823,9 +1876,10 @@ def phase_headsliced_ab(b=64, shapes=((40, 40), (393, 393), (128, 393))):
                                  headsliced_attention(q2, k2, v2, mask, H),
                                  transpose_path(q2, k2, v2, mask), ATTN_TOL)
             hs_ms, hs_range = time_spread(
-                lambda: headsliced_attention(q2, k2, v2, mask, H))
+                lambda: headsliced_attention(q2, k2, v2, mask, H),
+                turns=TIMING_TURNS)
             tr_ms, tr_range = time_spread(
-                lambda: transpose_path(q2, k2, v2, mask))
+                lambda: transpose_path(q2, k2, v2, mask), turns=TIMING_TURNS)
             log("headsliced A/B " + json.dumps(dict(
                 shape=tag, max_err_vs_transpose_path=err, headsliced_ms=hs_ms,
                 headsliced_ms_range=hs_range, transpose_path_ms=tr_ms,
@@ -2712,8 +2766,8 @@ def busy_share(fn, tries: int = 3):
 
 
 def spl_throughput(name, model, optimizer, generator, batch, chunks=None):
-    """Train clips/s at k=1 (2 steps a turn) and k=``SPL_K`` (a replay a
-    turn) in turns on ``batch``, through ``chunks`` (a ``StepChunks`` whose
+    """Train clips/s at k=1 (2 steps) and k=``SPL_K`` (a replay), one turn
+    each, on ``batch``, through ``chunks`` (a ``StepChunks`` whose
     graph holds these shapes) or a graph captured here first; the device
     busy share of 2 eager steps and of one replay; the host syncs, peak
     memory and reserved memory of a step and of a replayed chunk."""
@@ -2731,7 +2785,7 @@ def spl_throughput(name, model, optimizer, generator, batch, chunks=None):
         return chunks.run([b] * SPL_K)
 
     runs = {"k=1": [], f"k={SPL_K}": []}
-    for k in (1, SPL_K, SPL_K, 1):
+    for k in (1, SPL_K):
         if k == 1:
             runs["k=1"].append(train_clips_per_second(
                 step, batch, generator, iters=2, warmup=1))
@@ -4901,7 +4955,7 @@ def qconv_kernel_checks(calls):
 
 def quant_times(calls, bsz):
     """Per trunk forward at ``bsz`` (the 52 launches of ``calls``): the
-    kernel's time (events median [min-max] of 5 turns, device time by
+    kernel's time (events median [min-max] of 3 turns, device time by
     torch.profiler, and the 52 launches as one CUDA graph's replay), the
     plain version's (one turn), torch._int_mm on the
     1x1 stride-1 convs (the same s32 product, no epilogue), cuDNN bf16
@@ -5683,6 +5737,403 @@ def phase_ddp(overlap=None):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# Phase trunks: the other video trunks (models/backbones_extra.py, mvit.py,
+# video_swin.py), the native frame decoder and --patches
+
+# each trunk's clip at full width: (name, frames, side); mvit_B and
+# video_swin_impl halve time, so they run at --clipLEN 32
+TRUNK_CLIPS = (("resnext101", 16, 224), ("slowfast_r50", 16, 256),
+               ("slowfast_r101", 16, 256), ("mvit_B", 32, 224),
+               ("video_swin_impl", 32, 224))
+# the same topologies at TOY widths for card against CPU (f32, TF32 off):
+# (class, its overrides, frames of 32 pixels)
+TRUNK_TOYS = (
+    ("resnext101", backbones_extra.ResNeXt101,
+     dict(depths=(2, 1, 1, 1), groups=4, width_per_group=2, stem_width=8,
+          outs=(16, 32, 64, 128)), 2),
+    ("slowfast", backbones_extra.SlowFastR50,
+     dict(depths=(2, 1, 1, 1), stem_width=16, mids=(8, 16, 32, 64),
+          outs=(32, 64, 128, 256)), 8),
+    ("mvit_B", mvit_mod.MViTB,
+     dict(frames=8, image_size=32, embed_dim=8, depth=4, num_heads=1,
+          stage_blocks=(1, 3), kv_stride=(1, 4, 4)), 8),
+    ("video_swin_impl", video_swin_mod.VideoSwin,
+     dict(embed_dim=8, depths=(1, 2, 1), heads=(1, 2, 4),
+          window=(2, 2, 2)), 8))
+TRUNK_TOY_TOL = 1e-4
+TRUNK_READING_BATCH = 8
+# slowfast's tokenizer convs (16 steps of 8 x 8 features, 2304 channels)
+# and the bottleneck blocks its switch routes: slow res_2 blocks 1-2 and
+# res_3 blocks 1-3 on 4 frames a clip (16 / alpha), the fast pathway's and
+# slow res_2 block 0's (Ci = 64 + 16) not
+SLOWFAST_HW = 8
+SLOWFAST_TOK_SITES = (("slowfast conv1", 16, 2304), ("slowfast conv2", 12, D))
+SLOWFAST_BLOCK_SITES = (
+    ("slowfast res_2 blocks 1-2", 64, 256, 64, 256, False, 2),
+    ("slowfast res_3 blocks 1-3", 32, 512, 128, 512, False, 3))
+SLOWFAST_BLOCKS = 5
+# the real-frame --test run: the flagship's flags with the slowfast trunk on
+# PNG frames of the dataset's size, 16 questions at eval B=8 (--batchSize
+# 32 // 4), each eval forward with the FFN kernel at its 18 sites
+TRUNK_DRIVER_FLAGS = ["--taskHGQA", "--noCaps", "--crossAttnType", "cross",
+                      "--llayers", "5", "--xlayers", "2", "--rlayers", "5",
+                      "--dlayers", "5", "--backbone", "slowfast_r50",
+                      "--batchSize", str(BATCH_SIZE), "--buildVocab"]
+TRUNK_DRIVER_QUESTIONS = 16
+TRUNK_EVAL_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)
+# --patches: the flagship head on 8 frames of 7 x 7 patches of 32 x 32 x 3,
+# the same attention and FFN sites as the flagship
+PATCHES_VARIANT = ("--patches", dict(patches=True, visual_feat_dim=3072),
+                   38, 34, 18, 18, 14)
+
+
+def slowfast_hub_state_dict(trunk) -> dict:
+    """The pytorchvideo ``slowfast_r50`` state_dict of ``trunk`` (the
+    inverse of ``utils/convert_slowfast.convert``'s mapping)."""
+    v = to_jax_variables(trunk.state_dict())
+    params, stats = v["params"], v["batch_stats"]
+    sd = {}
+
+    def conv(dst, kernel):
+        sd[dst + ".weight"] = torch.from_numpy(np.ascontiguousarray(
+            kernel.transpose(4, 3, 0, 1, 2)))
+
+    def bn(dst, p, st):
+        for key, value in (("weight", p["scale"]), ("bias", p["bias"]),
+                           ("running_mean", st["mean"]),
+                           ("running_var", st["var"])):
+            sd[f"{dst}.{key}"] = torch.from_numpy(value)
+
+    for pi, path in enumerate(("slow", "fast")):
+        src = f"blocks.0.multipathway_blocks.{pi}"
+        conv(f"{src}.conv", params[f"{path}_stem_conv"]["kernel"])
+        bn(f"{src}.norm", params[f"{path}_stem_bn"], stats[f"{path}_stem_bn"])
+    for b in range(4):
+        src = f"blocks.{b}.multipathway_fusion"
+        conv(f"{src}.conv_fast_to_slow", params[f"fuse_{b}_conv"]["kernel"])
+        bn(f"{src}.norm", params[f"fuse_{b}_bn"], stats[f"fuse_{b}_bn"])
+    for stage in range(4):
+        for pi, path in enumerate(("slow", "fast")):
+            name = f"{path}_res_{stage + 2}"
+            for blk, p in params[name].items():
+                st = stats[name][blk]
+                bb = (f"blocks.{stage + 1}.multipathway_blocks.{pi}."
+                      f"res_blocks.{int(blk.split('_')[1])}")
+                if "conv_proj" in p:
+                    conv(f"{bb}.branch1_conv", p["conv_proj"]["kernel"])
+                    bn(f"{bb}.branch1_norm", p["bn_proj"], st["bn_proj"])
+                for t in "abc":
+                    conv(f"{bb}.branch2.conv_{t}", p[f"conv_{t}"]["kernel"])
+                    bn(f"{bb}.branch2.norm_{t}", p[f"bn_{t}"], st[f"bn_{t}"])
+    return sd
+
+
+def trunk_full_width(name, frames, side, seed):
+    """(a) One trunk at full width, bf16, frozen, on the card (random
+    weights, the BatchNorm statistics calibrated on the clip): the B=2
+    forward's shape (the trunk's own steps, side and channels) and finite
+    values; readings with no limit: device ms a forward at B=8 (events,
+    one turn) and its peak memory."""
+    geometry = ({"frames": frames, "image_size": side}
+                if name in GEOMETRY_TRUNKS else {})
+    trunk = entry.channels_last_convs(init_weights(make_backbone(
+        name, torch.bfloat16, **geometry).to("cuda"), seed).eval())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(2, frames, side, side, 3, generator=g, device="cuda")
+    calibrate_frozen_bn(trunk, x)
+    with torch.inference_mode():
+        y = trunk(x)
+    torch.cuda.synchronize()
+    hw = trunk.spatial_out(side)
+    want = (2, trunk_steps(name, frames), hw, hw, trunk.out_channels)
+    if tuple(y.shape) != want or trunk.temporal_out(frames) != want[1]:
+        raise AssertionError(f"trunk {name}: features {tuple(y.shape)}, "
+                             f"expected {want}")
+    if not torch.isfinite(y.float()).all():
+        raise AssertionError(f"trunk {name}: non-finite features")
+    del y
+    bsz = TRUNK_READING_BATCH
+    x = torch.randn(bsz, frames, side, side, 3, generator=g, device="cuda")
+
+    def forward():
+        with torch.inference_mode():
+            return trunk(x)
+
+    row = {"features": list(want),
+           "params_m": sum(p.numel() for p in trunk.parameters()) / 1e6,
+           f"forward_ms_b{bsz}": time_ms(forward, iters=3, warmup=1),
+           f"peak_gib_b{bsz}": peak_gib(forward)}
+    log(f"trunk {name} ({frames} x {side}^2, bf16, frozen): {json.dumps(row)}")
+    del trunk, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def trunk_toy_card_vs_cpu(name, cls, toy, frames, seed=5):
+    """(a) The trunk at TOY widths in f32: the card's forward within
+    TRUNK_TOY_TOL x max |CPU's| of the CPU's on the same weights and
+    frames (BatchNorm statistics calibrated on the CPU)."""
+    cpu = init_weights(cls(torch.float32, **toy), seed).eval()
+    x = torch.randn(2, frames, 32, 32, 3,
+                    generator=torch.Generator().manual_seed(seed))
+    calibrate_frozen_bn(cpu, x)
+    card = copy.deepcopy(cpu).to("cuda")
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.cuda()).cpu()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"trunk {name} TOY f32 card vs CPU: features {tuple(want.shape)}, "
+        f"max |err| / max |CPU| {err:.3e}")
+    if not err <= TRUNK_TOY_TOL:
+        raise AssertionError(f"trunk {name} TOY: card vs CPU {err}")
+    return err
+
+
+def slowfast_block_switch(seed=9):
+    """(b) The block switch on a full-width slowfast_r50 trunk (bf16, B=2,
+    statistics calibrated): a forward launches the bottleneck kernel at
+    exactly the SLOWFAST_BLOCKS blocks it takes, and each of those blocks'
+    kernel output is within TOK_BLOCK_TOL x max |ref| of the same block's
+    convs on the same input (phase 3's rule, at the trunk's own
+    activations).  The whole trunk's features: each kernel block rounds
+    where the convs round otherwise and the difference grows through the
+    blocks after it, so the kernel path may sit at most GRAD_NOISE x as far
+    (relative Frobenius) from the same trunk in f32 (TF32 off) as the
+    switch-off bf16 trunk does; the distance to the switch-off features is
+    logged."""
+    trunk = entry.channels_last_convs(init_weights(make_backbone(
+        "slowfast_r50", torch.bfloat16).to("cuda"), seed).eval())
+    x = torch.randn(2, 16, 256, 256, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    calibrate_frozen_bn(trunk, x)
+    ref = entry.channels_last_convs(make_backbone(
+        "slowfast_r50", torch.float32).to("cuda").eval())
+    ref.load_state_dict(trunk.state_dict())
+    routed = []
+    hooks = [m.register_forward_hook(
+        lambda m, args, out: routed.append((m, args[0], out)))
+        for m in trunk.modules()
+        if isinstance(m, Bottleneck3D) and m.fits_kernel]
+    with torch.inference_mode():
+        f32 = ref(x).float()
+        del ref
+        want = trunk(x).float()
+        routed.clear()
+        set_block_kernel(trunk, True)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = trunk(x).float()
+        torch.cuda.synchronize()
+        launched = counts()
+        for h in hooks:
+            h.remove()
+        if launched != (0,) * 6 + (SLOWFAST_BLOCKS,) + (0,) * 4:
+            raise AssertionError(f"slowfast block switch launched "
+                                 f"{launched}, expected {SLOWFAST_BLOCKS} "
+                                 "bottlenecks")
+        names = {m: n for n, m in trunk.named_modules()}
+        block_err = {}
+        set_block_kernel(trunk, False)
+        for m, h_in, h_out in routed:
+            block_err[names[m]] = rel_max_err(
+                f"slowfast {names[m]} kernel vs convs", h_out, m(h_in),
+                TOK_BLOCK_TOL)[1]
+    if len(block_err) != SLOWFAST_BLOCKS:
+        raise AssertionError(f"slowfast block switch routed {block_err}")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    dist = {"on vs off": rel(got, want), "on vs f32": rel(got, f32),
+            "off vs f32": rel(want, f32),
+            "max |on - off| / max |off|": ((got - want).abs().max()
+                                           / want.abs().max()).item()}
+    log(f"slowfast_r50 trunk with set_block_kernel: {SLOWFAST_BLOCKS} "
+        f"bottleneck launches a forward, each block's max |err| / max |ref| "
+        f"against its convs {json.dumps(block_err)}; features, relative "
+        f"Frobenius {json.dumps(dist)}")
+    if not (torch.isfinite(got).all()
+            and dist["on vs f32"] <= GRAD_NOISE * dist["off vs f32"]):
+        raise AssertionError(f"slowfast trunk, block switch on vs off: "
+                             f"{dist}")
+    return launched[6], {"blocks": block_err, **dist}
+
+
+def trunk_driver(tmp: str):
+    """(c) ``agqa_hgqa --test`` with the slowfast trunk on real files
+    (``data.synthetic.write_agqa_files``: 16 questions, 4 videos of 16
+    480 x 360 PNG frames) under the default ``--frameLoader auto``: its
+    weights a checkpoint of the flagship with a random head and the trunk
+    from a trunk file that ``utils/convert_slowfast``'s CLI wrote from a
+    pytorchvideo-named state dict (a random trunk with calibrated
+    statistics); the loader JAX's ``make_frame_loader`` rule takes on this
+    host (every clip through the native decoder where it builds, else PIL
+    with JAX's notice: a host without libpng's and libjpeg's headers
+    builds neither package's decoder), each eval forward's launches,
+    oracle 1.0, a predict file of 16 answers.  Readings: that loader's
+    clips/s on this host (the decoder's threads at ``--numWorkers``'s
+    default) beside the model's forward clips/s at B=8."""
+    t0 = time.perf_counter()
+    data_dir, frame_dir = (os.path.join(tmp, "sf_data"),
+                           os.path.join(tmp, "sf_frames"))
+    out = os.path.join(tmp, "sf_test")
+    ckpt = os.path.join(tmp, "sf_model.pt")
+    synthetic.write_agqa_files(data_dir, frame_dir, "test",
+                               n=TRUNK_DRIVER_QUESTIONS, frames_per_video=16)
+    argv = TRUNK_DRIVER_FLAGS + ["--dataDir", data_dir, "--frameDir",
+                                 frame_dir, "--output", out, "--test",
+                                 "test", "--load", ckpt]
+    cfg, extras = common.parse_reference_flags_with_extras(argv, "agqa")
+    data = common.build_data(cfg, extras, "test")
+    cfg = common.resolve_num_answers(cfg, data)
+
+    # the trunk file, through the port's converter CLI
+    trunk = init_weights(make_backbone("slowfast_r50", torch.bfloat16).to(
+        "cuda"), WEIGHTS_SEED).eval()
+    calibrate_frozen_bn(trunk, torch.randn(
+        2, 16, 256, 256, 3, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(WEIGHTS_SEED)))
+    hub, trunk_file = os.path.join(tmp, "sf.pth"), os.path.join(
+        tmp, "slowfast_r50_flax.msgpack")
+    torch.save(slowfast_hub_state_dict(trunk), hub)
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_slowfast.main([hub, trunk_file])
+    model = entry.build_model(cfg, "cuda", seed=WEIGHTS_SEED)
+    logged = []
+    Trainer.load_backbone(SimpleNamespace(
+        model=model, metrics=SimpleNamespace(log=logged.append),
+        _reset_opt=lambda: None), trunk_file)
+    for key, value in trunk.state_dict().items():
+        if not torch.equal(model.backbone.state_dict()[key], value):
+            raise AssertionError(f"trunk file: {key} differs after the "
+                                 "convert and load")
+    torch.save({"params": model.state_dict(), "step": 0}, ckpt)
+    del model, trunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    prep_s = time.perf_counter() - t0
+
+    clips = []
+    decode = native_loader.decode_clip
+
+    def counted_decode(paths, h, w):
+        clips.append((len(paths), h, w))
+        return decode(paths, h, w)
+
+    native_loader.decode_clip = counted_decode
+    try:
+        with _Counted() as counted:
+            result, stdout, seconds = run_main(argv)
+    finally:
+        native_loader.decode_clip = decode
+    # the loader JAX's rule takes on this host: the native decoder when it
+    # builds here, else PIL with JAX's notice
+    native = native_loader.get_lib() is not None
+    notice = "native frame decoder unavailable; using PIL" in stdout
+    want_clips = ([(16, 256, 256)] * TRUNK_DRIVER_QUESTIONS if native
+                  else [])
+    if notice == native or clips != want_clips:
+        raise AssertionError(f"the driver's loader: native decoder built "
+                             f"{native}, PIL notice {notice}, native decoder "
+                             f"calls {clips}")
+    if "Oracle score: 1.0000" not in stdout:
+        raise AssertionError("the real-frame test run's oracle is not 1.0")
+    bsz = cfg.optim.eval_batch_size
+    if (len(counted.eval) != TRUNK_DRIVER_QUESTIONS // bsz
+            or any(c != TRUNK_EVAL_LAUNCHES for c in counted.eval)):
+        raise AssertionError(f"real-frame test forwards launched "
+                             f"{counted.eval}, expected "
+                             f"{TRUNK_DRIVER_QUESTIONS // bsz} x "
+                             f"{TRUNK_EVAL_LAUNCHES}")
+    with open(os.path.join(out, "predict.json")) as f:
+        if len(json.load(f)) != TRUNK_DRIVER_QUESTIONS:
+            raise AssertionError("predict.json does not hold 16 answers")
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        loader = common.make_frame_loader(cfg, data.frame_ids, extras)
+    vids = [d["video_id"] for d in data.datums]
+    t1 = time.perf_counter()
+    for vid in vids:
+        loader(vid)
+    decode_cps = len(vids) / (time.perf_counter() - t1)
+    batch = entry.device_batch(cfg, bsz, seed=3)
+    forward_cps = clips_per_second(counted.model, [batch], iters=3, warmup=1)
+    readings = {"loader": "native" if native else "PIL",
+                "loader_clips_per_s": decode_cps,
+                "decoder_threads": cfg.data.num_workers,
+                f"forward_clips_per_s_b{bsz}": forward_cps,
+                "prep_s": prep_s, "driver_s": seconds}
+    log(f"slowfast --test on PNG frames: the {readings['loader']} loader "
+        f"(native decoder built here: {native}) for "
+        f"{TRUNK_DRIVER_QUESTIONS} clips, launches per eval forward "
+        f"({COUNT_NAMES}) {counted.eval[0]}, oracle 1.0; readings "
+        f"{json.dumps(readings)}")
+    del counted, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def phase_trunks(tmp: str):
+    """Phase trunks: (a) each trunk of TRUNK_CLIPS at full width (bf16,
+    frozen, B=2: shape and finite values; readings at B=8) and the TOY
+    topologies card against CPU in f32; (b) the tokenizer conv and the
+    bottleneck kernels at slowfast's shapes against their plain versions
+    (B=8 and 2; device time and bound) and the block switch on a slowfast
+    trunk (``slowfast_block_switch``); (c) the real-frame ``--test`` run
+    (``trunk_driver``); (d) the --patches head at flagship widths through
+    phase 9c's ``check_head_variant``.  Returns the readings."""
+    t0 = time.perf_counter()
+    readings = {"trunks": {}}
+    for i, (name, frames, side) in enumerate(TRUNK_CLIPS):
+        readings["trunks"][name] = trunk_full_width(name, frames, side, i)
+    toy_err = max(trunk_toy_card_vs_cpu(name, cls, toy, frames)
+                  for name, cls, toy, frames in TRUNK_TOYS)
+    t1 = time.perf_counter()
+    tok_rows, block_rows = {}, {}
+    for bsz in (TRUNK_READING_BATCH, 2):
+        for site, t_len, ci in SLOWFAST_TOK_SITES:
+            tok_rows[(site, bsz)] = tok_row(site, bsz, t_len, SLOWFAST_HW,
+                                            ci)
+        for site, hw, ci, cm, co, proj, _ in SLOWFAST_BLOCK_SITES:
+            block_rows[(site, bsz)] = block_row(site, bsz, 4 * bsz, hw, ci,
+                                                cm, co, proj)
+    err = max(r["max_abs_err"] for r in (*tok_rows.values(),
+                                         *block_rows.values()))
+    launched, switch_err = slowfast_block_switch()
+    for what, rows, sites, n in (
+            ("fused_tok_conv", tok_rows, SLOWFAST_TOK_SITES, None),
+            ("fused_bottleneck", block_rows, SLOWFAST_BLOCK_SITES, -1)):
+        log(f"{what} per slowfast forward ({card_name_and_power_limit()}): "
+            + ", ".join(
+                f"{k} " + weighted_text(
+                    [(1 if n is None else s[n], rows[(s[0], b)])
+                     for s in sites], k) + f" at b{b}"
+                for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                          "yardstick_ms", "bound_ms")
+                for b in (TRUNK_READING_BATCH, 2)))
+    kernels_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    readings["driver"] = trunk_driver(tmp)
+    driver_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    base = entry.flagship_cfg()
+    name, enc, *want = PATCHES_VARIANT
+    pcfg = base.replace(encoder=dataclasses.replace(base.encoder, **enc))
+    check_head_variant(name, pcfg, variant_batch(pcfg, TASK_BATCH, 29),
+                       *want)
+    readings["seconds"] = {"trunks": t1 - t0 - kernels_s - driver_s,
+                           "kernels": kernels_s, "driver": driver_s,
+                           "patches": time.perf_counter() - t1}
+    log(f"phase trunks (no limit on the readings; "
+        f"{card_name_and_power_limit()}): {json.dumps(readings)}; TOY card "
+        f"vs CPU max {toy_err:.3e}; kernels at slowfast's shapes max |err| "
+        f"{err}, block switch {launched} launches, features {switch_err}")
+    return readings
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
@@ -5690,7 +6141,7 @@ def main(argv=None) -> int:
                                            "weights", "steps_per_loop",
                                            "matcher", "star", "tasks",
                                            "per_choice", "quant", "ddp",
-                                           "caps"),
+                                           "caps", "trunks"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -5793,6 +6244,11 @@ def main(argv=None) -> int:
         phase_ablation_attention(CAPS_ATTN_SITES, "capsule")
         log("capsule encoder ok")
         return 0
+    if args.only == "trunks":
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_trunks(tmp)
+        log("trunks ok")
+        return 0
     if args.only == "ddp":
         with tempfile.TemporaryDirectory() as tmp:
             phase_driver_steps_per_loop(tmp, write_weight_files(tmp))
@@ -5878,6 +6334,9 @@ def main(argv=None) -> int:
         clear_outputs(tmp, files["trunk"])
         phase_caps(tmp, files)
         lap("caps")
+        clear_outputs(tmp, files["trunk"])
+        phase_trunks(tmp)
+        lap("trunks")
         weight_bytes = files["bytes"]
         del files
     def phase_10():

@@ -85,6 +85,7 @@ from shgvqa_tpu_torch.configs.config import (
     MeshConfig,
     check_ported,
 )
+from shgvqa_tpu_torch.data import native_loader
 from shgvqa_tpu_torch.data.agqa import (
     AGQAData,
     AGQAItemSource,
@@ -156,6 +157,26 @@ def build_data(cfg: Config, extras: dict, split: str):
     return data_cls.from_files(cfg, split)
 
 
+def make_frame_loader(cfg: Config, frame_ids: dict, extras: dict):
+    """Real-frame loader, as the JAX driver picks it: ``--frameLoader
+    auto`` (the default) takes the native C++ decoder when it builds and
+    PIL otherwise, with a notice; ``native`` raises when it does not build;
+    ``pil`` forces PIL.  ``--numWorkers`` sizes the decoder's threads."""
+    kind = extras.get("frame_loader") or "auto"
+    if kind in ("auto", "native"):
+        if native_loader.get_lib() is not None:
+            return native_loader.NativeFrameLoader(
+                cfg.data.frame_dir, frame_ids, cfg.data.clip_len,
+                cfg.data.image_size, threads=cfg.data.num_workers)
+        if kind == "native":
+            raise RuntimeError(
+                "--frameLoader native requested but the C++ decoder did "
+                "not build (g++/libpng missing?)")
+        print("native frame decoder unavailable; using PIL", flush=True)
+    return FrameLoader(cfg.data.frame_dir, frame_ids, cfg.data.clip_len,
+                       cfg.data.image_size)
+
+
 def build_item_source(cfg: Config, extras: dict, data, tokenizer,
                       test_mode: bool = False):
     star = cfg.data.dataset == "star"
@@ -166,15 +187,10 @@ def build_item_source(cfg: Config, extras: dict, data, tokenizer,
         if star:
             base = loader
             loader = lambda vid, fids=None: base(vid)  # noqa: E731
-    elif extras.get("frame_loader") == "native":
-        raise NotImplementedError(
-            "--frameLoader native (the C++ PNG decoder) is not ported yet "
-            "(ROADMAP queue A item 13); the port decodes with PIL")
     else:
         # STAR passes each question's keyframes (star_data:199-205)
-        loader = FrameLoader(cfg.data.frame_dir, {} if star else
-                             data.frame_ids, cfg.data.clip_len,
-                             cfg.data.image_size)
+        loader = make_frame_loader(cfg, {} if star else data.frame_ids,
+                                   extras)
     if star:
         return STARItemSource(data, tokenizer, cfg, loader, test_mode)
     return AGQAItemSource(data, tokenizer, cfg, loader, test_mode)

@@ -8,6 +8,12 @@ parsers equal).  Accepting a flag is not implementing it: the models,
 the trainer and the driver call ``configs.config.check_ported``, which
 raises ``NotImplementedError`` naming the ROADMAP item of any option the
 port does not run yet.
+
+One departure: ``visual_t`` counts the trunk's own time steps
+(``configs.config.trunk_steps``: mvit_B and video_swin_impl halve time),
+where the JAX parser assumes every trunk keeps them; with the conv
+tokenizer (``--noCaps``) a trunk that leaves 8 steps or fewer raises
+``ValueError`` naming the trunk and ``--clipLEN``.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-from shgvqa_tpu_torch.configs.config import Config
+from shgvqa_tpu_torch.configs.config import Config, trunk_steps
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -311,6 +317,14 @@ def parse_reference_flags(argv: Optional[Sequence[str]] = None,
             "VALID over time (two kernel-5 convs, modeling_capsbert.py:"
             "989-996), so it needs clipLEN > 8 (the reference uses 16 -> 8 "
             "temporal tokens)")
+    steps = (ns.clip_len if ns.patches
+             else trunk_steps(ns.backbone, ns.clip_len))
+    if ns.no_caps and steps <= 8:
+        raise ValueError(
+            f"--backbone {ns.backbone} gives {steps} time steps from "
+            f"--clipLEN {ns.clip_len}; the conv tokenizer's two kernel-5 "
+            "convs need more than 8 (pass --clipLEN 32 for a trunk that "
+            "halves time)")
     enc = cfg.encoder.__class__(
         no_caps=ns.no_caps,
         num_prim_caps=ns.NUM_PRIM_CAPS,
@@ -337,8 +351,11 @@ def parse_reference_flags(argv: Optional[Sequence[str]] = None,
         # is VALID in time (two kernel-5 convs, models/visual.py), so
         # visual_t = clip_len - 8 — the reference hardcodes t=8 for its
         # fixed clip of 16 (modeling_capsbert.py:188-189); deriving it keeps
-        # masks and tokens consistent at any --clipLEN
-        visual_t=(ns.clip_len - 8 if ns.no_caps else ns.clip_len),
+        # masks and tokens consistent at any --clipLEN.  The port counts the
+        # trunk's own steps: mvit_B and video_swin_impl halve time, where
+        # the JAX CLI assumes every trunk keeps it (and JAX's tokenizer then
+        # answers from the cls token alone, ROADMAP C)
+        visual_t=(steps - 8 if ns.no_caps else steps),
     )
     dec = cfg.decoder.__class__(
         num_layers=ns.dlayers,

@@ -59,9 +59,9 @@ class EncoderConfig:
 
     @property
     def frames_t(self) -> int:
-        """Frames of the trunk's input (and features): the conv tokenizer's
-        two kernel-5 convs take 8 off, the capsule and patch tokenizers
-        keep ``visual_t``."""
+        """Time steps of the trunk's features (its input frames, for a
+        trunk that keeps time): the conv tokenizer's two kernel-5 convs take
+        8 off, the capsule and patch tokenizers keep ``visual_t``."""
         return self.visual_t + 8 if self.no_caps and not self.patches \
             else self.visual_t
 
@@ -299,9 +299,21 @@ _TRAIN_UNPORTED = (
     ("remat", False, "19 (remat policies)"),
 )
 
-_VIDEO_UNPORTED = (
-    ("backbone", "slow_r50", "17 (other backbones)"),
-)
+# every option of the frames path is ported (the trunks since queue A
+# item 17's trunk half)
+_VIDEO_UNPORTED = ()
+
+
+def trunk_steps(backbone: str, frames: int) -> int:
+    """Time steps of the trunk ``backbone``'s features on ``frames`` frames
+    (``models/backbone.Trunk.temporal_out``): mvit_B's patch embed (kernel
+    3, stride 2, pad 1) and video_swin_impl's (kernel 2, stride 2) halve
+    time; the 3-D ResNets keep it."""
+    if backbone == "mvit_B":
+        return (frames + 1) // 2
+    if backbone == "video_swin_impl":
+        return frames // 2
+    return frames
 
 
 def check_ported(cfg: Config, video: bool = False, train: bool = False

@@ -7,11 +7,16 @@ its modules after the flax modules, so the map is a rename plus a transpose:
 
 - ``Dense_0`` levels (the JAX ``Dense`` wrapper) are dropped;
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
-- Conv ``kernel`` (kT, kH, kW, I, O) -> ``weight`` (O, I, kT, kH, kW);
+- Conv ``kernel`` (kT, kH, kW, I, O) -> ``weight`` (O, I, kT, kH, kW); a
+  2-D Conv ``kernel`` (kH, kW, I / groups, O) (ResNeXt) -> (O, I / groups,
+  kH, kW); MViT's ``DenseGeneral`` ``qkv`` ``kernel`` (D, 3, heads, hd) ->
+  ``weight`` (3, heads, hd, D), its bias (3, heads, hd) as it is;
 - LayerNorm / BatchNorm ``scale`` -> ``weight``; ``embedding`` -> ``weight``;
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
 - other leaves (CLS tokens, positions, type tokens, EM routing's ``w``,
-  ``beta_u`` and ``beta_a``) keep their names;
+  ``beta_u`` and ``beta_a``, MViT's positional embeddings and pooling
+  kernels ``pool_q|k|v`` (kT, kH, kW, 1, hd), Swin's
+  ``relative_position_bias_table``) keep their names and layout;
 - the int8 trunk's ``quant_stats`` (``backbone/s_stem``,
   ``backbone/res_i/block_j/s_a|s_b|s_out``) keep their names and paths.
 
@@ -30,10 +35,13 @@ JAX names.  Which JAX leaf a ``weight`` or ``bias`` came from follows from
 the module's name and the rank of its ``weight``: rank 5 a Conv ``kernel``;
 rank 2 an ``embedding`` under a ``*_embeddings`` table, a plain flax
 ``nn.Dense`` ``kernel`` under ``in_proj`` (the decoder's packed projection),
-``linear_encoding`` (the patch tokenizer) and directly under an ``r_{i}``
-(a ViT block's ``qkv``, ``proj``, ``fc1``, ``fc2``), and otherwise a
-``Dense_0/kernel`` of the JAX ``Dense`` wrapper (its bias in ``Dense_0``
-too); rank 1 a LayerNorm or BatchNorm ``scale``.
+``linear_encoding`` (the patch tokenizer), directly under an ``r_{i}``
+(a ViT block's ``qkv``, ``proj``, ``fc1``, ``fc2``) and anywhere in an
+MViT or Swin block (``block_{i}``, ``layer_{i}_block_{j}``) or a Swin
+``downsample_{i}_reduction``, and otherwise a ``Dense_0/kernel`` of the
+JAX ``Dense`` wrapper (its bias in ``Dense_0`` too); rank 4 MViT's
+``qkv`` kernel or a 2-D Conv ``kernel``; rank 1 a LayerNorm or BatchNorm
+``scale``.
 """
 
 from __future__ import annotations
@@ -48,17 +56,24 @@ from torch import nn
 _RENAMED = {"scale": "weight", "embedding": "weight"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _KEPT = {"bias", "cls_token", "pos_embedding", "act_token", "rel_token",
-         "w", "beta_u", "beta_a"}
+         "w", "beta_u", "beta_a", "pos_embed_spatial", "pos_embed_temporal",
+         "pos_embed_class", "pool_q", "pool_k", "pool_v",
+         "relative_position_bias_table"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
 # flax nn.Dense called directly (no JAX ``Dense`` wrapper, so no Dense_0):
 # by name, or any dense layer right under an r-layer (a ViT block's)
 _PLAIN_DENSE = {"in_proj", "linear_encoding"}
 _VIT_BLOCK = re.compile(r"r_\d+")
+# the MViT and Swin trunks' blocks and Swin's patch-merging reduction
+_TRUNK_BLOCK = re.compile(r"(layer_\d+_)?block_\d+|downsample_\d+_reduction")
+# MViT's fused qkv (flax ``DenseGeneral``), the one rank-4 kernel not a conv
+_DENSE_GENERAL = "qkv"
 
 
 def _plain_dense(mods) -> bool:
-    return mods[-1] in _PLAIN_DENSE or (
-        len(mods) > 1 and _VIT_BLOCK.fullmatch(mods[-2]) is not None)
+    return (mods[-1] in _PLAIN_DENSE
+            or (len(mods) > 1 and _VIT_BLOCK.fullmatch(mods[-2]) is not None)
+            or any(_TRUNK_BLOCK.fullmatch(m) for m in mods))
 # the int8 trunk's activation scales (the JAX ``quant_stats`` leaves)
 QUANT_STATS = ("s_stem", "s_a", "s_b", "s_out")
 _COLLECTIONS = ("params", "batch_stats", "quant_stats")
@@ -93,6 +108,10 @@ def _convert_leaf(collection: str, path, value: np.ndarray):
             value = value.T
         elif value.ndim == 5:
             value = value.transpose(4, 3, 0, 1, 2)
+        elif value.ndim == 4 and mods[-1] == _DENSE_GENERAL:
+            value = value.transpose(1, 2, 3, 0)
+        elif value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
         else:
             raise KeyError(f"kernel of rank {value.ndim} at {'/'.join(path)}")
         return mods + ["weight"], value
@@ -161,6 +180,10 @@ def _jax_leaf(module: str, leaf: str, weight_rank: Optional[int]):
         return mods + ["bias"], "params", None
     if weight_rank == 5:
         return mods + ["kernel"], "params", (2, 3, 4, 1, 0)
+    if weight_rank == 4 and mods[-1] == _DENSE_GENERAL:
+        return mods + ["kernel"], "params", (3, 0, 1, 2)
+    if weight_rank == 4:
+        return mods + ["kernel"], "params", (2, 3, 1, 0)
     if weight_rank == 1:
         return mods + ["scale"], "params", None
     raise KeyError(f"weight of rank {weight_rank} at {module}")

@@ -6,10 +6,18 @@ dataset consume.  Answers follow a fixed (question template, object) rule
 and frame labels a fixed (video, frame) rule, shared by every split and
 seed, so a synthetic run can learn them and its valid scores rise above
 chance.
+
+``write_agqa_files`` puts such a dataset on disk in the reference's layout
+(annotation JSON files and one PNG per frame), so the drivers' real-file
+path and the frame decoders run on it.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import struct
+import zlib
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -193,3 +201,54 @@ def make_frames(n_frames: int, size: int = 32, seed: int = 0) -> np.ndarray:
     """Fake decoded frames (T, H, W, 3) uint8."""
     rng = np.random.RandomState(seed)
     return rng.randint(0, 256, size=(n_frames, size, size, 3), dtype=np.uint8)
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of a (H, W, 3) uint8 array (no filter, zlib level
+    1): needs no image library."""
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + row.tobytes()
+                   for row in np.ascontiguousarray(rgb, np.uint8))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_agqa_files(data_dir: str, frame_dir: str, split: str = "test",
+                     n: int = 16, num_rel_classes: int = 11,
+                     num_act_classes: int = 7, max_rel: int = 3,
+                     max_act: int = 2, frame_hw: Tuple[int, int] = (360, 480),
+                     frames_per_video: int = 8, seed: int = 0) -> None:
+    """``make_agqa_data`` written as the AGQA files of ``split`` under
+    ``data_dir`` (``{split}_balanced.json``, ``trainVal_vocab.json``,
+    ``frameTriplets.json``, ``frameActions.json``,
+    ``trimmed_frame_ids.json``) and each frame as a random 8 x 8-block
+    ``frame_hw`` PNG at ``{frame_dir}/{video_id}.mp4/{frame_id}.png``."""
+    datums, vocab, trip, acts, fids = make_agqa_data(
+        n=n, frames_per_video=frames_per_video,
+        num_rel_classes=num_rel_classes, num_act_classes=num_act_classes,
+        max_rel=max_rel, max_act=max_act, seed=seed)
+    os.makedirs(data_dir, exist_ok=True)
+    for name, obj in ((f"{split}_balanced.json", datums),
+                      ("trainVal_vocab.json", vocab),
+                      ("frameTriplets.json", trip),
+                      ("frameActions.json", acts),
+                      ("trimmed_frame_ids.json", fids)):
+        with open(os.path.join(data_dir, name), "w") as f:
+            json.dump(obj, f)
+    rng = np.random.RandomState(seed)
+    h, w = frame_hw
+    for vid, ids in fids.items():
+        os.makedirs(os.path.join(frame_dir, f"{vid}.mp4"), exist_ok=True)
+        for fid in ids:
+            # random 8 x 8 blocks: flat areas and sharp edges both
+            coarse = rng.randint(0, 256, (h // 8 + 1, w // 8 + 1, 3))
+            img = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:h, :w]
+            with open(os.path.join(frame_dir, f"{vid}.mp4", f"{fid}.png"),
+                      "wb") as f:
+                f.write(encode_png(img.astype(np.uint8)))

@@ -33,7 +33,7 @@ import torch
 
 from shgvqa_tpu_torch.configs.config import Config
 from shgvqa_tpu_torch.models.backbone import calibrate_frozen_bn
-from shgvqa_tpu_torch.models.layers import init_weights
+from shgvqa_tpu_torch.models.layers import Conv2d, init_weights
 from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel, VideoShgVqaModel
 from shgvqa_tpu_torch.train.optimizer import BertAdam, make_optimizer
 from shgvqa_tpu_torch.train.step import trainable_mask
@@ -130,12 +130,17 @@ def build_model(cfg: Config, device="cuda", seed: int = 0) -> torch.nn.Module:
 
 def channels_last_convs(model: torch.nn.Module) -> torch.nn.Module:
     """Every 5-D parameter and buffer of ``model`` in channels-last 3-D
-    layout (the trunk's and the tokenizer's convs run on it), in place."""
+    layout (the trunk's and the tokenizer's convs run on it) and every 2-D
+    conv's weight (ResNeXt's per-frame trunk) channels-last, in place."""
     with torch.no_grad():
         for t in itertools.chain(model.parameters(), model.buffers()):
             if t.dim() == 5:
                 t.data = t.data.contiguous(
                     memory_format=torch.channels_last_3d)
+        for m in model.modules():
+            if isinstance(m, Conv2d):
+                m.weight.data = m.weight.data.contiguous(
+                    memory_format=torch.channels_last)
     return model
 
 

@@ -11,6 +11,13 @@ The hash is of the source, every ``csrc/*.cuh`` header and the flags, so
 an edited kernel or header is rebuilt.  ``build`` starts one ``nvcc`` per
 source, all at once.  There is no fallback: a missing ``nvcc`` or a failed
 build raises with the compiler's output.
+
+Host code has the same scheme with ``g++``: ``build_host`` compiles
+``csrc/<name>.cpp`` (the frame decoder, ``csrc/frameloader.cpp``) into
+``_build/lib<name>-<hash>.so``, the hash of the source and the flags::
+
+    g++ -O3 -shared -fPIC -std=c++17 <name>.cpp -o lib<name>-<hash>.so \
+        -lpng -ljpeg -lz -pthread
 """
 
 from __future__ import annotations
@@ -29,6 +36,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_LIBS = ("-lpng", "-ljpeg", "-lz", "-pthread")
 
 
 def find_nvcc() -> str:
@@ -99,6 +110,39 @@ def build(*names: str) -> Tuple[Dict[str, Path], Dict[str, str]]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return libs, logs
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``build_host`` puts ``csrc/<name>.cpp``'s library."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cpp").read_bytes())
+    digest.update(" ".join(GXX_FLAGS + GXX_LIBS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` unless it is built; returns
+    the library's path.  Raises RuntimeError when ``g++`` is missing or the
+    build fails (with the compiler's output)."""
+    lib = host_library_path(name)
+    if lib.exists():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [gxx, *GXX_FLAGS, str(CSRC_DIR / f"{name}.cpp"), "-o", str(tmp),
+           *GXX_LIBS]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on csrc/{name}.cpp "
+                               f"(rc {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, lib)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

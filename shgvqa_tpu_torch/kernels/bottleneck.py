@@ -106,6 +106,12 @@ def _check(x, wa, wb, wc, proj, vectors):
                            "under torch.no_grad() or inference_mode")
 
 
+def takes(ci: int, cm: int, co: int) -> bool:
+    """Whether the kernel takes a block of these widths: Cm 64 or 128, Ci a
+    multiple of 64, Co of 128."""
+    return cm in (64, 128) and ci % 64 == 0 and co % 128 == 0
+
+
 def fused_bottleneck(x, wa, sa, ba, wb, sb, bb, wc, sc, bc, proj=None):
     """x (N, H, W, Ci) channels-last frames; weights and BN vectors as in
     the module docstring, cast to x's dtype here.  Returns (N, H, W, Co) in
@@ -126,7 +132,7 @@ def fused_bottleneck(x, wa, sa, ba, wb, sb, bb, wc, sc, bc, proj=None):
         raise NotImplementedError(f"fused_bottleneck's kernel takes bfloat16 "
                                   f"frames, got {dt}")
     ci = x.shape[-1]
-    if cm not in (64, 128) or ci % 64 or co % 128:
+    if not takes(ci, cm, co):
         raise ValueError(f"fused_bottleneck: Cm={cm} must be 64 or 128, "
                          f"Ci={ci} a multiple of 64, Co={co} of 128")
     if x.device.type != "cuda":

@@ -1,6 +1,15 @@
-"""slow_r50 video trunk: the port of ``SlowR50`` in
-``shgvqa_tpu/models/backbone.py``: the bf16/f32 path and the int8 frozen
-trunk (``--quantBackbone int8``); the other backbones are not ported yet.
+"""Video trunks: the port of ``shgvqa_tpu/models/backbone.py``: ``SlowR50``
+(the bf16/f32 path and the int8 frozen trunk, ``--quantBackbone int8``),
+the trunk interface every trunk has, and the registry ``make_backbone``
+over every trunk of the JAX ``BACKBONES`` (``models/backbones_extra.py``:
+resnext101, slowfast_r50/r101; ``models/mvit.py``: mvit_B;
+``models/video_swin.py``: video_swin_impl).
+
+The trunk interface (``Trunk``): ``out_channels`` (the tokenizer's input
+width), ``spatial_out(image_size)`` (the feature map's side),
+``temporal_out(frames)`` (the feature map's steps: mvit_B and
+video_swin_impl halve time), and the int8 flags ``quant`` and
+``calibrated`` (only slow_r50 has an int8 path).
 
 Slow-pathway 3D ResNet-50 with its head removed: stem conv (1,7,7)/s(1,2,2)
 -> frozen BN -> ReLU -> max-pool (1,3,3)/s(1,2,2); four bottleneck stages,
@@ -20,14 +29,18 @@ parameters that train with the convs, ``running_mean`` and
 ``running_var`` are buffers that nothing but ``calibrate_frozen_bn``
 writes.
 
-A block of stride 1 and temporal kernel 1 (res_2 blocks 0-2 and res_3
-blocks 1-3: 6 of the 16) runs as one call of ``kernels.bottleneck``'s
-``fused_bottleneck`` on its frames when its ``use_kernel`` is set
-(``set_block_kernel``; off by default, as the JAX package has no such
-path) and no gradient is required: autograd off, or neither the block's
-input nor its parameters require one.  The kernel is forward only (the JAX
-``_make_block`` has no backward), so a block in a trained trunk runs on
-the convs; so do the other 10 blocks always.
+A block of stride 1 and temporal kernel 1 whose widths the kernel takes
+(``kernels.bottleneck.takes``: Cm 64 or 128, Ci a multiple of 64, Co of
+128; slow_r50's res_2 blocks 0-2 and res_3 blocks 1-3, 6 of the 16;
+slowfast's slow res_2 blocks 1-2 and res_3 blocks 1-3, 5, as its res_2
+block 0 takes 64 + 16 fused channels) runs as one call of
+``kernels.bottleneck``'s ``fused_bottleneck`` on its frames when its
+``use_kernel`` is set (``set_block_kernel``; off by default, as the JAX
+package has no such path) and no gradient is required: autograd off, or
+neither the block's input nor its parameters require one.  On the CPU the
+plain version takes any widths, so there the widths do not decide.  The
+kernel is forward only (the JAX ``_make_block`` has no backward), so a
+block in a trained trunk runs on the convs; so do the other blocks always.
 
 The int8 trunk (``SlowR50(quant=True)``, the JAX ``quant`` path): the stem
 stays in the compute dtype and is quantized after its ReLU with the static
@@ -58,7 +71,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shgvqa_tpu_torch.convert import QUANT_STATS, is_quant_scale
-from shgvqa_tpu_torch.kernels.bottleneck import fused_bottleneck
+from shgvqa_tpu_torch.kernels.bottleneck import fused_bottleneck, takes
 from shgvqa_tpu_torch.kernels.qconv import (
     EPS,
     _div,
@@ -96,7 +109,7 @@ class FrozenBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv, shift = self.fold()
-        shape = (1, -1, 1, 1, 1)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
         return (x * inv.to(self.dtype).view(shape)
                 + shift.to(self.dtype).view(shape))
 
@@ -128,6 +141,9 @@ class Bottleneck3D(nn.Module):
         self.conv_c = _conv(mid, out, (1, 1, 1), (1, 1, 1), dtype)
         self.bn_c = FrozenBatchNorm(out, dtype=dtype)
         self.has_proj = cin != out or ss != 1
+        # the kernel's own limits on the block's widths (on the card)
+        self.fits_kernel = (temporal_kernel == 1 and ss == 1
+                            and takes(cin, mid, out))
         if self.has_proj:
             self.conv_proj = _conv(cin, out, (1, 1, 1), (1, ss, ss), dtype)
             self.bn_proj = FrozenBatchNorm(out, dtype=dtype)
@@ -140,6 +156,7 @@ class Bottleneck3D(nn.Module):
         int8 scales on the way."""
         if (self.use_kernel and not self.observing
                 and self.temporal_kernel == 1 and self.spatial_stride == 1
+                and (self.fits_kernel or x.device.type == "cpu")
                 and not self._needs_grad(x)):
             return self._fused(x)
         h = torch.relu(self.bn_a(self.conv_a(x)))
@@ -214,7 +231,7 @@ class Bottleneck3D(nn.Module):
 
 def set_block_kernel(model: nn.Module, on: bool) -> None:
     """Route every bottleneck block of ``model``'s trunk that the fused
-    kernel covers (stride 1, temporal kernel 1) through
+    kernel covers (stride 1, temporal kernel 1, widths it takes) through
     ``fused_bottleneck`` (on) or the convs (off)."""
     for m in model.modules():
         if isinstance(m, Bottleneck3D):
@@ -243,7 +260,34 @@ class ResStage(nn.Module):
         return x_q, s
 
 
-class SlowR50(nn.Module):
+def halve(size: int, times: int) -> int:
+    """``size`` halved ``times`` times, rounding up (a stride-2 conv or
+    pool with padding k // 2)."""
+    for _ in range(times):
+        size = (size + 1) // 2
+    return size
+
+
+class Trunk(nn.Module):
+    """What the model reads of a trunk (module docstring).  The defaults
+    are the 3-D ResNets': five halvings of the side (the stem conv, the
+    max-pool and three stride-2 stages) and every frame kept.  Only
+    slow_r50 has an int8 path."""
+
+    quant = False
+    calibrated = False
+    out_channels: int
+
+    @staticmethod
+    def spatial_out(size: int) -> int:
+        return halve(size, 5)
+
+    @staticmethod
+    def temporal_out(frames: int) -> int:
+        return frames
+
+
+class SlowR50(Trunk):
     """Slow-pathway 3D ResNet-50 feature extractor (head removed).  The width
     overrides run the same topology at toy size in tests; ``quant`` selects
     the int8 frozen trunk (module docstring)."""
@@ -272,14 +316,6 @@ class SlowR50(nn.Module):
         self.observing = False
         if quant:
             self.register_buffer("s_stem", torch.zeros(()))
-
-    @staticmethod
-    def spatial_out(size: int) -> int:
-        """Feature-map side for frames of side ``size``: the stem conv, the
-        max-pool and three stride-2 stages each halve it, rounding up."""
-        for _ in range(5):
-            size = (size + 1) // 2
-        return size
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, T, H, W, 3) normalized frames -> (B, T, H/32, W/32, C)."""
@@ -330,9 +366,10 @@ class SlowR50(nn.Module):
 
 
 @contextlib.contextmanager
-def plain_trunk(trunk: SlowR50, observe: bool = False):
-    """Run ``trunk``'s plain path even when it is int8; with ``observe``
-    its int8 scales are recorded on the way."""
+def plain_trunk(trunk: Trunk, observe: bool = False):
+    """Run ``trunk``'s plain path: the int8 trunk's float path, and every
+    bottleneck block on its convs; with ``observe`` the int8 scales are
+    recorded on the way."""
     observers = [m for m in trunk.modules()
                  if isinstance(m, (SlowR50, Bottleneck3D))]
     trunk.plain = True
@@ -347,14 +384,15 @@ def plain_trunk(trunk: SlowR50, observe: bool = False):
 
 
 @torch.no_grad()
-def calibrate_frozen_bn(trunk: SlowR50, x: torch.Tensor) -> None:
+def calibrate_frozen_bn(trunk: Trunk, x: torch.Tensor) -> None:
     """Set the statistics of every ``FrozenBatchNorm`` of ``trunk`` to the
     per-channel mean and variance of its input on ``x`` (normalized frames),
     layer after layer in one forward of the plain path, so that each
     normalizes its activations as a pretrained trunk's do.  With random
     weights the init's identity statistics (0, 1) let the activations grow
-    about 1e4-fold through the 16 blocks, and every softmax downstream
-    saturates."""
+    about 1e4-fold through slow_r50's 16 blocks, and every softmax
+    downstream saturates.  A trunk without BatchNorm (mvit_B,
+    video_swin_impl) is left as it is."""
 
     def set_stats(bn, args):
         h = args[0].float()
@@ -364,6 +402,8 @@ def calibrate_frozen_bn(trunk: SlowR50, x: torch.Tensor) -> None:
 
     handles = [m.register_forward_pre_hook(set_stats)
                for m in trunk.modules() if isinstance(m, FrozenBatchNorm)]
+    if not handles:
+        return
     try:
         with plain_trunk(trunk):
             trunk(x)
@@ -386,17 +426,69 @@ def calibrate_quant(trunk: SlowR50, x: torch.Tensor) -> None:
     trunk.calibrated = True
 
 
+def _slowfast(depths):
+    def make(dtype):
+        from shgvqa_tpu_torch.models.backbones_extra import SlowFastR50
+
+        return SlowFastR50(dtype, depths=depths)
+    return make
+
+
+def _resnext(dtype):
+    from shgvqa_tpu_torch.models.backbones_extra import ResNeXt101
+
+    return ResNeXt101(dtype)
+
+
+def _mvit(dtype, frames: int = 32, image_size: int = 224):
+    from shgvqa_tpu_torch.models.mvit import MViTB
+
+    return MViTB(dtype, frames=frames, image_size=image_size)
+
+
+def _video_swin(dtype):
+    from shgvqa_tpu_torch.models.video_swin import VideoSwin
+
+    return VideoSwin(dtype)
+
+
+BACKBONES = {
+    "slow_r50": lambda dtype, quant=False: SlowR50(dtype=dtype, quant=quant),
+    "resnext101": _resnext,
+    "slowfast_r50": _slowfast((3, 4, 6, 3)),
+    "slowfast_r101": _slowfast((3, 4, 23, 3)),
+    "mvit_B": _mvit,
+    # the reference's 'video_swin' raises; the implemented Swin-B trunk
+    # registers under an _impl suffix, as in the JAX package
+    "video_swin_impl": _video_swin,
+}
+
+# trunks whose parameters depend on the clip's geometry (MViT's positional
+# embeddings): the model passes them ``frames`` and ``image_size``
+GEOMETRY_TRUNKS = ("mvit_B",)
+
+
 def make_backbone(name: str, dtype: torch.dtype = torch.float32,
-                  quant: str = "") -> SlowR50:
-    """Backbone registry; only slow_r50 (every published recipe) is ported.
+                  quant: str = "", **geometry) -> Trunk:
+    """Backbone registry (the JAX ``make_backbone``): slow_r50 (every
+    published recipe), resnext101 (per-frame 2-D), slowfast_r50/r101
+    (two-pathway), mvit_B (multiscale ViT; ``frames`` and ``image_size``
+    size its positional embeddings), video_swin_impl (Video Swin-B).
+    'video_swin' raises NotImplementedError as the reference does.
     ``quant='int8'`` selects the int8 frozen trunk (slow_r50 only, as in
     the JAX package)."""
-    if quant and quant != "int8":
-        raise ValueError(f"unknown quant mode '{quant}' (use 'int8')")
-    if name != "slow_r50":
+    if name not in BACKBONES:
         raise NotImplementedError(
-            f"backbone '{name}' is not ported yet (ROADMAP queue A item 17); "
-            "the port has slow_r50"
-            + (", and --quantBackbone int8 is implemented for slow_r50 only"
-               if quant else ""))
-    return SlowR50(dtype=dtype, quant=bool(quant))
+            f"backbone '{name}' not implemented; available: "
+            f"{sorted(BACKBONES)}"
+            + (" ('video_swin_impl' provides the implemented Swin trunk)"
+               if name == "video_swin" else ""))
+    if quant:
+        if quant != "int8":
+            raise ValueError(f"unknown quant mode '{quant}' (use 'int8')")
+        if name != "slow_r50":
+            raise NotImplementedError(
+                "--quantBackbone int8 is implemented for slow_r50 (the "
+                f"flagship trunk); got backbone '{name}'")
+        return BACKBONES[name](dtype, quant=True)
+    return BACKBONES[name](dtype, **geometry)

@@ -241,13 +241,15 @@ def attention_core(q, k, v, mask, dtype, drop: Dropout, kernel_train: bool,
 class Dense(nn.Module):
     """y = x W^T + b in the compute dtype; weight (out, in) f32.
 
-    ``init`` is 'normal' (normal(0.02), the BERT init) or 'xavier'."""
+    ``init`` is 'normal' (normal(0.02), the BERT init) or 'xavier';
+    ``bias=False`` drops b (Swin's patch-merging reduction)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32, init: str = "normal"):
+                 dtype: torch.dtype = torch.float32, init: str = "normal",
+                 bias: bool = True):
         super().__init__()
         self.weight = empty_param(out_features, in_features)
-        self.bias = empty_param(out_features)
+        self.bias = empty_param(out_features) if bias else None
         self.dtype = dtype
         self.init = init
 
@@ -258,11 +260,13 @@ class Dense(nn.Module):
             self.weight.uniform_(-a, a, generator=g)
         else:
             self.weight.normal_(0.0, BERT_STD, generator=g)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
 class LayerNorm(nn.Module):
@@ -345,6 +349,26 @@ class Conv3d(nn.Module):
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv3d(x.to(dt), self.weight.to(dt), b, self.stride,
                         self.padding)
+
+
+class Conv2d(Conv3d):
+    """NCHW 2-D convolution in the compute dtype (ResNeXt's per-frame
+    trunk); weight (O, I / groups, kH, kW)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int],
+                 stride: Sequence[int] = (1, 1),
+                 padding: Sequence[int] = (0, 0), bias: bool = True,
+                 dtype: torch.dtype = torch.float32, init: str = "normal",
+                 groups: int = 1):
+        super().__init__(in_ch // groups, out_ch, kernel, stride, padding,
+                         bias, dtype, init)
+        self.groups = groups
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
+                        self.padding, groups=self.groups)
 
 
 class Attention(nn.Module):

@@ -90,7 +90,11 @@ from shgvqa_tpu_torch.data.transforms import (
     augment_draws,
     normalize_clip,
 )
-from shgvqa_tpu_torch.models.backbone import calibrate_quant, make_backbone
+from shgvqa_tpu_torch.models.backbone import (
+    GEOMETRY_TRUNKS,
+    calibrate_quant,
+    make_backbone,
+)
 from shgvqa_tpu_torch.models.decoder import HGDecoder
 from shgvqa_tpu_torch.models.encoder import LanguageEncoder, LXRTModel
 from shgvqa_tpu_torch.models.hg import HGEmbeddings, HGQCrossEncoder
@@ -269,16 +273,19 @@ class ShgVqaModel(nn.Module):
 class VideoShgVqaModel(nn.Module):
     """Frames -> answer: uint8 frames / 255 in the frames dtype, in training
     the augmentation of ``data.augment_type``, then ``normalize_clip`` with
-    the trunk's ``NORM_STATS``, the slow_r50 trunk (frozen or trained, by
-    ``freeze_backbone``), and the ``ShgVqaModel`` head.  Under
+    the trunk's ``NORM_STATS``, the ``cfg.backbone`` trunk (frozen or
+    trained, by ``freeze_backbone``), and the ``ShgVqaModel`` head.  Under
     ``encoder.patches`` no trunk is built (``backbone`` is None): the
     normalized frames are patchified (``models/visual.patchify_clip``).
 
-    Frames are (B, ``encoder.frames_t``, image_size, image_size, 3) on the
-    trunk's paths: the conv tokenizer's two kernel-5 convs take 8 frames
-    off, the capsule tokenizer keeps every frame (the CLI sets
-    ``visual_t`` from ``--clipLEN`` so).  Under ``patches`` any number of
-    frames is subsampled to ``visual_t``."""
+    The trunk's features are (B, ``encoder.frames_t``, visual_hw,
+    visual_hw, C): the conv tokenizer's two kernel-5 convs take 8 steps
+    off, the capsule tokenizer keeps every step (the CLI sets ``visual_t``
+    from ``--clipLEN`` and the trunk so).  A trunk that keeps time takes
+    ``frames_t`` frames, mvit_B and video_swin_impl twice as many; with
+    the conv tokenizer a forward whose features have 8 steps or fewer
+    raises ``ValueError``.  Under ``patches`` any number of frames is
+    subsampled to ``visual_t``."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -295,11 +302,15 @@ class VideoShgVqaModel(nn.Module):
                 raise ValueError(
                     "--quantBackbone requires a frozen trunk: the int8 "
                     "forward has zero gradient through round()")
-            # the plain trunk keeps the registry's two-argument call
-            quant = ({"quant": cfg.quant_backbone} if cfg.quant_backbone
-                     else {})
+            # the registry's two-argument call unless int8 or a trunk
+            # sized by the clip (tests swap in two-argument stand-ins)
+            kw = ({"quant": cfg.quant_backbone} if cfg.quant_backbone
+                  else {})
+            if cfg.backbone in GEOMETRY_TRUNKS:
+                kw.update(frames=cfg.data.clip_len,
+                          image_size=cfg.data.image_size)
             self.backbone = make_backbone(
-                cfg.backbone, torch_dtype(cfg.compute_dtype), **quant)
+                cfg.backbone, torch_dtype(cfg.compute_dtype), **kw)
             # flax infers the tokenizer's input width and token count from
             # the trunk's output; here they follow from the trunk and
             # image_size
@@ -319,6 +330,14 @@ class VideoShgVqaModel(nn.Module):
         in training mode."""
         if "frames" in batch:
             feats = self.encode_frames(batch["frames"], generator)
+            if (self.backbone is not None and self.cfg.encoder.no_caps
+                    and feats.shape[1] <= 8):
+                # JAX's tokenizer would answer from the cls token alone
+                raise ValueError(
+                    f"the {self.cfg.backbone} trunk gives {feats.shape[1]} "
+                    f"time steps from {batch['frames'].shape[1]} frames; the "
+                    "conv tokenizer's two kernel-5 convs need more than 8 "
+                    "(raise --clipLEN)")
             batch = {k: v for k, v in batch.items() if k != "frames"}
             batch["visual_feats"] = feats
         return self.head(batch, generator, output_attentions)

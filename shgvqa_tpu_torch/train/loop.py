@@ -272,7 +272,9 @@ class Trainer:
 
     def load_backbone(self, path: str) -> None:
         """Converted pretrained trunk weights (parameters and BatchNorm
-        statistics) from a ``convert_slow_r50`` msgpack.  Loaded with
+        statistics) from a trunk file (``utils/convert_slow_r50``,
+        ``convert_slowfast``, ``convert_resnext101``, ``convert_mvit``,
+        ``convert_video_swin``, or the JAX tools).  Loaded with
         ``load_state_dict(strict=True)`` on the trunk: a file of another
         topology or width raises here, where the JAX package swaps the
         subtree in and fails only when the model runs."""

@@ -30,12 +30,15 @@ encodes:
   are its two Conv3d layers;
 - leaves are cast to the destination's dtype (the f32 parameters);
 - the trunk travels inside the checkpoint (``vid_encoder.backbone.*``) and
-  goes through ``utils/convert_slow_r50.convert``; its BatchNorm
-  statistics are merged with ``allow_new``.
+  goes through its converter (``utils/convert_slow_r50``,
+  ``convert_slowfast`` with slowfast_r50's or slowfast_r101's depths,
+  ``convert_resnext101``), as the JAX importer does; its BatchNorm
+  statistics are merged with ``allow_new``.  An mvit_B or video_swin_impl
+  trunk in a checkpoint raises ``NotImplementedError``: convert it
+  separately and load it with ``--backboneWeights``.
 
 A leaf of another shape raises ``ValueError``, a destination the model does
-not have ``KeyError``.  The other backbones' converters raise
-``NotImplementedError`` naming ROADMAP queue-A item 17.
+not have ``KeyError``.
 """
 
 from __future__ import annotations
@@ -45,7 +48,11 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
-from shgvqa_tpu_torch.utils import convert_slow_r50
+from shgvqa_tpu_torch.utils import (
+    convert_resnext101,
+    convert_slow_r50,
+    convert_slowfast,
+)
 from shgvqa_tpu_torch.utils.torch_import import (
     _bert_layer,
     _dense,
@@ -194,17 +201,21 @@ def _encoder_prefix(sd: Dict[str, np.ndarray]) -> str:
 def _convert_backbone(sd: Dict[str, np.ndarray], backbone: str
                       ) -> Dict[str, Any]:
     """The checkpoint's trunk (``vid_encoder.backbone.*``) through the
-    standalone converter."""
+    standalone converters."""
     sub = {k[len("vid_encoder.backbone."):]: v for k, v in sd.items()
            if k.startswith("vid_encoder.backbone.")}
     if not sub:
         return {}
-    if backbone != "slow_r50":
-        raise NotImplementedError(
-            f"importing a {backbone!r} trunk is not ported yet (ROADMAP "
-            "queue A item 17: tools/convert_slowfast.py, "
-            "tools/convert_resnext101.py)")
-    return convert_slow_r50.convert(sub)
+    if backbone == "slow_r50":
+        return convert_slow_r50.convert(sub)
+    if backbone.startswith("slowfast"):
+        depth = 101 if backbone.endswith("r101") else 50
+        return convert_slowfast.convert(sub, convert_slowfast.DEPTHS[depth])
+    if backbone == "resnext101":
+        return convert_resnext101.convert(sub)
+    raise NotImplementedError(
+        f"backbone {backbone!r} import not wired; convert separately with "
+        f"shgvqa_tpu_torch.utils.convert_* and load via --backboneWeights")
 
 
 def reference_to_variables(

@@ -48,6 +48,17 @@ def test_encode_frames_from_uint8_through_toy_trunk():
 
 
 def test_make_backbone_ports_only_slow_r50():
+    """Every name of the JAX registry builds (the other trunks since queue
+    A item 17's trunk half); plain 'video_swin' raises as JAX's does, and
+    the int8 trunk is slow_r50's only."""
+    from shgvqa_tpu.models.backbone import BACKBONES
+
     assert isinstance(make_backbone("slow_r50"), SlowR50)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_backbone("resnext101")
+    with torch.device("meta"):
+        for name in BACKBONES:
+            trunk = make_backbone(name)
+            assert trunk.out_channels > 0 and not trunk.quant, name
+    with pytest.raises(NotImplementedError, match="video_swin_impl"):
+        make_backbone("video_swin")
+    with pytest.raises(NotImplementedError, match="slow_r50"):
+        make_backbone("resnext101", quant="int8")
