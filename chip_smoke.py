@@ -14,8 +14,9 @@ it exits non-zero before printing any result.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with its time, the plain version's
    time and the bound.  Every kernel, library and yardstick time is the
-   median [min-max] of 3 turns of 20 calls (CUDA events); a plain version
-   is timed in one turn:
+   median [min-max] of 3 turns of 20 calls (CUDA events; the attention
+   kernels' and SDPA's 10 calls a turn); a plain version is timed in one
+   turn:
    - the FFN forward (the FFN-train forward's chain of
      ``csrc/ffn_train.cu`` at rate 0; and its autograd backward at a small
      shape), beside a composite-of-library-calls yardstick: two calls on
@@ -329,6 +330,28 @@ ddp. data parallelism (``parallel/``), after quant; NCCL refuses two
     ranks' parameters bit-equal after two steps, the loss and gradient
     norm within 5e-2 of one process's, a merged ``predict`` covering the
     16 questions once, hg_logit within 5e-2 of one process's forward;
+pretrain. LXMERT pretraining (after phase trunks; ``--only pretrain``):
+    (a) ``cli.pretrain`` at the flagship's widths (bf16, ``--noCaps``, 5/2/5
+    layers), all five tasks, B=32, 64 synthetic items, 2 epochs, plain and
+    with ``--pallasFFNTrain``: 14 / 14 attention launches a step (and 14 /
+    14 FFN-train), finite losses with JAX's keys, ``Epoch01_LXRT`` and the
+    QA head file bit-equal to the model; readings: each step's ms
+    (events), the peak memory, each batch's host seconds; (b) the
+    snapshot into ``agqa_hgqa`` at the published flags with
+    ``--loadLXMERTQA --remat --stepsPerLoop 2``, B=8, 32 clips: the encoder
+    bit-equal to the snapshot after the load, ``logit_fc.fc2``'s rows and
+    counts ``answer_head_surgery``'s, one capture and one replay, finite
+    losses; (c) a tiny pretraining model in bf16 with the kernels against
+    the CPU's f32 plain path at dropout 0 (loss and gradient within 5e-2);
+remat. ``--remat`` (``--only remat``): a frozen-trunk flagship step at B=8
+    with the sites' dropout and the FFN-train kernels, twice without remat
+    and once under each policy from one generator state: 38 / 34 attention
+    and 18 / 14 FFN-train launches, + 30 attention forwards under '',
+    ``dots``, ``dots_batch`` (none under ``dots_attn``) and + 10 FFN-train
+    forwards under each; the generator's state equal; loss and gradient by
+    phase 7b's rule; the driver with ``--remat --stepsPerLoop 2`` when run
+    alone (else pretrain's (b)); readings: the published B=32 step's peak
+    memory and ms without remat, with '' and ``dots``;
 11. the card line, one ``{"kernels": [...]}`` line (eleven kernels), the
     phases' seconds, and last ``{"ok": true, "device": {...}}``.
 
@@ -353,7 +376,9 @@ phase quant (the weight files written for its driver), ``--only ddp``
 phases 1-2, 7b's driver (the weight files written for it) and ddp,
 ``--only caps`` phases 1-2 and caps (the weight files written for its
 trunk) with phase 3's capsule shapes, ``--only trunks`` phases 1-2 and
-trunks, and prints no result lines.
+trunks, ``--only pretrain`` and ``--only remat`` phases 1-2 and that phase
+(a calibrated trunk file written for its driver), and prints no result
+lines.
 """
 
 from __future__ import annotations
@@ -387,6 +412,7 @@ from scipy.optimize import linear_sum_assignment
 
 from shgvqa_tpu_torch import entry
 from shgvqa_tpu_torch.cli import agqa_hgqa, agqa_q, agqa_vqa, common, star
+from shgvqa_tpu_torch.cli import pretrain as pretrain_cli
 from shgvqa_tpu_torch import breakdown
 from shgvqa_tpu_torch.bench import (
     BATCH_SIZE,
@@ -479,6 +505,13 @@ from shgvqa_tpu_torch.losses import set_prediction
 from shgvqa_tpu_torch.losses.set_prediction import matched_target_grid
 from shgvqa_tpu_torch.parallel import distributed, mesh
 from shgvqa_tpu_torch.models.cross import _cat_masks
+from shgvqa_tpu_torch.models.pretrain import (
+    AnswerTable,
+    LxmertPretrainModel,
+    answer_head_surgery,
+)
+from shgvqa_tpu_torch.models.remat import POLICIES as REMAT_POLICIES
+from shgvqa_tpu_torch.models.remat import set_remat
 from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel
 from shgvqa_tpu_torch.models.visual import set_tok_kernel
 from shgvqa_tpu_torch.ops import matcher
@@ -495,6 +528,7 @@ from shgvqa_tpu_torch.train.step import (
     trainable_mask,
 )
 from shgvqa_tpu_torch.utils import convert_slow_r50, convert_slowfast
+from shgvqa_tpu_torch.utils.flax_msgpack import msgpack_serialize
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -1199,8 +1233,8 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
     site per batch size; the largest difference between two backward calls
     on the same inputs; the times (median [min-max] over 3 turns) of the
     kernels and of SDPA, each at rate 0 and at the site's rate, of SDPA's
-    forward and backward in one call, of the plain version (one turn), and
-    the kernels' device time per call from torch.profiler."""
+    forward and backward in one call (10 calls a turn), of the plain version
+    (one turn), and the kernels' device time per call from torch.profiler."""
     rows = {}
     max_err = {"fwd": 0.0, "bwd": 0.0}
     for bsz in batch_sizes:
@@ -1271,7 +1305,8 @@ def phase_attention_kernels(batch_sizes=(2, BATCH_SIZE)):
             }
             timed = {}
             for key_ms, fn in fns.items():
-                timed.update(spread(key_ms, fn))
+                # 10 calls a turn: readings, and the script's time is tight
+                timed.update(spread(key_ms, fn, iters=10))
             timed.update(
                 plain_ms=time_ms(lambda: attention_reference(
                     q, k, v, mask, rate, keep)),
@@ -2541,8 +2576,8 @@ def phase_train_published_throughput(frozen, published):
 
 
 # a turn of the train steps' clips/s readings (phases 7 and 9d): one
-# warm-up step, then three timed (readings in turns, not checks)
-TRAIN_TURN = dict(iters=3, warmup=1)
+# warm-up step, then two timed (readings in turns, not checks)
+TRAIN_TURN = dict(iters=2, warmup=1)
 
 
 def phase_train_throughput(model, optimizer, generator, batch):
@@ -3967,8 +4002,8 @@ def per_choice_step_ms(model, cfg):
     """Eager train steps, attention kernels on, in turns: the per-choice
     STAR model ``model`` (the driver's LAST, its trunk frozen) at B=8 (32
     language rows) and the flagship frozen-trunk step at B=32
-    (``entry.train_entry``); ms a step, each the mean of two turns of
-    ``TRAIN_TURN`` steps, and the per-choice step's split."""
+    (``entry.train_entry``); ms a step, each one turn of ``TRAIN_TURN``
+    steps, and the per-choice step's split."""
     o = cfg.optim
     model.train()
     optimizer = make_optimizer(
@@ -3986,8 +4021,7 @@ def per_choice_step_ms(model, cfg):
                                               flag.optimizer), flag.batch,
                               flag.generator)}
     ms = {k: [] for k in steps}
-    for name in ("per_choice_b8", "flagship_b32", "flagship_b32",
-                 "per_choice_b8"):
+    for name in ("per_choice_b8", "flagship_b32"):
         step, b, g = steps[name]
         ms[name].append(b["frames"].shape[0] * 1e3
                         / train_clips_per_second(step, b, g, **TRAIN_TURN))
@@ -6134,6 +6168,460 @@ def phase_trunks(tmp: str):
     return readings
 
 
+# -- phase pretrain -----------------------------------------------------------
+
+# the pretraining driver at the flagship's widths: bf16, the LXRT's 5/2/5
+# layers, all five tasks, B=32 on 64 synthetic items, 2 epochs (2 steps each)
+PRETRAIN_FLAGS = ["--noCaps", "--crossAttnType", "cross", "--llayers", "5",
+                  "--xlayers", "2", "--rlayers", "5", "--computeDtype",
+                  "bfloat16", "--taskMaskLM", "--taskMatched", "--taskQA",
+                  "--taskContrastive", "--taskObjPredict", "--syntheticData",
+                  "64", "--batchSize", str(BATCH_SIZE), "--epochs", "2",
+                  "--lr", "1e-4"]
+PRETRAIN_STEPS = 4
+PRETRAIN_KEYS = {"lm_loss", "matched_loss", "qa_loss", "contrastive_loss",
+                 "visn_loss", "total_loss"}
+# a pretraining step: the LXRT's 14 attention sites (5 l, 5 r, 2 x 2
+# cross) and 14 FFN blocks (5 l, 5 r, 2 x 2 cross), every one reached by
+# the losses (lm: lang, visn_head: visn, matched / QA: the pooled pair)
+PRETRAIN_LAUNCHES = {
+    "plain": (14, 14, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+    "ffn_train": (14, 14, 0, 14, 14, 0, 0, 0, 0, 0, 0)}
+# the driver runs of phases pretrain (b) and remat: B=8, one epoch of 32
+# synthetic clips (an eager 2-step chunk, then one capture and one replay)
+REMAT_BATCH = 8
+REMAT_DRIVER_FLAGS = ["--remat", "--stepsPerLoop", "2", "--syntheticData",
+                      "32", "--syntheticValid", "8", "--batchSize",
+                      str(REMAT_BATCH), "--logFreq", "1", "--epochs", "1"]
+
+
+def trunk_file(tmp: str) -> str:
+    """A calibrated slow_r50 trunk as a ``--backboneWeights`` file (the
+    msgpack ``utils/convert_slow_r50`` writes), for the phases run alone:
+    the flagship trunk at seed ``WEIGHTS_SEED``, its BatchNorm statistics
+    calibrated on a synthetic batch, as ``write_weight_files`` makes it."""
+    cfg = entry.flagship_cfg()
+    trunk = entry.build_model(cfg, "cuda", WEIGHTS_SEED)
+    frames = entry.device_batch(cfg, 8, WEIGHTS_SEED)["frames"]
+    calibrate_frozen_bn(trunk.backbone, trunk.normalize_frames(frames))
+    v = to_jax_variables(trunk.backbone.state_dict())
+    path = os.path.join(tmp, "slow_r50_flax.msgpack")
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(v))
+    del trunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path
+
+
+def pretrain_driver_run(tmp: str, name: str, extra):
+    """One run of ``python -m shgvqa_tpu_torch.cli.pretrain`` at
+    ``PRETRAIN_FLAGS`` + ``extra``: every step's launches (counts set to 0
+    just before it and read just after), ms (events) and metrics, the last
+    step's device busy ms and share (torch.profiler), each batch's host
+    seconds, the peak memory; the checks on them and on the snapshots.
+    Returns (readings, the last snapshot's path)."""
+    out = os.path.join(tmp, f"pretrain_{name}")
+    argv = PRETRAIN_FLAGS + ["--output", out, "--dataDir",
+                             os.path.join(tmp, "pretrain_data"), *extra]
+    make_step, make_batch = (pretrain_cli.make_pretrain_step,
+                             pretrain_cli.make_batch)
+    models, steps, host, device = [], [], [], []
+
+    def timed_batch(*args):
+        t0 = time.perf_counter()
+        batch = make_batch(*args)
+        host.append(time.perf_counter() - t0)
+        return batch
+
+    def counted_step(model, optimizer, pt):
+        models.append(model)
+        inner = make_step(model, optimizer, pt)
+
+        def step(batch, generator):
+            torch.cuda.synchronize()
+            reset_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            out = {}
+
+            def run():
+                start.record()
+                out["metrics"] = inner(batch, generator)
+                end.record()
+
+            if len(steps) == PRETRAIN_STEPS - 1:
+                # the last step's device busy time (one trace, no retry:
+                # a second try would train a fifth step)
+                device.append(busy_share(run, tries=1))
+            else:
+                run()
+            torch.cuda.synchronize()
+            steps.append((counts(), start.elapsed_time(end),
+                          {k: v.item() for k, v in out["metrics"].items()}))
+            return out["metrics"]
+
+        return step
+
+    pretrain_cli.make_pretrain_step = counted_step
+    pretrain_cli.make_batch = timed_batch
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        last, _, seconds = run_main(argv, main=pretrain_cli.main)
+    finally:
+        pretrain_cli.make_pretrain_step = make_step
+        pretrain_cli.make_batch = make_batch
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = PRETRAIN_LAUNCHES[name]
+    if len(steps) != PRETRAIN_STEPS or any(c != want for c, _, _ in steps):
+        raise AssertionError(f"pretraining ({name}): step launches "
+                             f"{[c for c, _, _ in steps]}, expected "
+                             f"{PRETRAIN_STEPS} x {want}")
+    if set(last) != PRETRAIN_KEYS or not all(
+            math.isfinite(v) for _, _, m in steps for v in m.values()):
+        raise AssertionError(f"pretraining ({name}): metrics "
+                             f"{[m for _, _, m in steps]}")
+    model = models[0]
+    snap = os.path.join(out, "Epoch01_LXRT")
+    saved = torch.load(snap, map_location="cuda", weights_only=True)["lxrt"]
+    own = model.lxrt.state_dict()
+    if saved.keys() != own.keys() or not all(
+            torch.equal(saved[k], own[k]) for k in own):
+        raise AssertionError(f"pretraining ({name}): Epoch01_LXRT is not "
+                             "the model's LXRT")
+    fc2 = model.heads.qa_head.fc2
+    with np.load(os.path.join(out, "Epoch01_qa_head.npz")) as qa:
+        if not (np.array_equal(qa["weight"], fc2.weight.detach().cpu()
+                               .numpy())
+                and np.array_equal(qa["bias"],
+                                   fc2.bias.detach().cpu().numpy())):
+            raise AssertionError(f"pretraining ({name}): the QA head file "
+                                 "is not the model's fc2")
+    busy = device[0] if device else None
+    readings = {"step_ms": [round(ms, 3) for _, ms, _ in steps],
+                "last_step_device_ms": busy and busy[0],
+                "last_step_busy_share": busy and busy[2],
+                "peak_gib": peak, "batch_host_s": [round(s, 3) for s in host],
+                "seconds": seconds, "last": last}
+    log(f"pretraining driver ({name}, b{BATCH_SIZE}, flagship widths): "
+        f"launches a step ({COUNT_NAMES}) {want}; snapshots bit-equal; "
+        f"{json.dumps(readings)}")
+    del models[:], model, own, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings, snap
+
+
+class _QaRecorded(_Recorded):
+    """The driver's Trainer, kept, with what ``load_lxmert_qa`` loaded."""
+
+    loads: list = []
+
+    def load_lxmert_qa(self, path, label2ans):
+        out = super().load_lxmert_qa(path, label2ans)
+        head = self._head()
+        _QaRecorded.loads.append((out, dict(label2ans), {
+            k: v.clone() for k, v in head.lxrt.state_dict().items()},
+            head.logit_fc.fc2.weight.detach().cpu().clone().numpy(),
+            head.logit_fc.fc2.bias.detach().cpu().clone().numpy()))
+        return out
+
+
+def lxmert_qa_driver(tmp: str, snap: str, trunk: str):
+    """(b) the ``agqa_hgqa`` driver at the published flags with
+    ``--loadLXMERTQA snap``, B=8, one epoch of 32 synthetic clips, also
+    phase remat's driver run (``--remat --stepsPerLoop 2``): the encoder
+    after the load bit-equal to the snapshot, ``logit_fc.fc2``'s rows and
+    the loaded / zeroed counts ``answer_head_surgery``'s of the snapshot's
+    QA head file, finite losses; ``check_remat_driver``'s checks."""
+    out, data = os.path.join(tmp, "lxmertqa"), os.path.join(tmp, "lxmertqa_d")
+    os.makedirs(data, exist_ok=True)
+    argv = DRIVER_FLAGS + REMAT_DRIVER_FLAGS + [
+        "--output", out, "--dataDir", data, "--backboneWeights", trunk,
+        "--loadLXMERTQA", snap]
+    saved, _QaRecorded.loads, _Recorded.made = common.Trainer, [], []
+    common.Trainer = _QaRecorded
+    try:
+        result, _, seconds = run_main(argv)
+    finally:
+        common.Trainer = saved
+    losses = check_remat_driver(out, result)
+    (counts_, label2ans, encoder, w, b), = _QaRecorded.loads
+    _QaRecorded.loads = []
+    snapshot = torch.load(snap, map_location="cuda", weights_only=True)
+    if snapshot["lxrt"].keys() != encoder.keys() or not all(
+            torch.equal(encoder[k], v) for k, v in snapshot["lxrt"].items()):
+        raise AssertionError("--loadLXMERTQA: the encoder after the load is "
+                             "not the snapshot")
+    with np.load(snap[:-len("_LXRT")] + "_qa_head.npz") as qa:
+        want_w, want_b, loaded, zeroed = answer_head_surgery(
+            qa["weight"], qa["bias"], w, b, label2ans,
+            AnswerTable([str(a) for a in qa["answers"]]))
+    if not (np.array_equal(w, want_w) and np.array_equal(b, want_b)
+            and counts_ == (loaded, zeroed) == result["load_lxmert_qa"]):
+        raise AssertionError(
+            f"--loadLXMERTQA: the head's rows (equal: "
+            f"{np.array_equal(w, want_w)}, {np.array_equal(b, want_b)}) or "
+            f"counts {counts_} (driver {result['load_lxmert_qa']}) differ "
+            f"from the surgery's {(loaded, zeroed)}")
+    log(f"agqa_hgqa --loadLXMERTQA --remat --stepsPerLoop 2 "
+        f"(b{REMAT_BATCH}): encoder bit-equal to the snapshot "
+        f"({len(encoder)} tensors), {loaded} answers loaded and {zeroed} "
+        f"zeroed as answer_head_surgery, 1 capture, 1 replay, losses "
+        f"{losses}; {seconds:.1f} s")
+    return {"loaded": loaded, "zeroed": zeroed, "losses": losses,
+            "seconds": seconds}
+
+
+def pretrain_card_vs_cpu():
+    """(c) a tiny pretraining model (64-wide heads, f32 weights), every
+    dropout rate 0: the card in bf16 with the attention and FFN-train
+    kernels against the CPU's f32 plain path on the same weights and
+    batch; the loss and the whole gradient within ``TRAIN_TOL``."""
+    base = tiny_test_config(use_pallas_ffn_train=True)
+    base = base.replace(encoder=dataclasses.replace(
+        base.encoder, hidden_size=128, num_heads=2, intermediate_size=256,
+        hidden_dropout=0.0, attention_dropout=0.0))
+    cpu = init_weights(LxmertPretrainModel(base, 5), 4).train()
+    gpu = LxmertPretrainModel(base.replace(compute_dtype="bfloat16"),
+                              5).cuda().train()
+    gpu.load_state_dict(cpu.state_dict())
+    e = base.encoder
+    rng = np.random.RandomState(4)
+    n, lt = 8, base.data.max_seq_length
+    feats = rng.randn(n, e.visual_t + 8, e.visual_hw, e.visual_hw,
+                      e.visual_feat_dim).astype(np.float32)
+    items = pretrain_cli.PretrainItems(
+        enc={"input_ids": rng.randint(5, e.vocab_size, (n, lt)).astype(
+                 np.int32),
+             "input_mask": np.ones((n, lt), np.int32),
+             "segment_ids": np.zeros((n, lt), np.int32)},
+        answers=rng.randint(5, size=n).astype(np.int32),
+        feats=lambda i: feats[i], mask_id=3, vocab_size=e.vocab_size,
+        visual_t=e.visual_t)
+    pt = pretrain_cli.default_tasks({t: True for t in pretrain_cli.TASKS}
+                                    | {"visual_losses": "feat",
+                                       "word_mask_rate": 0.15,
+                                       "obj_mask_rate": 0.15})
+    batch = pretrain_cli.make_batch(np.arange(4), rng, items, pt)
+    runs = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        reset_counts()
+        out = model({k: tb[k] for k in pretrain_cli.MODEL_INPUTS},
+                    torch.Generator(device=dev).manual_seed(0))
+        loss, _ = pretrain_cli.pretrain_losses(pt, out, tb)
+        loss.backward()
+        grads = torch.cat([p.grad.detach().float().cpu().flatten()
+                           for p in model.parameters()])
+        runs[dev] = (loss.item(), grads, counts())
+    (lc, gc_, _), (lg, gg, launched) = runs["cpu"], runs["cuda"]
+    rel_loss = abs(lg - lc) / abs(lc)
+    rel_grad = ((gg - gc_).norm() / gc_.norm()).item()
+    log(f"pretraining card (bf16, kernels) vs CPU (f32, plain), tiny: loss "
+        f"{lg:.6f} vs {lc:.6f} (rel {rel_loss:.2e}), gradient rel "
+        f"Frobenius {rel_grad:.2e}; card launches ({COUNT_NAMES}) "
+        f"{launched}")
+    sites = e.l_layers + e.r_layers + 2 * e.x_layers
+    if launched[:5] != (sites, sites, 0, sites, sites):
+        raise AssertionError(f"tiny pretraining on the card launched "
+                             f"{launched}, expected {sites} attention and "
+                             f"FFN-train forwards and backwards")
+    if rel_loss > TRAIN_TOL or rel_grad > TRAIN_TOL:
+        raise AssertionError(f"pretraining card vs CPU: loss rel "
+                             f"{rel_loss}, gradient rel {rel_grad}")
+    return {"loss_rel": rel_loss, "grad_rel": rel_grad}
+
+
+def phase_pretrain(tmp: str, trunk: str):
+    """Phase pretrain (``--only pretrain``): (a) the pretraining driver at
+    the flagship's widths, plain and with ``--pallasFFNTrain``; (b) its
+    snapshot into the ``agqa_hgqa`` driver through ``--loadLXMERTQA``,
+    with ``--remat --stepsPerLoop 2`` (phase remat's driver run); (c) a
+    tiny model card against CPU.  Returns the readings."""
+    t0 = time.perf_counter()
+    readings = {}
+    for name, extra in (("plain", []), ("ffn_train", ["--pallasFFNTrain"])):
+        readings[name], snap = pretrain_driver_run(tmp, name, extra)
+    readings["lxmert_qa"] = lxmert_qa_driver(tmp, snap, trunk)
+    readings["card_vs_cpu"] = pretrain_card_vs_cpu()
+    readings["seconds"] = time.perf_counter() - t0
+    log(f"phase pretrain ({card_name_and_power_limit()}): "
+        f"{json.dumps(readings)}")
+    return readings
+
+
+# -- phase remat ----------------------------------------------------------------
+
+# a frozen-trunk flagship step with --pallasFFNTrain: 38 / 34 attention and
+# 18 / 14 FFN-train launches; remat runs the l- and r-layers (10 attention
+# sites, 10 FFN blocks) and the decoders' layers (2 x 5 x 2 attention
+# sites) again, the attention forward only where the policy does not save
+# its (o, lse), the FFN-train forward under every policy
+REMAT_PLAIN = (38, 34, 0, 18, 14, 0, 0, 0, 0, 0, 0)
+REMAT_AGAIN = {"": 30, "dots": 30, "dots_batch": 30, "dots_attn": 0}
+REMAT_FFN_AGAIN = 10
+REMAT_SPREAD, REMAT_FLOOR = 2.0, 1e-6
+
+
+def remat_launches(policy):
+    want = list(REMAT_PLAIN)
+    if policy is not None:
+        want[0] += REMAT_AGAIN[policy]
+        want[3] += REMAT_FFN_AGAIN
+    return tuple(want)
+
+
+def remat_gradients(model, optimizer, generator, batch, start, policy):
+    """One forward and backward of the train step's loss under ``policy``
+    from the generator state ``start``: (loss, gradient vector, the
+    generator's state after, launches, the peak GiB above what was
+    allocated before)."""
+    set_remat(model, policy)
+    generator.set_state(start)
+    optimizer.zero_grad()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss, _ = compute_losses(model.cfg, model(batch, generator), batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = counts()
+    grads = torch.cat([p.grad.detach().float().flatten()
+                       if p.grad is not None else p.new_zeros(p.numel())
+                       for p in optimizer.params])
+    return (loss.item(), grads, generator.get_state(), launched,
+            (torch.cuda.max_memory_allocated() - resident) / 2 ** 30)
+
+
+def remat_distance(a, b):
+    return (abs(a[0] - b[0]) / abs(b[0]),
+            ((a[1] - b[1]).norm() / b[1].norm()).item())
+
+
+def remat_published_readings():
+    """The published recipe's B=32 step (the trunk trained) without remat,
+    with ``--remat`` '' and ``dots``: the peak memory of one step and the
+    step's ms (events, the step after it)."""
+    model, optimizer, generator, batch = entry.train_entry(published=True)
+    step = make_train_step(model.cfg, model, optimizer)
+    readings = {}
+    for policy in (None, "", "dots"):
+        set_remat(model, policy)
+        memory = train_memory_gib(step, batch, generator)
+        ms = time_ms(lambda: step(batch, generator), iters=1, warmup=0)
+        readings["none" if policy is None else repr(policy)] = {
+            "peak_gib": memory["peak_gib"], "step_ms": ms}
+    set_remat(model, None)
+    del model, optimizer, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def check_remat_driver(out: str, result: dict):
+    """The driver run of ``REMAT_DRIVER_FLAGS`` into ``out`` (its Trainer
+    the last of ``_Recorded.made``): 4 steps, finite losses, one capture
+    and one replay.  Returns the losses."""
+    chunks = _Recorded.made[-1].chunks
+    _Recorded.made = []
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["total_loss"] for line in f]
+    if (result["steps"], len(losses)) != (4, 4) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"driver --remat --stepsPerLoop 2: "
+                             f"{result['steps']} steps, losses {losses}")
+    if chunks is None or (chunks.captures, chunks.replays) != (1, 1):
+        raise AssertionError("driver --remat --stepsPerLoop 2: not one "
+                             "capture and one replay")
+    return losses
+
+
+def remat_driver(tmp: str, trunk: str):
+    """The ``agqa_hgqa`` driver at the published flags +
+    ``REMAT_DRIVER_FLAGS`` (phase remat alone; a whole run checks this in
+    phase pretrain's (b), which adds ``--loadLXMERTQA``)."""
+    out, data = os.path.join(tmp, "remat"), os.path.join(tmp, "remat_d")
+    os.makedirs(data, exist_ok=True)
+    argv = DRIVER_FLAGS + REMAT_DRIVER_FLAGS + [
+        "--output", out, "--dataDir", data, "--backboneWeights", trunk]
+    saved, _Recorded.made = common.Trainer, []
+    common.Trainer = _Recorded
+    try:
+        result, _, seconds = run_main(argv)
+    finally:
+        common.Trainer = saved
+    losses = check_remat_driver(out, result)
+    log(f"driver --remat --stepsPerLoop 2 (b{REMAT_BATCH}): 1 capture, 1 "
+        f"replay, losses {losses}; {seconds:.1f} s")
+    return {"losses": losses, "seconds": seconds}
+
+
+def phase_remat(tmp: str, trunk: str, driver: bool = True):
+    """Phase remat (``--only remat``): (a) a frozen-trunk flagship step at
+    B=8 with the sites' dropout rates and the FFN-train kernels, two runs
+    without remat and one under each policy from one generator state: the
+    launches (``remat_launches``), the generator's state after each run
+    equal, the loss and gradient's median distance to the plain runs at
+    most ``REMAT_SPREAD`` x the plain runs' own (floor ``REMAT_FLOOR``: the
+    attention backward sums dQ with atomics); (b) the driver with
+    ``--remat --stepsPerLoop 2`` (unless ``driver`` is off: a whole run
+    checks it in phase pretrain's (b)); (c) the published step's peak
+    memory and ms without remat, with '' and ``dots`` (readings).  Returns
+    the readings."""
+    t0 = time.perf_counter()
+    model, optimizer, generator, batch = entry.train_entry(
+        batch_size=REMAT_BATCH)
+    set_ffn_train_kernel(model, True)
+    start = generator.get_state()
+    plain = [remat_gradients(model, optimizer, generator, batch, start,
+                             None) for _ in range(2)]
+    runs = {p: remat_gradients(model, optimizer, generator, batch, start, p)
+            for p in REMAT_POLICIES}
+    set_remat(model, None)
+    optimizer.zero_grad()
+    spread = remat_distance(plain[0], plain[1])
+    readings = {"step_peak_gib_b8": {"none": plain[0][4]}}
+    for policy, run in [(None, r) for r in plain] + list(runs.items()):
+        if run[3] != remat_launches(policy):
+            raise AssertionError(f"remat {policy!r}: launches {run[3]}, "
+                                 f"expected {remat_launches(policy)}")
+        if not torch.equal(run[2], plain[0][2]):
+            raise AssertionError(f"remat {policy!r}: the generator's state "
+                                 "differs from a step without remat")
+        if not (math.isfinite(run[0]) and torch.isfinite(run[1]).all()):
+            raise AssertionError(f"remat {policy!r}: a non-finite loss or "
+                                 "gradient")
+    gaps = {}
+    for policy, run in runs.items():
+        dist = [remat_distance(run, p) for p in plain]
+        gaps[policy] = dist
+        readings["step_peak_gib_b8"][repr(policy)] = run[4]
+        for i, what in enumerate(("loss", "gradient")):
+            near = statistics.median(d[i] for d in dist)
+            if near > max(REMAT_SPREAD * spread[i], REMAT_FLOOR):
+                raise AssertionError(f"remat {policy!r}: the {what} differs "
+                                     f"by {near} (median) from no remat, "
+                                     f"whose runs differ by {spread[i]}")
+    log(f"remat b{REMAT_BATCH} frozen trunk, FFN-train kernels: launches "
+        f"({COUNT_NAMES}) " + ", ".join(
+            f"{p!r} {remat_launches(p)}" for p in (None,) + REMAT_POLICIES)
+        + f"; generator states equal; plain runs' distance (loss, "
+        f"gradient) {spread}, each policy to the plain runs "
+        f"{json.dumps({repr(k): v for k, v in gaps.items()})}")
+    del model, optimizer, batch, plain, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if driver:
+        readings["driver"] = remat_driver(tmp, trunk)
+    readings["published_b32"] = remat_published_readings()
+    readings["seconds"] = time.perf_counter() - t0
+    log(f"phase remat ({card_name_and_power_limit()}): "
+        f"{json.dumps(readings)}")
+    return readings
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("attention", "ffn", "ffn_train",
@@ -6141,7 +6629,8 @@ def main(argv=None) -> int:
                                            "weights", "steps_per_loop",
                                            "matcher", "star", "tasks",
                                            "per_choice", "quant", "ddp",
-                                           "caps", "trunks"),
+                                           "caps", "trunks", "pretrain",
+                                           "remat"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -6249,6 +6738,12 @@ def main(argv=None) -> int:
             phase_trunks(tmp)
         log("trunks ok")
         return 0
+    if args.only in ("pretrain", "remat"):
+        phase = phase_pretrain if args.only == "pretrain" else phase_remat
+        with tempfile.TemporaryDirectory() as tmp:
+            phase(tmp, trunk_file(tmp))
+        log(f"phase {args.only} ok")
+        return 0
     if args.only == "ddp":
         with tempfile.TemporaryDirectory() as tmp:
             phase_driver_steps_per_loop(tmp, write_weight_files(tmp))
@@ -6337,6 +6832,12 @@ def main(argv=None) -> int:
         clear_outputs(tmp, files["trunk"])
         phase_trunks(tmp)
         lap("trunks")
+        clear_outputs(tmp, files["trunk"])
+        phase_pretrain(tmp, files["trunk"])
+        lap("pretrain")
+        clear_outputs(tmp, files["trunk"])
+        phase_remat(tmp, files["trunk"], driver=False)
+        lap("remat")
         weight_bytes = files["bytes"]
         del files
     def phase_10():

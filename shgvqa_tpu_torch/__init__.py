@@ -25,7 +25,11 @@ int8 frozen trunk (``--quantBackbone int8``) on the hand-written int8
 convolution of ``csrc/qconv.cu`` (wrapper ``kernels/qconv.py``), and
 ``--backboneChunks``; data parallelism over GPUs and hosts (``parallel/``:
 ``--multiGPU``, ``--dataParallel``, the ``SHGVQA_*`` launch), a run on N
-ranks being the one-GPU step on the global batch with its rows split.
-Options the port does not run yet raise ``NotImplementedError``
-(``configs/config.check_ported``).
+ranks being the one-GPU step on the global batch with its rows split;
+LXMERT pretraining (``models/pretrain.py``, ``cli/pretrain.py``) and its
+snapshots in the drivers (``--loadLXMERT``, ``--loadLXMERTQA``);
+``--remat`` / ``--rematPolicy`` (``models/remat.py``) and
+``--scanLayers`` (``models/scan_stacks.py``).  Tensor parallelism is the
+one option left: it raises ``NotImplementedError``
+(``parallel/mesh.TENSOR_PARALLEL``).
 """

@@ -11,7 +11,11 @@ the metric fan-out and the ``predict.json`` / ``predict_hg.json`` dumps).
 The train path loads weights in the JAX driver's order: the pretrained
 trunk (``--backboneWeights``, else ``{dataDir}/slow_r50_flax.msgpack``),
 then, without ``--fromScratch``, bert-base (``--bertWeights``, else
-``{dataDir}/pytorch_model.bin``), then ``--load``; a missing pretrained
+``{dataDir}/pytorch_model.bin``), then ``--loadLXMERT`` (an encoder
+snapshot, ``Trainer.load_encoder``), then ``--loadLXMERTQA`` (a
+pretraining snapshot and its QA head into ``logit_fc`` by answer string,
+the labels from the train split's answer vocabulary,
+``Trainer.load_lxmert_qa``), then ``--load``; a missing pretrained
 file is reported and the run goes on at random init, as the JAX driver
 does.  ``--test`` loads only ``--load``.  ``--load`` reads the port's own
 checkpoints and reference ``.pth`` snapshots (``path/BEST`` with
@@ -57,7 +61,7 @@ every rank, of its own rows, into its own output directory.
 
 It runs on the card unless the caller passes ``device="cpu"``.  What the
 port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: ``--modelParallel > 1`` and ``--loadLXMERT(QA)``.
+item: ``--modelParallel > 1``.
 """
 
 from __future__ import annotations
@@ -203,11 +207,6 @@ def resolve_num_answers(cfg: Config, data) -> Config:
 def _check_driver_flags(cfg: Config, extras: dict, dataset: str) -> None:
     if cfg.mesh.model_parallel > 1:
         raise NotImplementedError(TENSOR_PARALLEL)
-    for flag, key in (("--loadLXMERT", "load_lxmert"),
-                      ("--loadLXMERTQA", "load_lxmert_qa")):
-        if extras.get(key):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue A item 18)")
     if dataset != "star" and cfg.data.qa_arrange_type in PER_CHOICE:
         # AGQA items carry no choices; the JAX driver would train the
         # plain head under a mask that freezes it (ROADMAP C)
@@ -477,6 +476,17 @@ def _run_rank(dataset: str, cfg: Config, extras: dict, dev) -> dict:
                       model=model, trainable_mask=trainable_mask(model, cfg),
                       checkpoint_dir=checkpoint_dir)
     load_pretrained_weights(trainer, cfg, extras)
+    if extras.get("load_lxmert"):
+        trainer.load_encoder(extras["load_lxmert"])
+    if extras.get("load_lxmert_qa"):
+        # the reference drivers ship this call commented out; live here,
+        # as in the JAX driver
+        a2l = getattr(train_data, "answer_vocab", None)
+        if a2l is None:
+            a2l = train_data.ans2label
+        label2ans = {int(v): k for k, v in a2l.items()}
+        results["load_lxmert_qa"] = trainer.load_lxmert_qa(
+            extras["load_lxmert_qa"], label2ans)
     if cfg.load:
         trainer.load(cfg.load)
     calibrate_trunk(model, train_batcher, dev)

@@ -289,15 +289,13 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-# (field path, value the port supports, ROADMAP queue-A item that ports it)
-_UNPORTED = (
-    ("encoder.scan_layers", False, "19 (scan stacks)"),
-)
+# (field path, value the port supports, ROADMAP queue-A item that ports it);
+# every option of the model runs (the scanned stacks and remat since queue
+# A positions 14 and 15)
+_UNPORTED = ()
 
 # options only training reads
-_TRAIN_UNPORTED = (
-    ("remat", False, "19 (remat policies)"),
-)
+_TRAIN_UNPORTED = ()
 
 # every option of the frames path is ported (the trunks since queue A
 # item 17's trunk half)

@@ -25,7 +25,16 @@ shape that differs, before ``load_state_dict`` would; the int8 scales may
 be missing or left over, as the trunk's own load takes a state dict with
 or without them (``models/backbone.SlowR50``).
 
-``to_jax_variables`` is its inverse: a port ``state_dict`` becomes the JAX
+A tree in the scanned layout of ``--scanLayers`` (``l_stack``,
+``x_stack``, ``layers/DecoderLayer_0``, ...) is first unstacked
+(``models/scan_stacks.unstack``): the port runs the same per-layer modules
+either way.  The pretraining model's tree (``models/pretrain.py``:
+``lxrt``, ``heads/lm_head/{transform_dense, transform_ln, bias}``,
+``heads/seq_relationship``, ``heads/qa_head``, ``visn_head``) follows the
+same rules.
+
+``to_jax_variables`` is its inverse (with ``scan_layers`` in the scanned
+layout): a port ``state_dict`` becomes the JAX
 package's ``{"params", "batch_stats"}`` trees of f32 numpy arrays (and
 ``quant_stats`` for an int8 trunk).  The
 weight importers (``utils/``) are ports of functions that merge into trees
@@ -52,6 +61,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from shgvqa_tpu_torch.models import scan_stacks
 
 _RENAMED = {"scale": "weight", "embedding": "weight"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -131,7 +142,8 @@ def from_jax_variables(variables: Mapping,
         raise KeyError(f"unexpected variable collections {sorted(unknown)}")
     state = {}
     for collection in _COLLECTIONS:
-        for path, value in _leaves(variables.get(collection, {})):
+        tree = scan_stacks.unstack(variables.get(collection, {}))
+        for path, value in _leaves(tree):
             names, value = _convert_leaf(collection, path, value)
             key = ".".join(names)
             if key in state:
@@ -189,12 +201,13 @@ def _jax_leaf(module: str, leaf: str, weight_rank: Optional[int]):
     raise KeyError(f"weight of rank {weight_rank} at {module}")
 
 
-def to_jax_variables(state_dict: Mapping[str, torch.Tensor]
-                     ) -> Dict[str, dict]:
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
+                     scan_layers: bool = False) -> Dict[str, dict]:
     """Port state_dict -> flax variables (nested dicts of f32 numpy
-    arrays, copies): the inverse of ``from_jax_variables``.  The
-    ``batch_stats`` collection is present only when the model has
-    BatchNorm statistics, ``quant_stats`` only when it has int8 scales."""
+    arrays, copies): the inverse of ``from_jax_variables``, in the scanned
+    layout with ``scan_layers``.  The ``batch_stats`` collection is present
+    only when the model has BatchNorm statistics, ``quant_stats`` only when
+    it has int8 scales."""
     ranks = {key[:-len(".weight")]: value.dim()
              for key, value in state_dict.items() if key.endswith(".weight")}
     variables: Dict[str, dict] = {c: {} for c in _COLLECTIONS}
@@ -213,4 +226,6 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]
     for collection in _COLLECTIONS[1:]:
         if not variables[collection]:
             del variables[collection]
+    if scan_layers:
+        variables["params"] = scan_stacks.stack(variables["params"])
     return variables

@@ -56,6 +56,7 @@ from typing import Optional, Tuple
 import torch
 
 from shgvqa_tpu_torch.kernels import _build
+from shgvqa_tpu_torch.models.remat import attention_op_visible, replayable
 from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 HEAD_DIM = 64
@@ -301,13 +302,28 @@ def _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do, group0=0):
     return dq, dk, dv
 
 
+@functools.lru_cache(maxsize=None)
+def attention_op():
+    """The forward launch as the dispatcher op
+    ``shgvqa_torch::attention_fwd`` (registered on first use), so that a
+    remat policy sees it and can save its (o, lse): ``models/remat.py``'s
+    ``dots_attn``."""
+    torch.library.custom_op(
+        "shgvqa_torch::attention_fwd", _launch_fwd, mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, Tensor? key, Tensor? pane, "
+               "Tensor? seed, float rate, int group0) -> (Tensor, Tensor)")
+    return torch.ops.shgvqa_torch.attention_fwd.default
+
+
 class _FusedAttention(torch.autograd.Function):
     """The forward kernel; the backward kernels regenerate its dropout mask
-    from the saved seed and recompute P from the saved logsumexp."""
+    from the saved seed and recompute P from the saved logsumexp.  Inside a
+    ``dots_attn`` remat block the forward goes through ``attention_op``."""
 
     @staticmethod
     def forward(ctx, q, k, v, key, pane, seed, rate, group0):
-        o, lse = _launch_fwd(q, k, v, key, pane, seed, rate, group0)
+        launch = attention_op() if attention_op_visible() else _launch_fwd
+        o, lse = launch(q, k, v, key, pane, seed, rate, group0)
         ctx.save_for_backward(q, k, v, key, pane, seed, o, lse)
         ctx.rate, ctx.group0 = rate, group0
         return o
@@ -350,12 +366,21 @@ def fused_attention(q, k, v, mask=None, dropout_rate: float = 0.0,
     if q.device.type == "cpu":
         keep = None
         if rate > 0.0:
-            keep = torch.rand((total, h, lq, lk),
-                              generator=generator)[first:first + b] >= rate
+            keep = replayable(lambda: torch.rand(
+                (total, h, lq, lk), generator=generator)[
+                    first:first + b] >= rate)
         return attention_reference(q, k, v, mask, rate, keep)
     if q.device.type != "cuda":
         raise NotImplementedError(f"fused_attention has no kernel for "
                                   f"{q.device}")
+    return _card_attention(q, k, v, key, pane, rate, generator, first)
+
+
+def _card_attention(q, k, v, key, pane, rate, generator, first):
+    """``fused_attention``'s card path on the decomposed mask: the
+    operands checked, the seed drawn, the kernels launched."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
     if d != HEAD_DIM:
         raise ValueError(f"fused_attention on CUDA takes head dim "
                          f"{HEAD_DIM}, got {d}")
@@ -365,7 +390,8 @@ def fused_attention(q, k, v, mask=None, dropout_rate: float = 0.0,
     v = _operand("v", v, (b, h, lk, d), dev)
     key = None if key is None else key.to(dev)
     pane = None if pane is None else pane.to(dev)
-    seed = draw_seed(generator, dev) if rate > 0.0 else None
+    seed = (replayable(lambda: draw_seed(generator, dev)) if rate > 0.0
+            else None)
     return _FusedAttention.apply(q, k, v, key, pane, seed, rate, first * h)
 
 

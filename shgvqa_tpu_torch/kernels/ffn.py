@@ -85,6 +85,7 @@ from shgvqa_tpu_torch.kernels.attention import (
     draw_seed,
     philox4x32,
 )
+from shgvqa_tpu_torch.models.remat import replayable
 from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 
@@ -428,17 +429,25 @@ def fused_ffn_train(x, w1t, b1, w2t, b2, gamma, beta, dropout_rate: float,
     if x.device.type == "cpu":
         keep = None
         if rate > 0.0:
-            keep = torch.rand((total, d), generator=generator)[
-                first:first + x2.shape[0]] >= rate
+            keep = replayable(lambda: torch.rand(
+                (total, d), generator=generator)[
+                    first:first + x2.shape[0]] >= rate)
         y = ffn_train_reference(*args, rate, keep, eps)
     elif x.device.type == "cuda":
-        seed = draw_seed(generator, x.device) if rate > 0.0 else None
-        y = _FusedFFNTrain.apply(*(a.contiguous() for a in args), seed, rate,
-                                 float(eps), first)
+        y = _card_ffn_train(args, rate, generator, eps, first)
     else:
         raise NotImplementedError(f"fused_ffn_train has no kernel for "
                                   f"{x.device}")
     return y.reshape(x.shape)
+
+
+def _card_ffn_train(args, rate, generator, eps, first):
+    """``fused_ffn_train``'s card path on its (M, D) operands: the seed
+    drawn, the kernels launched."""
+    seed = (replayable(lambda: draw_seed(generator, args[0].device))
+            if rate > 0.0 else None)
+    return _FusedFFNTrain.apply(*(a.contiguous() for a in args), seed, rate,
+                                float(eps), first)
 
 
 fused_ffn_train.launches = 0

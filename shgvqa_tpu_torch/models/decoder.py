@@ -1,5 +1,6 @@
 """DETR-style hypergraph decoder: the port of ``shgvqa_tpu/models/decoder.py``
-(post-norm, unscanned).
+(post-norm; the scanned stack of ``--scanLayers`` runs as these layers, its
+stacked parameters mapped by ``models/scan_stacks.py``).
 
 Per layer: self-attention over the queries under the situation-causal
 additive mask, cross-attention into the visual memory, ReLU FFN; residual +
@@ -18,6 +19,8 @@ the head-sliced kernel on the projections as they are.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -30,6 +33,7 @@ from shgvqa_tpu_torch.models.layers import (
     attention_core,
     kernels_allowed,
 )
+from shgvqa_tpu_torch.models.remat import check_policy, remat_call
 
 
 class TorchMHA(nn.Module):
@@ -112,12 +116,18 @@ class DecoderLayer(nn.Module):
 
 
 class HGDecoder(nn.Module):
-    """Untied stack ``layer_{i}`` run from a zero target."""
+    """Untied stack ``layer_{i}`` run from a zero target; under ``remat`` (a
+    ``models/remat.py`` policy) each layer is rematerialized, scanned or not,
+    as JAX's ``HGDecoder`` does."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
                  ffn_dim: int, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.15, kernel_train: bool = False):
+                 dropout: float = 0.15, kernel_train: bool = False,
+                 remat: Optional[str] = None):
         super().__init__()
+        if remat is not None:
+            check_policy(remat)
+        self.remat = remat
         self.names = [f"layer_{i}" for i in range(num_layers)]
         for name in self.names:
             setattr(self, name, DecoderLayer(d_model, num_heads, ffn_dim,
@@ -128,6 +138,6 @@ class HGDecoder(nn.Module):
         """query_pos (B, Q, D) learned queries; memory (B, L, D)."""
         tgt = torch.zeros_like(query_pos)
         for name in self.names:
-            tgt = getattr(self, name)(tgt, memory, query_pos, tgt_mask,
-                                      memory_mask, g)
+            tgt = remat_call(getattr(self, name), self.remat, tgt, memory,
+                             query_pos, tgt_mask, memory_mask, g)
         return tgt

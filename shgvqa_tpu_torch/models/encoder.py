@@ -34,9 +34,23 @@ The visual encoder's options:
   called without a mask;
 - ``patches`` (``--patches``): the tokenizer's linear patch branch
   (``models/visual.py``).
+
+``remat`` (a ``models/remat.py`` policy, or None without ``--remat``)
+rematerializes what JAX's ``remat_class`` wraps: every l- and r-layer (the
+ViT blocks too, and under ``--sharedWeights`` the l-layers' visual pass),
+and under ``scan_layers`` the scanned cross stack of 'cross' / 'old'; the
+unscanned cross layers and ``LanguageEncoder`` are not wrapped, and
+``LXRTModel`` takes no policy unless its caller gives one.
+
+``scan_layers`` (``--scanLayers``) runs the same per-layer modules: torch
+has no scan to compile, so only the JAX parameter layout differs
+(``models/scan_stacks.py`` maps it).  As in JAX it raises with
+``vit_init`` or ``shared_weights`` and with attention dumps.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -55,6 +69,7 @@ from shgvqa_tpu_torch.models.layers import (
     Pooler2,
     extend_mask,
 )
+from shgvqa_tpu_torch.models.remat import check_policy, remat_call
 from shgvqa_tpu_torch.models.visual import VisualTokenizer
 from shgvqa_tpu_torch.models.vit import ViTBlock
 
@@ -63,9 +78,18 @@ class TriStreamEncoder(nn.Module):
     """l_layers on text, r_layers on visual tokens, x_layers cross-modal."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32,
-                 use_kernel: bool = False, kernel_train: bool = False):
+                 use_kernel: bool = False, kernel_train: bool = False,
+                 remat: Optional[str] = None):
         super().__init__()
         c = cfg
+        if c.scan_layers and (c.vit_init or c.shared_weights):
+            raise ValueError(
+                "vit_init/shared_weights r_layers are not available with "
+                "scan_layers; rerun with scan_layers=False")
+        if remat is not None:
+            check_policy(remat)
+        self.remat = remat
+        self.scan_layers = c.scan_layers
         kw = dict(hidden_size=c.hidden_size, num_heads=c.num_heads,
                   head_dim=c.head_dim, intermediate_size=c.intermediate_size,
                   dtype=dtype, use_kernel=use_kernel,
@@ -107,17 +131,25 @@ class TriStreamEncoder(nn.Module):
         for name in dict.fromkeys(self.x_names):
             setattr(self, name, x_cls(**kw))
         self.joint = c.cross_attn_type == "self"
+        # the scanned cross stack ('cross' / 'old') is the one cross stack
+        # JAX rematerializes
+        self.remat_cross = (c.scan_layers
+                            and c.cross_attn_type in ("cross", "old"))
 
     def forward(self, lang_emb, lang_mask, visual_feats, visn_mask=None,
                 g=None, output_attentions: bool = False):
         """lang_emb (B, Lt, D); lang_mask additive (B,1,1,Lt) or None;
         visual_feats (B, T, H, W, C).  Returns (lang, visn, lang_snapshot,
         visn_snapshot), and with ``output_attentions`` the attentions."""
+        if self.scan_layers and output_attentions:
+            raise ValueError(
+                "output_attentions is unavailable with scan_layers; rerun "
+                "with scan_layers=False for attention dumps")
         attn = {"lang": [], "visn": [], "cross": []}
 
-        def run(layer, *args):
+        def run(layer, *args, remat=None):
             if not output_attentions:
-                return layer(*args)
+                return remat_call(layer, remat, *args)
             *outs, probs = layer(*args, return_probs=True)
             return outs[0] if len(outs) == 1 else tuple(outs), probs
 
@@ -130,19 +162,22 @@ class TriStreamEncoder(nn.Module):
             visn = self.visual_tokenizer(visual_feats, g)
         lang = lang_emb
         for name in self.l_names:
-            lang = run(getattr(self, name), lang, lang_mask, g)
+            lang = run(getattr(self, name), lang, lang_mask, g,
+                       remat=self.remat)
             if output_attentions:
                 lang, p = lang
                 attn["lang"].append(p)
         for name in self.visn_names:
-            visn = run(getattr(self, name), visn, visn_mask, g)
+            visn = run(getattr(self, name), visn, visn_mask, g,
+                       remat=self.remat)
             if output_attentions:
                 visn, p = visn
                 attn["visn"].append(p)
         lang_snapshot, visn_snapshot = lang, visn
         for step, name in enumerate(self.x_names):
             out = run(getattr(self, name), lang, lang_mask, visn, visn_mask,
-                      g, step)
+                      g, step,
+                      remat=self.remat if self.remat_cross else None)
             if output_attentions:
                 out, p = out
                 attn["cross"].append(p)
@@ -192,12 +227,13 @@ class LXRTModel(nn.Module):
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32,
                  use_kernel: bool = False, kernel_train: bool = False,
-                 deaf: bool = False):
+                 deaf: bool = False, remat: Optional[str] = None):
         super().__init__()
         self.embeddings = BertEmbeddings(
             cfg.vocab_size, cfg.hidden_size, cfg.max_position_embeddings,
             cfg.type_vocab_size, dtype, cfg.hidden_dropout)
-        self.encoder = TriStreamEncoder(cfg, dtype, use_kernel, kernel_train)
+        self.encoder = TriStreamEncoder(cfg, dtype, use_kernel, kernel_train,
+                                        remat)
         self.pooler = (Pooler2(cfg.hidden_size, dtype)
                        if cfg.cross_attn_type == "cross"
                        else Pooler(cfg.hidden_size, dtype))

@@ -65,6 +65,7 @@ from shgvqa_tpu_torch.kernels.ffn import (
     fused_out_ln,
 )
 from shgvqa_tpu_torch.kernels.headsliced import headsliced_attention
+from shgvqa_tpu_torch.models.remat import replayable
 from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 NEG_MASK = -10000.0
@@ -76,7 +77,8 @@ class Dropout(nn.Module):
     probability 1 - rate, scale kept ones by 1 / (1 - rate); the mask comes
     from the generator ``g`` (the device's default one when None).  In a
     data-parallel run the draw is the global batch's and the rank keeps its
-    rows of it (``parallel/mesh.global_rows``)."""
+    rows of it (``parallel/mesh.global_rows``).  Under remat the recompute
+    reads the forward's mask back (``models/remat.replayable``)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -87,9 +89,9 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         first, total = global_rows(x.shape[0])
-        u = torch.rand((total,) + tuple(x.shape[1:]), generator=g,
-                       device=x.device)
-        keep = u[first:first + x.shape[0]] >= self.rate
+        keep = replayable(lambda: torch.rand(
+            (total,) + tuple(x.shape[1:]), generator=g,
+            device=x.device)[first:first + x.shape[0]] >= self.rate)
         return torch.where(keep, x / (1.0 - self.rate),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 

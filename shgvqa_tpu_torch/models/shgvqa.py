@@ -62,6 +62,11 @@ runs whole, as in JAX), with the batch's augmentation drawn once.  In a
 data-parallel run the augmentation is drawn for the global batch and each
 rank augments its clips with their rows of the draws
 (``parallel/mesh.global_rows``).
+With ``remat`` (``--remat``, policy ``--rematPolicy``) the l- and
+r-layers, the decoders' layers and under ``--scanLayers`` the LXRT's cross
+stack are rematerialized in training (``models/remat.py``), as JAX wraps
+them; ``--scanLayers`` runs the same modules as the unscanned model (its
+JAX parameter layout: ``models/scan_stacks.py``).
 Every option the port does not run yet raises
 (``configs.config.check_ported``; training options are checked when the
 model runs in training mode).
@@ -122,11 +127,13 @@ class ShgVqaModel(nn.Module):
         kernel_train = (cfg.use_pallas_attention_train
                         or cfg.use_pallas_attention)
         d = enc.hidden_size
+        # --remat: the policy of the blocks JAX's remat_class wraps
+        remat = cfg.remat_policy if cfg.remat else None
         if cfg.task == "q":
             self.bert_encoder = LanguageEncoder(enc, dt, kernel, kernel_train)
         else:
             self.lxrt = LXRTModel(enc, dt, kernel, kernel_train,
-                                  deaf=cfg.task == "vhga")
+                                  deaf=cfg.task == "vhga", remat=remat)
         if cfg.task in HG_TASKS:
             s = data.num_situations
             # GT-HG mode sizes the tables by the class vocabulary
@@ -144,10 +151,10 @@ class ShgVqaModel(nn.Module):
             dec = cfg.decoder
             self.rel_decoder = HGDecoder(dec.num_layers, d, dec.num_heads,
                                          dec.ffn_dim, dt, dec.dropout,
-                                         kernel_train)
+                                         kernel_train, remat)
             self.action_decoder = HGDecoder(dec.num_layers, d, dec.num_heads,
                                             dec.ffn_dim, dt, dec.dropout,
-                                            kernel_train)
+                                            kernel_train, remat)
             head = Dense if dec.linear_cls else MLPHead
             self.class_embed = head(d, cfg.num_rel_classes + 1, dtype=dt)
             self.action_embed = head(d, cfg.num_act_classes + 1, dtype=dt)

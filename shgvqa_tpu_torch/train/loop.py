@@ -13,9 +13,14 @@
 - the weight imports of the JAX ``Trainer``: ``load_backbone`` (a
   converted slow_r50 trunk), ``load_bert_pretrained`` (bert-base into the
   language tower), ``load_vit_layers`` (``--vitInit``: timm ViT-B/32
-  blocks into the ViT r-layers) and ``load_reference`` (a reference
-  ``.pth``, which ``load`` dispatches to); each ends by resetting the
-  optimizer's state.
+  blocks into the ViT r-layers), ``load_reference`` (a reference
+  ``.pth``, which ``load`` dispatches to), ``load_encoder``
+  (``--loadLXMERT``: an encoder snapshot, ``save_encoder``'s or the
+  pretraining driver's) and ``load_lxmert_qa`` (``--loadLXMERTQA``: the
+  snapshot and the answer-head surgery); each ends by resetting the
+  optimizer's state.  An encoder snapshot ``{path}_LXRT`` is the port's
+  own ``torch.save`` file of ``{"lxrt" or "bert_encoder": the encoder's
+  state_dict}``; a directory there is a JAX (orbax) snapshot and raises.
   None of these files carries the int8 trunk's scales, so each leaves an
   int8 trunk uncalibrated (``models/backbone.SlowR50``); the port's own
   checkpoints carry them, and load into a trunk with or without ``quant``;
@@ -50,14 +55,17 @@ rank stop early together.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from shgvqa_tpu_torch.configs.config import HG_TASKS, Config, check_ported
 from shgvqa_tpu_torch.convert import from_jax_variables, to_jax_variables
+from shgvqa_tpu_torch.models.pretrain import AnswerTable, answer_head_surgery
 from shgvqa_tpu_torch.parallel import distributed
 from shgvqa_tpu_torch.train.checkpoint import (
     CHECKPOINT_NAMES,
@@ -78,6 +86,35 @@ from shgvqa_tpu_torch.utils.torch_import import (
     load_torch_state_dict,
     vit_to_r_layers,
 )
+
+ENCODER_KEYS = ("lxrt", "bert_encoder")
+
+
+def save_encoder_snapshot(path: str, key: str, encoder: nn.Module) -> None:
+    """``{key: encoder.state_dict()}`` to ``path`` by ``torch.save``,
+    through a temporary name (a reader never sees a partial file)."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save({key: encoder.state_dict()}, tmp)
+    os.replace(tmp, path)
+
+
+def _walk(dst: dict, src: dict, prefix: str, stats: dict) -> None:
+    """The JAX ``load_encoder``'s name-matched partial load of the JAX tree
+    ``src`` into ``dst``, with its report."""
+    for key, sval in src.items():
+        name = f"{prefix}/{key}"
+        if not isinstance(dst, dict) or key not in dst:
+            stats["unexpected"].append(name)
+        elif isinstance(sval, dict):
+            _walk(dst[key], sval, name, stats)
+        elif getattr(dst[key], "shape", None) != getattr(sval, "shape",
+                                                           None):
+            stats["shape_mismatch"].append(
+                f"{name} {getattr(sval, 'shape', None)}->"
+                f"{getattr(dst[key], 'shape', None)}")
+        else:
+            dst[key] = sval
+            stats["loaded"] += 1
 
 class Trainer:
     """Trains and evaluates ``model`` (already on its device) under
@@ -334,6 +371,95 @@ class Trainer:
             f"Loaded {n} ViT blocks [{start_index}:{start_index + n}] "
             f"from {path} into 'lxrt/encoder/r_*'")
         self._reset_opt()
+
+    def _encoder(self) -> Tuple[str, nn.Module]:
+        """(key, module) of the encoder: ``lxrt``, or task 'q''s
+        ``bert_encoder``."""
+        head = self._head()
+        for key in ENCODER_KEYS:
+            if hasattr(head, key):
+                return key, getattr(head, key)
+        raise ValueError("no encoder (lxrt/bert_encoder) in the model")
+
+    def _snapshot_path(self, path: str) -> str:
+        """The JAX rules: ``_LXRT`` appended unless there, a relative path
+        under the checkpoint directory."""
+        full = path if path.endswith("_LXRT") else path + "_LXRT"
+        return full if os.path.isabs(full) else self.ckpt.path(full)
+
+    def save_encoder(self, path: str) -> None:
+        """Save only the encoder (``lxrt`` / ``bert_encoder``) as
+        ``{path}_LXRT`` (the reference's '%s_LXRT.pth' snapshots)."""
+        key, enc = self._encoder()
+        if distributed.rank() == 0:
+            save_encoder_snapshot(self._snapshot_path(path), key, enc)
+        distributed.barrier()
+
+    def load_encoder(self, path: str) -> dict:
+        """``--loadLXMERT``: the encoder weights of a snapshot into the
+        model by name, the heads and decoders left as they are, as JAX's
+        ``load_encoder``: the walk runs on the JAX layout of both trees, so
+        its report (tensors loaded, names not in the model, shape
+        mismatches) is JAX's.  Returns the report."""
+        full = self._snapshot_path(path)
+        if os.path.isdir(full):
+            raise NotImplementedError(
+                f"{full} is a directory: a JAX (orbax) encoder snapshot, "
+                "which the port does not read; the port's snapshots are "
+                "torch.save files (Trainer.save_encoder, "
+                "shgvqa_tpu_torch.cli.pretrain)")
+        restored = torch.load(full, map_location="cpu", weights_only=True)
+        own_key, enc = self._encoder()
+        own = to_jax_variables(enc.state_dict())["params"]
+        stats = {"loaded": 0, "unexpected": [], "shape_mismatch": []}
+        for key, state in restored.items():
+            if key == own_key and isinstance(state, dict):
+                _walk(own, to_jax_variables(state)["params"], key, stats)
+            else:
+                stats["unexpected"].append(key)
+        enc.load_state_dict(from_jax_variables({"params": own}, enc),
+                            strict=True)
+        msg = (f"Loaded encoder snapshot from {full}: "
+               f"{stats['loaded']} tensors")
+        if stats["unexpected"]:
+            msg += (f"; not in model ({len(stats['unexpected'])}): "
+                    f"{stats['unexpected'][:8]}")
+        if stats["shape_mismatch"]:
+            msg += (f"; shape mismatch ({len(stats['shape_mismatch'])}): "
+                    f"{stats['shape_mismatch'][:8]}")
+        self.metrics.log(msg)
+        # the moments restart (the reference never checkpoints them)
+        self._reset_opt()
+        return stats
+
+    def load_lxmert_qa(self, path: str, label2ans) -> Tuple[int, int]:
+        """``--loadLXMERTQA``: ``load_encoder``, then the answer head's last
+        layer (``logit_fc.fc2``) from ``{base}_qa_head.npz`` (``weight``
+        (n, d), ``bias``, ``answers``, as the JAX driver writes it) by answer
+        string (``answer_head_surgery``): labels whose answer was not
+        pretrained get zeroed rows.  A model without ``logit_fc.fc2`` (the
+        per-choice heads) raises ``KeyError``, as JAX's tree lookup does.
+        Returns (loaded, zeroed)."""
+        head = getattr(getattr(self._head(), "logit_fc", None), "fc2", None)
+        if head is None:
+            raise KeyError("logit_fc/fc2: the model has no answer head to "
+                           "initialize from a pretraining QA head")
+        self.load_encoder(path)
+        base = path[:-len("_LXRT")] if path.endswith("_LXRT") else path
+        with np.load(base + "_qa_head.npz") as qa:
+            weight, bias = qa["weight"], qa["bias"]
+            table = AnswerTable([str(a) for a in qa["answers"]])
+        new_w, new_b, loaded, unloaded = answer_head_surgery(
+            weight, bias, head.weight.detach().cpu().numpy(),
+            head.bias.detach().cpu().numpy(), label2ans, table)
+        with torch.no_grad():
+            head.weight.copy_(torch.from_numpy(new_w))
+            head.bias.copy_(torch.from_numpy(new_b))
+        self.metrics.log(
+            f"load_lxmert_qa: {loaded} answers initialized from "
+            f"pretraining, {unloaded} zeroed")
+        self._reset_opt()
+        return loaded, unloaded
 
     def load_reference(self, path: str) -> None:
         """``--load`` of a reference ``.pth`` (or ``path/BEST`` with

@@ -69,9 +69,11 @@ def test_parser_accepts_every_jax_flag():
 
 def test_unported_flags_still_raise():
     """The global matcher (no --LossHGPerFrame) and the options of queue A
-    item 15 (per-choice QA and --outputAttn too) train now; an option only
-    training reads and the port does not run still raises in training, the
-    scanned stacks raise, and the int8 trunk and --backboneChunks pass."""
+    item 15 (per-choice QA and --outputAttn too) train now; so do the
+    options that used to raise, --remat (every policy) and --scanLayers
+    (queue A positions 14 and 15), and the int8 trunk and
+    --backboneChunks pass.  No option of the config is refused any more:
+    tensor parallelism is refused by the driver's mesh."""
     cfg = cli.parse_reference_flags(FLAGSHIP + ["--pallasFFNTrain"])
     assert not cfg.loss_hg_per_frame
     port_config.check_ported(cfg, video=True, train=True)
@@ -80,18 +82,18 @@ def test_unported_flags_still_raise():
                   ["--crossAttnType", "cross_self"]):
         port_config.check_ported(cli.parse_reference_flags(
             FLAGSHIP + flags), video=True, train=True)
-    cfg = cli.parse_reference_flags(FLAGSHIP + ["--remat"])
-    port_config.check_ported(cfg, video=True)       # inference: fine
-    with pytest.raises(NotImplementedError, match="item 19"):
+    for policy in ("", "dots", "dots_batch", "dots_attn"):
+        cfg = cli.parse_reference_flags(FLAGSHIP + ["--remat",
+                                                    "--rematPolicy", policy])
+        assert cfg.remat and cfg.remat_policy == policy
+        port_config.check_ported(cfg, video=True)
         port_config.check_ported(cfg, video=True, train=True)
     for flags in (["--outputAttn"], ["--qaArrangeType", "add_sep"],
-                  ["--quantBackbone", "int8", "--backboneChunks", "2"]):
+                  ["--quantBackbone", "int8", "--backboneChunks", "2"],
+                  ["--scanLayers"]):
         port_config.check_ported(cli.parse_reference_flags(
             FLAGSHIP + flags), video=True, train=True)
-    for flags, item in ((["--scanLayers"], "19"),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            port_config.check_ported(cli.parse_reference_flags(
-                FLAGSHIP + flags), video=True)
+    assert port_config._UNPORTED == port_config._TRAIN_UNPORTED == ()
 
 
 def _jax_cfg():

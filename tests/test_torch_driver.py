@@ -196,16 +196,48 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     # data parallelism runs (tests/test_torch_data_parallel.py); the
     # tensor-parallel split of the mesh is what stays refused
     (["--multiGPU", "--modelParallel", "2"], "position 17"),
-    (["--loadLXMERT", "snap/x"], "item 18"),
-    (["--scanLayers"], "item 19"),
-    (["--remat"], "item 19"),
-    (["--loadLXMERTQA", "snap/x"], "item 18"),
+    (["--loadLXMERT", "{snap}"], None),
+    (["--scanLayers"], None),
+    (["--remat"], None),
+    (["--loadLXMERTQA", "{snap}"], None),
 ], ids=["multiGPU", "loadLXMERT", "scanLayers", "remat", "loadLXMERTQA"])
-def test_driver_refuses_unported_options(tmp_path, extra, match):
-    """What the driver still refuses (--sharedWeights and --vitInit run:
-    ``test_driver_trains_the_encoder_options``)."""
-    with pytest.raises(NotImplementedError, match=match):
-        agqa_hgqa.main(_argv(tmp_path, *extra), device="cpu")
+def test_driver_refuses_unported_options(tmp_path, monkeypatch, extra,
+                                         match):
+    """What the driver still refuses: tensor parallelism (--sharedWeights
+    and --vitInit run: ``test_driver_trains_the_encoder_options``).  The
+    options of ROADMAP queue A positions 14 and 15 that it used to refuse
+    (``match`` None) train an epoch now: ``--scanLayers``, ``--remat``, and
+    ``--loadLXMERT`` / ``--loadLXMERTQA`` of an encoder snapshot (and a QA
+    head over the answers 'yes' and 'nope') written from this model."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            agqa_hgqa.main(_argv(tmp_path, *extra), device="cpu")
+        return
+    _shrink(monkeypatch)
+    if "{snap}" in extra:
+        _main(_argv(tmp_path / "init", "--epochs", "0"))
+        params = torch.load(tmp_path / "init" / "LAST",
+                            weights_only=True)["params"]
+        torch.save({"lxrt": {k[len("head.lxrt."):]: v
+                             for k, v in params.items()
+                             if k.startswith("head.lxrt.")}},
+                   tmp_path / "snap_LXRT")
+        d = params["head.logit_fc.fc2.weight"].shape[1]
+        np.savez(tmp_path / "snap_qa_head.npz",
+                 weight=np.ones((2, d), np.float32), bias=np.ones(2),
+                 answers=np.array(["yes", "nope"]))
+        extra = [a.format(snap=tmp_path / "snap_LXRT") for a in extra]
+    result, stdout = _main(_argv(tmp_path / "out", "--epochs", "1", *extra))
+    assert result["steps"] == 12
+    records = [json.loads(x) for x in
+               (tmp_path / "out" / "metrics.jsonl").read_text().splitlines()]
+    assert all(np.isfinite(r["total_loss"]) for r in records)
+    logged = (tmp_path / "out" / "log.log").read_text()
+    if "--loadLXMERT" in extra:
+        assert "Loaded encoder snapshot from" in logged
+    if "--loadLXMERTQA" in extra:
+        loaded, zeroed = result["load_lxmert_qa"]
+        assert loaded == 1 and zeroed > 0
 
 
 def _timm_vit(path, blocks, d=32, mlp=64):

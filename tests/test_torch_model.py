@@ -269,8 +269,8 @@ def test_converter_round_trip_is_strict(hgqa):
     dict(backbone="resnext101", quant_backbone="int8", freeze_backbone=True),
 ])
 def test_unported_options_raise(override):
-    """What the port does not build raises naming it: the scanned stacks;
-    plain 'video_swin' as the reference does; --quantBackbone int8 with a
+    """What the port does not build raises naming it: plain 'video_swin'
+    as the reference does; --quantBackbone int8 with a
     trunk other than slow_r50, as the JAX package does.  Every other trunk
     of the JAX registry builds (queue A item 17's trunk half; built on
     ``meta`` here: tests/test_torch_backbones_extra.py, test_torch_mvit.py
@@ -280,15 +280,16 @@ def test_unported_options_raise(override):
     int8 trunk and --backboneChunks: tests/test_torch_quant_backbone.py;
     the capsule, patch and ViT encoders and shared weights:
     ``test_item_17_encoder_options_build`` and
-    tests/test_torch_encoder_options.py.)"""
+    tests/test_torch_encoder_options.py.  The scanned stacks build since
+    queue A position 14: the same per-layer modules,
+    tests/test_torch_scan_stacks.py.)"""
     cfg = tiny_test_config(task="hgqa")
     if "encoder" in override:
         cfg = cfg.replace(encoder=dataclasses.replace(
             cfg.encoder, **{override["encoder"]: True}))
     else:
         cfg = cfg.replace(**override)
-    refusals = {"scan_layers": "not ported",
-                "video_swin": "'video_swin_impl' provides",
+    refusals = {"video_swin": "'video_swin_impl' provides",
                 "int8": "implemented for slow_r50"}
     why = [m for k, m in refusals.items()
            if k in (override.get("encoder"), override.get("backbone"),
@@ -300,7 +301,7 @@ def test_unported_options_raise(override):
         else:
             trunk = VideoShgVqaModel(cfg).backbone
             assert trunk.out_channels == {
-                "resnext101": 2048, "mvit_B": 768,
+                "resnext101": 2048, "mvit_B": 768, "slow_r50": 2048,
                 "video_swin_impl": 1024}.get(cfg.backbone, 2304)
 
 
@@ -362,13 +363,18 @@ def test_item_15_options_build(override):
 
 
 def test_training_mode_raises():
-    """An option only training reads and the port does not take
-    (``--remat``, ROADMAP queue A item 19) raises in training mode, and is
-    ignored in eval mode."""
+    """``--remat``, the option only training reads that used to raise in
+    training mode, runs since ROADMAP queue A position 15: the training
+    forward gives the outputs of the model without remat (the same
+    generator's draws), and eval mode ignores it."""
     cfg = tiny_test_config(task="hgqa", remat=True)
     model = init_weights(ShgVqaModel(cfg), 0).train()
+    plain = init_weights(ShgVqaModel(cfg.replace(remat=False)), 0).train()
     batch = _torch_batch(_batch(jax_tiny()))
-    with pytest.raises(NotImplementedError, match="remat.*not ported"):
-        model(batch)
+    got = model(batch, torch.Generator().manual_seed(0))
+    want = plain(batch, torch.Generator().manual_seed(0))
+    assert set(got) == set(OUTPUTS)
+    for key in OUTPUTS:
+        assert torch.equal(got[key], want[key]), key
     with torch.inference_mode():
         assert set(model.eval()(batch)) == set(OUTPUTS)

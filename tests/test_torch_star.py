@@ -422,18 +422,44 @@ def test_star_driver_trains_and_tests_on_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--scanLayers"], "item 19"),
-    (["--loadLXMERTQA", "snap/x"], "item 18"),
+    (["--scanLayers"], None),
+    (["--loadLXMERTQA", "{snap}"], None),
 ], ids=["scanLayers", "loadLXMERTQA"])
-def test_star_driver_refuses_what_is_not_ported(tmp_path, extra, match):
-    """What the STAR driver still refuses, on its capsule encoder (no
-    ``--noCaps``, which runs: tests/test_torch_capsules.py)."""
-    argv = [a for a in FLAGS if a not in ("--noCaps", "--taskHGQA")] + extra
-    if "--taskHGVQA" not in extra:
-        argv.append("--taskHGQA")
-    with pytest.raises(NotImplementedError, match=match):
-        star.main(argv + ["--syntheticData", "8", "--output", str(tmp_path),
-                          "--dataDir", str(tmp_path)], device="cpu")
+def test_star_driver_refuses_what_is_not_ported(tmp_path, monkeypatch, extra,
+                                                match):
+    """What the STAR driver used to refuse on its capsule encoder (no
+    ``--noCaps``) runs now (ROADMAP queue A positions 14 and 15):
+    ``--scanLayers`` trains an epoch (finite losses), and
+    ``--loadLXMERTQA`` loads an encoder snapshot and a QA head whose
+    answers '1', '3' and 'x' initialize labels 1 and 3 and zero 0 and 2
+    of the 4-way head (STAR's ``ans2label``).  Nothing is refused
+    (``match`` None)."""
+    _shrink(monkeypatch)
+    argv = ([a for a in FLAGS if a not in ("--noCaps", "--taskHGQA")]
+            + SMALL + ["--taskHGQA", "--batchSize", "2", "--syntheticData",
+                       "8", "--dataDir", str(tmp_path)])
+    if "{snap}" in extra:
+        # a snapshot of this model's encoder and a QA head over 3 answers
+        _main(argv + ["--epochs", "0", "--output", str(tmp_path / "init")])
+        params = torch.load(tmp_path / "init" / "LAST",
+                            weights_only=True)["params"]
+        lxrt = {k[len("head.lxrt."):]: v for k, v in params.items()
+                if k.startswith("head.lxrt.")}
+        torch.save({"lxrt": lxrt}, tmp_path / "snap_LXRT")
+        d = params["head.logit_fc.fc2.weight"].shape[1]
+        np.savez(tmp_path / "snap_qa_head.npz",
+                 weight=np.ones((3, d), np.float32), bias=np.ones(3),
+                 answers=np.array(["1", "3", "x"]))
+        extra = [a.format(snap=tmp_path / "snap_LXRT") for a in extra]
+    assert match is None
+    result, stdout = _main(argv + extra + ["--epochs", "1", "--output",
+                                           str(tmp_path / "out")])
+    assert result["steps"] >= 1
+    records = [json.loads(x) for x in
+               (tmp_path / "out" / "metrics.jsonl").read_text().splitlines()]
+    assert records and all(np.isfinite(r["total_loss"]) for r in records)
+    if "--loadLXMERTQA" in extra:
+        assert result["load_lxmert_qa"] == (2, 2)
 
 
 @pytest.mark.parametrize("extra", [
