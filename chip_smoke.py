@@ -352,6 +352,20 @@ remat. ``--remat`` (``--only remat``): a frozen-trunk flagship step at B=8
     phase 7b's rule; the driver with ``--remat --stepsPerLoop 2`` when run
     alone (else pretrain's (b)); readings: the published B=32 step's peak
     memory and ms without remat, with '' and ``dots``;
+tp. tensor parallelism (``--modelParallel``, after ddp; ``--only tp``):
+    two gloo ranks on the one card (dp1 x mp2; NCCL refuses two ranks on
+    one device), started while phase 10 runs, each the frozen flagship at
+    B=8 split by JAX's rules: (a) one forward and backward on the default
+    kernels and on the FFN-train kernels at the sites' dropout rates,
+    against one process here: a rank's launches one process's at 6 of 12
+    heads, its model collectives ``TP_STEP_COLLECTIVES``, the gathered
+    gradients bit-equal across the ranks, the loss and gradient within
+    bf16's own distance on the step; (b) the attention kernels at a rank's
+    heads (the keep mask bit-equal to the one-process mask's heads and to
+    ``keep_mask_reference``) and the split FFN chain against the one-call
+    chain and the plain version; (c) a ``--test`` forward (18 split FFN
+    chains) and ``Trainer.predict`` against one process; readings: a
+    rank's step ms, the collectives' share;
 11. the card line, one ``{"kernels": [...]}`` line (eleven kernels), the
     phases' seconds, and last ``{"ok": true, "device": {...}}``.
 
@@ -377,8 +391,8 @@ phases 1-2, 7b's driver (the weight files written for it) and ddp,
 ``--only caps`` phases 1-2 and caps (the weight files written for its
 trunk) with phase 3's capsule shapes, ``--only trunks`` phases 1-2 and
 trunks, ``--only pretrain`` and ``--only remat`` phases 1-2 and that phase
-(a calibrated trunk file written for its driver), and prints no result
-lines.
+(a calibrated trunk file written for its driver), ``--only tp`` phases
+1-2 and tp, and prints no result lines.
 """
 
 from __future__ import annotations
@@ -5772,6 +5786,442 @@ def phase_ddp(overlap=None):
 
 
 # ---------------------------------------------------------------------------
+# Phase tp: tensor parallelism (--modelParallel 2, JAX's _TP_RULES) as two
+# gloo ranks on the one card (NCCL refuses two ranks on one device)
+
+TP_WORLD, TP_BATCH = 2, 8
+# the runs of (a): the default kernels, and the FFN-train kernels on
+# (--pallasFFNTrain), each one forward and backward from one generator
+# state at the sites' dropout rates
+TP_RUNS = (("default", False), ("pallasFFNTrain", True))
+# a rank's launches in one step of each run: one process's (each attention
+# site at 6 of 12 heads, each FFN site's split chain one forward and one
+# backward launch); in one --test forward the split FFN inference chain at
+# the 18 FFN sites
+TP_TRAIN_LAUNCHES = {"default": (38, 34, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+                     "pallasFFNTrain": (38, 34, 0, 18, 14, 0, 0, 0, 0, 0, 0)}
+TP_EVAL_LAUNCHES = (0, 0, 18, 0, 0, 0, 0, 0, 0, 0, 0)
+# a rank's model-group collectives in one forward and backward of the
+# frozen flagship hgqa step (no optimizer step), by function
+# (``distributed.model_collectives``), derived from the code:
+# - gather_from_model, a forward all-gather per BERT attention call: 5 l +
+#   5 r + 2 x 2 LXRT cross + 2 x 2 HG cross = 18;
+# - reduce_from_model, a forward all-reduce per row-split product: 18 FFN,
+#   20 decoder out_proj, 10 decoder linear2, 4 MLPHead fc2 (logit_fc twice,
+#   for logit and hg_logit, class_embed, action_embed) = 52;
+# - sum_over_model, the split LayerNorms' two row sums: 4 MLPHead calls x 2
+#   forward, and backward 2 each for the 3 calls the loss reaches (the
+#   logit call feeds no loss) = 14;
+# - copy_to_model, a backward all-reduce per distinct input of a split
+#   module the backward reaches: 10 self attentions x 1 + 4 HG cross x 2
+#   (the LXRT x-layers feed only the unsupervised logit) = 18, 14 FFN
+#   (the 4 LXRT cross FFNs unreached), 20 decoder self attentions and
+#   cross attentions x 2 distinct inputs, but the first layer's self
+#   attention, whose value (a zero target) needs no gradient: 40 - 2 = 38,
+#   10 decoder FFNs, 3 MLPHeads = 83;
+# - model_sum_ (the clip's): 0 (no optimizer step).
+TP_STEP_COLLECTIVES = {"copy_to_model": 83, "reduce_from_model": 52,
+                       "sum_over_model": 14, "gather_from_model": 18,
+                       "model_sum_": 0}
+# the rule of (a): the median distance of the tensor-parallel run to the
+# one-process runs (loss, gradient vector) at most bf16's own distance on
+# the same step (the one-process step on the plain paths in bf16 against an
+# f32 twin of the same weights, the same dropout draws).  A rank rounds its
+# partial products to bf16 before the cross-rank sum, so the split step is
+# one process's arithmetic reassociated in bf16: phase 7b's rule (2x the
+# plain runs' own distance, which is 0 for the loss, the forward being
+# deterministic) cannot hold for it.  Phase 7b's ratio is logged beside.
+TP_READING_STEPS = 3
+# (b): the attention kernels at a rank's heads (6 of 12, head0 6) at B=2,
+# and the split FFN chain (two halves of F) at M = 2 x 393
+TP_ATTN_SITES = (("visual self", 393, 393, "key", 0.1),
+                 ("rel decoder self", 128, 128, "pane", 0.15))
+TP_FFN_M = 2 * 393
+
+
+def tp_bf16_distance(model, optimizer, generator, batch, start):
+    """bf16's own (loss, gradient) distance on the step: the one-process
+    step on the plain paths (no kernel) in bf16 against an f32 twin of the
+    same weights and statistics, from the generator state ``start`` (the
+    plain dropout draws do not depend on the dtype: both drop the same
+    elements)."""
+    set_attention_kernel(model, False)
+    bf16 = tp_gradients(model, optimizer, generator, batch, start)
+    set_attention_kernel(model, True)
+    twin = entry.build_model(model.cfg.replace(compute_dtype="float32"),
+                             "cuda", seed=0)
+    twin.load_state_dict(model.state_dict())
+    set_attention_kernel(twin.train(), False)
+    names = {id(p): n for n, p in model.named_parameters()}
+    twins = dict(twin.named_parameters())
+    params = [twins[names[id(p)]] for p in optimizer.params]
+    holder = SimpleNamespace(params=params, zero_grad=lambda: [
+        setattr(p, "grad", None) for p in params])
+    f32 = tp_gradients(twin, holder, generator, batch, start)
+    del twin, holder, params
+    gc.collect()
+    return remat_distance(bf16, f32)
+
+
+def tp_gradients(model, optimizer, generator, batch, start):
+    """One forward and backward of the train step's loss from the
+    generator state ``start``: (loss, the gradient vector of the trainable
+    parameters as one process holds them (split ones gathered), launches,
+    model collectives by function)."""
+    generator.set_state(start)
+    optimizer.zero_grad()
+    torch.cuda.synchronize()
+    reset_counts()
+    before = distributed.model_collectives()
+    loss, _ = compute_losses(model.cfg, model(batch, generator), batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = counts()
+    issued = {k: v - before[k]
+              for k, v in distributed.model_collectives().items()}
+    grads = []
+    for p in optimizer.params:
+        g = p.grad.detach() if p.grad is not None else torch.zeros_like(p)
+        if getattr(p, "tp_split", None) is not None:
+            g = mesh.whole_of(g, p.tp_split)
+        grads.append(g.float().flatten())
+    optimizer.zero_grad()
+    return loss.item(), torch.cat(grads).cpu(), launched, issued
+
+
+@contextlib.contextmanager
+def collective_clock(ms: list):
+    """While open, every model-group collective's wall time (synchronized
+    before and after) is appended to ``ms``."""
+    saved = distributed._model_sum, distributed._model_gather
+
+    def timed(fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    distributed._model_sum, distributed._model_gather = map(timed, saved)
+    try:
+        yield
+    finally:
+        distributed._model_sum, distributed._model_gather = saved
+
+
+def tp_step_readings(model, optimizer, generator, batch):
+    """Readings: the eager train step's ms (one step to warm, then the
+    median of ``TP_READING_STEPS``, synchronized), and under tensor
+    parallelism the model collectives' ms a step and their share."""
+    model.train()
+    step = make_train_step(model.cfg, model, optimizer)
+    step(batch, generator)
+    steps, coll = [], []
+    for _ in range(TP_READING_STEPS):
+        mine = []
+        with collective_clock(mine) if distributed.model_size() > 1 \
+                else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch, generator)
+            torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        coll.append(sum(mine))
+    ms, cms = statistics.median(steps), statistics.median(coll)
+    return {"step_ms": ms, "step_ms_all": steps, "collectives_ms": cms,
+            "collectives_share": cms / ms, "collectives_a_step": len(mine)}
+
+
+def tp_rank(rank: int, world: int, port: int, out: str) -> None:
+    """(a) and (c) as one rank, in its own process, of a gloo group of
+    dp1 x mp2 on the one card: the frozen flagship's ``train_entry`` at
+    B=8 (every rank builds the one-process model and splits it), the runs
+    of ``TP_RUNS`` with their launches and collectives, then a --test
+    forward (its launches and hg_logit) and ``Trainer.predict``; after
+    ``{out}/go`` appears, the step readings.  Writes
+    ``{out}/tp{rank}.pt``."""
+    distributed.maybe_initialize_distributed(
+        f"127.0.0.1:{port}", world, rank, device="cuda", backend="gloo")
+    distributed.set_model_parallel(world)
+    try:
+        model, optimizer, generator, batch = entry.train_entry(
+            batch_size=TP_BATCH)
+        res = {"runs": {}, "split": len(mesh.sharded_parameters(model))}
+        start = generator.get_state()
+        for name, ffn_on in TP_RUNS:
+            set_ffn_train_kernel(model, ffn_on)
+            res["runs"][name] = tp_gradients(model, optimizer, generator,
+                                             batch, start)
+        set_ffn_train_kernel(model, False)
+        model.eval()
+        reset_counts()
+        with torch.inference_mode():
+            res["hg_logit"] = model(batch)["hg_logit"].float().cpu()
+        torch.cuda.synchronize()
+        res["eval_launches"] = counts()
+        cfg = model.cfg.replace(output=os.path.join(out, f"out{rank}"))
+        trainer = Trainer(cfg, 1, model)
+        qids = [f"q{i}" for i in range(TP_BATCH)]
+        res["q2a"], res["hg_q2a"] = trainer.predict(
+            [dict(batch, ques_id=qids, n_valid=len(qids))])
+        del trainer
+        gc.collect()
+        go = os.path.join(out, "go")
+        while not os.path.exists(go):
+            time.sleep(0.05)
+        res["readings"] = tp_step_readings(model, optimizer, generator,
+                                           batch)
+        torch.save(res, os.path.join(out, f"tp{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def start_tp_gloo():
+    """The ranks of phase tp, started: ``TP_WORLD`` processes, each
+    ``tp_rank`` on the one card.  Returns (their output directory, the
+    processes) for ``phase_tp``."""
+    out = tempfile.TemporaryDirectory()
+    port = free_port()
+    code = ("import sys, chip_smoke; chip_smoke.tp_rank("
+            "*map(int, sys.argv[1:4]), sys.argv[4])")
+    root = str(Path(__file__).resolve().parent)
+    procs = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(out.name, f"rank{r}.log"), "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(r), str(TP_WORLD),
+                 str(port), out.name], cwd=root, stdout=f,
+                stderr=subprocess.STDOUT))
+    return out, procs
+
+
+def stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def tp_attention_check(site, lq, lk, kind, rate, b=2):
+    """(b) The attention kernels at a tensor-parallel rank's heads: the
+    keep mask at Hl = 6 of Hg = 12 heads from head0 = 6 bit-equal to the
+    one-process mask's heads 6-11 and to ``keep_mask_reference`` with those
+    arguments; the forward and dQ, dK, dV called with ``heads=(6, 12)``
+    against the plain version given that mask (phase 3's tolerances).
+    Returns the worst relative error."""
+    hl = H // TP_WORLD
+    q, k, v, mask = attention_operands(b, lq, lk, kind, seed=23)
+    q, k, v = (t[:, hl:] for t in (q, k, v))
+    seed = draw_seed(torch.Generator(device="cuda").manual_seed(29), "cuda")
+    got = keep_mask(seed, b * hl, lq, lk, rate, heads=hl, heads_global=H,
+                    head0=hl)
+    whole = keep_mask(seed, b * H, lq, lk, rate).view(b, H, lq, lk)
+    want = keep_mask_reference(seed, b * hl, lq, lk, rate, heads=hl,
+                               heads_global=H, head0=hl)
+    if not (torch.equal(got.view(b, hl, lq, lk), whole[:, hl:])
+            and torch.equal(got.cpu(), want)):
+        raise AssertionError(f"tp {site}: the keep mask at heads {hl}-"
+                             f"{H - 1} differs from the one-process mask's "
+                             "or from keep_mask_reference")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    state = g.get_state()
+    leaves = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fused_attention(*leaves, mask, rate, g, heads=(hl, H))
+    g.set_state(state)
+    keep = keep_mask(draw_seed(g, "cuda"), b * hl, lq, lk, rate, heads=hl,
+                     heads_global=H, head0=hl).view(b, hl, lq, lk)
+    _, fwd = rel_max_err(f"tp {site} fwd", out, attention_reference(
+        q, k, v, mask, rate, keep), ATTN_TOL)
+    do = torch.randn(out.shape, device="cuda").to(torch.bfloat16)
+    _, grads = grad_errors(f"tp {site}", *leaves, mask, rate, keep, out, do)
+    log(f"tp (b) attention {site} b{b} rate {rate} at heads {hl}-{H - 1} "
+        f"of {H}: keep mask bit-equal to the one-process mask's heads and "
+        f"to keep_mask_reference; forward rel max err {fwd:.3e}, dQ/dK/dV "
+        f"{grads:.3e}")
+    return max(fwd, grads)
+
+
+def tp_ffn_check(rate, m=TP_FFN_M):
+    """(b) The split FFN chain on one card: the two halves of F's products
+    (``_FFNProducts``, F / 2 = 1536 columns each), their partials summed,
+    the row pass (``_FFNRows``) from one seed, against the one-call chain
+    from that seed and against ``ffn_train_reference`` with the kernels'
+    keep mask, forward (within TOL) and backward (dx = dr + the halves'
+    partials through autograd; every gradient within FFN_GRAD_TOL of the
+    plain version's).  Returns the worst relative error."""
+    ops = tuple(t.detach().requires_grad_(True) for t in ffn_operands(m))
+    x, w1t, b1, w2t, b2, gamma, beta = ops
+    seed = draw_seed(torch.Generator(device="cuda").manual_seed(37), "cuda")
+    f = FF // TP_WORLD
+    what = "fused_ffn_train"
+    parts = [ffn_kernels._FFNProducts.apply(
+        x, w1t[i * f:(i + 1) * f].contiguous(), b1[i * f:(i + 1) * f],
+        w2t[:, i * f:(i + 1) * f].contiguous(), what)
+        for i in range(TP_WORLD)]
+    y = ffn_kernels._FFNRows.apply(parts[0] + parts[1], x, b2, gamma, beta,
+                                   seed if rate > 0 else None, rate, 1e-12,
+                                   0, what)
+    one = ffn_kernels._FusedFFNTrain.apply(*(o.detach() for o in ops),
+                                           seed if rate > 0 else None, rate,
+                                           1e-12, 0)
+    keep = ffn_keep_mask(seed, m, D, rate) if rate > 0 else None
+    e_one = check_close(f"tp split FFN rate {rate} vs the one-call chain", y,
+                        one)
+    e_ref = check_close(f"tp split FFN rate {rate}", y,
+                        ffn_train_reference(*ops, rate, keep))
+    dy = torch.randn(m, D, device="cuda").to(torch.bfloat16)
+    _, grads = ffn_train_grads_vs_plain(f"tp split FFN rate {rate}", ops, y,
+                                        dy, rate, keep)
+    log(f"tp (b) split FFN chain M={m} rate {rate} (F / 2 = {f} columns a "
+        f"half): forward max err {e_one:.3e} vs the one-call chain, "
+        f"{e_ref:.3e} vs ffn_train_reference; gradients rel max err "
+        f"{grads:.3e}")
+    return grads
+
+
+def phase_tp_kernels():
+    """(b) The kernels alone at a tensor-parallel rank's shapes."""
+    errs = [tp_attention_check(*site) for site in TP_ATTN_SITES]
+    errs += [tp_ffn_check(rate) for rate in (0.0, FFN_TRAIN_RATE)]
+    return max(errs)
+
+
+def phase_tp(gloo):
+    """Phase tp (``--only tp``): the ranks of ``start_tp_gloo`` (``gloo``:
+    their output directory and processes) against one process here, the
+    frozen flagship at B=8 from the same weights and generator state:
+
+    (a) every rank's exit code 0; each run's launches ``TP_TRAIN_LAUNCHES``
+        and model collectives ``TP_STEP_COLLECTIVES`` in each rank; the
+        gathered gradients bit-equal across the ranks; the loss and the
+        gradient vector's median distance to the one-process runs at most
+        bf16's own on the step (``tp_bf16_distance``);
+    (b) ``phase_tp_kernels`` (here, while the ranks run);
+    (c) the --test forward's launches ``TP_EVAL_LAUNCHES`` and hg_logit
+        within TOL_HG (phase 4's) of one process's; ``Trainer.predict``'s
+        merged answers one process's argmax wherever its top two logits
+        are further apart than the ranks' largest logit error, every
+        question once;
+
+    then the readings (no limit): the step's ms a rank (the ranks alone on
+    the card) and one process's, the collectives' ms and share.  Returns
+    the readings."""
+    t0 = time.perf_counter()
+    out, procs = gloo
+    with out:
+        try:
+            model, optimizer, generator, batch = entry.train_entry(
+                batch_size=TP_BATCH)
+            start = generator.get_state()
+            plain = {}
+            for name, ffn_on in TP_RUNS:
+                set_ffn_train_kernel(model, ffn_on)
+                plain[name] = [tp_gradients(model, optimizer, generator,
+                                            batch, start) for _ in range(2)]
+                if plain[name][0][2] != TP_TRAIN_LAUNCHES[name]:
+                    raise AssertionError(f"tp one process {name}: launches "
+                                         f"{plain[name][0][2]}")
+            set_ffn_train_kernel(model, False)
+            bf16 = tp_bf16_distance(model, optimizer, generator, batch,
+                                    start)
+            model.eval()
+            with torch.inference_mode():
+                want = model(batch)
+            want_hg = want["hg_logit"].float().cpu()
+            want_logit = want["logit"].float().cpu()
+            del want
+            kernel_err = phase_tp_kernels()
+            Path(out.name, "go").touch()
+            for p in procs:
+                p.wait(timeout=600)
+            one = tp_step_readings(model, optimizer, generator, batch)
+        finally:
+            stop(procs)
+        for r, p in enumerate(procs):
+            with open(os.path.join(out.name, f"rank{r}.log")) as f:
+                for line in f.read().splitlines()[-20:]:
+                    log(f"  | tp rank {r}: {line}")
+            if p.returncode:
+                raise AssertionError(f"tp: rank {r} exited {p.returncode}")
+        ranks = [torch.load(os.path.join(out.name, f"tp{r}.pt"),
+                            weights_only=False) for r in range(TP_WORLD)]
+    del model, optimizer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    gaps = {}
+    for name, _ in TP_RUNS:
+        runs = [res["runs"][name] for res in ranks]
+        for r, run in enumerate(runs):
+            if (run[2] != TP_TRAIN_LAUNCHES[name]
+                    or run[3] != TP_STEP_COLLECTIVES):
+                raise AssertionError(f"tp {name} rank {r}: launches {run[2]}"
+                                     f", collectives {run[3]}")
+            if not torch.equal(run[1], runs[0][1]) or run[0] != runs[0][0]:
+                raise AssertionError(f"tp {name}: rank {r}'s gradients or "
+                                     "loss differ from rank 0's")
+            if not (math.isfinite(run[0]) and torch.isfinite(run[1]).all()):
+                raise AssertionError(f"tp {name}: a non-finite loss or "
+                                     "gradient")
+        spread = remat_distance(plain[name][0], plain[name][1])
+        dist = [remat_distance(runs[0], p) for p in plain[name]]
+        gaps[name] = {"plain": spread, "tp": dist}
+    log(f"tp (a) distances (loss, gradient): {json.dumps(gaps)}; bf16's "
+        f"own (plain paths, bf16 vs f32): {bf16}")
+    for name, gap in gaps.items():
+        for i, what in enumerate(("loss", "gradient")):
+            near = statistics.median(d[i] for d in gap["tp"])
+            log(f"tp (a) {name} {what}: {near} from one process (median), "
+                f"bf16's own {bf16[i]}; phase 7b's ratio to the plain runs' "
+                f"own {gap['plain'][i]}: "
+                f"{near / gap['plain'][i] if gap['plain'][i] else 'inf'}")
+            if not near <= bf16[i]:
+                raise AssertionError(f"tp {name}: the {what} differs by "
+                                     f"{near} (median) from one process, "
+                                     f"more than bf16's own {bf16[i]}")
+    for r, res in enumerate(ranks):
+        if res["eval_launches"] != TP_EVAL_LAUNCHES:
+            raise AssertionError(f"tp --test rank {r}: launches "
+                                 f"{res['eval_launches']}")
+    got_hg = ranks[0]["hg_logit"]
+    hg_err = ((got_hg - want_hg).norm() / want_hg.norm()).item()
+    if hg_err > TOL_HG or not all(torch.equal(res["hg_logit"], got_hg)
+                                  for res in ranks):
+        raise AssertionError(f"tp --test: hg_logit {hg_err} from one "
+                             "process, or the ranks' differ")
+    qids = [f"q{i}" for i in range(TP_BATCH)]
+    ties = 0
+    for key, logits in (("q2a", want_logit), ("hg_q2a", want_hg)):
+        top = logits.topk(2, dim=-1)
+        for res in ranks:
+            if set(res[key]) != set(qids):
+                raise AssertionError(f"tp --test: {key} does not cover "
+                                     "every question once")
+        for i, q in enumerate(qids):
+            decisive = (top.values[i, 0] - top.values[i, 1]).item() > (
+                2 * (got_hg - want_hg).abs().max().item())
+            ties += not decisive
+            if decisive and ranks[0][key][q] != int(top.indices[i, 0]):
+                raise AssertionError(f"tp --test: {key} {q} answered "
+                                     f"{ranks[0][key][q]}, one process "
+                                     f"{int(top.indices[i, 0])}")
+    readings = {"ranks": [res["readings"] for res in ranks],
+                "one_process": one, "split_params": ranks[0]["split"]}
+    log(f"tp (a) dp1 x mp2 gloo, 2 ranks on one card, B={TP_BATCH}, frozen "
+        f"flagship: launches a rank {json.dumps({k: v[2] for k, v in ranks[0]['runs'].items()})}, "
+        f"collectives a rank {json.dumps(TP_STEP_COLLECTIVES)}; gathered "
+        f"gradients bit-equal across ranks; distances (loss, gradient) "
+        f"{json.dumps(gaps)}, bf16's own {bf16}; (b) worst kernel rel err {kernel_err:.3e}; "
+        f"(c) --test launches {ranks[0]['eval_launches']}, hg_logit rel "
+        f"Frobenius {hg_err:.3e}, answers one process's ({ties} near-ties "
+        f"excused); readings (no limit) {json.dumps(readings)}; "
+        f"{time.perf_counter() - t0:.1f} s ({card_name_and_power_limit()})")
+    return readings
+
+
+# ---------------------------------------------------------------------------
 # Phase trunks: the other video trunks (models/backbones_extra.py, mvit.py,
 # video_swin.py), the native frame decoder and --patches
 
@@ -6630,7 +7080,7 @@ def main(argv=None) -> int:
                                            "matcher", "star", "tasks",
                                            "per_choice", "quant", "ddp",
                                            "caps", "trunks", "pretrain",
-                                           "remat"),
+                                           "remat", "tp"),
                         help="build and run only this kernel phase (no "
                              "result lines)")
     args = parser.parse_args(argv)
@@ -6750,6 +7200,11 @@ def main(argv=None) -> int:
         log(f"data parallelism ok; readings {json.dumps(phase_ddp())} "
             f"({card})")
         return 0
+    if args.only == "tp":
+        readings = phase_tp(start_tp_gloo())
+        log(f"tensor parallelism ok; readings {json.dumps(readings)} "
+            f"({card})")
+        return 0
     if args.only == "out_ln_headsliced":
         out_ln_rows, out_ln_err = phase_out_ln_kernel()
         log_out_ln_per_forward(out_ln_rows)
@@ -6840,14 +7295,26 @@ def main(argv=None) -> int:
         lap("remat")
         weight_bytes = files["bytes"]
         del files
+    tp = []
+
     def phase_10():
+        # phase tp's ranks build and run (a) and (c) meanwhile
+        tp.append(start_tp_gloo())
         for name in CARD_VS_CPU:
             phase_plain_path_card_vs_cpu(name)
             phase_plain_train_step_card_vs_cpu(name)
         phase_per_choice_card_vs_cpu()
 
-    ddp_readings = phase_ddp(phase_10)
+    try:
+        ddp_readings = phase_ddp(phase_10)
+    except BaseException:
+        for out, procs in tp:
+            stop(procs)
+            out.cleanup()
+        raise
     lap("10, ddp")
+    tp_readings = phase_tp(tp[0])
+    lap("tp")
 
     bsz = BATCH_SIZE
     widest = max(FFN_SITES, key=lambda s: s[1] * rows[s[0] * bsz]["bound_ms"])
@@ -7011,6 +7478,8 @@ def main(argv=None) -> int:
     log(f"weight import: BEST.pth {weight_bytes['reference']} bytes, "
         f"{json.dumps(imports)} ({card})")
     log(f"data parallelism (phase ddp; no limit): {json.dumps(ddp_readings)} "
+        f"({card})")
+    log(f"tensor parallelism (phase tp; no limit): {json.dumps(tp_readings)} "
         f"({card})")
     log(f"phase seconds {json.dumps(PHASE_SECONDS)}, "
         f"{sum(PHASE_SECONDS.values()):.1f} s in all")

@@ -29,7 +29,8 @@ ranks being the one-GPU step on the global batch with its rows split;
 LXMERT pretraining (``models/pretrain.py``, ``cli/pretrain.py``) and its
 snapshots in the drivers (``--loadLXMERT``, ``--loadLXMERTQA``);
 ``--remat`` / ``--rematPolicy`` (``models/remat.py``) and
-``--scanLayers`` (``models/scan_stacks.py``).  Tensor parallelism is the
-one option left: it raises ``NotImplementedError``
-(``parallel/mesh.TENSOR_PARALLEL``).
+``--scanLayers`` (``models/scan_stacks.py``); tensor parallelism
+(``--modelParallel``, JAX's ``_TP_RULES``: ``parallel/mesh.py``), a run on
+dp x mp ranks being the one-GPU step with its rows split over the data
+axis and its attention heads and FFN columns over the model axis.
 """

@@ -59,9 +59,17 @@ broadcast.  ``--test`` scores each rank's rows and merges the maps before
 the metrics and the predict files; ``--outputAttn`` dumps are written by
 every rank, of its own rows, into its own output directory.
 
-It runs on the card unless the caller passes ``device="cpu"``.  What the
-port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: ``--modelParallel > 1``.
+Tensor parallelism (``--modelParallel mp``, with ``--dataParallel dp`` or
+``--multiGPU``): dp x mp ranks, rank r at data index r // mp and model
+index r % mp (``distributed.set_model_parallel``); each rank builds the
+rows of its data index (``host_shard`` = (data index, dp)), the model is
+built from the seed as in one process and split by JAX's rules
+(``entry.build_model``, ``parallel/mesh.shard_model_``), and the loads run
+on the one-process tensors.  The files come from model index 0 of each
+data index: rank 0's checkpoints, and each data index's ``--outputAttn``
+dumps (the probabilities gathered over the heads).
+
+It runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -105,7 +113,7 @@ from shgvqa_tpu_torch.data.tokenization import (
 from shgvqa_tpu_torch.entry import build_model, resolve_device
 from shgvqa_tpu_torch.losses.set_prediction import matched_target_grid
 from shgvqa_tpu_torch.parallel import distributed
-from shgvqa_tpu_torch.parallel.mesh import TENSOR_PARALLEL, Mesh, make_mesh
+from shgvqa_tpu_torch.parallel.mesh import Mesh, make_mesh
 from shgvqa_tpu_torch.train.loop import Trainer
 from shgvqa_tpu_torch.train.step import trainable_mask
 
@@ -205,8 +213,6 @@ def resolve_num_answers(cfg: Config, data) -> Config:
 
 
 def _check_driver_flags(cfg: Config, extras: dict, dataset: str) -> None:
-    if cfg.mesh.model_parallel > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
     if dataset != "star" and cfg.data.qa_arrange_type in PER_CHOICE:
         # AGQA items carry no choices; the JAX driver would train the
         # plain head under a mask that freezes it (ROADMAP C)
@@ -255,12 +261,13 @@ def load_pretrained_weights(trainer: Trainer, cfg: Config,
 def calibrate_trunk(model, batcher: Batcher, device) -> None:
     """An int8 trunk without scales: calibrate them on the first batch of
     ``batcher``'s epoch 0 (the JAX ``_example_from``).  In a data-parallel
-    run rank 0 calibrates on the global batch and broadcasts the scales,
-    so every rank holds the scales one process computes."""
+    run data index 0 (each of its model indices: the trunk is replicated)
+    calibrates on the global batch and broadcasts the scales over the data
+    group, so every rank holds the scales one process computes."""
     trunk = getattr(model, "backbone", None)
     if trunk is None or not trunk.quant or trunk.calibrated:
         return
-    if distributed.rank() == 0:
+    if distributed.data_rank() == 0:
         frames = next(batcher.epoch(0, sharded=False))["frames"]
         model.calibrate_quant(torch.from_numpy(frames).to(device))
     distributed.broadcast_module_(trunk)
@@ -274,7 +281,7 @@ def build_driver_mesh(cfg: Config, extras: dict, n_devices: int
     ``build_driver_mesh``'s decisions.  cfg may change: the eval batch is
     rounded up to a multiple of dp (trailing batches are padded and masked
     by ``n_valid``), and a layout that does not fit the devices resets the
-    mesh config.  ``--modelParallel > 1`` raises in ``make_mesh``."""
+    mesh config."""
     mcfg = cfg.mesh
     requested = (extras.get("multi_gpu") or mcfg.model_parallel > 1
                  or mcfg.data_parallel not in (-1, 1))
@@ -364,7 +371,7 @@ def run_driver(dataset: str, argv=None, device="cuda") -> dict:
         n = torch.cuda.device_count() if dev.type == "cuda" else 1
         mesh, _ = build_driver_mesh(cfg, extras, n)
         if mesh is not None:
-            return spawn_ranks(dataset, argv, device, mesh.data)
+            return spawn_ranks(dataset, argv, device, mesh.data * mesh.model)
         # --multiGPU on one device: a process group of one
         started = bool(extras.get("multi_gpu")) and n == 1
         if started:
@@ -384,6 +391,13 @@ def _run_rank(dataset: str, cfg: Config, extras: dict, dev) -> dict:
             if dev.type == "cuda" else str(dev))
     world, rank = distributed.world_size(), distributed.rank()
     mesh, cfg = build_driver_mesh(cfg, extras, world)
+    if mesh is not None and mesh.model > 1:
+        if world != mesh.data * mesh.model:
+            raise SystemExit(
+                f"mesh dp{mesh.data} x mp{mesh.model} needs "
+                f"{mesh.data * mesh.model} processes (one a device), got "
+                f"{world}")
+        distributed.set_model_parallel(mesh.model)
     print(f"shgvqa_tpu_torch {dataset} driver: task={cfg.task} device={name}"
           + (f" processes={world} ({distributed.backend()})"
              if distributed.is_active() else ""), flush=True)
@@ -398,12 +412,12 @@ def _run_rank(dataset: str, cfg: Config, extras: dict, dev) -> dict:
                 "multi-process runs need a data-parallel layout: pass "
                 "--multiGPU (or --dataParallel) so the batch shards over "
                 "the ranks")
-        if cfg.mesh.data_parallel % world:
+        if cfg.mesh.data_parallel % distributed.data_size():
             raise SystemExit(
                 f"data-parallel extent {cfg.mesh.data_parallel} not "
                 f"divisible by {world} processes -- the batch rows cannot "
                 "be fed in equal per-process shards")
-        host_shard = (rank, world)
+        host_shard = (distributed.data_rank(), distributed.data_size())
         if rank != 0:
             # one writer per artifact: rank 0 writes the checkpoints; the
             # other ranks' logs, metrics and dumps go to their own subdir
@@ -523,7 +537,8 @@ def _run_rank(dataset: str, cfg: Config, extras: dict, dev) -> dict:
 
 def report_test(cfg: Config, data, q2a, hg_q2a) -> dict:
     """The AGQA test-protocol fan-out (STAR: the answer and hg accuracy and
-    the hg per-question-type breakdown) and the prediction dumps."""
+    the hg per-question-type breakdown) and the prediction dumps (written
+    by model index 0)."""
     out = {}
     ev = data.evaluator()
     os.makedirs(cfg.output, exist_ok=True)
@@ -531,8 +546,10 @@ def report_test(cfg: Config, data, q2a, hg_q2a) -> dict:
         out["acc"] = ev.evaluate(q2a)
         out["hg_acc"] = ev.evaluate(hg_q2a)
         out["by_qtype"] = ev.evaluate_by_qtype(hg_q2a)
-        ev.dump_result(q2a, os.path.join(cfg.output, "predict.json"))
-        ev.dump_result(hg_q2a, os.path.join(cfg.output, "predict_hg.json"))
+        if distributed.model_rank() == 0:
+            ev.dump_result(q2a, os.path.join(cfg.output, "predict.json"))
+            ev.dump_result(hg_q2a, os.path.join(cfg.output,
+                                                "predict_hg.json"))
         for k, v in out.items():
             print(f"{k}: {v}", flush=True)
         return out
@@ -548,10 +565,11 @@ def report_test(cfg: Config, data, q2a, hg_q2a) -> dict:
             out[name + "comp_steps"] = ev.evaluate_comp_steps(preds)
         else:
             out[name + "all_qtypes"] = ev.evaluate_all_qtypes(preds)
-    ev.dump_result(q2a, os.path.join(cfg.output, "predict.json"),
-                   indirect_ref=cfg.data.indirect_ref)
-    ev.dump_result(hg_q2a, os.path.join(cfg.output, "predict_hg.json"),
-                   indirect_ref=cfg.data.indirect_ref)
+    if distributed.model_rank() == 0:
+        ev.dump_result(q2a, os.path.join(cfg.output, "predict.json"),
+                       indirect_ref=cfg.data.indirect_ref)
+        ev.dump_result(hg_q2a, os.path.join(cfg.output, "predict_hg.json"),
+                       indirect_ref=cfg.data.indirect_ref)
     for k, v in out.items():
         print(f"{k}: {v}", flush=True)
     return out
@@ -624,13 +642,18 @@ def _dump_attentions(cfg: Config, trainer: Trainer, batcher: Batcher,
     ``i * C + c`` of the choice c its file's head answered, where JAX
     takes row i (another clip's row); a model without ``hg_logit``
     ('q', 'vqa') dumps its ``logit`` answers in the hg file, where JAX
-    raises ``KeyError``.  Returns {"questions", "batches", "seconds"}."""
+    raises ``KeyError``.  Under tensor parallelism every model index runs
+    the forward (the probabilities gathered over the heads) and model
+    index 0 writes the files.  Returns {"questions", "batches",
+    "seconds"}."""
     start = time.perf_counter()
     model = trainer.model
     has_hg_labels = cfg.task in HG_TASKS and not cfg.gt_hg
     per_choice = cfg.task != "q" and cfg.data.qa_arrange_type in PER_CHOICE
     out_dir = os.path.join(cfg.output, "attentions")
-    os.makedirs(out_dir, exist_ok=True)
+    write = distributed.model_rank() == 0
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
     stream = _ATTN_STREAM[cfg.encoder.cross_attn_type]
     results, hg_results = [], []
     model.eval()
@@ -684,13 +707,14 @@ def _dump_attentions(cfg: Config, trainer: Trainer, batcher: Batcher,
                                "prediction": int(hg_label[i]),
                                "attention": row(i, int(hg_label[i]))})
         flat = _flatten_attentions(attn)
-        if flat:
+        if flat and write:
             _savez(os.path.join(out_dir, f"batch{bi:03d}.npz"),
                    ques_ids=np.asarray(qids), **flat)
     for name, payload in (("val_attentions_cross_2.json", results),
                           ("hg_val_attentions_cross_2.json", hg_results)):
-        with open(os.path.join(cfg.output, name), "w") as f:
-            json.dump(payload, f)
+        if write:
+            with open(os.path.join(cfg.output, name), "w") as f:
+                json.dump(payload, f)
     print(f"attention dumps written to {cfg.output} "
           f"({len(results)} questions; npz maps in {out_dir})", flush=True)
     return {"questions": len(results), "batches": n_batches,

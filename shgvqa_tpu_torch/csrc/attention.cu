@@ -89,16 +89,19 @@
 // (read from device memory, so drawing it costs the host no sync).  One
 // call covers the queries {q, q + 8} x keys {k, k + 8} with q and k at an
 // offset < 8 in their 16-block: counter (8 * (q / 16) + q % 8,
-// 8 * (k / 16) + k % 8, group0 + batch*head, 0), word 2 * ((q / 8) % 2) +
+// 8 * (k / 16) + k % 8, group, 0), word 2 * ((q / 8) % 2) +
 // (k / 8) % 2.  In the m16n8k16 accumulator layout one lane owns exactly
 // such a 2 x 2 block, in the forward's query-row tiles and in the
 // backward's key-row S^T tiles alike, so each call is made once, by one
 // lane, and all four of its words are used.  The backward regenerates the
 // forward's mask; shgvqa_attention_keep_mask writes it
-// (keep_mask_reference is its plain version).  group0, the caller's group
-// offset, is 0 in one process; a data-parallel rank passes its first global
-// batch row times the heads, so each rank draws its rows of the global
-// batch's mask.
+// (keep_mask_reference is its plain version).  The group of (batch b, head
+// h) of a call is group0 + b * heads_global + head0 + h: in one process
+// group0 = 0, heads_global = heads and head0 = 0, so the group is the
+// call's b * H + h.  A data-parallel rank passes its first global batch row
+// times the global heads as group0; a tensor-parallel rank, holding heads
+// head0 .. head0 + heads - 1 of heads_global, passes those, so each rank
+// draws its rows and heads of the one-process mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,6 +146,7 @@ struct Params {
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int heads, lq, lk;
   int group0;                          // the dropout counter's group offset
+  int heads_global, head0;             // the group's heads and this call's first
   float scale, inv_keep;
   uint32_t threshold;
 };
@@ -391,6 +395,7 @@ __global__ void __launch_bounds__(kFwdThreads, 3) attn_fwd_kernel(const Params p
   float* kms = reinterpret_cast<float*>(vs + 2 * kTileElems);
   const int gi = blockIdx.y;
   const int b = gi / p.heads, h = gi % p.heads;
+  const int group = p.group0 + b * p.heads_global + p.head0 + h;   // its dropout counter group
   const int q0 = blockIdx.x * kQRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = (lane % 4) * 2;
@@ -484,7 +489,7 @@ __global__ void __launch_bounds__(kFwdThreads, 3) attn_fwd_kernel(const Params p
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
           const uint32_t bits =
-              keep_bits(key, p.group0 + gi, cq, counter_word(k0 + jp * 16, c + x), p.threshold);
+              keep_bits(key, group, cq, counter_word(k0 + jp * 16, c + x), p.threshold);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -571,6 +576,7 @@ __global__ void __launch_bounds__(kBwdThreads) attn_bwd_kernel(const Params p) {
   float* delta_s = lse_s + 2 * kTile;                               // 2 x kTile
   const int gi = blockIdx.y;
   const int b = gi / p.heads, h = gi % p.heads;
+  const int group = p.group0 + b * p.heads_global + p.head0 + h;   // its dropout counter group
   const int k0 = blockIdx.x * kTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = (lane % 4) * 2;
@@ -666,7 +672,7 @@ __global__ void __launch_bounds__(kBwdThreads) attn_bwd_kernel(const Params p) {
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
           const uint32_t bits =
-              keep_bits(key, p.group0 + gi, counter_word(q0 + jp * 16, c + x), ck, p.threshold);
+              keep_bits(key, group, counter_word(q0 + jp * 16, c + x), ck, p.threshold);
 #pragma unroll
           for (int jj = 0; jj < 2; ++jj) {
 #pragma unroll
@@ -782,14 +788,16 @@ __global__ void __launch_bounds__(kRowThreads) attn_bwd_dq_kernel(const Params p
 // The keep mask of a call, (B*H, Lq, Lk) uint8: one thread per Philox call,
 // which decides the four (query, key) pairs of its counter.
 __global__ void keep_mask_kernel(const long long* seed, uint8_t* out, int lq, int lk,
-                                 uint32_t threshold, int group0) {
+                                 uint32_t threshold, int group0, int heads,
+                                 int heads_global, int head0) {
   const int gi = blockIdx.y;
+  const int group = group0 + gi / heads * heads_global + head0 + gi % heads;
   const uint2 key = make_uint2(static_cast<uint32_t>(seed[0]), static_cast<uint32_t>(seed[1]));
   const int ny = (lk + 15) / 16 * 8;
   const int calls = (lq + 15) / 16 * 8 * ny;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < calls; i += gridDim.x * blockDim.x) {
     const int cq = i / ny, ck = i % ny;
-    const uint32_t bits = keep_bits(key, group0 + gi, static_cast<uint32_t>(cq),
+    const uint32_t bits = keep_bits(key, group, static_cast<uint32_t>(cq),
                                     static_cast<uint32_t>(ck), threshold);
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
@@ -845,16 +853,20 @@ extern "C" {
 // o: bf16 (B, H, L, 64) through `strides` (12 values: batch, head, row
 // strides in elements of q, k, v, o; the head dim contiguous; every row
 // 16-byte aligned); key_mask (B, Lk) and pane (Lq, Lk) f32 or null; seed
-// (2 int64 on the device, read when dropout != 0) and group0, the
-// counter's group offset; lse (B*H, Lq) f32 out.
+// (2 int64 on the device, read when dropout != 0); group0, heads_global and
+// head0 place the call's (batch, head) groups in the counter (group0 + b *
+// heads_global + head0 + h; 0, heads, 0 in one process); lse (B*H, Lq) f32
+// out.
 int shgvqa_attention_fwd_bf16(const void* q, const void* k, const void* v, const void* key_mask,
                               const void* pane, const void* seed, void* o, void* lse,
                               const long long* strides, int batch, int heads, int lq, int lk,
                               float scale, unsigned threshold, float inv_keep, int dropout,
-                              int group0, void* stream) {
+                              int group0, int heads_global, int head0, void* stream) {
   if (bad_shape(batch, heads, lq, lk, dropout, seed)) return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, key_mask, pane, seed, heads, lq, lk, scale, threshold, inv_keep);
   p.group0 = group0;
+  p.heads_global = heads_global;
+  p.head0 = head0;
   p.o = static_cast<bf16*>(o);
   p.lse = static_cast<float*>(lse);
   p.sq = strides_at(strides, 0);
@@ -879,10 +891,13 @@ int shgvqa_attention_bwd_bf16(const void* q, const void* k, const void* v, const
                               const void* dout, void* delta, void* dq_acc, void* dq, void* dk,
                               void* dv, const long long* strides, int batch, int heads, int lq,
                               int lk, float scale, unsigned threshold, float inv_keep,
-                              int dropout, int group0, void* stream) {
+                              int dropout, int group0, int heads_global, int head0,
+                              void* stream) {
   if (bad_shape(batch, heads, lq, lk, dropout, seed)) return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, key_mask, pane, seed, heads, lq, lk, scale, threshold, inv_keep);
   p.group0 = group0;
+  p.heads_global = heads_global;
+  p.head0 = head0;
   p.o = const_cast<bf16*>(static_cast<const bf16*>(o));
   p.lse = const_cast<float*>(static_cast<const float*>(lse));
   p.dout = static_cast<const bf16*>(dout);
@@ -914,16 +929,20 @@ int shgvqa_attention_bwd_bf16(const void* q, const void* k, const void* v, const
 }
 
 // The keep mask (B*H, Lq, Lk) uint8 that a call with this seed and
-// threshold draws; for holding the kernels to their plain version.
+// threshold draws, its groups `heads` heads a batch row placed as the
+// forward's (group0, heads_global, head0); for holding the kernels to their
+// plain version.
 int shgvqa_attention_keep_mask(const void* seed, void* out, int groups, int lq, int lk,
-                               unsigned threshold, int group0, void* stream) {
-  if (groups <= 0 || groups > 65535 || lq <= 0 || lk <= 0) {
+                               unsigned threshold, int group0, int heads, int heads_global,
+                               int head0, void* stream) {
+  if (groups <= 0 || groups > 65535 || lq <= 0 || lk <= 0 || heads <= 0 || groups % heads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int calls = (lq + 15) / 16 * 8 * ((lk + 15) / 16 * 8);
   const int blocks = min((calls + 255) / 256, 64);
   keep_mask_kernel<<<dim3(blocks, groups), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(seed), static_cast<uint8_t*>(out), lq, lk, threshold, group0);
+      static_cast<const long long*>(seed), static_cast<uint8_t*>(out), lq, lk, threshold, group0,
+      heads, heads_global, head0);
   return static_cast<int>(cudaGetLastError());
 }
 

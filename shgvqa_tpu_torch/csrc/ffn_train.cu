@@ -74,6 +74,15 @@
 // inputs give the same bits.
 // Ragged M: rows past M are zero-filled by the TMA, never stored and never
 // summed into dgamma or dbeta.
+//
+// Tensor parallelism (W1's columns and W2's rows split over the model
+// group, F / mp columns a rank) splits each chain at its all-reduce, with
+// the same kernels: the forward's products (u, then o with a zero b2: the
+// partial h . W2) in one call, the caller's all-reduce and + b2, then its
+// row pass in another; the backward's row pass (dr in place over o + b2,
+// do, the dgamma/dbeta partials and their sum) in one call, then its
+// products (u with gelu'(u), dh, dx over a zero dr: the partial du . W1^T,
+// to which the caller adds dr once after the all-reduce) in another.
 
 #include "wgmma_gemm.cuh"
 
@@ -422,19 +431,22 @@ bool o_takes_wide_tiles(int m, int d, int sms) {
   return tiles >= sms && 4 * tiles >= 3 * waves * sms;
 }
 
-// The first two launches of either chain: u (h out, and gelu'(u) in the
-// backward), then o + b2 into p.dr.
+// The first launch of either chain: u (h out, and gelu'(u) in the
+// backward).
 template <bool kGrad>
-cudaError_t launch_u_o(const Params& p, const CUtensorMap& xmap, const CUtensorMap& hmap,
-                       const CUtensorMap& w1map, const CUtensorMap& w2map, cudaStream_t s) {
+cudaError_t launch_u(const Params& p, const CUtensorMap& xmap, const CUtensorMap& w1map,
+                     cudaStream_t s) {
+  return gemm_launch<kWideN, kWideStages>(kGrad ? ffn_bwd_u_kernel : ffn_fwd_u_kernel, p.m, p.f,
+                                          s, xmap, w1map, p);
+}
+
+// The second: o + b2 into p.dr.
+cudaError_t launch_o(const Params& p, const CUtensorMap& hmap, const CUtensorMap& w2map,
+                     cudaStream_t s) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = gemm_launch<kWideN, kWideStages>(kGrad ? ffn_bwd_u_kernel : ffn_fwd_u_kernel, p.m, p.f,
-                                           s, xmap, w1map, p);
   }
   if (err == cudaSuccess) {
     err = o_takes_wide_tiles(p.m, p.d, sms)
@@ -446,6 +458,20 @@ cudaError_t launch_u_o(const Params& p, const CUtensorMap& xmap, const CUtensorM
   return err;
 }
 
+template <bool kGrad>
+cudaError_t launch_u_o(const Params& p, const CUtensorMap& xmap, const CUtensorMap& hmap,
+                       const CUtensorMap& w1map, const CUtensorMap& w2map, cudaStream_t s) {
+  cudaError_t err = launch_u<kGrad>(p, xmap, w1map, s);
+  if (err == cudaSuccess) err = launch_o(p, hmap, w2map, s);
+  return err;
+}
+
+// The forward's row pass over o + b2 in p.dr: y.
+cudaError_t launch_fwd_rows(const Params& p, cudaStream_t s) {
+  ffn_fwd_rows_kernel<<<ceil_div(p.m, kRowTile), kRowThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_fwd(const Params& p, const bf16* w1t, const bf16* w2t, cudaStream_t s) {
   CUtensorMap xmap, hmap, w1map, w2map;
   cudaError_t err = gemm_a_map(&xmap, p.x, p.m, p.d);
@@ -453,10 +479,20 @@ cudaError_t launch_fwd(const Params& p, const bf16* w1t, const bf16* w2t, cudaSt
   if (err == cudaSuccess) err = gemm_b_map(&w1map, w1t, p.f, p.d);
   if (err == cudaSuccess) err = gemm_b_map(&w2map, w2t, p.d, p.f);
   if (err == cudaSuccess) err = launch_u_o<false>(p, xmap, hmap, w1map, w2map, s);
-  if (err == cudaSuccess) {
-    ffn_fwd_rows_kernel<<<ceil_div(p.m, kRowTile), kRowThreads, 0, s>>>(p);
-    err = cudaGetLastError();
-  }
+  if (err == cudaSuccess) err = launch_fwd_rows(p, s);
+  return err;
+}
+
+// The forward's products alone (the split chain's first call): h, and h .
+// W2 + b2 into p.dr.
+cudaError_t launch_fwd_products(const Params& p, const bf16* w1t, const bf16* w2t,
+                                cudaStream_t s) {
+  CUtensorMap xmap, hmap, w1map, w2map;
+  cudaError_t err = gemm_a_map(&xmap, p.x, p.m, p.d);
+  if (err == cudaSuccess) err = gemm_a_map(&hmap, p.h, p.m, p.f);
+  if (err == cudaSuccess) err = gemm_b_map(&w1map, w1t, p.f, p.d);
+  if (err == cudaSuccess) err = gemm_b_map(&w2map, w2t, p.d, p.f);
+  if (err == cudaSuccess) err = launch_u_o<false>(p, xmap, hmap, w1map, w2map, s);
   return err;
 }
 
@@ -514,6 +550,45 @@ sum_partials_kernel(const float* __restrict__ part, int tiles, int cols, float* 
     for (int i = 0; i < kSumSlices; ++i) total += slice_sum[i][lane];
     out[c] = total;
   }
+}
+
+// The backward's row pass on o + b2 in p.dr (dr in place, do, the
+// partials), then the partials' sum into dgb (the split chain's first
+// backward call).
+cudaError_t launch_bwd_rows(const Params& p, float* dgb, cudaStream_t s) {
+  const int smem = static_cast<int>(sizeof(float)) * kRowTile * p.d;
+  cudaError_t err = cudaFuncSetAttribute(ffn_bwd_rows_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && p.m > 0) {
+    ffn_bwd_rows_kernel<<<ceil_div(p.m, kRowTile), kRowThreads, smem, s>>>(p);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) {
+    sum_partials_kernel<<<ceil_div(2 * p.d, kSumCols), kSumCols * kSumSlices, 0, s>>>(
+        p.part, ceil_div(p.m, kRowTile), 2 * p.d, dgb);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+// The backward's products on do (the split chain's second backward call):
+// u with gelu'(u), du = (do . W2^T) * gelu'(u), dx = p.dr + du . W1^T.
+cudaError_t launch_bwd_products(const Params& p, const bf16* w1t, const bf16* w2t,
+                                cudaStream_t s) {
+  CUtensorMap xmap, domap, dumap, w1map, w2map;
+  cudaError_t err = gemm_a_map(&xmap, p.x, p.m, p.d);
+  if (err == cudaSuccess) err = gemm_a_map(&domap, p.dout, p.m, p.d);
+  if (err == cudaSuccess) err = gemm_a_map(&dumap, p.du, p.m, p.f);
+  if (err == cudaSuccess) err = gemm_b_map(&w1map, w1t, p.f, p.d);
+  if (err == cudaSuccess) err = gemm_b_map(&w2map, w2t, p.d, p.f);
+  if (err == cudaSuccess) err = launch_u<true>(p, xmap, w1map, s);
+  if (err == cudaSuccess) {
+    err = gemm_launch<kWideN, kWideStages>(ffn_bwd_dh_kernel, p.m, p.f, s, domap, w2map, p);
+  }
+  if (err == cudaSuccess) {
+    err = gemm_launch<kNarrowN, kNarrowStages>(ffn_bwd_dx_kernel, p.m, p.d, s, dumap, w1map, p);
+  }
+  return err;
 }
 
 __global__ void keep_mask_kernel(const long long* __restrict__ seed, uint8_t* __restrict__ out,
@@ -620,6 +695,82 @@ int shgvqa_ffn_train_bwd_bf16(const void* x, const void* w1t, const void* b1, co
   sum_partials_kernel<<<ceil_div(2 * d, kSumCols), kSumCols * kSumSlices, 0, s>>>(
       static_cast<const float*>(part), tiles, 2 * d, static_cast<float*>(dgb));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The split chain (tensor parallelism; f is this rank's F / mp columns).
+// Forward, first call (two launches): h (m, f) bf16 and the partial o =
+// h . W2 + b2 (m, d) f32, with b2 a zero vector (d) f32 here.  Inputs as
+// shgvqa_ffn_train_fwd_bf16.
+int shgvqa_ffn_train_fwd_products_bf16(const void* x, const void* w1t, const void* b1,
+                                       const void* w2t, const void* b2, void* h, void* o, int m,
+                                       int d, int f, void* stream) {
+  if (m < 0 || d <= 0 || f <= 0 || d % kNarrowN != 0 || f % kWideN != 0 || d > kMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (m == 0) return static_cast<int>(cudaSuccess);
+  Params p = chain_params(x, b1, b2, nullptr, h, o, m, d, f, 0.0f, nullptr, 0u, 1.0f, 0, 0);
+  return static_cast<int>(launch_fwd_products(p, static_cast<const bf16*>(w1t),
+                                              static_cast<const bf16*>(w2t),
+                                              static_cast<cudaStream_t>(stream)));
+}
+
+// Forward, second call (one launch): the row pass over o (m, d) f32, the
+// model group's sum of the partials plus b2: dropout, + x, LayerNorm, y
+// (m, d) bf16.  Dropout as shgvqa_ffn_train_fwd_bf16.
+int shgvqa_ffn_train_fwd_rows_bf16(const void* x, const void* o, const void* gamma,
+                                   const void* beta, const void* seed, void* y, int m, int d,
+                                   float eps, unsigned threshold, float inv_keep, int dropout,
+                                   int row0, void* stream) {
+  if (m < 0 || d <= 0 || d % kNarrowN != 0 || d > kMaxD || (dropout && seed == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (m == 0) return static_cast<int>(cudaSuccess);
+  Params p = chain_params(x, nullptr, nullptr, gamma, nullptr, const_cast<void*>(o), m, d, 0, eps,
+                          seed, threshold, inv_keep, dropout, row0);
+  p.beta = static_cast<const float*>(beta);
+  p.y = static_cast<bf16*>(y);
+  return static_cast<int>(launch_fwd_rows(p, static_cast<cudaStream_t>(stream)));
+}
+
+// Backward, first call (two launches): the row pass over o + b2 in dr (m,
+// d) f32, overwritten with dr; do (m, d) bf16, the dgamma / dbeta partials
+// (ceil(m / 16), 2 d) f32 in part and their sum dgb (2 d) f32.
+int shgvqa_ffn_train_bwd_rows_bf16(const void* x, const void* gamma, const void* seed,
+                                   const void* dy, void* dout, void* dr, void* part, void* dgb,
+                                   int m, int d, float eps, unsigned threshold, float inv_keep,
+                                   int dropout, int row0, void* stream) {
+  if (m < 0 || d <= 0 || d % kNarrowN != 0 || d > kMaxD || (dropout && seed == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p = chain_params(x, nullptr, nullptr, gamma, nullptr, dr, m, d, 0, eps, seed, threshold,
+                          inv_keep, dropout, row0);
+  p.dy = static_cast<const bf16*>(dy);
+  p.dout = static_cast<bf16*>(dout);
+  p.part = static_cast<float*>(part);
+  return static_cast<int>(launch_bwd_rows(p, static_cast<float*>(dgb),
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// Backward, second call (three launches): from do (m, d) bf16, h and du
+// (m, f) bf16 out (gd (m, f) f32 scratch) and dx = dr + du . W1^T (m, d)
+// bf16, with dr (m, d) f32 zeros here: this rank's partial.
+int shgvqa_ffn_train_bwd_products_bf16(const void* x, const void* w1t, const void* b1,
+                                       const void* w2t, const void* dout, const void* dr,
+                                       void* dx, void* du, void* h, void* gd, int m, int d, int f,
+                                       void* stream) {
+  if (m < 0 || d <= 0 || f <= 0 || d % kNarrowN != 0 || f % kWideN != 0 || d > kMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (m == 0) return static_cast<int>(cudaSuccess);
+  Params p = chain_params(x, b1, nullptr, nullptr, h, const_cast<void*>(dr), m, d, f, 0.0f,
+                          nullptr, 0u, 1.0f, 0, 0);
+  p.dout = static_cast<bf16*>(const_cast<void*>(dout));
+  p.dx = static_cast<bf16*>(dx);
+  p.du = static_cast<bf16*>(du);
+  p.gd = static_cast<float*>(gd);
+  return static_cast<int>(launch_bwd_products(p, static_cast<const bf16*>(w1t),
+                                              static_cast<const bf16*>(w2t),
+                                              static_cast<cudaStream_t>(stream)));
 }
 
 // The keep mask (m, d) uint8 that a call with this seed, threshold and

@@ -35,6 +35,7 @@ from shgvqa_tpu_torch.configs.config import Config
 from shgvqa_tpu_torch.models.backbone import calibrate_frozen_bn
 from shgvqa_tpu_torch.models.layers import Conv2d, init_weights
 from shgvqa_tpu_torch.models.shgvqa import ShgVqaModel, VideoShgVqaModel
+from shgvqa_tpu_torch.parallel.mesh import shard_model_
 from shgvqa_tpu_torch.train.optimizer import BertAdam, make_optimizer
 from shgvqa_tpu_torch.train.step import trainable_mask
 
@@ -121,10 +122,14 @@ def build_model(cfg: Config, device="cuda", seed: int = 0) -> torch.nn.Module:
     (``init_weights``: on the card in milliseconds, where the CPU's
     generator takes seconds for the flagship's 334M values).  On the card
     every 5-D weight is channels-last 3-D (``Module.to(memory_format=...)``
-    would refuse the capsule routing's 4-D transform matrices)."""
+    would refuse the capsule routing's 4-D transform matrices).  Under
+    tensor parallelism (``distributed.model_size() > 1``) the one-process
+    model is drawn, then split by JAX's rules
+    (``parallel/mesh.shard_model_``)."""
     dev = resolve_device(device)
     cls = ShgVqaModel if cfg.task == "q" else VideoShgVqaModel
     model = init_weights(cls(cfg).to(dev), seed).eval()
+    shard_model_(model)
     return channels_last_convs(model) if dev.type == "cuda" else model
 
 

@@ -39,11 +39,14 @@ on the tensors' device and stays there, so a call costs the host no sync.
 One Philox call decides queries {q, q + 8} x keys {k, k + 8}
 (``keep_counter``), a 2 x 2 block that one lane of the kernels' m16n8k16
 tiles owns whether the rows of the tile are queries (forward) or keys
-(backward).  The counter's third word is the (batch, head) group plus a
-group offset: in a data-parallel run the rank's first global batch row
-times H (``parallel/mesh.global_rows``), so every rank draws its rows of
-the global batch's mask from the same seed; the CPU path draws the global
-batch's mask from the generator and keeps the rank's rows.
+(backward).  The counter's third word is the group of (batch b, head h),
+``group0 + b * Hg + head0 + h``: in one process ``b * H + h``; in a
+data-parallel run ``group0`` is the rank's first global batch row times
+the heads (``parallel/mesh.global_rows``), and under tensor parallelism a
+rank holds heads ``head0 .. head0 + H / mp - 1`` of ``Hg`` (``heads``), so
+every rank draws its rows and heads of the one-process mask from the same
+seed; the CPU path draws the global mask from the generator and keeps the
+rank's rows and heads.
 """
 
 from __future__ import annotations
@@ -172,11 +175,26 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
+def group_ids(groups: int, group0: int = 0, heads: Optional[int] = None,
+              heads_global: Optional[int] = None, head0: int = 0):
+    """The counter groups of a call's ``groups`` (batch, head) pairs,
+    ``heads`` heads a batch row (all of them by default): ``group0 + b *
+    heads_global + head0 + h``, an int64 tensor."""
+    heads = groups if heads is None else heads
+    hg = heads if heads_global is None else heads_global
+    gi = torch.arange(groups)
+    return group0 + gi // heads * hg + head0 + gi % heads
+
+
 def keep_mask_reference(seed_words, groups: int, lq: int, lk: int,
-                        rate: float, group0: int = 0) -> torch.Tensor:
+                        rate: float, group0: int = 0,
+                        heads: Optional[int] = None,
+                        heads_global: Optional[int] = None,
+                        head0: int = 0) -> torch.Tensor:
     """Plain version of ``keep_mask``: the bool (groups, Lq, Lk) keep mask
-    of the seed's two words (a tensor or a sequence of ints) for groups
-    ``group0`` .. ``group0 + groups - 1``, Philox4x32-10 under the kernels'
+    of the seed's two words (a tensor or a sequence of ints) for the groups
+    ``group_ids(groups, group0, heads, heads_global, head0)`` (by default
+    ``group0`` .. ``group0 + groups - 1``), Philox4x32-10 under the kernels'
     counter layout, in int64 on the CPU."""
     if isinstance(seed_words, torch.Tensor):
         seed_words = seed_words.cpu().tolist()
@@ -188,7 +206,7 @@ def keep_mask_reference(seed_words, groups: int, lq: int, lk: int,
     words = torch.stack(torch.broadcast_tensors(*philox4x32((
         torch.arange(calls_q)[None, :, None],
         torch.arange(calls_k)[None, None, :],
-        torch.arange(group0, group0 + groups)[:, None, None],
+        group_ids(groups, group0, heads, heads_global, head0)[:, None, None],
         torch.zeros(1, 1, 1, dtype=torch.int64)), key)), -1)
     bits = words[:, cq, ck, word]
     return bits >= _threshold(rate)
@@ -202,12 +220,12 @@ def _lib() -> ctypes.CDLL:
                           ctypes.c_float)
     lib.shgvqa_attention_fwd_bf16.argtypes = (
         [ptr] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 4
-        + [f32, u32, f32, i32, i32, ptr])
+        + [f32, u32, f32] + [i32] * 4 + [ptr])
     lib.shgvqa_attention_bwd_bf16.argtypes = (
         [ptr] * 14 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 4
-        + [f32, u32, f32, i32, i32, ptr])
+        + [f32, u32, f32] + [i32] * 4 + [ptr])
     lib.shgvqa_attention_keep_mask.argtypes = [ptr, ptr, i32, i32, i32, u32,
-                                               i32, ptr]
+                                               i32, i32, i32, i32, ptr]
     for fn in (lib.shgvqa_attention_fwd_bf16, lib.shgvqa_attention_bwd_bf16,
                lib.shgvqa_attention_keep_mask):
         fn.restype = i32
@@ -263,8 +281,10 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(q, k, v, key, pane, seed, rate, group0=0):
+def _launch_fwd(q, k, v, key, pane, seed, rate, group0=0, heads_global=0,
+                head0=0):
     b, h, lq, _ = q.shape
+    heads_global = heads_global or h
     lk = k.shape[2]
     o = _blhd(b, h, lq, q)
     lse = torch.empty(b * h, lq, dtype=torch.float32, device=q.device)
@@ -274,14 +294,16 @@ def _launch_fwd(q, k, v, key, pane, seed, rate, group0=0):
             _mask_ptr(pane), _mask_ptr(seed), o.data_ptr(), lse.data_ptr(),
             _strides(q, k, v, o), b, h, lq, lk, 1.0 / math.sqrt(HEAD_DIM),
             _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0), group0,
-            _stream(q.device))
+            heads_global, head0, _stream(q.device))
     _raise_on(err, "fused_attention forward")
     fused_attention.launches += 1
     return o, lse
 
 
-def _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do, group0=0):
+def _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do, group0=0,
+                heads_global=0, head0=0):
     b, h, lq, _ = q.shape
+    heads_global = heads_global or h
     lk = k.shape[2]
     do = _operand("do", do, tuple(o.shape), q.device)
     dq, dk, dv = _blhd(b, h, lq, q), _blhd(b, h, lk, k), _blhd(b, h, lk, v)
@@ -296,7 +318,8 @@ def _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do, group0=0):
             dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv), b, h, lq,
             lk, 1.0 / math.sqrt(HEAD_DIM), _threshold(rate),
-            1.0 / (1.0 - rate), int(rate > 0.0), group0, _stream(q.device))
+            1.0 / (1.0 - rate), int(rate > 0.0), group0, heads_global, head0,
+            _stream(q.device))
     _raise_on(err, "fused_attention backward")
     fused_attention.bwd_launches += 1
     return dq, dk, dv
@@ -311,7 +334,8 @@ def attention_op():
     torch.library.custom_op(
         "shgvqa_torch::attention_fwd", _launch_fwd, mutates_args=(),
         schema="(Tensor q, Tensor k, Tensor v, Tensor? key, Tensor? pane, "
-               "Tensor? seed, float rate, int group0) -> (Tensor, Tensor)")
+               "Tensor? seed, float rate, int group0, int heads_global, "
+               "int head0) -> (Tensor, Tensor)")
     return torch.ops.shgvqa_torch.attention_fwd.default
 
 
@@ -321,19 +345,22 @@ class _FusedAttention(torch.autograd.Function):
     ``dots_attn`` remat block the forward goes through ``attention_op``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key, pane, seed, rate, group0):
+    def forward(ctx, q, k, v, key, pane, seed, rate, group0, heads_global,
+                head0):
         launch = attention_op() if attention_op_visible() else _launch_fwd
-        o, lse = launch(q, k, v, key, pane, seed, rate, group0)
+        o, lse = launch(q, k, v, key, pane, seed, rate, group0, heads_global,
+                        head0)
         ctx.save_for_backward(q, k, v, key, pane, seed, o, lse)
-        ctx.rate, ctx.group0 = rate, group0
+        ctx.counter = rate, group0, heads_global, head0
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, key, pane, seed, o, lse = ctx.saved_tensors
-        dq, dk, dv = _launch_bwd(q, k, v, key, pane, seed, ctx.rate, o, lse,
-                                 do, ctx.group0)
-        return dq, dk, dv, None, None, None, None, None
+        rate, group0, heads_global, head0 = ctx.counter
+        dq, dk, dv = _launch_bwd(q, k, v, key, pane, seed, rate, o, lse, do,
+                                 group0, heads_global, head0)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def draw_seed(generator: Optional[torch.Generator],
@@ -347,15 +374,18 @@ def draw_seed(generator: Optional[torch.Generator],
 
 
 def fused_attention(q, k, v, mask=None, dropout_rate: float = 0.0,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    heads: Optional[Tuple[int, int]] = None):
     """q (B, H, Lq, D), k, v (B, H, Lk, D); mask additive, broadcastable to
     (B, H, Lq, Lk) as a (B, 1, 1, Lk) key mask or an (Lq, Lk) pane, or None.
     Returns (B, H, Lq, D) in q's dtype.  Differentiable; with
     ``dropout_rate`` > 0 the probabilities are dropped with a mask drawn
     from ``generator`` and the backward uses the same mask (in a
-    data-parallel run the rank's rows of the global batch's mask).  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernels or
-    raises."""
+    data-parallel run the rank's rows of the global batch's mask).
+    ``heads`` = (head0, Hg): these H heads are heads head0 .. head0 + H - 1
+    of Hg (a tensor-parallel rank's), and the mask is those heads' of the
+    Hg-head one.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernels or raises."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     key, pane = decompose_mask(mask, b, h, lq, lk)
@@ -363,20 +393,21 @@ def fused_attention(q, k, v, mask=None, dropout_rate: float = 0.0,
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     first, total = global_rows(b)
+    head0, hg = (0, h) if heads is None else heads
     if q.device.type == "cpu":
         keep = None
         if rate > 0.0:
             keep = replayable(lambda: torch.rand(
-                (total, h, lq, lk), generator=generator)[
-                    first:first + b] >= rate)
+                (total, hg, lq, lk), generator=generator)[
+                    first:first + b, head0:head0 + h] >= rate)
         return attention_reference(q, k, v, mask, rate, keep)
     if q.device.type != "cuda":
         raise NotImplementedError(f"fused_attention has no kernel for "
                                   f"{q.device}")
-    return _card_attention(q, k, v, key, pane, rate, generator, first)
+    return _card_attention(q, k, v, key, pane, rate, generator, first, heads)
 
 
-def _card_attention(q, k, v, key, pane, rate, generator, first):
+def _card_attention(q, k, v, key, pane, rate, generator, first, heads=None):
     """``fused_attention``'s card path on the decomposed mask: the
     operands checked, the seed drawn, the kernels launched."""
     b, h, lq, d = q.shape
@@ -392,7 +423,9 @@ def _card_attention(q, k, v, key, pane, rate, generator, first):
     pane = None if pane is None else pane.to(dev)
     seed = (replayable(lambda: draw_seed(generator, dev)) if rate > 0.0
             else None)
-    return _FusedAttention.apply(q, k, v, key, pane, seed, rate, first * h)
+    head0, hg = (0, h) if heads is None else heads
+    return _FusedAttention.apply(q, k, v, key, pane, seed, rate, first * hg,
+                                 hg, head0)
 
 
 fused_attention.launches = 0
@@ -400,16 +433,20 @@ fused_attention.bwd_launches = 0
 
 
 def keep_mask(seed: torch.Tensor, groups: int, lq: int, lk: int,
-              rate: float, group0: int = 0) -> torch.Tensor:
+              rate: float, group0: int = 0, heads: Optional[int] = None,
+              heads_global: Optional[int] = None,
+              head0: int = 0) -> torch.Tensor:
     """The bool (groups, Lq, Lk) keep mask the kernels draw from ``seed``
-    (a CUDA int64 tensor of 2 words) at ``rate`` for groups ``group0`` ..
-    ``group0 + groups - 1``; card only."""
+    (a CUDA int64 tensor of 2 words) at ``rate`` for the groups
+    ``group_ids(groups, group0, heads, heads_global, head0)`` (by default
+    ``group0`` .. ``group0 + groups - 1``); card only."""
     if seed.device.type != "cuda":
         raise NotImplementedError("keep_mask runs on the card only")
     out = torch.empty(groups, lq, lk, dtype=torch.uint8, device=seed.device)
     with torch.cuda.device(seed.device):
         err = _lib().shgvqa_attention_keep_mask(
             seed.data_ptr(), out.data_ptr(), groups, lq, lk,
-            _threshold(rate), group0, _stream(seed.device))
+            _threshold(rate), group0, groups if heads is None else heads,
+            heads_global or heads or groups, head0, _stream(seed.device))
     _raise_on(err, "keep_mask")
     return out.bool()

@@ -50,6 +50,24 @@ and LayerNorm around them.  ``ffn_train.cu`` describes the design.
   global mask; the CPU path draws the global batch's mask from the
   generator and keeps the rank's rows.
 
+Tensor parallelism (W1's columns and W2's rows split over the model group,
+F / mp columns a rank): ``fused_ffn_split`` splits either chain at its
+all-reduce, with the same kernels and four more C entries.  Forward: the
+products (``_FFNProducts``: u, then h W2 with a zero b2, the rank's partial
+in f32), the model group's all-reduce of the partials
+(``distributed.reduce_from_model``), then + b2 once and the row pass
+(``_FFNRows``: dropout, residual, LayerNorm).  Backward: the row pass on
+the replicated dy (dr, do, dgamma, dbeta, and db2 = sum do), then the
+products on do (h, du, the weight gradients, and dx without the residual
+term: du W1^T, the rank's partial), whose all-reduce
+(``distributed.copy_to_model``'s backward) dr joins once, through
+autograd.  ``ffn_partial_reference`` and ``ffn_rows_reference`` are the
+two halves' plain versions, ``ffn_rows_backward_reference`` and
+``ffn_products_backward_reference`` their backward kernels'.  At mp = 1
+nothing of this runs: the one-call chains are unchanged.  A split call
+counts one forward and one backward launch a site in the wrapper's
+counts, as the one-call chain does.
+
 Weights come in ``nn.Linear`` layout: ``w1t`` is (F, D), ``w2t`` is (D, F).
 
 The attention-output block ``y = LN(x W^T + b + residual) * gamma + beta``
@@ -86,6 +104,7 @@ from shgvqa_tpu_torch.kernels.attention import (
     philox4x32,
 )
 from shgvqa_tpu_torch.models.remat import replayable
+from shgvqa_tpu_torch.parallel import distributed
 from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 
@@ -131,6 +150,55 @@ def ffn_train_reference(x2, w1t, b1, w2t, b2, gamma, beta, rate: float = 0.0,
     _, _, r = _residual(x2, w1t, b1, w2t, b2, rate, keep)
     xhat, _ = _normalize(r, eps)
     return (xhat * gamma.float() + beta.float()).to(x2.dtype)
+
+
+def ffn_partial_reference(x2, w1t, b1, w2t):
+    """Plain version of the split chain's forward products: a rank's
+    partial ``gelu(x W1 + b1) W2`` in f32, h rounded to w2t's dtype, no
+    b2 (the model group's partials sum to ``ffn_train_reference``'s o
+    less b2)."""
+    u = torch.matmul(x2.float(), w1t.float().t()) + b1.float()
+    h = (u * _phi(u)).to(w2t.dtype)
+    return torch.matmul(h.float(), w2t.float().t())
+
+
+def ffn_rows_reference(o, x2, b2, gamma, beta, rate: float = 0.0,
+                       keep: Optional[torch.Tensor] = None,
+                       eps: float = 1e-12):
+    """Plain version of the split chain's forward row pass: o (M, D) f32
+    the summed partials; ``LN(dropout(o + b2) + x)``, (M, D) in x2's
+    dtype."""
+    r = _drop(o.float() + b2.float(), keep, rate) + x2.float()
+    xhat, _ = _normalize(r, eps)
+    return (xhat * gamma.float() + beta.float()).to(x2.dtype)
+
+
+def ffn_rows_backward_reference(ob, x2, gamma, rate, keep, dy,
+                                eps: float = 1e-12):
+    """Plain version of the split chain's backward row pass: (dr, do,
+    dgamma, dbeta) at cotangent ``dy``, ob the forward's o + b2 (f32), do
+    = dropout(dr) rounded to x2's dtype (the weights')."""
+    r = _drop(ob.float(), keep, rate) + x2.float()
+    xhat, rstd = _normalize(r, eps)
+    dy32 = dy.to(x2.dtype).float()
+    a = dy32 * gamma.float()
+    dr = (a - a.mean(-1, keepdim=True)
+          - xhat * (a * xhat).mean(-1, keepdim=True)) * rstd
+    do = _drop(dr, keep, rate).to(x2.dtype)
+    return dr, do, (dy32 * xhat).sum(0), dy32.sum(0)
+
+
+def ffn_products_backward_reference(x2, w1t, b1, w2t, do):
+    """Plain version of the split chain's backward products on ``do``:
+    (dx, du, h), dx this rank's partial du W1^T (no residual term) in x2's
+    dtype, du and h rounded to the weights' dtype."""
+    u = torch.matmul(x2.float(), w1t.float().t()) + b1.float()
+    h = (u * _phi(u)).to(w2t.dtype)
+    dh = torch.matmul(do.float(), w2t.float())
+    gelu_grad = _phi(u) + u * torch.exp(-0.5 * u * u) * 0.3989422804014327
+    du = (dh * gelu_grad).to(w1t.dtype)
+    dx = torch.matmul(du.float(), w1t.float()).to(x2.dtype)
+    return dx, du, h
 
 
 def _weight_grads(x2, du, do, h):
@@ -264,9 +332,21 @@ def declare_train(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ptr] * 16 + [i32] * 3 + [f32, u32, f32, i32, i32, ptr])
     lib.shgvqa_ffn_train_keep_mask.argtypes = [ptr, ptr, i32, i32, u32, i32,
                                                ptr]
+    lib.shgvqa_ffn_train_fwd_products_bf16.argtypes = [ptr] * 7 + [i32] * 3 \
+        + [ptr]
+    lib.shgvqa_ffn_train_fwd_rows_bf16.argtypes = (
+        [ptr] * 6 + [i32] * 2 + [f32, u32, f32, i32, i32, ptr])
+    lib.shgvqa_ffn_train_bwd_rows_bf16.argtypes = (
+        [ptr] * 8 + [i32] * 2 + [f32, u32, f32, i32, i32, ptr])
+    lib.shgvqa_ffn_train_bwd_products_bf16.argtypes = [ptr] * 10 \
+        + [i32] * 3 + [ptr]
     for fn in (lib.shgvqa_ffn_train_fwd_bf16, lib.shgvqa_ffn_train_bwd_bf16,
                lib.shgvqa_ffn_train_keep_mask, lib.shgvqa_ffn_train_max_d,
-               lib.shgvqa_ffn_train_bwd_rows):
+               lib.shgvqa_ffn_train_bwd_rows,
+               lib.shgvqa_ffn_train_fwd_products_bf16,
+               lib.shgvqa_ffn_train_fwd_rows_bf16,
+               lib.shgvqa_ffn_train_bwd_rows_bf16,
+               lib.shgvqa_ffn_train_bwd_products_bf16):
         fn.restype = i32
     lib.shgvqa_ffn_train_max_d.argtypes = []
     lib.shgvqa_ffn_train_bwd_rows.argtypes = []
@@ -452,6 +532,153 @@ def _card_ffn_train(args, rate, generator, eps, first):
 
 fused_ffn_train.launches = 0
 fused_ffn_train.bwd_launches = 0
+
+
+# -- the split chain (tensor parallelism) ------------------------------------
+
+# the wrapper whose counts a split call moves
+_WRAPPERS = {"fused_ffn": fused_ffn, "fused_ffn_train": fused_ffn_train}
+
+
+def _launch_split(what, fn, *args):
+    with torch.cuda.device(args[0].device):
+        err = getattr(_train_lib(), fn)(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args], _stream(args[0].device))
+    _raise_on(err, f"{what} ({fn})")
+
+
+class _FFNProducts(torch.autograd.Function):
+    """A rank's partial ``gelu(x W1 + b1) W2`` (f32, no b2): the split
+    chain's forward products; backward its products on do: dx without the
+    residual term, and the weight gradients."""
+
+    @staticmethod
+    def forward(ctx, x2, w1t, b1, w2t, what):
+        m, d, f = _check_train(x2, w1t, b1, w2t, None, None, None, what)
+        dev = x2.device
+        h = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+        o = torch.empty(m, d, dtype=torch.float32, device=dev)
+        zero = torch.zeros(d, dtype=torch.float32, device=dev)
+        _launch_split(what, "shgvqa_ffn_train_fwd_products_bf16", x2, w1t,
+                      b1, w2t, zero, h, o, m, d, f)
+        ctx.save_for_backward(x2, w1t, b1, w2t)
+        ctx.what = what
+        return o
+
+    @staticmethod
+    def backward(ctx, d_o):
+        x2, w1t, b1, w2t = ctx.saved_tensors
+        m, d, f = x2.shape[0], x2.shape[1], w1t.shape[0]
+        dev = x2.device
+        do = d_o.to(torch.bfloat16).contiguous()
+        dx = torch.empty(m, d, dtype=torch.bfloat16, device=dev)
+        du = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+        h = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+        gd = torch.empty(m, f, dtype=torch.float32, device=dev)
+        zero = torch.zeros(m, d, dtype=torch.float32, device=dev)
+        _launch_split(ctx.what, "shgvqa_ffn_train_bwd_products_bf16", x2,
+                      w1t, b1, w2t, do, zero, dx, du, h, gd, m, d, f)
+        _WRAPPERS[ctx.what].bwd_launches += 1
+        dw1t, db1, dw2t, _ = _weight_grads(x2, du, do, h)
+        return dx, dw1t, db1, dw2t, None
+
+
+class _FFNRows(torch.autograd.Function):
+    """The split chain's row pass on o (the summed partials, f32): + b2,
+    dropout, residual, LayerNorm; backward its row pass: d o = do, dx =
+    dr (the residual term), db2, dgamma, dbeta."""
+
+    @staticmethod
+    def forward(ctx, o, x2, b2, gamma, beta, seed, rate, eps, row0, what):
+        m, d = x2.shape
+        dev = x2.device
+        _check("x", x2, (m, d), torch.bfloat16, dev, what)
+        for name, t in (("b2", b2), ("gamma", gamma), ("beta", beta)):
+            _check(name, t, (d,), torch.float32, dev, what)
+        ob = (o + b2).contiguous()
+        y = torch.empty(m, d, dtype=torch.bfloat16, device=dev)
+        _launch_split(what, "shgvqa_ffn_train_fwd_rows_bf16", x2, ob, gamma,
+                      beta, seed, y, m, d,
+                      float(eps), _threshold(rate), 1.0 / (1.0 - rate),
+                      int(rate > 0.0), row0)
+        _WRAPPERS[what].launches += 1
+        ctx.save_for_backward(ob, x2, gamma, seed)
+        ctx.rate, ctx.eps, ctx.row0, ctx.what = rate, eps, row0, what
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        ob, x2, gamma, seed = ctx.saved_tensors
+        m, d = x2.shape
+        dev = x2.device
+        dy = dy.to(torch.bfloat16).contiguous()
+        dr = ob.clone()
+        do = torch.empty(m, d, dtype=torch.bfloat16, device=dev)
+        rows = _train_lib().shgvqa_ffn_train_bwd_rows()
+        part = torch.empty(-(-m // rows), 2 * d, dtype=torch.float32,
+                           device=dev)
+        dgb = torch.empty(2 * d, dtype=torch.float32, device=dev)
+        _launch_split(ctx.what, "shgvqa_ffn_train_bwd_rows_bf16", x2, gamma,
+                      seed, dy, do, dr, part, dgb, m, d, float(ctx.eps),
+                      _threshold(ctx.rate), 1.0 / (1.0 - ctx.rate),
+                      int(ctx.rate > 0.0), ctx.row0)
+        return (do.float(), dr.to(x2.dtype), do.float().sum(0), dgb[:d],
+                dgb[d:], None, None, None, None, None)
+
+
+def fused_ffn_split(x, w1t, b1, w2t, b2, gamma, beta,
+                    dropout_rate: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    eps: float = 1e-12, what: str = "fused_ffn_train"):
+    """The FFN block with W1's columns (w1t (F / mp, D), b1) and W2's rows
+    (w2t (D, F / mp)) this rank's shards, b2, gamma, beta whole: the
+    products, the model group's all-reduce of the partials, + b2 once and
+    the row pass (dropout at ``dropout_rate`` from ``generator``, the
+    one-process mask of the rank's rows, the same on every model index).
+    ``what`` names the wrapper it stands in for (``fused_ffn`` at rate 0 or
+    ``fused_ffn_train``), whose counts it moves.  Differentiable.  A CPU
+    tensor takes the plain versions; a CUDA tensor launches the split
+    chain or raises (F / mp a multiple of 128, as the chain's F)."""
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    first, total = global_rows(x2.shape[0])
+    xin = distributed.copy_to_model(x2)
+    if x.device.type == "cpu":
+        keep = None
+        if rate > 0.0:
+            keep = replayable(lambda: torch.rand(
+                (total, d), generator=generator)[
+                    first:first + x2.shape[0]] >= rate)
+        o = distributed.reduce_from_model(ffn_partial_reference(
+            xin, w1t.to(x.dtype), b1.float(), w2t.to(x.dtype)))
+        y = ffn_rows_reference(o, x2, b2, gamma, beta, rate, keep, eps)
+    elif x.device.type == "cuda":
+        y = _card_ffn_split(xin, x2, w1t.to(x.dtype), b1, w2t.to(x.dtype),
+                            b2, gamma, beta, rate, generator, eps, first,
+                            what)
+    else:
+        raise NotImplementedError(f"{what} has no kernel for {x.device}")
+    return y.reshape(x.shape)
+
+
+def _card_ffn_split(xin, x2, w1t, b1, w2t, b2, gamma, beta, rate,
+                    generator, eps, first, what):
+    """``fused_ffn_split``'s card path on its (M, D) operands (``xin`` the
+    input of the products, ``x2`` the residual): the seed drawn, the
+    products, the model group's all-reduce, the row pass."""
+    seed = (replayable(lambda: draw_seed(generator, x2.device))
+            if rate > 0.0 else None)
+    o = distributed.reduce_from_model(_FFNProducts.apply(
+        xin.contiguous(), w1t.contiguous(), b1.float().contiguous(),
+        w2t.contiguous(), what))
+    return _FFNRows.apply(o, x2.contiguous(), b2.float().contiguous(),
+                          gamma.float().contiguous(),
+                          beta.float().contiguous(), seed, rate, float(eps),
+                          first, what)
 
 
 def keep_mask(seed: torch.Tensor, m: int, d: int, rate: float,

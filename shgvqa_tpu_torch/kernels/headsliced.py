@@ -103,7 +103,7 @@ def _launch(q2, k2, v2, key, pane, heads):
         err = attention._lib().shgvqa_attention_fwd_bf16(
             q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), _mask_ptr(key),
             _mask_ptr(pane), None, o.data_ptr(), lse.data_ptr(), strides, b,
-            heads, lq, lk, 1.0 / math.sqrt(HEAD_DIM), 0, 1.0, 0, 0,
+            heads, lq, lk, 1.0 / math.sqrt(HEAD_DIM), 0, 1.0, 0, 0, heads, 0,
             _stream(dev))
     attention._raise_on(err, "headsliced_attention")
     headsliced_attention.launches += 1

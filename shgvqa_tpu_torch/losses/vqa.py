@@ -6,15 +6,16 @@
   indices.
 
 In a data-parallel run each rank's loss is its share of the global batch's:
-the BCE mean over the rank's rows divided by the world size (the ranks hold
-equal rows), the MCE sum divided by the global count of kept rows.
+the BCE mean over the rank's rows divided by the data-parallel extent (the
+ranks hold equal rows), the MCE sum divided by the global count of kept
+rows (the data group's).
 """
 
 from __future__ import annotations
 
 import torch
 
-from shgvqa_tpu_torch.parallel.distributed import global_sum, world_size
+from shgvqa_tpu_torch.parallel.distributed import data_size, global_sum
 
 
 def bce_vqa_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -24,7 +25,7 @@ def bce_vqa_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     per_elem = (torch.clamp(logits, min=0.0) - logits * targets
                 + torch.log1p(torch.exp(-logits.abs())))
     loss = per_elem.mean() * logits.shape[-1]
-    return loss if world_size() == 1 else loss / world_size()
+    return loss if data_size() == 1 else loss / data_size()
 
 
 def mce_vqa_loss(logits: torch.Tensor, answer_idx: torch.Tensor

@@ -15,6 +15,14 @@ ReLU and its output.  Outside training ``kernel_eval`` (the JAX
 ``is_decoder_enabled()``, on with ``--pallasAttention``) runs the fused
 forward kernel at rate 0, and ``headsliced`` (``set_headsliced_kernel``)
 the head-sliced kernel on the projections as they are.
+
+Tensor parallelism (``parallel/mesh.shard_model_``, ``tp`` = (model index,
+mp)): ``TorchMHA`` projects this rank's H / mp heads of each of q, k and v
+(its packed ``in_proj`` split head-aligned: rows ``part * D + m * D / mp``
+.. of the (3D, D) weight and bias, where JAX cuts its 3D columns
+contiguously) and ``out_proj`` runs over those rows (``layers.row_split``:
+the reduce, then the bias); the layer's FFN runs ``linear1`` over columns,
+its dropout on the one-process mask's columns, and ``linear2`` over rows.
 """
 
 from __future__ import annotations
@@ -31,7 +39,10 @@ from shgvqa_tpu_torch.models.layers import (
     Dropout,
     LayerNorm,
     attention_core,
+    copy_to_model,
     kernels_allowed,
+    row_split,
+    tp_inputs,
 )
 from shgvqa_tpu_torch.models.remat import check_policy, remat_call
 
@@ -39,6 +50,10 @@ from shgvqa_tpu_torch.models.remat import check_policy, remat_call
 class TorchMHA(nn.Module):
     """torch.nn.MultiheadAttention math: packed in_proj, f32 scores, additive
     f32 mask, dropout on the probabilities in training."""
+
+    TP_SPLITS = {"in_proj.weight": (0, 3), "in_proj.bias": (0, 3),
+                 "out_proj.weight": (1, 1)}
+    TP_HEADS = True
 
     def __init__(self, d_model: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
@@ -52,29 +67,41 @@ class TorchMHA(nn.Module):
         self.kernel_train = kernel_train
         self.kernel_eval = False
         self.headsliced = False
+        self.tp = None
 
     def _project(self, x, part: int):
-        d = x.shape[-1]
+        n = self.in_proj.weight.shape[0] // 3
         dt = self.dtype
-        w = self.in_proj.weight[part * d:(part + 1) * d].to(dt)
-        b = self.in_proj.bias[part * d:(part + 1) * d].to(dt)
+        w = self.in_proj.weight[part * n:(part + 1) * n].to(dt)
+        b = self.in_proj.bias[part * n:(part + 1) * n].to(dt)
         return F.linear(x.to(dt), w, b)
+
+    def _out(self, x):
+        return self.out_proj(x) if self.tp is None else row_split(
+            self.out_proj, x)
 
     def forward(self, query, key, value, attn_mask=None, g=None):
         b, lq, d = query.shape
         lk = key.shape[1]
         h = self.num_heads
         hd = d // h
+        heads = None
+        if self.tp is not None:
+            index, count = self.tp
+            h //= count
+            heads = (index * h, self.num_heads)
+            query, key, value = tp_inputs(query, key, value)
         q, k, v = (self._project(query, 0), self._project(key, 1),
                    self._project(value, 2))
         if self.headsliced and not self.training and kernels_allowed():
-            return self.out_proj(headsliced_attention(q, k, v, attn_mask, h))
+            return self._out(headsliced_attention(q, k, v, attn_mask, h))
         out = attention_core(q.view(b, lq, h, hd).transpose(1, 2),
                              k.view(b, lk, h, hd).transpose(1, 2),
                              v.view(b, lk, h, hd).transpose(1, 2), attn_mask,
                              self.dtype, self.probs_dropout,
-                             self.kernel_train, g, self.kernel_eval)
-        return self.out_proj(out.transpose(1, 2).reshape(b, lq, d))
+                             self.kernel_train, g, self.kernel_eval,
+                             heads=heads)
+        return self._out(out.transpose(1, 2).reshape(b, lq, h * hd))
 
 
 class LayerNormT(LayerNorm):
@@ -85,7 +112,11 @@ class LayerNormT(LayerNorm):
 
 
 class DecoderLayer(nn.Module):
-    """Post-norm DETR decoder layer."""
+    """Post-norm DETR decoder layer; split (``tp``), its FFN runs on
+    ffn_dim / mp columns."""
+
+    TP_SPLITS = {"linear1.weight": (0, 1), "linear1.bias": (0, 1),
+                 "linear2.weight": (1, 1)}
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.15,
@@ -101,6 +132,7 @@ class DecoderLayer(nn.Module):
         self.linear2 = Dense(ffn_dim, d_model, dtype)
         self.norm3 = LayerNormT(d_model, dtype)
         self.dropout = Dropout(dropout)
+        self.tp = None
 
     def forward(self, tgt, memory, query_pos, tgt_mask=None, memory_mask=None,
                 g=None):
@@ -111,7 +143,13 @@ class DecoderLayer(nn.Module):
         ca = self.multihead_attn(tgt + query_pos, memory, memory, memory_mask,
                                  g)
         tgt = self.norm2(tgt + drop(ca, g))
-        h = self.linear2(drop(torch.relu(self.linear1(tgt)), g))
+        if self.tp is None:
+            h = self.linear2(drop(torch.relu(self.linear1(tgt)), g))
+        else:
+            index, count = self.tp
+            h = torch.relu(self.linear1(copy_to_model(tgt)))
+            n = h.shape[-1]
+            h = row_split(self.linear2, drop(h, g, (-1, index * n, n * count)))
         return self.norm3(tgt + drop(h, g))
 
 

@@ -42,6 +42,24 @@ Semantics kept from the JAX package:
 - embedding lookups have torch ``padding_idx=0`` semantics: row 0 gets no
   gradient (the JAX ``Embed`` stop_gradient).
 
+Tensor parallelism (``parallel/mesh.shard_model_`` sets ``tp`` = (model
+index, mp) on the modules it splits; each names its split tensors in
+``TP_SPLITS``, torch dim and parts):
+- ``Attention``: ``copy_to_model`` of its inputs, q, k, v over this rank's
+  H / mp heads (their biases shards too), the core on those heads (the
+  kernels' dropout counter and the plain path's mask are the one-process
+  mask's heads), then ``gather_from_model`` of the context before
+  ``AttOutput``, which stays whole as JAX's rules leave it;
+- ``FFN``: ``copy_to_model``, ``intermediate`` over F / mp columns, GeLU,
+  ``output`` over those rows, the partial summed over the model group
+  (``reduce_from_model``, in f32), then b2 once, dropout, the residual and
+  LN; with a kernel switch on, ``kernels/ffn.fused_ffn_split``;
+- ``MLPHead``: ``fc1`` over columns, GeLU, the LayerNorm over the split
+  hidden (its statistics summed over the model group, two-pass, its affine
+  shards), ``fc2`` over rows, the reduce, then the bias.
+A row-split product (``row_split``) adds its bias after the reduce: with
+the bias on every rank's partial it would be counted mp times.
+
 Parameter names follow the flax names with ``kernel``/``scale``/
 ``embedding`` renamed to ``weight`` (``convert.py`` maps one onto the other).
 Parameters are allocated empty; ``init_weights`` fills a whole model from
@@ -61,11 +79,18 @@ from torch import nn
 from shgvqa_tpu_torch.kernels.attention import fused_attention
 from shgvqa_tpu_torch.kernels.ffn import (
     fused_ffn,
+    fused_ffn_split,
     fused_ffn_train,
     fused_out_ln,
 )
 from shgvqa_tpu_torch.kernels.headsliced import headsliced_attention
 from shgvqa_tpu_torch.models.remat import replayable
+from shgvqa_tpu_torch.parallel.distributed import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    sum_over_model,
+)
 from shgvqa_tpu_torch.parallel.mesh import global_rows
 
 NEG_MASK = -10000.0
@@ -77,21 +102,31 @@ class Dropout(nn.Module):
     probability 1 - rate, scale kept ones by 1 / (1 - rate); the mask comes
     from the generator ``g`` (the device's default one when None).  In a
     data-parallel run the draw is the global batch's and the rank keeps its
-    rows of it (``parallel/mesh.global_rows``).  Under remat the recompute
-    reads the forward's mask back (``models/remat.replayable``)."""
+    rows of it (``parallel/mesh.global_rows``); ``split`` = (dim, start,
+    size) says that ``x`` holds entries start .. of ``size`` along ``dim``
+    (a tensor-parallel rank's heads or columns), and the rank keeps those
+    of the whole draw.  Under remat the recompute reads the forward's mask
+    back (``models/remat.replayable``)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor,
-                g: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: Optional[torch.Generator] = None,
+                split: Optional[Sequence[int]] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         first, total = global_rows(x.shape[0])
+        shape = [total] + list(x.shape[1:])
+        index = [slice(first, first + x.shape[0])]
+        if split is not None:
+            dim, start, size = split
+            dim %= x.dim()
+            shape[dim] = size
+            index += [slice(None)] * (dim - 1) + [
+                slice(start, start + x.shape[dim])]
         keep = replayable(lambda: torch.rand(
-            (total,) + tuple(x.shape[1:]), generator=g,
-            device=x.device)[first:first + x.shape[0]] >= self.rate)
+            shape, generator=g, device=x.device)[tuple(index)] >= self.rate)
         return torch.where(keep, x / (1.0 - self.rate),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -189,18 +224,23 @@ def extend_mask(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def attend(q, k, v, mask, dtype, drop: Optional[Dropout] = None, g=None,
-           return_probs: bool = False):
+           return_probs: bool = False, heads=None):
     """Heads-first attention core, (B, H, Lq, hd) over (B, H, Lk, hd): f32
     scores scaled by 1/sqrt(hd), the additive mask added in f32, f32
-    softmax, probabilities cast to ``dtype`` (then dropped by ``drop``) for
-    the product with v.  With ``return_probs`` also the probabilities
-    before dropout, (B, H, Lq, Lk)."""
+    softmax, probabilities cast to ``dtype`` (then dropped by ``drop``; with
+    ``heads`` = (head0, Hg) by those heads of an Hg-head mask) for the
+    product with v.  With ``return_probs`` also the probabilities before
+    dropout, (B, H, Lq, Lk)."""
     scores = torch.matmul(q, k.transpose(-1, -2)).float()
     scores = scores / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    dropped = probs if drop is None else drop(probs, g)
+    if drop is None:
+        dropped = probs
+    else:
+        dropped = drop(probs, g) if heads is None else drop(probs, g,
+                                                            (1, *heads))
     out = torch.matmul(dropped, v)
     return (out, probs) if return_probs else out
 
@@ -226,18 +266,52 @@ def kernels_allowed() -> bool:
 
 def attention_core(q, k, v, mask, dtype, drop: Dropout, kernel_train: bool,
                    g=None, kernel_eval: bool = False,
-                   return_probs: bool = False):
+                   return_probs: bool = False, heads=None):
     """The attention core of a site: the fused kernels in training with
     ``kernel_train``, the fused forward at rate 0 outside training with
     ``kernel_eval``, else ``attend``.  Returns (B, H, Lq, hd); with
-    ``return_probs`` always ``attend``'s (output, probabilities)."""
+    ``return_probs`` always ``attend``'s (output, probabilities).
+    ``heads`` = (head0, Hg): a tensor-parallel rank's heads of Hg."""
     if return_probs or not kernels_allowed():
-        return attend(q, k, v, mask, dtype, drop, g, return_probs)
+        return attend(q, k, v, mask, dtype, drop, g, return_probs, heads)
+    kw = {} if heads is None else {"heads": heads}
     if drop.training and kernel_train:
-        return fused_attention(q, k, v, mask, drop.rate, g)
+        return fused_attention(q, k, v, mask, drop.rate, g, **kw)
     if not drop.training and kernel_eval:
-        return fused_attention(q, k, v, mask, 0.0)
-    return attend(q, k, v, mask, dtype, drop, g)
+        return fused_attention(q, k, v, mask, 0.0, **kw)
+    return attend(q, k, v, mask, dtype, drop, g, heads=heads)
+
+
+def row_split(dense: "Dense", x: torch.Tensor) -> torch.Tensor:
+    """``dense`` (its weight this rank's rows of W, its bias whole) on
+    ``x``: the partial product summed over the model group in f32, then
+    the bias once, in ``dense``'s dtype."""
+    dt = dense.dtype
+    y = reduce_from_model(F.linear(x.to(dt), dense.weight.to(dt)).float())
+    if dense.bias is not None:
+        y = y + dense.bias.float()
+    return y.to(dt)
+
+
+def split_layer_norm(ln: "LayerNorm", x: torch.Tensor,
+                     count: int) -> torch.Tensor:
+    """``ln`` over a last dim split ``count`` ways over the model group (x
+    and ln's affine this rank's shards): two-pass in f32, the row sums
+    summed over the model group; returns ``ln.dtype``."""
+    x32 = x.float()
+    n = x.shape[-1] * count
+    mean = sum_over_model(x32.sum(-1, keepdim=True)) / n
+    dev = x32 - mean
+    var = sum_over_model(dev.square().sum(-1, keepdim=True)) / n
+    y = dev * torch.rsqrt(var + ln.eps) * ln.weight + ln.bias
+    return y.to(ln.dtype)
+
+
+def tp_inputs(*xs):
+    """``copy_to_model`` of each distinct tensor of ``xs`` (one collective
+    backward for a tensor passed twice), in order."""
+    seen = {}
+    return [seen.setdefault(id(x), copy_to_model(x)) for x in xs]
 
 
 class Dense(nn.Module):
@@ -380,6 +454,10 @@ class Attention(nn.Module):
     ``kernel_eval`` and ``headsliced`` choose the kernels (module
     docstring)."""
 
+    TP_SPLITS = {f"{n}.{leaf}": (0, 1) for n in ("query", "key", "value")
+                 for leaf in ("weight", "bias")}
+    TP_HEADS = True
+
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.1,
                  kernel_train: bool = False):
@@ -395,6 +473,7 @@ class Attention(nn.Module):
         self.kernel_train = kernel_train
         self.kernel_eval = False
         self.headsliced = False
+        self.tp = None
 
     def forward(self, hidden, context, mask=None, g=None,
                 return_probs: bool = False):
@@ -403,21 +482,29 @@ class Attention(nn.Module):
         b, lq, _ = hidden.shape
         lk = context.shape[1]
         h, hd = self.num_heads, self.head_dim
+        heads = None
+        if self.tp is not None:
+            index, count = self.tp
+            h //= count
+            heads = (index * h, self.num_heads)
+            hidden, context = tp_inputs(hidden, context)
         q, k, v = (self.query(hidden), self.key(context),
                    self.value(context))
         if (self.headsliced and not self.training and not return_probs
                 and kernels_allowed()):
-            return headsliced_attention(q, k, v, mask, h)
+            return gather_from_model(headsliced_attention(q, k, v, mask, h))
         out = attention_core(q.view(b, lq, h, hd).transpose(1, 2),
                              k.view(b, lk, h, hd).transpose(1, 2),
                              v.view(b, lk, h, hd).transpose(1, 2), mask,
                              self.dtype, self.probs_dropout,
                              self.kernel_train, g, self.kernel_eval,
-                             return_probs)
+                             return_probs, heads)
         if return_probs:
             out, probs = out
-            return out.transpose(1, 2).reshape(b, lq, h * hd), probs
-        return out.transpose(1, 2).reshape(b, lq, h * hd)
+            probs = gather_from_model(probs.movedim(1, -1)).movedim(-1, 1)
+            return gather_from_model(
+                out.transpose(1, 2).reshape(b, lq, h * hd)), probs
+        return gather_from_model(out.transpose(1, 2).reshape(b, lq, h * hd))
 
 
 class AttOutput(nn.Module):
@@ -489,7 +576,11 @@ class FFN(nn.Module):
     with ``train_kernel`` (``use_pallas_ffn_train``, off by default as in
     JAX) it is one call of ``fused_ffn_train`` at the block's dropout rate.
     Both get the ``nn.Linear`` weights as they are.  Otherwise the block
-    runs unfused."""
+    runs unfused.  Split (``tp``), each path runs on F / mp columns, the
+    kernels through ``fused_ffn_split``."""
+
+    TP_SPLITS = {"intermediate.weight": (0, 1), "intermediate.bias": (0, 1),
+                 "output.weight": (1, 1)}
 
     def __init__(self, hidden_size: int, intermediate_size: int,
                  dtype: torch.dtype = torch.float32, use_kernel: bool = False,
@@ -501,17 +592,30 @@ class FFN(nn.Module):
         self.ln = LayerNorm(hidden_size, dtype=dtype)
         self.use_kernel = use_kernel
         self.train_kernel = False
+        self.tp = None
 
     def forward(self, x, g=None):
         weights = (self.intermediate.weight, self.intermediate.bias,
                    self.output.weight, self.output.bias, self.ln.weight,
                    self.ln.bias)
+        if self.tp is not None:
+            return self._split_forward(x, weights, g)
         if self.use_kernel and not self.training:
             return fused_ffn(x, *weights, self.ln.eps)
         if self.train_kernel and self.training:
             return fused_ffn_train(x, *weights, self.dropout.rate, g,
                                    self.ln.eps)
         h = self.output(gelu(self.intermediate(x)))
+        return self.ln(self.dropout(h, g) + x)
+
+    def _split_forward(self, x, weights, g):
+        if self.use_kernel and not self.training:
+            return fused_ffn_split(x, *weights, 0.0, None, self.ln.eps,
+                                   "fused_ffn")
+        if self.train_kernel and self.training:
+            return fused_ffn_split(x, *weights, self.dropout.rate, g,
+                                   self.ln.eps)
+        h = row_split(self.output, gelu(self.intermediate(copy_to_model(x))))
         return self.ln(self.dropout(h, g) + x)
 
 
@@ -588,7 +692,12 @@ class Pooler2(nn.Module):
 
 class MLPHead(nn.Module):
     """Linear -> GeLU -> LN -> Linear (logit_fc / class_embed /
-    action_embed)."""
+    action_embed).  Split (``tp``): ``fc1`` over columns, the LN over the
+    split hidden (``split_layer_norm``), ``fc2`` over rows."""
+
+    TP_SPLITS = {"fc1.weight": (0, 1), "fc1.bias": (0, 1),
+                 "ln.weight": (0, 1), "ln.bias": (0, 1),
+                 "fc2.weight": (1, 1)}
 
     def __init__(self, in_dim: int, out_dim: int, hidden_mult: int = 2,
                  dtype: torch.dtype = torch.float32):
@@ -596,6 +705,11 @@ class MLPHead(nn.Module):
         self.fc1 = Dense(in_dim, in_dim * hidden_mult, dtype)
         self.ln = LayerNorm(in_dim * hidden_mult, dtype=dtype)
         self.fc2 = Dense(in_dim * hidden_mult, out_dim, dtype)
+        self.tp = None
 
     def forward(self, x):
-        return self.fc2(self.ln(gelu(self.fc1(x))))
+        if self.tp is None:
+            return self.fc2(self.ln(gelu(self.fc1(x))))
+        h = split_layer_norm(self.ln, gelu(self.fc1(copy_to_model(x))),
+                             self.tp[1])
+        return row_split(self.fc2, h)

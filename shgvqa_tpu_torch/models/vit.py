@@ -13,7 +13,10 @@ scaled by ``head_dim ** -0.5``, an f32 softmax cast back, the exact-erf
 GeLU, xavier-uniform weights.  No mask, no dropout and the plain attention:
 the JAX block runs no Pallas kernel, so no kernel switch reaches it.
 The dense layers are plain flax ``nn.Dense`` there (no ``Dense_0`` level;
-``convert.py`` knows them by their place under ``r_{i}``).
+``convert.py`` knows them by their place under ``r_{i}``).  Tensor
+parallelism (``tp``) splits the MLP as JAX's rules do: ``fc1`` over
+columns, ``fc2`` over rows (``layers.row_split``); ``qkv`` and ``proj``
+stay whole.
 """
 
 from __future__ import annotations
@@ -21,13 +24,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from shgvqa_tpu_torch.models.layers import Dense, LayerNorm, gelu
+from shgvqa_tpu_torch.models.layers import (
+    Dense,
+    LayerNorm,
+    copy_to_model,
+    gelu,
+    row_split,
+)
 
 
 class ViTBlock(nn.Module):
     """timm ``vision_transformer.Block`` with ``BertLayer``'s call
     signature: ``forward(x, mask=None, g=None, return_probs=False)``; the
     mask and the generator are accepted and ignored."""
+
+    TP_SPLITS = {"fc1.weight": (0, 1), "fc1.bias": (0, 1),
+                 "fc2.weight": (1, 1)}
 
     def __init__(self, hidden_size: int, num_heads: int = 12,
                  head_dim: int = 64, mlp_ratio: int = 4,
@@ -42,6 +54,7 @@ class ViTBlock(nn.Module):
         self.fc2 = Dense(mlp_ratio * d, hidden_size, dtype, init="xavier")
         self.num_heads, self.head_dim = num_heads, head_dim
         self.dtype = dtype
+        self.tp = None
 
     def forward(self, x, mask=None, g=None, return_probs: bool = False):
         b, l, _ = x.shape
@@ -52,5 +65,9 @@ class ViTBlock(nn.Module):
         probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, l, h * hd)
         x = x + self.proj(ctx)
-        x = x + self.fc2(gelu(self.fc1(self.norm2(x))))
+        if self.tp is None:
+            x = x + self.fc2(gelu(self.fc1(self.norm2(x))))
+        else:
+            x = x + row_split(self.fc2, gelu(self.fc1(copy_to_model(
+                self.norm2(x)))))
         return (x, probs) if return_probs else x

@@ -51,6 +51,15 @@ the checkpoints into ``checkpoint_dir`` (the shared output; ranks but 0 log
 into their own ``cfg.output``), ``predict`` merges the ranks' question-id
 maps (``distributed.allgather_object``), and the merged scores make every
 rank stop early together.
+
+Tensor parallelism (``parallel/mesh.py``): the model's split modules hold
+this rank's shards.  Every weight import but the trunk's (a trunk is never
+split) and ``load`` run on the one-process tensors (``mesh.gathered``: the
+shards gathered over the model group, the import as in one process, each
+rank keeping its shard after),
+and ``state_dict`` gathers the parameters and the moments, so a checkpoint
+or an encoder snapshot is the one-process file whatever the layout, and
+loads into any layout.
 """
 
 from __future__ import annotations
@@ -67,6 +76,12 @@ from shgvqa_tpu_torch.configs.config import HG_TASKS, Config, check_ported
 from shgvqa_tpu_torch.convert import from_jax_variables, to_jax_variables
 from shgvqa_tpu_torch.models.pretrain import AnswerTable, answer_head_surgery
 from shgvqa_tpu_torch.parallel import distributed
+from shgvqa_tpu_torch.parallel.mesh import (
+    gather_state_dict,
+    gathered,
+    shard_of,
+    whole_of,
+)
 from shgvqa_tpu_torch.train.checkpoint import (
     CHECKPOINT_NAMES,
     CheckpointManager,
@@ -88,6 +103,18 @@ from shgvqa_tpu_torch.utils.torch_import import (
 )
 
 ENCODER_KEYS = ("lxrt", "bert_encoder")
+
+
+def _on_whole_model(method):
+    """``method`` of a Trainer run on the one-process tensors of its model
+    (``mesh.gathered``)."""
+
+    def run(self, *args, **kwargs):
+        with gathered(self.model):
+            return method(self, *args, **kwargs)
+
+    run.__name__, run.__doc__ = method.__name__, method.__doc__
+    return run
 
 
 def save_encoder_snapshot(path: str, key: str, encoder: nn.Module) -> None:
@@ -326,6 +353,7 @@ class Trainer:
                          f"({len(state)} tensors incl. BN stats)")
         self._reset_opt()
 
+    @_on_whole_model
     def load_bert_pretrained(self, path: str) -> None:
         """No ``--fromScratch``: bert-base weights into the language tower
         (embeddings, l-layers; the pooler where it has a ``dense``) of the
@@ -346,6 +374,7 @@ class Trainer:
                if report["skipped"] else ""))
         self._reset_opt()
 
+    @_on_whole_model
     def load_vit_layers(self, path: str, start_index: int = 7) -> None:
         """``--vitInit``: the visual stream's ViT r-layers from a timm
         ViT-B/32 state_dict's ``blocks[start_index:start_index + r]``
@@ -387,6 +416,7 @@ class Trainer:
         full = path if path.endswith("_LXRT") else path + "_LXRT"
         return full if os.path.isabs(full) else self.ckpt.path(full)
 
+    @_on_whole_model
     def save_encoder(self, path: str) -> None:
         """Save only the encoder (``lxrt`` / ``bert_encoder``) as
         ``{path}_LXRT`` (the reference's '%s_LXRT.pth' snapshots)."""
@@ -395,6 +425,7 @@ class Trainer:
             save_encoder_snapshot(self._snapshot_path(path), key, enc)
         distributed.barrier()
 
+    @_on_whole_model
     def load_encoder(self, path: str) -> dict:
         """``--loadLXMERT``: the encoder weights of a snapshot into the
         model by name, the heads and decoders left as they are, as JAX's
@@ -432,6 +463,7 @@ class Trainer:
         self._reset_opt()
         return stats
 
+    @_on_whole_model
     def load_lxmert_qa(self, path: str, label2ans) -> Tuple[int, int]:
         """``--loadLXMERTQA``: ``load_encoder``, then the answer head's last
         layer (``logit_fc.fc2``) from ``{base}_qa_head.npz`` (``weight``
@@ -461,6 +493,7 @@ class Trainer:
         self._reset_opt()
         return loaded, unloaded
 
+    @_on_whole_model
     def load_reference(self, path: str) -> None:
         """``--load`` of a reference ``.pth`` (or ``path/BEST`` with
         ``BEST.pth`` beside it): a trained AGQAModel state_dict mapped onto
@@ -488,11 +521,20 @@ class Trainer:
 
     # -- state ------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
+        """The one-process state: split parameters and their moments
+        gathered (a collective under tensor parallelism: every rank
+        calls it)."""
         opt = self.optimizer
+
+        def whole(moments):
+            return [m if getattr(p, "tp_split", None) is None
+                    else whole_of(m, p.tp_split)
+                    for p, m in zip(opt.params, moments)]
+
         return {
-            "params": self.model.state_dict(),
-            "opt_state": {"name": opt.name, "m": list(opt.m),
-                          "v": list(opt.v), "step_count": opt.step_count},
+            "params": gather_state_dict(self.model),
+            "opt_state": {"name": opt.name, "m": whole(opt.m),
+                          "v": whole(opt.v), "step_count": opt.step_count},
             "step": self.step,
         }
 
@@ -507,7 +549,8 @@ class Trainer:
             self.load_reference(name_or_path)
             return
         state = self.ckpt.restore(name_or_path, map_location=self.device)
-        self.model.load_state_dict(state["params"], strict=True)
+        with gathered(self.model):
+            self.model.load_state_dict(state["params"], strict=True)
         distributed.broadcast_module_(self.model)
         self.step = int(state["step"])
         if params_only:
@@ -520,7 +563,11 @@ class Trainer:
                 f"{name_or_path}: the checkpoint's optimizer is {name} over "
                 f"{len(saved['m'])} + {len(saved['v'])} tensors, this "
                 f"trainer's {opt.name} over {len(opt.m)} + {len(opt.v)}")
+        index, count = distributed.model_rank(), distributed.model_size()
         with torch.no_grad():
-            for dst, src in zip(opt.m + opt.v, saved["m"] + saved["v"]):
-                dst.copy_(src)
+            for p, dst, src in zip(opt.params * 2, opt.m + opt.v,
+                                   saved["m"] + saved["v"]):
+                split = getattr(p, "tp_split", None)
+                dst.copy_(src if split is None
+                          else shard_of(src, split, index, count))
         opt.step_count = int(saved["step_count"])

@@ -44,6 +44,8 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 from torch import nn
 
+from shgvqa_tpu_torch.parallel import distributed
+
 
 def warmup_linear(x: float, warmup: float) -> float:
     return x / warmup if x < warmup else max((x - 1.0) / (warmup - 1.0), 0.0)
@@ -66,10 +68,23 @@ SCHEDULES: Dict[str, Callable[[float, float], float]] = {
 
 def clipped_grads(params, grad_clip: float):
     """The parameters' gradients (None reads as zeros) clipped to global
-    norm ``grad_clip``, and their global norm before the clip."""
+    norm ``grad_clip``, and their global norm before the clip.  Under
+    tensor parallelism the norm is the whole model's (``optax``'s
+    ``clip_by_global_norm`` on JAX's sharded tree): the shards' squares
+    summed over the model group, plus the replicated parameters' squares
+    once."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norms = torch._foreach_norm(grads)
+    split = [getattr(p, "tp_split", None) is not None for p in params]
+    if distributed.model_size() > 1 and any(split):
+        squares = [torch.stack([n for n, s in zip(norms, split) if s == want]
+                               ).square().sum() if want in split
+                   else torch.zeros((), device=norms[0].device)
+                   for want in (True, False)]
+        norm = (distributed.model_sum_(squares[0]) + squares[1]).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     # optax clip_by_global_norm: unchanged below the limit, else g / norm
     # * limit
     scale = torch.where(norm < grad_clip, 1.0, grad_clip / norm)

@@ -20,12 +20,15 @@ caller's ``torch.Generator`` takes the place of the JAX step's ``dropout``
 and ``augment`` keys.
 
 In a data-parallel run (``parallel/``) each rank's loss is its share of the
-global batch's (the losses' normalizers are global sums), and between the
-backward and the optimizer ``GradientSum`` sums the gradients of the
-trainable parameters over the ranks in one all-reduce of one flat buffer
-(the backward accumulates into it in place), with the metrics' shares at
-its end: every rank then clips and updates the
-same summed gradients, and logs the global metrics.
+global batch's (the losses' normalizers are sums over the data group), and
+between the backward and the optimizer ``GradientSum`` sums the gradients
+of the trainable parameters over the data group in one all-reduce of one
+flat buffer (the backward accumulates into it in place), with the metrics'
+shares at its end: every rank then clips and updates the same summed
+gradients, and logs the global metrics.  Under tensor parallelism the
+ranks of a model group hold the same rows and replicated losses: each
+holds its shards' gradients and the replicated parameters' whole ones,
+and the clip's norm is the whole model's (``train/optimizer.py``).
 """
 
 from __future__ import annotations
@@ -76,9 +79,9 @@ def compute_losses(cfg: Config, outputs: Dict[str, torch.Tensor],
     metrics["hg_train_acc"] = (
         torch.argmax(outputs["hg_logit"], dim=-1)
         == torch.argmax(batch["target"], dim=-1)).float().mean()
-    if distributed.world_size() > 1:
+    if distributed.data_size() > 1:
         metrics["hg_train_acc"] = (metrics["hg_train_acc"]
-                                   / distributed.world_size())
+                                   / distributed.data_size())
     if not cfg.gt_hg:
         rel, act = _set_losses(cfg, outputs, batch)
         total = hgqa_loss + rel["loss_ce"] + act["loss_ce"]

@@ -7,14 +7,14 @@ where it has them (``shgvqa_tpu/parallel/distributed.py``,
 - the driver's layout policy (``cli/common.build_driver_mesh``): the JAX
   function's decisions for the same flags over the conftest's 8 devices
   (``tests/test_cli_mesh.py::test_build_driver_mesh_policies`` is the
-  oracle), and tensor parallelism refused;
+  oracle), data-parallel and dp x mp layouts alike;
 - ``Batcher(host_shard=...)``: every rank's rows and ``n_valid`` equal to
   the JAX batcher's, a padded trailing batch included;
 - the random draws of a rank: the dropout module, the CPU paths of both
   dropout kernels and both kernels' plain keep masks at an offset are the
   global draw's rows;
-- the refusals: ``--modelParallel 2``, and ``--stepsPerLoop`` > 1 under a
-  gloo group on a CUDA device (the guard, on a stand-in optimizer).
+- the refusal of ``--stepsPerLoop`` > 1 under a gloo group on a CUDA
+  device (the guard, on a stand-in optimizer).
 
 The multi-process runs are in ``tests/test_torch_data_parallel.py``."""
 
@@ -30,7 +30,7 @@ from shgvqa_tpu.cli.common import build_driver_mesh as jax_build_driver_mesh
 from shgvqa_tpu.configs import config as jax_config
 from shgvqa_tpu.data.pipeline import Batcher as JaxBatcher
 from shgvqa_tpu.parallel import distributed as jax_dist
-from shgvqa_tpu_torch.cli import agqa_hgqa, common
+from shgvqa_tpu_torch.cli import common
 from shgvqa_tpu_torch.configs import config as port_config
 from shgvqa_tpu_torch.data.pipeline import Batcher
 from shgvqa_tpu_torch.kernels import attention, ffn
@@ -97,19 +97,51 @@ def test_build_driver_mesh_decides_as_jax(mesh_kw, extras, batch,
     assert pcfg2.optim.batch_size == jcfg2.optim.batch_size
 
 
-def test_tensor_parallelism_is_refused_with_its_roadmap_position(tmp_path):
-    with pytest.raises(NotImplementedError, match="position 17"):
-        mesh.make_mesh(port_config.MeshConfig(data_parallel=2,
-                                              model_parallel=2), 4)
-    cfg = _cfgs(port_config, {"data_parallel": 2, "model_parallel": 2}, 4, 4)
-    with pytest.raises(NotImplementedError, match="position 17"):
-        common.build_driver_mesh(cfg, {}, 8)
-    with pytest.raises(NotImplementedError, match="position 17"):
-        agqa_hgqa.main(["--taskHGQA", "--modelParallel", "2", "--output",
-                        str(tmp_path)], device="cpu")
+# dp x mp layouts: (mesh config, batch, eval batch)
+TP_LAYOUTS = (
+    ({"data_parallel": 2, "model_parallel": 2}, 4, 4),
+    ({"data_parallel": 4, "model_parallel": 2}, 8, 6),   # eval rounded to 4
+    ({"data_parallel": -1, "model_parallel": 2}, 8, 2),  # dp = 8 / 2
+    ({"data_parallel": 16, "model_parallel": 2}, 16, 2),  # too large
+    ({"data_parallel": 1, "model_parallel": 8}, 8, 2),
+    ({"data_parallel": 3, "model_parallel": 2}, 8, 2),   # batch indivisible
+)
+
+
+def test_tensor_parallelism_is_refused_with_its_roadmap_position():
+    """(The name is kept from when the port refused ``--modelParallel``.)
+    Tensor-parallel layouts are no longer refused: ``make_mesh`` and the
+    driver's ``build_driver_mesh`` take dp x mp as JAX's do
+    (``tests/test_cli_mesh.py::test_build_driver_mesh_policies``): for each
+    of ``TP_LAYOUTS`` the layout, the mesh config and the eval batch it
+    leaves over 8 devices, or the same SystemExit; ``make_mesh`` covers the
+    devices or raises."""
+    assert jax.device_count() == 8
+    for mesh_kw, batch, eval_batch in TP_LAYOUTS:
+        jcfg = _cfgs(jax_config, mesh_kw, batch, eval_batch)
+        pcfg = _cfgs(port_config, mesh_kw, batch, eval_batch)
+        try:
+            jmesh, jcfg2 = jax_build_driver_mesh(jcfg, {})
+        except SystemExit as e:
+            with pytest.raises(SystemExit, match="not divisible"):
+                common.build_driver_mesh(pcfg, {}, 8)
+            assert "not divisible" in str(e)
+            continue
+        pmesh, pcfg2 = common.build_driver_mesh(pcfg, {}, 8)
+        assert (pmesh is None) == (jmesh is None), mesh_kw
+        if jmesh is not None:
+            assert pmesh.shape == dict(jmesh.shape)
+            assert mesh.make_mesh(pcfg2.mesh,
+                                  pmesh.data * pmesh.model) == pmesh
+        assert dataclasses.asdict(pcfg2.mesh) == dataclasses.asdict(
+            jcfg2.mesh), mesh_kw
+        assert pcfg2.optim.eval_batch_size == jcfg2.optim.eval_batch_size
     assert mesh.make_mesh(port_config.MeshConfig(), 4) == mesh.Mesh(4, 1)
+    assert mesh.make_mesh(port_config.MeshConfig(model_parallel=2),
+                          4) == mesh.Mesh(2, 2)
     with pytest.raises(ValueError, match="does not cover"):
-        mesh.make_mesh(port_config.MeshConfig(data_parallel=3), 4)
+        mesh.make_mesh(port_config.MeshConfig(data_parallel=3,
+                                              model_parallel=2), 4)
 
 
 def _items(n):

@@ -193,9 +193,9 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
 
 
 @pytest.mark.parametrize("extra,match", [
-    # data parallelism runs (tests/test_torch_data_parallel.py); the
-    # tensor-parallel split of the mesh is what stays refused
-    (["--multiGPU", "--modelParallel", "2"], "position 17"),
+    # tensor parallelism runs (tests/test_torch_tensor_parallel.py); on
+    # one device its layout falls back to one process, as JAX's does
+    (["--multiGPU", "--modelParallel", "2"], None),
     (["--loadLXMERT", "{snap}"], None),
     (["--scanLayers"], None),
     (["--remat"], None),
@@ -203,12 +203,15 @@ def test_driver_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
 ], ids=["multiGPU", "loadLXMERT", "scanLayers", "remat", "loadLXMERTQA"])
 def test_driver_refuses_unported_options(tmp_path, monkeypatch, extra,
                                          match):
-    """What the driver still refuses: tensor parallelism (--sharedWeights
-    and --vitInit run: ``test_driver_trains_the_encoder_options``).  The
-    options of ROADMAP queue A positions 14 and 15 that it used to refuse
-    (``match`` None) train an epoch now: ``--scanLayers``, ``--remat``, and
-    ``--loadLXMERT`` / ``--loadLXMERTQA`` of an encoder snapshot (and a QA
-    head over the answers 'yes' and 'nope') written from this model."""
+    """The options the driver used to refuse (``match`` None) train an
+    epoch now: those of ROADMAP queue A positions 14 and 15,
+    ``--scanLayers``, ``--remat``, and ``--loadLXMERT`` /
+    ``--loadLXMERTQA`` of an encoder snapshot (and a QA head over the
+    answers 'yes' and 'nope') written from this model; and position 17's
+    ``--multiGPU --modelParallel 2``, whose layout needs two devices and,
+    on the one CPU device, runs single-device with JAX's message
+    (--sharedWeights and --vitInit run:
+    ``test_driver_trains_the_encoder_options``)."""
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             agqa_hgqa.main(_argv(tmp_path, *extra), device="cpu")
@@ -229,6 +232,9 @@ def test_driver_refuses_unported_options(tmp_path, monkeypatch, extra,
         extra = [a.format(snap=tmp_path / "snap_LXRT") for a in extra]
     result, stdout = _main(_argv(tmp_path / "out", "--epochs", "1", *extra))
     assert result["steps"] == 12
+    if "--modelParallel" in extra:
+        assert "needs 2 device(s) but only 1 visible; running single-device" \
+            in stdout
     records = [json.loads(x) for x in
                (tmp_path / "out" / "metrics.jsonl").read_text().splitlines()]
     assert all(np.isfinite(r["total_loss"]) for r in records)

@@ -221,7 +221,7 @@ def test_launch_runs_the_attention_forward_on_the_projection_strides(
 
     def forward_entry(q, k, v, key_ptr, pane_ptr, seed, o, lse, strides,
                       batch, h, nq, nk, scale, threshold, inv_keep, dropout,
-                      group0, stream):
+                      group0, heads_global, head0, stream):
         calls.append(dict(ptrs=(q, k, v, key_ptr, pane_ptr, seed),
                           strides=list(strides), shape=(batch, h, nq, nk),
                           rate=(scale, threshold, inv_keep, dropout)))
